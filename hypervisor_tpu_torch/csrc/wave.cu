@@ -1,0 +1,297 @@
+// Governance-wave kernels for Hopper (sm_90a): admission (B4), the
+// FSM + saga + terminate walk (B5) and the vouched contribution. Plain
+// C entry points, bound with ctypes by hypervisor_tpu_torch/kernels/
+// wave.py. Tables are updated in place on the caller's stream; each
+// entry returns cudaGetLastError().
+//
+// Compiled with --fmad=false: sigma_eff = min(sigma + omega * c, 1) must
+// round the multiply and the add separately, as the reference does.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Column layout of hypervisor_tpu_torch/tables/state.py (pinned by the
+// port's tests against that module).
+constexpr int AF32_WIDTH = 8;
+constexpr int AF32_SIGMA_RAW = 0;
+constexpr int AF32_SIGMA_EFF = 1;
+constexpr int AF32_JOINED_AT = 2;
+constexpr int AF32_RL_TOKENS = 4;
+constexpr int AF32_RL_STAMP = 5;
+constexpr int AI32_WIDTH = 21;
+constexpr int AI32_DID = 0;
+constexpr int AI32_SESSION = 1;
+constexpr int AI32_FLAGS = 2;
+constexpr int SI32_WIDTH = 5;
+constexpr int SI32_MAX_PARTICIPANTS = 1;
+constexpr int SI32_NPART = 2;
+constexpr int SI32_STATE = 3;
+constexpr int SF32_WIDTH = 4;
+constexpr int SF32_MIN_SIGMA = 0;
+constexpr int SF32_TERMINATED_AT = 2;
+constexpr int FLAG_ACTIVE = 1;
+
+// Session states and status codes (models.SessionState, ops.admission,
+// ops.saga_ops).
+constexpr int S_HANDSHAKING = 1;
+constexpr int S_ACTIVE = 2;
+constexpr int ADMIT_OK = 0;
+constexpr int ADMIT_BAD_STATE = 1;
+constexpr int ADMIT_DUPLICATE = 2;
+constexpr int ADMIT_CAPACITY = 3;
+constexpr int ADMIT_SIGMA_LOW = 4;
+constexpr int STEP_COMMITTED = 2;
+constexpr int STEP_FAILED = 6;
+
+struct AdmissionArgs {
+  float* af32; int* ai32; int8_t* aring; int* si32; const float* sf32;
+  const int* slot; const int* did; const int* sess; const float* sigma_raw;
+  const float* contrib; const uint8_t* trust; const uint8_t* dup;
+  float omega, now, ring2_threshold;
+  float bursts[4];
+  int unique, B;
+  int8_t* status; int8_t* ring; float* sigma_eff;
+  int8_t* pre;     // scratch: status before the capacity check
+  int* seats;      // scratch: [B] participant count, [B] max, read before any write
+};
+
+// B4 pass 1, one thread per lane. Replaces the front half of
+// hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas: the
+// session-row gathers, sigma_eff, the ring, and the status ladder up to
+// (not including) the capacity check. Every read of the participant
+// count happens here, before pass 2 writes any.
+__global__ void admission_lanes(AdmissionArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int s = a.sess[i];
+  const int* row = a.si32 + (size_t)s * SI32_WIDTH;
+  const int state = row[SI32_STATE];
+  const float min_sigma = a.sf32[(size_t)s * SF32_WIDTH + SF32_MIN_SIGMA];
+  const float x = __fadd_rn(a.sigma_raw[i], __fmul_rn(a.omega, a.contrib[i]));
+  const float se = x > 1.0f ? 1.0f : x;  // NaN passes through, like minimum
+  int8_t ring = se > a.ring2_threshold ? 2 : 3;
+  if (!a.trust[i]) ring = 3;
+  int st = ADMIT_OK;
+  if (state != S_HANDSHAKING && state != S_ACTIVE) st = ADMIT_BAD_STATE;
+  else if (a.dup[i]) st = ADMIT_DUPLICATE;
+  else if (se < min_sigma && ring != 3) st = ADMIT_SIGMA_LOW;
+  a.pre[i] = static_cast<int8_t>(st);
+  a.seats[i] = row[SI32_NPART];
+  a.seats[a.B + i] = row[SI32_MAX_PARTICIPANTS];
+  a.ring[i] = ring;
+  a.sigma_eff[i] = se;
+}
+
+// B4 pass 2, one thread per lane: the capacity check, then the packed
+// agent-row writes (every column, so the breach window resets) and an
+// atomic participant-count increment for each admitted lane. The rank of
+// a lane is 0 on the unique-sessions path, else the number of earlier
+// lanes that passed every other check and target the same session (a
+// plain O(B^2) count; the TPU kernel used a bitonic network).
+__global__ void admission_writes(AdmissionArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  int st = a.pre[i];
+  const int s = a.sess[i];
+  if (st == ADMIT_OK) {
+    int rank = 0;
+    if (!a.unique) {
+      for (int j = 0; j < i; ++j) rank += (a.pre[j] == ADMIT_OK) & (a.sess[j] == s);
+    }
+    if (a.seats[i] + rank >= a.seats[a.B + i]) st = ADMIT_CAPACITY;
+  }
+  a.status[i] = static_cast<int8_t>(st);
+  if (st != ADMIT_OK) return;
+  const size_t r = static_cast<size_t>(a.slot[i]);
+  const int8_t ring = a.ring[i];
+  float* f = a.af32 + r * AF32_WIDTH;
+#pragma unroll
+  for (int c = 0; c < AF32_WIDTH; ++c) f[c] = 0.0f;
+  f[AF32_SIGMA_RAW] = a.sigma_raw[i];
+  f[AF32_SIGMA_EFF] = a.sigma_eff[i];
+  f[AF32_JOINED_AT] = a.now;
+  f[AF32_RL_TOKENS] = a.bursts[ring < 0 ? 0 : (ring > 3 ? 3 : ring)];
+  f[AF32_RL_STAMP] = a.now;
+  int* w = a.ai32 + r * AI32_WIDTH;
+#pragma unroll
+  for (int c = 0; c < AI32_WIDTH; ++c) w[c] = 0;
+  w[AI32_DID] = a.did[i];
+  w[AI32_SESSION] = s;
+  w[AI32_FLAGS] = FLAG_ACTIVE;
+  a.aring[r] = ring;
+  atomicAdd(a.si32 + (size_t)s * SI32_WIDTH + SI32_NPART, 1);
+}
+
+struct FsmSagaArgs {
+  int* ai32; int* si32; float* sf32; const int* vsess; uint8_t* vact;
+  const int* ksess; const uint8_t* ok;
+  float now; int lo, hi;
+  uint32_t bits_lo, bits_hi; int n_rows, n_cols;
+  int active, terminating, archived;
+  int K, B, E, N;
+  int8_t* step; int8_t* wstate; uint8_t* err; int* released;
+};
+
+__device__ __forceinline__ bool transition_valid(const FsmSagaArgs& a, int frm, int to) {
+  if (frm < 0 || frm >= a.n_rows || to < 0 || to >= a.n_cols) return false;
+  const uint32_t idx = static_cast<uint32_t>(frm * a.n_cols + to);
+  const uint32_t word = idx < 32 ? a.bits_lo : a.bits_hi;
+  return (word >> (idx & 31u)) & 1u;
+}
+
+// B5, one grid-stride launch over max(K, B, E, N). Replaces
+// hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas:
+//   k < K: the session walk ACTIVE -> TERMINATING -> ARCHIVED on
+//          populated sessions (legality from the packed transition bits,
+//          the state narrowed to int8 as in the reference), the state and
+//          terminated_at writes;
+//   b < B: one saga step, COMMITTED where admitted, else FAILED;
+//   e < E: bond release on live edges of sessions in [lo, hi), counted
+//          with one atomic per warp;
+//   n < N: FLAG_ACTIVE cleared on agents of sessions in [lo, hi).
+// It runs after the admission kernel on the same stream, so the walk
+// reads the participant counts admission wrote.
+__global__ void fsm_saga_kernel(FsmSagaArgs a, int total) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int base = blockIdx.x * blockDim.x; base < total; base += stride) {
+    const int idx = base + threadIdx.x;
+    if (idx < a.K) {
+      const size_t s = static_cast<size_t>(a.ksess[idx]);
+      int* row = a.si32 + s * SI32_WIDTH;
+      const bool has_members = row[SI32_NPART] > 0;
+      int state = static_cast<int8_t>(row[SI32_STATE]);
+      bool err = false;
+      const int targets[3] = {a.active, a.terminating, a.archived};
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const bool ok = transition_valid(a, state, targets[t]);
+        if (has_members && ok) state = static_cast<int8_t>(targets[t]);
+        err |= has_members && !ok;
+      }
+      row[SI32_STATE] = state;
+      if (has_members) a.sf32[s * SF32_WIDTH + SF32_TERMINATED_AT] = a.now;
+      a.wstate[idx] = static_cast<int8_t>(state);
+      a.err[idx] = err;
+    }
+    if (idx < a.B) a.step[idx] = a.ok[idx] ? STEP_COMMITTED : STEP_FAILED;
+    bool hit = false;
+    if (idx < a.E) {
+      const int vs = a.vsess[idx];
+      hit = a.vact[idx] && vs >= a.lo && vs < a.hi;
+      if (hit) a.vact[idx] = 0;
+    }
+    const unsigned hits = __ballot_sync(0xFFFFFFFFu, hit);  // every lane reaches this
+    if ((threadIdx.x & 31) == 0 && hits) atomicAdd(a.released, __popc(hits));
+    if (idx < a.N) {
+      int* w = a.ai32 + static_cast<size_t>(idx) * AI32_WIDTH;
+      const int as = w[AI32_SESSION];
+      if (as >= a.lo && as < a.hi) w[AI32_FLAGS] &= ~FLAG_ACTIVE;
+    }
+  }
+}
+
+// The vouched contribution toward each agent slot. Replaces the
+// scatter-add of hypervisor_tpu/ops/liability.py contribution_toward
+// (`.at[vee].add`, which the reference sums in edge order). The wrapper
+// keys each edge by its vouchee, or by N when the edge is not live and
+// scoped, and sorts the keys stably, so each vouchee's edges form one
+// run in edge order. One thread per run start adds the run's bonds in
+// that order, rounding each add: the f32 sum equals the reference's bit
+// for bit with any number of vouchers per vouchee, and the edges that
+// add nothing (key N) touch no output.
+__global__ void contribution_kernel(const int* __restrict__ keys,     // [E] sorted
+                                    const int64_t* __restrict__ perm, // [E] edge of each key
+                                    const float* __restrict__ bond,   // [E] by edge
+                                    float* __restrict__ out,          // [N], zeroed
+                                    int E, int N) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= E) return;
+  const int k = keys[j];
+  if (k >= N || (j > 0 && keys[j - 1] == k)) return;
+  float acc = 0.0f;
+  for (int q = j; q < E && keys[q] == k; ++q) acc = __fadd_rn(acc, bond[perm[q]]);
+  out[k] = acc;
+}
+
+}  // namespace
+
+extern "C" const char* hv_wave_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int hv_admission_block(
+    void* af32, void* ai32, void* aring, void* si32, const void* sf32,
+    const void* slot, const void* did, const void* sess, const void* sigma_raw,
+    const void* contrib, const void* trust, const void* dup,
+    float omega, float now, float ring2_threshold,
+    float burst0, float burst1, float burst2, float burst3,
+    int unique, int B,
+    void* status, void* ring, void* sigma_eff, void* pre, void* seats, void* stream) {
+  if (B > 0) {
+    AdmissionArgs a;
+    a.af32 = static_cast<float*>(af32); a.ai32 = static_cast<int*>(ai32);
+    a.aring = static_cast<int8_t*>(aring); a.si32 = static_cast<int*>(si32);
+    a.sf32 = static_cast<const float*>(sf32); a.slot = static_cast<const int*>(slot);
+    a.did = static_cast<const int*>(did); a.sess = static_cast<const int*>(sess);
+    a.sigma_raw = static_cast<const float*>(sigma_raw);
+    a.contrib = static_cast<const float*>(contrib);
+    a.trust = static_cast<const uint8_t*>(trust); a.dup = static_cast<const uint8_t*>(dup);
+    a.omega = omega; a.now = now; a.ring2_threshold = ring2_threshold;
+    a.bursts[0] = burst0; a.bursts[1] = burst1; a.bursts[2] = burst2; a.bursts[3] = burst3;
+    a.unique = unique; a.B = B;
+    a.status = static_cast<int8_t*>(status); a.ring = static_cast<int8_t*>(ring);
+    a.sigma_eff = static_cast<float*>(sigma_eff);
+    a.pre = static_cast<int8_t*>(pre); a.seats = static_cast<int*>(seats);
+    const int threads = 256;
+    const int blocks = (B + threads - 1) / threads;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    admission_lanes<<<blocks, threads, 0, st>>>(a);
+    admission_writes<<<blocks, threads, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hv_fsm_saga_block(
+    void* ai32, void* si32, void* sf32, const void* vsess, void* vact,
+    const void* ksess, const void* ok,
+    float now, int lo, int hi,
+    unsigned int bits_lo, unsigned int bits_hi, int n_rows, int n_cols,
+    int active, int terminating, int archived,
+    int K, int B, int E, int N,
+    void* step, void* wstate, void* err, void* released, void* stream) {
+  int total = K;
+  if (B > total) total = B;
+  if (E > total) total = E;
+  if (N > total) total = N;
+  if (total > 0) {
+    FsmSagaArgs a;
+    a.ai32 = static_cast<int*>(ai32); a.si32 = static_cast<int*>(si32);
+    a.sf32 = static_cast<float*>(sf32); a.vsess = static_cast<const int*>(vsess);
+    a.vact = static_cast<uint8_t*>(vact); a.ksess = static_cast<const int*>(ksess);
+    a.ok = static_cast<const uint8_t*>(ok);
+    a.now = now; a.lo = lo; a.hi = hi;
+    a.bits_lo = bits_lo; a.bits_hi = bits_hi; a.n_rows = n_rows; a.n_cols = n_cols;
+    a.active = active; a.terminating = terminating; a.archived = archived;
+    a.K = K; a.B = B; a.E = E; a.N = N;
+    a.step = static_cast<int8_t*>(step); a.wstate = static_cast<int8_t*>(wstate);
+    a.err = static_cast<uint8_t*>(err); a.released = static_cast<int*>(released);
+    const int threads = 256;
+    int blocks = (total + threads - 1) / threads;
+    if (blocks > 132 * 8) blocks = 132 * 8;
+    fsm_saga_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hv_contribution(const void* keys, const void* perm, const void* bond, void* out,
+                               int E, int N, void* stream) {
+  if (E > 0) {
+    const int threads = 256;
+    contribution_kernel<<<(E + threads - 1) / threads, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(keys), static_cast<const int64_t*>(perm),
+        static_cast<const float*>(bond), static_cast<float*>(out), E, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

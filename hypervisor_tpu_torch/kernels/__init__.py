@@ -1,0 +1,36 @@
+"""The governance wave's hand-written Hopper kernels and their wrappers.
+
+Each wrapper launches its CUDA kernel for CUDA tensors, takes the plain
+PyTorch version beside it for CPU tensors, and raises for anything else;
+it never falls back from a failed launch. Each counts its launches in a
+plain integer attribute (`wrapper.launches`), so a run can show that the
+main path went through the kernel.
+
+  B2 `mtu.chain_digests`      <- hypervisor_tpu/kernels/mtu_pallas.py chain_digests_mtu
+  B3 `mtu.tree_roots`         <- hypervisor_tpu/kernels/mtu_pallas.py tree_roots
+  B4 `wave.admission_block`   <- hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas
+  B5 `wave.fsm_saga_block`    <- hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas
+  `wave.contribution_toward`  <- hypervisor_tpu/ops/liability.py contribution_toward
+                                 (an XLA scatter-add there, no Pallas kernel)
+"""
+
+from __future__ import annotations
+
+from hypervisor_tpu_torch.kernels import mtu, wave
+
+WRAPPERS = {
+    "contribution_toward": wave.contribution_toward,
+    "chain_digests": mtu.chain_digests,
+    "tree_roots": mtu.tree_roots,
+    "admission_block": wave.admission_block,
+    "fsm_saga_block": wave.fsm_saga_block,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

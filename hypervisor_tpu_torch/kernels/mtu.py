@@ -1,0 +1,153 @@
+"""The audit phase's Hopper kernels: delta chains (B2) and Merkle roots (B3).
+
+B2 `chain_digests` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
+`chain_digests_mtu`: d_t = sha256(body_t || d_{t-1}) per lane, a 96-byte
+message in 2 blocks. On the H100 it is bound by integer operations
+(about 2,300 32-bit operations per compression against ~100 bytes moved
+per link), so the design keeps the whole hash in registers: one thread
+per lane, the 64 rounds unrolled, the parent digest carried across the
+T turns inside the thread (the TPU's sequential grid axis and VMEM carry
+become a loop), 16-byte vector loads and stores.
+
+B3 `tree_roots` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
+`tree_roots`: per-lane Merkle roots with the combine sha256(hex(l) ||
+hex(r)) (128 bytes, 3 blocks), the odd tail duplicated, count <= 1
+returning leaf 0. Also bound by integer operations; one block per
+session keeps its level in shared memory (P x 8 words, 128 KB at P =
+4096) and hashes only the pairs the root depends on. The TPU's
+bit-reversed node order and 128-lane padding are dropped.
+
+Sources: `csrc/mtu.cu`, `csrc/sha256.cuh`. The plain versions below are
+what CPU tensors run and what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.ops.sha256 import pad_tail_words, sha256_blocks, sha256_hex_pair
+
+#: Body words per delta record (64 bytes); a chain link hashes body || parent.
+BODY_WORDS = 16
+_CHAIN_TAIL = pad_tail_words((BODY_WORDS + 8) * 4, 2)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True for the CUDA kernel, False for the plain CPU version; raises
+    for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def _check_operand(t: torch.Tensor, name: str, dtype, device, align: int = 1) -> None:
+    _require(t.dtype == dtype, f"{name}: expected {dtype}, got {t.dtype}")
+    _require(t.device == device, f"{name}: expected device {device}, got {t.device}")
+    _require(t.is_contiguous(), f"{name}: must be contiguous")
+    _require(t.data_ptr() % align == 0, f"{name}: must be {align}-byte aligned")
+
+
+# ── B2: chains ───────────────────────────────────────────────────────
+
+
+def chain_digests_plain(bodies: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2: int32[T, L, 16] bodies, int32[L, 8] seeds ->
+    int32[T, L, 8] digests (u32 bits)."""
+    t, lanes, _ = bodies.shape
+    tail = torch.tensor(_CHAIN_TAIL.view(np.int32), device=bodies.device)
+    tail = tail.expand(lanes, tail.shape[0])
+    parent = seeds
+    out = []
+    for turn in range(t):
+        parent = sha256_blocks(torch.cat([bodies[turn], parent, tail], dim=1), 2)
+        out.append(parent)
+    if not out:
+        return torch.empty((0, lanes, 8), dtype=torch.int32, device=bodies.device)
+    return torch.stack(out)
+
+
+def chain_digests(bodies: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
+    """B2: per-lane delta chains. CUDA tensors launch the kernel; CPU
+    tensors take `chain_digests_plain`."""
+    _require(bodies.dim() == 3 and bodies.shape[2] == BODY_WORDS, "bodies: [T, L, 16]")
+    t, lanes, _ = bodies.shape
+    _require(tuple(seeds.shape) == (lanes, 8), "seeds: [L, 8]")
+    if not _route(bodies):
+        return chain_digests_plain(bodies, seeds)
+    _check_operand(bodies, "bodies", torch.int32, bodies.device, align=16)
+    _check_operand(seeds, "seeds", torch.int32, bodies.device, align=16)
+    out = torch.empty((t, lanes, 8), dtype=torch.int32, device=bodies.device)
+    fn = _build.entry("mtu", "hv_chain_digests", [_P, _P, _P, _I, _I, _P])
+    err = fn(bodies.data_ptr(), seeds.data_ptr(), out.data_ptr(), t, lanes,
+             torch.cuda.current_stream(bodies.device).cuda_stream)
+    _build.check("mtu", err, "chain_digests")
+    chain_digests.launches += 1
+    return out
+
+
+chain_digests.launches = 0
+
+
+# ── B3: Merkle roots ─────────────────────────────────────────────────
+
+#: The largest leaf count per lane the tree kernel takes (its level must
+#: fit the 227 KB of shared memory a block can use: 128 KB at 4096).
+TREE_MAX_LEAVES = 4096
+
+
+def tree_roots_plain(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of B3: int32[S, P, 8] leaves, int32[S] counts ->
+    int32[S, 8] roots, level by level over every pair."""
+    s = leaves.shape[0]
+    arr = leaves
+    cnt = counts.to(torch.int32)
+    while arr.shape[1] > 1:
+        half = arr.shape[1] // 2
+        left, right = arr[:, 0::2], arr[:, 1::2]
+        j = torch.arange(half, dtype=torch.int32, device=arr.device)
+        dup = (2 * j[None, :] + 1) >= cnt[:, None]
+        right = torch.where(dup[:, :, None], left, right)
+        combined = sha256_hex_pair(
+            left.reshape(s * half, 8), right.reshape(s * half, 8)
+        ).reshape(s, half, 8)
+        arr = torch.where((cnt > 1)[:, None, None], combined, left)
+        cnt = torch.where(cnt > 1, (cnt + 1) // 2, cnt)
+    return arr[:, 0].contiguous()
+
+
+def tree_roots(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """B3: per-lane Merkle roots over the first counts[s] of P leaves
+    (0 <= count <= P, P a power of two <= TREE_MAX_LEAVES). CUDA tensors
+    launch the kernel; CPU tensors take `tree_roots_plain`."""
+    _require(leaves.dim() == 3 and leaves.shape[2] == 8, "leaves: [S, P, 8]")
+    s, p, _ = leaves.shape
+    _require(p > 0 and p & (p - 1) == 0, "leaf capacity must be a power of two")
+    _require(tuple(counts.shape) == (s,), "counts: [S]")
+    if not _route(leaves):
+        return tree_roots_plain(leaves, counts)
+    _require(p <= TREE_MAX_LEAVES, f"the tree kernel takes at most {TREE_MAX_LEAVES} leaves")
+    _check_operand(leaves, "leaves", torch.int32, leaves.device, align=16)
+    _check_operand(counts, "counts", torch.int32, leaves.device)
+    out = torch.empty((s, 8), dtype=torch.int32, device=leaves.device)
+    fn = _build.entry("mtu", "hv_tree_roots", [_P, _P, _P, _I, _I, _P])
+    err = fn(leaves.data_ptr(), counts.data_ptr(), out.data_ptr(), s, p,
+             torch.cuda.current_stream(leaves.device).cuda_stream)
+    _build.check("mtu", err, "tree_roots")
+    tree_roots.launches += 1
+    return out
+
+
+tree_roots.launches = 0

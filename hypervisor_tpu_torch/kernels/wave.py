@@ -1,0 +1,306 @@
+"""The wave's table kernels for Hopper: admission (B4) and the FSM + saga
++ terminate walk (B5).
+
+B4 `admission_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
+`admission_block_pallas`. It is bound by memory traffic: a few dozen
+integer operations per lane against ~30 bytes of lane inputs, a
+gathered session row and, per admitted lane, a 117-byte agent row
+written at a random slot. Two launches: a per-lane pass (gathers,
+sigma_eff, ring, status ladder, and a snapshot of the seat counts) and
+a per-lane write pass (capacity rank, packed row writes, atomic
+participant count). Integer atomics make the count order-independent;
+the snapshot keeps every capacity check on pre-wave counts. Unlike the
+TPU kernel it takes any lane count (no power-of-two bitonic network, no
+VMEM caps); the non-unique rank is a plain O(B^2) count.
+
+B5 `fsm_saga_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
+`fsm_saga_block_pallas`, also bound by memory traffic (it streams the
+vouch edges and the agents' session column once). One grid-stride
+launch covers the session walk (k < K), the saga step (b < B), the bond
+release (e < E, one atomic per warp for the count) and the participant
+deactivation (n < N). It needs the wave-range layout, as the TPU kernel
+does.
+
+`contribution_toward` replaces the scatter-add of
+`hypervisor_tpu/ops/liability.py` `contribution_toward` (an XLA scatter
+in the reference, no Pallas kernel). `index_add_` on CUDA sums with
+atomics in no fixed order, so a vouchee with several live scoped edges
+could get other f32 bits than the reference's edge-order sum, and the
+free edges all add +0.0 to slot 0 under contention. Here the edges are
+sorted stably by vouchee (`ops.liability.contribution_runs`) and one
+thread per run adds its bonds in edge order; edges that add nothing
+are keyed past the table and skipped. Bound by memory traffic.
+
+All compile with --fmad=false, so sigma + omega * c rounds like the
+reference. Sources: `csrc/wave.cu`. The plain versions below are what
+CPU tensors run and what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
+from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
+from hypervisor_tpu_torch.models import SessionState
+from hypervisor_tpu_torch.ops import admission as admission_ops
+from hypervisor_tpu_torch.ops import liability as liability_ops
+from hypervisor_tpu_torch.ops import saga_ops, session_fsm
+from hypervisor_tpu_torch.ops import terminate as terminate_ops
+from hypervisor_tpu_torch.tables.state import (
+    AF32_WIDTH,
+    AI32_WIDTH,
+    SF32_TERMINATED_AT,
+    SF32_WIDTH,
+    SI32_NPART,
+    SI32_STATE,
+    SI32_WIDTH,
+    AgentTable,
+    SessionTable,
+    VouchTable,
+)
+
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+
+_ACTIVE = SessionState.ACTIVE.code
+_TERMINATING = SessionState.TERMINATING.code
+_ARCHIVED = SessionState.ARCHIVED.code
+
+
+def _host_f32(x) -> float:
+    """A scalar operand as the float32 value the kernel receives."""
+    return float(np.float32(float(x)))
+
+
+def _bursts(bursts) -> list[float]:
+    if bursts is None:
+        bursts = DEFAULT_CONFIG.rate_limit.ring_bursts
+    if isinstance(bursts, torch.Tensor):
+        bursts = bursts.tolist()
+    _require(len(bursts) == 4, "ring_bursts: 4 values")
+    return [_host_f32(b) for b in bursts]
+
+
+# ── the vouched contribution ─────────────────────────────────────────
+
+
+def contribution_toward(
+    vouches: VouchTable,
+    target_session_of_slot: torch.Tensor,  # i32[N] session each slot is joining
+    now,
+) -> torch.Tensor:
+    """f32[N] bonded sigma toward each agent slot, scoped to the session
+    it is joining, summed in edge order. CUDA tensors sort the edges and
+    launch the kernel; CPU tensors take the plain
+    `ops.liability.contribution_toward`."""
+    if not _route(vouches.bond):
+        return liability_ops.contribution_toward(vouches, target_session_of_slot, now)
+    dev = vouches.bond.device
+    n, e = target_session_of_slot.shape[0], vouches.bond.shape[0]
+    for t, name, dtype in [
+        (vouches.vouchee, "vouches.vouchee", torch.int32),
+        (vouches.bond, "vouches.bond", torch.float32),
+        (target_session_of_slot, "target_session_of_slot", torch.int32),
+    ]:
+        _check_operand(t, name, dtype, dev)
+    keys, perm = liability_ops.contribution_runs(vouches, target_session_of_slot, now)
+    out = torch.zeros((n,), dtype=torch.float32, device=dev)
+    fn = _build.entry("wave", "hv_contribution", [_P] * 4 + [_I, _I, _P])
+    err = fn(keys.data_ptr(), perm.data_ptr(), vouches.bond.data_ptr(), out.data_ptr(), e, n,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("wave", err, "contribution_toward")
+    contribution_toward.launches += 1
+    return out
+
+
+contribution_toward.launches = 0
+
+
+# ── B4: admission ────────────────────────────────────────────────────
+
+
+def admission_block_plain(
+    agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
+    trustworthy, duplicate, now, bursts=None, trust: TrustConfig = DEFAULT_CONFIG.trust,
+    unique_sessions: bool = False,
+):
+    """Plain version of B4 (`ops.admission.admit_batch`):
+    updates the tables in place, returns (status i8[B], ring i8[B],
+    sigma_eff f32[B])."""
+    r = admission_ops.admit_batch(
+        agents, sessions, slot, did, session_slot, sigma_raw, trustworthy,
+        duplicate, now, trust, contribution=contribution, omega=omega,
+        ring_bursts=bursts, unique_sessions=unique_sessions,
+    )
+    return r.status, r.ring, r.sigma_eff
+
+
+def admission_block(
+    agents: AgentTable,
+    sessions: SessionTable,
+    slot: torch.Tensor,          # i32[B] agent rows (unique among admitted lanes)
+    did: torch.Tensor,           # i32[B]
+    session_slot: torch.Tensor,  # i32[B]
+    sigma_raw: torch.Tensor,     # f32[B]
+    contribution: torch.Tensor,  # f32[B]
+    omega,
+    trustworthy: torch.Tensor,   # bool[B]
+    duplicate: torch.Tensor,     # bool[B]
+    now,
+    bursts=None,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+    unique_sessions: bool = False,
+):
+    """B4: the admission phase, updating agents.f32/i32/ring and the
+    sessions' participant counts IN PLACE. Returns (status, ring,
+    sigma_eff). The caller guarantees slot and session indices are in
+    range (the kernel does not bound-check them)."""
+    if not _route(slot):
+        return admission_block_plain(
+            agents, sessions, slot, did, session_slot, sigma_raw, contribution,
+            omega, trustworthy, duplicate, now, bursts, trust, unique_sessions,
+        )
+    dev = slot.device
+    b = slot.shape[0]
+    n = agents.ring.shape[0]
+    _require(tuple(agents.f32.shape) == (n, AF32_WIDTH), "agents.f32: [N, 8]")
+    _require(tuple(agents.i32.shape) == (n, AI32_WIDTH), "agents.i32: [N, 21]")
+    sc = sessions.i32.shape[0]
+    _require(tuple(sessions.i32.shape) == (sc, SI32_WIDTH), "sessions.i32: [S, 5]")
+    _require(tuple(sessions.f32.shape) == (sc, SF32_WIDTH), "sessions.f32: [S, 4]")
+    operands = [
+        (agents.f32, "agents.f32", torch.float32), (agents.i32, "agents.i32", torch.int32),
+        (agents.ring, "agents.ring", torch.int8), (sessions.i32, "sessions.i32", torch.int32),
+        (sessions.f32, "sessions.f32", torch.float32), (slot, "slot", torch.int32),
+        (did, "did", torch.int32), (session_slot, "session_slot", torch.int32),
+        (sigma_raw, "sigma_raw", torch.float32), (contribution, "contribution", torch.float32),
+        (trustworthy, "trustworthy", torch.bool), (duplicate, "duplicate", torch.bool),
+    ]
+    for t, name, dtype in operands:
+        _check_operand(t, name, dtype, dev)
+    for t, name, _ in operands[5:]:
+        _require(tuple(t.shape) == (b,), f"{name}: [B]")
+    status = torch.empty((b,), dtype=torch.int8, device=dev)
+    ring = torch.empty((b,), dtype=torch.int8, device=dev)
+    sigma_eff = torch.empty((b,), dtype=torch.float32, device=dev)
+    pre = torch.empty((b,), dtype=torch.int8, device=dev)
+    seats = torch.empty((2 * b,), dtype=torch.int32, device=dev)
+    fn = _build.entry(
+        "wave", "hv_admission_block",
+        [_P] * 12 + [_F] * 7 + [_I, _I] + [_P] * 6,
+    )
+    err = fn(
+        agents.f32.data_ptr(), agents.i32.data_ptr(), agents.ring.data_ptr(),
+        sessions.i32.data_ptr(), sessions.f32.data_ptr(),
+        slot.data_ptr(), did.data_ptr(), session_slot.data_ptr(),
+        sigma_raw.data_ptr(), contribution.data_ptr(),
+        trustworthy.data_ptr(), duplicate.data_ptr(),
+        _host_f32(omega), _host_f32(now), _host_f32(trust.ring2_threshold),
+        *_bursts(bursts),
+        int(bool(unique_sessions)), b,
+        status.data_ptr(), ring.data_ptr(), sigma_eff.data_ptr(),
+        pre.data_ptr(), seats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("wave", err, "admission_block")
+    admission_block.launches += 1
+    return status, ring, sigma_eff
+
+
+admission_block.launches = 0
+
+
+# ── B5: fsm + saga + terminate ───────────────────────────────────────
+
+
+def fsm_saga_block_plain(agents, sessions, vouches, k_sessions, ok, now, wave_range=None):
+    """Plain version of B5: the session walk ACTIVE -> TERMINATING ->
+    ARCHIVED on populated sessions, one saga step per lane, and
+    `ops.terminate.release_session_scope`, all IN PLACE. Returns
+    (step_state i8[B], wave_state i8[K], fsm_error bool[K], released
+    i32[])."""
+    k_idx = k_sessions.to(torch.int64)
+    rows_i32 = sessions.i32[k_idx]
+    rows_f32 = sessions.f32[k_idx]
+    wave_state = rows_i32[:, SI32_STATE].to(torch.int8)
+    has_members = rows_i32[:, SI32_NPART] > 0
+    wave_state, err_a = session_fsm.apply_session_transitions(wave_state, _ACTIVE, has_members)
+    step_state, _ = saga_ops.execute_attempt(
+        torch.full(ok.shape, saga_ops.STEP_PENDING, dtype=torch.int8, device=ok.device),
+        ok,
+        torch.zeros(ok.shape, dtype=torch.int8, device=ok.device),
+    )
+    in_wave = None
+    if wave_range is None:
+        in_wave = torch.zeros((sessions.i32.shape[0],), dtype=torch.bool, device=ok.device)
+        in_wave[k_idx.clamp(min=0)] = True
+    released = terminate_ops.release_session_scope(agents, vouches, in_wave, wave_range)
+    wave_state, err_t = session_fsm.apply_session_transitions(wave_state, _TERMINATING, has_members)
+    wave_state, err_z = session_fsm.apply_session_transitions(wave_state, _ARCHIVED, has_members)
+    sessions.i32[k_idx, SI32_STATE] = wave_state.to(torch.int32)
+    sessions.f32[k_idx, SF32_TERMINATED_AT] = torch.where(
+        has_members, admission_ops.f32_scalar(now, ok.device), rows_f32[:, SF32_TERMINATED_AT]
+    )
+    return step_state, wave_state, err_a | err_t | err_z, released
+
+
+def fsm_saga_block(
+    agents: AgentTable,
+    sessions: SessionTable,
+    vouches: VouchTable,
+    k_sessions: torch.Tensor,  # i32[K] == arange(lo, hi) on the kernel path
+    ok: torch.Tensor,          # bool[B] admission outcomes
+    now,
+    wave_range: tuple[int, int] | None = None,
+):
+    """B5: the wave's FSM walk, saga step and terminate, updating
+    sessions.i32/f32, vouches.active and the agents' flags IN PLACE.
+    CUDA tensors require `wave_range` (lo, hi), the caller's
+    host-verified assertion that `k_sessions` is arange(lo, hi)."""
+    if not _route(ok):
+        return fsm_saga_block_plain(agents, sessions, vouches, k_sessions, ok, now, wave_range)
+    if wave_range is None:
+        raise ValueError("the fsm/saga kernel needs wave_range=(lo, hi) on CUDA")
+    dev = ok.device
+    lo, hi = (int(x) for x in wave_range)
+    k, b = k_sessions.shape[0], ok.shape[0]
+    e, n = vouches.session.shape[0], agents.i32.shape[0]
+    _require(tuple(agents.i32.shape) == (n, AI32_WIDTH), "agents.i32: [N, 21]")
+    _require(sessions.i32.shape[1] == SI32_WIDTH and sessions.f32.shape[1] == SF32_WIDTH,
+             "sessions: i32[S, 5], f32[S, 4]")
+    for t, name, dtype in [
+        (agents.i32, "agents.i32", torch.int32), (sessions.i32, "sessions.i32", torch.int32),
+        (sessions.f32, "sessions.f32", torch.float32),
+        (vouches.session, "vouches.session", torch.int32),
+        (vouches.active, "vouches.active", torch.bool),
+        (k_sessions, "k_sessions", torch.int32), (ok, "ok", torch.bool),
+    ]:
+        _check_operand(t, name, dtype, dev)
+    step = torch.empty((b,), dtype=torch.int8, device=dev)
+    wstate = torch.empty((k,), dtype=torch.int8, device=dev)
+    err = torch.empty((k,), dtype=torch.bool, device=dev)
+    released = torch.zeros((), dtype=torch.int32, device=dev)
+    bits_lo, bits_hi, n_rows, n_cols = session_fsm.TRANSITION_BITS
+    fn = _build.entry(
+        "wave", "hv_fsm_saga_block",
+        [_P] * 7 + [_F, _I, _I, _U, _U] + [_I] * 9 + [_P] * 5,
+    )
+    rc = fn(
+        agents.i32.data_ptr(), sessions.i32.data_ptr(), sessions.f32.data_ptr(),
+        vouches.session.data_ptr(), vouches.active.data_ptr(),
+        k_sessions.data_ptr(), ok.data_ptr(),
+        _host_f32(now), lo, hi, bits_lo, bits_hi, n_rows, n_cols,
+        _ACTIVE, _TERMINATING, _ARCHIVED, k, b, e, n,
+        step.data_ptr(), wstate.data_ptr(), err.data_ptr(), released.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("wave", rc, "fsm_saga_block")
+    fsm_saga_block.launches += 1
+    return step, wstate, err, released
+
+
+fsm_saga_block.launches = 0

@@ -1,0 +1,206 @@
+"""The fused governance wave over the state tables
+(`hypervisor_tpu.ops.pipeline.governance_wave`, as bench.py calls it).
+
+One wave of B joining agents and K sessions that live and die in it:
+
+  1. vouched contributions toward each joining agent (`ops.liability`;
+     a kernel summing in edge order on CUDA),
+  2. admission onto the agent/session tables        -> kernel B4,
+  3./5./6. the session FSM walk, one saga step per lane, terminate
+     (bond release, participant deactivation, ARCHIVED walk) -> B5,
+  4. audit: the delta chain (B2) and per-session Merkle roots (B3),
+
+then, with a metrics table riding along, the in-wave tallies. CUDA
+tensors always go through the five kernels, launched in that order on
+the current stream with no host synchronisation inside the wave; CPU
+tensors go through the kernels' plain versions. The tables are updated
+IN PLACE (the reference donates them to the jitted wave).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
+from hypervisor_tpu_torch.kernels import mtu, wave
+from hypervisor_tpu_torch.models import SessionState
+from hypervisor_tpu_torch.observability import metrics as schema
+from hypervisor_tpu_torch.ops import admission as admission_ops
+from hypervisor_tpu_torch.ops import liability as liability_ops
+from hypervisor_tpu_torch.ops import saga_ops, tally
+from hypervisor_tpu_torch.tables import metrics as metrics_ops
+from hypervisor_tpu_torch.tables.metrics import MetricsTable
+from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
+
+#: The later slice that ports the facade's fused extras.
+_LATER = "slice 2 of the port (the facade's run_governance_wave)"
+
+
+class WaveResult(NamedTuple):
+    """One full-pipeline wave over the tables (updated in place)."""
+
+    agents: AgentTable
+    sessions: SessionTable
+    vouches: VouchTable
+    status: torch.Tensor           # i8[B] admission status per joining agent
+    ring: torch.Tensor             # i8[B]
+    sigma_eff: torch.Tensor        # f32[B] (includes vouched contributions)
+    saga_step_state: torch.Tensor  # i8[B]
+    merkle_root: torch.Tensor      # int32[K, 8] u32 bits, per wave session
+    chain: torch.Tensor            # int32[T, K, 8] u32 bits, the delta chain
+    fsm_error: torch.Tensor        # bool[K] illegal session walks
+    released: torch.Tensor         # i32[] bonds released at terminate
+    metrics: MetricsTable | None = None
+
+
+class WaveBlocks(NamedTuple):
+    """The wave's kernel-backed blocks."""
+
+    contribution: Callable
+    admission: Callable
+    fsm_saga: Callable
+    chain: Callable
+    tree: Callable
+
+
+#: The dispatching wrappers: kernels for CUDA tensors, plain for CPU.
+KERNEL_BLOCKS = WaveBlocks(
+    wave.contribution_toward, wave.admission_block, wave.fsm_saga_block, mtu.chain_digests, mtu.tree_roots
+)
+#: The plain PyTorch versions on any device (what the kernels are held against).
+PLAIN_BLOCKS = WaveBlocks(
+    liability_ops.contribution_toward, wave.admission_block_plain, wave.fsm_saga_block_plain,
+    mtu.chain_digests_plain, mtu.tree_roots_plain,
+)
+
+
+def governance_wave(
+    agents: AgentTable,
+    sessions: SessionTable,
+    vouches: VouchTable,
+    slot: torch.Tensor,           # i32[B] preallocated agent rows
+    did: torch.Tensor,            # i32[B]
+    session_slot: torch.Tensor,   # i32[B] target session per joining agent
+    sigma_raw: torch.Tensor,      # f32[B]
+    trustworthy: torch.Tensor,    # bool[B]
+    duplicate: torch.Tensor,      # bool[B]
+    wave_sessions: torch.Tensor,  # i32[K] sessions that live and die this wave
+    delta_bodies: torch.Tensor,   # int32[T, K, 16] u32 bits
+    now: float,
+    omega: float = 0.5,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+    ring_bursts=None,
+    wave_range: tuple[int, int] | None = None,
+    unique_sessions: bool = False,
+    metrics: MetricsTable | None = None,
+    *,
+    trace=None,
+    trace_ctx=None,
+    elevations=None,
+    gateway_args=None,
+    delta_log=None,
+    epilogue_tables=None,
+    sanitize: bool = False,
+    lanes_valid=None,
+    n_sessions_valid=None,
+) -> WaveResult:
+    """The full governance pipeline as one wave over the tables.
+
+    `wave_range` (lo, hi) is the caller's host-verified assertion that
+    `wave_sessions` is arange(lo, hi); CUDA tensors require it (the
+    fsm/saga kernel tests membership by range). `unique_sessions` is the
+    host-verified assertion that no two seat-consuming lanes share a
+    session. With `metrics`, the wave's counters and the wave-size
+    histogram are booked in place.
+
+    The indices are trusted: on CUDA the kernels neither bound-check
+    `slot`, `session_slot` and `wave_sessions` nor check that admitted
+    lanes hold distinct agent slots. `HypervisorState.stage_wave` checks
+    both on the host; a caller that builds the lanes itself must too.
+
+    The trace ring, the DeltaLog append, the action gateway, the
+    epilogue, the sanitizer and bucket padding are not ported yet.
+    """
+    extras = {
+        "trace": trace, "trace_ctx": trace_ctx, "elevations": elevations,
+        "gateway_args": gateway_args, "delta_log": delta_log,
+        "epilogue_tables": epilogue_tables, "lanes_valid": lanes_valid,
+        "n_sessions_valid": n_sessions_valid,
+    }
+    given = [k for k, v in extras.items() if v is not None] + (["sanitize"] if sanitize else [])
+    if given:
+        raise NotImplementedError(f"governance_wave({', '.join(given)}=...) arrives with {_LATER}")
+    return run_wave(
+        KERNEL_BLOCKS, agents, sessions, vouches, slot, did, session_slot, sigma_raw,
+        trustworthy, duplicate, wave_sessions, delta_bodies, now, omega, trust,
+        ring_bursts, wave_range, unique_sessions, metrics,
+    )
+
+
+def run_wave(
+    blocks: WaveBlocks,
+    agents, sessions, vouches, slot, did, session_slot, sigma_raw, trustworthy,
+    duplicate, wave_sessions, delta_bodies, now, omega=0.5,
+    trust: TrustConfig = DEFAULT_CONFIG.trust, ring_bursts=None, wave_range=None,
+    unique_sessions: bool = False, metrics: MetricsTable | None = None,
+) -> WaveResult:
+    """`governance_wave` through the given blocks: `KERNEL_BLOCKS` is the
+    wave itself, `PLAIN_BLOCKS` the same wave through the kernels' plain
+    versions on whatever device the tensors are on."""
+    dev = slot.device
+    b = slot.shape[0]
+    now_f = admission_ops.f32_scalar(now, dev)
+
+    # 1. vouched contributions, scoped to the session each slot joins now.
+    slot_idx = slot.to(torch.int64)
+    target_session = torch.full((agents.i32.shape[0],), -2, dtype=torch.int32, device=dev)
+    target_session[slot_idx] = session_slot
+    contribution = blocks.contribution(vouches, target_session, now_f)[slot_idx]
+
+    # 2. admission (B4).
+    status, ring, sigma_eff = blocks.admission(
+        agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
+        trustworthy, duplicate, now, ring_bursts, trust, unique_sessions,
+    )
+    ok = status == admission_ops.ADMIT_OK
+    if metrics is not None:
+        admission_ops.tally_admission(metrics, ok, b)
+
+    # 3./5./6. session walk, saga step, terminate (B5).
+    step_state, wave_state, fsm_err, released = blocks.fsm_saga(
+        agents, sessions, vouches, wave_sessions, ok, now, wave_range
+    )
+
+    # 4. audit: delta chain (B2), Merkle roots over the T leaves (B3).
+    t, k = delta_bodies.shape[0], wave_sessions.shape[0]
+    chain = blocks.chain(
+        delta_bodies, torch.zeros((k, 8), dtype=torch.int32, device=dev)
+    )
+    p = 1 << max(0, (t - 1).bit_length())
+    leaves = torch.zeros((k, p, 8), dtype=torch.int32, device=dev)
+    leaves[:, :t] = chain.transpose(0, 1)
+    roots = blocks.tree(leaves, torch.full((k,), t, dtype=torch.int32, device=dev))
+
+    if metrics is not None:
+        archived = (wave_state == SessionState.ARCHIVED.code) & ~fsm_err
+        committed, failed = tally.count_true(
+            step_state == saga_ops.STEP_COMMITTED, step_state == saga_ops.STEP_FAILED
+        )
+        metrics_ops.counter_add_many(
+            metrics,
+            (
+                schema.WAVE_TICKS.index,
+                schema.SAGA_STEPS_COMMITTED.index,
+                schema.SAGA_STEPS_FAILED.index,
+                schema.SESSIONS_ARCHIVED.index,
+                schema.BONDS_RELEASED.index,
+            ),
+            (1, committed, failed, tally.count_true(archived)[0], released),
+        )
+    return WaveResult(
+        agents=agents, sessions=sessions, vouches=vouches, status=status, ring=ring,
+        sigma_eff=sigma_eff, saga_step_state=step_state, merkle_root=roots, chain=chain,
+        fsm_error=fsm_err, released=released, metrics=metrics,
+    )

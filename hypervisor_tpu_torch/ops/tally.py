@@ -1,0 +1,13 @@
+"""Lane counting for in-wave tallies (`hypervisor_tpu.ops.tally`).
+
+The reference counts with an f32 matvec, exact below 2^24 rows; an
+integer sum gives the same counts."""
+
+from __future__ import annotations
+
+import torch
+
+
+def count_true(*cols: torch.Tensor) -> torch.Tensor:
+    """int32[len(cols)]: per-column count of nonzero lanes (one length)."""
+    return (torch.stack(cols) != 0).sum(dim=1).to(torch.int32)

@@ -1,0 +1,84 @@
+"""Device tables, and carrying a reference state across.
+
+`from_state_arrays` reads the `"<table>.<column>"` dict that the JAX
+package's checkpoint plane writes (`hypervisor_tpu.runtime.checkpoint.
+state_arrays`) for the agents, sessions and vouches tables, plus an
+optional `"metrics.<column>"` block; `to_state_arrays` writes the same
+dict back, byte for byte. Both packages can then run from one seeded
+state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hypervisor_tpu_torch.tables.metrics import MetricsTable
+from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
+from hypervisor_tpu_torch.tables.struct import tensors
+
+__all__ = [
+    "AgentTable",
+    "MetricsTable",
+    "SessionTable",
+    "StateTables",
+    "VouchTable",
+    "from_state_arrays",
+    "to_state_arrays",
+]
+
+_TABLE_TYPES = {"agents": AgentTable, "sessions": SessionTable, "vouches": VouchTable}
+#: Metrics columns holding u32 values (int32 bits in the port).
+_U32_METRICS = ("counters", "hist")
+
+
+@dataclasses.dataclass
+class StateTables:
+    """The tables one governance wave reads and writes."""
+
+    agents: AgentTable
+    sessions: SessionTable
+    vouches: VouchTable
+    metrics: MetricsTable | None = None
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def from_state_arrays(
+    arrays: dict[str, np.ndarray], device: str | torch.device
+) -> StateTables:
+    """Port tables from a reference `state_arrays` dict (copies)."""
+    out = {}
+    for tname, cls in _TABLE_TYPES.items():
+        out[tname] = cls(**{
+            f.name: _to_tensor(arrays[f"{tname}.{f.name}"], device)
+            for f in dataclasses.fields(cls)
+        })
+    metrics = None
+    if "metrics.counters" in arrays:
+        metrics = MetricsTable(**{
+            f.name: _to_tensor(arrays[f"metrics.{f.name}"], device)
+            for f in dataclasses.fields(MetricsTable)
+        })
+    return StateTables(metrics=metrics, **out)
+
+
+def to_state_arrays(tables: StateTables) -> dict[str, np.ndarray]:
+    """The reference's `"<table>.<column>"` dict for these tables (copies;
+    u32 metrics columns come back as uint32)."""
+    out: dict[str, np.ndarray] = {}
+    for tname in _TABLE_TYPES:
+        for col, t in tensors(getattr(tables, tname)).items():
+            out[f"{tname}.{col}"] = t.detach().cpu().numpy().copy()
+    if tables.metrics is not None:
+        for col, t in tensors(tables.metrics).items():
+            a = t.detach().cpu().numpy().copy()
+            out[f"metrics.{col}"] = a.view(np.uint32) if col in _U32_METRICS else a
+    return out

@@ -1,0 +1,76 @@
+"""Device-resident metrics table: counters, gauges, histograms.
+
+The torch counterpart of `hypervisor_tpu.tables.metrics`. Counters and
+histogram buckets are u32 in the reference; here they are int32 tensors
+holding the same bits (the package's u32 convention), and every add
+wraps at 2^32 exactly like the u32 column. The wave updates the table
+IN PLACE where the reference donates it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from hypervisor_tpu_torch import u32
+from hypervisor_tpu_torch.observability import metrics as schema
+from hypervisor_tpu_torch.tables.struct import table
+
+
+@table
+class MetricsTable:
+    """[C]/[G]/[H, NB] telemetry columns; row index == metric handle."""
+
+    counters: torch.Tensor  # u32[C] as int32 bits
+    gauges: torch.Tensor    # f32[G]
+    hist: torch.Tensor      # u32[H, NB] as int32 bits (last bucket = +Inf)
+    hist_sum: torch.Tensor  # f32[H]
+    bounds: torch.Tensor    # f32[NB-1] shared upper bounds, ascending
+
+    @staticmethod
+    def create(
+        device: str | torch.device,
+        n_counters: int = schema.N_COUNTERS,
+        n_gauges: int = schema.N_GAUGES,
+        n_hists: int = schema.N_HISTOGRAMS,
+        bounds: Sequence[float] = schema.DEFAULT_BUCKET_BOUNDS_US,
+    ) -> "MetricsTable":
+        b = torch.tensor(bounds, dtype=torch.float32, device=device)
+        nb = b.shape[0] + 1
+        return MetricsTable(
+            counters=torch.zeros((max(n_counters, 1),), dtype=torch.int32, device=device),
+            gauges=torch.zeros((max(n_gauges, 1),), dtype=torch.float32, device=device),
+            hist=torch.zeros((max(n_hists, 1), nb), dtype=torch.int32, device=device),
+            hist_sum=torch.zeros((max(n_hists, 1),), dtype=torch.float32, device=device),
+            bounds=b,
+        )
+
+
+def counter_add_many(
+    m: MetricsTable, indices: Sequence[int], values: Sequence
+) -> None:
+    """Add `values[i]` to counter row `indices[i]`, IN PLACE (u32 wrap).
+
+    Values may be Python ints (added as kernel scalars) or integer
+    tensors on the table's device, so no host transfer or host sync
+    happens here. Duplicate indices accumulate, as in the reference.
+    """
+    delta = torch.zeros(m.counters.shape, dtype=torch.int64, device=m.counters.device)
+    for idx, v in zip(indices, values):
+        if isinstance(v, torch.Tensor):
+            delta[idx] += v.to(torch.int64).reshape(())
+        else:
+            delta[idx] += int(v)
+    m.counters.copy_(u32.add_u32(m.counters, delta))
+
+
+def observe(m: MetricsTable, hist_idx: int, values: torch.Tensor) -> None:
+    """Record samples into histogram row `hist_idx`, IN PLACE: bucket b
+    counts values <= bounds[b] (Prometheus `le`), overflow last."""
+    values = values.to(torch.float32)
+    bucket = torch.searchsorted(m.bounds, values, right=False)
+    counts = torch.zeros(m.hist.shape[1], dtype=torch.int64, device=values.device)
+    counts.index_add_(0, bucket, torch.ones_like(bucket))
+    m.hist[hist_idx].copy_(u32.add_u32(m.hist[hist_idx], counts))
+    m.hist_sum[hist_idx] += values.sum()
