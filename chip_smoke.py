@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's governance wave on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's governance wave and its facade on one
+NVIDIA GPU.
 
     python3 chip_smoke.py      # from the repository root, one CUDA GPU
 
@@ -16,7 +17,11 @@ Phases, one JSON line each:
    x 10,000 lanes; B3 roots at 10,000 sessions x 4 leaves plus count
    sweeps at 8, 64 and 4096 leaves; B4 admission on the unique-sessions
    wave and on a crowded wave with duplicates and full sessions; B5 at
-   the wave's sessions, lanes, edges and agents;
+   the wave's sessions, lanes, edges and agents; B6, the DeltaLog ring
+   append, at the facade's shape (30,000 rows into 65,536, wrapping),
+   unpadded and with a short live prefix; B1, the batched hash, on
+   30,000 messages of 2 and 3 blocks and a scrubber strip (also checked
+   against hashlib), and a 8,192-leaf Merkle forest through it;
 4. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
    lanes at sigma 0.5 with bond 0.30, 3 deltas, tables of 16,384 agents,
    16,384 sessions and 65,536 edges, random data from one seed) through
@@ -24,12 +29,27 @@ Phases, one JSON line each:
    just before and read just after; bench.py's gates; a hashlib check of
    lanes 0 and K-1; then the same wave through the plain versions on the
    card, which must give identical tables, outputs and counters;
-5. timing: the wave's p50/p95 (host clock, synchronised) and device
+5. facade: the lifecycle wave through `HypervisorState.
+   run_governance_wave` at bench.py's widths on a fresh state (65,536
+   DeltaLog rows, 32,768 sessions, 24,576 agents): three waves, the
+   second padded to a 10,240 bucket, the third wrapping the ring over
+   the first's archived sessions and recycling agent rows; then
+   `flush_deltas` on standing sessions, a full `MerkleScrubber` sweep,
+   chain verification, `terminate_sessions` and a 8,192-leaf tree. Each
+   path's kernels are counted in its own window (launch counts set to 0
+   just before, read just after). bench.py's gates and hashlib on two
+   lanes per wave, the host cursor mirrors against the device; then the
+   same sequence on the CPU, which must give identical tables, DeltaLog,
+   metrics, trace words, audit index, frontier roots, scrubber reports
+   and roots;
+6. timing: the wave's p50/p95 (host clock, synchronised) and device
    time; one wave under torch's sync debug mode "error" (no host
    synchronisation inside the wave); one profiled wave (device time by
-   kernel, the device's idle share); each kernel's time, its plain
-   version's time, its bound and, where one PyTorch call computes the
-   same function, that call's time.
+   kernel, the device's idle share); the facade wave's p50/p95, each on
+   a fresh state, with the host split into staging, dispatch and audit
+   booking, and its device time; one scrubber sweep's time; each
+   kernel's time, its plain version's time, its bound and, where one
+   PyTorch call computes the same function, that call's time.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -38,9 +58,12 @@ that line. Exits 2 without printing a result when CUDA is absent.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import itertools
 import json
 import re
+import secrets
 import statistics
 import subprocess
 import sys
@@ -111,12 +134,37 @@ INSTR_PER_PAIR = (sha256_instructions([V] * 16, [C] * 8) + sha256_instructions([
                   + sha256_instructions([C] * 16, [V] * 8) + 2 * INSTR_PER_HEX_DIGEST)
 INSTR_PER_DUP_PAIR = INSTR_PER_PAIR - INSTR_PER_HEX_DIGEST
 
+
+def instr_per_message(n_blocks: int) -> int:
+    """One pre-padded n-block message through the batched hash (B1): the
+    kernel cannot tell padding from data, so every word varies."""
+    return (sha256_instructions([V] * 16, [C] * 8)
+            + (n_blocks - 1) * sha256_instructions([V] * 16, [V] * 8))
+
+#: The facade's fresh state: the reference's DeltaLog and TraceLog sizes,
+#: room for three waves of sessions plus a padded bucket, and agent rows
+#: that run out during the third wave (its tail recycles the free list).
+FACADE_CAPACITY = dict(max_agents=24_576, max_sessions=32_768, max_vouch_edges=65_536,
+                       delta_log_capacity=65_536, trace_log_capacity=8_192)
+FACADE_BUCKET = 10_240
+N_STANDING, DELTAS_PER_STANDING = 13, 5
+SCRUB_BUDGET = 4_096
+BIG_TREE_LEAVES = 8_192
+FACADE_WARMUP, FACADE_ITERS = 2, 10
+
+#: Each path's kernels, for its launch-count window.
+OP_WAVE_KERNELS = ("contribution_toward", "chain_digests", "tree_roots", "admission_block",
+                   "fsm_saga_block")
+FACADE_WAVE_KERNELS = OP_WAVE_KERNELS + ("ring_append",)
+
 TPU_KERNELS = {
     "contribution_toward": "hypervisor_tpu/ops/liability.py:93",  # an XLA scatter, not Pallas
     "chain_digests": "hypervisor_tpu/kernels/mtu_pallas.py:319",
     "tree_roots": "hypervisor_tpu/kernels/mtu_pallas.py:237",
     "admission_block": "hypervisor_tpu/kernels/wave_pallas.py:1318",
     "fsm_saga_block": "hypervisor_tpu/kernels/wave_pallas.py:1441",
+    "ring_append": "hypervisor_tpu/kernels/wave_pallas.py:1528",
+    "sha256_words": "hypervisor_tpu/kernels/sha256_pallas.py:118",
 }
 SOURCES = {
     "contribution_toward": "hypervisor_tpu_torch/csrc/wave.cu",
@@ -124,6 +172,8 @@ SOURCES = {
     "tree_roots": "hypervisor_tpu_torch/csrc/mtu.cu",
     "admission_block": "hypervisor_tpu_torch/csrc/wave.cu",
     "fsm_saga_block": "hypervisor_tpu_torch/csrc/wave.cu",
+    "ring_append": "hypervisor_tpu_torch/csrc/wave.cu",
+    "sha256_words": "hypervisor_tpu_torch/csrc/sha256.cu",
 }
 
 
@@ -136,6 +186,191 @@ def require(cond, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+@contextlib.contextmanager
+def counted_trace_ids():
+    """Trace ids from a counter instead of `secrets.token_hex`, so two runs
+    of one sequence draw the same ids (and the same trace words)."""
+    counter = itertools.count()
+    saved = secrets.token_hex
+    secrets.token_hex = lambda nbytes=None: f"{next(counter):0{2 * nbytes}x}"
+    try:
+        yield
+    finally:
+        secrets.token_hex = saved
+
+
+def check_bench_gates(result, bodies, tag: str) -> None:
+    """bench.py's gates on one 10,000-session wave result, and hashlib on
+    the chain and Merkle root of lanes 0 and K-1."""
+    from hypervisor_tpu_torch import u32
+    from hypervisor_tpu_torch.ops import merkle
+    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
+
+    status = result.status.cpu().numpy()
+    require((status == 0).all(), f"{tag}: lanes failed: {np.unique(status)}")
+    require(not bool(result.fsm_error.any()), f"{tag}: illegal session FSM walk")
+    require((result.ring.cpu().numpy() == 2).all(), f"{tag}: vouched lanes not lifted / plain lanes not ring 2")
+    require(np.allclose(result.sigma_eff.cpu().numpy()[:N_VOUCHED], 0.65, atol=1e-6),
+            f"{tag}: vouched sigma_eff != 0.65")
+    require(int(result.released) == N_VOUCHED, f"{tag}: bonds not released")
+    chain_np = u32.to_numpy_u32(result.chain)
+    roots_np = u32.to_numpy_u32(result.merkle_root)
+    for lane in (0, N_SESSIONS - 1):
+        parent, hexes = b"\x00" * 32, []
+        for body in bodies[:, lane]:
+            parent = hashlib.sha256(body.astype(">u4").tobytes() + parent).digest()
+            hexes.append(parent.hex())
+        require(digests_to_hex(chain_np[:, lane]) == hexes, f"{tag}: chain mismatch on lane {lane}")
+        require(digests_to_hex(roots_np[lane][None])[0] == merkle.merkle_root_host(hexes),
+                f"{tag}: root mismatch on lane {lane}")
+
+
+def facade_state(device):
+    """A fresh facade state of `FACADE_CAPACITY` on `device`."""
+    from hypervisor_tpu_torch.config import HypervisorConfig, TableCapacity
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    return HypervisorState(HypervisorConfig(capacity=TableCapacity(**FACADE_CAPACITY)), device=device)
+
+
+def prepare_facade_wave(state, rng, w: int):
+    """Wave w's 10,000 sessions, created on the state, and its inputs at
+    bench.py's widths: 1,000 vouch edges (bond 0.30) toward the agent rows
+    the wave's first lanes will claim (the bump allocator's next rows),
+    sigma 0.5 on those lanes and 0.8 on the rest, random delta bodies."""
+    import torch
+
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    slots = state.create_sessions_batch(
+        [f"facade:w{w}:s{i}" for i in range(N_SESSIONS)], SessionConfig(min_sigma_eff=0.0))
+    base, cap = state._next_agent_slot, state.agents.i32.shape[0]
+    require(base + N_VOUCHED <= cap, "the vouched lanes must claim fresh agent rows")
+    dev, v = state.device, state.vouches
+    e = slice(w * N_VOUCHED, (w + 1) * N_VOUCHED)
+    v.voucher[e] = torch.arange(cap - N_VOUCHED, cap, dtype=torch.int32, device=dev)
+    v.vouchee[e] = torch.arange(base, base + N_VOUCHED, dtype=torch.int32, device=dev)
+    v.session[e] = torch.from_numpy(slots[:N_VOUCHED]).to(dev)
+    v.bond[e] = 0.30
+    v.active[e] = True
+    sigma = np.full(N_SESSIONS, 0.8, np.float32)
+    sigma[:N_VOUCHED] = 0.50
+    bodies = rng.randint(0, 2**32, (N_DELTAS, N_SESSIONS, 16), dtype=np.uint64).astype(np.uint32)
+    return slots, [f"did:facade:w{w}:{i}" for i in range(N_SESSIONS)], sigma, bodies
+
+
+def run_facade_sequence(device):
+    """The facade sequence on `device`. Returns (records, windows, state):
+    what a second device must reproduce exactly, and each path's launch
+    counts, read in its own window."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels, u32
+    from hypervisor_tpu_torch.integrity.scrubber import MerkleScrubber
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.ops import merkle
+    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
+    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
+
+    rec, windows = {}, {}
+
+    def window(name, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        windows[name] = kernels.launch_counts()
+        return out
+
+    with counted_trace_ids():
+        state = facade_state(device)
+        rng = np.random.RandomState(SEED + 1)
+
+        def waves():
+            out = []
+            for w in range(3):
+                slots, dids, sigma, bodies = prepare_facade_wave(state, rng, w)
+                res = state.run_governance_wave(
+                    slots, dids, slots, sigma, bodies, now=float(w),
+                    pad_to=(FACADE_BUCKET, FACADE_BUCKET) if w == 1 else None)
+                check_bench_gates(res, bodies, f"facade wave {w}")
+                out.append((slots, res))
+            return out
+
+        wave_out = window("facade_waves", waves)
+        for w, (_, res) in enumerate(wave_out):
+            rec[f"wave{w}"] = {
+                f: getattr(res, f).cpu().numpy()
+                for f in ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")
+            }
+            rec[f"wave{w}"].update(chain=u32.to_numpy_u32(res.chain),
+                                   merkle_root=u32.to_numpy_u32(res.merkle_root),
+                                   released=int(res.released))
+        standing = [state.create_session(f"facade:standing:{i}", SessionConfig(), now=5.0)
+                    for i in range(N_STANDING)]
+        for j in range(DELTAS_PER_STANDING):
+            for s in standing:
+                state.stage_delta(s, 0, ts=float(j), change_words=rng.randint(0, 2**31, 8))
+        rec["flush"] = window("flush", state.flush_deltas)
+        truncated = [int(s) for s in wave_out[0][0]
+                     if 0 < len(state._audit_rows.get(int(s), [])) < state._turns.get(int(s), 0)]
+        require(truncated, "the ring wraps must leave a first-wave session with part of its history")
+        scrubber = MerkleScrubber(state, budget=SCRUB_BUDGET)
+
+        def sweep():
+            reports = [scrubber.tick()]
+            while not reports[-1]["sweep_completed"]:
+                reports.append(scrubber.tick())
+            return reports
+
+        rec["scrub"] = window("scrubber", sweep)
+        rec["scrub_summary"] = scrubber.summary()
+        require(scrubber.mismatches == 0, f"the scrubber flagged a clean chain: {scrubber.last_mismatch}")
+        rec["verify"] = window("verify", lambda: [
+            state.verify_session_chain(s) for s in (int(wave_out[1][0][0]), truncated[0], standing[0])])
+        require(all(rec["verify"]), f"verify_session_chain failed: {rec['verify']}")
+        rec["roots"] = window("terminate", lambda: state.terminate_sessions(
+            standing + truncated[:1], now=6.0))
+        leaves = u32.to_numpy_u32(state.delta_log.digest[:BIG_TREE_LEAVES])
+        forest = np.stack([leaves, leaves[::-1], np.roll(leaves, 7, axis=0), leaves])
+        counts = np.array([0, 1, BIG_TREE_LEAVES // 2 + 1, BIG_TREE_LEAVES], np.int32)
+        rec["big_tree"] = window("big_tree", lambda: merkle.tree_roots_host(forest, counts, device))
+        require(digests_to_hex(rec["big_tree"][3:4])[0]
+                == merkle.merkle_root_host(digests_to_hex(leaves)), "big tree root != hashlib")
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        require(state._delta_cursor == int(state.delta_log.cursor)
+                and state.tracer.cursor == int(state.tracer.table.cursor),
+                "the host cursor mirrors disagree with the device")
+        rec["tables"] = to_state_arrays(StateTables(
+            state.agents, state.sessions, state.vouches, state.metrics, state.delta_log))
+        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+        rec["host"] = {
+            "audit_rows": state._audit_rows, "turns": state._turns,
+            "chain_seed": {s: v.tolist() for s, v in state._chain_seed.items()},
+            "frontier_roots": {s: f.root_hex() for s, f in state._frontier.items()},
+            "row_session": state._row_session.tolist(),
+            "free_agent_slots": state._free_agent_slots, "members": sorted(state._members),
+            "cursors": (state._delta_cursor, state.tracer.cursor),
+        }
+    return rec, windows, state
+
+
+def first_difference(label, got, want):
+    """The first path where two records differ, or None."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            return f"{label}: keys differ"
+        for key in want:
+            found = first_difference(f"{label}.{key}", got[key], want[key])
+            if found:
+                return found
+        return None
+    if isinstance(want, np.ndarray):
+        got = np.asarray(got)
+        same = got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
+        return None if same else label
+    return None if got == want else label
+
+
 def main() -> int:
     import torch
 
@@ -146,12 +381,15 @@ def main() -> int:
 
     from hypervisor_tpu_torch import kernels, u32
     from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig, TableCapacity
+    from hypervisor_tpu_torch.integrity.scrubber import MerkleScrubber
     from hypervisor_tpu_torch.kernels import _build, mtu, wave
+    from hypervisor_tpu_torch.kernels import sha256 as sha_kernels
     from hypervisor_tpu_torch.models import SessionConfig
     from hypervisor_tpu_torch.ops import liability, merkle, pipeline
     from hypervisor_tpu_torch.ops.admission import ADMIT_OK, f32_scalar
-    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
+    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex, pad_messages_np
     from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tables.logs import DeltaLog
     from hypervisor_tpu_torch.tables.state import VouchTable
     from hypervisor_tpu_torch.tables.struct import clone, copy_into, tensors
 
@@ -390,8 +628,71 @@ def main() -> int:
     emit("parity", kernel="fsm_saga_block", sessions=N_SESSIONS, lanes=N_SESSIONS,
          edges=int(state.vouches.active.shape[0]), agents=n_cap, bit_exact=True,
          max_abs_err=err_b5)
+    # B6: the DeltaLog ring append at the facade's shape, 30,000 rows into
+    # 65,536 from a cursor that makes the append wrap; unpadded, then a
+    # padded 10,240-session bucket whose live prefix is the 30,000 rows.
+    c_ring = FACADE_CAPACITY["delta_log_capacity"]
+    ring_cursor = 50_000
+    n_rows = N_DELTAS * N_SESSIONS
+
+    def random_words(*shape):
+        return u32.from_numpy_u32(
+            rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)
+
+    def random_ring():
+        log = DeltaLog.create(c_ring, dev)
+        log.body.copy_(random_words(c_ring, 16))
+        log.digest.copy_(random_words(c_ring, 8))
+        log.session.copy_(torch.from_numpy(rng.randint(-1, 30_000, c_ring).astype(np.int32)))
+        log.turn.copy_(torch.from_numpy(rng.randint(0, 3, c_ring).astype(np.int32)))
+        log.cursor.fill_(ring_cursor)
+        return log
+
+    err_b6, b6_inputs = 0.0, {}
+    for k_lanes in (N_SESSIONS, FACADE_BUCKET):
+        args = (random_words(N_DELTAS, k_lanes, 16), random_words(N_DELTAS, k_lanes, 8),
+                torch.arange(20_000, 20_000 + k_lanes, dtype=torch.int32, device=dev),
+                ring_cursor, n_rows)
+        base_ring = random_ring()
+        got_ring, want_ring = clone(base_ring), clone(base_ring)
+        wave.ring_append(got_ring, *args)
+        wave.ring_append_plain(want_ring, *args)
+        err_b6 = max(err_b6, check_pairs(f"ring_append K={k_lanes}",
+                                         table_pairs("delta_log", got_ring, want_ring),
+                                         ("delta_log.body", "delta_log.digest")))
+        require(int(got_ring.cursor) == ring_cursor + n_rows, "ring_append: device cursor")
+        b6_inputs[k_lanes] = (base_ring, args)
+    emit("parity", kernel="ring_append", rows=n_rows, lanes=[N_SESSIONS, FACADE_BUCKET],
+         capacity=c_ring, cursor=ring_cursor, wraps=ring_cursor + n_rows > c_ring,
+         bit_exact=True, max_abs_err=err_b6)
+
+    # B1: chain links (96 bytes, 2 blocks) and hex pairs (128 bytes, 3
+    # blocks) at 30,000 messages, and a scrubber strip; hashlib on samples;
+    # then an 8,192-leaf forest through the hex-pair levels.
+    err_b1, b1_inputs = 0.0, {}
+    for n_blocks, count, msg_len in ((2, n_rows, 96), (3, n_rows, 128), (2, SCRUB_BUDGET, 96)):
+        msgs = rng.randint(0, 256, (count, msg_len)).astype(np.uint8)
+        words_np, nb = pad_messages_np(msgs, msg_len)
+        require(nb == n_blocks, "B1 parity: padding")
+        words_t = u32.from_numpy_u32(words_np, dev)
+        got = sha_kernels.sha256_words(words_t, n_blocks)
+        err_b1 = max(err_b1, check_pairs(f"sha256_words {count}x{n_blocks}", {"digest": (
+            got, sha_kernels.sha256_words_plain(words_t, n_blocks))}, ("digest",)))
+        for i in (0, count // 2, count - 1):
+            require(digests_to_hex(got[i:i + 1])[0] == hashlib.sha256(msgs[i].tobytes()).hexdigest(),
+                    f"sha256_words: message {i} differs from hashlib")
+        b1_inputs[(count, n_blocks)] = words_t
+    forest_t = random_words(4, BIG_TREE_LEAVES, 8)
+    forest_counts = torch.tensor([0, 1, BIG_TREE_LEAVES // 2 + 1, BIG_TREE_LEAVES],
+                                 dtype=torch.int32, device=dev)
+    err_b1 = max(err_b1, check_pairs("merkle_root_lanes P=8192", {"roots": (
+        merkle.merkle_root_lanes(forest_t, forest_counts),
+        mtu.tree_roots_plain(forest_t, forest_counts))}, ("roots",)))
+    emit("parity", kernel="sha256_words", messages=[[n_rows, 2], [n_rows, 3], [SCRUB_BUDGET, 2]],
+         hashlib_samples=9, tree_leaves=BIG_TREE_LEAVES, bit_exact=True, max_abs_err=err_b1)
     errs = {"contribution_toward": max(err_c0, err_c1), "chain_digests": err_b2, "tree_roots": err_b3,
-            "admission_block": max(err_b4, err_c), "fsm_saga_block": err_b5}
+            "admission_block": max(err_b4, err_c), "fsm_saga_block": err_b5,
+            "ring_append": err_b6, "sha256_words": err_b1}
 
     # ── 4. the full-width wave through the entry point ───────────────
     restore(live, pristine)
@@ -400,26 +701,9 @@ def main() -> int:
     result = state.governance_wave(agent_slots, dids, session_slots, sigma, bodies)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    require(all(n >= 1 for n in launches.values()), f"a kernel was not launched: {launches}")
-
-    status = result.status.cpu().numpy()
-    require((status == 0).all(), f"wave lanes failed: {np.unique(status)}")
-    require(not bool(result.fsm_error.any()), "illegal session FSM walk")
-    rings = result.ring.cpu().numpy()
-    sig_eff = result.sigma_eff.cpu().numpy()
-    require((rings == 2).all(), "vouched lanes not lifted / plain lanes not ring 2")
-    require(np.allclose(sig_eff[:N_VOUCHED], 0.65, atol=1e-6), "vouched sigma_eff != 0.65")
-    require(int(result.released) == N_VOUCHED, "bonds not released")
-    chain_np = u32.to_numpy_u32(result.chain)
-    roots_np = u32.to_numpy_u32(result.merkle_root)
-    for lane in (0, N_SESSIONS - 1):
-        parent, hexes = b"\x00" * 32, []
-        for body in bodies[:, lane]:
-            parent = hashlib.sha256(body.astype(">u4").tobytes() + parent).digest()
-            hexes.append(parent.hex())
-        require(digests_to_hex(chain_np[:, lane]) == hexes, f"chain mismatch on lane {lane}")
-        require(digests_to_hex(roots_np[lane][None])[0] == merkle.merkle_root_host(hexes),
-                f"root mismatch on lane {lane}")
+    require(all(launches[k] == 1 for k in OP_WAVE_KERNELS),
+            f"the op wave must launch each of its kernels once: {launches}")
+    check_bench_gates(result, bodies, "op wave")
     counters = u32.to_numpy_u32(result.metrics.counters)
 
     plain_tables = {k: clone(t) for k, t in pristine.items()}
@@ -431,14 +715,46 @@ def main() -> int:
     for k in plain_tables:
         pairs.update(table_pairs(k, live[k], plain_tables[k]))
     check_pairs("governance_wave", pairs)
-    emit("wave", sessions=N_SESSIONS, vouched=N_VOUCHED, deltas=N_DELTAS, launches=launches,
+    emit("wave", sessions=N_SESSIONS, vouched=N_VOUCHED, deltas=N_DELTAS,
+         launches={k: launches[k] for k in OP_WAVE_KERNELS},
          gates="passed", hashlib_lanes=[0, N_SESSIONS - 1], plain_on_card="identical",
          counters={"wave_ticks": int(counters[0]), "admitted": int(counters[1]),
                    "refused": int(counters[2]), "archived": int(counters[3]),
                    "bonds_released": int(counters[4]), "saga_committed": int(counters[5]),
                    "saga_failed": int(counters[6])})
 
-    # ── 5. timing ────────────────────────────────────────────────────
+    # ── 5. the facade's lifecycle wave and audit plane ───────────────
+    t0 = time.perf_counter()
+    facade_rec, windows, facade = run_facade_sequence(dev)
+    facade_s = time.perf_counter() - t0
+    ticks_with_links = sum(1 for r in facade_rec["scrub"] if r["links"])
+    expected = {
+        "facade_waves": {**{k: 3 for k in FACADE_WAVE_KERNELS}, "sha256_words": 0},
+        "flush": {"chain_digests": 1},
+        "scrubber": {"sha256_words": ticks_with_links},
+        "verify": {"chain_digests": 2, "sha256_words": 1},
+        "terminate": {"tree_roots": 1},
+        "big_tree": {"sha256_words": BIG_TREE_LEAVES.bit_length() - 1},
+    }
+    for name, want in expected.items():
+        got = {k: n for k, n in windows[name].items() if n}
+        require(got == {k: n for k, n in want.items() if n},
+                f"{name}: launches {got}, expected {want}")
+    t0 = time.perf_counter()
+    cpu_rec, cpu_windows, _ = run_facade_sequence("cpu")
+    cpu_s = time.perf_counter() - t0
+    require(not any(any(c.values()) for c in cpu_windows.values()), "the CPU run launched a kernel")
+    diff = first_difference("facade", cpu_rec, facade_rec)
+    require(diff is None, f"the facade on the CPU differs from the card at {diff}")
+    emit("facade", sessions_per_wave=N_SESSIONS, waves=3, padded_bucket=FACADE_BUCKET,
+         deltalog_cursor=facade._delta_cursor, deltalog_capacity=FACADE_CAPACITY["delta_log_capacity"],
+         trace_cursor=facade.tracer.cursor, standing_sessions=N_STANDING,
+         flushed=int(facade_rec["flush"]), scrub=facade_rec["scrub_summary"],
+         scrub_ticks=len(facade_rec["scrub"]), launches_by_path=windows, gates="passed",
+         hashlib_lanes_per_wave=[0, N_SESSIONS - 1], cursor_mirrors="equal",
+         cpu_run="identical", card_seconds=facade_s, cpu_seconds=cpu_s)
+
+    # ── 6. timing ────────────────────────────────────────────────────
     samples = []
     for i in range(WARMUP + ITERS):
         restore(live, pristine)
@@ -487,6 +803,73 @@ def main() -> int:
          top=[{"name": k[:80], "device_us": us, "count": n} for us, k, n in by_name[:15]],
          n_device_ops=sum(n for _, _, n in by_name))
 
+    # The facade wave: p50/p95 on the host clock, synchronised, each
+    # sample on a fresh state built (sessions created, edges placed)
+    # outside the timed window; the host share split into staging
+    # (`_stage_wave_lanes`), dispatch (the fused wave's enqueue,
+    # `pipeline.governance_wave`) and audit booking (`_book_wave_audit`),
+    # timed around those calls; the rest is row claims, copies to the
+    # card, the wait for the device and the membership bookkeeping.
+    def facade_sample(profiler=None):
+        with counted_trace_ids():
+            st = facade_state(dev)
+            wave_in = prepare_facade_wave(st, np.random.RandomState(SEED + 2), 0)
+            split = {"staging": 0.0, "dispatch": 0.0, "audit_booking": 0.0}
+
+            def timed(key, fn):
+                def call(*args, **kwargs):
+                    t = time.perf_counter_ns()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        split[key] += (time.perf_counter_ns() - t) / 1e6
+                return call
+
+            st._stage_wave_lanes = timed("staging", st._stage_wave_lanes)
+            st._book_wave_audit = timed("audit_booking", st._book_wave_audit)
+            wave_fn = pipeline.governance_wave
+            pipeline.governance_wave = timed("dispatch", wave_fn)
+            try:
+                torch.cuda.synchronize()
+                with profiler if profiler is not None else contextlib.nullcontext():
+                    t = time.perf_counter_ns()
+                    st.run_governance_wave(wave_in[0], wave_in[1], wave_in[0], *wave_in[2:])
+                    torch.cuda.synchronize()
+                    total = (time.perf_counter_ns() - t) / 1e6
+            finally:
+                pipeline.governance_wave = wave_fn
+        return total, split
+
+    f_samples = [facade_sample() for _ in range(FACADE_WARMUP + FACADE_ITERS)][FACADE_WARMUP:]
+    f_total = [t for t, _ in f_samples]
+    f_rest = [t - sum(sp.values()) for t, sp in f_samples]
+    f_parts = {**{k: [sp[k] for _, sp in f_samples] for k in f_samples[0][1]}, "rest": f_rest}
+    f_split = {k: float(np.median(v)) for k, v in f_parts.items()}
+    f_split_p95 = {k: float(np.percentile(v, 95)) for k, v in f_parts.items()}
+    f_p50 = float(np.percentile(f_total, 50))
+    fprof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    f_prof_wall, _ = facade_sample(fprof)  # profiles the wave alone, not the fresh state
+    f_busy_ms = sum(e.self_device_time_total for e in fprof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    emit("facade_timing", wave_ms_p50=f_p50, wave_ms_p95=float(np.percentile(f_total, 95)),
+         per_session_us_p50=f_p50 * 1e3 / N_SESSIONS, iters=FACADE_ITERS,
+         host_split_ms_median=f_split, host_split_ms_p95=f_split_p95, device_busy_ms=f_busy_ms,
+         profiled_wall_ms=f_prof_wall, device_idle_share=1 - f_busy_ms / f_prof_wall,
+         clock="host, synchronised; each sample on a fresh state")
+
+    # One full scrubber sweep over the facade state's audit index.
+    sweeper = MerkleScrubber(facade, budget=SCRUB_BUDGET)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    n_ticks = 1
+    while not sweeper.tick()["sweep_completed"]:
+        n_ticks += 1
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter_ns() - t0) / 1e6
+    emit("scrub_timing", sweep_ms=sweep_ms, ticks=n_ticks, budget=SCRUB_BUDGET,
+         links=sweeper.links_verified, heads=sweeper.heads_verified,
+         links_per_s=sweeper.links_verified / (sweep_ms / 1e3), mismatches=sweeper.mismatches)
+
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):
         for k, t in post.items():
@@ -518,6 +901,13 @@ def main() -> int:
                                               (0, N_SESSIONS)),
             lambda: restore_post(scratch)),
     }
+    ring_base, ring_args = b6_inputs[N_SESSIONS]
+    ring_k, ring_p = clone(ring_base), clone(ring_base)
+    strip_words = b1_inputs[(SCRUB_BUDGET, 2)]
+    calls["ring_append"] = (lambda: wave.ring_append(ring_k, *ring_args),
+                            lambda: wave.ring_append_plain(ring_p, *ring_args), None)
+    calls["sha256_words"] = (lambda: sha_kernels.sha256_words(strip_words, 2),
+                             lambda: sha_kernels.sha256_words_plain(strip_words, 2), None)
 
     # The one PyTorch call that computes the same function, where there
     # is one: the contribution's scatter-add, on the masked bonds.
@@ -526,6 +916,18 @@ def main() -> int:
     vals_l = torch.where(scoped_l, bond_l, torch.zeros_like(bond_l))
     lib_out = torch.zeros((n_cap,), dtype=torch.float32, device=dev)
     library = {"contribution_toward": lambda: lib_out.index_add_(0, vee_l, vals_l)}
+    # The ring append: the four `index_copy_` calls a user would write,
+    # on rows already flattened lane-major (the flattening not timed).
+    ring_l = clone(ring_base)
+    r_bodies, r_chain, r_sess = ring_args[:3]
+    flat = (r_bodies.transpose(0, 1).reshape(-1, 16).contiguous(),
+            r_chain.transpose(0, 1).reshape(-1, 8).contiguous(),
+            r_sess.repeat_interleave(N_DELTAS),
+            torch.arange(N_DELTAS, dtype=torch.int32, device=dev).repeat(N_SESSIONS))
+    ring_idx = (ring_cursor + torch.arange(n_rows, device=dev)) % c_ring
+    library["ring_append"] = lambda: [
+        col.index_copy_(0, ring_idx, rows_) for col, rows_ in zip(
+            (ring_l.body, ring_l.digest, ring_l.session, ring_l.turn), flat)]
 
     # Bounds: the bytes each function must move (inputs read once, outputs
     # written once, counting what this run's data needs) over HBM
@@ -552,6 +954,8 @@ def main() -> int:
         "fsm_saga_block": (N_SESSIONS * (4 + 8 + 8 + 2) + l_ * 2 + edges * 5
                            + N_VOUCHED * 1 + n_cap * 4 + agent_hits * 8 + 4,
                            N_SESSIONS * 30 + l_ * 2 + edges * 4 + n_cap * 3),
+        "ring_append": (n_rows * (64 + 32) + N_SESSIONS * 4 + n_rows * (64 + 32 + 4 + 4) + 4, 0),
+        "sha256_words": (SCRUB_BUDGET * (2 * 64 + 32), SCRUB_BUDGET * instr_per_message(2)),
     }
     rows = []
     for name, (kfn, pfn, reset) in calls.items():
@@ -563,20 +967,28 @@ def main() -> int:
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_INSTRUCTIONS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "replaces": TPU_KERNELS[name],
+            "launches": windows["scrubber" if name == "sha256_words" else "facade_waves"][name],
+            "launches_by_path": {"op_wave": launches.get(name, 0),
+                                 **{path: c[name] for path, c in windows.items()}},
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms, "bytes": nbytes, "int_instructions": nops,
         })
+        if name == "sha256_words":
+            rows[-1]["ms_at_30000_messages"] = {
+                f"{nb}_blocks": time_device(lambda nb=nb: sha_kernels.sha256_words(
+                    b1_inputs[(n_rows, nb)], nb)) for nb in (2, 3)}
         emit("kernel_timing", **rows[-1])
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     emit("card_after_timing", clocks_power_limit_temp=clocks,
-         note="library_ms: index_add_ for the contribution; no PyTorch call computes "
-              "SHA-256 or the admission and fsm/saga blocks, so theirs is null")
+         note="library_ms: index_add_ for the contribution, four index_copy_ calls on "
+              "pre-flattened rows for the ring append; no PyTorch call computes SHA-256 or "
+              "the admission and fsm/saga blocks, so theirs is null")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

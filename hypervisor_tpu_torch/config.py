@@ -30,6 +30,8 @@ class TableCapacity:
     max_agents: int = 16_384
     max_sessions: int = 4_096
     max_vouch_edges: int = 65_536
+    delta_log_capacity: int = 65_536
+    trace_log_capacity: int = 8_192
 
 
 @dataclasses.dataclass(frozen=True)

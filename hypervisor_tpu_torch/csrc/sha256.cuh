@@ -1,7 +1,7 @@
 // SHA-256 compression (FIPS 180-4) for the port's Hopper kernels.
 //
-// Shared by the chain and tree kernels (mtu.cu) and, later, the plain
-// batched hash kernel. One thread owns one message: the 64 rounds are
+// Shared by the chain and tree kernels (mtu.cu) and the batched hash
+// kernel (sha256.cu). One thread owns one message: the 64 rounds are
 // fully unrolled so the 16-word schedule window and the eight working
 // variables stay in registers; rotr is one funnel shift; the round
 // constants sit in __constant__ memory (each unrolled round reads a

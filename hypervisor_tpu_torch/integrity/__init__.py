@@ -1,0 +1,1 @@
+"""State integrity (`hypervisor_tpu.integrity`): the Merkle scrubber."""

@@ -10,13 +10,15 @@ main path went through the kernel.
   B3 `mtu.tree_roots`         <- hypervisor_tpu/kernels/mtu_pallas.py tree_roots
   B4 `wave.admission_block`   <- hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas
   B5 `wave.fsm_saga_block`    <- hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas
+  B6 `wave.ring_append`       <- hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas
+  B1 `sha256.sha256_words`    <- hypervisor_tpu/kernels/sha256_pallas.py sha256_words
   `wave.contribution_toward`  <- hypervisor_tpu/ops/liability.py contribution_toward
                                  (an XLA scatter-add there, no Pallas kernel)
 """
 
 from __future__ import annotations
 
-from hypervisor_tpu_torch.kernels import mtu, wave
+from hypervisor_tpu_torch.kernels import mtu, sha256, wave
 
 WRAPPERS = {
     "contribution_toward": wave.contribution_toward,
@@ -24,6 +26,8 @@ WRAPPERS = {
     "tree_roots": mtu.tree_roots,
     "admission_block": wave.admission_block,
     "fsm_saga_block": wave.fsm_saga_block,
+    "ring_append": wave.ring_append,
+    "sha256_words": sha256.sha256_words,
 }
 
 

@@ -29,10 +29,8 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch.kernels import _build
-from hypervisor_tpu_torch.ops.sha256 import pad_tail_words, sha256_blocks, sha256_hex_pair
-
-#: Body words per delta record (64 bytes); a chain link hashes body || parent.
-BODY_WORDS = 16
+from hypervisor_tpu_torch.ops.sha256 import hex_pair_message, pad_tail_words, sha256_blocks
+from hypervisor_tpu_torch.tables.logs import BODY_WORDS
 _CHAIN_TAIL = pad_tail_words((BODY_WORDS + 8) * 4, 2)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -120,8 +118,8 @@ def tree_roots_plain(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor
         j = torch.arange(half, dtype=torch.int32, device=arr.device)
         dup = (2 * j[None, :] + 1) >= cnt[:, None]
         right = torch.where(dup[:, :, None], left, right)
-        combined = sha256_hex_pair(
-            left.reshape(s * half, 8), right.reshape(s * half, 8)
+        combined = sha256_blocks(
+            hex_pair_message(left.reshape(s * half, 8), right.reshape(s * half, 8)), 3
         ).reshape(s, half, 8)
         arr = torch.where((cnt > 1)[:, None, None], combined, left)
         cnt = torch.where(cnt > 1, (cnt + 1) // 2, cnt)

@@ -1,5 +1,5 @@
-"""The wave's table kernels for Hopper: admission (B4) and the FSM + saga
-+ terminate walk (B5).
+"""The wave's table kernels for Hopper: admission (B4), the FSM + saga
++ terminate walk (B5) and the DeltaLog ring append (B6).
 
 B4 `admission_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `admission_block_pallas`. It is bound by memory traffic: a few dozen
@@ -20,6 +20,16 @@ launch covers the session walk (k < K), the saga step (b < B), the bond
 release (e < E, one atomic per warp for the count) and the participant
 deactivation (n < N). It needs the wave-range layout, as the TPU kernel
 does.
+
+B6 `ring_append` replaces `hypervisor_tpu/kernels/wave_pallas.py`
+`ring_append_pallas`: the wave's audit records (its delta bodies and
+chain digests, lane-major, turns 0..T-1) land on the DeltaLog ring at
+the cursor, live prefix only. Bound by bytes (104 read and 104 written
+per row). The kernel reads the wave's [T, K] bodies and chain where
+they lie, one thread per (row, 16-byte vector), so the transposes and
+repeat/tile copies the reference builds before its append never exist.
+It takes the cursor from the caller's host mirror as an argument and
+writes cursor + n_live to the ring's device cursor.
 
 `contribution_toward` replaces the scatter-add of
 `hypervisor_tpu/ops/liability.py` `contribution_toward` (an XLA scatter
@@ -51,6 +61,7 @@ from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import saga_ops, session_fsm
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
+from hypervisor_tpu_torch.tables.logs import DeltaLog
 from hypervisor_tpu_torch.tables.state import (
     AF32_WIDTH,
     AI32_WIDTH,
@@ -304,3 +315,71 @@ def fsm_saga_block(
 
 
 fsm_saga_block.launches = 0
+
+
+# ── B6: the DeltaLog ring append ─────────────────────────────────────
+
+
+def ring_append_plain(
+    delta_log: DeltaLog, delta_bodies, chain, wave_sessions, cursor: int, n_live: int
+) -> None:
+    """Plain version of B6: `DeltaLog.append_batch_prefix` of the wave's
+    lane-major rows (bodies, digests, sessions repeated T times, turns
+    0..T-1 tiled K times), IN PLACE. `cursor` (the host mirror the
+    kernel takes) is not read: the ring's own cursor, which it mirrors,
+    places the rows."""
+    t, k, _ = delta_bodies.shape
+    dev = delta_bodies.device
+    delta_log.append_batch_prefix(
+        delta_bodies.transpose(0, 1).reshape(k * t, delta_bodies.shape[2]),
+        chain.transpose(0, 1).reshape(k * t, 8),
+        wave_sessions.repeat_interleave(t),
+        torch.arange(t, dtype=torch.int32, device=dev).repeat(k),
+        n_live,
+    )
+
+
+def ring_append(
+    delta_log: DeltaLog,
+    delta_bodies: torch.Tensor,   # int32[T, K, 16] u32 bits
+    chain: torch.Tensor,          # int32[T, K, 8] u32 bits
+    wave_sessions: torch.Tensor,  # i32[K]
+    cursor: int,                  # host mirror of delta_log.cursor
+    n_live: int,                  # rows appended: the lane-major prefix
+) -> None:
+    """B6: append the first `n_live` rows of the wave's lane-major audit
+    records to the ring IN PLACE and advance its cursor by `n_live`.
+    CUDA tensors launch the kernel; CPU tensors take `ring_append_plain`.
+    Refuses more live rows than the ring holds (one append would write a
+    row twice, in no defined order)."""
+    _require(delta_bodies.dim() == 3 and delta_bodies.shape[2] == 16, "delta_bodies: [T, K, 16]")
+    t, k, _ = delta_bodies.shape
+    _require(tuple(chain.shape) == (t, k, 8), "chain: [T, K, 8]")
+    _require(tuple(wave_sessions.shape) == (k,), "wave_sessions: [K]")
+    capacity = delta_log.body.shape[0]
+    n_live, cursor = int(n_live), int(cursor)
+    _require(0 <= n_live <= t * k, f"n_live {n_live} outside [0, {t * k}]")
+    _require(n_live <= capacity, f"{n_live} rows in one append exceed the ring's {capacity}")
+    if not _route(delta_bodies):
+        return ring_append_plain(delta_log, delta_bodies, chain, wave_sessions, cursor, n_live)
+    _require(0 <= cursor < 2**31, "cursor: a non-negative int32")
+    dev = delta_bodies.device
+    for tn, name, align in [
+        (delta_log.body, "delta_log.body", 16), (delta_log.digest, "delta_log.digest", 16),
+        (delta_log.session, "delta_log.session", 4), (delta_log.turn, "delta_log.turn", 4),
+        (delta_log.cursor, "delta_log.cursor", 4), (delta_bodies, "delta_bodies", 16),
+        (chain, "chain", 16), (wave_sessions, "wave_sessions", 4),
+    ]:
+        _check_operand(tn, name, torch.int32, dev, align)
+    fn = _build.entry("wave", "hv_ring_append", [_P] * 8 + [_I] * 5 + [_P])
+    err = fn(
+        delta_log.body.data_ptr(), delta_log.digest.data_ptr(), delta_log.session.data_ptr(),
+        delta_log.turn.data_ptr(), delta_log.cursor.data_ptr(),
+        delta_bodies.data_ptr(), chain.data_ptr(), wave_sessions.data_ptr(),
+        cursor, n_live, t, k, capacity, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("wave", err, "ring_append")
+    ring_append.launches += 1
+
+
+ring_append.launches = 0

@@ -41,5 +41,6 @@ class SessionConfig:
 
     consistency_mode: ConsistencyMode = ConsistencyMode.EVENTUAL
     max_participants: int = 10
+    max_duration_seconds: int = 3600
     min_sigma_eff: float = 0.60
     enable_audit: bool = True

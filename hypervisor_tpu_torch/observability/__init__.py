@@ -1,1 +1,2 @@
-"""Observability plane (the metrics table's layout, for now)."""
+"""Observability plane: the metrics table's layout, causal trace ids and the
+flight recorder (`tracing`)."""

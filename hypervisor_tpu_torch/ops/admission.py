@@ -99,17 +99,25 @@ def admit_row_blocks(did, session_slot, sigma_raw, sigma_eff, now, ring, bursts)
     return f32_rows, i32_rows
 
 
-def tally_admission(metrics: metrics_ops.MetricsTable, ok: torch.Tensor, b: int) -> None:
-    """Book admitted/refused counts and the wave-size histogram, IN PLACE."""
-    n_ok = tally.count_true(ok)[0]
+def tally_admission(
+    metrics: metrics_ops.MetricsTable, ok: torch.Tensor, b: int, valid: torch.Tensor | None = None
+) -> None:
+    """Book admitted/refused counts and the wave-size histogram, IN PLACE.
+    `valid` (bool[B]) marks a bucket-padded wave's real lanes: pad lanes
+    are refused by construction but count neither as refusals nor in
+    the observed wave size."""
+    if valid is None:
+        n_ok = tally.count_true(ok)[0]
+        n_refused = b - n_ok
+        lanes_observed = torch.full((1,), float(b), dtype=torch.float32, device=ok.device)
+    else:
+        n_ok, n_valid = tally.count_true(ok & valid, valid)
+        n_refused = n_valid - n_ok
+        lanes_observed = n_valid.to(torch.float32)[None]
     metrics_ops.counter_add_many(
-        metrics, (schema.ADMITTED.index, schema.REFUSED.index), (n_ok, b - n_ok)
+        metrics, (schema.ADMITTED.index, schema.REFUSED.index), (n_ok, n_refused)
     )
-    metrics_ops.observe(
-        metrics,
-        schema.WAVE_LANES.index,
-        torch.full((1,), float(b), dtype=torch.float32, device=ok.device),
-    )
+    metrics_ops.observe(metrics, schema.WAVE_LANES.index, lanes_observed)
 
 
 class AdmissionResult(NamedTuple):

@@ -9,12 +9,15 @@ One wave of B joining agents and K sessions that live and die in it:
   3./5./6. the session FSM walk, one saga step per lane, terminate
      (bond release, participant deactivation, ARCHIVED walk) -> B5,
   4. audit: the delta chain (B2) and per-session Merkle roots (B3),
+     and, with a DeltaLog riding along, the wave's records appended to
+     its ring (B6),
 
-then, with a metrics table riding along, the in-wave tallies. CUDA
-tensors always go through the five kernels, launched in that order on
-the current stream with no host synchronisation inside the wave; CPU
-tensors go through the kernels' plain versions. The tables are updated
-IN PLACE (the reference donates them to the jitted wave).
+then, with a metrics table riding along, the in-wave tallies, and with
+a TraceLog the wave's stamps. CUDA tensors always go through the
+kernels, launched in that order on the current stream with no host
+synchronisation inside the wave; CPU tensors go through the kernels'
+plain versions. The tables are updated IN PLACE (the reference donates
+them to the jitted wave).
 """
 
 from __future__ import annotations
@@ -27,15 +30,17 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
 from hypervisor_tpu_torch.kernels import mtu, wave
 from hypervisor_tpu_torch.models import SessionState
 from hypervisor_tpu_torch.observability import metrics as schema
+from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import saga_ops, tally
 from hypervisor_tpu_torch.tables import metrics as metrics_ops
+from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
 
-#: The later slice that ports the facade's fused extras.
-_LATER = "slice 2 of the port (the facade's run_governance_wave)"
+#: The later slice that ports the facade wave's remaining fused phases.
+_LATER = "slice 3 of the port (the facade wave's gateway, epilogue and sanitizer)"
 
 
 class WaveResult(NamedTuple):
@@ -53,6 +58,8 @@ class WaveResult(NamedTuple):
     fsm_error: torch.Tensor        # bool[K] illegal session walks
     released: torch.Tensor         # i32[] bonds released at terminate
     metrics: MetricsTable | None = None
+    trace: TraceLog | None = None        # the ring the wave stamped, in place
+    delta_log: DeltaLog | None = None    # the ring the wave appended to, in place
 
 
 class WaveBlocks(NamedTuple):
@@ -63,16 +70,18 @@ class WaveBlocks(NamedTuple):
     fsm_saga: Callable
     chain: Callable
     tree: Callable
+    ring_append: Callable
 
 
 #: The dispatching wrappers: kernels for CUDA tensors, plain for CPU.
 KERNEL_BLOCKS = WaveBlocks(
-    wave.contribution_toward, wave.admission_block, wave.fsm_saga_block, mtu.chain_digests, mtu.tree_roots
+    wave.contribution_toward, wave.admission_block, wave.fsm_saga_block, mtu.chain_digests,
+    mtu.tree_roots, wave.ring_append,
 )
 #: The plain PyTorch versions on any device (what the kernels are held against).
 PLAIN_BLOCKS = WaveBlocks(
     liability_ops.contribution_toward, wave.admission_block_plain, wave.fsm_saga_block_plain,
-    mtu.chain_digests_plain, mtu.tree_roots_plain,
+    mtu.chain_digests_plain, mtu.tree_roots_plain, wave.ring_append_plain,
 )
 
 
@@ -96,15 +105,16 @@ def governance_wave(
     unique_sessions: bool = False,
     metrics: MetricsTable | None = None,
     *,
-    trace=None,
-    trace_ctx=None,
+    trace: TraceLog | None = None,
+    trace_ctx: tracing.TraceContext | None = None,
+    delta_log: DeltaLog | None = None,
+    delta_cursor: int | None = None,
+    lanes_valid: torch.Tensor | None = None,
+    n_sessions_valid: int | None = None,
     elevations=None,
     gateway_args=None,
-    delta_log=None,
     epilogue_tables=None,
     sanitize: bool = False,
-    lanes_valid=None,
-    n_sessions_valid=None,
 ) -> WaveResult:
     """The full governance pipeline as one wave over the tables.
 
@@ -115,27 +125,38 @@ def governance_wave(
     session. With `metrics`, the wave's counters and the wave-size
     histogram are booked in place.
 
+    With `delta_log`, the wave's audit records (lane-major bodies and
+    chain digests, turns 0..T-1) append onto the ring in place;
+    `delta_cursor` is the caller's host mirror of its cursor, which the
+    ring-append kernel takes as an argument. With `trace` and
+    `trace_ctx`, the root begin/end pair and a begin/end pair per
+    `tracing.WAVE_CHILD_STAGES` phase land as one batch.
+
+    Bucket padding: `lanes_valid` (bool[B]) marks the real join lanes
+    (pad lanes ride duplicate=True and are refused) and keeps pad lanes
+    out of the admission and saga tallies; `n_sessions_valid` (an int)
+    counts the real session lanes, a prefix, so only their
+    n_sessions_valid * T records append.
+
     The indices are trusted: on CUDA the kernels neither bound-check
     `slot`, `session_slot` and `wave_sessions` nor check that admitted
     lanes hold distinct agent slots. `HypervisorState.stage_wave` checks
     both on the host; a caller that builds the lanes itself must too.
 
-    The trace ring, the DeltaLog append, the action gateway, the
-    epilogue, the sanitizer and bucket padding are not ported yet.
+    The action gateway, the gauge epilogue and the sanitizer are not
+    ported yet.
     """
-    extras = {
-        "trace": trace, "trace_ctx": trace_ctx, "elevations": elevations,
-        "gateway_args": gateway_args, "delta_log": delta_log,
-        "epilogue_tables": epilogue_tables, "lanes_valid": lanes_valid,
-        "n_sessions_valid": n_sessions_valid,
-    }
+    extras = {"elevations": elevations, "gateway_args": gateway_args,
+              "epilogue_tables": epilogue_tables}
     given = [k for k, v in extras.items() if v is not None] + (["sanitize"] if sanitize else [])
     if given:
         raise NotImplementedError(f"governance_wave({', '.join(given)}=...) arrives with {_LATER}")
     return run_wave(
         KERNEL_BLOCKS, agents, sessions, vouches, slot, did, session_slot, sigma_raw,
         trustworthy, duplicate, wave_sessions, delta_bodies, now, omega, trust,
-        ring_bursts, wave_range, unique_sessions, metrics,
+        ring_bursts, wave_range, unique_sessions, metrics, trace=trace, trace_ctx=trace_ctx,
+        delta_log=delta_log, delta_cursor=delta_cursor, lanes_valid=lanes_valid,
+        n_sessions_valid=n_sessions_valid,
     )
 
 
@@ -144,11 +165,17 @@ def run_wave(
     agents, sessions, vouches, slot, did, session_slot, sigma_raw, trustworthy,
     duplicate, wave_sessions, delta_bodies, now, omega=0.5,
     trust: TrustConfig = DEFAULT_CONFIG.trust, ring_bursts=None, wave_range=None,
-    unique_sessions: bool = False, metrics: MetricsTable | None = None,
+    unique_sessions: bool = False, metrics: MetricsTable | None = None, *,
+    trace=None, trace_ctx=None, delta_log=None, delta_cursor=None, lanes_valid=None,
+    n_sessions_valid=None,
 ) -> WaveResult:
     """`governance_wave` through the given blocks: `KERNEL_BLOCKS` is the
     wave itself, `PLAIN_BLOCKS` the same wave through the kernels' plain
     versions on whatever device the tensors are on."""
+    if trace is not None and trace_ctx is None:
+        raise ValueError("a stamped wave needs trace_ctx")
+    if delta_log is not None and delta_cursor is None:
+        raise ValueError("the ring append needs delta_cursor, the host mirror of its cursor")
     dev = slot.device
     b = slot.shape[0]
     now_f = admission_ops.f32_scalar(now, dev)
@@ -166,7 +193,7 @@ def run_wave(
     )
     ok = status == admission_ops.ADMIT_OK
     if metrics is not None:
-        admission_ops.tally_admission(metrics, ok, b)
+        admission_ops.tally_admission(metrics, ok, b, lanes_valid)
 
     # 3./5./6. session walk, saga step, terminate (B5).
     step_state, wave_state, fsm_err, released = blocks.fsm_saga(
@@ -182,12 +209,19 @@ def run_wave(
     leaves = torch.zeros((k, p, 8), dtype=torch.int32, device=dev)
     leaves[:, :t] = chain.transpose(0, 1)
     roots = blocks.tree(leaves, torch.full((k,), t, dtype=torch.int32, device=dev))
+    if delta_log is not None and t > 0:
+        n_live = k * t if n_sessions_valid is None else int(n_sessions_valid) * t
+        blocks.ring_append(delta_log, delta_bodies, chain, wave_sessions, delta_cursor, n_live)
 
     if metrics is not None:
         archived = (wave_state == SessionState.ARCHIVED.code) & ~fsm_err
-        committed, failed = tally.count_true(
-            step_state == saga_ops.STEP_COMMITTED, step_state == saga_ops.STEP_FAILED
-        )
+        committed_col = step_state == saga_ops.STEP_COMMITTED
+        failed_col = step_state == saga_ops.STEP_FAILED
+        if lanes_valid is not None:
+            # Pad lanes are refused joins whose saga step would count as failed.
+            committed_col = committed_col & lanes_valid
+            failed_col = failed_col & lanes_valid
+        committed, failed = tally.count_true(committed_col, failed_col)
         metrics_ops.counter_add_many(
             metrics,
             (
@@ -199,8 +233,19 @@ def run_wave(
             ),
             (1, committed, failed, tally.count_true(archived)[0], released),
         )
+    if trace is not None:
+        widths = {"admission_wave": b, "session_fsm": k, "delta_chain": t, "saga_round": b,
+                  "terminate_wave": k}
+        stamps = tracing.WaveStamps(trace_ctx, "governance_wave")
+        stamps.begin("governance_wave", lane=b)
+        for stage in tracing.WAVE_CHILD_STAGES["governance_wave"]:
+            stamps.begin(stage, lane=widths[stage])
+            stamps.end(stage, lane=widths[stage])
+        stamps.end("governance_wave", lane=b)
+        stamps.commit(trace)
     return WaveResult(
         agents=agents, sessions=sessions, vouches=vouches, status=status, ring=ring,
         sigma_eff=sigma_eff, saga_step_state=step_state, merkle_root=roots, chain=chain,
-        fsm_error=fsm_err, released=released, metrics=metrics,
+        fsm_error=fsm_err, released=released, metrics=metrics, trace=trace,
+        delta_log=delta_log,
     )

@@ -4,8 +4,10 @@ The counterpart of `hypervisor_tpu.ops.sha256`: messages are pre-padded
 big-endian u32 words `[B, n_blocks*16]` (int32 bits, the package's u32
 convention) and every lane hashes in parallel. The arithmetic runs in
 int64 masked to 32 bits, because torch's CPU uint32 has no add or
-shift. This is the plain version the wave's CUDA kernels are held
-against (`kernels.mtu`); bit-identical to `hashlib`.
+shift. This is the plain version the CUDA kernels are held against
+(`kernels.mtu`, `kernels.sha256`); bit-identical to `hashlib`.
+`sha256_blocks_dispatch` is the batched hash the audit plane calls:
+kernel B1 for CUDA tensors, `sha256_blocks` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -75,6 +77,16 @@ def sha256_blocks(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return u32.narrow(torch.stack(state, dim=1))
 
 
+def sha256_blocks_dispatch(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """`sha256_blocks` on the device the words lie on: kernel B1
+    (`kernels.sha256.sha256_words`) for CUDA tensors, the plain version
+    for CPU tensors."""
+    # Imported here: kernels.sha256 imports this module for its plain version.
+    from hypervisor_tpu_torch.kernels.sha256 import sha256_words
+
+    return sha256_words(words, n_blocks)
+
+
 def pad_messages_np(msgs: np.ndarray, msg_len: int) -> tuple[np.ndarray, int]:
     """Host-side FIPS padding for equal-length byte messages:
     u8[B, msg_len] -> (u32[B, n_blocks*16] big-endian words, n_blocks)."""
@@ -106,6 +118,14 @@ def digests_to_hex(digests) -> list[str]:
     return ["".join(f"{int(x):08x}" for x in row) for row in np.asarray(digests, np.uint32)]
 
 
+def hex_to_words(hexes: list[str]) -> np.ndarray:
+    """64-char hex digests -> u32[B, 8]."""
+    return np.array(
+        [[int(h[i * 8:(i + 1) * 8], 16) for i in range(8)] for h in hexes],
+        dtype=np.uint32,
+    )
+
+
 def _words_to_hex_words(d: torch.Tensor) -> torch.Tensor:
     """int64 u32[B, 8] digest -> int64 u32[B, 16]: the big-endian words
     of its 64-char lowercase ASCII hex (n + 0x30 + (n > 9) * 0x27)."""
@@ -119,9 +139,9 @@ def _words_to_hex_words(d: torch.Tensor) -> torch.Tensor:
 _PAIR_TAIL = pad_tail_words(128, 3)
 
 
-def sha256_hex_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """sha256(hex(left) + hex(right)) on int32[B, 8] digests -> int32[B, 8]:
-    the reference's Merkle interior-node combine (128 bytes, 3 blocks)."""
+def hex_pair_message(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """The padded 3-block message hex(left) + hex(right) of int32[B, 8]
+    digests: int32[B, 48] words."""
     tail = torch.tensor(_PAIR_TAIL.astype(np.int64), device=left.device)
     msg = torch.cat(
         [
@@ -131,4 +151,11 @@ def sha256_hex_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         ],
         dim=1,
     )
-    return sha256_blocks(u32.narrow(msg), 3)
+    return u32.narrow(msg)
+
+
+def sha256_hex_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """sha256(hex(left) + hex(right)) on int32[B, 8] digests -> int32[B, 8]:
+    the reference's Merkle interior-node combine (128 bytes, 3 blocks),
+    through `sha256_blocks_dispatch` (B1 on CUDA)."""
+    return sha256_blocks_dispatch(hex_pair_message(left, right), 3)

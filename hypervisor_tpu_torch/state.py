@@ -1,26 +1,57 @@
-"""A slim `HypervisorState`: the device tables, session creation, id
-interning, and the governance wave staged as bench.py stages it.
+"""`HypervisorState`: the host-device bridge of the port.
 
-The counterpart of the main path of `hypervisor_tpu.state.HypervisorState`
-(`__init__`, `create_sessions_batch`, the fused wave dispatch). The
-facade's `run_governance_wave` — WAL, trace, DeltaLog, gateway,
-epilogue — arrives with the next slice of the port.
+The counterpart of `hypervisor_tpu.state.HypervisorState` for the
+lifecycle wave and the audit plane behind it:
+
+  * the device tables (agents, sessions, vouch edges, metrics, the
+    DeltaLog ring and the tracer's TraceLog ring) and the host indices:
+    interning, membership keys, the agent-row free list, and the audit
+    index (session -> DeltaLog rows, turn counters, chain seeds,
+    incremental Merkle frontiers, ring-row ownership);
+  * `create_session` / `create_sessions_batch`;
+  * `run_governance_wave`, the facade's single-device lifecycle wave:
+    row claims, lane staging and bucket padding on the host, ONE fused
+    wave (`ops.pipeline.governance_wave`, with the in-wave DeltaLog
+    append and the trace stamps), then the membership and audit
+    bookkeeping;
+  * `stage_delta` / `flush_deltas`, chain verification, the frontier;
+  * `terminate_sessions`.
+
+`stage_wave` / `governance_wave` keep the slim bench-shaped op path.
+The host keeps mirrors of both ring cursors (`_delta_cursor`,
+`tracer.cursor`): it knows every advance, so no wave reads a device
+cursor back. Not thread-safe: the reference's staging lock guards its
+concurrent join producers, which arrive with `enqueue_join`. The WAL,
+the mesh path, the action gateway, the gauge epilogue and the sanitizer
+arrive with later slices of the port.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from hypervisor_tpu_torch import resolve_device, u32
+from hypervisor_tpu_torch.audit.frontier import MerkleFrontier
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
+from hypervisor_tpu_torch.observability.tracing import Tracer
+from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import pipeline
+from hypervisor_tpu_torch.ops import terminate as terminate_ops
+from hypervisor_tpu_torch.ops.admission import ADMIT_OK
 from hypervisor_tpu_torch.tables.intern import InternTable
+from hypervisor_tpu_torch.tables.logs import DeltaLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
+    AI32_FLAGS,
+    AI32_SESSION,
+    FLAG_ACTIVE,
+    SF32_CREATED_AT,
+    SF32_MAX_DURATION,
     SF32_MIN_SIGMA,
     SI32_MAX_PARTICIPANTS,
     SI32_MODE,
@@ -32,8 +63,26 @@ from hypervisor_tpu_torch.tables.state import (
 )
 
 
+def _mkeys(sessions: np.ndarray, dids: np.ndarray) -> np.ndarray:
+    """(session << 32) | did membership keys over whole waves -> int64[B]."""
+    return (np.asarray(sessions, np.int64) << 32) | (np.asarray(dids, np.int64) & 0xFFFFFFFF)
+
+
+def _contiguous_range_host(slots: np.ndarray) -> tuple[int, int] | None:
+    """(lo, hi) if `slots` is exactly arange(lo, lo + len) with lo >= 0,
+    else None (empty, gaps, duplicates or another order)."""
+    slots = np.asarray(slots)
+    if slots.size == 0 or int(slots[0]) < 0:
+        return None
+    lo = int(slots[0])
+    if not np.array_equal(slots, np.arange(lo, lo + slots.size, dtype=slots.dtype)):
+        return None
+    return (lo, lo + slots.size)
+
+
 class HypervisorState:
-    """The batched governance state on one device.
+    """The batched governance state on one device: device tables plus the
+    host boundary indices.
 
     Tables live on `device` ("cuda" by default; it raises without CUDA)
     and every wave updates them in place.
@@ -49,9 +98,68 @@ class HypervisorState:
         self.sessions = SessionTable.create(cap.max_sessions, self.device)
         self.vouches = VouchTable.create(cap.max_vouch_edges, self.device)
         self.metrics = MetricsTable.create(device=self.device)
+        self.delta_log = DeltaLog.create(cap.delta_log_capacity, self.device)
+        self.tracer = Tracer(capacity=cap.trace_log_capacity, device=self.device)
         self.agent_ids = InternTable()
         self.session_ids = InternTable()
         self._next_session_slot = 0
+        self._next_agent_slot = 0
+        # Wave rows recycle here after every wave (each is dead once its
+        # session terminates in-wave); claims pop from the end.
+        self._free_agent_slots: list[int] = []
+        self._free_edge_slots: list[int] = []
+        # Edge rows the terminate GC deactivated for a reclaimed endpoint.
+        self._scrubbed_edges: list[int] = []
+        # Membership keys (session << 32) | did (`_mkeys`).
+        self._members: set[int] = set()
+        # Timestamps are stored in f32 columns: keep them small, relative
+        # to this epoch.
+        self._epoch_base = time.time()
+        # The audit plane: pending deltas, session -> DeltaLog rows, chain
+        # seeds (u32[8]), turn counters, incremental Merkle frontiers, the
+        # packed-body cache per (session, turn range), and ring-row
+        # ownership (a wrap evicts the previous owner's rows).
+        self._pending_deltas: list[tuple[int, int, np.ndarray, float, np.ndarray | None]] = []
+        self._audit_rows: dict[int, list[int]] = {}
+        self._chain_seed: dict[int, np.ndarray] = {}
+        self._turns: dict[int, int] = {}
+        self._frontier: dict[int, MerkleFrontier] = {}
+        self._packed_bodies: dict[int, tuple[int, int, np.ndarray]] = {}
+        self._row_session = np.full(cap.delta_log_capacity, -1, np.int32)
+        #: Host mirror of `delta_log.cursor`.
+        self._delta_cursor = 0
+
+    def now(self) -> float:
+        """Seconds since this state's epoch — the f32-safe device time."""
+        return time.time() - self._epoch_base
+
+    # ── sessions ─────────────────────────────────────────────────────
+
+    def create_session(
+        self, session_id: str, config: SessionConfig, now: Optional[float] = None
+    ) -> int:
+        """Allocate one session row in HANDSHAKING; returns the slot. `now`
+        pins the created_at stamp (epoch-relative); None stamps `now()`."""
+        cap = self.sessions.i32.shape[0]
+        if self._next_session_slot >= cap:
+            raise RuntimeError(
+                f"session table full ({cap}); raise config.capacity.max_sessions"
+            )
+        if now is None:
+            now = self.now()
+        slot = self._next_session_slot
+        self._next_session_slot += 1
+        sid = self.session_ids.intern(session_id)
+        i32, f32 = self.sessions.i32[slot], self.sessions.f32[slot]
+        i32[SI32_SID] = sid
+        i32[SI32_STATE] = SessionState.HANDSHAKING.code
+        i32[SI32_MODE] = config.consistency_mode.code
+        i32[SI32_MAX_PARTICIPANTS] = config.max_participants
+        f32[SF32_MIN_SIGMA] = float(np.float32(config.min_sigma_eff))
+        f32[SF32_CREATED_AT] = float(np.float32(now))
+        f32[SF32_MAX_DURATION] = float(np.float32(config.max_duration_seconds or 0))
+        self.sessions.enable_audit[slot] = bool(config.enable_audit)
+        return slot
 
     def create_sessions_batch(
         self, session_ids: Sequence[str], config: SessionConfig
@@ -117,9 +225,6 @@ class HypervisorState:
         for name, sl in (("session", session_slots), ("wave session", wave_sessions)):
             if sl.size and (sl.min() < 0 or sl.max() >= s_cap):
                 raise ValueError(f"{name} slot out of range")
-        k = wave_sessions.shape[0]
-        lo = int(wave_sessions[0]) if k else 0
-        contiguous = bool((wave_sessions == np.arange(lo, lo + k, dtype=np.int32)).all())
         seated = session_slots[~duplicate]
         joiners = agent_slots[~duplicate]
         if np.unique(joiners).size != joiners.size:
@@ -141,7 +246,7 @@ class HypervisorState:
             now=now, omega=omega,
             trust=self.config.trust,
             ring_bursts=self.config.rate_limit.ring_bursts,
-            wave_range=(lo, lo + k) if contiguous else None,
+            wave_range=_contiguous_range_host(wave_sessions),
             unique_sessions=bool(np.unique(seated).size == seated.size),
             metrics=self.metrics,
         )
@@ -150,3 +255,492 @@ class HypervisorState:
         """Stage one wave (`stage_wave`, same arguments) and run the fused
         wave over the tables and the metrics table, in place."""
         return pipeline.governance_wave(**self.stage_wave(*args, **kwargs))
+
+    # ── the facade's lifecycle wave ──────────────────────────────────
+
+    def _claim_wave_rows(self, b_wave: int) -> np.ndarray:
+        """Claim `b_wave` agent rows for one wave: from the bump allocator
+        while it lasts, then from the END of the free list (wave rows
+        recycle there after every wave). Pad lanes claim rows like real
+        ones; the claim is transient."""
+        cap = self.agents.i32.shape[0]
+        fresh_n = min(b_wave, cap - self._next_agent_slot)
+        free = self._free_agent_slots
+        need = b_wave - fresh_n
+        if need > len(free):
+            raise RuntimeError(
+                f"agent table full: {self._next_agent_slot} + {b_wave} > {cap} with "
+                f"{len(free)} free rows; raise config.capacity.max_agents"
+            )
+        fresh = list(range(self._next_agent_slot, self._next_agent_slot + fresh_n))
+        self._next_agent_slot += fresh_n
+        recycled = [free.pop() for _ in range(need)]
+        return np.array(fresh + recycled, np.int32)
+
+    def _park_sessions(self, n_parked: int, kind: str) -> np.ndarray:
+        """Park `n_parked` wave-session lanes on unallocated rows past the
+        bump cursor (no allocation: a parked row's memberless walk is a
+        no-op)."""
+        if n_parked <= 0:
+            return np.zeros((0,), np.int32)
+        s_cap = self.sessions.i32.shape[0]
+        if self._next_session_slot + n_parked > s_cap:
+            raise RuntimeError(
+                f"no spare session rows to park {n_parked} {kind} lanes "
+                f"({self._next_session_slot}+{n_parked} > {s_cap}); "
+                "raise config.capacity.max_sessions"
+            )
+        return np.arange(self._next_session_slot, self._next_session_slot + n_parked,
+                         dtype=np.int32)
+
+    def _stage_wave_lanes(
+        self, session_slots, dids: Sequence[str], agent_sessions, sigma_raw, trustworthy,
+        delta_bodies, b_wave: int, k_wave: int, parked_sessions: np.ndarray,
+    ) -> dict:
+        """Host-side lane staging for one wave, as plain numpy: interning,
+        duplicate detection against the membership keys, bucket padding
+        (pad lanes: did -1, session 0, sigma 0, duplicate; pad session
+        lanes: the parked rows, zero bodies) and the two layout checks."""
+        b, k = len(dids), len(session_slots)
+        handles = np.array([self.agent_ids.intern(d) for d in dids], np.int32)
+        wave_keys = _mkeys(agent_sessions, handles)
+        members = self._members
+        duplicate = np.fromiter((key in members for key in wave_keys.tolist()), bool, count=b)
+        if trustworthy is None:
+            trustworthy = np.ones(b, bool)
+
+        def pad_b(arr, dtype, fill):
+            out = np.full((b_wave,), fill, dtype)
+            out[:b] = np.asarray(arr, dtype)
+            return out
+
+        wave_sessions = np.concatenate([np.asarray(session_slots, np.int32), parked_sessions])
+        seat_sessions = np.asarray(agent_sessions, np.int32)[~duplicate]
+        bodies = np.asarray(delta_bodies, np.uint32)
+        if k_wave != k:
+            padded = np.zeros((bodies.shape[0], k_wave) + bodies.shape[2:], np.uint32)
+            padded[:, :k] = bodies
+            bodies = padded
+        return {
+            "wave_keys": wave_keys,
+            "did": pad_b(handles, np.int32, -1),
+            "agent_sessions": pad_b(agent_sessions, np.int32, 0),
+            "sigma_raw": pad_b(sigma_raw, np.float32, 0.0),
+            "trustworthy": pad_b(trustworthy, bool, True),
+            "duplicate": pad_b(duplicate, bool, True),
+            "wave_sessions": wave_sessions,
+            "range_host": _contiguous_range_host(wave_sessions),
+            "unique_sessions": bool(np.unique(seat_sessions).size == seat_sessions.size),
+            "bodies": bodies,
+        }
+
+    def run_governance_wave(
+        self,
+        session_slots: np.ndarray,   # i32[K] freshly created sessions
+        dids: Sequence[str],         # B joining agents
+        agent_sessions: np.ndarray,  # i32[B] target session per agent
+        sigma_raw: np.ndarray,       # f32[B]
+        delta_bodies: np.ndarray,    # u32[T, K, 16]
+        now: float = 0.0,
+        omega: float = 0.5,
+        trustworthy: Optional[np.ndarray] = None,
+        mesh=None,
+        actions: Optional[dict] = None,
+        pad_to: Optional[tuple[int, int]] = None,
+    ) -> pipeline.WaveResult:
+        """Run the lifecycle wave ON the state tables: claim agent rows,
+        stage the lanes on the host, then ONE fused wave admits, walks,
+        audits (chain, roots, the DeltaLog append), runs a saga step and
+        terminates with bond release, stamping the trace ring. Afterwards
+        the wave's admitted memberships are published, its rows return to
+        the free list, and its audit chain is booked into the host index
+        and the sessions' Merkle frontiers.
+
+        `pad_to` = (lanes_bucket, sessions_bucket) pads the wave to a fixed
+        bucket shape: pad join lanes ride duplicate=True (refused, no row
+        written, out of the tallies), pad session lanes point at unallocated
+        rows, only the real sessions' records append, and the result trims
+        back to the caller's shape.
+
+        On CUDA the wave's sessions plus any parked rows must be one
+        contiguous slot block (`create_sessions_batch`'s layout): the
+        fsm/saga kernel tests membership by range.
+        """
+        if mesh is not None:
+            raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
+        if actions is not None:
+            raise NotImplementedError(
+                "run_governance_wave(actions=...) arrives with slice 3 of the port (the gateway)"
+            )
+        b, k = len(dids), len(session_slots)
+        b_wave, k_wave = b, k
+        if pad_to is not None:
+            if pad_to[0] < b or pad_to[1] < k:
+                raise ValueError(f"pad_to {pad_to} below the wave shape ({b} lanes, {k} sessions)")
+            b_wave, k_wave = int(pad_to[0]), int(pad_to[1])
+        if self.device.type == "cuda":
+            nxt = self._next_session_slot
+            span = np.concatenate([np.asarray(session_slots, np.int32),
+                                   np.arange(nxt, nxt + k_wave - k, dtype=np.int32)])
+            if _contiguous_range_host(span) is None:
+                raise ValueError(
+                    "on CUDA a wave's sessions (and its parked pad rows) must be one "
+                    "contiguous slot block: the fsm/saga kernel tests membership by range"
+                )
+        agent_slots = self._claim_wave_rows(b_wave)
+        parked = self._park_sessions(k_wave - k, "padded bucket")
+        staged = self._stage_wave_lanes(
+            session_slots, dids, agent_sessions, sigma_raw, trustworthy, delta_bodies,
+            b_wave, k_wave, parked,
+        )
+        wave_sessions = staged["wave_sessions"]
+        th = self.tracer.begin_wave("governance_wave", sessions=wave_sessions[:k], lanes=b)
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        audit_base_row = self._delta_cursor
+        result = pipeline.governance_wave(
+            self.agents, self.sessions, self.vouches,
+            put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
+            put(staged["sigma_raw"]), put(staged["trustworthy"]), put(staged["duplicate"]),
+            put(wave_sessions), u32.from_numpy_u32(staged["bodies"], dev), now, omega,
+            trust=self.config.trust, ring_bursts=self.config.rate_limit.ring_bursts,
+            wave_range=staged["range_host"], unique_sessions=staged["unique_sessions"],
+            metrics=self.metrics, trace=self.tracer.table,
+            trace_ctx=th.ctx if th is not None else None,
+            delta_log=self.delta_log, delta_cursor=audit_base_row,
+            lanes_valid=put(np.arange(b_wave) < b) if pad_to is not None else None,
+            n_sessions_valid=k if pad_to is not None else None,
+        )
+        t = staged["bodies"].shape[0]
+        if t:
+            self._delta_cursor += k * t
+        self.tracer.end_wave(th, result.trace)
+        if b_wave != b or k_wave != k:
+            result = result._replace(
+                status=result.status[:b], ring=result.ring[:b], sigma_eff=result.sigma_eff[:b],
+                saga_step_state=result.saga_step_state[:b], merkle_root=result.merkle_root[:k],
+                chain=result.chain[:, :k], fsm_error=result.fsm_error[:k],
+            )
+        ok = result.status.cpu().numpy() == ADMIT_OK
+        self._publish_wave_members(staged["wave_keys"][ok].tolist(), agent_slots.tolist())
+        if t:
+            self._book_wave_audit(session_slots, u32.to_numpy_u32(result.chain), audit_base_row)
+        return result
+
+    def _publish_wave_members(self, admitted_keys: list, recycle_rows: list) -> None:
+        """Record the wave's admitted memberships and return every wave
+        row to the free list, in order (rejected rows were never admitted,
+        admitted rows belong to sessions the wave terminated)."""
+        self._members.update(admitted_keys)
+        self._free_agent_slots.extend(recycle_rows)
+
+    def _book_wave_audit(self, session_slots, chain: np.ndarray, base_row: int) -> None:
+        """Book one wave's audit chain (a host copy, u32[T, K, 8]) into the
+        audit index: ring-row claims, per-session rows, turn counters,
+        chain seeds and the Merkle frontiers. The ring append itself
+        already happened in the wave."""
+        t, k = chain.shape[:2]
+        if not t:
+            return
+        sess_rep = np.repeat(np.asarray(session_slots, np.int32), t)
+        digests_flat = np.transpose(chain, (1, 0, 2)).reshape(k * t, 8)
+        capacity = self.config.capacity.delta_log_capacity
+        rows = (base_row + np.arange(k * t)) % capacity
+        self._claim_rows(rows, sess_rep)
+        for i, s in enumerate(np.asarray(session_slots)):
+            s = int(s)
+            self._audit_rows.setdefault(s, []).extend(rows[i * t:(i + 1) * t].tolist())
+            self._turns[s] = self._turns.get(s, 0) + t
+            self._chain_seed[s] = chain[t - 1, i]
+            self._frontier.setdefault(s, MerkleFrontier()).extend(digests_flat[i * t:(i + 1) * t])
+
+    # ── audit deltas ─────────────────────────────────────────────────
+
+    def stage_delta(
+        self,
+        session_slot: int,
+        agent_slot: int,
+        ts: float = 0.0,
+        change_words: Optional[np.ndarray] = None,
+        digest_words: Optional[np.ndarray] = None,
+    ) -> int:
+        """Stage one audit delta; returns its turn number in the session.
+        `change_words` (u32[<= 8]) go into the packed body; the recorded
+        leaf is the chain digest computed at flush unless `digest_words`
+        (u32[8]) pins an explicit leaf."""
+        turn = self._turns.get(session_slot, 0)
+        self._turns[session_slot] = turn + 1
+        change = np.zeros(8, np.uint32)
+        if change_words is not None:
+            w = np.asarray(change_words, np.uint32).ravel()[:8]
+            change[:len(w)] = w
+        self._pending_deltas.append((
+            session_slot, agent_slot, change, float(ts),
+            None if digest_words is None else np.asarray(digest_words, np.uint32),
+        ))
+        return turn
+
+    def flush_deltas(self) -> int:
+        """Chain-hash every staged delta (B2 on CUDA), each session's lane
+        chained from its running seed, and append them to the DeltaLog
+        lane-major. Returns the record count."""
+        staged = self._pending_deltas
+        if not staged:
+            return 0
+        self._pending_deltas = []
+        b = len(staged)
+        sess_arr = np.array([r[0] for r in staged], np.int32)
+        agent_arr = np.array([r[1] for r in staged], np.int32)
+        change_arr = np.stack([r[2] for r in staged])
+        ts_arr = np.array([r[3] for r in staged], np.float32)
+
+        # Lane assignment (first-appearance order) and within-lane position.
+        lane_of: dict[int, int] = {}
+        lane_idx = np.zeros(b, np.int32)
+        for i, sess in enumerate(sess_arr):
+            lane_idx[i] = lane_of.setdefault(int(sess), len(lane_of))
+        lanes = len(lane_of)
+        n_per_lane = np.bincount(lane_idx, minlength=lanes)
+        t_max = int(n_per_lane.max())
+        order = np.argsort(lane_idx, kind="stable")
+        rank_sorted = np.arange(b) - np.repeat(
+            np.concatenate([[0], np.cumsum(n_per_lane)[:-1]]), n_per_lane
+        )
+        t_pos = np.zeros(b, np.int32)
+        t_pos[order] = rank_sorted.astype(np.int32)
+
+        base_turn_of_lane = np.zeros(lanes, np.int64)
+        seeds = np.zeros((lanes, 8), np.uint32)
+        sess_of_lane = np.zeros(lanes, np.int32)
+        for sess, lane in lane_of.items():
+            sess_of_lane[lane] = sess
+            base_turn_of_lane[lane] = self._turns[sess] - int(n_per_lane[lane])
+            seeds[lane] = self._chain_seed.get(sess, np.zeros(8, np.uint32))
+        turn_arr = (base_turn_of_lane[lane_idx] + t_pos).astype(np.int32)
+
+        packed = merkle_ops.pack_delta_bodies(sess_arr, turn_arr, agent_arr, change_arr, ts_arr)
+        bodies = np.zeros((t_max, lanes, merkle_ops.BODY_WORDS), np.uint32)
+        bodies[t_pos, lane_idx] = packed
+
+        th = self.tracer.begin_wave("delta_chain", sessions=np.unique(sess_arr), lanes=b,
+                                    device=False)
+        dev = self.device
+        digests = u32.to_numpy_u32(merkle_ops.chain_digests(
+            u32.from_numpy_u32(bodies, dev), u32.from_numpy_u32(seeds, dev)
+        ))
+        self.tracer.stamp_wave_host(th)
+        self.tracer.end_wave(th)
+
+        # Explicit leaf digests override the chain digest.
+        for i, (_s, _a, _c, _t, digest) in enumerate(staged):
+            if digest is not None:
+                digests[t_pos[i], lane_idx[i]] = digest
+
+        # Flatten lane-major and append in one op.
+        flat = np.argsort(lane_idx * (t_max + 1) + t_pos, kind="stable")
+        flat_digests = digests[t_pos[flat], lane_idx[flat]]
+        packed_flat = packed[flat]
+        base_row = self._delta_cursor
+        capacity = self.delta_log.body.shape[0]
+        rows = ((base_row + np.arange(b)) % capacity).astype(np.int64)
+        self._claim_rows(rows, sess_arr[flat])
+        offset = 0
+        for lane in range(lanes):
+            sess = int(sess_of_lane[lane])
+            n_rows = int(n_per_lane[lane])
+            self._audit_rows.setdefault(sess, []).extend(rows[offset:offset + n_rows].tolist())
+            self._frontier.setdefault(sess, MerkleFrontier()).extend(
+                flat_digests[offset:offset + n_rows]
+            )
+            offset += n_rows
+            self._chain_seed[sess] = digests[n_rows - 1, lane]
+
+        self.delta_log.append_batch(
+            u32.from_numpy_u32(packed_flat, dev), u32.from_numpy_u32(flat_digests, dev),
+            torch.from_numpy(sess_arr[flat]).to(dev), torch.from_numpy(turn_arr[flat]).to(dev),
+        )
+        self._delta_cursor += b
+        return b
+
+    def _claim_rows(self, rows: np.ndarray, owners: np.ndarray) -> None:
+        """Transfer DeltaLog row ownership; evict recycled rows from the
+        audit index of the sessions that owned them. Recycling a LIVE
+        (not yet archived) session's rows is refused: its Merkle tree
+        would silently lose leaves. Session states are read from the
+        device only when a wrap recycles rows."""
+        prior = self._row_session[rows]
+        recycled = np.unique(prior[prior >= 0])
+        if len(recycled):
+            sess_state = self.sessions.i32[:, SI32_STATE].cpu().numpy()
+            archived = SessionState.ARCHIVED.code
+            live = [int(s) for s in recycled
+                    if self._audit_rows.get(int(s)) and sess_state[int(s)] != archived]
+            if live:
+                raise RuntimeError(
+                    f"delta log wrapped into live session slot(s) {live}; their audit "
+                    "trails would lose leaves. Raise config.capacity.delta_log_capacity "
+                    "or terminate sessions before their logs are overwritten."
+                )
+            doomed = set(rows.tolist())
+            for sess in recycled:
+                kept = self._audit_rows.get(int(sess))
+                if kept:
+                    self._audit_rows[int(sess)] = [r for r in kept if r not in doomed]
+                # The wrap truncates the session's leaf set: its frontier and
+                # packed-body cache no longer describe the surviving history.
+                self._frontier.pop(int(sess), None)
+                self._packed_bodies.pop(int(sess), None)
+        self._row_session[rows] = owners
+
+    def session_leaf_digests(self, session_slot: int) -> np.ndarray:
+        """u32[T, 8] recorded leaf digests of a session, in turn order."""
+        rows = self._audit_rows.get(session_slot, [])
+        if not rows:
+            return np.zeros((0, 8), np.uint32)
+        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        return u32.to_numpy_u32(self.delta_log.digest[idx])
+
+    def session_packed_bodies(self, session_slot: int) -> np.ndarray:
+        """u32[T, 16] packed bodies of the session's live history (turn
+        order), through the per-(session, turn range) cache, which fills
+        on first read and drops when the ring wraps over the session."""
+        rows = self._audit_rows.get(session_slot, [])
+        if not rows:
+            return np.zeros((0, merkle_ops.BODY_WORDS), np.uint32)
+        turns = self._turns.get(session_slot, 0)
+        lo = turns - len(rows)
+        entry = self._packed_bodies.get(session_slot)
+        if entry is not None and entry[0] == lo and entry[1] == turns and entry[2].shape[0] == len(rows):
+            return entry[2]
+        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        bodies = u32.to_numpy_u32(self.delta_log.body[idx])
+        self._packed_bodies[session_slot] = (lo, turns, bodies)
+        return bodies
+
+    def verify_session_chain(self, session_slot: int) -> bool:
+        """Re-hash one session's surviving chain against its recorded
+        digests on the state's device. A full history verifies from the
+        zero seed in one sweep (B2 on CUDA); a wrap-evicted prefix leaves
+        the first surviving link unverifiable and the rest verify as
+        links (B1 on CUDA)."""
+        rows = self._audit_rows.get(session_slot, [])
+        if not rows:
+            return True
+        if self._turns.get(session_slot, 0) == len(rows):
+            ok = merkle_ops.verify_chain_digests_host(
+                self.session_packed_bodies(session_slot)[:, None, :],
+                self.session_leaf_digests(session_slot)[:, None, :],
+                np.array([len(rows)], np.int32), self.device,
+            )
+            return bool(ok[0])
+        rows_arr = np.asarray(rows, np.int64)
+        prev = np.concatenate([rows_arr[:1], rows_arr[:-1]])
+        use_seed = np.zeros(len(rows), bool)
+        valid = np.ones(len(rows), bool)
+        valid[0] = False  # evicted parent: the first surviving link is unverifiable
+        ok = merkle_ops.verify_chain_links_host(
+            self.delta_log.body, self.delta_log.digest, rows_arr, prev, use_seed, valid
+        )
+        return bool(ok.all())
+
+    def session_frontier(self, session_slot: int) -> MerkleFrontier | None:
+        """The session's live Merkle frontier (None when it recorded no
+        deltas or a ring wrap recycled its history)."""
+        return self._frontier.get(session_slot)
+
+    # ── termination wave ─────────────────────────────────────────────
+
+    def terminate_sessions(
+        self,
+        session_slots: Sequence[int],
+        now: float = 0.0,
+        pad_to: Optional[int] = None,
+        pad_slot: Optional[int] = None,
+    ) -> np.ndarray:
+        """Terminate a wave of sessions; returns their u32[K, 8] Merkle roots.
+
+        Roots fold from each session's frontier (O(log n) hashes); a
+        session without a live frontier is recomputed from its recorded
+        leaves through `ops.merkle.tree_roots_host` on the state's device,
+        which also re-primes its frontier. Then one terminate wave
+        (`ops.terminate.terminate_batch`) releases bonds, deactivates
+        participants and archives the sessions. The deactivated rows
+        return to the free list, and vouch edges that still name them
+        are deactivated and their rows recycled. `pad_to` pads the wave
+        with `pad_slot`, a memberless park session.
+        """
+        slots = [int(s) for s in session_slots]
+        k = len(slots)
+        if k == 0:
+            return np.zeros((0, 8), np.uint32)
+        if pad_to is not None and pad_to != k:
+            if pad_to < k:
+                raise ValueError(f"terminate pad_to={pad_to} below the wave size {k}")
+            if pad_slot is None:
+                raise ValueError("terminate pad_to requires pad_slot (a memberless park session)")
+            slots = slots + [int(pad_slot)] * (pad_to - k)
+        return self._terminate_sessions_impl(slots, now)[:k]
+
+    def _terminate_sessions_impl(self, slots: list, now: float) -> np.ndarray:
+        k = len(slots)
+        # Participants to reclaim, captured before the wave deactivates
+        # them; the active-flag guard skips rows already reclaimed.
+        sess_col, flags = self.agents.i32[:, [AI32_SESSION, AI32_FLAGS]].cpu().numpy().T
+        in_wave = np.isin(sess_col, np.array(slots))
+        live = (flags & FLAG_ACTIVE) != 0
+        reclaim = np.nonzero(in_wave & live)[0]
+        roots_host = np.zeros((k, 8), np.uint32)
+        missing: list[int] = []
+        for i, s in enumerate(slots):
+            rows = self._audit_rows.get(s, [])
+            if not rows:
+                continue
+            fr = self._frontier.get(s)
+            if fr is not None and fr.count == len(rows):
+                roots_host[i] = fr.root_words()
+            else:
+                missing.append(i)
+        if missing:
+            counts = np.array([len(self._audit_rows[slots[i]]) for i in missing], np.int32)
+            p = 1 << max(0, int(counts.max()) - 1).bit_length()
+            leaves = np.zeros((len(missing), max(p, 1), 8), np.uint32)
+            for j, i in enumerate(missing):
+                recorded = self.session_leaf_digests(slots[i])
+                leaves[j, :len(recorded)] = recorded
+                self._frontier[slots[i]] = MerkleFrontier.from_leaf_digests(recorded)
+            recomputed = merkle_ops.tree_roots_host(leaves, counts, self.device)
+            for j, i in enumerate(missing):
+                roots_host[i] = recomputed[j]
+
+        slot_arr = np.array(slots, np.int32)
+        th = self.tracer.begin_wave("terminate_wave", sessions=slots, lanes=k, device=False)
+        terminate_ops.terminate_batch(
+            self.agents, self.sessions, self.vouches,
+            torch.from_numpy(slot_arr).to(self.device), u32.from_numpy_u32(roots_host, self.device),
+            now, wave_range=_contiguous_range_host(slot_arr),
+        )
+        self.tracer.stamp_wave_host(th)
+        self.tracer.end_wave(th)
+
+        if len(reclaim):
+            self._free_agent_slots.extend(int(r) for r in reclaim)
+            # Scrub dangling liability edges: a reclaimed row may still be
+            # named by edges in other sessions; left active, the bond would
+            # pass to whatever agent later reuses the row.
+            gone = np.zeros((self.agents.i32.shape[0],), bool)
+            gone[reclaim] = True
+            voucher = self.vouches.voucher.cpu().numpy()
+            vouchee = self.vouches.vouchee.cpu().numpy()
+            dangling = self.vouches.active.cpu().numpy() & (
+                ((voucher >= 0) & gone[np.clip(voucher, 0, None)])
+                | ((vouchee >= 0) & gone[np.clip(vouchee, 0, None)])
+            )
+            rows = np.nonzero(dangling)[0]
+            if len(rows):
+                self.vouches.active[torch.from_numpy(rows).to(self.device)] = False
+                self._free_edge_slots.extend(int(r) for r in rows)
+                self._scrubbed_edges.extend(int(r) for r in rows)
+        return roots_host

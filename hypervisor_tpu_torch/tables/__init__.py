@@ -2,10 +2,10 @@
 
 `from_state_arrays` reads the `"<table>.<column>"` dict that the JAX
 package's checkpoint plane writes (`hypervisor_tpu.runtime.checkpoint.
-state_arrays`) for the agents, sessions and vouches tables, plus an
-optional `"metrics.<column>"` block; `to_state_arrays` writes the same
-dict back, byte for byte. Both packages can then run from one seeded
-state.
+state_arrays`) for the agents, sessions and vouches tables, plus the
+optional `"delta_log.<column>"` and `"metrics.<column>"` blocks;
+`to_state_arrays` writes the same dict back, byte for byte (u32 columns
+as uint32). Both packages can then run from one seeded state.
 """
 
 from __future__ import annotations
@@ -15,23 +15,27 @@ import dataclasses
 import numpy as np
 import torch
 
+from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
 from hypervisor_tpu_torch.tables.struct import tensors
 
 __all__ = [
     "AgentTable",
+    "DeltaLog",
     "MetricsTable",
     "SessionTable",
     "StateTables",
+    "TraceLog",
     "VouchTable",
     "from_state_arrays",
     "to_state_arrays",
 ]
 
 _TABLE_TYPES = {"agents": AgentTable, "sessions": SessionTable, "vouches": VouchTable}
-#: Metrics columns holding u32 values (int32 bits in the port).
-_U32_METRICS = ("counters", "hist")
+#: Columns holding u32 values (int32 bits in the port), by optional block.
+_OPTIONAL = {"delta_log": (DeltaLog, ("body", "digest")),
+             "metrics": (MetricsTable, ("counters", "hist"))}
 
 
 @dataclasses.dataclass
@@ -42,6 +46,7 @@ class StateTables:
     sessions: SessionTable
     vouches: VouchTable
     metrics: MetricsTable | None = None
+    delta_log: DeltaLog | None = None
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -61,24 +66,25 @@ def from_state_arrays(
             f.name: _to_tensor(arrays[f"{tname}.{f.name}"], device)
             for f in dataclasses.fields(cls)
         })
-    metrics = None
-    if "metrics.counters" in arrays:
-        metrics = MetricsTable(**{
-            f.name: _to_tensor(arrays[f"metrics.{f.name}"], device)
-            for f in dataclasses.fields(MetricsTable)
-        })
-    return StateTables(metrics=metrics, **out)
+    for tname, (cls, _) in _OPTIONAL.items():
+        names = [f.name for f in dataclasses.fields(cls)]
+        if f"{tname}.{names[0]}" in arrays:
+            out[tname] = cls(**{n: _to_tensor(arrays[f"{tname}.{n}"], device) for n in names})
+    return StateTables(**out)
 
 
 def to_state_arrays(tables: StateTables) -> dict[str, np.ndarray]:
     """The reference's `"<table>.<column>"` dict for these tables (copies;
-    u32 metrics columns come back as uint32)."""
+    u32 columns come back as uint32)."""
     out: dict[str, np.ndarray] = {}
     for tname in _TABLE_TYPES:
         for col, t in tensors(getattr(tables, tname)).items():
             out[f"{tname}.{col}"] = t.detach().cpu().numpy().copy()
-    if tables.metrics is not None:
-        for col, t in tensors(tables.metrics).items():
+    for tname, (_, u32_cols) in _OPTIONAL.items():
+        tbl = getattr(tables, tname)
+        if tbl is None:
+            continue
+        for col, t in tensors(tbl).items():
             a = t.detach().cpu().numpy().copy()
-            out[f"metrics.{col}"] = a.view(np.uint32) if col in _U32_METRICS else a
+            out[f"{tname}.{col}"] = a.view(np.uint32) if col in u32_cols else a
     return out

@@ -1,0 +1,395 @@
+"""The port's facade against the reference's, end to end, on the CPU.
+
+One seeded sequence runs on the JAX package's `HypervisorState` (unarmed:
+`HV_WAVE_PALLAS=0`, `HV_SHA256_PALLAS=0`) and on the port's
+`HypervisorState(device="cpu")`:
+
+  * three lifecycle waves through `run_governance_wave`, vouched lanes
+    placed toward the rows each wave will claim (fresh rows, then rows
+    popped off the free list), the second wave crowded (a capacity
+    refusal) and padded to a bucket, the third wrapping the DeltaLog
+    ring over the first wave's archived sessions and the trace ring
+    over its oldest stamps;
+  * standing sessions with members, `stage_delta` + `flush_deltas`
+    (one explicit leaf digest), which evicts more archived rows;
+  * `verify_session_chain` on full and wrap-truncated histories;
+  * `MerkleScrubber` sweeps, before and after one digest bit is flipped
+    on both sides;
+  * `terminate_sessions` with frontier roots, a recomputed root, member
+    reclaim and the dangling-edge scrub;
+  * the refusal to wrap the ring into a live session.
+
+Held equal bit for bit after every step: every `WaveResult` field; the
+agents, sessions and vouches tables; the DeltaLog; the metrics counters,
+histograms and their sums (the gauges are written by the reference's
+fused epilogue, which ports with slice 3); the TraceLog words; the host
+audit index, frontier roots, ring-row ownership, free lists and
+membership keys; the scrubber reports, the verify verdicts and the
+roots. Trace ids are made deterministic by patching `secrets.token_hex`.
+"""
+
+from __future__ import annotations
+
+import itertools
+import secrets
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hypervisor_tpu import config as jax_config
+from hypervisor_tpu import models as jax_models
+from hypervisor_tpu.integrity.scrubber import MerkleScrubber as JaxScrubber
+from hypervisor_tpu.runtime.checkpoint import state_arrays
+from hypervisor_tpu.state import HypervisorState as JaxState
+from hypervisor_tpu.tables.struct import replace as jax_replace
+from hypervisor_tpu_torch import config as port_config
+from hypervisor_tpu_torch import models as port_models
+from hypervisor_tpu_torch import tables as port_tables
+from hypervisor_tpu_torch import u32
+from hypervisor_tpu_torch.integrity.scrubber import MerkleScrubber
+from hypervisor_tpu_torch.state import HypervisorState as PortState
+from hypervisor_tpu_torch.tables.state import AI32_DID, AI32_FLAGS, AI32_SESSION, SI32_NPART
+
+K, T = 6, 3
+CAP = dict(max_agents=16, max_sessions=40, max_vouch_edges=32, delta_log_capacity=40,
+           trace_log_capacity=32)
+BUDGET = 16
+#: Agent rows each wave's first two lanes claim: fresh rows for waves 1
+#: and 2 (wave 2 is padded to 10 lanes), rows popped off the free list's
+#: end for wave 3.
+VOUCHED_ROWS = ([0, 1], [6, 7], [15, 14])
+_TABLES = ("agents", "sessions", "vouches", "delta_log")
+_METRICS = ("counters", "hist", "hist_sum", "bounds")
+_WAVE_FIELDS = ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")
+
+
+class _Ref:
+    """The sequence's operations on the JAX package's state."""
+
+    def __init__(self):
+        self.st = JaxState(jax_config.HypervisorConfig(capacity=jax_config.TableCapacity(
+            **CAP, max_sagas=8, max_steps_per_saga=4, max_elevations=8, event_log_capacity=16,
+        )))
+        self.scrubber = JaxScrubber(self.st, budget=BUDGET, use_pallas=False)
+
+    def session_config(self, **kw):
+        return jax_models.SessionConfig(**kw)
+
+    def place_edges(self, rows, voucher, vouchee, session, bond, expiry):
+        v, e = self.st.vouches, jnp.asarray(rows)
+        self.st.vouches = jax_replace(
+            v, voucher=v.voucher.at[e].set(voucher), vouchee=v.vouchee.at[e].set(vouchee),
+            session=v.session.at[e].set(session), bond=v.bond.at[e].set(bond),
+            bond_pct=v.bond_pct.at[e].set(0.2), active=v.active.at[e].set(True),
+            expiry=v.expiry.at[e].set(expiry),
+        )
+
+    def place_member(self, row, did, session):
+        a, s = self.st.agents, self.st.sessions
+        self.st.agents = jax_replace(a, did=a.did.at[row].set(did),
+                                     session=a.session.at[row].set(session),
+                                     flags=a.flags.at[row].set(1))
+        self.st.sessions = jax_replace(
+            s, n_participants=s.n_participants.at[session].add(1))
+
+    def flip_digest_bit(self, row):
+        d = self.st.delta_log
+        self.st.delta_log = jax_replace(d, digest=d.digest.at[row, 0].set(d.digest[row, 0] ^ 1))
+
+    def wave_result(self, res):
+        out = {f: np.asarray(getattr(res, f)) for f in _WAVE_FIELDS}
+        out["chain"] = np.asarray(res.chain)
+        out["merkle_root"] = np.asarray(res.merkle_root)
+        out["released"] = int(np.asarray(res.released))
+        return out
+
+    def snapshot(self):
+        arrays = state_arrays(self.st)
+        out = {k: v for k, v in arrays.items() if k.split(".")[0] in _TABLES}
+        for c in _METRICS:
+            out[f"metrics.{c}"] = np.array(getattr(self.st.metrics.table, c))
+        out["trace.words"] = np.array(self.st.tracer.table.words)
+        out["trace.cursor"] = np.array(self.st.tracer.table.cursor)
+        return out
+
+
+class _Port(_Ref):
+    """The same operations on the port's state, on the CPU."""
+
+    def __init__(self):
+        self.st = PortState(port_config.HypervisorConfig(
+            capacity=port_config.TableCapacity(**CAP)), device="cpu")
+        self.scrubber = MerkleScrubber(self.st, budget=BUDGET)
+
+    def session_config(self, **kw):
+        return port_models.SessionConfig(**kw)
+
+    def place_edges(self, rows, voucher, vouchee, session, bond, expiry):
+        v, e = self.st.vouches, torch.tensor(rows)
+        for col, val in (("voucher", voucher), ("vouchee", vouchee), ("session", session),
+                         ("bond", bond), ("bond_pct", 0.2), ("active", True), ("expiry", expiry)):
+            getattr(v, col)[e] = torch.as_tensor(np.asarray(val)).to(getattr(v, col).dtype)
+
+    def place_member(self, row, did, session):
+        a = self.st.agents.i32[row]
+        a[AI32_DID], a[AI32_SESSION], a[AI32_FLAGS] = did, session, 1
+        self.st.sessions.i32[session, SI32_NPART] += 1
+
+    def flip_digest_bit(self, row):
+        self.st.delta_log.digest[row, 0] ^= 1
+
+    def wave_result(self, res):
+        out = {f: getattr(res, f).numpy().copy() for f in _WAVE_FIELDS}
+        out["chain"] = u32.to_numpy_u32(res.chain)
+        out["merkle_root"] = u32.to_numpy_u32(res.merkle_root)
+        out["released"] = int(res.released)
+        return out
+
+    def snapshot(self):
+        st = self.st
+        out = port_tables.to_state_arrays(port_tables.StateTables(
+            st.agents, st.sessions, st.vouches, delta_log=st.delta_log))
+        for c in _METRICS:
+            a = getattr(st.metrics, c).numpy().copy()
+            out[f"metrics.{c}"] = a.view(np.uint32) if c in ("counters", "hist") else a.copy()
+        out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
+        out["trace.cursor"] = st.tracer.table.cursor.numpy().copy()
+        return out
+
+
+def _host_state(st) -> dict:
+    return {
+        "audit_rows": {s: list(r) for s, r in st._audit_rows.items()},
+        "turns": dict(st._turns),
+        "chain_seed": {s: np.asarray(v, np.uint32).tolist() for s, v in st._chain_seed.items()},
+        "frontier": {s: (f.count, f.hash_count, f.root_hex()) for s, f in st._frontier.items()},
+        "row_session": st._row_session.tolist(),
+        "free_agent_slots": list(st._free_agent_slots),
+        "free_edge_slots": list(st._free_edge_slots),
+        "scrubbed_edges": list(st._scrubbed_edges),
+        "members": sorted(st._members),
+        "cursors": (st._next_agent_slot, st._next_session_slot),
+    }
+
+
+def _run(side) -> list[tuple[str, object]]:
+    """The sequence; every step records what both sides must agree on."""
+    log: list[tuple[str, object]] = []
+    st = side.st
+
+    def record(label, value=None):
+        log.append((label, value))
+        log.append((label + ":tables", side.snapshot()))
+        log.append((label + ":host", _host_state(st)))
+
+    rng = np.random.RandomState(20)
+    edge = 0
+    for w in range(3):
+        slots = st.create_sessions_batch(
+            [f"w{w}:s{i}" for i in range(K)],
+            side.session_config(min_sigma_eff=0.55, max_participants=1),
+        )
+        lane_sessions = np.concatenate([slots, slots[:1]]) if w == 1 else slots
+        b = len(lane_sessions)
+        rows = VOUCHED_ROWS[w]
+        # Two vouchers on lane 0, one on lane 1, one expired edge on lane 1.
+        side.place_edges(
+            list(range(edge, edge + 4)), voucher=np.arange(4) + 2 * w, vouchee=[rows[0], rows[0],
+            rows[1], rows[1]], session=[slots[0], slots[0], slots[1], slots[1]],
+            bond=rng.uniform(0.05, 0.3, 4).astype(np.float32),
+            expiry=np.array([np.inf, np.inf, np.inf, 1.0], np.float32),
+        )
+        edge += 4
+        sigma = rng.uniform(0.3, 1.0, b).astype(np.float32)
+        sigma[0] = 0.45  # lifted over the ring-2 threshold by its vouchers
+        trust = rng.uniform(size=b) > 0.15
+        trust[0] = True
+        bodies = rng.randint(0, 2**32, (T, K, 16), dtype=np.uint64).astype(np.uint32)
+        res = st.run_governance_wave(
+            slots, [f"did:{w}:{i}" for i in range(b)], lane_sessions, sigma, bodies,
+            now=10.0 + w, omega=0.5, trustworthy=trust,
+            pad_to=(10, 8) if w == 1 else None,
+        )
+        record(f"wave{w}", side.wave_result(res))
+
+    # Standing sessions: two members in s_a, a bond inside s_a and a bond
+    # in s_c that names a member (dangling once s_a terminates).
+    cfg = side.session_config(min_sigma_eff=0.5)
+    s_a, s_b, s_c = (st.create_session(f"stand:{i}", cfg, now=13.0) for i in range(3))
+    members = [st._free_agent_slots.pop() for _ in range(2)]
+    for i, row in enumerate(members):
+        side.place_member(row, 900 + i, s_a)
+    side.place_edges([30, 31], voucher=[members[1], members[0]], vouchee=[members[0], 3],
+                     session=[s_a, s_c], bond=np.array([0.1, 0.2], np.float32),
+                     expiry=np.full(2, np.inf, np.float32))
+    for turn in range(3):
+        st.stage_delta(s_a, members[0], ts=1.0 + turn, change_words=rng.randint(0, 2**31, 8))
+    st.stage_delta(s_b, 0, ts=2.5, change_words=[7, 8])
+    st.stage_delta(s_b, 0, ts=3.5, digest_words=rng.randint(0, 2**31, 8).astype(np.uint32))
+    st.stage_delta(s_c, 1, ts=4.0)
+    record("flush1", st.flush_deltas())
+    for turn in range(2):
+        st.stage_delta(s_a, members[1], ts=5.0 + turn, change_words=rng.randint(0, 2**31, 8))
+    record("flush2", st.flush_deltas())
+
+    truncated = 7  # wave 2's second session: the ring kept 2 of its 3 rows
+    assert st._turns[truncated] == 3 and len(st._audit_rows[truncated]) == 2
+    assert truncated not in st._frontier
+    log.append(("verify", [st.verify_session_chain(s) for s in (s_a, s_b, s_c, truncated, 12)]))
+
+    def sweep(label):
+        reports = [side.scrubber.tick()]
+        while not reports[-1]["sweep_completed"]:
+            reports.append(side.scrubber.tick())
+        log.append((label, reports))
+        log.append((label + ":summary", side.scrubber.summary()))
+
+    sweep("scrub_clean")
+    side.flip_digest_bit(st._audit_rows[s_a][1])
+    log.append(("verify_flipped", [st.verify_session_chain(s) for s in (s_a, s_c)]))
+    sweep("scrub_flipped")
+
+    record("terminate", st.terminate_sessions([s_a, s_b, truncated], now=14.0))
+    for _ in range(40):
+        st.stage_delta(s_c, 1, ts=9.0)
+    with pytest.raises(RuntimeError, match="live session"):
+        st.flush_deltas()
+    record("live_wrap_refused")
+    log.append(("spans", [[(s.name, s.span_word, s.parent_span_word, s.wave_seq)
+                           for s in root.walk()] for root in st.tracer.drain()]))
+    return log
+
+
+@pytest.fixture(scope="module")
+def runs():
+    counter = itertools.count()
+
+    def token_hex(nbytes=None):
+        return f"{next(counter):0{2 * nbytes}x}"
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HV_WAVE_PALLAS", "0")
+        mp.setenv("HV_SHA256_PALLAS", "0")
+        mp.delenv("HV_TRACE", raising=False)
+        mp.delenv("HV_TRACE_SAMPLE", raising=False)
+        mp.setattr(secrets, "token_hex", token_hex)
+        ref = _run(_Ref())
+        counter = itertools.count()
+        port_side = _Port()
+        port = _run(port_side)
+    return dict(ref), dict(port), port_side
+
+
+def _assert_same(label, got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), label
+        for key, w in want.items():
+            _assert_same(f"{label} {key}", got[key], w)
+    elif isinstance(want, np.ndarray):
+        g = np.asarray(got)
+        assert g.dtype == want.dtype and g.shape == want.shape, label
+        assert g.tobytes() == want.tobytes(), f"{label} diverged"
+    else:
+        assert got == want, label
+
+
+@pytest.mark.parametrize("step", ["wave0", "wave1", "wave2"])
+def test_lifecycle_waves_match_reference(runs, step):
+    ref, port, _ = runs
+    for suffix in ("", ":tables", ":host"):
+        _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+    res = port[step]
+    assert (res["status"] == 0).any()
+    assert res["sigma_eff"][0] > np.float32(0.45)  # the vouched lane rode its claimed row
+    if step == "wave1":
+        assert 3 in res["status"] and res["status"].shape == (K + 1,)  # trimmed, capacity refusal
+
+
+@pytest.mark.parametrize("step", ["flush1", "flush2"])
+def test_flush_deltas_matches_reference(runs, step):
+    ref, port, _ = runs
+    for suffix in ("", ":tables", ":host"):
+        _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+
+
+def test_verify_session_chain_matches_reference(runs):
+    ref, port, _ = runs
+    assert port["verify"] == ref["verify"] == [True, False, True, True, True]
+    assert port["verify_flipped"] == ref["verify_flipped"] == [False, True]
+
+
+@pytest.mark.parametrize("step", ["scrub_clean", "scrub_flipped"])
+def test_scrubber_reports_match_reference(runs, step):
+    ref, port, _ = runs
+    assert port[step] == ref[step]
+    assert port[step + ":summary"] == ref[step + ":summary"]
+    # s_b's pinned leaf (an explicit digest, row 18) never re-hashes; the
+    # flipped digest (s_a's row 15) fails its own link and its child's.
+    rows = sorted(m["row"] for r in port[step] for m in r["mismatches"])
+    assert rows == ([18] if step == "scrub_clean" else [15, 16, 18])
+
+
+def test_terminate_sessions_matches_reference(runs):
+    ref, port, _ = runs
+    for suffix in ("", ":tables", ":host"):
+        _assert_same("terminate" + suffix, port["terminate" + suffix], ref["terminate" + suffix])
+    host = port["terminate:host"]
+    assert host["scrubbed_edges"] == [31]          # the bond in s_c named a reclaimed member
+    assert 7 in host["frontier"]                   # recomputed and re-primed
+
+
+def test_live_wrap_refusal_matches_reference(runs):
+    ref, port, _ = runs
+    for suffix in (":tables", ":host"):
+        _assert_same("live_wrap_refused" + suffix, port["live_wrap_refused" + suffix],
+                     ref["live_wrap_refused" + suffix])
+
+
+def test_trace_spans_match_reference(runs):
+    ref, port, _ = runs
+    assert port["spans"] == ref["spans"]
+    roots = [wave[0][0] for wave in port["spans"]]
+    # 36 stamps on a 32-row ring: wave 0 lost its first four, root included.
+    assert roots.count("hv.governance_wave") == 2
+    assert {"hv.delta_chain", "hv.terminate_wave"} <= set(roots)
+
+
+def test_host_cursor_mirrors_match_the_device(runs):
+    *_, side = runs
+    st = side.st
+    assert st._delta_cursor == int(st.delta_log.cursor)
+    assert st.tracer.cursor == int(st.tracer.table.cursor) == 36
+
+
+def test_port_import_leaves_jax_out_of_sys_modules():
+    """A fresh interpreter that imports the port's facade, audit and
+    trace modules loads neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import hypervisor_tpu_torch.state, hypervisor_tpu_torch.integrity.scrubber\n"
+        "import hypervisor_tpu_torch.kernels, hypervisor_tpu_torch.tables\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'hypervisor_tpu')))\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_unported_facade_arguments_are_refused():
+    st = PortState(port_config.HypervisorConfig(capacity=port_config.TableCapacity(**CAP)),
+                   device="cpu")
+    slots = st.create_sessions_batch(["a"], port_models.SessionConfig())
+    args = (slots, ["d"], slots, np.ones(1, np.float32), np.zeros((T, 1, 16), np.uint32))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        st.run_governance_wave(*args, actions={"slots": []})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        st.run_governance_wave(*args, mesh=object())
+    with pytest.raises(ValueError, match="below the wave shape"):
+        st.run_governance_wave(*args, pad_to=(0, 1))
