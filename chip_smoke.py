@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's governance wave and its facade on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's governance wave, its facade, the saga
+plane and the slash cascade on one NVIDIA GPU.
 
     python3 chip_smoke.py      # from the repository root, one CUDA GPU
 
 Phases, one JSON line each:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: every CUDA kernel of the wave built from `hypervisor_tpu_torch/
-   csrc/` (one nvcc per source, in parallel), with ptxas' report;
+2. build: every CUDA kernel built from `hypervisor_tpu_torch/csrc/` (one
+   nvcc per source, all started together), with ptxas' report;
 3. parity: each kernel against its plain PyTorch version on the same
-   inputs on the card, bit-exact (tolerance 0), at the wave's shapes —
+   inputs on the card, bit-exact (tolerance 0), at the paths' shapes —
    the vouched contribution at the wave's edges, and on 65,536 edges
    with many vouchers per vouchee against the plain version on the CPU
    (which sums in edge order, as the reference does); B2 chains at T=3
@@ -21,7 +21,13 @@ Phases, one JSON line each:
    append, at the facade's shape (30,000 rows into 65,536, wrapping),
    unpadded and with a short live prefix; B1, the batched hash, on
    30,000 messages of 2 and 3 blocks and a scrubber strip (also checked
-   against hashlib), and a 8,192-leaf Merkle forest through it;
+   against hashlib), and a 8,192-leaf Merkle forest through it; B7, the
+   saga round, on random tables of 8,192 sagas x 16 and x 4 steps in
+   every code, against its plain version on the card and on the CPU;
+   B8, the slash cascade, on bench_suite's north-star graph (10,240
+   agents, 8,192 edges, 128 seeds, omega 0.95) and on the default
+   tables (16,384 agents, 65,536 edges, omega 0.6, cascading to depth
+   2), against its plain version on the card and on the CPU;
 4. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
    lanes at sigma 0.5 with bond 0.30, 3 deltas, tables of 16,384 agents,
    16,384 sessions and 65,536 edges, random data from one seed) through
@@ -42,14 +48,33 @@ Phases, one JSON line each:
    same sequence on the CPU, which must give identical tables, DeltaLog,
    metrics, trace words, audit index, frontier roots, scrubber reports
    and roots;
-6. timing: the wave's p50/p95 (host clock, synchronised) and device
+6. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
+   a fresh state, filled with 5-step sagas whose seeded executors commit
+   cleanly, retry then commit, or exhaust into compensation with and
+   without an undo (escalating), plus DSL sagas with fan-out groups,
+   driven to settlement by `SagaScheduler.run_until_settled`; B7 must
+   launch once per round and nothing else at all; each saga's end state
+   is checked against its kind; then the same sequence on the CPU must
+   give identical SagaTable columns, metrics, trace words, scheduler
+   results, errors and attempts, and round count;
+7. slash: the default tables (16,384 agents, 65,536 edges) on a fresh
+   state, a liability graph written in bulk plus `add_vouch` /
+   `release_vouch` calls, then `apply_slash` on a vouchee whose cascade
+   reaches depth 2 (checked against the plain version on the CPU); B8
+   must launch 6 times (two a depth) and nothing else; then the same
+   sequence on the CPU must give identical agents and vouches tables,
+   returned lists, metrics and trace words;
+8. timing: the wave's p50/p95 (host clock, synchronised) and device
    time; one wave under torch's sync debug mode "error" (no host
    synchronisation inside the wave); one profiled wave (device time by
    kernel, the device's idle share); the facade wave's p50/p95, each on
    a fresh state, with the host split into staging, dispatch and audit
-   booking, and its device time; one scrubber sweep's time; each
-   kernel's time, its plain version's time, its bound and, where one
-   PyTorch call computes the same function, that call's time.
+   booking, and its device time; one scrubber sweep's time; the saga
+   round's p50/p95 at 8,192 sagas (the table restored between samples)
+   with its host split and device time; `apply_slash`'s p50/p95 and
+   device time; each kernel's time, its plain version's time, its bound
+   and, where one PyTorch call computes the same function, that call's
+   time.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -152,6 +177,19 @@ SCRUB_BUDGET = 4_096
 BIG_TREE_LEAVES = 8_192
 FACADE_WARMUP, FACADE_ITERS = 2, 10
 
+#: The saga plane: the reference's default SagaTable, filled with
+#: BASELINE's "5-step saga with retry+compensation" over standing
+#: sessions, plus DSL sagas with fan-out groups.
+SAGA_STEPS = 5
+N_SAGA_SESSIONS = 64
+N_DSL_SAGAS = 8
+SAGA_WARMUP, SAGA_ITERS = 3, 30
+#: The slash cascade: bench_suite's north-star row (`vouch_bond_slash_10k`)
+#: and the default tables at omega 0.6.
+NORTH_STAR = dict(agents=10_240, edges=8_192, seeds=128, omega=0.95, sigma=(0.4, 0.9))
+DEFAULT_SLASH = dict(seeds=160, omega=0.6, sigma=(0.05, 0.6))
+SLASH_WARMUP, SLASH_ITERS = 2, 20
+
 #: Each path's kernels, for its launch-count window.
 OP_WAVE_KERNELS = ("contribution_toward", "chain_digests", "tree_roots", "admission_block",
                    "fsm_saga_block")
@@ -165,6 +203,8 @@ TPU_KERNELS = {
     "fsm_saga_block": "hypervisor_tpu/kernels/wave_pallas.py:1441",
     "ring_append": "hypervisor_tpu/kernels/wave_pallas.py:1528",
     "sha256_words": "hypervisor_tpu/kernels/sha256_pallas.py:118",
+    "saga_tick_block": "hypervisor_tpu/kernels/wave_pallas.py:1657",
+    "slash_cascade": "hypervisor_tpu/kernels/liability_pallas.py:113,130",
 }
 SOURCES = {
     "contribution_toward": "hypervisor_tpu_torch/csrc/wave.cu",
@@ -174,7 +214,12 @@ SOURCES = {
     "fsm_saga_block": "hypervisor_tpu_torch/csrc/wave.cu",
     "ring_append": "hypervisor_tpu_torch/csrc/wave.cu",
     "sha256_words": "hypervisor_tpu_torch/csrc/sha256.cu",
+    "saga_tick_block": "hypervisor_tpu_torch/csrc/saga.cu",
+    "slash_cascade": "hypervisor_tpu_torch/csrc/liability.cu",
 }
+#: The path whose launch window a kernel row reports.
+ROW_PATH = {"sha256_words": "scrubber", "saga_tick_block": "saga_path",
+            "slash_cascade": "slash_path"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -354,6 +399,239 @@ def run_facade_sequence(device):
     return rec, windows, state
 
 
+SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
+SAGA_OUTS = ("step_state", "retries_left", "saga_state", "cursor", "committed", "exhausted")
+
+
+def random_saga_table(rng, g: int, m: int) -> dict:
+    """A saga table in every step and saga code with cursors at, below and
+    past n_steps (a few negative) and random outcome and dispatch masks,
+    biased so that many sagas book, retry, exhaust, compensate and settle
+    in one round."""
+    n_steps = rng.randint(0, m + 1, g).astype(np.int32)
+    step = rng.choice([0, 0, 0, 1, 2, 2, 2, 3, 4, 5, 6], (g, m)).astype(np.int8)
+    cursor = (n_steps + rng.randint(-3, 3, g)).astype(np.int32)
+    pending = rng.uniform(size=g) < 0.7
+    step[np.arange(g)[pending], np.clip(cursor, 0, m - 1)[pending]] = 0
+    return {
+        "step_state": step,
+        "retries_left": rng.randint(-1, 3, (g, m)).astype(np.int8),
+        "has_undo": rng.uniform(size=(g, m)) < 0.6,
+        "saga_state": rng.choice([0, 0, 0, 1, 1, 2, 3, 4], g).astype(np.int8),
+        "n_steps": n_steps,
+        "cursor": cursor,
+        "masks": [rng.uniform(size=g) < p for p in (0.6, 0.6, 0.8, 0.8)],
+    }
+
+
+def slash_graph(rng, n: int, e: int, seeds: int, sigma_range, sessions: int, device):
+    """A liability graph of `e` random edges over `n` agents (bond 0.05-0.2,
+    every edge active, 5% expired when there are several sessions), sigma
+    uniform in `sigma_range`, `seeds` distinct first-wave agents."""
+    import torch
+
+    from hypervisor_tpu_torch.tables.state import VouchTable
+
+    v = VouchTable.create(e, device)
+    v.voucher.copy_(torch.from_numpy(rng.randint(0, n, e).astype(np.int32)))
+    v.vouchee.copy_(torch.from_numpy(rng.randint(0, n, e).astype(np.int32)))
+    v.session.copy_(torch.from_numpy(rng.randint(0, sessions, e).astype(np.int32)))
+    v.bond.copy_(torch.from_numpy(rng.uniform(0.05, 0.2, e).astype(np.float32)))
+    v.active.fill_(True)
+    if sessions > 1:
+        v.expiry.copy_(torch.from_numpy(
+            np.where(rng.uniform(size=e) < 0.05, -1.0, np.inf).astype(np.float32)))
+    sigma = torch.from_numpy(rng.uniform(*sigma_range, n).astype(np.float32)).to(device)
+    first = np.zeros(n, bool)
+    first[rng.choice(n, seeds, replace=False)] = True
+    return v, sigma, torch.from_numpy(first).to(device)
+
+
+def saga_kinds(g_cap: int):
+    """The seeded outcome pattern of the saga path: per 5-step saga its kind
+    (0 commits cleanly, 1 fails one step once and commits on the retry,
+    2 exhausts its last step and compensates cleanly, 3 does the same with
+    step 2 lacking an undo, so it escalates) and kind 1's failing step."""
+    rng = np.random.RandomState(SEED + 3)
+    kinds = rng.choice(4, g_cap - N_DSL_SAGAS, p=[0.55, 0.25, 0.12, 0.08])
+    retry_step = rng.choice([0, 1, 3, 4], g_cap - N_DSL_SAGAS)
+    branch_ok = rng.uniform(size=(N_DSL_SAGAS, 3)) < 0.6
+    return kinds, retry_step, branch_ok
+
+
+def run_saga_sequence(device):
+    """The saga path on `device`: a fresh state at the default SagaTable,
+    8,192 sagas created (untimed set-up), then `SagaScheduler.
+    run_until_settled` with stub executors. Returns (record, launches,
+    state, seconds, initial): what a second device must reproduce, the
+    run's launch counts, the run's wall time and the table as created."""
+    import asyncio
+
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.runtime.saga_scheduler import SagaScheduler
+    from hypervisor_tpu_torch.saga.dsl import SagaDSLParser
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
+    from hypervisor_tpu_torch.tables.struct import clone
+
+    with counted_trace_ids():
+        state = HypervisorState(DEFAULT_CONFIG, device=device)
+        g_cap = state.sagas.saga_state.shape[0]
+        sessions = state.create_sessions_batch(
+            [f"saga:s{i}" for i in range(N_SAGA_SESSIONS)], SessionConfig())
+        sched = SagaScheduler(state, retry_backoff_seconds=0.0)
+        kinds, retry_step, branch_ok = saga_kinds(g_cap)
+        attempts: dict = {}
+
+        def executor(key, failures: int):
+            async def run():
+                n = attempts.get(key, 0) + 1
+                attempts[key] = n
+                if n <= failures:
+                    raise RuntimeError(f"{key} attempt {n} failed")
+                return n
+            return run
+
+        async def undo():
+            return "undone"
+
+        for i, kind in enumerate(kinds.tolist()):
+            steps = [{"retries": 1, "has_undo": True}, {"retries": 1, "has_undo": True},
+                     {"has_undo": kind != 3}, {"retries": 1, "has_undo": True},
+                     {"retries": 2, "has_undo": True}]
+            slot = state.create_saga(f"saga:{i}", int(sessions[i % N_SAGA_SESSIONS]), steps)
+            for j, step in enumerate(steps):
+                failures = 0
+                if kind == 1 and j == retry_step[i]:
+                    failures = 1
+                elif kind >= 2 and j == SAGA_STEPS - 1:
+                    failures = 3  # 1 + 2 retries: exhausted
+                sched.register(slot, j, executor((slot, j), failures),
+                               undo=undo if step["has_undo"] else None)
+        policies = ("all_must_succeed", "any_must_succeed", "majority_must_succeed")
+        for d in range(N_DSL_SAGAS):
+            definition = SagaDSLParser().parse({
+                "name": "fan", "session_id": f"saga:s{d}", "saga_id": f"saga:dsl{d}",
+                "steps": [{"id": f"b{b}", "action_id": f"m.b{b}", "agent": "did:f",
+                           "undo_api": f"/ub{b}"} for b in range(3)]
+                + [{"id": "finish", "action_id": "m.finish", "agent": "did:f"}],
+                "fan_out": [{"policy": policies[d % 3], "branches": ["b0", "b1", "b2"]}],
+            })
+            slot = state.create_saga_from_dsl(definition, int(sessions[d]))
+            execs = {f"b{b}": executor((slot, b), 0 if branch_ok[d, b] else 1) for b in range(3)}
+            execs["finish"] = executor((slot, 3), 0)
+            sched.register_definition(slot, definition, execs,
+                                      undos={f"b{b}": undo for b in range(3)})
+        initial = clone(state.sagas)
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rounds = asyncio.run(sched.run_until_settled())
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        require(state.tracer.cursor == int(state.tracer.table.cursor),
+                "saga path: the tracer's cursor mirror disagrees with the device")
+        rec = {"tables": to_state_arrays(StateTables(
+            state.agents, state.sessions, state.vouches, state.metrics, sagas=state.sagas))}
+        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+        rec["results"] = {f"{k}": v for k, v in sched.results.items()}
+        rec["errors"] = {f"{k}": v for k, v in sched.errors.items()}
+        rec["attempts"] = {f"{k}": v for k, v in attempts.items()}
+        rec["rounds"] = rounds
+    return rec, launches, state, seconds, initial
+
+
+def check_saga_outcomes(rec, g_cap: int) -> dict:
+    """Each 5-step saga's end state against its kind; returns the counts."""
+    from hypervisor_tpu_torch.ops import saga_ops as ops
+
+    kinds, _, _ = saga_kinds(g_cap)
+    t = rec["tables"]
+    states, steps = t["sagas.saga_state"], t["sagas.step_state"]
+    k = len(kinds)
+    five = steps[:k, :SAGA_STEPS]
+    committed = (five == ops.STEP_COMMITTED).all(1)
+    clean_undo = (five[:, :4] == ops.STEP_COMPENSATED).all(1) & (five[:, 4] == ops.STEP_FAILED)
+    require(((states[:k] == ops.SAGA_COMPLETED) & committed)[kinds <= 1].all(),
+            "saga path: a committing saga did not complete with every step committed")
+    require(((states[:k] == ops.SAGA_COMPLETED) & clean_undo)[kinds == 2].all(),
+            "saga path: a compensating saga did not unwind cleanly")
+    require((states[:k] == ops.SAGA_ESCALATED)[kinds == 3].all(),
+            "saga path: a saga with a missing undo did not escalate")
+    require(bool(np.isin(states[:g_cap], (ops.SAGA_COMPLETED, ops.SAGA_ESCALATED)).all()),
+            "saga path: a saga did not settle")
+    return {f"kind{c}": int((kinds == c).sum()) for c in range(4)} | {
+        "escalated": int((states == ops.SAGA_ESCALATED).sum()),
+        "completed": int((states == ops.SAGA_COMPLETED).sum())}
+
+
+def run_slash_sequence(device):
+    """The slash path on `device`: a fresh state at the default tables,
+    sigma and flags written in bulk, a liability graph in one session
+    written in bulk above the first rows plus `add_vouch` / `release_vouch`
+    calls, then one `apply_slash`. Returns (record, launches, state,
+    pre): what a second device must reproduce, the slash's launch counts,
+    and the cascade's inputs as they stood before it."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
+    from hypervisor_tpu_torch.tables.state import AF32_SIGMA_EFF, AI32_FLAGS, FLAG_ACTIVE
+    from hypervisor_tpu_torch.tables.struct import clone
+
+    with counted_trace_ids():
+        state = HypervisorState(DEFAULT_CONFIG, device=device)
+        n, e = state.agents.ring.shape[0], state.vouches.voucher.shape[0]
+        sess = state.create_sessions_batch(["slash:s0", "slash:s1"], SessionConfig())
+        rng = np.random.RandomState(SEED + 4)
+        dev = state.device
+        state.agents.f32[:, AF32_SIGMA_EFF] = torch.from_numpy(
+            rng.uniform(0.3, 1.0, n).astype(np.float32)).to(dev)
+        state.agents.i32[:, AI32_FLAGS] = FLAG_ACTIVE
+        state.agents.ring.fill_(2)
+        bulk = slice(16, e)
+        v = state.vouches
+        m = e - 16
+        v.voucher[bulk] = torch.from_numpy(rng.randint(0, n, m).astype(np.int32)).to(dev)
+        v.vouchee[bulk] = torch.from_numpy(rng.randint(0, n, m).astype(np.int32)).to(dev)
+        v.session[bulk] = torch.from_numpy(
+            np.where(rng.uniform(size=m) < 0.9, sess[0], sess[1]).astype(np.int32)).to(dev)
+        v.bond[bulk] = torch.from_numpy(rng.uniform(0.05, 0.3, m).astype(np.float32)).to(dev)
+        v.bond_pct[bulk] = 0.2
+        v.active[bulk] = True
+        rows = [state.add_vouch(int(a), int(b), int(sess[0]), 0.25)
+                for a, b in rng.randint(0, n, (8, 2))]
+        state.release_vouch(rows[3])
+        state.release_vouch(rows[5])
+        rows.append(state.add_vouch(int(rng.randint(0, n)), int(rng.randint(0, n)),
+                                    int(sess[1]), 0.1, expiry=0.5))
+        vouchee = int(rng.randint(0, n))
+        pre = (clone(state.vouches), clone(state.agents), vouchee, int(sess[0]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = state.apply_slash(int(sess[0]), vouchee, NORTH_STAR["omega"], now=1.0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        require(state.tracer.cursor == int(state.tracer.table.cursor),
+                "slash path: the tracer's cursor mirror disagrees with the device")
+        rec = {"returned": out, "rows": rows, "tables": to_state_arrays(StateTables(
+            state.agents, state.sessions, state.vouches, state.metrics))}
+        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+    return rec, launches, state, pre
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -383,9 +661,11 @@ def main() -> int:
     from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig, TableCapacity
     from hypervisor_tpu_torch.integrity.scrubber import MerkleScrubber
     from hypervisor_tpu_torch.kernels import _build, mtu, wave
+    from hypervisor_tpu_torch.kernels import liability as liab_kernels
+    from hypervisor_tpu_torch.kernels import saga as saga_kernels
     from hypervisor_tpu_torch.kernels import sha256 as sha_kernels
     from hypervisor_tpu_torch.models import SessionConfig
-    from hypervisor_tpu_torch.ops import liability, merkle, pipeline
+    from hypervisor_tpu_torch.ops import liability, merkle, pipeline, saga_ops
     from hypervisor_tpu_torch.ops.admission import ADMIT_OK, f32_scalar
     from hypervisor_tpu_torch.ops.sha256 import digests_to_hex, pad_messages_np
     from hypervisor_tpu_torch.state import HypervisorState
@@ -690,9 +970,62 @@ def main() -> int:
         mtu.tree_roots_plain(forest_t, forest_counts))}, ("roots",)))
     emit("parity", kernel="sha256_words", messages=[[n_rows, 2], [n_rows, 3], [SCRUB_BUDGET, 2]],
          hashlib_samples=9, tree_leaves=BIG_TREE_LEAVES, bit_exact=True, max_abs_err=err_b1)
+
+    # B7: the saga round on random tables at the default 8,192 x 16 and at
+    # M = 4 (the byte-by-byte row path), against the plain version on the
+    # card and on the CPU; all six outputs.
+    saga_cap = DEFAULT_CONFIG.capacity.max_sagas
+    err_b7, b7_inputs = 0.0, {}
+    for m in (DEFAULT_CONFIG.capacity.max_steps_per_saga, 4):
+        table = random_saga_table(rng, saga_cap, m)
+        outcomes = saga_ops.pack_outcomes(*table["masks"])
+        runs = {}
+        for where, fn, d in (("kernel", saga_kernels.saga_tick_block, dev),
+                             ("plain on the card", saga_kernels.saga_tick_block_plain, dev),
+                             ("plain on the CPU", saga_kernels.saga_tick_block_plain, "cpu")):
+            cols = {k: torch.from_numpy(np.array(table[k], copy=True)).to(d) for k in SAGA_COLS}
+            committed, exhausted = fn(*(cols[k] for k in SAGA_COLS),
+                                      torch.from_numpy(outcomes).to(d))
+            runs[where] = dict(zip(SAGA_OUTS, (cols["step_state"], cols["retries_left"],
+                                               cols["saga_state"], cols["cursor"],
+                                               committed, exhausted)))
+        pairs = {f"{col} against the {where}": (runs["kernel"][col].cpu(), runs[where][col].cpu())
+                 for where in ("plain on the card", "plain on the CPU") for col in SAGA_OUTS}
+        err_b7 = max(err_b7, check_pairs(f"saga_tick_block M={m}", pairs))
+        require(int(runs["kernel"]["committed"].sum()) > 0 and int(runs["kernel"]["exhausted"].sum()) > 0,
+                "B7 parity: the round must book and exhaust steps")
+        b7_inputs[m] = (table, outcomes)
+    emit("parity", kernel="saga_tick_block", shapes=[[saga_cap, 16], [saga_cap, 4]],
+         against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b7)
+
+    # B8: the slash cascade on bench_suite's north-star graph and on the
+    # default tables, against the plain version on the card and the CPU.
+    err_b8, depth_reached = 0.0, {}
+    cap = DEFAULT_CONFIG.capacity
+    for tag, n_a, n_e, cfg, sessions in (
+            ("north_star", NORTH_STAR["agents"], NORTH_STAR["edges"], NORTH_STAR, 1),
+            ("default", cap.max_agents, cap.max_vouch_edges, DEFAULT_SLASH, 2)):
+        v_s, sigma_s, seeds_s = slash_graph(np.random.RandomState(SEED), n_a, n_e, cfg["seeds"],
+                                            cfg["sigma"], sessions, dev)
+        got = liab_kernels.slash_cascade(v_s, sigma_s, seeds_s, 0, cfg["omega"], 0.0)
+        card = liab_kernels.slash_cascade_plain(v_s, sigma_s, seeds_s, 0, cfg["omega"], 0.0)
+        cpu = liab_kernels.slash_cascade_plain(
+            VouchTable(**{k: t.cpu() for k, t in tensors(v_s).items()}), sigma_s.cpu(),
+            seeds_s.cpu(), 0, cfg["omega"], 0.0)
+        names = ("sigma", "active", "slashed", "clipped", "wave_of")
+        pairs = {f"{name} against the {where}": (got[i].cpu(), other[i].cpu())
+                 for where, other in (("plain on the card", card), ("plain on the CPU", cpu))
+                 for i, name in enumerate(names)}
+        err_b8 = max(err_b8, check_pairs(f"slash_cascade {tag}", pairs))
+        depth_reached[tag] = int(got[4].max())
+        require(depth_reached[tag] == 2, f"B8 parity {tag}: the cascade must reach depth 2")
+    emit("parity", kernel="slash_cascade", north_star=[NORTH_STAR["agents"], NORTH_STAR["edges"]],
+         default=[cap.max_agents, cap.max_vouch_edges], depth_reached=depth_reached,
+         against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
     errs = {"contribution_toward": max(err_c0, err_c1), "chain_digests": err_b2, "tree_roots": err_b3,
             "admission_block": max(err_b4, err_c), "fsm_saga_block": err_b5,
-            "ring_append": err_b6, "sha256_words": err_b1}
+            "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
+            "slash_cascade": err_b8}
 
     # ── 4. the full-width wave through the entry point ───────────────
     restore(live, pristine)
@@ -754,7 +1087,51 @@ def main() -> int:
          hashlib_lanes_per_wave=[0, N_SESSIONS - 1], cursor_mirrors="equal",
          cpu_run="identical", card_seconds=facade_s, cpu_seconds=cpu_s)
 
-    # ── 6. timing ────────────────────────────────────────────────────
+    # ── 6. the saga plane ────────────────────────────────────────────
+    saga_rec, saga_launches, saga_state, saga_s, saga_initial = run_saga_sequence(dev)
+    rounds = saga_rec["rounds"]
+    require({k: n for k, n in saga_launches.items() if n} == {"saga_tick_block": rounds},
+            f"saga path: B7 must launch once per round ({rounds}) and nothing else: {saga_launches}")
+    kinds = check_saga_outcomes(saga_rec, saga_cap)
+    t0 = time.perf_counter()
+    cpu_saga, cpu_saga_launches, _, cpu_saga_s, _ = run_saga_sequence("cpu")
+    require(not any(cpu_saga_launches.values()), "the saga path's CPU run launched a kernel")
+    diff = first_difference("saga", cpu_saga, saga_rec)
+    require(diff is None, f"the saga path on the CPU differs from the card at {diff}")
+    emit("saga", sagas=saga_cap, steps_per_saga=DEFAULT_CONFIG.capacity.max_steps_per_saga,
+         dsl_sagas=N_DSL_SAGAS, kinds=kinds, rounds=rounds, launches=saga_launches,
+         run_until_settled_s=saga_s, cpu_run_until_settled_s=cpu_saga_s,
+         cpu_total_s=time.perf_counter() - t0, cursor_mirror="equal", cpu_run="identical")
+    windows["saga_path"] = saga_launches
+
+    # ── 7. the slash cascade ─────────────────────────────────────────
+    slash_rec, slash_launches, slash_state, slash_pre = run_slash_sequence(dev)
+    depths = DEFAULT_CONFIG.trust.max_cascade_depth + 1
+    require({k: n for k, n in slash_launches.items() if n} == {"slash_cascade": 2 * depths},
+            f"slash path: B8 must launch {2 * depths} times and nothing else: {slash_launches}")
+    pre_v, pre_agents, pre_vouchee, pre_sess = slash_pre
+    pre_sigma = pre_agents.sigma_eff.contiguous()
+    first = torch.zeros(pre_sigma.shape, dtype=torch.bool)
+    first[pre_vouchee] = True
+    ref = liab_kernels.slash_cascade_plain(
+        VouchTable(**{k: t.cpu() for k, t in tensors(pre_v).items()}), pre_sigma.cpu(), first,
+        pre_sess, NORTH_STAR["omega"], 1.0)
+    require(int(ref[4].max()) == 2, "slash path: the cascade must reach depth 2")
+    require(slash_rec["returned"]["slashed"] == torch.nonzero(ref[2]).flatten().tolist()
+            and slash_rec["returned"]["clipped"] == torch.nonzero(ref[3]).flatten().tolist(),
+            "slash path: apply_slash's lists differ from the plain cascade on the CPU")
+    cpu_slash, cpu_slash_launches, _, _ = run_slash_sequence("cpu")
+    require(not any(cpu_slash_launches.values()), "the slash path's CPU run launched a kernel")
+    diff = first_difference("slash", cpu_slash, slash_rec)
+    require(diff is None, f"the slash path on the CPU differs from the card at {diff}")
+    emit("slash", agents=cap.max_agents, edges=cap.max_vouch_edges, omega=NORTH_STAR["omega"],
+         slashed=len(slash_rec["returned"]["slashed"]),
+         clipped=len(slash_rec["returned"]["clipped"]),
+         per_depth=[int((ref[4] == d).sum()) for d in range(depths)], launches=slash_launches,
+         cursor_mirror="equal", cpu_run="identical")
+    windows["slash_path"] = slash_launches
+
+    # ── 8. timing ────────────────────────────────────────────────────
     samples = []
     for i in range(WARMUP + ITERS):
         restore(live, pristine)
@@ -870,6 +1247,81 @@ def main() -> int:
          links=sweeper.links_verified, heads=sweeper.heads_verified,
          links_per_s=sweeper.links_verified / (sweep_ms / 1e3), mismatches=sweeper.mismatches)
 
+    # The saga round at 8,192 sagas: p50/p95 on the host clock,
+    # synchronised, the table restored to its created state between
+    # samples and every saga's cursor step booked as a success. The host
+    # split: the tick (`saga_table_tick` less its tail: B7's enqueue), the
+    # tallies and trace stamps (`_saga_tick_tail`), and the rest, which is
+    # building the packed outcome bytes from the dicts, their copy to the
+    # card, the trace bracket and the wait for the device.
+    def restore_sagas():
+        copy_into(saga_state.sagas, saga_initial)
+
+    all_commit = {slot: True for slot in range(saga_cap)}
+    round_split = {"tick_and_tail": 0.0, "tallies_and_trace": 0.0}
+
+    def split_timer(key, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                round_split[key] += (time.perf_counter_ns() - t) / 1e6
+        return call
+
+    tick_fn, tail_fn = saga_ops.saga_table_tick, saga_ops._saga_tick_tail
+    samples, parts = [], []
+    saga_ops.saga_table_tick = split_timer("tick_and_tail", tick_fn)
+    saga_ops._saga_tick_tail = split_timer("tallies_and_trace", tail_fn)
+    try:
+        for i in range(SAGA_WARMUP + SAGA_ITERS):
+            restore_sagas()
+            torch.cuda.synchronize()
+            round_split.update(tick_and_tail=0.0, tallies_and_trace=0.0)
+            t0 = time.perf_counter_ns()
+            saga_state.saga_round(all_commit)
+            torch.cuda.synchronize()
+            if i >= SAGA_WARMUP:
+                total = (time.perf_counter_ns() - t0) / 1e6
+                tick = round_split["tick_and_tail"] - round_split["tallies_and_trace"]
+                parts.append({"masks_copy_and_rest": total - round_split["tick_and_tail"],
+                              "tick": tick, "tallies_and_trace": round_split["tallies_and_trace"]})
+                samples.append(total)
+    finally:
+        saga_ops.saga_table_tick, saga_ops._saga_tick_tail = tick_fn, tail_fn
+    saga_device_ms = time_device(lambda: saga_state.saga_round(all_commit), reset=restore_sagas,
+                                 reps=10, sleep_cycles=40_000_000)
+    emit("saga_timing", sagas=saga_cap, round_ms_p50=float(np.percentile(samples, 50)),
+         round_ms_p95=float(np.percentile(samples, 95)),
+         host_split_ms_median={k: float(np.median([p[k] for p in parts])) for k in parts[0]},
+         round_device_ms=saga_device_ms, iters=SAGA_ITERS,
+         run_until_settled_s=saga_s, rounds=rounds,
+         clock="host, synchronised; the table restored between samples")
+
+    # apply_slash at the default tables: p50/p95 on the host clock,
+    # synchronised, the agents and vouches restored between samples.
+    def restore_slash():
+        copy_into(slash_state.agents, pre_agents)
+        copy_into(slash_state.vouches, pre_v)
+
+    s_samples = []
+    for i in range(SLASH_WARMUP + SLASH_ITERS):
+        restore_slash()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        slash_state.apply_slash(pre_sess, pre_vouchee, NORTH_STAR["omega"], now=1.0)
+        torch.cuda.synchronize()
+        if i >= SLASH_WARMUP:
+            s_samples.append((time.perf_counter_ns() - t0) / 1e6)
+    slash_device_ms = time_device(
+        lambda: slash_state.apply_slash(pre_sess, pre_vouchee, NORTH_STAR["omega"], now=1.0),
+        reset=restore_slash, reps=10, sleep_cycles=40_000_000)
+    emit("slash_timing", agents=cap.max_agents, edges=cap.max_vouch_edges,
+         apply_slash_ms_p50=float(np.percentile(s_samples, 50)),
+         apply_slash_ms_p95=float(np.percentile(s_samples, 95)),
+         apply_slash_device_ms=slash_device_ms, iters=SLASH_ITERS,
+         clock="host, synchronised; agents and vouches restored between samples")
+
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):
         for k, t in post.items():
@@ -901,6 +1353,27 @@ def main() -> int:
                                               (0, N_SESSIONS)),
             lambda: restore_post(scratch)),
     }
+    # B7 at the default table (in place: restored before each call); B8
+    # at the slash path's inputs (it writes new tensors only).
+    table16, outcomes16 = b7_inputs[DEFAULT_CONFIG.capacity.max_steps_per_saga]
+    saga_pristine = {k: torch.from_numpy(np.array(table16[k], copy=True)).to(dev) for k in SAGA_COLS}
+    saga_cols = {k: t.clone() for k, t in saga_pristine.items()}
+    outcomes16_t = torch.from_numpy(outcomes16).to(dev)
+
+    def restore_saga_cols():
+        for k, t in saga_pristine.items():
+            saga_cols[k].copy_(t)
+
+    calls["saga_tick_block"] = (
+        lambda: saga_kernels.saga_tick_block(*(saga_cols[k] for k in SAGA_COLS), outcomes16_t),
+        lambda: saga_kernels.saga_tick_block_plain(*(saga_cols[k] for k in SAGA_COLS), outcomes16_t),
+        restore_saga_cols)
+    first_t = first.to(dev)
+    calls["slash_cascade"] = (
+        lambda: liab_kernels.slash_cascade(pre_v, pre_sigma, first_t, pre_sess,
+                                           NORTH_STAR["omega"], 1.0),
+        lambda: liab_kernels.slash_cascade_plain(pre_v, pre_sigma, first_t, pre_sess,
+                                                 NORTH_STAR["omega"], 1.0), None)
     ring_base, ring_args = b6_inputs[N_SESSIONS]
     ring_k, ring_p = clone(ring_base), clone(ring_base)
     strip_words = b1_inputs[(SCRUB_BUDGET, 2)]
@@ -956,6 +1429,18 @@ def main() -> int:
                            N_SESSIONS * 30 + l_ * 2 + edges * 4 + n_cap * 3),
         "ring_append": (n_rows * (64 + 32) + N_SESSIONS * 4 + n_rows * (64 + 32 + 4 + 4) + 4, 0),
         "sha256_words": (SCRUB_BUDGET * (2 * 64 + 32), SCRUB_BUDGET * instr_per_message(2)),
+        # B7: read step, retry and undo rows, saga state, n_steps, cursor,
+        # the outcome byte; write step and retry rows, saga state, cursor,
+        # committed and exhausted. About 2M + 20 integer operations a saga
+        # for the two row scans.
+        "saga_tick_block": (saga_cap * (3 * 16 + 1 + 4 + 4 + 1) + saga_cap * (2 * 16 + 1 + 4 + 1 + 1),
+                            saga_cap * (2 * 16 + 20)),
+        # B8: read voucher, vouchee, session, active, expiry per edge and
+        # sigma and the first wave per agent; write sigma, slashed, clipped
+        # and wave_of per agent and active per edge. Per depth about ten
+        # operations an edge and twenty an agent.
+        "slash_cascade": (cap.max_vouch_edges * (4 + 4 + 4 + 1 + 4 + 1) + cap.max_agents * (5 + 7),
+                          depths * (cap.max_vouch_edges * 10 + cap.max_agents * 20)),
     }
     rows = []
     for name, (kfn, pfn, reset) in calls.items():
@@ -968,7 +1453,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
-            "launches": windows["scrubber" if name == "sha256_words" else "facade_waves"][name],
+            "launches": windows[ROW_PATH.get(name, "facade_waves")][name],
             "launches_by_path": {"op_wave": launches.get(name, 0),
                                  **{path: c[name] for path, c in windows.items()}},
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
@@ -987,8 +1472,9 @@ def main() -> int:
     ).stdout.strip()
     emit("card_after_timing", clocks_power_limit_temp=clocks,
          note="library_ms: index_add_ for the contribution, four index_copy_ calls on "
-              "pre-flattened rows for the ring append; no PyTorch call computes SHA-256 or "
-              "the admission and fsm/saga blocks, so theirs is null")
+              "pre-flattened rows for the ring append; no PyTorch call computes SHA-256, "
+              "the admission and fsm/saga blocks, the saga round or the slash cascade, so "
+              "theirs is null")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 """Typed configuration: the fields of `hypervisor_tpu.config` the governance
-wave reads, copied with the same names and defaults, so a configuration
-means the same thing in both packages. Later slices add the fields their
-modules read."""
+wave, the saga plane and the slash cascade read, copied with the same
+names and defaults, so a configuration means the same thing in both
+packages. Later slices add the fields their modules read."""
 
 from __future__ import annotations
 
@@ -10,10 +10,14 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TrustConfig:
-    """Ring thresholds on sigma_eff."""
+    """Ring thresholds on sigma_eff, and the slash cascade's depth, floor
+    and wipe margin."""
 
     ring1_threshold: float = 0.95
     ring2_threshold: float = 0.60
+    max_cascade_depth: int = 2
+    sigma_floor: float = 0.05
+    cascade_wipe_epsilon: float = 0.01   # sigma_after < floor+eps => cascade
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,13 +34,15 @@ class TableCapacity:
     max_agents: int = 16_384
     max_sessions: int = 4_096
     max_vouch_edges: int = 65_536
+    max_sagas: int = 8_192
+    max_steps_per_saga: int = 16
     delta_log_capacity: int = 65_536
     trace_log_capacity: int = 8_192
 
 
 @dataclasses.dataclass(frozen=True)
 class HypervisorConfig:
-    """Top-level config (the wave's subsystems only)."""
+    """Top-level config (the ported subsystems only)."""
 
     trust: TrustConfig = TrustConfig()
     rate_limit: RateLimitConfig = RateLimitConfig()

@@ -1,4 +1,4 @@
-"""The governance wave's hand-written Hopper kernels and their wrappers.
+"""The port's hand-written Hopper kernels and their wrappers.
 
 Each wrapper launches its CUDA kernel for CUDA tensors, takes the plain
 PyTorch version beside it for CPU tensors, and raises for anything else;
@@ -12,13 +12,15 @@ main path went through the kernel.
   B5 `wave.fsm_saga_block`    <- hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas
   B6 `wave.ring_append`       <- hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas
   B1 `sha256.sha256_words`    <- hypervisor_tpu/kernels/sha256_pallas.py sha256_words
+  B7 `saga.saga_tick_block`   <- hypervisor_tpu/kernels/wave_pallas.py saga_tick_block_pallas
+  B8 `liability.slash_cascade` <- hypervisor_tpu/kernels/liability_pallas.py slash_cascade_pallas
   `wave.contribution_toward`  <- hypervisor_tpu/ops/liability.py contribution_toward
                                  (an XLA scatter-add there, no Pallas kernel)
 """
 
 from __future__ import annotations
 
-from hypervisor_tpu_torch.kernels import mtu, sha256, wave
+from hypervisor_tpu_torch.kernels import liability, mtu, saga, sha256, wave
 
 WRAPPERS = {
     "contribution_toward": wave.contribution_toward,
@@ -28,6 +30,8 @@ WRAPPERS = {
     "fsm_saga_block": wave.fsm_saga_block,
     "ring_append": wave.ring_append,
     "sha256_words": sha256.sha256_words,
+    "saga_tick_block": saga.saga_tick_block,
+    "slash_cascade": liability.slash_cascade,
 }
 
 

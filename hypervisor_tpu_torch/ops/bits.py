@@ -21,13 +21,15 @@ def pack_matrix_bits(matrix: np.ndarray) -> PackedBits:
     return (bits & 0xFFFFFFFF, bits >> 32, int(matrix.shape[0]), int(matrix.shape[1]))
 
 
-def matrix_bits_valid(packed: PackedBits, frm: torch.Tensor, to: int) -> torch.Tensor:
-    """bool[...]: packed[frm, to]; False for any out-of-range code."""
+def matrix_bits_valid(
+    packed: PackedBits, frm: torch.Tensor, to: torch.Tensor | int
+) -> torch.Tensor:
+    """bool[...]: packed[frm, to] (`to` a code or a tensor broadcast
+    against `frm`); False for any out-of-range code."""
     lo, hi, n_rows, n_cols = packed
     f = frm.to(torch.int64)
-    if not (0 <= to < n_cols):
-        return torch.zeros_like(f, dtype=torch.bool)
-    in_range = (f >= 0) & (f < n_rows)
-    idx = f.clamp(0, n_rows - 1) * n_cols + to
+    t = torch.as_tensor(to, device=f.device).to(torch.int64)
+    in_range = (f >= 0) & (f < n_rows) & (t >= 0) & (t < n_cols)
+    idx = f.clamp(0, n_rows - 1) * n_cols + t.clamp(0, n_cols - 1)
     word = torch.where(idx < 32, lo, hi)
     return in_range & (((word >> (idx & 31)) & 1) == 1)

@@ -1,11 +1,28 @@
-"""Joint-liability math the wave reads (`hypervisor_tpu.ops.liability`):
-live edges and the bonded contribution toward each joining agent."""
+"""Joint-liability math (`hypervisor_tpu.ops.liability`): live edges, the
+bonded contribution toward each joining agent, and the depth-bounded
+slash cascade.
+
+The cascade is `max_cascade_depth + 1` masked edge passes: depth d
+blacklists its wave, clips the wave's vouchers to max(sigma * (1 -
+omega)^k, floor) for k simultaneous slashed vouchees, releases the
+consumed bonds, and seeds depth d + 1 with the wiped vouchers that have
+vouchers of their own. It runs kernel B8 for CUDA tensors and the plain
+scatter form for CPU tensors (`kernels.liability`).
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
+from hypervisor_tpu_torch.observability import metrics as schema
+from hypervisor_tpu_torch.observability import tracing
+from hypervisor_tpu_torch.tables import metrics as metrics_ops
+from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import VouchTable
+from hypervisor_tpu_torch.tables.struct import replace
 
 
 def edge_live(v: VouchTable, now: torch.Tensor | float) -> torch.Tensor:
@@ -52,3 +69,57 @@ def contribution_runs(
     _, scoped = scoped_edges(v, target_session_of_slot, now)
     keys = torch.where(scoped, v.vouchee, torch.full_like(v.vouchee, n))
     return torch.sort(keys, stable=True)
+
+
+class SlashWaveResult(NamedTuple):
+    sigma: torch.Tensor       # f32[N] updated scores
+    vouch: VouchTable         # bonds released for consumed edges
+    slashed: torch.Tensor     # bool[N] agents blacklisted at any depth
+    clipped: torch.Tensor     # bool[N] agents clipped at any depth
+    wave_of: torch.Tensor     # i8[N] depth an agent was slashed at (-1 none)
+    metrics: "MetricsTable | None" = None  # updated in place when it rode in
+    trace: object = None      # TraceLog, updated in place when it rode in
+
+
+def slash_cascade(
+    vouch: VouchTable,
+    sigma: torch.Tensor,
+    seeds: torch.Tensor,
+    session_slot: int,
+    risk_weight,
+    now,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+    metrics: "MetricsTable | None" = None,
+    trace=None,      # TraceLog riding the cascade
+    trace_ctx=None,  # observability.tracing.TraceContext
+) -> SlashWaveResult:
+    """Batched slash with a depth-bounded cascade, within one session's
+    vouch graph: every slashed agent's sigma -> 0, its vouchers clipped
+    to max(sigma * (1 - omega)^k, floor), the consumed bonds released,
+    and a clipped voucher cascades when its new sigma < floor + epsilon
+    and it has vouchers of its own, up to `max_cascade_depth`.
+
+    The inputs are not written: the result carries new sigma and a vouch
+    table whose `active` column is new. The SLASHED and CLIPPED counters
+    and the hv.slash_cascade stamps land in the metrics table and trace
+    ring IN PLACE when they ride in.
+    """
+    from hypervisor_tpu_torch.kernels import liability as liability_kernels
+
+    n = sigma.shape[0]
+    new_sigma, active, slashed, clipped, wave_of = liability_kernels.slash_cascade(
+        vouch, sigma, seeds, session_slot, risk_weight, now, trust)
+    if metrics is not None:
+        metrics_ops.counter_add_many(
+            metrics, (schema.SLASHED.index, schema.CLIPPED.index),
+            (slashed.sum(), clipped.sum()),
+        )
+    if trace is not None:
+        stamps = tracing.WaveStamps(trace_ctx, "slash_cascade")
+        stamps.begin("slash_cascade", lane=n)
+        stamps.end("slash_cascade", lane=n)
+        trace = stamps.commit(trace)
+    return SlashWaveResult(
+        sigma=new_sigma, vouch=replace(vouch, active=active), slashed=slashed,
+        clipped=clipped, wave_of=wave_of, metrics=metrics, trace=trace,
+    )

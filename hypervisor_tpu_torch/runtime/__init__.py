@@ -1,0 +1,2 @@
+"""Host runtimes over the device tables (`hypervisor_tpu.runtime`): the
+saga scheduler."""

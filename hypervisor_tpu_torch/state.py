@@ -1,13 +1,15 @@
 """`HypervisorState`: the host-device bridge of the port.
 
 The counterpart of `hypervisor_tpu.state.HypervisorState` for the
-lifecycle wave and the audit plane behind it:
+lifecycle wave, the audit plane behind it, the saga plane and the slash
+cascade:
 
-  * the device tables (agents, sessions, vouch edges, metrics, the
-    DeltaLog ring and the tracer's TraceLog ring) and the host indices:
-    interning, membership keys, the agent-row free list, and the audit
-    index (session -> DeltaLog rows, turn counters, chain seeds,
-    incremental Merkle frontiers, ring-row ownership);
+  * the device tables (agents, sessions, vouch edges, sagas, metrics,
+    the DeltaLog ring and the tracer's TraceLog ring) and the host
+    indices: interning, membership keys, the agent-row and edge-row free
+    lists, the fan-out groups, and the audit index (session -> DeltaLog
+    rows, turn counters, chain seeds, incremental Merkle frontiers,
+    ring-row ownership);
   * `create_session` / `create_sessions_batch`;
   * `run_governance_wave`, the facade's single-device lifecycle wave:
     row claims, lane staging and bucket padding on the host, ONE fused
@@ -15,15 +17,21 @@ lifecycle wave and the audit plane behind it:
     append and the trace stamps), then the membership and audit
     bookkeeping;
   * `stage_delta` / `flush_deltas`, chain verification, the frontier;
-  * `terminate_sessions`.
+  * `terminate_sessions`;
+  * vouch edges (`add_vouch`, `release_vouch`, `free_edge_rows`) and the
+    slash cascade (`apply_slash`, kernel B8 on CUDA; `blacklist_rows`);
+  * the saga plane: `create_saga` / `create_saga_from_dsl`, the fan-out
+    groups (`fanout_dispatch`, `fanout_settle`), `saga_work`,
+    `saga_round` (kernel B7 on CUDA), `sagas_settled` and the isolation
+    gate that `runtime.saga_scheduler.SagaScheduler` drives.
 
 `stage_wave` / `governance_wave` keep the slim bench-shaped op path.
 The host keeps mirrors of both ring cursors (`_delta_cursor`,
 `tracer.cursor`): it knows every advance, so no wave reads a device
 cursor back. Not thread-safe: the reference's staging lock guards its
 concurrent join producers, which arrive with `enqueue_join`. The WAL,
-the mesh path, the action gateway, the gauge epilogue and the sanitizer
-arrive with later slices of the port.
+the mesh path, the action gateway, the gauge epilogue, the sanitizer
+and the health plane's events arrive with later slices of the port.
 """
 
 from __future__ import annotations
@@ -40,16 +48,22 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
-from hypervisor_tpu_torch.ops import pipeline
+from hypervisor_tpu_torch.ops import liability as liability_ops
+from hypervisor_tpu_torch.ops import pipeline, saga_ops
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.ops.admission import ADMIT_OK
+from hypervisor_tpu_torch.ops.rings import compute_rings
 from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
+    AF32_SIGMA_EFF,
     AI32_FLAGS,
     AI32_SESSION,
     FLAG_ACTIVE,
+    FLAG_BLACKLISTED,
+    FLAG_BREAKER_TRIPPED,
+    FLAG_QUARANTINED,
     SF32_CREATED_AT,
     SF32_MAX_DURATION,
     SF32_MIN_SIGMA,
@@ -58,6 +72,7 @@ from hypervisor_tpu_torch.tables.state import (
     SI32_SID,
     SI32_STATE,
     AgentTable,
+    SagaTable,
     SessionTable,
     VouchTable,
 )
@@ -66,6 +81,19 @@ from hypervisor_tpu_torch.tables.state import (
 def _mkeys(sessions: np.ndarray, dids: np.ndarray) -> np.ndarray:
     """(session << 32) | did membership keys over whole waves -> int64[B]."""
     return (np.asarray(sessions, np.int64) << 32) | (np.asarray(dids, np.int64) & 0xFFFFFFFF)
+
+
+def _isolation_refusal_from(flags: int, breaker_until: float, now: float) -> Optional[str]:
+    """The isolation-gate rule on one row's column values: only LIVE rows
+    gate, and the breaker is consulted before the quarantine, so a
+    dual-flagged agent refuses with the same reason on every path."""
+    if not flags & FLAG_ACTIVE:
+        return None
+    if flags & FLAG_BREAKER_TRIPPED and now < breaker_until:
+        return "circuit breaker tripped (breach cooldown)"
+    if flags & FLAG_QUARANTINED:
+        return "agent is quarantined (read-only isolation)"
+    return None
 
 
 def _contiguous_range_host(slots: np.ndarray) -> tuple[int, int] | None:
@@ -97,13 +125,20 @@ class HypervisorState:
         self.agents = AgentTable.create(cap.max_agents, self.device)
         self.sessions = SessionTable.create(cap.max_sessions, self.device)
         self.vouches = VouchTable.create(cap.max_vouch_edges, self.device)
+        self.sagas = SagaTable.create(cap.max_sagas, cap.max_steps_per_saga, self.device)
         self.metrics = MetricsTable.create(device=self.device)
         self.delta_log = DeltaLog.create(cap.delta_log_capacity, self.device)
         self.tracer = Tracer(capacity=cap.trace_log_capacity, device=self.device)
         self.agent_ids = InternTable()
         self.session_ids = InternTable()
+        self.saga_ids = InternTable()
         self._next_session_slot = 0
         self._next_agent_slot = 0
+        self._next_saga_slot = 0
+        self._next_edge_slot = 0
+        # Fan-out groups per saga slot: [(policy_code, [branch idxs])],
+        # ordered by first branch index (from create_saga_from_dsl).
+        self._fanout_groups: dict[int, list[tuple[int, list[int]]]] = {}
         # Wave rows recycle here after every wave (each is dead once its
         # session terminates in-wave); claims pop from the end.
         self._free_agent_slots: list[int] = []
@@ -370,7 +405,7 @@ class HypervisorState:
             raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
         if actions is not None:
             raise NotImplementedError(
-                "run_governance_wave(actions=...) arrives with slice 3 of the port (the gateway)"
+                "run_governance_wave(actions=...) arrives with a later slice of the port (the gateway)"
             )
         b, k = len(dids), len(session_slots)
         b_wave, k_wave = b, k
@@ -744,3 +779,352 @@ class HypervisorState:
                 self._free_edge_slots.extend(int(r) for r in rows)
                 self._scrubbed_edges.extend(int(r) for r in rows)
         return roots_host
+
+    # ── vouch edges ──────────────────────────────────────────────────
+
+    def add_vouch(
+        self,
+        voucher_slot: int,
+        vouchee_slot: int,
+        session_slot: int,
+        bond: float,
+        bond_pct: float = 0.20,
+        expiry: float = np.inf,
+    ) -> int:
+        """Insert one liability edge; returns the edge row (rows released
+        by release_vouch / free_edge_rows are recycled, last in first)."""
+        if self._free_edge_slots:
+            row = self._free_edge_slots.pop()
+        elif self._next_edge_slot < self.vouches.voucher.shape[0]:
+            row = self._next_edge_slot
+            self._next_edge_slot += 1
+        else:
+            raise RuntimeError(
+                f"vouch table full ({self.vouches.voucher.shape[0]}); "
+                "raise config.capacity.max_vouch_edges"
+            )
+        v = self.vouches
+        v.voucher[row] = int(voucher_slot)
+        v.vouchee[row] = int(vouchee_slot)
+        v.session[row] = int(session_slot)
+        v.bond[row] = float(np.float32(bond))
+        v.bond_pct[row] = float(np.float32(bond_pct))
+        v.active[row] = True
+        v.expiry[row] = float(np.float32(expiry))
+        return row
+
+    def release_vouch(self, edge_row: int) -> None:
+        """Deactivate one liability edge and recycle its row."""
+        self.vouches.active[edge_row] = False
+        self._free_edge_slots.append(edge_row)
+
+    def free_edge_rows(self, edge_rows) -> None:
+        """Recycle rows a device wave already deactivated (host-only
+        bookkeeping, no device write)."""
+        self._free_edge_slots.extend(int(r) for r in edge_rows)
+
+    # ── the slash cascade ────────────────────────────────────────────
+
+    def apply_slash(
+        self,
+        session_slot: int,
+        vouchee_slot: int,
+        risk_weight: float,
+        now: float = 0.0,
+    ) -> dict:
+        """Run the slash cascade ON the device tables: blacklist the
+        vouchee (sigma_eff -> 0, FLAG_BLACKLISTED), clip its vouchers with
+        the joint-liability formula through the session's vouch graph
+        (`ops.liability.slash_cascade`, kernel B8 on CUDA), release the
+        consumed bonds and recompute the touched agents' rings from the
+        new sigma. Returns {"slashed": [...], "clipped": [...]}, agent
+        slots in ascending order."""
+        return self._apply_slash_impl(session_slot, vouchee_slot, risk_weight, now)
+
+    def _apply_slash_impl(
+        self, session_slot: int, vouchee_slot: int, risk_weight: float, now: float
+    ) -> dict:
+        n = self.agents.ring.shape[0]
+        seeds = np.zeros(n, bool)
+        seeds[vouchee_slot] = True
+        th = self.tracer.begin_wave("slash_cascade", sessions=(session_slot,), lanes=n)
+        result = liability_ops.slash_cascade(
+            self.vouches, self.agents.sigma_eff, torch.from_numpy(seeds).to(self.device),
+            session_slot, risk_weight, now,
+            metrics=self.metrics, trace=self.tracer.table,
+            trace_ctx=th.ctx if th is not None else None,
+        )
+        self.tracer.end_wave(th, result.trace)
+        touched = result.slashed | result.clipped
+        self.agents.f32[:, AF32_SIGMA_EFF] = result.sigma
+        self.agents.ring.copy_(torch.where(touched, compute_rings(result.sigma, False),
+                                           self.agents.ring))
+        flags = self.agents.i32[:, AI32_FLAGS]
+        flags.copy_(torch.where(result.slashed, flags | FLAG_BLACKLISTED, flags))
+        self.vouches.active.copy_(result.vouch.active)
+        return {
+            "slashed": torch.nonzero(result.slashed).flatten().tolist(),
+            "clipped": torch.nonzero(result.clipped).flatten().tolist(),
+        }
+
+    def blacklist_rows(self, rows: Sequence[int]) -> None:
+        """Agent-global blacklist: sigma_eff -> 0, FLAG_BLACKLISTED and the
+        ring recomputed on the given rows (the rogue agent's rows in the
+        sessions `apply_slash` did not cascade through)."""
+        if not len(rows):
+            return
+        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+        self.agents.f32[idx, AF32_SIGMA_EFF] = 0.0
+        rings = compute_rings(self.agents.sigma_eff, False)
+        self.agents.ring[idx] = rings[idx]
+        flags = self.agents.i32[:, AI32_FLAGS]
+        flags[idx] = flags[idx] | FLAG_BLACKLISTED
+
+    # ── sagas ────────────────────────────────────────────────────────
+
+    def create_saga(self, saga_id: str, session_slot: int, steps: Sequence[dict]) -> int:
+        """Allocate a saga row; steps = [{has_undo, retries, timeout}, ...]."""
+        max_steps = self.sagas.step_state.shape[1]
+        if not steps:
+            raise ValueError("saga needs at least one step")
+        if len(steps) > max_steps:
+            raise ValueError(f"saga has {len(steps)} steps; table holds {max_steps}")
+        if self._next_saga_slot >= self.sagas.saga_state.shape[0]:
+            raise RuntimeError(
+                f"saga table full ({self.sagas.saga_state.shape[0]}); "
+                "raise config.capacity.max_sagas"
+            )
+        slot = self._next_saga_slot
+        self._next_saga_slot += 1
+        self.saga_ids.intern(saga_id)
+        retries = np.zeros(max_steps, np.int8)
+        has_undo = np.zeros(max_steps, bool)
+        timeout = np.full(max_steps, 300.0, np.float32)
+        for i, st in enumerate(steps):
+            retries[i] = st.get("retries", 0)
+            has_undo[i] = st.get("has_undo", False)
+            timeout[i] = st.get("timeout", 300.0)
+        g, dev = self.sagas, self.device
+        g.step_state[slot] = saga_ops.STEP_PENDING
+        g.retries_left[slot] = torch.from_numpy(retries).to(dev)
+        g.has_undo[slot] = torch.from_numpy(has_undo).to(dev)
+        g.timeout[slot] = torch.from_numpy(timeout).to(dev)
+        g.saga_state[slot] = saga_ops.SAGA_RUNNING
+        g.session[slot] = int(session_slot)
+        g.n_steps[slot] = len(steps)
+        g.cursor[slot] = 0
+        return slot
+
+    def create_saga_from_dsl(self, definition, session_slot: int) -> int:
+        """Materialize a parsed `saga.dsl.SagaDefinition` as a SagaTable
+        row: step order, retry budgets, undo availability and timeouts
+        come from the definition. Fan-out groups register their branch
+        indices and policy, so the scheduler dispatches a whole group at
+        once and settles it with one `ops.saga_ops.fanout_round` (branches
+        do not retry)."""
+        slot = self.create_saga(
+            definition.saga_id,
+            session_slot,
+            [
+                {"retries": step.retries, "has_undo": step.undo_api is not None,
+                 "timeout": float(step.timeout)}
+                for step in definition.steps
+            ],
+        )
+        idx_of = {step.id: i for i, step in enumerate(definition.steps)}
+        groups = [
+            (fo.policy.code, sorted(idx_of[sid] for sid in fo.branch_step_ids))
+            for fo in getattr(definition, "fan_outs", ())
+        ]
+        for _, idxs in groups:
+            # The device schedule is cursor-ordered: a group's branches
+            # must be consecutive, or the cursor's jump past the group
+            # would skip interleaved sequential steps.
+            if idxs != list(range(idxs[0], idxs[0] + len(idxs))):
+                raise ValueError(
+                    "fan-out branches must be consecutive steps in the "
+                    f"definition for device scheduling; got indices {idxs}. "
+                    "Reorder the steps so each group's branches are adjacent."
+                )
+        if groups:
+            self._fanout_groups[slot] = sorted(groups, key=lambda grp: grp[1][0])
+        return slot
+
+    # ── fan-out groups (device-scheduled) ────────────────────────────
+
+    def _active_group(
+        self, slot: int, cursor_host: np.ndarray, state_host: np.ndarray
+    ) -> Optional[tuple[int, list[int]]]:
+        """The fan-out group whose first branch is this saga's cursor, if
+        the saga is RUNNING, from host copies of the cursor and state
+        columns (one read per round)."""
+        groups = self._fanout_groups.get(slot)
+        if not groups:
+            return None
+        if int(state_host[slot]) != saga_ops.SAGA_RUNNING:
+            return None
+        cursor = int(cursor_host[slot])
+        for policy, idxs in groups:
+            if idxs[0] == cursor:
+                return policy, idxs
+        return None
+
+    def fanout_dispatch(self) -> list[tuple[int, int]]:
+        """(saga_slot, step_idx) pairs for every group front: the whole
+        group's PENDING branches dispatch concurrently."""
+        if not self._fanout_groups:
+            return []
+        step_state = self.sagas.step_state.cpu().numpy()
+        cursor_host = self.sagas.cursor.cpu().numpy()
+        state_host = self.sagas.saga_state.cpu().numpy()
+        out = []
+        for slot in self._fanout_groups:
+            front = self._active_group(slot, cursor_host, state_host)
+            if front is None:
+                continue
+            out.extend((slot, i) for i in front[1] if step_state[slot, i] == saga_ops.STEP_PENDING)
+        return out
+
+    def fanout_settle(self, outcomes: dict[tuple[int, int], bool]) -> None:
+        """Book a round of fan-out branch outcomes in one device round
+        (`ops.saga_ops.fanout_round`), the saga table updated in place."""
+        if not outcomes:
+            return
+        self._fanout_settle_impl(outcomes)
+
+    def _fanout_settle_impl(self, outcomes: dict[tuple[int, int], bool]) -> None:
+        g_cap, m = self.sagas.step_state.shape
+        group = np.zeros((g_cap, m), bool)
+        active = np.zeros(g_cap, bool)
+        success = np.zeros((g_cap, m), bool)
+        policy = np.zeros(g_cap, np.int8)
+        cursor_host = self.sagas.cursor.cpu().numpy()
+        state_host = self.sagas.saga_state.cpu().numpy()
+        for slot in {s for s, _ in outcomes}:
+            front = self._active_group(slot, cursor_host, state_host)
+            if front is None:
+                continue
+            pol, idxs = front
+            active[slot] = True
+            policy[slot] = pol
+            group[slot, idxs] = True
+        for (slot, idx), ok in outcomes.items():
+            success[slot, idx] = ok
+
+        def put(a):
+            return torch.from_numpy(a).to(self.device)
+
+        g = self.sagas
+        step_state, saga_state, cursor = saga_ops.fanout_round(
+            g.step_state, g.saga_state, g.cursor, put(group), put(active), put(success),
+            put(policy))
+        g.step_state.copy_(step_state)
+        g.saga_state.copy_(saga_state)
+        g.cursor.copy_(cursor)
+
+    def saga_work(
+        self, comp_budget: Optional[int] = None
+    ) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
+        """(execute, compensate) work lists for the host executor shim.
+
+        execute: (saga_slot, step_idx) cursor steps of RUNNING sagas
+        (group fronts dispatch through `fanout_dispatch` instead).
+        compensate: (saga_slot, step_idx) reverse-order targets of
+        COMPENSATING sagas. `comp_budget` bounds the compensation list
+        per round, a deterministic prefix: slots in ascending order, each
+        saga's reverse step order kept.
+        """
+        g = self._next_saga_slot
+        if g == 0:
+            return [], []
+        saga_state = self.sagas.saga_state.cpu().numpy()[:g]
+        step_state = self.sagas.step_state.cpu().numpy()[:g]
+        cursor = self.sagas.cursor.cpu().numpy()[:g]
+        n_steps = self.sagas.n_steps.cpu().numpy()[:g]
+
+        execute = [
+            (int(s), int(cursor[s]))
+            for s in np.nonzero((saga_state == saga_ops.SAGA_RUNNING) & (cursor < n_steps))[0]
+            if step_state[s, cursor[s]] == saga_ops.STEP_PENDING
+            and self._active_group(int(s), cursor, saga_state) is None
+        ]
+        compensate = []
+        for s in np.nonzero(saga_state == saga_ops.SAGA_COMPENSATING)[0]:
+            committed = np.nonzero(step_state[s] == saga_ops.STEP_COMMITTED)[0]
+            if len(committed):
+                compensate.append((int(s), int(committed[-1])))
+        if comp_budget is not None and len(compensate) > comp_budget:
+            compensate = compensate[: max(int(comp_budget), 0)]
+        return execute, compensate
+
+    def saga_round(
+        self,
+        exec_outcomes: Optional[dict[int, bool]] = None,
+        undo_outcomes: Optional[dict[int, bool]] = None,
+    ) -> None:
+        """One scheduling round over the whole saga table
+        (`ops.saga_ops.saga_table_tick`, kernel B7 on CUDA), in place.
+        Only sagas present in the outcome dicts are booked; the others
+        (e.g. fan-out group fronts settled by `fanout_settle` in the same
+        round) are left untouched. The four outcome masks travel to the
+        device as one packed byte per saga."""
+        self._saga_round_impl(exec_outcomes, undo_outcomes)
+
+    def _saga_round_impl(
+        self,
+        exec_outcomes: Optional[dict[int, bool]] = None,
+        undo_outcomes: Optional[dict[int, bool]] = None,
+    ) -> None:
+        g_cap = self.sagas.saga_state.shape[0]
+        exec_success = np.zeros(g_cap, bool)
+        undo_success = np.zeros(g_cap, bool)
+        exec_attempted = np.zeros(g_cap, bool)
+        undo_attempted = np.zeros(g_cap, bool)
+        for slot, ok in (exec_outcomes or {}).items():
+            exec_success[slot] = ok
+            exec_attempted[slot] = True
+        for slot, ok in (undo_outcomes or {}).items():
+            undo_success[slot] = ok
+            undo_attempted[slot] = True
+        outcomes = saga_ops.pack_outcomes(exec_success, undo_success, exec_attempted, undo_attempted)
+        th = self.tracer.begin_wave("saga_round", lanes=g_cap)
+        g = self.sagas
+        *_, t_table = saga_ops.saga_table_tick(
+            g.step_state, g.retries_left, g.has_undo, g.saga_state, g.n_steps, g.cursor,
+            torch.from_numpy(outcomes).to(self.device),
+            metrics=self.metrics, trace=self.tracer.table,
+            trace_ctx=th.ctx if th is not None else None,
+        )
+        self.tracer.end_wave(th, t_table)
+
+    def sagas_settled(self) -> bool:
+        g = self._next_saga_slot
+        if g == 0:
+            return True
+        return bool(saga_ops.saga_table_done(self.sagas.saga_state[:g], self.sagas.session[:g]).all())
+
+    # ── isolation gates ──────────────────────────────────────────────
+
+    def isolation_refusal(self, agent_slot: int, now: Optional[float] = None) -> Optional[str]:
+        """Device-plane isolation gates for one agent row: a refusal reason
+        when the LIVE row is quarantined or its circuit breaker is
+        holding, else None. A retired row (FLAG_ACTIVE clear) gates
+        nothing."""
+        return _isolation_refusal_from(
+            int(self.agents.flags[agent_slot]),
+            float(self.agents.bd_breaker_until[agent_slot]),
+            self.now() if now is None else now,
+        )
+
+    def isolation_gate(self):
+        """The bulk form of `isolation_refusal`: reads the flag and
+        breaker columns ONCE and returns a per-slot callable, valid for
+        one scheduling round."""
+        flags = self.agents.flags.cpu().numpy().copy()
+        until = self.agents.bd_breaker_until.cpu().numpy().copy()
+        now = self.now()
+
+        def refusal(agent_slot: int) -> Optional[str]:
+            return _isolation_refusal_from(int(flags[agent_slot]), float(until[agent_slot]), now)
+
+        return refusal

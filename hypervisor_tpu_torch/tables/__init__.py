@@ -3,7 +3,8 @@
 `from_state_arrays` reads the `"<table>.<column>"` dict that the JAX
 package's checkpoint plane writes (`hypervisor_tpu.runtime.checkpoint.
 state_arrays`) for the agents, sessions and vouches tables, plus the
-optional `"delta_log.<column>"` and `"metrics.<column>"` blocks;
+optional `"sagas.<column>"`, `"delta_log.<column>"` and
+`"metrics.<column>"` blocks;
 `to_state_arrays` writes the same dict back, byte for byte (u32 columns
 as uint32). Both packages can then run from one seeded state.
 """
@@ -17,13 +18,14 @@ import torch
 
 from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
-from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
+from hypervisor_tpu_torch.tables.state import AgentTable, SagaTable, SessionTable, VouchTable
 from hypervisor_tpu_torch.tables.struct import tensors
 
 __all__ = [
     "AgentTable",
     "DeltaLog",
     "MetricsTable",
+    "SagaTable",
     "SessionTable",
     "StateTables",
     "TraceLog",
@@ -34,19 +36,21 @@ __all__ = [
 
 _TABLE_TYPES = {"agents": AgentTable, "sessions": SessionTable, "vouches": VouchTable}
 #: Columns holding u32 values (int32 bits in the port), by optional block.
-_OPTIONAL = {"delta_log": (DeltaLog, ("body", "digest")),
+_OPTIONAL = {"sagas": (SagaTable, ()),
+             "delta_log": (DeltaLog, ("body", "digest")),
              "metrics": (MetricsTable, ("counters", "hist"))}
 
 
 @dataclasses.dataclass
 class StateTables:
-    """The tables one governance wave reads and writes."""
+    """The device tables of one state (the optional ones may be None)."""
 
     agents: AgentTable
     sessions: SessionTable
     vouches: VouchTable
     metrics: MetricsTable | None = None
     delta_log: DeltaLog | None = None
+    sagas: SagaTable | None = None
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The governance state tables: agents, sessions, vouch edges.
+"""The governance state tables: agents, sessions, sagas, vouch edges.
 
 Same fixed-capacity structure-of-arrays layout as
 `hypervisor_tpu.tables.state`, column for column and dtype for dtype,
@@ -132,6 +132,38 @@ class SessionTable:
             f32=f32,
             enable_audit=torch.ones((capacity,), dtype=torch.bool, device=device),
             has_nonreversible=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
+
+@table
+class SagaTable:
+    """[G, M] saga step states plus per-saga control columns: every saga
+    advances in one `ops.saga_ops.saga_table_tick` (kernel B7 on CUDA)."""
+
+    step_state: torch.Tensor    # i8[G, M] StepState codes (PENDING beyond n_steps)
+    retries_left: torch.Tensor  # i8[G, M]
+    has_undo: torch.Tensor      # bool[G, M]
+    timeout: torch.Tensor       # f32[G, M] seconds (the host scheduler enforces them)
+    saga_state: torch.Tensor    # i8[G] SagaState codes
+    session: torch.Tensor       # i32[G] session slot (-1 = free saga row)
+    n_steps: torch.Tensor       # i32[G]
+    cursor: torch.Tensor        # i32[G] next step to execute (forward order)
+
+    @staticmethod
+    def create(capacity: int, max_steps: int, device: str | torch.device) -> "SagaTable":
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=device)
+
+        gm = (capacity, max_steps)
+        return SagaTable(
+            step_state=full(gm, 0, torch.int8),
+            retries_left=full(gm, 0, torch.int8),
+            has_undo=full(gm, False, torch.bool),
+            timeout=full(gm, 300.0, torch.float32),
+            saga_state=full((capacity,), 0, torch.int8),
+            session=full((capacity,), -1, torch.int32),
+            n_steps=full((capacity,), 0, torch.int32),
+            cursor=full((capacity,), 0, torch.int32),
         )
 
 

@@ -22,7 +22,7 @@ One seeded sequence runs on the JAX package's `HypervisorState` (unarmed:
 Held equal bit for bit after every step: every `WaveResult` field; the
 agents, sessions and vouches tables; the DeltaLog; the metrics counters,
 histograms and their sums (the gauges are written by the reference's
-fused epilogue, which ports with slice 3); the TraceLog words; the host
+fused epilogue, which ports with a later slice); the TraceLog words; the host
 audit index, frontier roots, ring-row ownership, free lists and
 membership keys; the scrubber reports, the verify verdicts and the
 roots. Trace ids are made deterministic by patching `secrets.token_hex`.
@@ -373,6 +373,7 @@ def test_port_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import hypervisor_tpu_torch.state, hypervisor_tpu_torch.integrity.scrubber\n"
         "import hypervisor_tpu_torch.kernels, hypervisor_tpu_torch.tables\n"
+        "import hypervisor_tpu_torch.runtime.saga_scheduler, hypervisor_tpu_torch.saga.dsl\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'hypervisor_tpu')))\n"
     )
@@ -387,7 +388,7 @@ def test_unported_facade_arguments_are_refused():
                    device="cpu")
     slots = st.create_sessions_batch(["a"], port_models.SessionConfig())
     args = (slots, ["d"], slots, np.ones(1, np.float32), np.zeros((T, 1, 16), np.uint32))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         st.run_governance_wave(*args, actions={"slots": []})
     with pytest.raises(NotImplementedError, match="mesh"):
         st.run_governance_wave(*args, mesh=object())

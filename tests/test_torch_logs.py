@@ -172,7 +172,7 @@ def test_delta_log_round_trips_through_state_arrays():
     assert tables.delta_log is not None and tables.delta_log.body.dtype == torch.int32
     back = port_tables.to_state_arrays(tables)
     want = {k: v for k, v in arrays.items()
-            if k.split(".")[0] in ("agents", "sessions", "vouches", "delta_log")}
+            if k.split(".")[0] in ("agents", "sessions", "vouches", "delta_log", "sagas")}
     assert sorted(back) == sorted(want)
     for key, value in want.items():
         assert back[key].dtype == value.dtype and back[key].shape == value.shape, key

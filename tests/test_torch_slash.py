@@ -1,0 +1,271 @@
+"""The port's slash cascade against the reference's, on the CPU.
+
+* Kernel B8's plain version (`kernels.liability.slash_cascade_plain`) is
+  held bit for bit (tolerance 0) against the reference's scatter form
+  `ops.liability.slash_cascade` in sigma, slashed, clipped, wave_of and
+  the active column, on `random_graph`'s graphs from
+  `tests/parity/test_liability_pallas.py` (seeds 0-4, omega 0.95 and
+  0.6, 1-3 sessions, expired edges) and on one graph of 10,000 agents x
+  8,192 edges; and against the kernel's dense matmul twin
+  `slash_cascade_dense`, also with tolerance 0 on sigma (the reference
+  holds its own twin to rtol 1e-5; on these graphs the bits agree).
+* The shared clip factor and the wipe threshold.
+* The facade: `add_vouch`, `release_vouch`, `free_edge_rows`,
+  `apply_slash` (a cascade that reaches depth 2) and `blacklist_rows` on
+  the JAX package's `HypervisorState` and the port's, with the agents
+  and vouches tables, the returned lists, the metrics counters and the
+  TraceLog words equal after every step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import secrets
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hypervisor_tpu import config as jax_config
+from hypervisor_tpu.kernels.liability_pallas import slash_cascade_dense
+from hypervisor_tpu.ops.liability import slash_cascade as jax_slash_cascade
+from hypervisor_tpu.runtime.checkpoint import state_arrays
+from hypervisor_tpu.state import HypervisorState as JaxState
+from hypervisor_tpu.tables.struct import replace as jax_replace
+from hypervisor_tpu_torch import config as port_config
+from hypervisor_tpu_torch import tables as port_tables
+from hypervisor_tpu_torch.kernels import liability as liability_kernels
+from hypervisor_tpu_torch.ops import liability as liability_ops
+from hypervisor_tpu_torch.state import HypervisorState as PortState
+from hypervisor_tpu_torch.tables.state import AF32_SIGMA_EFF, AI32_FLAGS, VouchTable
+from tests.parity.test_liability_pallas import random_graph
+
+_FIELDS = ("sigma", "active", "slashed", "clipped", "wave_of")
+
+
+def _port_vouches(v) -> VouchTable:
+    return VouchTable(**{f.name: torch.from_numpy(np.array(getattr(v, f.name)))
+                         for f in dataclasses.fields(v)})
+
+
+def _reference_cols(res) -> list[np.ndarray]:
+    return [np.asarray(res.sigma), np.asarray(res.vouch.active), np.asarray(res.slashed),
+            np.asarray(res.clipped), np.asarray(res.wave_of)]
+
+
+def _plain(v, sigma, seeds, session, omega, now=0.0):
+    return liability_kernels.slash_cascade_plain(
+        _port_vouches(v), torch.from_numpy(np.array(sigma)), torch.from_numpy(np.array(seeds)),
+        session, omega, now)
+
+
+def _assert_bits(got, want, label):
+    for name, g, w in zip(_FIELDS, got, want):
+        g = g.numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{label} {name}"
+        assert g.tobytes() == w.tobytes(), f"{label} {name} diverged"
+
+
+@pytest.mark.parametrize("omega", [0.95, 0.6])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_plain_matches_scatter_op(seed, omega):
+    sessions = 1 + seed % 3
+    v, sigma, seeds = random_graph(seed=seed, sessions=sessions)
+    session = seed % sessions
+    want = _reference_cols(jax_slash_cascade(v, sigma, seeds, session, omega, 0.0))
+    _assert_bits(_plain(v, sigma, seeds, session, omega), want, f"seed {seed} omega {omega}")
+    assert want[3].sum() > 0 and want[4].max() >= 1  # clips, and a cascade past depth 0
+
+
+def test_plain_matches_scatter_op_at_10k_agents():
+    v, sigma, seeds = random_graph(seed=6, n_agents=10_000, n_edges=8192)
+    want = _reference_cols(jax_slash_cascade(v, sigma, seeds, 0, 0.95, 0.0))
+    _assert_bits(_plain(v, sigma, seeds, 0, 0.95), want, "10k")
+    assert want[4].max() == 2
+
+
+@pytest.mark.parametrize("seed", [0, 3, 5])
+def test_plain_matches_dense_twin(seed):
+    """Twin rule: B8's plain version and the reference's dense matmul twin
+    `slash_cascade_dense` agree bit for bit (tolerance 0, sigma included)."""
+    kw = dict(n_agents=64, n_edges=256) if seed == 3 else {}
+    v, sigma, seeds = random_graph(seed=seed, **kw)
+    omega = 0.6 if seed == 3 else 0.95
+    want = _reference_cols(slash_cascade_dense(v, sigma, seeds, 1 if seed == 3 else 0, omega, 0.0))
+    _assert_bits(_plain(v, sigma, seeds, 1 if seed == 3 else 0, omega), want, f"dense {seed}")
+
+
+def test_clip_factor_matches_reference_power_on_cascade_omegas():
+    """The shared exact form of (1 - omega)^k gives the reference's clipped
+    sigma for k up to 64 at the omegas the cascades here use."""
+    rng = np.random.RandomState(1)
+    omegas = np.float32([0.95, 0.6, 0.5, 0.3, 0.123, 0.77])
+    o, k, s = np.meshgrid(omegas, np.arange(65, dtype=np.float32),
+                          rng.uniform(0.05, 1, 200).astype(np.float32), indexing="ij")
+    want = np.asarray(jnp.maximum(jnp.asarray(s) * jnp.power(1.0 - jnp.asarray(o), jnp.asarray(k)),
+                                  0.05))
+    base = 1.0 - torch.from_numpy(o)
+    got = torch.maximum(torch.from_numpy(s) * liability_kernels.clip_factor(
+        base, torch.from_numpy(k).to(torch.int32)), torch.tensor(np.float32(0.05)))
+    assert got.numpy().tobytes() == want.tobytes()
+    assert liability_kernels.clip_factor(torch.tensor(0.5), torch.tensor([0, 1, 3])).tolist() == [
+        1.0, 0.5, 0.125]
+
+
+def test_wipe_threshold_is_rounded_once():
+    trust = port_config.DEFAULT_CONFIG.trust
+    wipe = liability_kernels.wipe_threshold(trust)
+    assert np.float32(wipe).view(np.int32) == 1031127695
+    assert (np.float32(trust.sigma_floor) + np.float32(trust.cascade_wipe_epsilon)).view(
+        np.int32) == 1031127696  # a float32 sum lands one ulp higher
+
+
+def test_cascade_entry_books_metrics_and_leaves_inputs_alone():
+    v, sigma, seeds = random_graph(seed=2)
+    pv = _port_vouches(v)
+    before = pv.active.clone()
+    sig = torch.from_numpy(np.array(sigma))
+    res = liability_ops.slash_cascade(pv, sig, torch.from_numpy(np.array(seeds)), 0, 0.95, 0.0)
+    assert torch.equal(pv.active, before) and torch.equal(sig, torch.from_numpy(np.array(sigma)))
+    assert res.metrics is None and res.trace is None
+    assert int(res.slashed.sum()) > 0 and not torch.equal(res.vouch.active, before)
+
+
+# ── the facade ───────────────────────────────────────────────────────
+
+CAP = dict(max_agents=64, max_sessions=4, max_vouch_edges=48)
+N_RANDOM_EDGES = 40
+
+
+class _Ref:
+    def __init__(self):
+        self.st = JaxState(jax_config.HypervisorConfig(capacity=jax_config.TableCapacity(
+            **CAP, max_sagas=4, max_steps_per_saga=4, max_elevations=4, delta_log_capacity=16,
+            event_log_capacity=16, trace_log_capacity=64)))
+
+    def seed_agents(self, sigma, flags, ring):
+        a = self.st.agents
+        self.st.agents = jax_replace(a, sigma_eff=jnp.asarray(sigma), flags=jnp.asarray(flags),
+                                     ring=jnp.asarray(ring))
+
+    def snapshot(self):
+        arrays = state_arrays(self.st)
+        out = {k: v for k, v in arrays.items() if k.split(".")[0] in ("agents", "vouches")}
+        out["metrics.counters"] = np.array(self.st.metrics.table.counters)
+        out["trace.words"] = np.array(self.st.tracer.table.words)
+        out["free_edge_slots"] = list(self.st._free_edge_slots)
+        out["next_edge_slot"] = self.st._next_edge_slot
+        return out
+
+
+class _Port(_Ref):
+    def __init__(self):
+        self.st = PortState(port_config.HypervisorConfig(
+            capacity=port_config.TableCapacity(**CAP, trace_log_capacity=64)), device="cpu")
+
+    def seed_agents(self, sigma, flags, ring):
+        a = self.st.agents
+        a.f32[:, AF32_SIGMA_EFF] = torch.from_numpy(sigma)
+        a.i32[:, AI32_FLAGS] = torch.from_numpy(flags)
+        a.ring.copy_(torch.from_numpy(ring))
+
+    def snapshot(self):
+        st = self.st
+        out = port_tables.to_state_arrays(port_tables.StateTables(st.agents, st.sessions, st.vouches))
+        out = {k: v for k, v in out.items() if k.split(".")[0] in ("agents", "vouches")}
+        out["metrics.counters"] = st.metrics.counters.numpy().view(np.uint32).copy()
+        out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
+        out["free_edge_slots"] = list(st._free_edge_slots)
+        out["next_edge_slot"] = st._next_edge_slot
+        return out
+
+
+#: A liability chain in session 0: 11 vouches for 10, 12 for 11, 13 for
+#: 12, 14 for 13 — a slash of 10 at omega 0.95 wipes 11 and 12 in turn.
+CHAIN = [(11, 10), (12, 11), (13, 12), (14, 13)]
+
+
+def _run(side) -> list:
+    st, log = side.st, []
+    rng = np.random.RandomState(31)
+    n = CAP["max_agents"]
+    side.seed_agents(rng.uniform(0.3, 1.0, n).astype(np.float32),
+                     np.full(n, 1, np.int32), np.full(n, 2, np.int8))
+
+    def record(label, value=None):
+        log.append((label, value))
+        log.append((label + ":state", side.snapshot()))
+
+    rows = [st.add_vouch(a, b, 0, 0.25) for a, b in CHAIN]
+    for _ in range(N_RANDOM_EDGES):
+        rows.append(st.add_vouch(int(rng.randint(0, n)), int(rng.randint(0, n)),
+                                 int(rng.randint(0, 2)), float(rng.uniform(0.05, 0.3)),
+                                 bond_pct=0.1, expiry=float(rng.choice([5.0, np.inf]))))
+    record("added", rows)
+    st.release_vouch(rows[20])
+    st.release_vouch(rows[7])
+    record("released")
+    record("reused", [st.add_vouch(1, 2, 1, 0.1), st.add_vouch(3, 4, 1, 0.2)])
+    res = st.apply_slash(0, 10, 0.95, now=1.0)
+    record("slash0", res)
+    consumed = [r for r in range(CAP["max_vouch_edges"]) if r in rows and r not in (20, 7)]
+    st.free_edge_rows(consumed[:3])
+    st.blacklist_rows([5, 6, 5])
+    record("blacklist")
+    record("slash1", st.apply_slash(1, int(rng.randint(0, n)), 0.6, now=10.0))
+    record("slash_empty", st.apply_slash(0, 63, 0.5, now=10.0))
+    with pytest.raises(RuntimeError, match="vouch table full"):
+        for _ in range(CAP["max_vouch_edges"]):
+            st.add_vouch(0, 1, 0, 0.1)
+    record("full")
+    return log
+
+
+@pytest.fixture(scope="module")
+def runs():
+    counter = itertools.count()
+
+    def token_hex(nbytes=None):
+        return f"{next(counter):0{2 * nbytes}x}"
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("HV_TRACE", raising=False)
+        mp.delenv("HV_TRACE_SAMPLE", raising=False)
+        mp.setattr(secrets, "token_hex", token_hex)
+        ref = dict(_run(_Ref()))
+        counter = itertools.count()
+        port = dict(_run(_Port()))
+    return ref, port
+
+
+def _assert_same(label, got, want):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), label
+        for key, w in want.items():
+            _assert_same(f"{label} {key}", got[key], w)
+    elif isinstance(want, np.ndarray):
+        g = np.asarray(got)
+        assert g.dtype == want.dtype and g.shape == want.shape, label
+        assert g.tobytes() == want.tobytes(), f"{label} diverged"
+    else:
+        assert got == want, label
+
+
+@pytest.mark.parametrize("step", ["added", "released", "reused", "slash0", "blacklist", "slash1",
+                                  "slash_empty", "full"])
+def test_facade_slash_sequence_matches_reference(runs, step):
+    ref, port = runs
+    for suffix in ("", ":state"):
+        _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+
+
+def test_facade_slash_cascade_reaches_depth_two(runs):
+    _, port = runs
+    assert {10, 11, 12} <= set(port["slash0"]["slashed"])
+    assert 13 in port["slash0"]["clipped"]
+    assert port["reused"] == [7, 20]  # the released rows, last in first out
+    flags = port["slash0:state"]["agents.i32"][:, AI32_FLAGS]
+    assert all(flags[a] & 8 for a in (10, 11, 12))
+    assert port["blacklist:state"]["agents.ring"][5] == 3

@@ -90,6 +90,52 @@ def test_state_arrays_round_trip_byte_identical():
         assert back[key].tobytes() == want.tobytes(), key
 
 
+def test_saga_columns_round_trip_byte_identical():
+    """`sagas.*` (the reference checkpoint's SagaTable block) crosses both
+    ways byte for byte, beside the required tables."""
+    state = _jax_state()
+    rng = np.random.RandomState(4)
+    g, m = state.sagas.step_state.shape
+    state.sagas = jax_replace(
+        state.sagas,
+        step_state=jnp.asarray(rng.randint(0, 7, (g, m)).astype(np.int8)),
+        retries_left=jnp.asarray(rng.randint(-128, 128, (g, m)).astype(np.int8)),
+        has_undo=jnp.asarray(rng.uniform(size=(g, m)) < 0.5),
+        timeout=jnp.asarray(rng.uniform(0, 600, (g, m)).astype(np.float32)),
+        saga_state=jnp.asarray(rng.randint(0, 5, g).astype(np.int8)),
+        session=jnp.asarray(rng.randint(-1, 7, g).astype(np.int32)),
+        n_steps=jnp.asarray(rng.randint(0, m + 1, g).astype(np.int32)),
+        cursor=jnp.asarray(rng.randint(-2**31, 2**31, g, dtype=np.int64).astype(np.int32)),
+    )
+    arrays = {k: v for k, v in state_arrays(state).items()
+              if k.split(".")[0] in _KEYS + ("sagas",)}
+    assert sum(k.startswith("sagas.") for k in arrays) == 8
+    tables = port_tables.from_state_arrays(arrays, "cpu")
+    assert tables.sagas is not None and tables.delta_log is None
+    back = port_tables.to_state_arrays(tables)
+    assert sorted(back) == sorted(arrays)
+    for key, want in arrays.items():
+        assert back[key].dtype == want.dtype and back[key].shape == want.shape, key
+        assert back[key].tobytes() == want.tobytes(), key
+
+
+def test_saga_table_create_matches_reference():
+    want = jax_ts.SagaTable.create(37, 16)
+    got = port_ts.SagaTable.create(37, 16, "cpu")
+    fields = [f.name for f in dataclasses.fields(want)]
+    assert fields == [f.name for f in dataclasses.fields(got)]
+    for f in fields:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), f"SagaTable.{f}"
+    port = PortState(port_config.HypervisorConfig(), device="cpu")
+    assert tuple(port.sagas.step_state.shape) == (8_192, 16)
+    assert port_config.DEFAULT_CONFIG.trust.max_cascade_depth == DEFAULT_CONFIG.trust.max_cascade_depth
+    for f in ("sigma_floor", "cascade_wipe_epsilon"):
+        assert getattr(port_config.DEFAULT_CONFIG.trust, f) == getattr(DEFAULT_CONFIG.trust, f)
+    for f in ("max_sagas", "max_steps_per_saga"):
+        assert getattr(port_config.DEFAULT_CONFIG.capacity, f) == getattr(DEFAULT_CONFIG.capacity, f)
+
+
 @pytest.mark.parametrize("name", ["AgentTable", "SessionTable", "VouchTable"])
 def test_create_matches_reference_initial_values(name):
     want = getattr(jax_ts, name).create(37)

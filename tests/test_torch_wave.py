@@ -165,8 +165,9 @@ def test_consecutive_waves_match_reference(unique, ranged):
     arrays = state_arrays(ref_state)
     arrays.update(_metrics_arrays(ref_state.metrics.table))
     port = port_tables.from_state_arrays(arrays, "cpu")
-    # The DeltaLog rides across too; a wave without it leaves it untouched.
-    untouched_log = {k: v for k, v in arrays.items() if k.startswith("delta_log.")}
+    # The DeltaLog and the SagaTable ride across too; a wave without them
+    # leaves them untouched.
+    untouched_log = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas."))}
     agents, sessions, vouches = ref_state.agents, ref_state.sessions, ref_state.vouches
     metrics = ref_state.metrics.table
     for w in range(N_WAVES):
