@@ -8,14 +8,21 @@ Phases, one JSON line each:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every CUDA kernel built from `hypervisor_tpu_torch/csrc/` (one
-   nvcc per source, all started together), with ptxas' report;
+   nvcc per source, all started together), with ptxas' report; the
+   redesigned kernels (B3's packed tree, the contribution's five) must
+   show no spill;
 3. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bit-exact (tolerance 0), at the paths' shapes —
-   the vouched contribution at the wave's edges, and on 65,536 edges
-   with many vouchers per vouchee against the plain version on the CPU
-   (which sums in edge order, as the reference does); B2 chains at T=3
-   x 10,000 lanes; B3 roots at 10,000 sessions x 4 leaves plus count
-   sweeps at 8, 64 and 4096 leaves; B4 admission on the unique-sessions
+   the vouched contribution, each case called twice, against the plain
+   version on the CPU (which sums in edge order, as the reference does)
+   and, where no vouchee has two scoped edges, on the card: the wave's
+   edges, 65,536 edges with many vouchers per vouchee, the same with no
+   edge scoped, one vouchee holding 4,096 live scoped edges, one holding
+   all 65,536, and 65,535 edges; B2 chains at T=3 x 10,000 lanes; B3
+   roots, each call twice, at 10,000 sessions x 4 leaves, at 10,001 and
+   1 sessions (a ragged last warp), every count 0..P at P = 1, 2, 4, 8,
+   16, 32, 64 and 128 (both sides of the packed kernel's switch) and
+   nine counts at 4096 leaves; B4 admission on the unique-sessions
    wave and on a crowded wave with duplicates and full sessions; B5 at
    the wave's sessions, lanes, edges and agents; B6, the DeltaLog ring
    append, at the facade's shape (30,000 rows into 65,536, wrapping),
@@ -74,7 +81,8 @@ Phases, one JSON line each:
    with its host split and device time; `apply_slash`'s p50/p95 and
    device time; each kernel's time, its plain version's time, its bound
    and, where one PyTorch call computes the same function, that call's
-   time.
+   time; beside them the contribution on the two hot-vouchee tables and
+   B3 on full trees at P = 64 and P = 4096.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -190,6 +198,13 @@ NORTH_STAR = dict(agents=10_240, edges=8_192, seeds=128, omega=0.95, sigma=(0.4,
 DEFAULT_SLASH = dict(seeds=160, omega=0.6, sigma=(0.05, 0.6))
 SLASH_WARMUP, SLASH_ITERS = 2, 20
 
+#: The kernels redesigned for Hopper after their first port (csrc entry
+#: functions); ptxas must report no spill for any of them.
+REDESIGNED_KERNELS = ("tree_packed_kernel", "contrib_scope_kernel", "contrib_scan_kernel",
+                      "contrib_fill_kernel", "contrib_fold_kernel", "contrib_large_kernel")
+#: B3 timed beside the wave's shape on full trees of about 640,000 leaves
+#: in all, on each side of the packed kernel's switch: (P, sessions).
+TREE_TIMING_SHAPES = ((64, 10_000), (4096, 156))
 #: Each path's kernels, for its launch-count window.
 OP_WAVE_KERNELS = ("contribution_toward", "chain_digests", "tree_roots", "admission_block",
                    "fsm_saga_block")
@@ -692,8 +707,21 @@ def main() -> int:
         name: re.findall(r"(?:Compiling entry function '(\w+)'|(Used \d+ registers[^\n]*))", log)
         for name, log in reports.items()
     }
+    spills = {
+        fn: (int(stores), int(loads))
+        for log in reports.values()
+        for fn, stores, loads in re.findall(
+            r"Function properties for (\w+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads", log)
+    }
+    redesigned = {fn: st for fn, st in spills.items() if any(k in fn for k in REDESIGNED_KERNELS)}
+    require(len(redesigned) >= len(REDESIGNED_KERNELS),
+            f"ptxas reported no spill line for some redesigned kernel: {sorted(redesigned)}")
+    require(all(st == (0, 0) for st in redesigned.values()),
+            f"a redesigned kernel spills: {redesigned}")
     emit("build", seconds=round(build_s, 3),
-         ptxas={k: [a or b for a, b in v] for k, v in ptxas.items()})
+         ptxas={k: [a or b for a, b in v] for k, v in ptxas.items()},
+         spills_stores_loads=spills, redesigned_without_spills=sorted(redesigned))
 
     # ── helpers ──────────────────────────────────────────────────────
     def bits(t):
@@ -791,36 +819,74 @@ def main() -> int:
     kernel_rows = {}
 
     # ── 3. parity, kernel against plain, on the card ─────────────────
-    # The vouched contribution: the wave's edges (one per vouchee), then
-    # many vouchers per vouchee against the CPU's edge-order sum.
+    # The vouched contribution, every case called twice (equal to itself)
+    # and held against the plain version on the CPU, which sums in edge
+    # order as the reference does; where no vouchee has more than one
+    # scoped edge, also against the plain version on the card (CUDA's
+    # index_add_ adds in no fixed order, so there only one add can land).
     now0 = f32_scalar(0.0, dev)
-    err_c0 = check_pairs("contribution_toward", {"contribution": (
-        wave.contribution_toward(state.vouches, target, now0),
-        liability.contribution_toward(state.vouches, target, now0))})
     n_edges = state.vouches.session.shape[0]
-    multi = VouchTable.create(n_edges, dev)
-    multi.voucher.copy_(torch.from_numpy(rng.randint(0, n_cap, n_edges).astype(np.int32)))
-    multi.vouchee.copy_(torch.from_numpy(rng.randint(-1, 2000, n_edges).astype(np.int32)))
-    multi.session.copy_(torch.from_numpy(rng.randint(0, 8, n_edges).astype(np.int32)))
-    multi.bond.copy_(torch.from_numpy(rng.uniform(0, 0.4, n_edges).astype(np.float32)))
-    multi.active.copy_(torch.from_numpy(rng.uniform(size=n_edges) > 0.1))
-    multi.expiry.copy_(torch.from_numpy(
-        rng.choice([-1.0, 5.0, np.inf], n_edges).astype(np.float32)))
+
+    def random_vouches(n_e: int, vouchees: int):
+        vt = VouchTable.create(n_e, dev)
+        vt.voucher.copy_(torch.from_numpy(rng.randint(0, n_cap, n_e).astype(np.int32)))
+        vt.vouchee.copy_(torch.from_numpy(rng.randint(-1, vouchees, n_e).astype(np.int32)))
+        vt.session.copy_(torch.from_numpy(rng.randint(0, 8, n_e).astype(np.int32)))
+        vt.bond.copy_(torch.from_numpy(rng.uniform(0, 0.4, n_e).astype(np.float32)))
+        vt.active.copy_(torch.from_numpy(rng.uniform(size=n_e) > 0.1))
+        vt.expiry.copy_(torch.from_numpy(rng.choice([-1.0, 5.0, np.inf], n_e).astype(np.float32)))
+        return vt
+
+    def hot_vouchee(vt, edges, slot: int, tgt):
+        """`edges` of vt made live and scoped on `slot`, in a session no
+        other edge names."""
+        idx = torch.from_numpy(np.asarray(edges, np.int64)).to(dev)
+        vt.vouchee[idx] = slot
+        vt.session[idx] = 100
+        vt.active[idx] = True
+        vt.expiry[idx] = float("inf")
+        tgt = tgt.clone()
+        tgt[slot] = 100
+        return vt, tgt
+
+    multi = random_vouches(n_edges, 2000)
     m_target = torch.from_numpy(rng.randint(-2, 8, n_cap).astype(np.int32)).to(dev)
-    got_c = wave.contribution_toward(multi, m_target, now0)
-    again_c = wave.contribution_toward(multi, m_target, now0)
-    cpu_v = VouchTable(**{k: t.cpu() for k, t in tensors(multi).items()})
-    want_c = liability.contribution_toward(cpu_v, m_target.cpu(), f32_scalar(0.0, "cpu"))
-    err_c1 = check_pairs("contribution_toward, several vouchers", {
-        "contribution": (got_c.cpu(), want_c), "repeat": (again_c, got_c)})
-    keys, _ = liability.contribution_runs(multi, m_target, now0)
-    per_vouchee = torch.bincount(keys[keys < n_cap].long())
-    require(int(per_vouchee.max()) >= 3, "the multi-edge case needs several edges per vouchee")
-    plain_card = liability.contribution_toward(multi, m_target, now0)
-    emit("parity", kernel="contribution_toward", edges=n_edges, bit_exact=True,
-         max_abs_err=max(err_c0, err_c1), scoped_edges=int(per_vouchee.sum()),
-         max_edges_per_vouchee=int(per_vouchee.max()),
-         index_add_on_card_equal_to_cpu=same(plain_card.cpu(), want_c))
+    hot4k, hot4k_t = hot_vouchee(random_vouches(n_edges, 2000),
+                                 rng.choice(n_edges, 4096, replace=False), 1234, m_target)
+    hot_all, hot_all_t = hot_vouchee(random_vouches(n_edges, 2000), np.arange(n_edges), 77,
+                                     m_target)
+    contribution_cases = {
+        "wave": (state.vouches, target),
+        "several vouchers": (multi, m_target),
+        "none scoped": (multi, torch.full_like(m_target, -2)),
+        "one vouchee holds 4,096": (hot4k, hot4k_t),
+        "one vouchee holds all": (hot_all, hot_all_t),
+        "65,535 edges": (random_vouches(n_edges - 1, 2000), m_target),
+    }
+    err_contrib, c_cases = 0.0, {}
+    for tag, (vt, tgt) in contribution_cases.items():
+        got_c = wave.contribution_toward(vt, tgt, now0)
+        again_c = wave.contribution_toward(vt, tgt, now0)
+        cpu_v = VouchTable(**{k: t.cpu() for k, t in tensors(vt).items()})
+        want_c = liability.contribution_toward(cpu_v, tgt.cpu(), f32_scalar(0.0, "cpu"))
+        vee_c, scoped_c = liability.scoped_edges(vt, tgt, now0)
+        per_vouchee = torch.bincount(vee_c[scoped_c], minlength=1)
+        pairs = {"against the CPU": (got_c.cpu(), want_c), "repeat": (again_c, got_c)}
+        plain_card = liability.contribution_toward(vt, tgt, now0)
+        if int(per_vouchee.max()) <= 1:
+            pairs["against the card"] = (got_c, plain_card)
+        err_contrib = max(err_contrib, check_pairs(f"contribution_toward, {tag}", pairs))
+        c_cases[tag] = {"edges": int(vt.bond.shape[0]), "scoped_edges": int(per_vouchee.sum()),
+                        "max_edges_per_vouchee": int(per_vouchee.max()),
+                        "index_add_on_card_equal_to_cpu": same(plain_card.cpu(), want_c)}
+    require(c_cases["several vouchers"]["max_edges_per_vouchee"] >= 3,
+            "the multi-edge case needs several edges per vouchee")
+    require(c_cases["none scoped"]["scoped_edges"] == 0, "the none-scoped case scopes an edge")
+    require(c_cases["one vouchee holds 4,096"]["max_edges_per_vouchee"] == 4096
+            and c_cases["one vouchee holds all"]["max_edges_per_vouchee"] == n_edges,
+            "the hot-vouchee cases must hold 4,096 and every edge on one vouchee")
+    emit("parity", kernel="contribution_toward", cases=c_cases, bit_exact=True,
+         max_abs_err=err_contrib)
 
     # B2: chains.
     seeds0 = torch.zeros((N_SESSIONS, 8), dtype=torch.int32, device=dev)
@@ -835,23 +901,35 @@ def main() -> int:
     emit("parity", kernel="chain_digests", shape=[N_DELTAS, N_SESSIONS, 16],
          bit_exact=True, max_abs_err=err_b2)
 
-    # B3: roots at the wave's shape, then count sweeps.
+    # B3: roots at the wave's shape, with the last warp ragged (S =
+    # 10,001 and 1), then every count 0..P on both sides of the packed
+    # kernel's P = 64 switch and at 4096; each call twice.
     chain0 = mtu.chain_digests_plain(body_t, seeds0)
     leaves = torch.zeros((N_SESSIONS, 4, 8), dtype=torch.int32, device=dev)
     leaves[:, :N_DELTAS] = chain0.transpose(0, 1)
     counts3 = torch.full((N_SESSIONS,), N_DELTAS, dtype=torch.int32, device=dev)
-    err_b3 = check_pairs("tree_roots", {"roots": (
-        mtu.tree_roots(leaves, counts3), mtu.tree_roots_plain(leaves, counts3))}, ("roots",))
-    sweeps = {8: list(range(9)), 64: list(range(65)),
-              4096: [0, 1, 2, 3, 5, 1000, 2049, 4095, 4096]}
+
+    def random_words(*shape):
+        return u32.from_numpy_u32(
+            rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)
+
+    b3_cases = {"wave": (leaves, counts3)}
+    for s_ in (N_SESSIONS + 1, 1):
+        b3_cases[f"S={s_}"] = (random_words(s_, 4, 8),
+                               torch.full((s_,), N_DELTAS, dtype=torch.int32, device=dev))
+    sweeps = {p: list(range(p + 1)) for p in (1, 2, 4, 8, 16, 32, 64, 128)}
+    sweeps[4096] = [0, 1, 2, 3, 5, 1000, 2049, 4095, 4096]
     for p, cnts in sweeps.items():
-        lv = u32.from_numpy_u32(
-            rng.randint(0, 2**32, (len(cnts), p, 8), dtype=np.uint64).astype(np.uint32), dev)
-        ct = torch.tensor(cnts, dtype=torch.int32, device=dev)
-        err_b3 = max(err_b3, check_pairs(f"tree_roots P={p}", {"roots": (
-            mtu.tree_roots(lv, ct), mtu.tree_roots_plain(lv, ct))}, ("roots",)))
-    emit("parity", kernel="tree_roots", shape=[N_SESSIONS, 4, 8], sweeps=sorted(sweeps),
-         bit_exact=True, max_abs_err=err_b3)
+        b3_cases[f"P={p}"] = (random_words(len(cnts), p, 8),
+                              torch.tensor(cnts, dtype=torch.int32, device=dev))
+    err_b3 = 0.0
+    for tag, (lv, ct) in b3_cases.items():
+        got = mtu.tree_roots(lv, ct)
+        err_b3 = max(err_b3, check_pairs(f"tree_roots {tag}", {
+            "roots": (got, mtu.tree_roots_plain(lv, ct)),
+            "repeat": (mtu.tree_roots(lv, ct), got)}, ("roots", "repeat")))
+    emit("parity", kernel="tree_roots", shape=[N_SESSIONS, 4, 8], cases=sorted(b3_cases),
+         packed_up_to=mtu.TREE_PACKED_MAX_LEAVES, bit_exact=True, max_abs_err=err_b3)
 
     # B4: admission, the wave's unique lanes and a crowded wave.
     adm_args = (slot_t, lanes["did"], sess_t, lanes["sigma_raw"], contribution, OMEGA,
@@ -914,10 +992,6 @@ def main() -> int:
     c_ring = FACADE_CAPACITY["delta_log_capacity"]
     ring_cursor = 50_000
     n_rows = N_DELTAS * N_SESSIONS
-
-    def random_words(*shape):
-        return u32.from_numpy_u32(
-            rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)
 
     def random_ring():
         log = DeltaLog.create(c_ring, dev)
@@ -1022,7 +1096,7 @@ def main() -> int:
     emit("parity", kernel="slash_cascade", north_star=[NORTH_STAR["agents"], NORTH_STAR["edges"]],
          default=[cap.max_agents, cap.max_vouch_edges], depth_reached=depth_reached,
          against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
-    errs = {"contribution_toward": max(err_c0, err_c1), "chain_digests": err_b2, "tree_roots": err_b3,
+    errs = {"contribution_toward": err_contrib, "chain_digests": err_b2, "tree_roots": err_b3,
             "admission_block": max(err_b4, err_c), "fsm_saga_block": err_b5,
             "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
             "slash_cascade": err_b8}
@@ -1461,6 +1535,22 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms, "bytes": nbytes, "int_instructions": nops,
         })
+        if name == "contribution_toward":
+            rows[-1]["ms_hot_vouchee"] = {
+                tag: time_device(lambda vt=vt, tgt=tgt: wave.contribution_toward(vt, tgt, now0))
+                for tag, (vt, tgt) in contribution_cases.items() if tag.startswith("one vouchee")}
+        if name == "tree_roots":
+            rows[-1]["ms_full_trees"] = {}
+            for p, s_ in TREE_TIMING_SHAPES:
+                lv = random_words(s_, p, 8)
+                ct = torch.full((s_,), p, dtype=torch.int32, device=dev)
+                ms = time_device(lambda lv=lv, ct=ct: mtu.tree_roots(lv, ct))
+                b_ms = s_ * (p * 32 + 4 + 32) / HBM_BYTES_PER_S * 1e3
+                o_ms = s_ * (p - 1) * INSTR_PER_PAIR / INT32_INSTRUCTIONS_PER_S * 1e3
+                rows[-1]["ms_full_trees"][f"P={p}"] = {
+                    "sessions": s_, "ms": ms, "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                    "design": "packed" if mtu.tree_lanes_per_session(p) else "block per session"}
         if name == "sha256_words":
             rows[-1]["ms_at_30000_messages"] = {
                 f"{nb}_blocks": time_device(lambda nb=nb: sha_kernels.sha256_words(

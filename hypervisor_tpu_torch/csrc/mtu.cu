@@ -44,15 +44,86 @@ __global__ void chain_kernel(const uint4* __restrict__ bodies,  // [T, L, 16] as
   }
 }
 
-// B3. Replaces hypervisor_tpu/kernels/mtu_pallas.py tree_roots. One
-// block per session; the level lives in shared memory (P x 8 words) and
-// is reduced in place. At each level the threads hash pairs (2j, 2j+1)
-// in natural order (right := left where 2j+1 >= count), chunk by chunk:
-// every thread hashes into registers, the block syncs, then writes node
-// j, so a chunk never overwrites a node a later chunk still reads. Only
-// the ceil(count/2) pairs the root depends on are hashed; a count <= 1
-// returns leaf 0. The TPU kernel's bit-reversed node order and its
-// 128-lane padding were layout tricks for its vector unit and are gone.
+// Eight words of a node from two 16-byte vectors, or zeros.
+__device__ __forceinline__ void load_node(const uint4* p, bool load, uint32_t n[8]) {
+  uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+  if (load) {
+    a = p[0];
+    b = p[1];
+  }
+  n[0] = a.x; n[1] = a.y; n[2] = a.z; n[3] = a.w; n[4] = b.x; n[5] = b.y; n[6] = b.z; n[7] = b.w;
+}
+
+// B3, the Merkle roots. Replaces hypervisor_tpu/kernels/mtu_pallas.py
+// tree_roots. Bound on the H100 by integer operations: one pair is three
+// SHA-256 compressions (sha256_hex_pair, ~3,900 instructions) against 64
+// bytes of leaves. Both forms hash pairs (2j, 2j+1) in natural order
+// (right := left where 2j+1 >= count), hash only the ceil(count/2) pairs
+// the root depends on, and return leaf 0 for a count <= 1. The TPU
+// kernel's bit-reversed node order and its 128-lane padding were layout
+// tricks for its vector unit and are gone.
+//
+// Small trees (P <= 64, the main path's P = 4): sessions packed into
+// warps. A session takes `lanes` = P/2 consecutive lanes (1 for P = 1),
+// so a warp serves 32/lanes sessions (16 at P = 4) and the grid covers
+// S x lanes threads, instead of a one-warp block per session in which
+// two lanes of 32 hash. Lane j hashes leaves 2j and 2j+1 (16-byte
+// loads), then at each level takes nodes 2j and 2j+1 from its
+// neighbours with __shfl_sync: no shared memory, no __syncthreads. The
+// level loop runs log2 P times on every lane, so each shuffle is warp-
+// uniform with the full mask; a per-session predicate decides who
+// hashes, and a lane past its session's count (or its session past S)
+// carries its left node, which no live lane reads. What remains is
+// latency: about 5 warps per SM at S = 10,000, each lane two dependent
+// pair hashes deep.
+__global__ void __launch_bounds__(64) tree_packed_kernel(
+    const uint4* __restrict__ leaves,  // [S, P, 8] as 2 x uint4 a leaf
+    const int* __restrict__ counts,    // [S]
+    uint4* __restrict__ roots,         // [S, 8] as 2 x uint4
+    int S, int P, int lanes) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = static_cast<int>(tid / lanes), j = static_cast<int>(tid % lanes);
+  const bool live = s < S;
+  int cnt = live ? counts[s] : 0;
+  const int need = cnt < 1 ? 1 : (cnt > P ? P : cnt);
+  uint32_t l[8], r[8], node[8];
+  const size_t leaf = (size_t)s * P + 2 * j;
+  load_node(leaves + 2 * leaf, live && 2 * j < need, l);
+  load_node(leaves + 2 * leaf + 2, live && 2 * j + 1 < need, r);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) node[k] = l[k];
+  for (int m = P; m > 1; m >>= 1) {  // warp-uniform: P is the same for every lane
+    if (m != P) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        l[k] = __shfl_sync(0xFFFFFFFFu, node[k], 2 * j, lanes);
+        r[k] = __shfl_sync(0xFFFFFFFFu, node[k], 2 * j + 1, lanes);
+      }
+    }
+    const int pairs = min((cnt + 1) >> 1, m >> 1);
+    if (live && cnt > 1 && j < pairs) {
+      if (2 * j + 1 >= cnt) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) r[k] = l[k];
+      }
+      hv::sha256_hex_pair(l, r, node);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) node[k] = l[k];
+    }
+    if (cnt > 1) cnt = (cnt + 1) >> 1;
+  }
+  if (live && j == 0) {
+    roots[2 * (size_t)s] = make_uint4(node[0], node[1], node[2], node[3]);
+    roots[2 * (size_t)s + 1] = make_uint4(node[4], node[5], node[6], node[7]);
+  }
+}
+
+// Large trees (64 < P <= 4096): one block per session; the level lives
+// in shared memory (P x 8 words, 128 KB at 4096) and is reduced in place.
+// At each level the threads hash pairs chunk by chunk: every thread
+// hashes into registers, the block syncs, then writes node j, so a chunk
+// never overwrites a node a later chunk still reads.
 __global__ void tree_kernel(const uint32_t* __restrict__ leaves,  // [S, P, 8]
                             const int* __restrict__ counts,       // [S]
                             uint32_t* __restrict__ roots,         // [S, 8]
@@ -113,8 +184,17 @@ extern "C" int hv_chain_digests(const void* bodies, const void* seeds, void* out
 }
 
 extern "C" int hv_tree_roots(const void* leaves, const void* counts, void* roots, int S, int P,
-                             void* stream) {
-  if (S > 0) {
+                             int lanes, void* stream) {
+  if (S > 0 && lanes > 0) {
+    // The wrapper's tree_lanes_per_session: P/2 lanes a session (1 for P = 1).
+    if (lanes != (P > 1 ? P / 2 : 1) || lanes > 32) return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 64;
+    const long long total = (long long)S * lanes;
+    tree_packed_kernel<<<static_cast<int>((total + threads - 1) / threads), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(leaves), static_cast<const int*>(counts),
+        static_cast<uint4*>(roots), S, P, lanes);
+  } else if (S > 0) {
     const size_t smem = (size_t)P * 8 * sizeof(uint32_t);
     cudaError_t err = cudaFuncSetAttribute(
         tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -12,9 +12,14 @@ become a loop), 16-byte vector loads and stores.
 B3 `tree_roots` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
 `tree_roots`: per-lane Merkle roots with the combine sha256(hex(l) ||
 hex(r)) (128 bytes, 3 blocks), the odd tail duplicated, count <= 1
-returning leaf 0. Also bound by integer operations; one block per
-session keeps its level in shared memory (P x 8 words, 128 KB at P =
-4096) and hashes only the pairs the root depends on. The TPU's
+returning leaf 0. Also bound by integer operations, and at the main
+path's P = 4 by latency: a session has only two dependent pair hashes.
+Trees of at most `TREE_PACKED_MAX_LEAVES` leaves run packed, P/2 lanes
+of a warp a session (`tree_lanes_per_session`), the levels passed
+between lanes by warp shuffles, so a warp serves 16 sessions at P = 4
+and most of the card's lanes hash. Larger trees take one block per
+session with its level in shared memory (P x 8 words, 128 KB at P =
+4096). Both hash only the pairs the root depends on. The TPU's
 bit-reversed node order and 128-lane padding are dropped.
 
 Sources: `csrc/mtu.cu`, `csrc/sha256.cuh`. The plain versions below are
@@ -105,6 +110,17 @@ chain_digests.launches = 0
 #: fit the 227 KB of shared memory a block can use: 128 KB at 4096).
 TREE_MAX_LEAVES = 4096
 
+#: Trees of at most this many leaves run packed into warps: P/2 <= 32
+#: lanes a session.
+TREE_PACKED_MAX_LEAVES = 64
+
+
+def tree_lanes_per_session(p: int) -> int:
+    """Lanes of a warp one session takes in the packed tree kernel (P/2,
+    and 1 for P = 1; a warp then serves 32 // lanes sessions), or 0 above
+    `TREE_PACKED_MAX_LEAVES`, where each session gets a block of its own."""
+    return max(p // 2, 1) if p <= TREE_PACKED_MAX_LEAVES else 0
+
 
 def tree_roots_plain(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Plain version of B3: int32[S, P, 8] leaves, int32[S] counts ->
@@ -140,9 +156,9 @@ def tree_roots(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     _check_operand(leaves, "leaves", torch.int32, leaves.device, align=16)
     _check_operand(counts, "counts", torch.int32, leaves.device)
     out = torch.empty((s, 8), dtype=torch.int32, device=leaves.device)
-    fn = _build.entry("mtu", "hv_tree_roots", [_P, _P, _P, _I, _I, _P])
+    fn = _build.entry("mtu", "hv_tree_roots", [_P, _P, _P, _I, _I, _I, _P])
     err = fn(leaves.data_ptr(), counts.data_ptr(), out.data_ptr(), s, p,
-             torch.cuda.current_stream(leaves.device).cuda_stream)
+             tree_lanes_per_session(p), torch.cuda.current_stream(leaves.device).cuda_stream)
     _build.check("mtu", err, "tree_roots")
     tree_roots.launches += 1
     return out

@@ -36,10 +36,14 @@ writes cursor + n_live to the ring's device cursor.
 in the reference, no Pallas kernel). `index_add_` on CUDA sums with
 atomics in no fixed order, so a vouchee with several live scoped edges
 could get other f32 bits than the reference's edge-order sum, and the
-free edges all add +0.0 to slot 0 under contention. Here the edges are
-sorted stably by vouchee (`ops.liability.contribution_runs`) and one
-thread per run adds its bonds in edge order; edges that add nothing
-are keyed past the table and skipped. Bound by memory traffic.
+free edges all add +0.0 to slot 0 under contention. Here one C call
+runs five launches with the scoped test on the device and no sort of
+the table: each live scoped edge counts itself into its vouchee's bucket
+(integer atomics), one block scans the counts into offsets, each edge
+writes its index into its bucket, and each vouchee orders its bucket by
+edge index and folds its bonds in that order (a thread for up to 32
+edges, a block that sorts a larger bucket). Edges that add nothing touch
+no output. Bound by memory traffic; at the wave's size by launch latency.
 
 All compile with --fmad=false, so sigma + omega * c rounds like the
 reference. Sources: `csrc/wave.cu`. The plain versions below are what
@@ -105,24 +109,32 @@ def contribution_toward(
     now,
 ) -> torch.Tensor:
     """f32[N] bonded sigma toward each agent slot, scoped to the session
-    it is joining, summed in edge order. CUDA tensors sort the edges and
-    launch the kernel; CPU tensors take the plain
-    `ops.liability.contribution_toward`."""
+    it is joining, summed in edge order. CUDA tensors launch the kernels
+    (`now` may be a device scalar, read on the device); CPU tensors take
+    the plain `ops.liability.contribution_toward`."""
     if not _route(vouches.bond):
         return liability_ops.contribution_toward(vouches, target_session_of_slot, now)
     dev = vouches.bond.device
     n, e = target_session_of_slot.shape[0], vouches.bond.shape[0]
-    for t, name, dtype in [
-        (vouches.vouchee, "vouches.vouchee", torch.int32),
-        (vouches.bond, "vouches.bond", torch.float32),
-        (target_session_of_slot, "target_session_of_slot", torch.int32),
-    ]:
+    cols = [  # (tensor, name, dtype, length)
+        (vouches.vouchee, "vouches.vouchee", torch.int32, e),
+        (vouches.session, "vouches.session", torch.int32, e),
+        (vouches.active, "vouches.active", torch.bool, e),
+        (vouches.expiry, "vouches.expiry", torch.float32, e),
+        (vouches.bond, "vouches.bond", torch.float32, e),
+        (target_session_of_slot, "target_session_of_slot", torch.int32, n),
+    ]
+    for t, name, dtype, length in cols:
         _check_operand(t, name, dtype, dev)
-    keys, perm = liability_ops.contribution_runs(vouches, target_session_of_slot, now)
-    out = torch.zeros((n,), dtype=torch.float32, device=dev)
-    fn = _build.entry("wave", "hv_contribution", [_P] * 4 + [_I, _I, _P])
-    err = fn(keys.data_ptr(), perm.data_ptr(), vouches.bond.data_ptr(), out.data_ptr(), e, n,
-             torch.cuda.current_stream(dev).cuda_stream)
+        _require(tuple(t.shape) == (length,), f"{name}: expected shape ({length},)")
+    now_t = admission_ops.f32_scalar(now, dev)
+    # int32 scratch: the counts (zeroed), then offsets, the large-bucket
+    # list, each edge's place and the buckets.
+    scratch = torch.zeros((n + n + 1 + n + 2 * e,), dtype=torch.int32, device=dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    fn = _build.entry("wave", "hv_contribution", [_P] * 9 + [_I, _I, _P])
+    err = fn(*(col[0].data_ptr() for col in cols), now_t.data_ptr(), scratch.data_ptr(),
+             out.data_ptr(), e, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("wave", err, "contribution_toward")
     contribution_toward.launches += 1
     return out

@@ -58,19 +58,6 @@ def contribution_toward(
     return out.index_add_(0, vee, torch.where(scoped, v.bond, torch.zeros_like(v.bond)))
 
 
-def contribution_runs(
-    v: VouchTable, target_session_of_slot: torch.Tensor, now: torch.Tensor | float
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The edges laid out for an in-order sum per vouchee: int32[E] keys,
-    sorted stably, each the vouchee of a live scoped edge or N for any
-    other edge, and the int64[E] edge index of each key. Each vouchee's
-    edges form one run of equal keys in edge order."""
-    n = target_session_of_slot.shape[0]
-    _, scoped = scoped_edges(v, target_session_of_slot, now)
-    keys = torch.where(scoped, v.vouchee, torch.full_like(v.vouchee, n))
-    return torch.sort(keys, stable=True)
-
-
 class SlashWaveResult(NamedTuple):
     sigma: torch.Tensor       # f32[N] updated scores
     vouch: VouchTable         # bonds released for consumed edges

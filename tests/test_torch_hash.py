@@ -94,6 +94,72 @@ def test_tree_plain_matches_twin_and_xla_for_every_count(p):
     )
 
 
+def test_tree_lanes_per_session_packs_small_trees_into_warps():
+    """B3's launch shape: up to 64 leaves a session takes P/2 lanes of a
+    warp (16 sessions a warp at the wave's P = 4); above, a block each."""
+    assert mtu.TREE_PACKED_MAX_LEAVES == 64
+    for p in (2**k for k in range(13)):
+        lanes = mtu.tree_lanes_per_session(p)
+        if p <= 64:
+            assert lanes == max(p // 2, 1) and 32 % lanes == 0
+        else:
+            assert lanes == 0
+    assert 32 // mtu.tree_lanes_per_session(4) == 16
+    assert 32 // mtu.tree_lanes_per_session(64) == 1
+
+
+def _hex_pair(left, right) -> np.ndarray:
+    msg = "".join(f"{int(w):08x}" for w in (*left, *right)).encode()
+    return np.frombuffer(hashlib.sha256(msg).digest(), ">u4").astype(np.uint32)
+
+
+def _packed_tree_model(leaves: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """What the packed B3 kernel (csrc/mtu.cu tree_packed_kernel) does, lane
+    by lane: warps of 32 lanes, `lanes` a session, the grid rounded up to
+    whole warps; each level every lane reads nodes 2j and 2j+1 of its
+    segment (a shuffle: source lane modulo the width), then hashes where
+    its session's predicate says so, else carries its left node."""
+    s, p, _ = leaves.shape
+    lanes = mtu.tree_lanes_per_session(p)
+    threads = -(-s * lanes // 32) * 32
+    sess, j = np.arange(threads) // lanes, np.arange(threads) % lanes
+    live = sess < s
+    cnt = np.where(live, counts[np.minimum(sess, s - 1)], 0)
+    need = np.clip(cnt, 1, p)
+    zero = np.zeros(8, np.uint32)
+    left = [leaves[sess[t], 2 * j[t]] if live[t] and 2 * j[t] < need[t] else zero
+            for t in range(threads)]
+    right = [leaves[sess[t], 2 * j[t] + 1] if live[t] and 2 * j[t] + 1 < need[t] else zero
+             for t in range(threads)]
+    node = list(left)
+    m = p
+    while m > 1:
+        if m != p:
+            seg = (np.arange(threads) // lanes) * lanes
+            left = [node[seg[t] + (2 * j[t]) % lanes] for t in range(threads)]
+            right = [node[seg[t] + (2 * j[t] + 1) % lanes] for t in range(threads)]
+        pairs = np.minimum((cnt + 1) >> 1, m >> 1)
+        for t in range(threads):
+            if live[t] and cnt[t] > 1 and j[t] < pairs[t]:
+                r = left[t] if 2 * j[t] + 1 >= cnt[t] else right[t]
+                node[t] = _hex_pair(left[t], r)
+            else:
+                node[t] = left[t]
+        cnt = np.where(cnt > 1, (cnt + 1) >> 1, cnt)
+        m >>= 1
+    return np.stack([node[t] for t in range(threads) if live[t] and j[t] == 0])
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8, 16, 32, 64])
+def test_packed_tree_model_matches_twin_for_every_count(p):
+    """The packed kernel's lane-level design gives the reference's roots
+    at every count 0..P, with the last warp ragged (S + 1 sessions)."""
+    counts = np.concatenate([np.arange(p + 1), [p]]).astype(np.int32)
+    leaves = np.random.RandomState(100 + p).randint(
+        0, 2**32, (counts.shape[0], p, 8), dtype=np.uint64).astype(np.uint32)
+    np.testing.assert_array_equal(_packed_tree_model(leaves, counts), tree_roots_np(leaves, counts))
+
+
 def test_tree_op_broadcasts_a_scalar_count():
     leaves = np.random.RandomState(9).randint(0, 2**32, (3, 4, 8), dtype=np.uint64).astype(np.uint32)
     got = merkle.merkle_root_lanes(u32.from_numpy_u32(leaves, "cpu"), 3)

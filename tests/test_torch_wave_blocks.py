@@ -220,22 +220,81 @@ def test_contribution_toward_with_several_vouchers_per_vouchee():
     assert got.numpy().tobytes() == want.tobytes()
 
 
-def test_contribution_runs_summed_in_order_match_reference():
-    """The CUDA path's layout: the stably sorted runs, each folded in
-    order in f32 as the kernel does, give the reference's bits."""
-    port_v, target, want = _several_vouchers_per_vouchee()
-    keys, perm = liability.contribution_runs(port_v, target, admission.f32_scalar(10.0, "cpu"))
-    keys, perm, bond = keys.numpy(), perm.numpy(), port_v.bond.numpy()
+def _several_scoped_per_vouchee():
+    """Most edges scoped, several on each vouchee, in a scrambled edge
+    order, and the reference's contribution."""
+    rng = np.random.RandomState(6)
+    target = np.full(N, -2, np.int32)
+    target[:6] = rng.randint(0, 3, 6)
+    vouchee = rng.randint(-1, 6, E).astype(np.int32)
+    session = np.where(rng.uniform(size=E) < 0.8, target[np.maximum(vouchee, 0)],
+                       rng.randint(0, 3, E)).astype(np.int32)
+    vouches = jax_replace(
+        VouchTable.create(E),
+        voucher=jnp.asarray(rng.randint(0, N, E).astype(np.int32)),
+        vouchee=jnp.asarray(vouchee),
+        session=jnp.asarray(session),
+        bond=jnp.asarray(rng.uniform(0, 0.4, E).astype(np.float32)),
+        active=jnp.asarray(rng.uniform(size=E) > 0.1),
+        expiry=jnp.asarray(rng.choice([1.0, 50.0, np.inf], E).astype(np.float32)),
+    )
+    want = jax_liability.contribution_toward(vouches, jnp.asarray(target), jnp.float32(10.0))
+    port_v = PVouches(**{f: _t(getattr(vouches, f)) for f in vouches.__dataclass_fields__})
+    return port_v, _t(target), np.asarray(want)
+
+
+def _one_vouchee_holds_all():
+    """Every edge of the table live and scoped on one vouchee, and the
+    reference's contribution."""
+    rng = np.random.RandomState(5)
+    vouches = VouchTable.create(E)
+    vouches = jax_replace(
+        vouches,
+        voucher=jnp.asarray(rng.randint(0, N, E).astype(np.int32)),
+        vouchee=jnp.full((E,), 7, jnp.int32),
+        session=jnp.full((E,), 2, jnp.int32),
+        bond=jnp.asarray(rng.uniform(0, 0.4, E).astype(np.float32)),
+        active=jnp.ones((E,), bool),
+    )
+    target = np.full(N, -2, np.int32)
+    target[7] = 2
+    want = jax_liability.contribution_toward(vouches, jnp.asarray(target), jnp.float32(10.0))
+    port_v = PVouches(**{f: _t(getattr(vouches, f)) for f in vouches.__dataclass_fields__})
+    return port_v, _t(target), np.asarray(want)
+
+
+@pytest.mark.parametrize("table, fullest", [
+    (_several_vouchers_per_vouchee, 1),
+    (_several_scoped_per_vouchee, 3),
+    (_one_vouchee_holds_all, E),
+])
+def test_contribution_buckets_folded_in_order_match_reference(table, fullest):
+    """The CUDA path's layout (csrc/wave.cu, the contribution kernels):
+    count the live scoped edges per vouchee, scan the counts into bucket
+    offsets, fill each bucket in an arbitrary order (the atomics'), then
+    order each bucket by edge index and fold its bonds in f32 from +0.0;
+    an empty bucket gives +0.0. That gives the reference's bits."""
+    port_v, target, want = table()
+    vee, scoped = liability.scoped_edges(port_v, target, admission.f32_scalar(10.0, "cpu"))
+    vee, scoped, bond = vee.numpy(), scoped.numpy(), port_v.bond.numpy()
     n = target.shape[0]
+    count = np.zeros(n, np.int64)
+    place = np.full(vee.shape[0], -1)
+    for e in np.random.RandomState(0).permutation(vee.shape[0]):  # atomics in any order
+        if scoped[e]:
+            place[e] = count[vee[e]]
+            count[vee[e]] += 1
+    offset = np.concatenate([[0], np.cumsum(count)[:-1]])
+    bucket = np.full(int(count.sum()), -1)
+    for e in np.flatnonzero(place >= 0):
+        bucket[offset[vee[e]] + place[e]] = e
     got = np.zeros(n, np.float32)
-    for j in range(keys.shape[0]):
-        if keys[j] < n and (j == 0 or keys[j - 1] != keys[j]):
-            acc, q = np.float32(0.0), j
-            while q < keys.shape[0] and keys[q] == keys[j]:
-                acc = np.float32(acc + bond[perm[q]])
-                q += 1
-            got[keys[j]] = acc
-    assert (np.diff(perm[keys == keys[0]]) > 0).all()  # edge order within a run
+    for k in np.flatnonzero(count):
+        acc = np.float32(0.0)
+        for e in np.sort(bucket[offset[k]:offset[k] + count[k]]):
+            acc = np.float32(acc + bond[e])
+        got[k] = acc
+    assert count.max() >= fullest
     assert got.tobytes() == want.tobytes()
 
 
