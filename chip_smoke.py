@@ -9,16 +9,27 @@ Phases, one JSON line each:
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: every CUDA kernel built from `hypervisor_tpu_torch/csrc/` (one
    nvcc per source, all started together), with ptxas' report; the
-   redesigned kernels (B3's packed tree, the contribution's five) must
-   show no spill;
-3. parity: each kernel against its plain PyTorch version on the same
+   redesigned kernels (B1, B2, B3's packed tree, the contribution's
+   five) must show no spill;
+3. sha_latency: B1 on one warp of messages (B = 32) at 1, 2, 4 and 8
+   blocks a message, by CUDA events; the slope of time against blocks
+   is one compression's latency on a lone warp, the intercept the
+   launch and the loads, beside one launch of a one-element add timed
+   the same way. Where `cuobjdump` exists, the SASS of each SHA kernel:
+   its instructions, its reads of the constant bank (`c[0x3][...]`
+   operands, where `__constant__` data lies) and its SHF, LOP3, IADD3
+   and IMAD;
+4. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bit-exact (tolerance 0), at the paths' shapes —
    the vouched contribution, each case called twice, against the plain
    version on the CPU (which sums in edge order, as the reference does)
    and, where no vouchee has two scoped edges, on the card: the wave's
    edges, 65,536 edges with many vouchers per vouchee, the same with no
    edge scoped, one vouchee holding 4,096 live scoped edges, one holding
-   all 65,536, and 65,535 edges; B2 chains at T=3 x 10,000 lanes; B3
+   all 65,536, and 65,535 edges; B2 chains, each call twice, at every
+   shape the paths launch (3 x 10,000 and 10,240, 5 x 13, N x 1) and at
+   ragged tiles (7 x 10,001, 70 x 200), with hashlib on samples and on
+   every turn of a 1,100-turn lane; B3
    roots, each call twice, at 10,000 sessions x 4 leaves, at 10,001 and
    1 sessions (a ragged last warp), every count 0..P at P = 1, 2, 4, 8,
    16, 32, 64 and 128 (both sides of the packed kernel's switch) and
@@ -27,22 +38,24 @@ Phases, one JSON line each:
    the wave's sessions, lanes, edges and agents; B6, the DeltaLog ring
    append, at the facade's shape (30,000 rows into 65,536, wrapping),
    unpadded and with a short live prefix; B1, the batched hash, on
-   30,000 messages of 2 and 3 blocks and a scrubber strip (also checked
-   against hashlib), and a 8,192-leaf Merkle forest through it; B7, the
+   30,000 messages of 2 and 3 blocks, a scrubber strip, and 1, 31, 32,
+   33, 4,096 and 30,000 messages of 1-4 blocks (5 and 9 at two counts),
+   each call twice and against hashlib on samples, and a 8,192-leaf
+   Merkle forest through it; B7, the
    saga round, on random tables of 8,192 sagas x 16 and x 4 steps in
    every code, against its plain version on the card and on the CPU;
    B8, the slash cascade, on bench_suite's north-star graph (10,240
    agents, 8,192 edges, 128 seeds, omega 0.95) and on the default
    tables (16,384 agents, 65,536 edges, omega 0.6, cascading to depth
    2), against its plain version on the card and on the CPU;
-4. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
+5. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
    lanes at sigma 0.5 with bond 0.30, 3 deltas, tables of 16,384 agents,
    16,384 sessions and 65,536 edges, random data from one seed) through
    `HypervisorState.governance_wave`, with the launch counts set to 0
    just before and read just after; bench.py's gates; a hashlib check of
    lanes 0 and K-1; then the same wave through the plain versions on the
    card, which must give identical tables, outputs and counters;
-5. facade: the lifecycle wave through `HypervisorState.
+6. facade: the lifecycle wave through `HypervisorState.
    run_governance_wave` at bench.py's widths on a fresh state (65,536
    DeltaLog rows, 32,768 sessions, 24,576 agents): three waves, the
    second padded to a 10,240 bucket, the third wrapping the ring over
@@ -55,7 +68,7 @@ Phases, one JSON line each:
    same sequence on the CPU, which must give identical tables, DeltaLog,
    metrics, trace words, audit index, frontier roots, scrubber reports
    and roots;
-6. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
+7. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
    a fresh state, filled with 5-step sagas whose seeded executors commit
    cleanly, retry then commit, or exhaust into compensation with and
    without an undo (escalating), plus DSL sagas with fan-out groups,
@@ -64,14 +77,14 @@ Phases, one JSON line each:
    is checked against its kind; then the same sequence on the CPU must
    give identical SagaTable columns, metrics, trace words, scheduler
    results, errors and attempts, and round count;
-7. slash: the default tables (16,384 agents, 65,536 edges) on a fresh
+8. slash: the default tables (16,384 agents, 65,536 edges) on a fresh
    state, a liability graph written in bulk plus `add_vouch` /
    `release_vouch` calls, then `apply_slash` on a vouchee whose cascade
    reaches depth 2 (checked against the plain version on the CPU); B8
    must launch 6 times (two a depth) and nothing else; then the same
    sequence on the CPU must give identical agents and vouches tables,
    returned lists, metrics and trace words;
-8. timing: the wave's p50/p95 (host clock, synchronised) and device
+9. timing: the wave's p50/p95 (host clock, synchronised) and device
    time; one wave under torch's sync debug mode "error" (no host
    synchronisation inside the wave); one profiled wave (device time by
    kernel, the device's idle share); the facade wave's p50/p95, each on
@@ -81,8 +94,10 @@ Phases, one JSON line each:
    with its host split and device time; `apply_slash`'s p50/p95 and
    device time; each kernel's time, its plain version's time, its bound
    and, where one PyTorch call computes the same function, that call's
-   time; beside them the contribution on the two hot-vouchee tables and
-   B3 on full trees at P = 64 and P = 4096.
+   time; beside them B1 at each of its paths' shapes (the scrubber's strip,
+   verify's links, the big tree's 13 levels) with each path's
+   launches x (ms - bound), the contribution on the two hot-vouchee
+   tables and B3 on full trees at P = 64 and P = 4096.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -95,8 +110,10 @@ import contextlib
 import hashlib
 import itertools
 import json
+import os
 import re
 import secrets
+import shutil
 import statistics
 import subprocess
 import sys
@@ -200,8 +217,18 @@ SLASH_WARMUP, SLASH_ITERS = 2, 20
 
 #: The kernels redesigned for Hopper after their first port (csrc entry
 #: functions); ptxas must report no spill for any of them.
-REDESIGNED_KERNELS = ("tree_packed_kernel", "contrib_scope_kernel", "contrib_scan_kernel",
-                      "contrib_fill_kernel", "contrib_fold_kernel", "contrib_large_kernel")
+REDESIGNED_KERNELS = ("sha256_kernel", "chain_kernel", "tree_packed_kernel", "contrib_scope_kernel",
+                      "contrib_scan_kernel", "contrib_fill_kernel", "contrib_fold_kernel",
+                      "contrib_large_kernel")
+#: The lone-warp probe of B1: one warp of messages at these block counts.
+LATENCY_MESSAGES, LATENCY_BLOCKS = 32, (1, 2, 4, 8)
+#: B1's parity counts: around one warp, the scrubber's strip, the wave's
+#: 30,000 rows.
+B1_MESSAGES = (1, 31, 32, 33, 4_096, 30_000)
+#: Dependent integer operations from one round's e to the next e, with
+#: h + K + W formed a round ahead: Sigma1's shifts, its xor, t1's add and
+#: d + t1.
+CRITICAL_OPS_PER_ROUND = 4
 #: B3 timed beside the wave's shape on full trees of about 640,000 leaves
 #: in all, on each side of the packed kernel's switch: (P, sessions).
 TREE_TIMING_SHAPES = ((64, 10_000), (4096, 156))
@@ -235,6 +262,44 @@ SOURCES = {
 #: The path whose launch window a kernel row reports.
 ROW_PATH = {"sha256_words": "scrubber", "saga_tick_block": "saga_path",
             "slash_cascade": "slash_path"}
+
+
+#: SASS opcodes of a compression: the integer pipe's shifts, 3-input
+#: logic and 3-input adds, and the multiply-adds that run on the FMA pipe.
+SASS_OPCODES = ("SHF", "LOP3", "IADD3", "IMAD")
+
+
+def sass_census(libraries: dict) -> dict | None:
+    """Per kernel of each built library (name -> .so path): its SASS
+    instructions, how many of them read the constant bank c[0x3], where
+    `__constant__` data lies, and how many are each of `SASS_OPCODES`;
+    None without `cuobjdump`."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    census = {}
+    for lib, path in libraries.items():
+        run = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                             timeout=120)
+        if run.returncode != 0:
+            census[lib] = {"cuobjdump_error": run.stderr.strip()[-300:]}
+            continue
+        fn = None
+        for line in run.stdout.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                fn = f"{lib}:{found.group(1)}"
+                census[fn] = {"instructions": 0, "constant_bank_reads": 0,
+                              **{op: 0 for op in SASS_OPCODES}}
+                continue
+            instr = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            if fn and instr:
+                census[fn]["instructions"] += 1
+                census[fn]["constant_bank_reads"] += "c[0x3]" in line
+                if instr.group(1) in SASS_OPCODES:
+                    census[fn][instr.group(1)] += 1
+    return census
 
 
 def emit(phase: str, **fields) -> None:
@@ -386,6 +451,7 @@ def run_facade_sequence(device):
         require(scrubber.mismatches == 0, f"the scrubber flagged a clean chain: {scrubber.last_mismatch}")
         rec["verify"] = window("verify", lambda: [
             state.verify_session_chain(s) for s in (int(wave_out[1][0][0]), truncated[0], standing[0])])
+        rec["verify_links"] = len(state._audit_rows[truncated[0]])  # B1's messages there
         require(all(rec["verify"]), f"verify_session_chain failed: {rec['verify']}")
         rec["roots"] = window("terminate", lambda: state.terminate_sessions(
             standing + truncated[:1], now=6.0))
@@ -778,6 +844,31 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
+    # ── 3. sha_latency ───────────────────────────────────────────────
+    # One warp of messages, alone on its SMSP: the time grows by one
+    # compression's latency per block; the SM clock turns it into cycles
+    # to hold against the round's critical path.
+    lat_rng = np.random.RandomState(SEED + 5)
+    lat_ms = {}
+    for nb in LATENCY_BLOCKS:
+        words_l = u32.from_numpy_u32(lat_rng.randint(
+            0, 2**32, (LATENCY_MESSAGES, 16 * nb), dtype=np.uint64).astype(np.uint32), dev)
+        require(same(sha_kernels.sha256_words(words_l, nb),
+                     sha_kernels.sha256_words_plain(words_l, nb)), f"sha_latency: nb={nb} differs")
+        lat_ms[nb] = time_device(lambda w=words_l, nb=nb: sha_kernels.sha256_words(w, nb), reps=50)
+    slope_ms, intercept_ms = np.polyfit(LATENCY_BLOCKS, [lat_ms[nb] for nb in LATENCY_BLOCKS], 1)
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = time_device(lambda: one.add_(1), reps=50)  # one launch of a tiny kernel
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    emit("sha_latency", messages=LATENCY_MESSAGES, ms_by_blocks=lat_ms,
+         slope_us_per_compression=float(slope_ms) * 1e3, intercept_us=float(intercept_ms) * 1e3,
+         launch_floor_us=launch_floor_ms * 1e3,
+         sm_clock_max_mhz=max_mhz, slope_cycles_at_max_clock=float(slope_ms) * 1e3 * max_mhz,
+         critical_ops_per_compression=64 * CRITICAL_OPS_PER_ROUND,
+         sass=sass_census({name: _build._target(name) for name in ("sha256", "mtu")}))
+
     # ── bench.py's state ─────────────────────────────────────────────
     config = HypervisorConfig(capacity=TableCapacity(
         max_agents=max(DEFAULT_CONFIG.capacity.max_agents, N_SESSIONS + N_VOUCHED + 64),
@@ -818,7 +909,11 @@ def main() -> int:
         state.vouches, target, f32_scalar(0.0, dev))[slot_t.long()]
     kernel_rows = {}
 
-    # ── 3. parity, kernel against plain, on the card ─────────────────
+    # ── 4. parity, kernel against plain, on the card ─────────────────
+    def random_words(*shape, gen=None):
+        return u32.from_numpy_u32((rng if gen is None else gen).randint(
+            0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)
+
     # The vouched contribution, every case called twice (equal to itself)
     # and held against the plain version on the CPU, which sums in edge
     # order as the reference does; where no vouchee has more than one
@@ -888,18 +983,44 @@ def main() -> int:
     emit("parity", kernel="contribution_toward", cases=c_cases, bit_exact=True,
          max_abs_err=err_contrib)
 
-    # B2: chains.
+    # B2: chains at every shape the paths launch (the op and facade
+    # waves' 3 x 10,000 and the padded 10,240 bucket, the flush's 5 x
+    # 13, the full-history verify's N x 1), lanes that leave the last
+    # block ragged, turns that end mid-tile, and several tiles a lane;
+    # each call twice, against the plain version on the card and hashlib
+    # on samples. The plain version walks T in order on the card, so the
+    # longest lane (1,100 turns, three tiles of 512) is held to hashlib
+    # on every turn instead.
     seeds0 = torch.zeros((N_SESSIONS, 8), dtype=torch.int32, device=dev)
     seeds_r = u32.from_numpy_u32(
         rng.randint(0, 2**32, (N_SESSIONS, 8), dtype=np.uint64).astype(np.uint32), dev)
     body_t = lanes["delta_bodies"]
-    err_b2 = 0.0
-    for seeds in (seeds0, seeds_r):
-        got = mtu.chain_digests(body_t, seeds)
-        want = mtu.chain_digests_plain(body_t, seeds)
-        err_b2 = max(err_b2, check_pairs("chain_digests", {"chain": (got, want)}, ("chain",)))
-    emit("parity", kernel="chain_digests", shape=[N_DELTAS, N_SESSIONS, 16],
-         bit_exact=True, max_abs_err=err_b2)
+    err_b2, b2_cases = 0.0, []
+    chain_cases = [(body_t, seeds0, True), (body_t, seeds_r, True)]
+    chain_rng = np.random.RandomState(SEED + 6)
+    for t_, l_, plain_ok in ((3, FACADE_BUCKET, True), (5, N_STANDING, True), (1, 1, True),
+                             (3, 1, True), (5, 1, True), (40, 1, True), (1100, 1, False),
+                             (7, N_SESSIONS + 1, True), (70, 200, True)):
+        chain_cases.append((random_words(t_, l_, 16, gen=chain_rng),
+                            random_words(l_, 8, gen=chain_rng), plain_ok))
+    for bodies_c, seeds_c, plain_ok in chain_cases:
+        t_, l_ = bodies_c.shape[:2]
+        got = mtu.chain_digests(bodies_c, seeds_c)
+        pairs = {"repeat": (mtu.chain_digests(bodies_c, seeds_c), got)}
+        if plain_ok:
+            pairs["chain"] = (got, mtu.chain_digests_plain(bodies_c, seeds_c))
+        err_b2 = max(err_b2, check_pairs(f"chain_digests T={t_} L={l_}", pairs, tuple(pairs)))
+        got_np, b_np, s_np = (u32.to_numpy_u32(x) for x in (got, bodies_c, seeds_c))
+        for lane in sorted({0, l_ - 1}):
+            parent = s_np[lane].astype(">u4").tobytes()
+            for turn in range(t_):
+                parent = hashlib.sha256(b_np[turn, lane].astype(">u4").tobytes() + parent).digest()
+                if not plain_ok or turn == t_ - 1:
+                    require(digests_to_hex(got_np[turn, lane][None])[0] == parent.hex(),
+                            f"chain_digests T={t_} L={l_}: lane {lane} turn {turn} != hashlib")
+        b2_cases.append([t_, l_])
+    emit("parity", kernel="chain_digests", shapes=b2_cases, calls_each=2,
+         against=["plain on the card (but T=1100)", "hashlib"], bit_exact=True, max_abs_err=err_b2)
 
     # B3: roots at the wave's shape, with the last warp ragged (S =
     # 10,001 and 1), then every count 0..P on both sides of the packed
@@ -908,10 +1029,6 @@ def main() -> int:
     leaves = torch.zeros((N_SESSIONS, 4, 8), dtype=torch.int32, device=dev)
     leaves[:, :N_DELTAS] = chain0.transpose(0, 1)
     counts3 = torch.full((N_SESSIONS,), N_DELTAS, dtype=torch.int32, device=dev)
-
-    def random_words(*shape):
-        return u32.from_numpy_u32(
-            rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32), dev)
 
     b3_cases = {"wave": (leaves, counts3)}
     for s_ in (N_SESSIONS + 1, 1):
@@ -1036,14 +1153,34 @@ def main() -> int:
             require(digests_to_hex(got[i:i + 1])[0] == hashlib.sha256(msgs[i].tobytes()).hexdigest(),
                     f"sha256_words: message {i} differs from hashlib")
         b1_inputs[(count, n_blocks)] = words_t
+    # Then every message count around one warp and the paths' counts at
+    # 1-4 blocks, two counts at 5 and 9; each call twice.
+    grid_rng = np.random.RandomState(SEED + 7)
+    b1_grid = [(b, nb) for b in B1_MESSAGES for nb in (1, 2, 3, 4)]
+    b1_grid += [(b, nb) for b in (33, SCRUB_BUDGET) for nb in (5, 9)]
+    for count, n_blocks in b1_grid:
+        msg_len = 64 * n_blocks - 9
+        msgs = grid_rng.randint(0, 256, (count, msg_len)).astype(np.uint8)
+        words_np, nb = pad_messages_np(msgs, msg_len)
+        require(nb == n_blocks, "B1 parity: padding")
+        words_t = u32.from_numpy_u32(words_np, dev)
+        got = sha_kernels.sha256_words(words_t, n_blocks)
+        err_b1 = max(err_b1, check_pairs(f"sha256_words {count}x{n_blocks}", {
+            "digest": (got, sha_kernels.sha256_words_plain(words_t, n_blocks)),
+            "repeat": (sha_kernels.sha256_words(words_t, n_blocks), got)}, ("digest", "repeat")))
+        for i in sorted({0, count // 2, count - 1}):
+            require(digests_to_hex(got[i:i + 1])[0] == hashlib.sha256(msgs[i].tobytes()).hexdigest(),
+                    f"sha256_words {count}x{n_blocks}: message {i} differs from hashlib")
     forest_t = random_words(4, BIG_TREE_LEAVES, 8)
     forest_counts = torch.tensor([0, 1, BIG_TREE_LEAVES // 2 + 1, BIG_TREE_LEAVES],
                                  dtype=torch.int32, device=dev)
     err_b1 = max(err_b1, check_pairs("merkle_root_lanes P=8192", {"roots": (
         merkle.merkle_root_lanes(forest_t, forest_counts),
         mtu.tree_roots_plain(forest_t, forest_counts))}, ("roots",)))
-    emit("parity", kernel="sha256_words", messages=[[n_rows, 2], [n_rows, 3], [SCRUB_BUDGET, 2]],
-         hashlib_samples=9, tree_leaves=BIG_TREE_LEAVES, bit_exact=True, max_abs_err=err_b1)
+    emit("parity", kernel="sha256_words",
+         messages=[[n_rows, 2], [n_rows, 3], [SCRUB_BUDGET, 2]] + [list(c) for c in b1_grid],
+         hashlib_samples="first, middle and last of each case", tree_leaves=BIG_TREE_LEAVES,
+         bit_exact=True, max_abs_err=err_b1)
 
     # B7: the saga round on random tables at the default 8,192 x 16 and at
     # M = 4 (the byte-by-byte row path), against the plain version on the
@@ -1101,7 +1238,7 @@ def main() -> int:
             "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
             "slash_cascade": err_b8}
 
-    # ── 4. the full-width wave through the entry point ───────────────
+    # ── 5. the full-width wave through the entry point ───────────────
     restore(live, pristine)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1130,7 +1267,7 @@ def main() -> int:
                    "bonds_released": int(counters[4]), "saga_committed": int(counters[5]),
                    "saga_failed": int(counters[6])})
 
-    # ── 5. the facade's lifecycle wave and audit plane ───────────────
+    # ── 6. the facade's lifecycle wave and audit plane ───────────────
     t0 = time.perf_counter()
     facade_rec, windows, facade = run_facade_sequence(dev)
     facade_s = time.perf_counter() - t0
@@ -1161,7 +1298,7 @@ def main() -> int:
          hashlib_lanes_per_wave=[0, N_SESSIONS - 1], cursor_mirrors="equal",
          cpu_run="identical", card_seconds=facade_s, cpu_seconds=cpu_s)
 
-    # ── 6. the saga plane ────────────────────────────────────────────
+    # ── 7. the saga plane ────────────────────────────────────────────
     saga_rec, saga_launches, saga_state, saga_s, saga_initial = run_saga_sequence(dev)
     rounds = saga_rec["rounds"]
     require({k: n for k, n in saga_launches.items() if n} == {"saga_tick_block": rounds},
@@ -1178,7 +1315,7 @@ def main() -> int:
          cpu_total_s=time.perf_counter() - t0, cursor_mirror="equal", cpu_run="identical")
     windows["saga_path"] = saga_launches
 
-    # ── 7. the slash cascade ─────────────────────────────────────────
+    # ── 8. the slash cascade ─────────────────────────────────────────
     slash_rec, slash_launches, slash_state, slash_pre = run_slash_sequence(dev)
     depths = DEFAULT_CONFIG.trust.max_cascade_depth + 1
     require({k: n for k, n in slash_launches.items() if n} == {"slash_cascade": 2 * depths},
@@ -1205,7 +1342,7 @@ def main() -> int:
          cursor_mirror="equal", cpu_run="identical")
     windows["slash_path"] = slash_launches
 
-    # ── 8. timing ────────────────────────────────────────────────────
+    # ── 9. timing ────────────────────────────────────────────────────
     samples = []
     for i in range(WARMUP + ITERS):
         restore(live, pristine)
@@ -1555,6 +1692,26 @@ def main() -> int:
             rows[-1]["ms_at_30000_messages"] = {
                 f"{nb}_blocks": time_device(lambda nb=nb: sha_kernels.sha256_words(
                     b1_inputs[(n_rows, nb)], nb)) for nb in (2, 3)}
+            # Each path's launches at their own shapes: the scrubber's 16
+            # strips, verify's links of one wrapped session, and the big
+            # tree's 13 hex-pair levels (4 lanes x 4,096 pairs down to 1).
+            path_shapes = {
+                "scrubber": [(SCRUB_BUDGET, 2)], "verify": [(facade_rec["verify_links"], 2)],
+                "big_tree": [(4 * (BIG_TREE_LEAVES >> (k + 1)), 3)
+                             for k in range(BIG_TREE_LEAVES.bit_length() - 1)]}
+            rows[-1]["by_path"] = {}
+            for path, shapes in path_shapes.items():
+                entries = []
+                for b, nb in shapes:
+                    words_p = random_words(b, 16 * nb)
+                    bound = max(b * (nb * 64 + 32) / HBM_BYTES_PER_S,
+                                b * instr_per_message(nb) / INT32_INSTRUCTIONS_PER_S) * 1e3
+                    entries.append({"messages": b, "blocks": nb, "bound_ms": bound, "ms": time_device(
+                        lambda w=words_p, nb=nb: sha_kernels.sha256_words(w, nb))})
+                n_launch = windows[path]["sha256_words"]
+                rows[-1]["by_path"][path] = {
+                    "launches": n_launch, "shapes": entries,
+                    "loss_ms": n_launch / len(entries) * sum(e["ms"] - e["bound_ms"] for e in entries)}
         emit("kernel_timing", **rows[-1])
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",

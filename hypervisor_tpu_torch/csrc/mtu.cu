@@ -11,36 +11,77 @@
 
 namespace {
 
-// B2. Replaces hypervisor_tpu/kernels/mtu_pallas.py chain_digests_mtu.
-// One thread per lane walks the T turns in order, the parent digest in
-// registers: d_t = sha256(body_t || d_{t-1}), d_{-1} = seed. The TPU's
-// sequential grid axis and its VMEM carry become this in-thread loop.
-__global__ void chain_kernel(const uint4* __restrict__ bodies,  // [T, L, 16] as 4 x uint4
-                             const uint4* __restrict__ seeds,   // [L, 8] as 2 x uint4
-                             uint4* __restrict__ out,           // [T, L, 8] as 2 x uint4
-                             int T, int L) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+constexpr int kChainLanes = 128;    // lanes a block, at most: its chain threads
+constexpr int kChainThreads = 512;  // threads a block, all of them computing midstates
+
+// B2. Replaces hypervisor_tpu/kernels/mtu_pallas.py chain_digests_mtu:
+// d_t = sha256(body_t || d_{t-1}), d_{-1} = seed, per lane. The TPU's
+// sequential grid axis and its VMEM carry become a loop in one thread
+// per lane, the parent digest in registers.
+//
+// A link is two compressions, and only the second depends on the
+// parent: the first compresses body_t alone from the initial value. At
+// the paths' shapes an SMSP holds about one warp, so the time is the
+// lane's serial depth; splitting the link at the block boundary cuts it
+// from 2T compressions to about T + 1, and takes the body loads off the
+// chain, which reads only shared memory. The entry spreads the lanes
+// over every SM, `per_block` = ceil(L / SMs) (76 at 10,000 lanes, 1 for
+// the flush's 13) up to kChainLanes, so each SMSP holds at most one
+// chain warp. A block walks T in tiles of k = kChainThreads / lanes
+// turns (6 at 76 lanes, 512 for one lane). Per tile, every thread
+// compresses one (turn, lane) body into a midstate, 8 words into shared
+// memory; after a __syncthreads, thread l (< lanes) runs its lane's
+// parent blocks in order from those midstates. Two buffers: while the
+// chain threads run tile j, the other threads already fill tile j + 1,
+// and the chain threads join them after.
+__global__ void __launch_bounds__(kChainThreads) chain_kernel(
+    const uint4* __restrict__ bodies,  // [T, L, 16] as 4 x uint4
+    const uint4* __restrict__ seeds,   // [L, 8] as 2 x uint4
+    uint4* __restrict__ out,           // [T, L, 8] as 2 x uint4
+    int T, int L, int per_block) {
+  __shared__ uint32_t mid[2][8][kChainThreads];  // [buffer][word][turn-major (turn, lane)]
+  const int lane0 = blockIdx.x * per_block;
+  const int lanes = min(per_block, L - lane0);
+  const int k = kChainThreads / lanes;
+  const int tid = threadIdx.x;
+  const int my_turn = tid / lanes, my_lane = lane0 + tid % lanes;  // in the tile
   uint32_t parent[8];
-  {
-    const uint4 s0 = seeds[2 * (size_t)l], s1 = seeds[2 * (size_t)l + 1];
+  if (tid < lanes) {
+    const uint4 s0 = seeds[2 * (size_t)(lane0 + tid)], s1 = seeds[2 * (size_t)(lane0 + tid) + 1];
     parent[0] = s0.x; parent[1] = s0.y; parent[2] = s0.z; parent[3] = s0.w;
     parent[4] = s1.x; parent[5] = s1.y; parent[6] = s1.z; parent[7] = s1.w;
   }
-  for (int t = 0; t < T; ++t) {
-    const size_t row = (size_t)t * L + l;
-    uint32_t body[16];
+  for (int t0 = 0, buf = 0; t0 < T; t0 += k, buf ^= 1) {  // block-uniform
+    const int t = t0 + my_turn;
+    if (my_turn < k && t < T) {
+      const size_t row = (size_t)t * L + my_lane;
+      uint32_t body[16], st[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 v = bodies[4 * row + q];
-      body[4 * q] = v.x; body[4 * q + 1] = v.y; body[4 * q + 2] = v.z; body[4 * q + 3] = v.w;
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = bodies[4 * row + q];
+        body[4 * q] = v.x; body[4 * q + 1] = v.y; body[4 * q + 2] = v.z; body[4 * q + 3] = v.w;
+      }
+      hv::sha256_body_midstate(body, st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mid[buf][j][tid] = st[j];
     }
-    uint32_t d[8];
-    hv::sha256_chain_link(body, parent, d);
-    out[2 * row] = make_uint4(d[0], d[1], d[2], d[3]);
-    out[2 * row + 1] = make_uint4(d[4], d[5], d[6], d[7]);
+    // Buffer buf is full; the other one is free, since its chain ran
+    // before its readers reached this barrier.
+    __syncthreads();
+    if (tid < lanes) {
+      const int turns = min(k, T - t0);
+      for (int i = 0; i < turns; ++i) {
+        uint32_t st[8], d[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) parent[j] = d[j];
+        for (int j = 0; j < 8; ++j) st[j] = mid[buf][j][i * lanes + tid];
+        hv::sha256_chain_tail(st, parent, d);
+        const size_t row = (size_t)(t0 + i) * L + lane0 + tid;
+        out[2 * row] = make_uint4(d[0], d[1], d[2], d[3]);
+        out[2 * row + 1] = make_uint4(d[4], d[5], d[6], d[7]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) parent[j] = d[j];
+      }
+    }
   }
 }
 
@@ -175,10 +216,13 @@ extern "C" const char* hv_mtu_error_string(int err) {
 extern "C" int hv_chain_digests(const void* bodies, const void* seeds, void* out, int T, int L,
                                 void* stream) {
   if (T > 0 && L > 0) {
-    const int threads = 128;
-    chain_kernel<<<(L + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    int sms = 0;
+    if (cudaError_t err = hv::sm_count(&sms)) return static_cast<int>(err);
+    const int per_block = min((L + sms - 1) / sms, kChainLanes);
+    chain_kernel<<<(L + per_block - 1) / per_block, kChainThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(bodies), static_cast<const uint4*>(seeds),
-        static_cast<uint4*>(out), T, L);
+        static_cast<uint4*>(out), T, L, per_block);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,17 @@
 
 B2 `chain_digests` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
 `chain_digests_mtu`: d_t = sha256(body_t || d_{t-1}) per lane, a 96-byte
-message in 2 blocks. On the H100 it is bound by integer operations
-(about 2,300 32-bit operations per compression against ~100 bytes moved
-per link), so the design keeps the whole hash in registers: one thread
-per lane, the 64 rounds unrolled, the parent digest carried across the
-T turns inside the thread (the TPU's sequential grid axis and VMEM carry
-become a loop), 16-byte vector loads and stores.
+message in 2 blocks. Only the second block depends on the parent, so
+the kernel splits each link there. The lanes spread over every SM
+(ceil(L / SMs) a block, at most 128) and a block of 512 threads walks T
+in tiles of 512 // lanes turns: every thread compresses one (turn,
+lane) body from the initial value into a midstate in shared memory,
+then one thread per lane runs the tile's parent blocks in order, the
+parent digest in registers (the TPU's sequential grid axis and VMEM
+carry become this loop). A lane's serial path falls from 2T
+compressions to about T + 1, with no load from memory on it, and each
+SMSP holds at most one chain warp. Two buffers let the next tile's
+midstates start while the chain runs.
 
 B3 `tree_roots` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
 `tree_roots`: per-lane Merkle roots with the combine sha256(hex(l) ||

@@ -3,13 +3,17 @@
 B1 replaces `hypervisor_tpu/kernels/sha256_pallas.py` `sha256_words`:
 FIPS 180-4 SHA-256 over pre-padded big-endian u32[B, nb*16] words (int32
 bits here) -> u32[B, 8] digests. The scrubber's chain-link strips
-(nb = 2) and the hex-pair levels of Merkle trees above the tree
-kernel's 4096 leaves (nb = 3) run through it. It is bound by integer
-instructions (about 2,200 per compression against 64 bytes read), so
-the design keeps each message's hash in one thread's registers, with
-`csrc/sha256.cuh`'s unrolled compression and 16-byte vector loads.
-The TPU's 1024-message tiling and padding are not carried over: any B
-runs.
+(nb = 2), verify's links and the hex-pair levels of Merkle trees above
+the tree kernel's 4096 leaves (nb = 3) run through it. Each message's
+hash stays in one thread's registers (`csrc/sha256.cuh`'s unrolled
+compression), the block loop rolled. At the scrubber's 4,096 messages
+an SMSP holds one warp, so the time is that thread's serial path: the
+next block's four 16-byte loads are issued before the current block's
+rounds, so only the first block waits on memory, and a strip shorter
+than 128 messages an SM runs in blocks of whole warps spread over the
+SMs. At 30,000 messages it is bound by integer instructions (about
+1,350 a compression against 64 bytes read). The TPU's 1024-message
+tiling and padding are not carried over: any B runs.
 
 Source: `csrc/sha256.cu`. The plain version is the port's
 `ops.sha256.sha256_blocks`.

@@ -2,7 +2,9 @@
 the plain delta chain (kernel B2's plain version) and the plain Merkle
 roots (B3's), bit for bit against `hashlib`, the reference's numpy
 kernel twins (`chain_digests_np`, `tree_roots_np`) and its XLA
-`merkle_root_lanes`."""
+`merkle_root_lanes` and `chain_digests`. Beside them, models of what
+the Hopper kernels do lane by lane (the packed tree, the split chain,
+the reordered round), held to the same references."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from hypervisor_tpu_torch.kernels import mtu
 from hypervisor_tpu_torch.ops import merkle, sha256
 
 _JAX_TREE = jax.jit(jax_merkle.merkle_root_lanes, static_argnames=("use_pallas",))
+_JAX_CHAIN = jax.jit(jax_merkle.chain_digests, static_argnames=("use_pallas",))
 
 
 @pytest.mark.parametrize("msg_len", [0, 3, 55, 56, 64, 96, 128, 200])
@@ -172,3 +175,145 @@ def test_wrappers_refuse_a_device_with_no_kernel_and_no_plain_path():
         mtu.chain_digests(bodies, torch.zeros((2, 8), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="power of two"):
         mtu.tree_roots(torch.zeros((1, 3, 8), dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+
+
+# ── models of the SHA-256 kernels (B1, B2 and the shared round) ──────
+
+
+def _random_u32(rng, *shape) -> np.ndarray:
+    return rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _compress_np(state: np.ndarray, block: np.ndarray) -> np.ndarray:
+    """The port's plain compression (`ops.sha256._compress`) on u32[n, 8]
+    states and u32[n, 16] blocks."""
+    wide = [torch.from_numpy(state[:, j].astype(np.int64)) for j in range(8)]
+    words = [torch.from_numpy(block[:, j].astype(np.int64)) for j in range(16)]
+    return torch.stack(sha256._compress(wide, words), dim=1).numpy().astype(np.uint32)
+
+
+def _iv(n: int) -> np.ndarray:
+    return np.broadcast_to(sha256._H0, (n, 8)).copy()
+
+
+def _rotr(x: np.ndarray, n: int) -> np.ndarray:
+    return (x >> np.uint32(n)) | (x << np.uint32(32 - n))
+
+
+def _reordered_compress(state: np.ndarray, block: np.ndarray) -> np.ndarray:
+    """The round as `csrc/sha256.cuh` sha256_compress writes it for the
+    card: h + K_i + W_i formed a round ahead (the next round's h is this
+    round's g) with the next message word, scheduled ahead into the
+    rolling 16-word window; then t1 = (h + K + W) + S1 + Ch, e' = d + t1
+    and a' = t1 + S0 + Maj. u32 arithmetic wraps mod 2^32, as the
+    card's does."""
+    k = sha256._K
+    w = [block[:, j].copy() for j in range(16)]
+    a, b, c, d, e, f, g, h = (state[:, j].copy() for j in range(8))
+    hkw = h + k[0] + w[0]
+    for i in range(64):
+        hkw_next = None
+        if i < 63:
+            j = i + 1
+            if j >= 16:
+                w15, w2 = w[(j - 15) & 15], w[(j - 2) & 15]
+                s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> np.uint32(3))
+                s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> np.uint32(10))
+                w[j & 15] = w[j & 15] + (s0 + w[(j - 7) & 15] + s1)
+            hkw_next = g + k[j] + w[j & 15]
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t1 = hkw + s1 + ch
+        e_next, a_next = d + t1, t1 + s0 + maj
+        h, g, f, e, d, c, b, a = g, f, e, e_next, c, b, a, a_next
+        hkw = hkw_next
+    return state + np.stack([a, b, c, d, e, f, g, h], axis=1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reordered_round_matches_plain_compression(seed):
+    """The card's round order (csrc/sha256.cuh sha256_compress, shared by
+    B1, B2 and B3) gives `_compress`'s state on random blocks and
+    states, and hashlib's digest from the initial value."""
+    rng = np.random.RandomState(seed)
+    state, block = _random_u32(rng, 64, 8), _random_u32(rng, 64, 16)
+    np.testing.assert_array_equal(_reordered_compress(state, block), _compress_np(state, block))
+    msgs = rng.randint(0, 256, (16, 55)).astype(np.uint8)
+    words, _ = sha256.pad_messages_np(msgs, 55)
+    got = _reordered_compress(_iv(16), words)
+    assert sha256.digests_to_hex(got) == [hashlib.sha256(m.tobytes()).hexdigest() for m in msgs]
+
+
+#: csrc/mtu.cu chain_kernel: lanes a block at most (its chain threads)
+#: and threads a block (each computes one midstate a tile).
+CHAIN_LANES, CHAIN_THREADS = 128, 512
+
+
+def _chain_lanes_per_block(n_lanes: int, sms: int, cap: int = CHAIN_LANES) -> int:
+    """hv_chain_digests' spread: ceil(L / SMs) lanes a block, at most
+    `cap`, so the chain warps land on every SM."""
+    return min(-(-n_lanes // sms), cap)
+
+
+def _split_chain_model(bodies, seeds, sms=132, cap=CHAIN_LANES, threads=CHAIN_THREADS):
+    """What B2 (csrc/mtu.cu chain_kernel) does, block by block, the blocks
+    of equal width in lockstep: a block owns `lanes` consecutive lanes
+    (`_chain_lanes_per_block`, the last block ragged) and walks T in
+    tiles of k = threads // lanes turns. In each tile, thread tid
+    compresses the body of (turn tid // lanes, lane tid % lanes) from the
+    initial value into midstate slot tid of the tile's buffer
+    (`ops.sha256._compress`); then lane l runs the tile's parent blocks
+    in order from slots i * lanes + l, carrying its digest."""
+    t, n_lanes, _ = bodies.shape
+    chain_lanes = _chain_lanes_per_block(n_lanes, sms, cap)
+    tail = np.broadcast_to(mtu._CHAIN_TAIL, (n_lanes, 8))
+    out = np.zeros((t, n_lanes, 8), np.uint32)
+    full = n_lanes // chain_lanes * chain_lanes
+    for start, stop in ((0, full), (full, n_lanes)):
+        if stop == start:
+            continue
+        lanes = min(chain_lanes, stop - start)
+        k, n_blocks = threads // lanes, (stop - start) // lanes
+        parent = seeds[start:stop]
+        buffers = np.zeros((2, n_blocks, threads, 8), np.uint32)
+        tid = np.arange(threads)
+        my_turn, my_lane = tid // lanes, tid % lanes
+        for tile, t0 in enumerate(range(0, t, k)):
+            buf = buffers[tile % 2]
+            live = (my_turn < k) & (t0 + my_turn < t)
+            lane_idx = start + np.arange(n_blocks)[:, None] * lanes + my_lane[None, live]
+            turn_idx = np.broadcast_to(t0 + my_turn[live], lane_idx.shape)
+            body = bodies[turn_idx, lane_idx].reshape(-1, 16)
+            buf[:, tid[live]] = _compress_np(_iv(body.shape[0]), body).reshape(n_blocks, -1, 8)
+            for i in range(min(k, t - t0)):
+                mid = buf[:, i * lanes + np.arange(lanes)].reshape(-1, 8)
+                parent = _compress_np(mid, np.concatenate([parent, tail[start:stop]], axis=1))
+                out[t0 + i, start:stop] = parent
+    return out
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("lanes", [1, 13, 257])
+@pytest.mark.parametrize("t", [1, 3, 5, 17])
+def test_split_chain_model_matches_twin_xla_and_hashlib(t, lanes, seeded):
+    """B2's split chain (body midstates apart, then the parent blocks in
+    order) gives the reference's digests: `chain_digests_np`, the
+    unarmed XLA `ops.merkle.chain_digests` and hashlib. At the kernel's
+    spread over 132 SMs, and over 2 SMs with blocks of at most 8 lanes
+    and 32 threads (k = 4 turns at full width), so T spans several
+    tiles, ends mid-tile, and the last block is ragged."""
+    rng = np.random.RandomState(1000 * t + lanes)
+    bodies = _random_u32(rng, t, lanes, 16)
+    seeds = _random_u32(rng, lanes, 8) if seeded else np.zeros((lanes, 8), np.uint32)
+    want = chain_digests_np(bodies, seeds)
+    np.testing.assert_array_equal(
+        np.asarray(_JAX_CHAIN(jnp.asarray(bodies), jnp.asarray(seeds), use_pallas=False)), want)
+    np.testing.assert_array_equal(_split_chain_model(bodies, seeds), want)
+    np.testing.assert_array_equal(_split_chain_model(bodies, seeds, 2, 8, 32), want)
+    for lane in (0, lanes - 1):
+        parent = seeds[lane].astype(">u4").tobytes()
+        for turn in range(t):
+            parent = hashlib.sha256(bodies[turn, lane].astype(">u4").tobytes() + parent).digest()
+        assert sha256.digests_to_hex(want[t - 1, lane][None])[0] == parent.hex()
