@@ -2,7 +2,13 @@
 """Drive the PyTorch/CUDA port's governance wave, its facade, the saga
 plane and the slash cascade on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # from the repository root, one CUDA GPU
+    python3 chip_smoke.py            # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --blocks   # build, then only time B4, B5 and B8
+
+`--blocks` times admission (B4) on its three layouts, the fsm/saga block
+(B5) in both forms and the slash cascade (B8), and stops: run it in two
+trees in one call to compare them. Only under `--blocks` does the script
+accept a tree that lacks B5's mask form or the clip-factor table.
 
 Phases, one JSON line each:
 
@@ -10,7 +16,7 @@ Phases, one JSON line each:
 2. build: every CUDA kernel built from `hypervisor_tpu_torch/csrc/` (one
    nvcc per source, all started together), with ptxas' report; the
    redesigned kernels (B1, B2, B3's packed tree, the contribution's
-   five) must show no spill;
+   five, B4's, B5's and B8's agent pass) must show no spill;
 3. sha_latency: B1 on one warp of messages (B = 32) at 1, 2, 4 and 8
    blocks a message, by CUDA events; the slope of time against blocks
    is one compression's latency on a lone warp, the intercept the
@@ -33,9 +39,12 @@ Phases, one JSON line each:
    roots, each call twice, at 10,000 sessions x 4 leaves, at 10,001 and
    1 sessions (a ragged last warp), every count 0..P at P = 1, 2, 4, 8,
    16, 32, 64 and 128 (both sides of the packed kernel's switch) and
-   nine counts at 4096 leaves; B4 admission on the unique-sessions
-   wave and on a crowded wave with duplicates and full sessions; B5 at
-   the wave's sessions, lanes, edges and agents; B6, the DeltaLog ring
+   nine counts at 4096 leaves; B4 admission on three layouts, each
+   call twice: the unique-sessions wave, a crowded wave with duplicates
+   and full sessions, and four joins a session; B5 at the wave's
+   sessions, lanes, edges and agents in the range form and the
+   membership-mask form, on the wave's arange (where the two forms must
+   agree) and on 10,000 sessions scattered over the table; B6, the DeltaLog ring
    append, at the facade's shape (30,000 rows into 65,536, wrapping),
    unpadded and with a short live prefix; B1, the batched hash, on
    30,000 messages of 2 and 3 blocks, a scrubber strip, and 1, 31, 32,
@@ -47,7 +56,9 @@ Phases, one JSON line each:
    B8, the slash cascade, on bench_suite's north-star graph (10,240
    agents, 8,192 edges, 128 seeds, omega 0.95) and on the default
    tables (16,384 agents, 65,536 edges, omega 0.6, cascading to depth
-   2), against its plain version on the card and on the CPU;
+   2), and at omega 0.014 and 0.003 with one voucher of 4 and of 31
+   first-wave agents (where a float64 clip factor parts from the
+   reference's), against its plain version on the card and on the CPU;
 5. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
    lanes at sigma 0.5 with bond 0.30, 3 deltas, tables of 16,384 agents,
    16,384 sessions and 65,536 edges, random data from one seed) through
@@ -68,6 +79,11 @@ Phases, one JSON line each:
    same sequence on the CPU, which must give identical tables, DeltaLog,
    metrics, trace words, audit index, frontier roots, scrubber reports
    and roots;
+   then one lifecycle wave on a scattered layout (12,000 sessions, 1,000
+   terminated and 1,000 left standing with a member and a bond between
+   the wave's 10,000, which come shuffled and padded to the bucket):
+   every kernel once, the standing sessions untouched, and the same
+   wave on the CPU identical;
 7. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
    a fresh state, filled with 5-step sagas whose seeded executors commit
    cleanly, retry then commit, or exhaust into compensation with and
@@ -87,14 +103,16 @@ Phases, one JSON line each:
 9. timing: the wave's p50/p95 (host clock, synchronised) and device
    time; one wave under torch's sync debug mode "error" (no host
    synchronisation inside the wave); one profiled wave (device time by
-   kernel, the device's idle share); the facade wave's p50/p95, each on
+   kernel, the device's idle share; admission must be one launch of its
+   unique form); the facade wave's p50/p95, each on
    a fresh state, with the host split into staging, dispatch and audit
    booking, and its device time; one scrubber sweep's time; the saga
    round's p50/p95 at 8,192 sagas (the table restored between samples)
    with its host split and device time; `apply_slash`'s p50/p95 and
    device time; each kernel's time, its plain version's time, its bound
    and, where one PyTorch call computes the same function, that call's
-   time; beside them B1 at each of its paths' shapes (the scrubber's strip,
+   time; B4 on each layout, block size and row form, B5 in each form,
+   the clip-factor table's build at a tiny omega; beside them B1 at each of its paths' shapes (the scrubber's strip,
    verify's links, the big tree's 13 levels) with each path's
    launches x (ms - bound), the contribution on the two hot-vouchee
    tables and B3 on full trees at P = 64 and P = 4096.
@@ -124,6 +142,7 @@ import numpy as np
 N_SESSIONS = 10_000
 N_VOUCHED = 1_000
 N_DELTAS = 3
+N_SHARED_SESSIONS = 2_500  # B4's shared-session layout: four joins a session
 OMEGA = 0.5
 SEED = 42
 WARMUP = 3
@@ -201,6 +220,9 @@ N_STANDING, DELTAS_PER_STANDING = 13, 5
 SCRUB_BUDGET = 4_096
 BIG_TREE_LEAVES = 8_192
 FACADE_WARMUP, FACADE_ITERS = 2, 10
+#: The scattered facade wave: sessions terminated, and sessions left
+#: standing outside the wave, between the wave's sessions.
+SCATTER_GAPS = 1_000
 
 #: The saga plane: the reference's default SagaTable, filled with
 #: BASELINE's "5-step saga with retry+compensation" over standing
@@ -214,12 +236,22 @@ SAGA_WARMUP, SAGA_ITERS = 3, 30
 NORTH_STAR = dict(agents=10_240, edges=8_192, seeds=128, omega=0.95, sigma=(0.4, 0.9))
 DEFAULT_SLASH = dict(seeds=160, omega=0.6, sigma=(0.05, 0.6))
 SLASH_WARMUP, SLASH_ITERS = 2, 20
+#: (omega, k) where the float64 square-and-multiply clip factor parted
+#: from the reference's powf.
+PARTED_CLIPS = ((0.014, 4), (0.003, 31))
+#: A tiny omega whose clip-factor table runs to the edge count: its
+#: build time is the table's worst case.
+TABLE_OMEGA = 1e-6
+#: The keys of the kernels summary line.
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
 
 #: The kernels redesigned for Hopper after their first port (csrc entry
 #: functions); ptxas must report no spill for any of them.
 REDESIGNED_KERNELS = ("sha256_kernel", "chain_kernel", "tree_packed_kernel", "contrib_scope_kernel",
                       "contrib_scan_kernel", "contrib_fill_kernel", "contrib_fold_kernel",
-                      "contrib_large_kernel")
+                      "contrib_large_kernel", "admission_unique", "admission_lanes",
+                      "admission_ranked", "fsm_saga_kernel", "slash_agents_kernel")
 #: The lone-warp probe of B1: one warp of messages at these block counts.
 LATENCY_MESSAGES, LATENCY_BLOCKS = 32, (1, 2, 4, 8)
 #: B1's parity counts: around one warp, the scrubber's strip, the wave's
@@ -480,6 +512,75 @@ def run_facade_sequence(device):
     return rec, windows, state
 
 
+def run_scattered_facade(device):
+    """One lifecycle wave on a session layout with gaps and in no order:
+    12,000 sessions created, 1,000 of them terminated and 1,000 left
+    standing, each with a live member and a live edge, and the wave's
+    10,000 on the other sessions, shuffled, padded to the bucket. Returns
+    (record, launches): what a second device must reproduce, and the
+    wave's launch counts."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels, u32
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
+    from hypervisor_tpu_torch.tables.state import AI32_FLAGS, AI32_SESSION, FLAG_ACTIVE
+
+    with counted_trace_ids():
+        state = facade_state(device)
+        rng = np.random.RandomState(SEED + 9)
+        n_gap = SCATTER_GAPS
+        slots = state.create_sessions_batch(
+            [f"scatter:s{i}" for i in range(N_SESSIONS + 2 * n_gap)], SessionConfig(min_sigma_eff=0.0))
+        gaps = rng.choice(slots, 2 * n_gap, replace=False)
+        ended, standing = np.sort(gaps[:n_gap]), gaps[n_gap:]
+        state.terminate_sessions(ended.tolist(), now=0.5)
+        wave_slots = rng.permutation(np.setdiff1d(slots, gaps)).astype(np.int32)
+        dev, v, a = state.device, state.vouches, state.agents
+        cap, base = a.i32.shape[0], state._next_agent_slot
+        members = torch.arange(cap - N_VOUCHED - n_gap, cap - N_VOUCHED, device=dev)
+        a.i32[members, AI32_SESSION] = torch.from_numpy(standing).to(dev)
+        a.i32[members, AI32_FLAGS] = FLAG_ACTIVE
+        e = slice(0, N_VOUCHED)
+        v.voucher[e] = torch.arange(cap - N_VOUCHED, cap, dtype=torch.int32, device=dev)
+        v.vouchee[e] = torch.arange(base, base + N_VOUCHED, dtype=torch.int32, device=dev)
+        v.session[e] = torch.from_numpy(wave_slots[:N_VOUCHED]).to(dev)
+        g = slice(N_VOUCHED, N_VOUCHED + n_gap)
+        v.voucher[g] = members.to(torch.int32)
+        v.vouchee[g] = members.flip(0).to(torch.int32)
+        v.session[g] = torch.from_numpy(standing).to(dev)
+        for sl in (e, g):
+            v.bond[sl] = 0.30
+            v.active[sl] = True
+        sigma = np.full(N_SESSIONS, 0.8, np.float32)
+        sigma[:N_VOUCHED] = 0.50
+        bodies = rng.randint(0, 2**32, (N_DELTAS, N_SESSIONS, 16), dtype=np.uint64).astype(np.uint32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = state.run_governance_wave(
+            wave_slots, [f"did:scatter:{i}" for i in range(N_SESSIONS)], wave_slots, sigma, bodies,
+            now=1.0, pad_to=(FACADE_BUCKET, FACADE_BUCKET))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_bench_gates(res, bodies, "scattered facade wave")
+        require(bool((a.i32[members, AI32_FLAGS] == FLAG_ACTIVE).all())
+                and bool(v.active[g].all()),
+                "scattered facade wave: a standing session outside the wave lost a member or a bond")
+        rec = {f: getattr(res, f).cpu().numpy()
+               for f in ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")}
+        rec.update(chain=u32.to_numpy_u32(res.chain), merkle_root=u32.to_numpy_u32(res.merkle_root),
+                   released=int(res.released))
+        rec["tables"] = to_state_arrays(StateTables(
+            state.agents, state.sessions, state.vouches, state.metrics, state.delta_log))
+        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+        rec["host"] = {"audit_rows": state._audit_rows, "members": sorted(state._members),
+                       "frontier_roots": {s: f.root_hex() for s, f in state._frontier.items()},
+                       "free_agent_slots": state._free_agent_slots}
+    return rec, launches
+
+
 SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
 SAGA_OUTS = ("step_state", "retries_left", "saga_state", "cursor", "committed", "exhausted")
 
@@ -730,8 +831,12 @@ def first_difference(label, got, want):
     return None if got == want else label
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    args = sys.argv[1:] if argv is None else argv
+    require(set(args) <= {"--blocks"}, f"unknown arguments {args}")
+    blocks_only = "--blocks" in args
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -781,10 +886,11 @@ def main() -> int:
             r"(\d+) bytes spill loads", log)
     }
     redesigned = {fn: st for fn, st in spills.items() if any(k in fn for k in REDESIGNED_KERNELS)}
-    require(len(redesigned) >= len(REDESIGNED_KERNELS),
-            f"ptxas reported no spill line for some redesigned kernel: {sorted(redesigned)}")
-    require(all(st == (0, 0) for st in redesigned.values()),
-            f"a redesigned kernel spills: {redesigned}")
+    if not blocks_only:  # --blocks also times trees that predate some of these kernels
+        require(len(redesigned) >= len(REDESIGNED_KERNELS),
+                f"ptxas reported no spill line for some redesigned kernel: {sorted(redesigned)}")
+        require(all(st == (0, 0) for st in redesigned.values()),
+                f"a redesigned kernel spills: {redesigned}")
     emit("build", seconds=round(build_s, 3),
          ptxas={k: [a or b for a, b in v] for k, v in ptxas.items()},
          spills_stores_loads=spills, redesigned_without_spills=sorted(redesigned))
@@ -844,31 +950,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
-    # ── 3. sha_latency ───────────────────────────────────────────────
-    # One warp of messages, alone on its SMSP: the time grows by one
-    # compression's latency per block; the SM clock turns it into cycles
-    # to hold against the round's critical path.
-    lat_rng = np.random.RandomState(SEED + 5)
-    lat_ms = {}
-    for nb in LATENCY_BLOCKS:
-        words_l = u32.from_numpy_u32(lat_rng.randint(
-            0, 2**32, (LATENCY_MESSAGES, 16 * nb), dtype=np.uint64).astype(np.uint32), dev)
-        require(same(sha_kernels.sha256_words(words_l, nb),
-                     sha_kernels.sha256_words_plain(words_l, nb)), f"sha_latency: nb={nb} differs")
-        lat_ms[nb] = time_device(lambda w=words_l, nb=nb: sha_kernels.sha256_words(w, nb), reps=50)
-    slope_ms, intercept_ms = np.polyfit(LATENCY_BLOCKS, [lat_ms[nb] for nb in LATENCY_BLOCKS], 1)
-    one = torch.zeros(1, device=dev)
-    launch_floor_ms = time_device(lambda: one.add_(1), reps=50)  # one launch of a tiny kernel
-    max_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
-    emit("sha_latency", messages=LATENCY_MESSAGES, ms_by_blocks=lat_ms,
-         slope_us_per_compression=float(slope_ms) * 1e3, intercept_us=float(intercept_ms) * 1e3,
-         launch_floor_us=launch_floor_ms * 1e3,
-         sm_clock_max_mhz=max_mhz, slope_cycles_at_max_clock=float(slope_ms) * 1e3 * max_mhz,
-         critical_ops_per_compression=64 * CRITICAL_OPS_PER_ROUND,
-         sass=sass_census({name: _build._target(name) for name in ("sha256", "mtu")}))
-
     # ── bench.py's state ─────────────────────────────────────────────
     config = HypervisorConfig(capacity=TableCapacity(
         max_agents=max(DEFAULT_CONFIG.capacity.max_agents, N_SESSIONS + N_VOUCHED + 64),
@@ -907,7 +988,129 @@ def main() -> int:
     target[slot_t.long()] = sess_t
     contribution = liability.contribution_toward(
         state.vouches, target, f32_scalar(0.0, dev))[slot_t.long()]
-    kernel_rows = {}
+    # ── B4's three layouts and B5's two forms at the op wave's inputs ─
+    # (a) unique: bench.py's lanes, one a session; (b) crowded: half the
+    # lanes over 2,000 sessions and half over 10, with a sigma floor on
+    # some sessions, some not open, untrusted and duplicate lanes; (c)
+    # shared: lane i joins session i mod 2,500, four a session, every lane
+    # otherwise admissible.
+    lay_rng = np.random.RandomState(SEED + 8)
+    bursts, trust_cfg = DEFAULT_CONFIG.rate_limit.ring_bursts, DEFAULT_CONFIG.trust
+    adm_args = (slot_t, lanes["did"], sess_t, lanes["sigma_raw"], contribution, OMEGA,
+                lanes["trustworthy"], lanes["duplicate"], 0.0, bursts, trust_cfg)
+    crowded = clone(pristine["sessions"])
+    crowded.f32[:2000:7, 0] = 0.7          # a sigma floor on some sessions
+    crowded.i32[1990:2000, 3] = 0          # some sessions not open yet
+    c_sess = np.where(lay_rng.uniform(size=N_SESSIONS) < 0.5,
+                      lay_rng.randint(0, 2000, N_SESSIONS), lay_rng.randint(0, 10, N_SESSIONS))
+    c_args = (slot_t, lanes["did"], torch.from_numpy(c_sess.astype(np.int32)).to(dev),
+              torch.from_numpy(lay_rng.uniform(0.2, 1.0, N_SESSIONS).astype(np.float32)).to(dev),
+              contribution, OMEGA,
+              torch.from_numpy(lay_rng.uniform(size=N_SESSIONS) > 0.1).to(dev),
+              torch.from_numpy(lay_rng.uniform(size=N_SESSIONS) > 0.9).to(dev), 3.0,
+              bursts, trust_cfg)
+    s_args = (slot_t, lanes["did"],
+              torch.arange(N_SESSIONS, dtype=torch.int32, device=dev) % N_SHARED_SESSIONS,
+              lanes["sigma_raw"], contribution, OMEGA,
+              torch.ones(N_SESSIONS, dtype=torch.bool, device=dev),
+              torch.zeros(N_SESSIONS, dtype=torch.bool, device=dev), 0.0, bursts, trust_cfg)
+    layouts = {"unique": (adm_args, True, pristine["sessions"]),
+               "crowded": (c_args, False, crowded),
+               "shared": (s_args, False, pristine["sessions"])}
+    # B5 runs on the tables the unique admission leaves: its range form on
+    # the wave's arange(0, 10,000), its mask form on the same sessions and
+    # on 10,000 sessions drawn without replacement from the table's 16,384
+    # rows, unsorted.
+    post = {"agents": clone(pristine["agents"]), "sessions": clone(pristine["sessions"]),
+            "vouches": clone(pristine["vouches"])}
+    status_m, _, _ = wave.admission_block(post["agents"], post["sessions"], *adm_args, True)
+    ok_m = status_m == ADMIT_OK
+    ks_t = lanes["wave_sessions"]
+    s_cap = state.sessions.i32.shape[0]
+    scattered_t = torch.from_numpy(
+        lay_rng.choice(s_cap, N_SESSIONS, replace=False).astype(np.int32)).to(dev)
+    fsm_forms = {"range": (ks_t, (0, N_SESSIONS)), "mask, arange": (ks_t, None),
+                 "mask, scattered": (scattered_t, None)}
+
+    def time_blocks(slash_inputs) -> dict:
+        """B4 on each layout, B5 in each form, B8 at the slash path's
+        inputs and one launch of a one-element add, each the median by
+        CUDA events, the tables restored before every call; and the host's
+        build of one clip-factor table at a tiny omega."""
+        tb = {k: clone(t) for k, t in post.items()}
+
+        def restore_into(src):
+            copy_into(tb["agents"], pristine["agents"])
+            copy_into(tb["sessions"], src)
+
+        out = {"admission_block": {}, "fsm_saga_block": {}}
+        for tag, (args, unique, src) in layouts.items():
+            out["admission_block"][tag] = time_device(
+                lambda a=args, u=unique: wave.admission_block(tb["agents"], tb["sessions"], *a, u),
+                reset=lambda src=src: restore_into(src))
+
+        def restore_post():
+            for k, t in post.items():
+                copy_into(tb[k], t)
+
+        for tag, (ks, wrange) in fsm_forms.items():
+            call = lambda ks=ks, wrange=wrange: wave.fsm_saga_block(  # noqa: E731
+                tb["agents"], tb["sessions"], tb["vouches"], ks, ok_m, 0.0, wrange)
+            try:
+                out["fsm_saga_block"][tag] = time_device(call, reset=restore_post)
+            except ValueError as exc:
+                if not blocks_only:
+                    raise
+                # --blocks run in an older tree, whose B5 has no mask form
+                out["fsm_saga_block"][tag] = f"refused: {exc}"
+        v_, sigma_, first_, sess_ = slash_inputs
+        out["slash_cascade"] = time_device(lambda: liab_kernels.slash_cascade(
+            v_, sigma_, first_, sess_, NORTH_STAR["omega"], 1.0))
+        # The host's libm table at a tiny omega, to the card (not in an
+        # older tree, under --blocks).
+        if not blocks_only or hasattr(liab_kernels, "factor_table"):
+            t0_ = time.perf_counter()
+            liab_kernels.factor_table(np.float32(1) - np.float32(TABLE_OMEGA),
+                                      DEFAULT_CONFIG.capacity.max_vouch_edges, dev)
+            torch.cuda.synchronize()
+            out["clip_table_build_ms"] = (time.perf_counter() - t0_) * 1e3
+        one_ = torch.zeros(1, device=dev)
+        out["launch_floor"] = time_device(lambda: one_.add_(1), reps=50)
+        return out
+
+    if blocks_only:
+        _, _, _, pre = run_slash_sequence(dev)
+        first_b = torch.zeros(pre[1].sigma_eff.shape, dtype=torch.bool, device=dev)
+        first_b[pre[2]] = True
+        emit("block_timing", ms=time_blocks((pre[0], pre[1].sigma_eff.contiguous(), first_b,
+                                             pre[3])), nvidia_smi=smi)
+        return 0
+
+    # ── 3. sha_latency ───────────────────────────────────────────────
+    # One warp of messages, alone on its SMSP: the time grows by one
+    # compression's latency per block; the SM clock turns it into cycles
+    # to hold against the round's critical path.
+    lat_rng = np.random.RandomState(SEED + 5)
+    lat_ms = {}
+    for nb in LATENCY_BLOCKS:
+        words_l = u32.from_numpy_u32(lat_rng.randint(
+            0, 2**32, (LATENCY_MESSAGES, 16 * nb), dtype=np.uint64).astype(np.uint32), dev)
+        require(same(sha_kernels.sha256_words(words_l, nb),
+                     sha_kernels.sha256_words_plain(words_l, nb)), f"sha_latency: nb={nb} differs")
+        lat_ms[nb] = time_device(lambda w=words_l, nb=nb: sha_kernels.sha256_words(w, nb), reps=50)
+    slope_ms, intercept_ms = np.polyfit(LATENCY_BLOCKS, [lat_ms[nb] for nb in LATENCY_BLOCKS], 1)
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = time_device(lambda: one.add_(1), reps=50)  # one launch of a tiny kernel
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    emit("sha_latency", messages=LATENCY_MESSAGES, ms_by_blocks=lat_ms,
+         slope_us_per_compression=float(slope_ms) * 1e3, intercept_us=float(intercept_ms) * 1e3,
+         launch_floor_us=launch_floor_ms * 1e3,
+         sm_clock_max_mhz=max_mhz, slope_cycles_at_max_clock=float(slope_ms) * 1e3 * max_mhz,
+         critical_ops_per_compression=64 * CRITICAL_OPS_PER_ROUND,
+         sass=sass_census({name: _build._target(name) for name in ("sha256", "mtu")}))
+
 
     # ── 4. parity, kernel against plain, on the card ─────────────────
     def random_words(*shape, gen=None):
@@ -1048,60 +1251,60 @@ def main() -> int:
     emit("parity", kernel="tree_roots", shape=[N_SESSIONS, 4, 8], cases=sorted(b3_cases),
          packed_up_to=mtu.TREE_PACKED_MAX_LEAVES, bit_exact=True, max_abs_err=err_b3)
 
-    # B4: admission, the wave's unique lanes and a crowded wave.
-    adm_args = (slot_t, lanes["did"], sess_t, lanes["sigma_raw"], contribution, OMEGA,
-                lanes["trustworthy"], lanes["duplicate"], 0.0,
-                DEFAULT_CONFIG.rate_limit.ring_bursts, DEFAULT_CONFIG.trust)
-
+    # B4: admission on each layout, each call twice.
     def admission_parity(tag, args, unique, sessions_src):
         ka, ks = clone(pristine["agents"]), clone(sessions_src)
         pa, ps = clone(pristine["agents"]), clone(sessions_src)
+        ra, rs = clone(pristine["agents"]), clone(sessions_src)
         got = wave.admission_block(ka, ks, *args, unique)
         want = wave.admission_block_plain(pa, ps, *args, unique)
+        again = wave.admission_block(ra, rs, *args, unique)
         pairs = {"status": (got[0], want[0]), "ring": (got[1], want[1]),
-                 "sigma_eff": (got[2], want[2])}
+                 "sigma_eff": (got[2], want[2]), "repeat": (again[0], got[0])}
         pairs.update(table_pairs("agents", ka, pa))
         pairs.update(table_pairs("sessions", ks, ps))
+        pairs.update(table_pairs("agents repeat", ra, ka))
         return check_pairs(f"admission_block {tag}", pairs), got[0]
 
-    err_b4, status_u = admission_parity("unique", adm_args, True, pristine["sessions"])
-    require(bool((status_u == ADMIT_OK).all()), "the bench lanes must all be admitted")
-    crowded = clone(pristine["sessions"])
-    crowded.f32[:2000:7, 0] = 0.7          # a sigma floor on some sessions
-    crowded.i32[1990:2000, 3] = 0          # some sessions not open yet
-    c_sess = np.where(rng.uniform(size=N_SESSIONS) < 0.5,
-                      rng.randint(0, 2000, N_SESSIONS), rng.randint(0, 10, N_SESSIONS))
-    c_args = (slot_t, lanes["did"], torch.from_numpy(c_sess.astype(np.int32)).to(dev),
-              torch.from_numpy(rng.uniform(0.2, 1.0, N_SESSIONS).astype(np.float32)).to(dev),
-              contribution, OMEGA,
-              torch.from_numpy(rng.uniform(size=N_SESSIONS) > 0.1).to(dev),
-              torch.from_numpy(rng.uniform(size=N_SESSIONS) > 0.9).to(dev), 3.0,
-              DEFAULT_CONFIG.rate_limit.ring_bursts, DEFAULT_CONFIG.trust)
-    err_c, status_c = admission_parity("crowded", c_args, False, crowded)
-    codes = sorted(set(status_c.tolist()))
-    require({0, 1, 2, 3, 4} <= set(codes), f"the crowded wave must hit every status, got {codes}")
-    emit("parity", kernel="admission_block", lanes=N_SESSIONS, unique=True, crowded_codes=codes,
-         bit_exact=True, max_abs_err=max(err_b4, err_c))
+    err_b4, b4_codes = 0.0, {}
+    for tag, (args, unique, src) in layouts.items():
+        err, status_l = admission_parity(tag, args, unique, src)
+        err_b4 = max(err_b4, err)
+        b4_codes[tag] = sorted(set(status_l.tolist()))
+    require(b4_codes["unique"] == [ADMIT_OK] and b4_codes["shared"] == [ADMIT_OK],
+            f"the unique and shared lanes must all be admitted: {b4_codes}")
+    require({0, 1, 2, 3, 4} <= set(b4_codes["crowded"]),
+            f"the crowded wave must hit every status, got {b4_codes['crowded']}")
+    emit("parity", kernel="admission_block", lanes=N_SESSIONS, layouts=sorted(layouts),
+         codes=b4_codes, bit_exact=True, max_abs_err=err_b4)
 
-    # B5: fsm/saga/terminate on the post-admission tables.
-    post = {"agents": clone(pristine["agents"]), "sessions": clone(pristine["sessions"]),
-            "vouches": clone(pristine["vouches"])}
-    status_m, _, _ = wave.admission_block(post["agents"], post["sessions"], *adm_args, True)
-    ok_m = status_m == ADMIT_OK
-    ks_t = lanes["wave_sessions"]
-    kt = {k: clone(t) for k, t in post.items()}
-    pt = {k: clone(t) for k, t in post.items()}
-    got = wave.fsm_saga_block(kt["agents"], kt["sessions"], kt["vouches"], ks_t, ok_m, 0.0,
-                              (0, N_SESSIONS))
-    want = wave.fsm_saga_block_plain(pt["agents"], pt["sessions"], pt["vouches"], ks_t, ok_m,
-                                     0.0, (0, N_SESSIONS))
-    pairs = {"step": (got[0], want[0]), "wave_state": (got[1], want[1]),
-             "fsm_error": (got[2], want[2]), "released": (got[3], want[3])}
-    for k in kt:
-        pairs.update(table_pairs(k, kt[k], pt[k]))
-    err_b5 = check_pairs("fsm_saga_block", pairs)
+    # B5: fsm/saga/terminate on the post-admission tables, in the range
+    # form and the mask form (which on the arange layout must also equal
+    # the range form), each against the plain version on the card.
+    err_b5, b5_out = 0.0, {}
+    for tag, (ks, wrange) in fsm_forms.items():
+        kt = {k: clone(t) for k, t in post.items()}
+        pt = {k: clone(t) for k, t in post.items()}
+        got = wave.fsm_saga_block(kt["agents"], kt["sessions"], kt["vouches"], ks, ok_m, 0.0,
+                                  wrange)
+        want = wave.fsm_saga_block_plain(pt["agents"], pt["sessions"], pt["vouches"], ks, ok_m,
+                                         0.0, wrange)
+        pairs = {"step": (got[0], want[0]), "wave_state": (got[1], want[1]),
+                 "fsm_error": (got[2], want[2]), "released": (got[3], want[3])}
+        for k in kt:
+            pairs.update(table_pairs(k, kt[k], pt[k]))
+        err_b5 = max(err_b5, check_pairs(f"fsm_saga_block {tag}", pairs))
+        b5_out[tag] = (got, kt)
+    (r_out, r_tables), (m_out, m_tables) = b5_out["range"], b5_out["mask, arange"]
+    same_form = {f"out{i}": (m_out[i], r_out[i]) for i in range(4)}
+    for k in r_tables:
+        same_form.update(table_pairs(k, m_tables[k], r_tables[k]))
+    check_pairs("fsm_saga_block mask form against the range form", same_form)
+    released_by_form = {tag: int(out[3]) for tag, (out, _) in b5_out.items()}
+    require(released_by_form["range"] == N_VOUCHED, "B5 parity: the wave's bonds must be released")
     emit("parity", kernel="fsm_saga_block", sessions=N_SESSIONS, lanes=N_SESSIONS,
-         edges=int(state.vouches.active.shape[0]), agents=n_cap, bit_exact=True,
+         edges=int(state.vouches.active.shape[0]), agents=n_cap, forms=sorted(fsm_forms),
+         released=released_by_form, mask_equals_range_on_arange=True, bit_exact=True,
          max_abs_err=err_b5)
     # B6: the DeltaLog ring append at the facade's shape, 30,000 rows into
     # 65,536 from a cursor that makes the append wrap; unpadded, then a
@@ -1233,8 +1436,42 @@ def main() -> int:
     emit("parity", kernel="slash_cascade", north_star=[NORTH_STAR["agents"], NORTH_STAR["edges"]],
          default=[cap.max_agents, cap.max_vouch_edges], depth_reached=depth_reached,
          against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
+    # B8 where the parent's float64 clip factor parted from the reference's
+    # (omega 0.014 at k = 4, 0.003 at k = 31): one voucher, at sigma 0.9,
+    # vouching for k first-wave agents in the slashed session.
+    parted = {}
+    for omega_p, k_p in PARTED_CLIPS:
+        v_p, sigma_p, seeds_p = slash_graph(np.random.RandomState(SEED + 10), cap.max_agents,
+                                            cap.max_vouch_edges, DEFAULT_SLASH["seeds"],
+                                            DEFAULT_SLASH["sigma"], 2, dev)
+        voucher_p = int(torch.nonzero(~seeds_p).flatten()[0])
+        v_p.active[v_p.voucher == voucher_p] = False
+        rows_p = torch.arange(k_p, device=dev)
+        v_p.voucher[rows_p] = voucher_p
+        v_p.vouchee[rows_p] = torch.nonzero(seeds_p).flatten()[:k_p].to(torch.int32)
+        v_p.session[rows_p] = 0
+        v_p.active[rows_p] = True
+        v_p.expiry[rows_p] = float("inf")
+        sigma_p[voucher_p] = 0.9
+        got = liab_kernels.slash_cascade(v_p, sigma_p, seeds_p, 0, omega_p, 0.0)
+        card = liab_kernels.slash_cascade_plain(v_p, sigma_p, seeds_p, 0, omega_p, 0.0)
+        cpu = liab_kernels.slash_cascade_plain(
+            VouchTable(**{k: t.cpu() for k, t in tensors(v_p).items()}), sigma_p.cpu(),
+            seeds_p.cpu(), 0, omega_p, 0.0)
+        names = ("sigma", "active", "slashed", "clipped", "wave_of")
+        pairs = {f"{name} against the {where}": (got[i].cpu(), other[i].cpu())
+                 for where, other in (("plain on the card", card), ("plain on the CPU", cpu))
+                 for i, name in enumerate(names)}
+        err_b8 = max(err_b8, check_pairs(f"slash_cascade omega={omega_p} k={k_p}", pairs))
+        factor = float(liab_kernels.clip_factor(torch.tensor(np.float32(1) - np.float32(omega_p)),
+                                                torch.tensor(k_p)))
+        require(float(got[0][voucher_p]) == float(np.float32(np.float32(0.9) * np.float32(factor))),
+                f"B8 omega={omega_p}: the voucher of {k_p} seeds was not clipped by the factor")
+        parted[f"omega={omega_p}, k={k_p}"] = {"factor": factor, "voucher_sigma": float(got[0][voucher_p])}
+    emit("parity", kernel="slash_cascade", parted_clips=parted,
+         against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
     errs = {"contribution_toward": err_contrib, "chain_digests": err_b2, "tree_roots": err_b3,
-            "admission_block": max(err_b4, err_c), "fsm_saga_block": err_b5,
+            "admission_block": err_b4, "fsm_saga_block": err_b5,
             "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
             "slash_cascade": err_b8}
 
@@ -1297,6 +1534,19 @@ def main() -> int:
          scrub_ticks=len(facade_rec["scrub"]), launches_by_path=windows, gates="passed",
          hashlib_lanes_per_wave=[0, N_SESSIONS - 1], cursor_mirrors="equal",
          cpu_run="identical", card_seconds=facade_s, cpu_seconds=cpu_s)
+
+    # ── 6b. a facade wave on a scattered session layout ──────────────
+    scat_rec, scat_launches = run_scattered_facade(dev)
+    require({k: n for k, n in scat_launches.items() if n} == {k: 1 for k in FACADE_WAVE_KERNELS},
+            f"the scattered facade wave must launch each of its kernels once: {scat_launches}")
+    cpu_scat, cpu_scat_launches = run_scattered_facade("cpu")
+    require(not any(cpu_scat_launches.values()), "the scattered wave's CPU run launched a kernel")
+    diff = first_difference("scattered facade", cpu_scat, scat_rec)
+    require(diff is None, f"the scattered facade wave on the CPU differs from the card at {diff}")
+    emit("scattered_facade", sessions=N_SESSIONS, terminated=SCATTER_GAPS, standing=SCATTER_GAPS,
+         padded_bucket=FACADE_BUCKET, fsm_form="mask", launches=scat_launches, gates="passed",
+         cpu_run="identical")
+    windows["scattered_facade"] = scat_launches
 
     # ── 7. the saga plane ────────────────────────────────────────────
     saga_rec, saga_launches, saga_state, saga_s, saga_initial = run_saga_sequence(dev)
@@ -1385,11 +1635,15 @@ def main() -> int:
         if e.device_type == DeviceType.CUDA:
             by_name.append((e.self_device_time_total, e.key, e.count))
     by_name.sort(reverse=True)
+    admission_kernels = {stem: sum(n for _, k, n in by_name if stem in k)
+                         for stem in ("admission_unique", "admission_lanes", "admission_ranked")}
+    require(admission_kernels == {"admission_unique": 1, "admission_lanes": 0, "admission_ranked": 0},
+            f"the op wave's admission must be one launch of the unique form: {admission_kernels}")
     busy_ms = sum(us for us, _, _ in by_name) / 1e3
     emit("profile", wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / prof_wall_ms) if prof_wall_ms else None,
          top=[{"name": k[:80], "device_us": us, "count": n} for us, k, n in by_name[:15]],
-         n_device_ops=sum(n for _, _, n in by_name))
+         n_device_ops=sum(n for _, _, n in by_name), admission_launches=admission_kernels)
 
     # The facade wave: p50/p95 on the host clock, synchronised, each
     # sample on a fresh state built (sessions created, edges placed)
@@ -1653,6 +1907,7 @@ def main() -> int:
         "slash_cascade": (cap.max_vouch_edges * (4 + 4 + 4 + 1 + 4 + 1) + cap.max_agents * (5 + 7),
                           depths * (cap.max_vouch_edges * 10 + cap.max_agents * 20)),
     }
+    blocks_ms = time_blocks((pre_v, pre_sigma, first_t, pre_sess))
     rows = []
     for name, (kfn, pfn, reset) in calls.items():
         k_ms = time_device(kfn, reset)
@@ -1672,6 +1927,12 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_ms, "bytes": nbytes, "int_instructions": nops,
         })
+        if name == "admission_block":
+            rows[-1]["ms_by_layout"] = blocks_ms["admission_block"]
+        if name == "fsm_saga_block":
+            rows[-1]["ms_by_form"] = blocks_ms["fsm_saga_block"]
+        if name == "slash_cascade":
+            rows[-1]["clip_table_build_ms"] = blocks_ms["clip_table_build_ms"]
         if name == "contribution_toward":
             rows[-1]["ms_hot_vouchee"] = {
                 tag: time_device(lambda vt=vt, tgt=tgt: wave.contribution_toward(vt, tgt, now0))
@@ -1723,7 +1984,7 @@ def main() -> int:
               "the admission and fsm/saga blocks, the saga round or the slash cascade, so "
               "theirs is null")
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": [{k: row[k] for k in KERNEL_KEYS} for row in rows]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,11 @@
 //   slash_agents  one thread per agent: the blacklist, the clip
 //                 max(sigma * (1 - omega)^k, floor), the next wave, and
 //                 the counts zeroed for the next depth.
+// The clip factor (1 - omega)^k is read from a table the host built
+// with its C library's powf(1 - omega, (float)k), subnormals flushed
+// (kernels/liability.py factor_table): the bits the reference's CPU
+// run gives. k is clamped to the table's last entry, past which every k
+// gives the same value.
 // The counts are integers, exact in any order; no float is accumulated
 // by atomics. Compiled with --fmad=false: sigma * p rounds once, as in
 // the reference.
@@ -40,23 +45,10 @@ __global__ void slash_edges_kernel(const int* voucher, const int* vouchee, const
   }
 }
 
-// (1 - omega)^k for an integer k >= 1: square-and-multiply in double,
-// rounded once to float. The plain version (kernels/liability.py) does the
-// same IEEE double products in the same order, so card and CPU agree
-// bit for bit.
-__device__ __forceinline__ float pow_int(float base, int k) {
-  double b = base, p = 1.0;
-  for (unsigned e = static_cast<unsigned>(k); e; e >>= 1) {
-    if (e & 1u) p = __dmul_rn(p, b);
-    b = __dmul_rn(b, b);
-  }
-  return __double2float_rn(p);
-}
-
 __global__ void slash_agents_kernel(float* sigma, uint8_t* wave, uint8_t* slashed,
                                     uint8_t* clipped, int8_t* wave_of, int* k,
-                                    uint8_t* has_vouchers, int depth, int last, float base,
-                                    float floor_, float wipe, int N) {
+                                    uint8_t* has_vouchers, const float* factor, int n_factor,
+                                    int depth, int last, float floor_, float wipe, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   float s = sigma[n];
@@ -69,7 +61,7 @@ __global__ void slash_agents_kernel(float* sigma, uint8_t* wave, uint8_t* slashe
   }
   const int kn = k[n];
   if (kn > 0) {
-    const float x = __fmul_rn(s, pow_int(base, kn));
+    const float x = __fmul_rn(s, factor[kn < n_factor ? kn : n_factor - 1]);
     s = (x >= floor_ || x != x) ? x : floor_;  // maximum, NaN passes through
     clipped[n] = 1;
   }
@@ -101,15 +93,17 @@ extern "C" int hv_slash_edges(const void* voucher, const void* vouchee, const vo
 }
 
 extern "C" int hv_slash_agents(void* sigma, void* wave, void* slashed, void* clipped,
-                               void* wave_of, void* k, void* has_vouchers, int depth, int last,
-                               float base, float floor_, float wipe, int N, void* stream) {
+                               void* wave_of, void* k, void* has_vouchers, const void* factor,
+                               int n_factor, int depth, int last, float floor_, float wipe, int N,
+                               void* stream) {
   if (N > 0) {
     const int threads = 256;
     slash_agents_kernel<<<(N + threads - 1) / threads, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<float*>(sigma), static_cast<uint8_t*>(wave), static_cast<uint8_t*>(slashed),
         static_cast<uint8_t*>(clipped), static_cast<int8_t*>(wave_of), static_cast<int*>(k),
-        static_cast<uint8_t*>(has_vouchers), depth, last, base, floor_, wipe, N);
+        static_cast<uint8_t*>(has_vouchers), static_cast<const float*>(factor), n_factor, depth,
+        last, floor_, wipe, N);
   }
   return static_cast<int>(cudaGetLastError());
 }

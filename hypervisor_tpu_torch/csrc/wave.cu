@@ -51,23 +51,50 @@ struct AdmissionArgs {
   const float* contrib; const uint8_t* trust; const uint8_t* dup;
   float omega, now, ring2_threshold;
   float bursts[4];
-  int unique, B;
+  int B;
   int8_t* status; int8_t* ring; float* sigma_eff;
-  int8_t* pre;     // scratch: status before the capacity check
-  int* seats;      // scratch: [B] participant count, [B] max, read before any write
+  // Scratch of the two-pass form: [B] the lane's session if it passed
+  // every check but capacity, else -1; [2B] the participant counts and
+  // maxima, read before any write.
+  int* key;
+  int* seats;
 };
 
-// B4 pass 1, one thread per lane. Replaces the front half of
-// hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas: the
-// session-row gathers, sigma_eff, the ring, and the status ladder up to
-// (not including) the capacity check. Every read of the participant
-// count happens here, before pass 2 writes any.
-__global__ void admission_lanes(AdmissionArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
-  const int s = a.sess[i];
-  const int* row = a.si32 + (size_t)s * SI32_WIDTH;
-  const int state = row[SI32_STATE];
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+// B4's block sizes, the fastest of 32-256 on the H100 (PERF.md): small
+// blocks spread the one-launch form's 10,000 lanes over more SMs; the
+// ranked pass's tile is its block.
+constexpr int ADMIT_UNIQUE_THREADS = 64;
+constexpr int ADMIT_RANKED_THREADS = 256;
+constexpr int RANK_LOADS = 16;
+
+// B4 replaces hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas:
+// the session-row gathers, sigma_eff, the ring, the status ladder, the
+// capacity rank, the packed agent-row writes (every column, so the
+// breach window resets) and the participant counts. Bound by bytes (~30
+// bytes of lane inputs, a gathered session row and a 117-byte row
+// written at a random slot a lane: 0.5 us at 10,000 lanes), so its time
+// is launches and latency. Two forms:
+//   unique sessions (the host checked that no two seat-consuming lanes
+//     share a session): one launch. Each lane reads its session row once,
+//     checks capacity against its own read and writes the count back.
+//     No other lane writes that count, and duplicate and pad lanes never
+//     read it: their status is settled (bad state, duplicate) before the
+//     capacity check, so no status depends on another lane's write.
+//   otherwise: two launches, keeping every capacity check on pre-wave
+//     counts. admission_lanes settles each lane up to the capacity check
+//     and snapshots the seats; admission_ranked gives each lane its rank,
+//     the number of earlier lanes (in lane order) that passed every other
+//     check and target its session. A block takes a tile of lanes, puts
+//     its sessions in a shared-memory hash table, counts every earlier
+//     tile's requests into it (B / blockDim keys a thread) and adds the
+//     earlier requests of its own tile.
+// Each admitted lane writes its own row, the f32 row as two 16-byte
+// stores. (A warp writing its admitted rows together, one row a step,
+// measured slower: PERF.md.)
+__device__ __forceinline__ int lane_ladder(const AdmissionArgs& a, int i, int s, int8_t* ring_out,
+                                           float* se_out) {
+  const int state = a.si32[(size_t)s * SI32_WIDTH + SI32_STATE];
   const float min_sigma = a.sf32[(size_t)s * SF32_WIDTH + SF32_MIN_SIGMA];
   const float x = __fadd_rn(a.sigma_raw[i], __fmul_rn(a.omega, a.contrib[i]));
   const float se = x > 1.0f ? 1.0f : x;  // NaN passes through, like minimum
@@ -77,62 +104,156 @@ __global__ void admission_lanes(AdmissionArgs a) {
   if (state != S_HANDSHAKING && state != S_ACTIVE) st = ADMIT_BAD_STATE;
   else if (a.dup[i]) st = ADMIT_DUPLICATE;
   else if (se < min_sigma && ring != 3) st = ADMIT_SIGMA_LOW;
-  a.pre[i] = static_cast<int8_t>(st);
+  *ring_out = ring;
+  *se_out = se;
+  return st;
+}
+
+__device__ __forceinline__ float burst(const AdmissionArgs& a, int ring) {
+  return a.bursts[ring < 0 ? 0 : (ring > 3 ? 3 : ring)];
+}
+
+// An admitted lane writes its agent row: the f32 row as two 16-byte
+// stores, the i32 row and the ring byte.
+__device__ __forceinline__ void write_row(const AdmissionArgs& a, int i, int s, int8_t ring,
+                                          float se) {
+  static_assert(AF32_WIDTH == 8 && AF32_SIGMA_RAW == 0 && AF32_SIGMA_EFF == 1 &&
+                AF32_JOINED_AT == 2 && AF32_RL_TOKENS == 4 && AF32_RL_STAMP == 5,
+                "the two 16-byte stores below spell the f32 row");
+  const size_t r = static_cast<size_t>(a.slot[i]);
+  float4* f = reinterpret_cast<float4*>(a.af32 + r * AF32_WIDTH);
+  f[0] = make_float4(a.sigma_raw[i], se, a.now, 0.0f);
+  f[1] = make_float4(burst(a, ring), a.now, 0.0f, 0.0f);
+  int* w = a.ai32 + r * AI32_WIDTH;
+  const int did = a.did[i];
+#pragma unroll
+  for (int c = 0; c < AI32_WIDTH; ++c) {
+    w[c] = c == AI32_DID ? did : c == AI32_SESSION ? s : c == AI32_FLAGS ? FLAG_ACTIVE : 0;
+  }
+  a.aring[r] = ring;
+}
+
+__global__ void __launch_bounds__(ADMIT_UNIQUE_THREADS) admission_unique(AdmissionArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int s = a.sess[i];
+  int8_t ring;
+  float se;
+  int st = lane_ladder(a, i, s, &ring, &se);
+  if (st == ADMIT_OK) {
+    int* row = a.si32 + (size_t)s * SI32_WIDTH;
+    const int seats = row[SI32_NPART];
+    if (seats >= row[SI32_MAX_PARTICIPANTS]) st = ADMIT_CAPACITY;
+    else row[SI32_NPART] = seats + 1;
+  }
+  a.status[i] = static_cast<int8_t>(st);
+  a.ring[i] = ring;
+  a.sigma_eff[i] = se;
+  if (st == ADMIT_OK) write_row(a, i, s, ring, se);
+}
+
+// Two-pass form, pass 1: every read of the participant counts happens
+// here, before pass 2 writes any. A lane's status is final here unless
+// pass 2 refuses it for capacity.
+__global__ void admission_lanes(AdmissionArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int s = a.sess[i];
+  int8_t ring;
+  float se;
+  const int st = lane_ladder(a, i, s, &ring, &se);
+  const int* row = a.si32 + (size_t)s * SI32_WIDTH;
+  a.status[i] = static_cast<int8_t>(st);
+  a.key[i] = st == ADMIT_OK ? s : -1;
   a.seats[i] = row[SI32_NPART];
   a.seats[a.B + i] = row[SI32_MAX_PARTICIPANTS];
   a.ring[i] = ring;
   a.sigma_eff[i] = se;
 }
 
-// B4 pass 2, one thread per lane: the capacity check, then the packed
-// agent-row writes (every column, so the breach window resets) and an
-// atomic participant-count increment for each admitted lane. The rank of
-// a lane is 0 on the unique-sessions path, else the number of earlier
-// lanes that passed every other check and target the same session (a
-// plain O(B^2) count; the TPU kernel used a bitonic network).
-__global__ void admission_writes(AdmissionArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
-  int st = a.pre[i];
-  const int s = a.sess[i];
-  if (st == ADMIT_OK) {
-    int rank = 0;
-    if (!a.unique) {
-      for (int j = 0; j < i; ++j) rank += (a.pre[j] == ADMIT_OK) & (a.sess[j] == s);
-    }
-    if (a.seats[i] + rank >= a.seats[a.B + i]) st = ADMIT_CAPACITY;
+__device__ __forceinline__ unsigned rank_hash(int key) {
+  return (static_cast<unsigned>(key) * 2654435761u) >> 20;
+}
+
+// Two-pass form, pass 2: the capacity rank, the row writes and an atomic
+// participant-count increment for each admitted lane. The hash table has
+// twice as many slots as the tile has lanes. A thread reads B / n keys of
+// earlier tiles, so the pass's loads grow as B^2 / n: 39 a thread at
+// 10,000 lanes.
+__global__ void __launch_bounds__(ADMIT_RANKED_THREADS) admission_ranked(AdmissionArgs a) {
+  constexpr int n = ADMIT_RANKED_THREADS;
+  constexpr unsigned mask = 2 * n - 1;
+  __shared__ __align__(16) int tile_key[n];
+  __shared__ int hash_key[2 * n];
+  __shared__ int hash_count[2 * n];
+  const int t = threadIdx.x;
+  const int i0 = blockIdx.x * n, i = i0 + t;
+  const int key = i < a.B ? a.key[i] : -1;
+  tile_key[t] = key;
+  for (int h = t; h < 2 * n; h += n) {
+    hash_key[h] = -1;
+    hash_count[h] = 0;
   }
-  a.status[i] = static_cast<int8_t>(st);
-  if (st != ADMIT_OK) return;
-  const size_t r = static_cast<size_t>(a.slot[i]);
-  const int8_t ring = a.ring[i];
-  float* f = a.af32 + r * AF32_WIDTH;
+  __syncthreads();
+  unsigned slot = 0;
+  if (key >= 0) {  // the tile's sessions, one slot each
+    slot = rank_hash(key) & mask;
+    for (int prev; (prev = atomicCAS(&hash_key[slot], -1, key)) != -1 && prev != key;) {
+      slot = (slot + 1) & mask;
+    }
+  }
+  __syncthreads();
+  // Every earlier tile's requests, counted per session of this tile;
+  // RANK_LOADS keys a thread in flight at once.
+  for (int j0 = t; j0 < i0; j0 += RANK_LOADS * n) {
+    int kj[RANK_LOADS];
 #pragma unroll
-  for (int c = 0; c < AF32_WIDTH; ++c) f[c] = 0.0f;
-  f[AF32_SIGMA_RAW] = a.sigma_raw[i];
-  f[AF32_SIGMA_EFF] = a.sigma_eff[i];
-  f[AF32_JOINED_AT] = a.now;
-  f[AF32_RL_TOKENS] = a.bursts[ring < 0 ? 0 : (ring > 3 ? 3 : ring)];
-  f[AF32_RL_STAMP] = a.now;
-  int* w = a.ai32 + r * AI32_WIDTH;
+    for (int u = 0; u < RANK_LOADS; ++u) {
+      const int j = j0 + u * n;
+      kj[u] = j < i0 ? a.key[j] : -1;
+    }
 #pragma unroll
-  for (int c = 0; c < AI32_WIDTH; ++c) w[c] = 0;
-  w[AI32_DID] = a.did[i];
-  w[AI32_SESSION] = s;
-  w[AI32_FLAGS] = FLAG_ACTIVE;
-  a.aring[r] = ring;
-  atomicAdd(a.si32 + (size_t)s * SI32_WIDTH + SI32_NPART, 1);
+    for (int u = 0; u < RANK_LOADS; ++u) {
+      if (kj[u] < 0) continue;
+      unsigned h = rank_hash(kj[u]) & mask;
+      int found;
+      while ((found = hash_key[h]) != kj[u] && found != -1) h = (h + 1) & mask;
+      if (found == kj[u]) atomicAdd(&hash_count[h], 1);
+    }
+  }
+  __syncthreads();
+  if (key >= 0) {
+    int rank = hash_count[slot];  // then the earlier requests of this tile, four a load
+    const int4* quad = reinterpret_cast<const int4*>(tile_key);
+    int q = 0;
+    for (; q + 4 <= t; q += 4) {
+      const int4 k4 = quad[q >> 2];
+      rank += (k4.x == key) + (k4.y == key) + (k4.z == key) + (k4.w == key);
+    }
+    for (; q < t; ++q) rank += tile_key[q] == key;
+    if (a.seats[i] + rank < a.seats[a.B + i]) {
+      atomicAdd(a.si32 + (size_t)key * SI32_WIDTH + SI32_NPART, 1);
+      write_row(a, i, key, a.ring[i], a.sigma_eff[i]);
+    } else {
+      a.status[i] = ADMIT_CAPACITY;
+    }
+  }
 }
 
 struct FsmSagaArgs {
   int* ai32; int* si32; float* sf32; const int* vsess; uint8_t* vact;
   const int* ksess; const uint8_t* ok;
-  float now; int lo, hi;
+  float now; int lo, hi; int use_mask, s_cap;
   uint32_t bits_lo, bits_hi; int n_rows, n_cols;
   int active, terminating, archived;
   int K, B, E, N;
+  int walk_blocks, step_blocks, edge_blocks;
   int8_t* step; int8_t* wstate; uint8_t* err; int* released;
 };
+
+constexpr int FSM_THREADS = 512;
+constexpr int FSM_EDGES_PER_THREAD = 4;
+constexpr int FSM_MASK_LOADS = 8;
 
 __device__ __forceinline__ bool transition_valid(const FsmSagaArgs& a, int frm, int to) {
   if (frm < 0 || frm >= a.n_rows || to < 0 || to >= a.n_cols) return false;
@@ -141,54 +262,152 @@ __device__ __forceinline__ bool transition_valid(const FsmSagaArgs& a, int frm, 
   return (word >> (idx & 31u)) & 1u;
 }
 
-// B5, one grid-stride launch over max(K, B, E, N). Replaces
-// hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas:
-//   k < K: the session walk ACTIVE -> TERMINATING -> ARCHIVED on
+// Adds session ks (a negative one marks slot 0) to the bitmap: into the
+// pending (word, bits) when it shares that word, else flushing them first.
+__device__ __forceinline__ void mark(unsigned* member, int s_cap, int ks, unsigned& word,
+                                     unsigned& bits) {
+  const int s = ks < 0 ? 0 : ks;
+  if (s >= s_cap) return;
+  const unsigned w = static_cast<unsigned>(s) >> 5, b = 1u << (s & 31);
+  if (bits && w != word) atomicOr(&member[word], bits);
+  bits = (bits && w == word ? bits : 0u) | b;
+  word = w;
+}
+
+__device__ __forceinline__ bool in_wave(const FsmSagaArgs& a, const unsigned* member, int s) {
+  if (!a.use_mask) return s >= a.lo && s < a.hi;
+  return s >= 0 && s < a.s_cap && ((member[s >> 5] >> (s & 31)) & 1u);
+}
+
+// B5 replaces hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas:
+//   walk:  the session walk ACTIVE -> TERMINATING -> ARCHIVED on
 //          populated sessions (legality from the packed transition bits,
 //          the state narrowed to int8 as in the reference), the state and
 //          terminated_at writes;
-//   b < B: one saga step, COMMITTED where admitted, else FAILED;
-//   e < E: bond release on live edges of sessions in [lo, hi), counted
-//          with one atomic per warp;
-//   n < N: FLAG_ACTIVE cleared on agents of sessions in [lo, hi).
-// It runs after the admission kernel on the same stream, so the walk
-// reads the participant counts admission wrote.
-__global__ void fsm_saga_kernel(FsmSagaArgs a, int total) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < total; base += stride) {
-    const int idx = base + threadIdx.x;
-    if (idx < a.K) {
-      const size_t s = static_cast<size_t>(a.ksess[idx]);
-      int* row = a.si32 + s * SI32_WIDTH;
-      const bool has_members = row[SI32_NPART] > 0;
-      int state = static_cast<int8_t>(row[SI32_STATE]);
-      bool err = false;
-      const int targets[3] = {a.active, a.terminating, a.archived};
+//   step:  one saga step a lane, COMMITTED where admitted, else FAILED;
+//   edges: bond release on live edges of the wave's sessions, counted
+//          with one atomic a warp;
+//   agents: FLAG_ACTIVE cleared on agents of the wave's sessions.
+// Bound by bytes (it streams the edges and the agents' session column
+// once: 0.2 us at the wave's size), so its time is one launch and the
+// latency of its longest chain. One launch; each block takes one role,
+// so the walk's dependent gathers (k_sessions, then the session row,
+// then the writes) run beside the edge and agent streams instead of
+// ahead of them in the same thread. It runs after admission on the same
+// stream, so the walk reads the counts admission wrote.
+// Membership: the range [lo, hi) when the host has checked that
+// k_sessions is arange(lo, hi); otherwise (use_mask) each edge and agent
+// block first builds the wave's sessions as a bitmap of the session table
+// in shared memory (s_cap bits) with atomicOr, so any layout runs in the
+// same single launch with no scratch. A negative k_sessions entry marks
+// slot 0, as the reference's unarmed path clips it (the facade never
+// passes one), and the walk indexes it from the table's end, as torch
+// and the reference index.
+__global__ void __launch_bounds__(FSM_THREADS) fsm_saga_kernel(FsmSagaArgs a) {
+  extern __shared__ unsigned member[];
+  int blk = blockIdx.x;
+  if (blk < a.walk_blocks) {
+    const int idx = blk * blockDim.x + threadIdx.x;
+    if (idx >= a.K) return;
+    const int ks = a.ksess[idx];
+    const size_t s = static_cast<size_t>(ks < 0 ? ks + a.s_cap : ks);
+    int* row = a.si32 + s * SI32_WIDTH;
+    const bool has_members = row[SI32_NPART] > 0;
+    int state = static_cast<int8_t>(row[SI32_STATE]);
+    bool err = false;
+    const int targets[3] = {a.active, a.terminating, a.archived};
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        const bool ok = transition_valid(a, state, targets[t]);
-        if (has_members && ok) state = static_cast<int8_t>(targets[t]);
-        err |= has_members && !ok;
+    for (int t = 0; t < 3; ++t) {
+      const bool ok = transition_valid(a, state, targets[t]);
+      if (has_members && ok) state = static_cast<int8_t>(targets[t]);
+      err |= has_members && !ok;
+    }
+    row[SI32_STATE] = state;
+    if (has_members) a.sf32[s * SF32_WIDTH + SF32_TERMINATED_AT] = a.now;
+    a.wstate[idx] = static_cast<int8_t>(state);
+    a.err[idx] = err;
+    return;
+  }
+  blk -= a.walk_blocks;
+  if (blk < a.step_blocks) {
+    const int b = blk * blockDim.x + threadIdx.x;
+    if (b < a.B) a.step[b] = a.ok[b] ? STEP_COMMITTED : STEP_FAILED;
+    return;
+  }
+  blk -= a.step_blocks;
+  // This block's edge or agent loads go out before the membership build,
+  // so their latency overlaps it.
+  const bool edge_role = blk < a.edge_blocks;  // block-uniform
+  const int e0 = blk * blockDim.x * FSM_EDGES_PER_THREAD + threadIdx.x;
+  uint8_t act[FSM_EDGES_PER_THREAD];
+  int vs[FSM_EDGES_PER_THREAD];
+  int* agent_row = nullptr;
+  int agent_session = -1;
+  if (edge_role) {
+#pragma unroll
+    for (int q = 0; q < FSM_EDGES_PER_THREAD; ++q) {
+      const int e = e0 + q * blockDim.x;
+      act[q] = e < a.E ? a.vact[e] : 0;
+      vs[q] = e < a.E ? a.vsess[e] : -1;
+    }
+  } else {
+    const int n = (blk - a.edge_blocks) * blockDim.x + threadIdx.x;
+    if (n < a.N) {
+      agent_row = a.ai32 + static_cast<size_t>(n) * AI32_WIDTH;
+      agent_session = agent_row[AI32_SESSION];
+    }
+  }
+  if (a.use_mask) {  // block-uniform
+    const int words = (a.s_cap + 31) >> 5;
+    for (int w = threadIdx.x; w < words; w += blockDim.x) member[w] = 0u;
+    __syncthreads();
+    // Every block reads all K sessions, so the loads go as 16-byte
+    // vectors, FSM_MASK_LOADS of them a thread in flight at once; each
+    // thread ORs the bits of its neighbouring sessions that share a word
+    // before the shared atomic. An unaligned head and the tail (at most
+    // three sessions each) go one by one.
+    const int head = min(a.K, static_cast<int>(
+        ((16 - (reinterpret_cast<uintptr_t>(a.ksess) & 15)) & 15) >> 2));
+    const int n4 = (a.K - head) >> 2;
+    const int4* body = reinterpret_cast<const int4*>(a.ksess + head);
+    for (int base = 0; base < n4; base += FSM_MASK_LOADS * blockDim.x) {  // block-uniform
+      int4 v[FSM_MASK_LOADS];
+#pragma unroll
+      for (int u = 0; u < FSM_MASK_LOADS; ++u) {
+        const int q = base + u * blockDim.x + threadIdx.x;
+        v[u] = q < n4 ? body[q] : make_int4(a.s_cap, a.s_cap, a.s_cap, a.s_cap);  // marks nothing
       }
-      row[SI32_STATE] = state;
-      if (has_members) a.sf32[s * SF32_WIDTH + SF32_TERMINATED_AT] = a.now;
-      a.wstate[idx] = static_cast<int8_t>(state);
-      a.err[idx] = err;
+#pragma unroll
+      for (int u = 0; u < FSM_MASK_LOADS; ++u) {
+        unsigned word = 0, bits = 0;
+        mark(member, a.s_cap, v[u].x, word, bits);
+        mark(member, a.s_cap, v[u].y, word, bits);
+        mark(member, a.s_cap, v[u].z, word, bits);
+        mark(member, a.s_cap, v[u].w, word, bits);
+        if (bits) atomicOr(&member[word], bits);
+      }
     }
-    if (idx < a.B) a.step[idx] = a.ok[idx] ? STEP_COMMITTED : STEP_FAILED;
-    bool hit = false;
-    if (idx < a.E) {
-      const int vs = a.vsess[idx];
-      hit = a.vact[idx] && vs >= a.lo && vs < a.hi;
-      if (hit) a.vact[idx] = 0;
+    const int rest = head + 4 * n4;
+    unsigned word = 0, bits = 0;
+    const int t = threadIdx.x;
+    if (t < head) mark(member, a.s_cap, a.ksess[t], word, bits);
+    if (t < a.K - rest) mark(member, a.s_cap, a.ksess[rest + t], word, bits);
+    if (bits) atomicOr(&member[word], bits);
+    __syncthreads();
+  }
+  if (edge_role) {
+    int hits = 0;
+#pragma unroll
+    for (int q = 0; q < FSM_EDGES_PER_THREAD; ++q) {
+      if (act[q] && in_wave(a, member, vs[q])) {
+        a.vact[e0 + q * blockDim.x] = 0;
+        ++hits;
+      }
     }
-    const unsigned hits = __ballot_sync(0xFFFFFFFFu, hit);  // every lane reaches this
-    if ((threadIdx.x & 31) == 0 && hits) atomicAdd(a.released, __popc(hits));
-    if (idx < a.N) {
-      int* w = a.ai32 + static_cast<size_t>(idx) * AI32_WIDTH;
-      const int as = w[AI32_SESSION];
-      if (as >= a.lo && as < a.hi) w[AI32_FLAGS] &= ~FLAG_ACTIVE;
-    }
+    hits = __reduce_add_sync(FULL_MASK, hits);  // every lane reaches this
+    if ((threadIdx.x & 31) == 0 && hits) atomicAdd(a.released, hits);
+  } else if (agent_row != nullptr && in_wave(a, member, agent_session)) {
+    agent_row[AI32_FLAGS] &= ~FLAG_ACTIVE;
   }
 }
 
@@ -458,7 +677,7 @@ extern "C" int hv_admission_block(
     float omega, float now, float ring2_threshold,
     float burst0, float burst1, float burst2, float burst3,
     int unique, int B,
-    void* status, void* ring, void* sigma_eff, void* pre, void* seats, void* stream) {
+    void* status, void* ring, void* sigma_eff, void* key, void* seats, void* stream) {
   if (B > 0) {
     AdmissionArgs a;
     a.af32 = static_cast<float*>(af32); a.ai32 = static_cast<int*>(ai32);
@@ -470,15 +689,19 @@ extern "C" int hv_admission_block(
     a.trust = static_cast<const uint8_t*>(trust); a.dup = static_cast<const uint8_t*>(dup);
     a.omega = omega; a.now = now; a.ring2_threshold = ring2_threshold;
     a.bursts[0] = burst0; a.bursts[1] = burst1; a.bursts[2] = burst2; a.bursts[3] = burst3;
-    a.unique = unique; a.B = B;
+    a.B = B;
     a.status = static_cast<int8_t*>(status); a.ring = static_cast<int8_t*>(ring);
     a.sigma_eff = static_cast<float*>(sigma_eff);
-    a.pre = static_cast<int8_t*>(pre); a.seats = static_cast<int*>(seats);
-    const int threads = 256;
-    const int blocks = (B + threads - 1) / threads;
+    a.key = static_cast<int*>(key); a.seats = static_cast<int*>(seats);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    admission_lanes<<<blocks, threads, 0, st>>>(a);
-    admission_writes<<<blocks, threads, 0, st>>>(a);
+    if (unique) {
+      const int blocks = (B + ADMIT_UNIQUE_THREADS - 1) / ADMIT_UNIQUE_THREADS;
+      admission_unique<<<blocks, ADMIT_UNIQUE_THREADS, 0, st>>>(a);
+    } else {
+      const int blocks = (B + ADMIT_RANKED_THREADS - 1) / ADMIT_RANKED_THREADS;
+      admission_lanes<<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
+      admission_ranked<<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -486,31 +709,36 @@ extern "C" int hv_admission_block(
 extern "C" int hv_fsm_saga_block(
     void* ai32, void* si32, void* sf32, const void* vsess, void* vact,
     const void* ksess, const void* ok,
-    float now, int lo, int hi,
+    float now, int lo, int hi, int use_mask, int s_cap,
     unsigned int bits_lo, unsigned int bits_hi, int n_rows, int n_cols,
     int active, int terminating, int archived,
     int K, int B, int E, int N,
     void* step, void* wstate, void* err, void* released, void* stream) {
-  int total = K;
-  if (B > total) total = B;
-  if (E > total) total = E;
-  if (N > total) total = N;
-  if (total > 0) {
-    FsmSagaArgs a;
-    a.ai32 = static_cast<int*>(ai32); a.si32 = static_cast<int*>(si32);
-    a.sf32 = static_cast<float*>(sf32); a.vsess = static_cast<const int*>(vsess);
-    a.vact = static_cast<uint8_t*>(vact); a.ksess = static_cast<const int*>(ksess);
-    a.ok = static_cast<const uint8_t*>(ok);
-    a.now = now; a.lo = lo; a.hi = hi;
-    a.bits_lo = bits_lo; a.bits_hi = bits_hi; a.n_rows = n_rows; a.n_cols = n_cols;
-    a.active = active; a.terminating = terminating; a.archived = archived;
-    a.K = K; a.B = B; a.E = E; a.N = N;
-    a.step = static_cast<int8_t*>(step); a.wstate = static_cast<int8_t*>(wstate);
-    a.err = static_cast<uint8_t*>(err); a.released = static_cast<int*>(released);
-    const int threads = 256;
-    int blocks = (total + threads - 1) / threads;
-    if (blocks > 132 * 8) blocks = 132 * 8;
-    fsm_saga_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, total);
+  FsmSagaArgs a;
+  a.ai32 = static_cast<int*>(ai32); a.si32 = static_cast<int*>(si32);
+  a.sf32 = static_cast<float*>(sf32); a.vsess = static_cast<const int*>(vsess);
+  a.vact = static_cast<uint8_t*>(vact); a.ksess = static_cast<const int*>(ksess);
+  a.ok = static_cast<const uint8_t*>(ok);
+  a.now = now; a.lo = lo; a.hi = hi; a.use_mask = use_mask; a.s_cap = s_cap;
+  a.bits_lo = bits_lo; a.bits_hi = bits_hi; a.n_rows = n_rows; a.n_cols = n_cols;
+  a.active = active; a.terminating = terminating; a.archived = archived;
+  a.K = K; a.B = B; a.E = E; a.N = N;
+  a.step = static_cast<int8_t*>(step); a.wstate = static_cast<int8_t*>(wstate);
+  a.err = static_cast<uint8_t*>(err); a.released = static_cast<int*>(released);
+  a.walk_blocks = (K + FSM_THREADS - 1) / FSM_THREADS;
+  a.step_blocks = (B + FSM_THREADS - 1) / FSM_THREADS;
+  const int edges_per_block = FSM_THREADS * FSM_EDGES_PER_THREAD;
+  a.edge_blocks = (E + edges_per_block - 1) / edges_per_block;
+  const int agent_blocks = (N + FSM_THREADS - 1) / FSM_THREADS;
+  const int blocks = a.walk_blocks + a.step_blocks + a.edge_blocks + agent_blocks;
+  const size_t smem = use_mask ? ((static_cast<size_t>(s_cap) + 31) / 32) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fsm_saga_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (blocks > 0) {
+    fsm_saga_kernel<<<blocks, FSM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,12 +13,23 @@ atomic into the voucher's count for each hit) and one over the agents
 synchronisation and no early exit, as the reference has none. Integer
 atomics are exact in any order; no float is accumulated by atomics.
 
-The clip factor (1 - omega)^k for the integer count k is an exact
-shared form, `clip_factor`: square-and-multiply in float64, rounded
-once to float32. CUDA's powf is not correctly rounded and torch's f32
-pow differs from the reference's by an ulp on some inputs; the double
-products are IEEE on every device, so the kernel, the plain version on
-the card and the plain version on the CPU give the same bits.
+The clip factor (1 - omega)^k for the integer count k is the host C
+library's: the reference's `jnp.power(1 - omega, k.astype(f32))` runs
+on XLA's CPU backend as libm's `powf`, with a subnormal result flushed
+to zero, and neither CUDA's powf, torch's f32 pow nor a float64 power
+rounded once gives those bits everywhere. So `factor_table` calls the
+host's `powf(1 - omega, (float)k)` through ctypes once per omega and k,
+flushes, and caches the table by the f32 bits of 1 - omega and by
+device (the last `FACTOR_TABLES_KEPT` used, host and device each); the
+plain version gathers from it and the kernel reads it (k
+clamped to its last entry), so the card and the CPU give the same bits.
+On the card's machine that is the host's glibc, the library the
+reference would call there. A table stops at its first zero (every
+larger k gives zero too) or, at base 1, at its first entry; otherwise
+it covers the largest k asked for: `k.max()` on the plain path, the
+edge count for the kernel (no voucher's k can pass it). At a tiny
+omega that is 65,537 calls, about 0.1 s once per omega; a caller who
+cycles through more omegas than the cache keeps pays it on every call.
 
 Sources: `csrc/liability.cu`. `slash_cascade_plain` is the reference's
 scatter form (`hypervisor_tpu/ops/liability.py` `slash_cascade`) in
@@ -29,6 +40,8 @@ card.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -50,17 +63,76 @@ def wipe_threshold(trust: TrustConfig) -> float:
     return _f32(trust.sigma_floor + trust.cascade_wipe_epsilon)
 
 
+_F32_TINY = float(np.finfo(np.float32).tiny)
+_powf = None
+#: Clip-factor tables kept, on the host and per device, the least
+#: recently used evicted. A table holds at most k_max + 1 floats: 65,537
+#: (256 KB) for the kernel at the default edge capacity.
+FACTOR_TABLES_KEPT = 16
+# f32 bits of the base -> (table, complete); (bits, device) -> table.
+_host_tables: OrderedDict[int, tuple[np.ndarray, bool]] = OrderedDict()
+_device_tables: OrderedDict[tuple[int, torch.device], torch.Tensor] = OrderedDict()
+
+
+def _keep(cache: OrderedDict, key, value) -> None:
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > FACTOR_TABLES_KEPT:
+        cache.popitem(last=False)
+
+
+def _libm_powf():
+    global _powf
+    if _powf is None:
+        name = ctypes.util.find_library("m")
+        _require(name is not None, "the clip factor needs the C library's powf (libm)")
+        fn = ctypes.CDLL(name).powf
+        fn.argtypes = [ctypes.c_float, ctypes.c_float]
+        fn.restype = ctypes.c_float
+        _powf = fn
+    return _powf
+
+
+def factor_table(base, k_max: int, device) -> torch.Tensor:
+    """f32[n] with entry k = libm powf(base, (float)k), a subnormal result
+    flushed to zero: at least k = 0..k_max, or up to the entry past
+    which every k gives the same value (the first zero; the first entry
+    at base 1). Cached by the f32 bits of `base` and by device, the last
+    `FACTOR_TABLES_KEPT` of each."""
+    b = np.float32(base)
+    bits = int(b.view(np.uint32))
+    host, complete = _host_tables.get(bits, (np.zeros(0, np.float32), False))
+    if not complete and host.size <= k_max:
+        powf = _libm_powf()
+        vals = host.tolist()
+        while len(vals) <= k_max and not complete:
+            v = powf(float(b), float(len(vals)))
+            if abs(v) < _F32_TINY:
+                v = 0.0 * v  # flush a subnormal, keeping its sign
+            vals.append(v)
+            complete = v == 0.0 or b == 1.0
+        host = np.asarray(vals, np.float32)
+    _keep(_host_tables, bits, (host, complete))
+    key = (bits, torch.device(device))
+    table = _device_tables.get(key)
+    if table is None or table.numel() != host.size:
+        table = torch.from_numpy(host).to(device)
+    _keep(_device_tables, key, table)
+    return table
+
+
 def clip_factor(base: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """f32 base^k for integer k >= 0 (0 gives 1): square-and-multiply in
-    float64, rounded once to float32 — the kernel's `pow_int`."""
-    b = base.to(torch.float64).expand(k.shape).clone()
-    e = k.to(torch.int64).clone()
-    p = torch.ones_like(b)
-    while bool((e > 0).any()):
-        p = torch.where((e & 1) == 1, p * b, p)
-        b = b * b
-        e = e >> 1
-    return p.to(torch.float32)
+    """f32 base^k for integer k >= 0 (0 gives 1), `base` broadcast
+    against `k`: each distinct base's `factor_table`, gathered at k."""
+    base, k = torch.broadcast_tensors(base.to(torch.float32), k.to(torch.int64))
+    if k.numel() == 0:
+        return torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    bases, which = torch.unique(base.contiguous().view(torch.int32), return_inverse=True)
+    tables = [factor_table(np.int32(b).view(np.float32), int(k.max()), k.device)
+              for b in bases.tolist()]
+    length = torch.tensor([t.numel() for t in tables], device=k.device)
+    start = torch.cumsum(length, 0) - length
+    return torch.cat(tables)[start[which] + torch.minimum(k, length[which] - 1)]
 
 
 def slash_cascade_plain(
@@ -157,8 +229,8 @@ def slash_cascade(
     has_vouchers = torch.zeros((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     edges = _build.entry("liability", "hv_slash_edges", [_P] * 8 + [_I, _F, _I, _P])
-    agents = _build.entry("liability", "hv_slash_agents", [_P] * 7 + [_I, _I, _F, _F, _F, _I, _P])
-    base = float(np.float32(1.0) - np.float32(_f32(risk_weight)))
+    agents = _build.entry("liability", "hv_slash_agents", [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P])
+    factor = factor_table(np.float32(1.0) - np.float32(_f32(risk_weight)), e, dev)
     floor, wipe, now32, sess = _f32(trust.sigma_floor), wipe_threshold(trust), _f32(now), int(session_slot)
     for depth in range(trust.max_cascade_depth + 1):
         err = edges(vouch.voucher.data_ptr(), vouch.vouchee.data_ptr(), vouch.session.data_ptr(),
@@ -167,8 +239,9 @@ def slash_cascade(
         _build.check("liability", err, "slash_cascade (edges)")
         slash_cascade.launches += 1
         err = agents(out_sigma.data_ptr(), wave.data_ptr(), slashed.data_ptr(), clipped.data_ptr(),
-                     wave_of.data_ptr(), k.data_ptr(), has_vouchers.data_ptr(), depth,
-                     int(depth == trust.max_cascade_depth), base, floor, wipe, n, stream)
+                     wave_of.data_ptr(), k.data_ptr(), has_vouchers.data_ptr(), factor.data_ptr(),
+                     factor.numel(), depth, int(depth == trust.max_cascade_depth), floor, wipe, n,
+                     stream)
         _build.check("liability", err, "slash_cascade (agents)")
         slash_cascade.launches += 1
     return out_sigma, active, slashed, clipped, wave_of

@@ -5,21 +5,29 @@ B4 `admission_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `admission_block_pallas`. It is bound by memory traffic: a few dozen
 integer operations per lane against ~30 bytes of lane inputs, a
 gathered session row and, per admitted lane, a 117-byte agent row
-written at a random slot. Two launches: a per-lane pass (gathers,
-sigma_eff, ring, status ladder, and a snapshot of the seat counts) and
-a per-lane write pass (capacity rank, packed row writes, atomic
-participant count). Integer atomics make the count order-independent;
-the snapshot keeps every capacity check on pre-wave counts. Unlike the
-TPU kernel it takes any lane count (no power-of-two bitonic network, no
-VMEM caps); the non-unique rank is a plain O(B^2) count.
+written at a random slot, so its time is launches and latency. On the
+unique-sessions layout (the host checked that no two seat-consuming
+lanes share a session) it is one launch: each lane checks capacity
+against its own read of its session's count and writes it back.
+Otherwise two: a per-lane pass settles each lane up to the capacity
+check and snapshots the seat counts, so every check sees pre-wave
+counts; then a block per tile of lanes ranks each lane among the
+earlier lanes of its session (a shared-memory hash table of the tile's
+sessions, into which every earlier tile's requests are counted) and
+writes. Each admitted lane writes its own row, the f32 half as two
+16-byte stores. Unlike the TPU kernel it takes any lane count (no
+power-of-two bitonic network, no VMEM caps).
 
 B5 `fsm_saga_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `fsm_saga_block_pallas`, also bound by memory traffic (it streams the
-vouch edges and the agents' session column once). One grid-stride
-launch covers the session walk (k < K), the saga step (b < B), the bond
-release (e < E, one atomic per warp for the count) and the participant
-deactivation (n < N). It needs the wave-range layout, as the TPU kernel
-does.
+vouch edges and the agents' session column once). One launch whose
+blocks each take one role: the session walk, the saga steps, the bond
+release (one atomic per warp for the count) or the participant
+deactivation, so the walk's dependent gathers run beside the streams.
+Membership is the range [lo, hi) when the caller asserts the wave's
+sessions are arange(lo, hi) (`wave_range`); otherwise each edge and
+agent block builds the wave's sessions as a bitmap of the session
+table in shared memory, so any layout runs in the same single launch.
 
 B6 `ring_append` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `ring_append_pallas`: the wave's audit records (its delta bodies and
@@ -210,11 +218,12 @@ def admission_block(
     status = torch.empty((b,), dtype=torch.int8, device=dev)
     ring = torch.empty((b,), dtype=torch.int8, device=dev)
     sigma_eff = torch.empty((b,), dtype=torch.float32, device=dev)
-    pre = torch.empty((b,), dtype=torch.int8, device=dev)
-    seats = torch.empty((2 * b,), dtype=torch.int32, device=dev)
+    _check_operand(agents.f32, "agents.f32", torch.float32, dev, 16)
+    # The two-pass form's scratch: each lane's session key and seat snapshot.
+    scratch = torch.empty((0 if unique_sessions else 3 * b,), dtype=torch.int32, device=dev)
     fn = _build.entry(
         "wave", "hv_admission_block",
-        [_P] * 12 + [_F] * 7 + [_I, _I] + [_P] * 6,
+        [_P] * 12 + [_F] * 7 + [_I] * 2 + [_P] * 6,
     )
     err = fn(
         agents.f32.data_ptr(), agents.i32.data_ptr(), agents.ring.data_ptr(),
@@ -226,7 +235,7 @@ def admission_block(
         *_bursts(bursts),
         int(bool(unique_sessions)), b,
         status.data_ptr(), ring.data_ptr(), sigma_eff.data_ptr(),
-        pre.data_ptr(), seats.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("wave", err, "admission_block")
@@ -271,30 +280,38 @@ def fsm_saga_block_plain(agents, sessions, vouches, k_sessions, ok, now, wave_ra
     return step_state, wave_state, err_a | err_t | err_z, released
 
 
+#: The most shared memory one block of B5 can take for the membership
+#: bitmap (an H100's 227 KB): 1,859,584 session slots.
+FSM_MASK_MAX_BYTES = 232_448
+
+
 def fsm_saga_block(
     agents: AgentTable,
     sessions: SessionTable,
     vouches: VouchTable,
-    k_sessions: torch.Tensor,  # i32[K] == arange(lo, hi) on the kernel path
+    k_sessions: torch.Tensor,  # i32[K] the wave's sessions, any layout
     ok: torch.Tensor,          # bool[B] admission outcomes
     now,
     wave_range: tuple[int, int] | None = None,
 ):
     """B5: the wave's FSM walk, saga step and terminate, updating
     sessions.i32/f32, vouches.active and the agents' flags IN PLACE.
-    CUDA tensors require `wave_range` (lo, hi), the caller's
-    host-verified assertion that `k_sessions` is arange(lo, hi)."""
+    `wave_range` (lo, hi) is the caller's host-verified assertion that
+    `k_sessions` is arange(lo, hi): the kernel then tests membership by
+    range. Without it the kernel tests a bitmap of `k_sessions` over the
+    session table, built in each block's shared memory."""
     if not _route(ok):
         return fsm_saga_block_plain(agents, sessions, vouches, k_sessions, ok, now, wave_range)
-    if wave_range is None:
-        raise ValueError("the fsm/saga kernel needs wave_range=(lo, hi) on CUDA")
     dev = ok.device
-    lo, hi = (int(x) for x in wave_range)
+    lo, hi = (int(x) for x in wave_range) if wave_range is not None else (0, 0)
     k, b = k_sessions.shape[0], ok.shape[0]
     e, n = vouches.session.shape[0], agents.i32.shape[0]
+    s_cap = sessions.i32.shape[0]
     _require(tuple(agents.i32.shape) == (n, AI32_WIDTH), "agents.i32: [N, 21]")
     _require(sessions.i32.shape[1] == SI32_WIDTH and sessions.f32.shape[1] == SF32_WIDTH,
              "sessions: i32[S, 5], f32[S, 4]")
+    _require(wave_range is not None or (s_cap + 31) // 32 * 4 <= FSM_MASK_MAX_BYTES,
+             f"the membership bitmap of {s_cap} sessions exceeds a block's shared memory")
     for t, name, dtype in [
         (agents.i32, "agents.i32", torch.int32), (sessions.i32, "sessions.i32", torch.int32),
         (sessions.f32, "sessions.f32", torch.float32),
@@ -310,13 +327,14 @@ def fsm_saga_block(
     bits_lo, bits_hi, n_rows, n_cols = session_fsm.TRANSITION_BITS
     fn = _build.entry(
         "wave", "hv_fsm_saga_block",
-        [_P] * 7 + [_F, _I, _I, _U, _U] + [_I] * 9 + [_P] * 5,
+        [_P] * 7 + [_F, _I, _I, _I, _I, _U, _U] + [_I] * 9 + [_P] * 5,
     )
     rc = fn(
         agents.i32.data_ptr(), sessions.i32.data_ptr(), sessions.f32.data_ptr(),
         vouches.session.data_ptr(), vouches.active.data_ptr(),
         k_sessions.data_ptr(), ok.data_ptr(),
-        _host_f32(now), lo, hi, bits_lo, bits_hi, n_rows, n_cols,
+        _host_f32(now), lo, hi, int(wave_range is None), s_cap,
+        bits_lo, bits_hi, n_rows, n_cols,
         _ACTIVE, _TERMINATING, _ARCHIVED, k, b, e, n,
         step.data_ptr(), wstate.data_ptr(), err.data_ptr(), released.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

@@ -40,7 +40,7 @@ from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
 
 #: The later slice that ports the facade wave's remaining fused phases.
-_LATER = "slice 3 of the port (the facade wave's gateway, epilogue and sanitizer)"
+_LATER = "a later slice of the port (the facade wave's gateway, epilogue and sanitizer)"
 
 
 class WaveResult(NamedTuple):
@@ -119,10 +119,10 @@ def governance_wave(
     """The full governance pipeline as one wave over the tables.
 
     `wave_range` (lo, hi) is the caller's host-verified assertion that
-    `wave_sessions` is arange(lo, hi); CUDA tensors require it (the
-    fsm/saga kernel tests membership by range). `unique_sessions` is the
-    host-verified assertion that no two seat-consuming lanes share a
-    session. With `metrics`, the wave's counters and the wave-size
+    `wave_sessions` is arange(lo, hi), so the fsm/saga kernel tests
+    membership by range; without it, by a bitmap of `wave_sessions`.
+    `unique_sessions` is the host-verified assertion that no two
+    seat-consuming lanes share a session (admission is then one launch). With `metrics`, the wave's counters and the wave-size
     histogram are booked in place.
 
     With `delta_log`, the wave's audit records (lane-major bodies and

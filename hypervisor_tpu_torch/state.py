@@ -397,9 +397,10 @@ class HypervisorState:
         rows, only the real sessions' records append, and the result trims
         back to the caller's shape.
 
-        On CUDA the wave's sessions plus any parked rows must be one
-        contiguous slot block (`create_sessions_batch`'s layout): the
-        fsm/saga kernel tests membership by range.
+        Any session layout runs on either device: the fsm/saga kernel
+        tests membership by range when the wave's sessions plus any parked
+        rows are one contiguous slot block (`create_sessions_batch`'s
+        layout), else by a bitmap of them.
         """
         if mesh is not None:
             raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
@@ -413,15 +414,6 @@ class HypervisorState:
             if pad_to[0] < b or pad_to[1] < k:
                 raise ValueError(f"pad_to {pad_to} below the wave shape ({b} lanes, {k} sessions)")
             b_wave, k_wave = int(pad_to[0]), int(pad_to[1])
-        if self.device.type == "cuda":
-            nxt = self._next_session_slot
-            span = np.concatenate([np.asarray(session_slots, np.int32),
-                                   np.arange(nxt, nxt + k_wave - k, dtype=np.int32)])
-            if _contiguous_range_host(span) is None:
-                raise ValueError(
-                    "on CUDA a wave's sessions (and its parked pad rows) must be one "
-                    "contiguous slot block: the fsm/saga kernel tests membership by range"
-                )
         agent_slots = self._claim_wave_rows(b_wave)
         parked = self._park_sessions(k_wave - k, "padded bucket")
         staged = self._stage_wave_lanes(

@@ -285,6 +285,59 @@ def runs():
     return dict(ref), dict(port), port_side
 
 
+def _run_scattered(side) -> list[tuple[str, object]]:
+    """A lifecycle wave on a session layout with gaps and in no order:
+    twelve sessions created, three terminated, one left standing with a
+    member and a live bond, and the wave on six of the rest, shuffled,
+    padded to a bucket (its parked rows past the twelve)."""
+    log: list[tuple[str, object]] = []
+    st = side.st
+    rng = np.random.RandomState(21)
+    slots = st.create_sessions_batch([f"sc:s{i}" for i in range(12)],
+                                     side.session_config(min_sigma_eff=0.55, max_participants=1))
+    log.append(("terminated", st.terminate_sessions([2, 5, 9], now=9.0).tolist()))
+    standing = 7
+    side.place_member(15, 901, standing)
+    wave_slots = np.array([10, 0, 4, 3, 11, 1], np.int32)
+    side.place_edges(list(range(5)), voucher=[12, 13, 14, 12, 15], vouchee=[0, 0, 1, 1, 14],
+                     session=[10, 10, 0, 0, standing],
+                     bond=rng.uniform(0.05, 0.3, 5).astype(np.float32),
+                     expiry=np.array([np.inf, np.inf, np.inf, 1.0, np.inf], np.float32))
+    b = len(wave_slots) + 1
+    lane_sessions = np.concatenate([wave_slots, wave_slots[:1]])
+    sigma = rng.uniform(0.3, 1.0, b).astype(np.float32)
+    sigma[0] = 0.45
+    bodies = rng.randint(0, 2**32, (T, len(wave_slots), 16), dtype=np.uint64).astype(np.uint32)
+    res = st.run_governance_wave(
+        wave_slots, [f"did:sc:{i}" for i in range(b)], lane_sessions, sigma, bodies,
+        now=10.0, omega=0.5, pad_to=(10, 8),
+    )
+    log.append(("wave", side.wave_result(res)))
+    log.append(("wave:tables", side.snapshot()))
+    log.append(("wave:host", _host_state(st)))
+    assert slots.tolist() == list(range(12))
+    return log
+
+
+@pytest.fixture(scope="module")
+def scattered_runs():
+    counter = itertools.count()
+
+    def token_hex(nbytes=None):
+        return f"{next(counter):0{2 * nbytes}x}"
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HV_WAVE_PALLAS", "0")
+        mp.setenv("HV_SHA256_PALLAS", "0")
+        mp.delenv("HV_TRACE", raising=False)
+        mp.delenv("HV_TRACE_SAMPLE", raising=False)
+        mp.setattr(secrets, "token_hex", token_hex)
+        ref = _run_scattered(_Ref())
+        counter = itertools.count()
+        port = _run_scattered(_Port())
+    return dict(ref), dict(port)
+
+
 def _assert_same(label, got, want):
     if isinstance(want, dict):
         assert sorted(got) == sorted(want), label
@@ -308,6 +361,19 @@ def test_lifecycle_waves_match_reference(runs, step):
     assert res["sigma_eff"][0] > np.float32(0.45)  # the vouched lane rode its claimed row
     if step == "wave1":
         assert 3 in res["status"] and res["status"].shape == (K + 1,)  # trimmed, capacity refusal
+
+
+@pytest.mark.parametrize("step", ["terminated", "wave", "wave:tables", "wave:host"])
+def test_lifecycle_wave_on_a_scattered_layout_matches_reference(scattered_runs, step):
+    ref, port = scattered_runs
+    _assert_same(step, port[step], ref[step])
+    if step == "wave":
+        res = port["wave"]
+        assert (res["status"] == 0).any() and 3 in res["status"]  # the repeated session fills
+        assert res["released"] == 4  # every bond in a wave session; the standing session's stays
+    if step == "wave:tables":
+        assert port[step]["agents.i32"][15, AI32_FLAGS] == 1  # the standing member keeps its seat
+        assert port[step]["vouches.active"][4]      # and its bond
 
 
 @pytest.mark.parametrize("step", ["flush1", "flush2"])

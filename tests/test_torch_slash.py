@@ -9,7 +9,10 @@
   8,192 edges; and against the kernel's dense matmul twin
   `slash_cascade_dense`, also with tolerance 0 on sigma (the reference
   holds its own twin to rtol 1e-5; on these graphs the bits agree).
-* The shared clip factor and the wipe threshold.
+* The clip factor (the host libm's powf, subnormals flushed, tabled per
+  omega) against the reference's `jnp.power` over a 4,001-point omega
+  grid at k = 0..64, at k up to 65,536 and in the clipped sigma; the
+  table's length; the wipe threshold.
 * The facade: `add_vouch`, `release_vouch`, `free_edge_rows`,
   `apply_slash` (a cascade that reaches depth 2) and `blacklist_rows` on
   the JAX package's `HypervisorState` and the port's, with the agents
@@ -98,8 +101,8 @@ def test_plain_matches_dense_twin(seed):
 
 
 def test_clip_factor_matches_reference_power_on_cascade_omegas():
-    """The shared exact form of (1 - omega)^k gives the reference's clipped
-    sigma for k up to 64 at the omegas the cascades here use."""
+    """The clip factor gives the reference's clipped sigma for k up to 64
+    at the omegas the cascades here use."""
     rng = np.random.RandomState(1)
     omegas = np.float32([0.95, 0.6, 0.5, 0.3, 0.123, 0.77])
     o, k, s = np.meshgrid(omegas, np.arange(65, dtype=np.float32),
@@ -112,6 +115,76 @@ def test_clip_factor_matches_reference_power_on_cascade_omegas():
     assert got.numpy().tobytes() == want.tobytes()
     assert liability_kernels.clip_factor(torch.tensor(0.5), torch.tensor([0, 1, 3])).tolist() == [
         1.0, 0.5, 0.125]
+
+
+_OMEGA_GRID = np.linspace(0, 1, 4001, dtype=np.float32)
+
+
+def _reference_factor(omega, k):
+    """The reference's clip factor on its CPU run:
+    jnp.power(1 - omega, k.astype(f32)) in float32."""
+    return np.asarray(jnp.power(1.0 - jnp.asarray(omega), jnp.asarray(k).astype(jnp.float32)))
+
+
+def _port_factor(omega, k):
+    return liability_kernels.clip_factor(1.0 - torch.from_numpy(omega),
+                                         torch.from_numpy(k)).numpy()
+
+
+def test_clip_factor_sweep_matches_reference_power():
+    """The clip factor, bit for bit, against the reference's jnp.power:
+    k = 0..64 at every omega of a 4,001-point f32 grid over [0, 1]
+    (subnormal results included, which the reference flushes to +0.0);
+    a geometric set of k up to 65,536 at a few dozen omegas, tiny ones
+    among them; and the clipped sigma max(sigma * factor, floor) at
+    seeded sigma for k = 1..64."""
+    omega, k = np.meshgrid(_OMEGA_GRID, np.arange(65, dtype=np.int32), indexing="ij")
+    want = _reference_factor(omega, k)
+    got = _port_factor(omega, k)
+    assert got.tobytes() == want.tobytes()
+    assert (want == 0).sum() > 6000  # the flushed results are part of the sweep
+
+    far_k = np.unique(np.round(np.geomspace(1, 65_536, 48)).astype(np.int32))
+    far_omega = np.concatenate([_OMEGA_GRID[::160], np.float32(
+        [1e-3, 2.5e-4, 1e-4, 1e-5, 1e-6, 1e-7, 6e-8, 2.0**-24])]).astype(np.float32)
+    omega, k = np.meshgrid(far_omega, np.concatenate([far_k, [65_535]]).astype(np.int32),
+                           indexing="ij")
+    assert _port_factor(omega, k).tobytes() == _reference_factor(omega, k).tobytes()
+
+    rng = np.random.RandomState(3)
+    omega, k = np.meshgrid(_OMEGA_GRID, np.arange(1, 65, dtype=np.int32), indexing="ij")
+    sigma = rng.uniform(0.3, 1.0, omega.shape).astype(np.float32)
+    want = np.asarray(jnp.maximum(jnp.asarray(sigma) * _reference_factor(omega, k), 0.05))
+    got = torch.maximum(torch.from_numpy(sigma) * torch.from_numpy(_port_factor(omega, k)),
+                        torch.tensor(np.float32(0.05)))
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_factor_table_stops_where_the_factor_stops_changing():
+    half = liability_kernels.factor_table(0.5, 1000, "cpu")
+    assert half.numel() == 128 and float(half[-1]) == 0.0 and float(half[-2]) > 0.0
+    assert liability_kernels.factor_table(1.0, 70_000, "cpu").tolist() == [1.0]
+    assert liability_kernels.factor_table(0.0, 10, "cpu").tolist() == [1.0, 0.0]
+    tiny = liability_kernels.factor_table(np.float32(1) - np.float32(1e-6), 65_536, "cpu")
+    assert tiny.numel() == 65_537 and float(tiny[-1]) > 0.9
+    assert liability_kernels.factor_table(0.5, 10, "cpu") is half  # cached, never rebuilt
+
+
+def test_factor_tables_stay_bounded_when_omega_varies():
+    """A caller who varies omega keeps at most FACTOR_TABLES_KEPT tables on
+    the host and per device, the least recently used evicted; an evicted
+    table is rebuilt with the same bits."""
+    kept = liability_kernels.FACTOR_TABLES_KEPT
+    first = liability_kernels.factor_table(np.float32(0.25), 64, "cpu").clone()
+    for omega in np.linspace(0.01, 0.99, 3 * kept, dtype=np.float32):
+        liability_kernels.factor_table(np.float32(1) - omega, 64, "cpu")
+        assert len(liability_kernels._host_tables) <= kept
+        assert len(liability_kernels._device_tables) <= kept
+    last = liability_kernels.factor_table(np.float32(1) - np.float32(0.99), 64, "cpu")
+    assert liability_kernels.factor_table(np.float32(1) - np.float32(0.99), 64, "cpu") is last
+    assert int(np.float32(0.25).view(np.uint32)) not in liability_kernels._host_tables
+    assert liability_kernels.factor_table(np.float32(0.25), 64, "cpu").numpy().tobytes() == (
+        first.numpy().tobytes())
 
 
 def test_wipe_threshold_is_rounded_once():

@@ -207,12 +207,53 @@ def test_consecutive_waves_match_reference(unique, ranged):
         assert 3 in status  # the capacity refusal rode the wave
 
 
+def test_wave_on_a_scattered_layout_with_parked_rows_matches_reference():
+    """One wave whose sessions leave gaps and come in no order, two parked
+    rows (unallocated, memberless) at its end and no `wave_range`: the
+    reference's unarmed XLA wave and the port's agree, and the sessions
+    and the standing agent outside the wave keep their rows."""
+    seed = 17
+    ref_state = _seeded_state(seed)
+    arrays = state_arrays(ref_state)
+    arrays.update(_metrics_arrays(ref_state.metrics.table))
+    port = port_tables.from_state_arrays(arrays, "cpu")
+    rng = np.random.RandomState(seed)
+    wave_sessions = np.concatenate([rng.choice(N_WAVES * K, K, replace=False),
+                                    [SMALL["max_sessions"] - 2, SMALL["max_sessions"] - 1]])
+    wave_sessions = wave_sessions.astype(np.int32)
+    lanes = _lanes(seed, 0, False)
+    lanes["session_slot"] = wave_sessions[np.arange(K + 2) % K]
+    lanes["wave_sessions"] = wave_sessions
+    lanes["delta_bodies"] = rng.randint(0, 2**32, (T, K + 2, 16), dtype=np.uint64).astype(np.uint32)
+    ref = _JAX_WAVE(
+        ref_state.agents, ref_state.sessions, ref_state.vouches,
+        *(jnp.asarray(lanes[k]) for k in ("slot", "did", "session_slot", "sigma_raw",
+                                           "trustworthy", "duplicate", "wave_sessions",
+                                           "delta_bodies")),
+        lanes["now"], 0.5, use_pallas=False, wave_kernels=False, unique_sessions=False,
+        wave_range=None, metrics=ref_state.metrics.table,
+    )
+    got = port_pipeline.governance_wave(
+        port.agents, port.sessions, port.vouches,
+        *(torch.from_numpy(np.asarray(lanes[k])) for k in (
+            "slot", "did", "session_slot", "sigma_raw", "trustworthy", "duplicate",
+            "wave_sessions")),
+        u32.from_numpy_u32(lanes["delta_bodies"], "cpu"), lanes["now"], 0.5,
+        wave_range=None, unique_sessions=False, metrics=port.metrics,
+    )
+    _assert_outputs_equal(got, ref)
+    untouched = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas."))}
+    _assert_arrays_equal(port_tables.to_state_arrays(port), {**_jax_tables_arrays(ref), **untouched})
+    assert not np.array_equal(np.sort(wave_sessions[:K]), wave_sessions[:K])
+    assert int(got.released) > 0 and bool(port.agents.i32[VOUCHER_BASE - 1, 2] & 1)
+
+
 def test_unported_wave_arguments_are_refused():
     tables = port_tables.from_state_arrays(
         {**state_arrays(_seeded_state(0)), **_metrics_arrays(_seeded_state(0).metrics.table)},
         "cpu",
     )
-    with pytest.raises(NotImplementedError, match="gateway_args"):
+    with pytest.raises(NotImplementedError, match="gateway_args=.*a later slice of the port"):
         port_pipeline.governance_wave(
             tables.agents, tables.sessions, tables.vouches,
             *([torch.zeros(1, dtype=torch.int32)] * 7), torch.zeros((T, 1, 16), dtype=torch.int32),

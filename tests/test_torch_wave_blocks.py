@@ -113,6 +113,53 @@ def test_admission_plain_matches_twin_and_admit_batch(unique, b):
         assert admission.ADMIT_CAPACITY in codes
 
 
+def test_admission_plain_on_the_shared_session_layout():
+    """Four lanes join each session in one wave, every lane otherwise
+    admissible; one session has two seats left, so its last two lanes
+    are refused for capacity in lane order."""
+    rng = np.random.RandomState(12)
+    b, n_sessions = 32, 8
+    live = rng.choice(SC, n_sessions, replace=False)
+    sessions = SessionTable.create(SC)
+    sessions = jax_replace(
+        sessions,
+        state=sessions.state.at[live].set(1),
+        n_participants=sessions.n_participants.at[live[0]].set(8),
+        max_participants=sessions.max_participants.at[:].set(10),
+        min_sigma_eff=sessions.min_sigma_eff.at[:].set(0.5),
+    )
+    agents = AgentTable.create(N)
+    lanes = dict(
+        slot=rng.choice(N, b, replace=False).astype(np.int32),
+        did=rng.randint(0, 1000, b).astype(np.int32),
+        session_slot=live[np.arange(b) % n_sessions].astype(np.int32),
+        sigma_raw=rng.uniform(0.6, 1.0, b).astype(np.float32),
+        trustworthy=np.ones(b, bool),
+        duplicate=np.zeros(b, bool),
+    )
+    contribution = rng.uniform(0, 0.2, b).astype(np.float32)
+    twin = wave_pallas.admission_block_np(
+        np.asarray(agents.f32), np.asarray(agents.i32), np.asarray(agents.ring),
+        np.asarray(sessions.i32), np.asarray(sessions.f32),
+        lanes["slot"], lanes["did"], lanes["session_slot"], lanes["sigma_raw"],
+        contribution, np.float32(0.5), lanes["trustworthy"], lanes["duplicate"],
+        np.float32(3.0), np.asarray(BURSTS, np.float32),
+        ring2_threshold=DEFAULT_CONFIG.trust.ring2_threshold, unique_sessions=False,
+    )
+    p_agents, p_sessions = _port_agents(agents), _port_sessions(sessions)
+    status, ring, sigma_eff = wave.admission_block_plain(
+        p_agents, p_sessions, *(_t(lanes[k]) for k in ("slot", "did", "session_slot", "sigma_raw")),
+        _t(contribution), 0.5, _t(lanes["trustworthy"]), _t(lanes["duplicate"]), 3.0,
+        BURSTS, DEFAULT_CONFIG.trust, False,
+    )
+    got = (p_agents.f32, p_agents.i32, p_agents.ring, p_sessions.i32, status, ring, sigma_eff)
+    for g, want in zip(got, twin):
+        assert g.numpy().tobytes() == np.asarray(want).tobytes()
+    refused = np.flatnonzero(status.numpy() != admission.ADMIT_OK)
+    np.testing.assert_array_equal(refused, [16, 24])  # live[0]'s third and fourth joins
+    assert set(status.numpy()[refused].tolist()) == {admission.ADMIT_CAPACITY}
+
+
 def test_rank_within_session_matches_twin():
     keys = np.random.RandomState(1).randint(-5, 6, 64).astype(np.int64)
     np.testing.assert_array_equal(
@@ -167,6 +214,36 @@ def test_fsm_saga_plain_matches_twin(has_range):
         assert g.numpy().tobytes() == np.asarray(want).tobytes()
     assert int(released) == int(twin[7])
     assert err.any() and not err.all()  # the odd states walk illegally
+
+
+def test_fsm_saga_plain_mask_form_on_a_scattered_layout():
+    """B5's mask form (no `wave_range`) on a wave whose sessions leave
+    gaps and come in no order, with two parked rows (memberless, past the
+    live rows) at its end, against the reference's numpy twin; members
+    and live edges sit on sessions inside and outside the wave."""
+    rng = np.random.RandomState(9)
+    b = 12
+    agents, sessions, _, vsess, vact, ok = _stage_fsm(rng, SC - 4, b, 0)
+    ks = np.concatenate([rng.choice(SC - 4, 9, replace=False), [SC - 2, SC - 1]]).astype(np.int32)
+    assert not np.array_equal(np.sort(ks), ks) and np.ptp(ks[:9]) > 9  # out of order, gaps
+    twin = wave_pallas.fsm_saga_block_np(
+        np.asarray(agents.i32), np.asarray(sessions.i32), np.asarray(sessions.f32),
+        vsess, vact, ks, ok, np.float32(7.5), np.int32(0), np.int32(0),
+        has_range=False, transition_bits=jax_fsm._TRANSITION_BITS,
+        active_code=2, terminating_code=3, archived_code=4,
+    )
+    p_agents, p_sessions = _port_agents(agents), _port_sessions(sessions)
+    vouches = PVouches.create(E, "cpu")
+    vouches.session.copy_(_t(vsess))
+    vouches.active.copy_(_t(vact))
+    step, wstate, err, released = wave.fsm_saga_block(
+        p_agents, p_sessions, vouches, _t(ks), _t(ok), 7.5, None)
+    got = (p_agents.i32, p_sessions.i32, p_sessions.f32, vouches.active, step, wstate, err)
+    for g, want in zip(got, twin[:7]):
+        assert g.numpy().tobytes() == np.asarray(want).tobytes()
+    assert int(released) == int(twin[7]) > 0
+    outside = ~np.isin(vsess, ks) & vact
+    assert outside.any() and vouches.active.numpy()[outside].all()
 
 
 def test_transition_bits_match_reference():
