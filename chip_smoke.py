@@ -3,12 +3,15 @@
 plane and the slash cascade on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
-    python3 chip_smoke.py --blocks   # build, then only time B4, B5 and B8
+    python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
 
-`--blocks` times admission (B4) on its three layouts, the fsm/saga block
-(B5) in both forms and the slash cascade (B8), and stops: run it in two
-trees in one call to compare them. Only under `--blocks` does the script
-accept a tree that lacks B5's mask form or the clip-factor table.
+`--blocks` profiles one saga round, one `apply_slash` and one slash
+cascade call (phase `path_profile`), probes the grid barrier where the
+tree has B8's cooperative form, times admission (B4) on its three
+layouts, the fsm/saga block (B5) in both forms, the saga round (B7) and
+the slash cascade (B8), and stops: run it in two trees in one call to
+compare them. Only under `--blocks` does the script accept a tree that
+lacks B5's mask form, the clip-factor table or the in-kernel tallies.
 
 Phases, one JSON line each:
 
@@ -16,7 +19,7 @@ Phases, one JSON line each:
 2. build: every CUDA kernel built from `hypervisor_tpu_torch/csrc/` (one
    nvcc per source, all started together), with ptxas' report; the
    redesigned kernels (B1, B2, B3's packed tree, the contribution's
-   five, B4's, B5's and B8's agent pass) must show no spill;
+   five, B4's, B5's, B7's and B8's) must show no spill;
 3. sha_latency: B1 on one warp of messages (B = 32) at 1, 2, 4 and 8
    blocks a message, by CUDA events; the slope of time against blocks
    is one compression's latency on a lone warp, the intercept the
@@ -24,7 +27,9 @@ Phases, one JSON line each:
    the same way. Where `cuobjdump` exists, the SASS of each SHA kernel:
    its instructions, its reads of the constant bank (`c[0x3][...]`
    operands, where `__constant__` data lies) and its SHF, LOP3, IADD3
-   and IMAD;
+   and IMAD; then barrier_probe: one cooperative launch at B8's grid
+   crossing 0, 1, 5 and 25 grid barriers, by CUDA events (the slope is
+   one barrier), and how many edges that grid holds in registers;
 4. parity: each kernel against its plain PyTorch version on the same
    inputs on the card, bit-exact (tolerance 0), at the paths' shapes —
    the vouched contribution, each case called twice, against the plain
@@ -51,14 +56,19 @@ Phases, one JSON line each:
    33, 4,096 and 30,000 messages of 1-4 blocks (5 and 9 at two counts),
    each call twice and against hashlib on samples, and a 8,192-leaf
    Merkle forest through it; B7, the
-   saga round, on random tables of 8,192 sagas x 16 and x 4 steps in
-   every code, against its plain version on the card and on the CPU;
-   B8, the slash cascade, on bench_suite's north-star graph (10,240
-   agents, 8,192 edges, 128 seeds, omega 0.95) and on the default
-   tables (16,384 agents, 65,536 edges, omega 0.6, cascading to depth
-   2), and at omega 0.014 and 0.003 with one voucher of 4 and of 31
-   first-wave agents (where a float64 clip factor parts from the
-   reference's), against its plain version on the card and on the CPU;
+   saga round, on random tables of 8,192 sagas x 16 and x 4 steps and
+   of 8,191 and 33 sagas x 16 (a ragged last warp) in every code, its
+   tally rows seeded at 0xFFFFFFF0 so that they wrap, against its plain
+   version on the card and on the CPU, counters included; B8, the slash
+   cascade, each call twice and once without counters, its tally rows
+   seeded the same way, on bench_suite's north-star graph (10,240
+   agents, 8,192 edges, 128 seeds, omega 0.95), on the default tables
+   (16,384 agents, 65,536 edges, omega 0.6, cascading to depth 2) on
+   the current stream and on a second one, with no edges, on a graph of
+   65,536 edges more than its grid holds in registers, and at omega
+   0.014 and 0.003 with one voucher of 4 and of 31 first-wave agents
+   (where a float64 clip factor parts from the reference's), against its
+   plain version on the card and on the CPU, counters included;
 5. wave: bench.py's configuration (10,000 sessions, 1,000 vouched
    lanes at sigma 0.5 with bond 0.30, 3 deltas, tables of 16,384 agents,
    16,384 sessions and 65,536 edges, random data from one seed) through
@@ -97,7 +107,7 @@ Phases, one JSON line each:
    state, a liability graph written in bulk plus `add_vouch` /
    `release_vouch` calls, then `apply_slash` on a vouchee whose cascade
    reaches depth 2 (checked against the plain version on the CPU); B8
-   must launch 6 times (two a depth) and nothing else; then the same
+   must launch once and nothing else; then the same
    sequence on the CPU must give identical agents and vouches tables,
    returned lists, metrics and trace words;
 9. timing: the wave's p50/p95 (host clock, synchronised) and device
@@ -109,9 +119,11 @@ Phases, one JSON line each:
    booking, and its device time; one scrubber sweep's time; the saga
    round's p50/p95 at 8,192 sagas (the table restored between samples)
    with its host split and device time; `apply_slash`'s p50/p95 and
-   device time; each kernel's time, its plain version's time, its bound
+   device time; every device op of one saga round, one `apply_slash`
+   and one slash cascade call, by torch.profiler (phase path_profile);
+   each kernel's time, its plain version's time, its bound
    and, where one PyTorch call computes the same function, that call's
-   time; B4 on each layout, block size and row form, B5 in each form,
+   time; B4 on each layout, B5 in each form,
    the clip-factor table's build at a tiny omega; beside them B1 at each of its paths' shapes (the scrubber's strip,
    verify's links, the big tree's 13 levels) with each path's
    launches x (ms - bound), the contribution on the two hot-vouchee
@@ -242,6 +254,9 @@ PARTED_CLIPS = ((0.014, 4), (0.003, 31))
 #: A tiny omega whose clip-factor table runs to the edge count: its
 #: build time is the table's worst case.
 TABLE_OMEGA = 1e-6
+#: What B7's and B8's parity seeds their counter rows with: the round's
+#: and the cascade's tallies wrap it past 2^32.
+COUNTER_SEED = 0xFFFFFFF0
 #: The keys of the kernels summary line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -251,7 +266,10 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 REDESIGNED_KERNELS = ("sha256_kernel", "chain_kernel", "tree_packed_kernel", "contrib_scope_kernel",
                       "contrib_scan_kernel", "contrib_fill_kernel", "contrib_fold_kernel",
                       "contrib_large_kernel", "admission_unique", "admission_lanes",
-                      "admission_ranked", "fsm_saga_kernel", "slash_agents_kernel")
+                      "admission_ranked", "fsm_saga_kernel", "saga_tick_kernel",
+                      "slash_cascade_kernel")
+#: The grid-barrier probe: barriers crossed by one launch at B8's grid.
+BARRIER_REPS = (0, 1, 5, 25)
 #: The lone-warp probe of B1: one warp of messages at these block counts.
 LATENCY_MESSAGES, LATENCY_BLOCKS = 32, (1, 2, 4, 8)
 #: B1's parity counts: around one warp, the scrubber's strip, the wave's
@@ -814,6 +832,76 @@ def run_slash_sequence(device):
     return rec, launches, state, pre
 
 
+def tally_kw(fn, counters) -> dict:
+    """The metrics counters for a kernel wrapper that books its own
+    tallies; nothing for a wrapper that predates them (an older tree
+    under --blocks)."""
+    import inspect
+
+    return {"counters": counters} if "counters" in inspect.signature(fn).parameters else {}
+
+
+def path_calls(saga_state, saga_initial, slash_state, slash_pre) -> dict:
+    """name -> (call, reset): one saga round at the saga path's table with
+    every saga's cursor step booked a success (the table restored first),
+    one `apply_slash` at the slash path's inputs (agents and vouches
+    restored first), and one B8 wrapper call on those inputs with the
+    metrics counters riding in, as `apply_slash` makes it."""
+    import torch
+
+    from hypervisor_tpu_torch.kernels import liability as liab_kernels
+    from hypervisor_tpu_torch.tables.struct import copy_into
+
+    pre_v, pre_agents, vouchee, sess = slash_pre
+    all_commit = {slot: True for slot in range(saga_state.sagas.saga_state.shape[0])}
+    sigma = pre_agents.sigma_eff.contiguous()
+    first = torch.zeros(sigma.shape, dtype=torch.bool, device=sigma.device)
+    first[vouchee] = True
+    kw = tally_kw(liab_kernels.slash_cascade, slash_state.metrics.counters)
+
+    def restore_sagas():
+        copy_into(saga_state.sagas, saga_initial)
+
+    def restore_slash():
+        copy_into(slash_state.agents, pre_agents)
+        copy_into(slash_state.vouches, pre_v)
+
+    return {
+        "saga_round": (lambda: saga_state.saga_round(all_commit), restore_sagas),
+        "apply_slash": (lambda: slash_state.apply_slash(sess, vouchee, NORTH_STAR["omega"], now=1.0),
+                        restore_slash),
+        "slash_cascade": (lambda: liab_kernels.slash_cascade(
+            pre_v, sigma, first, sess, NORTH_STAR["omega"], 1.0, **kw), None),
+    }
+
+
+def profile_device_ops(calls: dict) -> dict:
+    """Each call of `calls` (name -> (call, reset)) once more after a
+    warm-up call, under torch.profiler: its device ops (kernels, copies,
+    fills) by name with their count and device microseconds, and the
+    totals. `reset` runs before each call, outside the profile."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (fn, reset) in calls.items():
+        for profiled in (False, True):
+            if reset is not None:
+                reset()
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            with prof if profiled else contextlib.nullcontext():
+                fn()
+                torch.cuda.synchronize()
+        ops = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+        out[name] = {"n_device_ops": sum(n for _, _, n in ops),
+                     "device_us": sum(us for us, _, _ in ops),
+                     "ops": [{"name": k[:100], "count": n, "device_us": us} for us, k, n in ops]}
+    return out
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -1032,11 +1120,41 @@ def main(argv=None) -> int:
     fsm_forms = {"range": (ks_t, (0, N_SESSIONS)), "mask, arange": (ks_t, None),
                  "mask, scattered": (scattered_t, None)}
 
+    # B7's timing table: the default 8,192 x 16 in every code, in place
+    # (restored before each call), with the metrics counters riding in.
+    saga_cap = DEFAULT_CONFIG.capacity.max_sagas
+    b7_table = random_saga_table(np.random.RandomState(SEED + 11), saga_cap,
+                                 DEFAULT_CONFIG.capacity.max_steps_per_saga)
+    b7_pristine = {k: torch.from_numpy(np.array(b7_table[k], copy=True)).to(dev) for k in SAGA_COLS}
+    b7_cols = {k: t.clone() for k, t in b7_pristine.items()}
+    b7_outcomes = torch.from_numpy(saga_ops.pack_outcomes(*b7_table["masks"])).to(dev)
+    b7_counters = torch.zeros(state.metrics.counters.shape, dtype=torch.int32, device=dev)
+
+    def restore_b7():
+        for k, t in b7_pristine.items():
+            b7_cols[k].copy_(t)
+
+    def b7_call(fn=saga_kernels.saga_tick_block):
+        return fn(*(b7_cols[k] for k in SAGA_COLS), b7_outcomes, **tally_kw(fn, b7_counters))
+
+    def barrier_probe() -> dict:
+        """One grid barrier at the grid B8 takes on the slash path's
+        tables: a cooperative launch that only crosses r barriers, timed
+        at each r of `BARRIER_REPS` by CUDA events; the slope is one
+        barrier, the intercept one cooperative launch of that grid."""
+        cap = DEFAULT_CONFIG.capacity
+        ms = {r: time_device(lambda r=r: liab_kernels.grid_barrier_probe(
+            r, cap.max_vouch_edges, cap.max_agents, dev), reps=50) for r in BARRIER_REPS}
+        slope, intercept = np.polyfit(BARRIER_REPS, [ms[r] for r in BARRIER_REPS], 1)
+        return {"ms_by_barriers": ms, "barrier_us": float(slope) * 1e3,
+                "intercept_us": float(intercept) * 1e3, "held_edges": liab_kernels.held_edges(dev)}
+
     def time_blocks(slash_inputs) -> dict:
-        """B4 on each layout, B5 in each form, B8 at the slash path's
-        inputs and one launch of a one-element add, each the median by
-        CUDA events, the tables restored before every call; and the host's
-        build of one clip-factor table at a tiny omega."""
+        """B4 on each layout, B5 in each form, B7 at the default table, B8
+        at the slash path's inputs (with the metrics counters) and one
+        launch of a one-element add, each the median by CUDA events, the
+        tables restored before every call; and the host's build of one
+        clip-factor table at a tiny omega."""
         tb = {k: clone(t) for k, t in post.items()}
 
         def restore_into(src):
@@ -1063,9 +1181,11 @@ def main(argv=None) -> int:
                     raise
                 # --blocks run in an older tree, whose B5 has no mask form
                 out["fsm_saga_block"][tag] = f"refused: {exc}"
+        out["saga_tick_block"] = time_device(b7_call, reset=restore_b7)
         v_, sigma_, first_, sess_ = slash_inputs
+        kw = tally_kw(liab_kernels.slash_cascade, b7_counters)
         out["slash_cascade"] = time_device(lambda: liab_kernels.slash_cascade(
-            v_, sigma_, first_, sess_, NORTH_STAR["omega"], 1.0))
+            v_, sigma_, first_, sess_, NORTH_STAR["omega"], 1.0, **kw))
         # The host's libm table at a tiny omega, to the card (not in an
         # older tree, under --blocks).
         if not blocks_only or hasattr(liab_kernels, "factor_table"):
@@ -1079,9 +1199,14 @@ def main(argv=None) -> int:
         return out
 
     if blocks_only:
-        _, _, _, pre = run_slash_sequence(dev)
+        _, _, slash_b, pre = run_slash_sequence(dev)
+        _, _, saga_b, _, saga_b_initial = run_saga_sequence(dev)
+        emit("path_profile", **profile_device_ops(path_calls(saga_b, saga_b_initial, slash_b, pre)),
+             nvidia_smi=smi)
         first_b = torch.zeros(pre[1].sigma_eff.shape, dtype=torch.bool, device=dev)
         first_b[pre[2]] = True
+        if hasattr(liab_kernels, "grid_barrier_probe"):
+            emit("barrier_probe", **barrier_probe())
         emit("block_timing", ms=time_blocks((pre[0], pre[1].sigma_eff.contiguous(), first_b,
                                              pre[3])), nvidia_smi=smi)
         return 0
@@ -1110,6 +1235,7 @@ def main(argv=None) -> int:
          sm_clock_max_mhz=max_mhz, slope_cycles_at_max_clock=float(slope_ms) * 1e3 * max_mhz,
          critical_ops_per_compression=64 * CRITICAL_OPS_PER_ROUND,
          sass=sass_census({name: _build._target(name) for name in ("sha256", "mtu")}))
+    emit("barrier_probe", **barrier_probe(), launch_floor_us=launch_floor_ms * 1e3)
 
 
     # ── 4. parity, kernel against plain, on the card ─────────────────
@@ -1385,60 +1511,128 @@ def main(argv=None) -> int:
          hashlib_samples="first, middle and last of each case", tree_leaves=BIG_TREE_LEAVES,
          bit_exact=True, max_abs_err=err_b1)
 
-    # B7: the saga round on random tables at the default 8,192 x 16 and at
-    # M = 4 (the byte-by-byte row path), against the plain version on the
-    # card and on the CPU; all six outputs.
-    saga_cap = DEFAULT_CONFIG.capacity.max_sagas
-    err_b7, b7_inputs = 0.0, {}
-    for m in (DEFAULT_CONFIG.capacity.max_steps_per_saga, 4):
-        table = random_saga_table(rng, saga_cap, m)
+    # B7: the saga round on random tables at the default 8,192 x 16, at
+    # M = 4 (the byte-by-byte row path), and at a ragged G (8,191 and 33:
+    # the last warp part-filled), against the plain version on the card
+    # and on the CPU; all six outputs, and the metrics counters riding in
+    # with the tally rows seeded at 0xFFFFFFF0, so the round's counts wrap
+    # them past 2^32.
+    n_counters = state.metrics.counters.shape[0]
+
+    def seeded_counters(rows, d):
+        c = np.zeros(n_counters, np.uint32)
+        c[list(rows)] = COUNTER_SEED
+        return u32.from_numpy_u32(c, d)
+
+    err_b7, b7_inputs, wrapped = 0.0, {}, {}
+    b7_cases = ((saga_cap, DEFAULT_CONFIG.capacity.max_steps_per_saga),
+                (saga_cap, 4), (saga_cap - 1, 16), (33, 16))
+    for g_, m in b7_cases:
+        table = random_saga_table(rng, g_, m)
         outcomes = saga_ops.pack_outcomes(*table["masks"])
         runs = {}
         for where, fn, d in (("kernel", saga_kernels.saga_tick_block, dev),
                              ("plain on the card", saga_kernels.saga_tick_block_plain, dev),
                              ("plain on the CPU", saga_kernels.saga_tick_block_plain, "cpu")):
             cols = {k: torch.from_numpy(np.array(table[k], copy=True)).to(d) for k in SAGA_COLS}
+            ctr = seeded_counters(saga_kernels.TALLY_ROWS, d)
             committed, exhausted = fn(*(cols[k] for k in SAGA_COLS),
-                                      torch.from_numpy(outcomes).to(d))
+                                      torch.from_numpy(outcomes).to(d), ctr)
             runs[where] = dict(zip(SAGA_OUTS, (cols["step_state"], cols["retries_left"],
                                                cols["saga_state"], cols["cursor"],
-                                               committed, exhausted)))
+                                               committed, exhausted)), counters=ctr)
         pairs = {f"{col} against the {where}": (runs["kernel"][col].cpu(), runs[where][col].cpu())
-                 for where in ("plain on the card", "plain on the CPU") for col in SAGA_OUTS}
-        err_b7 = max(err_b7, check_pairs(f"saga_tick_block M={m}", pairs))
-        require(int(runs["kernel"]["committed"].sum()) > 0 and int(runs["kernel"]["exhausted"].sum()) > 0,
-                "B7 parity: the round must book and exhaust steps")
-        b7_inputs[m] = (table, outcomes)
-    emit("parity", kernel="saga_tick_block", shapes=[[saga_cap, 16], [saga_cap, 4]],
+                 for where in ("plain on the card", "plain on the CPU")
+                 for col in SAGA_OUTS + ("counters",)}
+        words = tuple(k for k in pairs if k.startswith("counters"))
+        err_b7 = max(err_b7, check_pairs(f"saga_tick_block G={g_} M={m}", pairs, words))
+        n_c, n_x = int(runs["kernel"]["committed"].sum()), int(runs["kernel"]["exhausted"].sum())
+        require(n_c > 0 and n_x > 0, "B7 parity: the round must book and exhaust steps")
+        got_ctr = u32.to_numpy_u32(runs["kernel"]["counters"])[list(saga_kernels.TALLY_ROWS)]
+        require(got_ctr.tolist() == [(COUNTER_SEED + n_c) % 2**32, (COUNTER_SEED + n_x) % 2**32],
+                f"B7 G={g_} M={m}: the tallies are not the masks' counts: {got_ctr}")
+        wrapped[f"G={g_} M={m}"] = got_ctr.tolist()
+        b7_inputs[(g_, m)] = (table, outcomes)
+    emit("parity", kernel="saga_tick_block", shapes=[list(c) for c in b7_cases],
+         counters_seeded=COUNTER_SEED, counters_after=wrapped,
          against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b7)
 
-    # B8: the slash cascade on bench_suite's north-star graph and on the
-    # default tables, against the plain version on the card and the CPU.
-    err_b8, depth_reached = 0.0, {}
+    # B8: the slash cascade, each kernel call twice (the second must give
+    # the same bits: the workspace it found zero, it left zero), with the
+    # metrics counters riding in (tally rows seeded at 0xFFFFFFF0) and
+    # once without them, against the plain version on the card and the
+    # CPU. Cases: bench_suite's north-star graph; the default tables at
+    # omega 0.6, cascading to depth 2, on the current stream and on a
+    # second one (its own workspace); no edges at all; a graph with more
+    # edges than the grid holds in registers, so that a thread holds its
+    # first edges and reloads the rest every depth; and at omega 0.014 and
+    # 0.003, where the parent's float64 clip factor parted from the
+    # reference's.
+    err_b8, b8_cases = 0.0, {}
     cap = DEFAULT_CONFIG.capacity
-    for tag, n_a, n_e, cfg, sessions in (
-            ("north_star", NORTH_STAR["agents"], NORTH_STAR["edges"], NORTH_STAR, 1),
-            ("default", cap.max_agents, cap.max_vouch_edges, DEFAULT_SLASH, 2)):
-        v_s, sigma_s, seeds_s = slash_graph(np.random.RandomState(SEED), n_a, n_e, cfg["seeds"],
-                                            cfg["sigma"], sessions, dev)
-        got = liab_kernels.slash_cascade(v_s, sigma_s, seeds_s, 0, cfg["omega"], 0.0)
-        card = liab_kernels.slash_cascade_plain(v_s, sigma_s, seeds_s, 0, cfg["omega"], 0.0)
+    names = ("sigma", "active", "slashed", "clipped", "wave_of")
+    held = liab_kernels.held_edges(dev)
+
+    def b8_parity(tag, v_s, sigma_s, seeds_s, omega, stream=None):
+        nonlocal err_b8
+        rows = liab_kernels.TALLY_ROWS
+        ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+        torch.cuda.synchronize()  # the inputs are ready on every stream
+        with ctx:
+            runs = []
+            for _ in range(2):
+                ctr = seeded_counters(rows, dev)
+                runs.append((liab_kernels.slash_cascade(v_s, sigma_s, seeds_s, 0, omega, 0.0,
+                                                        counters=ctr), ctr))
+            bare = liab_kernels.slash_cascade(v_s, sigma_s, seeds_s, 0, omega, 0.0)
+        torch.cuda.synchronize()
+        ctr_card = seeded_counters(rows, dev)
+        card = liab_kernels.slash_cascade_plain(v_s, sigma_s, seeds_s, 0, omega, 0.0,
+                                                counters=ctr_card)
+        ctr_cpu = seeded_counters(rows, "cpu")
         cpu = liab_kernels.slash_cascade_plain(
             VouchTable(**{k: t.cpu() for k, t in tensors(v_s).items()}), sigma_s.cpu(),
-            seeds_s.cpu(), 0, cfg["omega"], 0.0)
-        names = ("sigma", "active", "slashed", "clipped", "wave_of")
+            seeds_s.cpu(), 0, omega, 0.0, counters=ctr_cpu)
+        got = runs[0][0]
         pairs = {f"{name} against the {where}": (got[i].cpu(), other[i].cpu())
-                 for where, other in (("plain on the card", card), ("plain on the CPU", cpu))
+                 for where, other in (("plain on the card", card), ("plain on the CPU", cpu),
+                                      ("second call", runs[1][0]), ("call without counters", bare))
                  for i, name in enumerate(names)}
-        err_b8 = max(err_b8, check_pairs(f"slash_cascade {tag}", pairs))
-        depth_reached[tag] = int(got[4].max())
-        require(depth_reached[tag] == 2, f"B8 parity {tag}: the cascade must reach depth 2")
-    emit("parity", kernel="slash_cascade", north_star=[NORTH_STAR["agents"], NORTH_STAR["edges"]],
-         default=[cap.max_agents, cap.max_vouch_edges], depth_reached=depth_reached,
-         against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
-    # B8 where the parent's float64 clip factor parted from the reference's
-    # (omega 0.014 at k = 4, 0.003 at k = 31): one voucher, at sigma 0.9,
-    # vouching for k first-wave agents in the slashed session.
+        for where, ctr in (("plain on the card", ctr_card), ("plain on the CPU", ctr_cpu),
+                           ("second call", runs[1][1])):
+            pairs[f"counters against the {where}"] = (runs[0][1].cpu(), ctr.cpu())
+        words = tuple(k for k in pairs if k.startswith("counters"))
+        err_b8 = max(err_b8, check_pairs(f"slash_cascade {tag}", pairs, words))
+        n_s, n_c = int(got[2].sum()), int(got[3].sum())
+        tallies = u32.to_numpy_u32(runs[0][1])[list(rows)].tolist()
+        require(tallies == [(COUNTER_SEED + n_s) % 2**32, (COUNTER_SEED + n_c) % 2**32],
+                f"B8 {tag}: the tallies are not the slashed and clipped counts: {tallies}")
+        b8_cases[tag] = {"agents": int(sigma_s.shape[0]), "edges": int(v_s.voucher.shape[0]),
+                         "slashed": n_s, "clipped": n_c, "depth_reached": int(got[4].max()),
+                         "counters_after": tallies}
+        return got
+
+    for tag, n_a, n_e, cfg, sessions in (
+            ("north_star", NORTH_STAR["agents"], NORTH_STAR["edges"], NORTH_STAR, 1),
+            ("default", cap.max_agents, cap.max_vouch_edges, DEFAULT_SLASH, 2),
+            ("past the held edges", cap.max_agents, held + cap.max_vouch_edges, DEFAULT_SLASH, 2)):
+        v_s, sigma_s, seeds_s = slash_graph(np.random.RandomState(SEED), n_a, n_e, cfg["seeds"],
+                                            cfg["sigma"], sessions, dev)
+        got = b8_parity(tag, v_s, sigma_s, seeds_s, cfg["omega"])
+        require(int(got[4].max()) == 2, f"B8 parity {tag}: the cascade must reach depth 2")
+        if tag == "default":
+            side = torch.cuda.Stream()
+            got_side = b8_parity("default, second stream", v_s, sigma_s, seeds_s, cfg["omega"],
+                                 stream=side)
+            require(all(same(a, b) for a, b in zip(got, got_side)),
+                    "B8: the second stream's cascade differs from the first's")
+    v_0, sigma_0, seeds_0 = slash_graph(np.random.RandomState(SEED), cap.max_agents, 0,
+                                        DEFAULT_SLASH["seeds"], DEFAULT_SLASH["sigma"], 1, dev)
+    got = b8_parity("no edges", v_0, sigma_0, seeds_0, DEFAULT_SLASH["omega"])
+    require(same(got[2], seeds_0) and not bool(got[3].any()),
+            "B8 with no edges must slash the seeds and clip nobody")
+    # One voucher, at sigma 0.9, vouching for k first-wave agents in the
+    # slashed session.
     parted = {}
     for omega_p, k_p in PARTED_CLIPS:
         v_p, sigma_p, seeds_p = slash_graph(np.random.RandomState(SEED + 10), cap.max_agents,
@@ -1453,23 +1647,16 @@ def main(argv=None) -> int:
         v_p.active[rows_p] = True
         v_p.expiry[rows_p] = float("inf")
         sigma_p[voucher_p] = 0.9
-        got = liab_kernels.slash_cascade(v_p, sigma_p, seeds_p, 0, omega_p, 0.0)
-        card = liab_kernels.slash_cascade_plain(v_p, sigma_p, seeds_p, 0, omega_p, 0.0)
-        cpu = liab_kernels.slash_cascade_plain(
-            VouchTable(**{k: t.cpu() for k, t in tensors(v_p).items()}), sigma_p.cpu(),
-            seeds_p.cpu(), 0, omega_p, 0.0)
-        names = ("sigma", "active", "slashed", "clipped", "wave_of")
-        pairs = {f"{name} against the {where}": (got[i].cpu(), other[i].cpu())
-                 for where, other in (("plain on the card", card), ("plain on the CPU", cpu))
-                 for i, name in enumerate(names)}
-        err_b8 = max(err_b8, check_pairs(f"slash_cascade omega={omega_p} k={k_p}", pairs))
+        got = b8_parity(f"omega={omega_p} k={k_p}", v_p, sigma_p, seeds_p, omega_p)
         factor = float(liab_kernels.clip_factor(torch.tensor(np.float32(1) - np.float32(omega_p)),
                                                 torch.tensor(k_p)))
         require(float(got[0][voucher_p]) == float(np.float32(np.float32(0.9) * np.float32(factor))),
                 f"B8 omega={omega_p}: the voucher of {k_p} seeds was not clipped by the factor")
         parted[f"omega={omega_p}, k={k_p}"] = {"factor": factor, "voucher_sigma": float(got[0][voucher_p])}
-    emit("parity", kernel="slash_cascade", parted_clips=parted,
-         against=["plain on the card", "plain on the CPU"], bit_exact=True, max_abs_err=err_b8)
+    emit("parity", kernel="slash_cascade", cases=b8_cases, parted_clips=parted,
+         held_edges=held, calls_each=3, counters_seeded=COUNTER_SEED,
+         against=["plain on the card", "plain on the CPU", "itself"], bit_exact=True,
+         max_abs_err=err_b8)
     errs = {"contribution_toward": err_contrib, "chain_digests": err_b2, "tree_roots": err_b3,
             "admission_block": err_b4, "fsm_saga_block": err_b5,
             "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
@@ -1568,8 +1755,8 @@ def main(argv=None) -> int:
     # ── 8. the slash cascade ─────────────────────────────────────────
     slash_rec, slash_launches, slash_state, slash_pre = run_slash_sequence(dev)
     depths = DEFAULT_CONFIG.trust.max_cascade_depth + 1
-    require({k: n for k, n in slash_launches.items() if n} == {"slash_cascade": 2 * depths},
-            f"slash path: B8 must launch {2 * depths} times and nothing else: {slash_launches}")
+    require({k: n for k, n in slash_launches.items() if n} == {"slash_cascade": 1},
+            f"slash path: B8 must launch once and nothing else: {slash_launches}")
     pre_v, pre_agents, pre_vouchee, pre_sess = slash_pre
     pre_sigma = pre_agents.sigma_eff.contiguous()
     first = torch.zeros(pre_sigma.shape, dtype=torch.bool)
@@ -1715,15 +1902,16 @@ def main(argv=None) -> int:
     # The saga round at 8,192 sagas: p50/p95 on the host clock,
     # synchronised, the table restored to its created state between
     # samples and every saga's cursor step booked as a success. The host
-    # split: the tick (`saga_table_tick` less its tail: B7's enqueue), the
-    # tallies and trace stamps (`_saga_tick_tail`), and the rest, which is
+    # split: the tick (`saga_table_tick` less its tail: B7's enqueue, its
+    # tallies in the same launch), the trace stamps (`_saga_tick_tail`),
+    # and the rest, which is
     # building the packed outcome bytes from the dicts, their copy to the
     # card, the trace bracket and the wait for the device.
     def restore_sagas():
         copy_into(saga_state.sagas, saga_initial)
 
     all_commit = {slot: True for slot in range(saga_cap)}
-    round_split = {"tick_and_tail": 0.0, "tallies_and_trace": 0.0}
+    round_split = {"tick_and_tail": 0.0, "trace": 0.0}
 
     def split_timer(key, fn):
         def call(*args, **kwargs):
@@ -1737,20 +1925,20 @@ def main(argv=None) -> int:
     tick_fn, tail_fn = saga_ops.saga_table_tick, saga_ops._saga_tick_tail
     samples, parts = [], []
     saga_ops.saga_table_tick = split_timer("tick_and_tail", tick_fn)
-    saga_ops._saga_tick_tail = split_timer("tallies_and_trace", tail_fn)
+    saga_ops._saga_tick_tail = split_timer("trace", tail_fn)
     try:
         for i in range(SAGA_WARMUP + SAGA_ITERS):
             restore_sagas()
             torch.cuda.synchronize()
-            round_split.update(tick_and_tail=0.0, tallies_and_trace=0.0)
+            round_split.update(tick_and_tail=0.0, trace=0.0)
             t0 = time.perf_counter_ns()
             saga_state.saga_round(all_commit)
             torch.cuda.synchronize()
             if i >= SAGA_WARMUP:
                 total = (time.perf_counter_ns() - t0) / 1e6
-                tick = round_split["tick_and_tail"] - round_split["tallies_and_trace"]
+                tick = round_split["tick_and_tail"] - round_split["trace"]
                 parts.append({"masks_copy_and_rest": total - round_split["tick_and_tail"],
-                              "tick": tick, "tallies_and_trace": round_split["tallies_and_trace"]})
+                              "tick": tick, "trace": round_split["trace"]})
                 samples.append(total)
     finally:
         saga_ops.saga_table_tick, saga_ops._saga_tick_tail = tick_fn, tail_fn
@@ -1786,6 +1974,9 @@ def main(argv=None) -> int:
          apply_slash_ms_p95=float(np.percentile(s_samples, 95)),
          apply_slash_device_ms=slash_device_ms, iters=SLASH_ITERS,
          clock="host, synchronised; agents and vouches restored between samples")
+    # Every device op of one saga round, one apply_slash and one B8 call.
+    emit("path_profile", **profile_device_ops(path_calls(saga_state, saga_initial, slash_state,
+                                                         slash_pre)))
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):
@@ -1820,7 +2011,7 @@ def main(argv=None) -> int:
     }
     # B7 at the default table (in place: restored before each call); B8
     # at the slash path's inputs (it writes new tensors only).
-    table16, outcomes16 = b7_inputs[DEFAULT_CONFIG.capacity.max_steps_per_saga]
+    table16, outcomes16 = b7_inputs[(saga_cap, DEFAULT_CONFIG.capacity.max_steps_per_saga)]
     saga_pristine = {k: torch.from_numpy(np.array(table16[k], copy=True)).to(dev) for k in SAGA_COLS}
     saga_cols = {k: t.clone() for k, t in saga_pristine.items()}
     outcomes16_t = torch.from_numpy(outcomes16).to(dev)
@@ -1829,16 +2020,20 @@ def main(argv=None) -> int:
         for k, t in saga_pristine.items():
             saga_cols[k].copy_(t)
 
+    # Both book their tallies into a counter column, as on their paths.
+    ctr_k, ctr_p = (torch.zeros(n_counters, dtype=torch.int32, device=dev) for _ in range(2))
     calls["saga_tick_block"] = (
-        lambda: saga_kernels.saga_tick_block(*(saga_cols[k] for k in SAGA_COLS), outcomes16_t),
-        lambda: saga_kernels.saga_tick_block_plain(*(saga_cols[k] for k in SAGA_COLS), outcomes16_t),
+        lambda: saga_kernels.saga_tick_block(*(saga_cols[k] for k in SAGA_COLS), outcomes16_t,
+                                             ctr_k),
+        lambda: saga_kernels.saga_tick_block_plain(*(saga_cols[k] for k in SAGA_COLS),
+                                                   outcomes16_t, ctr_p),
         restore_saga_cols)
     first_t = first.to(dev)
     calls["slash_cascade"] = (
         lambda: liab_kernels.slash_cascade(pre_v, pre_sigma, first_t, pre_sess,
-                                           NORTH_STAR["omega"], 1.0),
+                                           NORTH_STAR["omega"], 1.0, counters=ctr_k),
         lambda: liab_kernels.slash_cascade_plain(pre_v, pre_sigma, first_t, pre_sess,
-                                                 NORTH_STAR["omega"], 1.0), None)
+                                                 NORTH_STAR["omega"], 1.0, counters=ctr_p), None)
     ring_base, ring_args = b6_inputs[N_SESSIONS]
     ring_k, ring_p = clone(ring_base), clone(ring_base)
     strip_words = b1_inputs[(SCRUB_BUDGET, 2)]
@@ -1896,16 +2091,17 @@ def main(argv=None) -> int:
         "sha256_words": (SCRUB_BUDGET * (2 * 64 + 32), SCRUB_BUDGET * instr_per_message(2)),
         # B7: read step, retry and undo rows, saga state, n_steps, cursor,
         # the outcome byte; write step and retry rows, saga state, cursor,
-        # committed and exhausted. About 2M + 20 integer operations a saga
-        # for the two row scans.
-        "saga_tick_block": (saga_cap * (3 * 16 + 1 + 4 + 4 + 1) + saga_cap * (2 * 16 + 1 + 4 + 1 + 1),
-                            saga_cap * (2 * 16 + 20)),
+        # committed and exhausted; read and write the two tally counters.
+        # About 2M + 20 integer operations a saga for the two row scans.
+        "saga_tick_block": (saga_cap * (3 * 16 + 1 + 4 + 4 + 1) + saga_cap * (2 * 16 + 1 + 4 + 1 + 1)
+                            + 2 * 8, saga_cap * (2 * 16 + 20)),
         # B8: read voucher, vouchee, session, active, expiry per edge and
         # sigma and the first wave per agent; write sigma, slashed, clipped
-        # and wave_of per agent and active per edge. Per depth about ten
-        # operations an edge and twenty an agent.
-        "slash_cascade": (cap.max_vouch_edges * (4 + 4 + 4 + 1 + 4 + 1) + cap.max_agents * (5 + 7),
-                          depths * (cap.max_vouch_edges * 10 + cap.max_agents * 20)),
+        # and wave_of per agent and active per edge; read and write the two
+        # tally counters. Per depth about ten operations an edge and twenty
+        # an agent.
+        "slash_cascade": (cap.max_vouch_edges * (4 + 4 + 4 + 1 + 4 + 1) + cap.max_agents * (5 + 7)
+                          + 2 * 8, depths * (cap.max_vouch_edges * 10 + cap.max_agents * 20)),
     }
     blocks_ms = time_blocks((pre_v, pre_sigma, first_t, pre_sess))
     rows = []

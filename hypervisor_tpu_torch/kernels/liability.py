@@ -6,12 +6,28 @@ form writes each depth's gather of the wave over the edges' vouchees,
 the scatter-add of the hits over the vouchers and the has-vouchers
 flag as one-hot bf16 matmuls in 1024-agent x 256-edge tiles, so they
 run on the matrix unit; the one-hot tiles are not carried over. On
-Hopper the cascade is bound by bytes: each of the `max_cascade_depth
-+ 1` depths is one pass over the edges (one thread an edge, an int32
-atomic into the voucher's count for each hit) and one over the agents
-(the blacklist, the clip, the next wave), issued with no host
-synchronisation and no early exit, as the reference has none. Integer
-atomics are exact in any order; no float is accumulated by atomics.
+Hopper the cascade is bound by its launch and by the barriers between
+its depths, not by its 1.3 MB of bytes: the whole cascade is ONE
+cooperative launch, at most one block on each SM, with one phase and
+one grid barrier a depth (`max_cascade_depth + 1` of each). In phase p
+the threads settle depth p - 1 for the agents they own (the blacklist,
+the clip) and test depth p's hits on the edges they own, each edge
+settling its own vouchee's wave with the code the owner runs; a hit
+adds into the voucher's count (an int32 atomic), marks the vouchee in
+the wave and releases the bond, and no depth exits early, as the
+reference has none. A thread keeps its first edges in registers across
+depths (`held_edges` says how many the grid holds) and reloads the
+rest. Integer atomics are exact in any order; no float is accumulated
+by atomics. The outputs come from `torch.empty` and the kernel writes
+every element; the per-depth counts and wave marks and the per-depth
+agent states live in a workspace kept per device and stream, whose
+counts and marks every launch leaves zero, so no call issues a device
+op besides the launch.
+A failed cooperative launch raises. When the metrics table's counter
+column rides in, the launch also adds the slashed and clipped agents
+to its `SLASHED` and `CLIPPED` rows (one unsigned atomic a block and
+counter, wrapping at 2^32 like the u32 column); the plain version books
+the same counts.
 
 The clip factor (1 - omega)^k for the integer count k is the host C
 library's: the reference's `jnp.power(1 - omega, k.astype(f32))` runs
@@ -50,9 +66,17 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
 from hypervisor_tpu_torch.kernels import _build
 from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
 from hypervisor_tpu_torch.kernels.wave import _host_f32 as _f32
+from hypervisor_tpu_torch.observability import metrics as schema
+from hypervisor_tpu_torch.tables.metrics import counters_add
 from hypervisor_tpu_torch.tables.state import VouchTable
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: The counter rows a cascade books: agents slashed and agents clipped.
+TALLY_ROWS = (schema.SLASHED.index, schema.CLIPPED.index)
+# (device, stream) -> the cascade's scratch for up to n agents: k
+# int32[3n] and waved uint8[3n] (zero, and every launch leaves them
+# zero), state_sigma f32[2n] and state_slashed uint8[2n] (any contents).
+_workspaces: dict[tuple[torch.device, int], tuple[torch.Tensor, ...]] = {}
 
 
 def wipe_threshold(trust: TrustConfig) -> float:
@@ -143,10 +167,12 @@ def slash_cascade_plain(
     risk_weight,
     now,
     trust: TrustConfig = DEFAULT_CONFIG.trust,
+    counters: torch.Tensor | None = None,
 ):
     """Plain version of B8: returns (sigma f32[N], active bool[E],
     slashed bool[N], clipped bool[N], wave_of i8[N]); the inputs are not
-    written."""
+    written. The slashed and clipped counts are added to `counters`
+    (rows `TALLY_ROWS`) when given."""
     dev = sigma.device
     n = sigma.shape[0]
     omega = torch.full((), _f32(risk_weight), dtype=torch.float32, device=dev)
@@ -186,7 +212,45 @@ def slash_cascade_plain(
         has_vouchers = torch.zeros((n,), dtype=torch.int32, device=dev).index_add_(
             0, vee, (live2 & in_session & vee_ok).to(torch.int32)) > 0
         wave = wiped & has_vouchers & ~slashed
+    if counters is not None:
+        counters_add(counters, TALLY_ROWS, (slashed.sum(), clipped_any.sum()))
     return sigma, active, slashed, clipped_any, wave_of
+
+
+def _workspace(dev: torch.device, stream: int, n: int):
+    """The cascade's scratch on `stream`: zeroed once, when first made for
+    at least `n` agents."""
+    key = (dev, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < 3 * n:
+        ws = (torch.zeros((3 * n,), dtype=torch.int32, device=dev),
+              torch.zeros((3 * n,), dtype=torch.uint8, device=dev),
+              torch.zeros((2 * n,), dtype=torch.float32, device=dev),
+              torch.zeros((2 * n,), dtype=torch.uint8, device=dev))
+        _workspaces[key] = ws
+    return ws
+
+
+def held_edges(device) -> int:
+    """How many edges B8's grid keeps in registers across depths on
+    `device` (a CUDA device): a graph with more edges reloads the rest
+    at every depth."""
+    edges = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        err = _build.entry("liability", "hv_slash_held_edges", [_P])(ctypes.byref(edges))
+    _build.check("liability", err, "held_edges")
+    return edges.value
+
+
+def grid_barrier_probe(reps: int, edges: int, agents: int, device) -> None:
+    """One cooperative launch at the grid B8 takes for `edges` edges and
+    `agents` agents that only crosses `reps` grid barriers, on the
+    current stream: timed at two counts, the slope is one barrier."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        fn = _build.entry("liability", "hv_grid_barrier_probe", [_I, _I, _I, _P])
+        err = fn(int(reps), int(edges), int(agents), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("liability", err, "grid_barrier_probe")
 
 
 def slash_cascade(
@@ -197,16 +261,22 @@ def slash_cascade(
     risk_weight,
     now,
     trust: TrustConfig = DEFAULT_CONFIG.trust,
+    counters: torch.Tensor | None = None,  # i32[C] the metrics table's u32 counters
 ):
     """B8: the depth-bounded slash cascade; returns (sigma, active,
     slashed, clipped, wave_of) as new tensors (the inputs are not
-    written). CUDA tensors launch two kernels a depth; CPU tensors take
-    `slash_cascade_plain`. The kernels trust the voucher and vouchee
-    indices (-1 takes no part)."""
+    written), and adds the slashed and clipped counts to `counters` rows
+    `TALLY_ROWS` IN PLACE when given. CUDA tensors launch one cooperative
+    kernel; CPU tensors take `slash_cascade_plain`. The kernel trusts the
+    voucher and vouchee indices (-1 takes no part)."""
     n, e = sigma.shape[0], vouch.voucher.shape[0]
-    _require(tuple(seeds.shape) == (n,), "seeds: [N]")
+    _require(tuple(seeds.shape) == (n,) and sigma.dim() == 1, "sigma, seeds: [N]")
+    _require(trust.max_cascade_depth >= 0, "max_cascade_depth must be >= 0")
+    _require(counters is None or (counters.dim() == 1 and counters.shape[0] > max(TALLY_ROWS)),
+             "counters: [C] holding the slash tally rows")
     if not _route(sigma):
-        return slash_cascade_plain(vouch, sigma, seeds, session_slot, risk_weight, now, trust)
+        return slash_cascade_plain(vouch, sigma, seeds, session_slot, risk_weight, now, trust,
+                                   counters)
     dev = sigma.device
     for t, name, dtype in [
         (vouch.voucher, "vouches.voucher", torch.int32),
@@ -215,35 +285,34 @@ def slash_cascade(
         (vouch.active, "vouches.active", torch.bool),
         (vouch.expiry, "vouches.expiry", torch.float32),
         (seeds, "seeds", torch.bool),
-    ]:
+    ] + ([] if counters is None else [(counters, "counters", torch.int32)]):
         _check_operand(t, name, dtype, dev)
-        _require(t.shape[0] == (n if name == "seeds" else e), f"{name}: one entry per row")
+        if name.startswith("vouches."):
+            _require(t.shape[0] == e, f"{name}: one entry per edge")
     _require(sigma.dtype == torch.float32 and sigma.device == dev, "sigma: float32 on the card")
-    out_sigma = sigma.clone(memory_format=torch.contiguous_format)
-    active = vouch.active.clone()
-    wave = seeds.clone()
-    slashed = torch.zeros((n,), dtype=torch.bool, device=dev)
-    clipped = torch.zeros((n,), dtype=torch.bool, device=dev)
-    wave_of = torch.full((n,), -1, dtype=torch.int8, device=dev)
-    k = torch.zeros((n,), dtype=torch.int32, device=dev)
-    has_vouchers = torch.zeros((n,), dtype=torch.bool, device=dev)
+    out_sigma = torch.empty((n,), dtype=torch.float32, device=dev)
+    active = torch.empty((e,), dtype=torch.bool, device=dev)
+    slashed = torch.empty((n,), dtype=torch.bool, device=dev)
+    clipped = torch.empty((n,), dtype=torch.bool, device=dev)
+    wave_of = torch.empty((n,), dtype=torch.int8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    edges = _build.entry("liability", "hv_slash_edges", [_P] * 8 + [_I, _F, _I, _P])
-    agents = _build.entry("liability", "hv_slash_agents", [_P] * 8 + [_I, _I, _I, _F, _F, _I, _P])
+    workspace = _workspace(dev, stream, n)
     factor = factor_table(np.float32(1.0) - np.float32(_f32(risk_weight)), e, dev)
-    floor, wipe, now32, sess = _f32(trust.sigma_floor), wipe_threshold(trust), _f32(now), int(session_slot)
-    for depth in range(trust.max_cascade_depth + 1):
-        err = edges(vouch.voucher.data_ptr(), vouch.vouchee.data_ptr(), vouch.session.data_ptr(),
-                    active.data_ptr(), vouch.expiry.data_ptr(), wave.data_ptr(), k.data_ptr(),
-                    has_vouchers.data_ptr(), sess, now32, e, stream)
-        _build.check("liability", err, "slash_cascade (edges)")
-        slash_cascade.launches += 1
-        err = agents(out_sigma.data_ptr(), wave.data_ptr(), slashed.data_ptr(), clipped.data_ptr(),
-                     wave_of.data_ptr(), k.data_ptr(), has_vouchers.data_ptr(), factor.data_ptr(),
-                     factor.numel(), depth, int(depth == trust.max_cascade_depth), floor, wipe, n,
-                     stream)
-        _build.check("liability", err, "slash_cascade (agents)")
-        slash_cascade.launches += 1
+    fn = _build.entry("liability", "hv_slash_cascade",
+                      [_P] * 7 + [_I] + [_P] * 11 + [_I] * 5 + [_F] * 3 + [_I] * 2 + [_P])
+    with torch.cuda.device(dev):
+        err = fn(
+            vouch.voucher.data_ptr(), vouch.vouchee.data_ptr(), vouch.session.data_ptr(),
+            vouch.active.data_ptr(), vouch.expiry.data_ptr(), seeds.data_ptr(),
+            sigma.data_ptr(), sigma.stride(0) if n else 1, factor.data_ptr(),
+            out_sigma.data_ptr(), active.data_ptr(), slashed.data_ptr(), clipped.data_ptr(),
+            wave_of.data_ptr(), None if counters is None else counters.data_ptr(),
+            *(t.data_ptr() for t in workspace), *TALLY_ROWS, factor.numel(), int(session_slot),
+            trust.max_cascade_depth + 1, _f32(now), _f32(trust.sigma_floor),
+            wipe_threshold(trust), e, n, stream,
+        )
+    _build.check("liability", err, "slash_cascade")
+    slash_cascade.launches += 1
     return out_sigma, active, slashed, clipped, wave_of
 
 

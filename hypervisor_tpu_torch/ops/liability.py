@@ -17,9 +17,7 @@ from typing import NamedTuple
 import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
-from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.observability import tracing
-from hypervisor_tpu_torch.tables import metrics as metrics_ops
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import VouchTable
 from hypervisor_tpu_torch.tables.struct import replace
@@ -94,13 +92,11 @@ def slash_cascade(
     from hypervisor_tpu_torch.kernels import liability as liability_kernels
 
     n = sigma.shape[0]
+    # B8 books the SLASHED and CLIPPED tallies into the counters itself
+    # (in the kernel on CUDA, in its plain version on the CPU).
     new_sigma, active, slashed, clipped, wave_of = liability_kernels.slash_cascade(
-        vouch, sigma, seeds, session_slot, risk_weight, now, trust)
-    if metrics is not None:
-        metrics_ops.counter_add_many(
-            metrics, (schema.SLASHED.index, schema.CLIPPED.index),
-            (slashed.sum(), clipped.sum()),
-        )
+        vouch, sigma, seeds, session_slot, risk_weight, now, trust,
+        counters=None if metrics is None else metrics.counters)
     if trace is not None:
         stamps = tracing.WaveStamps(trace_ctx, "slash_cascade")
         stamps.begin("slash_cascade", lane=n)

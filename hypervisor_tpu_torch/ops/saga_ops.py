@@ -15,11 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.ops.bits import matrix_bits_valid, pack_matrix_bits
 from hypervisor_tpu_torch.saga.state_machine import SAGA_TRANSITION_MATRIX, STEP_TRANSITION_MATRIX
-from hypervisor_tpu_torch.tables import metrics as metrics_ops
 
 _STEP_BITS = pack_matrix_bits(STEP_TRANSITION_MATRIX)
 _SAGA_BITS = pack_matrix_bits(SAGA_TRANSITION_MATRIX)
@@ -177,34 +175,25 @@ def saga_table_tick(
     """
     from hypervisor_tpu_torch.kernels import saga as saga_kernels
 
-    committed, exhausted = saga_kernels.saga_tick_block(
-        step_state, retries_left, has_undo, saga_state, n_steps, cursor, outcomes
+    # B7 books the committed / exhausted step tallies into the counters
+    # itself (in the kernel on CUDA, in its plain version on the CPU).
+    saga_kernels.saga_tick_block(
+        step_state, retries_left, has_undo, saga_state, n_steps, cursor, outcomes,
+        counters=None if metrics is None else metrics.counters,
     )
     return _saga_tick_tail(
-        step_state, retries_left, saga_state, cursor, committed, exhausted,
-        step_state.shape[0], metrics, trace, trace_ctx,
+        step_state, retries_left, saga_state, cursor, step_state.shape[0], metrics, trace,
+        trace_ctx,
     )
 
 
-def _saga_tick_tail(
-    step_state, retries_left, saga_state, cursor, committed, exhausted,
-    g, metrics, trace, trace_ctx,
-):
-    """The saga round's metrics and trace booking: the hv.saga_round
-    stamps, and the committed / exhausted step tallies (device sums, no
-    host transfer)."""
+def _saga_tick_tail(step_state, retries_left, saga_state, cursor, g, metrics, trace, trace_ctx):
+    """The saga round's trace booking: the hv.saga_round stamps."""
     if trace is not None:
         stamps = tracing.WaveStamps(trace_ctx, "saga_round")
         stamps.begin("saga_round", lane=g)
         stamps.end("saga_round", lane=g)
         trace = stamps.commit(trace)
-    if metrics is None:
-        return step_state, retries_left, saga_state, cursor, None, trace
-    metrics_ops.counter_add_many(
-        metrics,
-        (schema.SAGA_STEPS_COMMITTED.index, schema.SAGA_STEPS_FAILED.index),
-        (committed.sum(), exhausted.sum()),
-    )
     return step_state, retries_left, saga_state, cursor, metrics, trace
 
 

@@ -56,13 +56,20 @@ def counter_add_many(
     tensors on the table's device, so no host transfer or host sync
     happens here. Duplicate indices accumulate, as in the reference.
     """
-    delta = torch.zeros(m.counters.shape, dtype=torch.int64, device=m.counters.device)
+    counters_add(m.counters, indices, values)
+
+
+def counters_add(
+    counters: torch.Tensor, indices: Sequence[int], values: Sequence
+) -> None:
+    """`counter_add_many` on a bare counter column (u32 bits in int32)."""
+    delta = torch.zeros(counters.shape, dtype=torch.int64, device=counters.device)
     for idx, v in zip(indices, values):
         if isinstance(v, torch.Tensor):
             delta[idx] += v.to(torch.int64).reshape(())
         else:
             delta[idx] += int(v)
-    m.counters.copy_(u32.add_u32(m.counters, delta))
+    counters.copy_(u32.add_u32(counters, delta))
 
 
 def observe(m: MetricsTable, hist_idx: int, values: torch.Tensor) -> None:

@@ -5,7 +5,10 @@
   against the unarmed `ops.saga_ops.saga_table_tick(wave_kernels=False)`
   (with its metrics tallies and trace stamps) on random tables in every
   step and saga code, cursors at, below and past `n_steps`, and random
-  outcome and dispatch masks; and once at the default 8,192 x 16.
+  outcome and dispatch masks; and once at the default 8,192 x 16. The
+  plain version's SAGA_STEPS_* tallies, and the whole metrics table the
+  tick leaves, equal the reference's from counters seeded at 0xFFFFFFF0
+  (the u32 wrap).
 * The transition bits, the compensation and settle passes, the fan-out
   policy check and round, and the DSL parser against the reference's.
 * One seeded sequence through `SagaScheduler` on the JAX package's
@@ -158,8 +161,75 @@ def test_tick_matches_reference_xla_tick(m, seed):
     against the reference's unarmed tick: columns, tallies and stamps."""
     pm = _tick_against_reference(_random_table(np.random.RandomState(100 * m + seed), 257, m))
     counters = pm.counters.numpy()
-    assert counters[saga_ops.schema.SAGA_STEPS_COMMITTED.index] > 0
-    assert counters[saga_ops.schema.SAGA_STEPS_FAILED.index] > 0
+    assert counters[saga_kernels.schema.SAGA_STEPS_COMMITTED.index] > 0
+    assert counters[saga_kernels.schema.SAGA_STEPS_FAILED.index] > 0
+
+
+COUNTER_SEED = 0xFFFFFFF0  # the round's tallies wrap the u32 rows past 2^32
+
+
+def _seeded_counters(rows) -> np.ndarray:
+    c = np.zeros(jax_schema.REGISTRY.counts()[0], np.uint32)
+    c[list(rows)] = COUNTER_SEED
+    return c
+
+
+def _table_bytes(m) -> dict:
+    return {k: np.asarray(getattr(m, k)).tobytes() for k in ("counters", "gauges", "hist",
+                                                               "hist_sum", "bounds")}
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_plain_tick_books_the_reference_tallies_through_the_wrap(m):
+    """B7's plain version adds the committed and exhausted counts to the
+    counter column it is given, rows SAGA_STEPS_COMMITTED and
+    SAGA_STEPS_FAILED, wrapping at 2^32 as the reference's u32 rows do."""
+    t = _random_table(np.random.RandomState(40 + m), 1000, m)
+    rows = saga_kernels.TALLY_ROWS
+    seeded = _seeded_counters(rows)
+    jm = jax_metrics.MetricsTable.create(*jax_schema.REGISTRY.counts(),
+                                         jax_schema.DEFAULT_BUCKET_BOUNDS_US)
+    jm = jax_replace(jm, counters=jnp.asarray(seeded))
+    out = jax_saga_ops.saga_table_tick(
+        *(jnp.asarray(t[k]) for k in ("step_state", "retries_left", "has_undo", "saga_state",
+                                      "n_steps", "cursor")),
+        *(jnp.asarray(x) for x in t["masks"]), metrics=jm, wave_kernels=False)
+    cols = {k: torch.from_numpy(np.array(t[k], copy=True)) for k in (
+        "step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")}
+    counters = torch.from_numpy(seeded.view(np.int32).copy())
+    committed, exhausted = saga_kernels.saga_tick_block_plain(
+        *cols.values(), torch.from_numpy(saga_ops.pack_outcomes(*t["masks"])), counters)
+    want = np.asarray(out[4].counters)
+    assert counters.numpy().view(np.uint32).tobytes() == want.tobytes()
+    assert want[list(rows)].tolist() == [(COUNTER_SEED + int(committed.sum())) % 2**32,
+                                         (COUNTER_SEED + int(exhausted.sum())) % 2**32]
+    assert (want[list(rows)] < COUNTER_SEED).all()  # both rows wrapped
+
+
+def test_tick_from_wrapping_counters_leaves_the_reference_metrics_table():
+    """`ops.saga_ops.saga_table_tick` on CPU tensors, the tally rows seeded
+    near 2^32: the whole metrics table byte-identical to the reference's."""
+    t = _random_table(np.random.RandomState(9), 1000, 16)
+    seeded = _seeded_counters(saga_kernels.TALLY_ROWS)
+    jm = jax_metrics.MetricsTable.create(*jax_schema.REGISTRY.counts(),
+                                         jax_schema.DEFAULT_BUCKET_BOUNDS_US)
+    jm = jax_replace(jm, counters=jnp.asarray(seeded))
+    out = jax_saga_ops.saga_table_tick(
+        *(jnp.asarray(t[k]) for k in ("step_state", "retries_left", "has_undo", "saga_state",
+                                      "n_steps", "cursor")),
+        *(jnp.asarray(x) for x in t["masks"]), metrics=jm, wave_kernels=False)
+    pm = PortMetrics.create(device="cpu")
+    pm.counters.copy_(torch.from_numpy(seeded.view(np.int32)))
+    cols = {k: torch.from_numpy(np.array(t[k], copy=True)) for k in (
+        "step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")}
+    got = saga_ops.saga_table_tick(*cols.values(),
+                                   torch.from_numpy(saga_ops.pack_outcomes(*t["masks"])),
+                                   metrics=pm)
+    assert got[4] is pm
+    port = _table_bytes(pm)
+    port["counters"] = pm.counters.numpy().view(np.uint32).tobytes()
+    port["hist"] = pm.hist.numpy().view(np.uint32).tobytes()
+    assert port == _table_bytes(out[4])
 
 
 def test_tick_at_default_size_matches_reference():

@@ -9,6 +9,9 @@
   8,192 edges; and against the kernel's dense matmul twin
   `slash_cascade_dense`, also with tolerance 0 on sigma (the reference
   holds its own twin to rtol 1e-5; on these graphs the bits agree).
+* The plain version's SLASHED / CLIPPED tallies, and the whole metrics
+  table `ops.liability.slash_cascade` leaves, equal the reference's from
+  counters seeded at 0xFFFFFFF0 (the u32 wrap).
 * The clip factor (the host libm's powf, subnormals flushed, tabled per
   omega) against the reference's `jnp.power` over a 4,001-point omega
   grid at k = 0..64, at k up to 65,536 and in the clipped sigma; the
@@ -33,15 +36,18 @@ import torch
 
 from hypervisor_tpu import config as jax_config
 from hypervisor_tpu.kernels.liability_pallas import slash_cascade_dense
+from hypervisor_tpu.observability import metrics as jax_schema
 from hypervisor_tpu.ops.liability import slash_cascade as jax_slash_cascade
 from hypervisor_tpu.runtime.checkpoint import state_arrays
 from hypervisor_tpu.state import HypervisorState as JaxState
+from hypervisor_tpu.tables import metrics as jax_metrics
 from hypervisor_tpu.tables.struct import replace as jax_replace
 from hypervisor_tpu_torch import config as port_config
 from hypervisor_tpu_torch import tables as port_tables
 from hypervisor_tpu_torch.kernels import liability as liability_kernels
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.state import HypervisorState as PortState
+from hypervisor_tpu_torch.tables.metrics import MetricsTable as PortMetrics
 from hypervisor_tpu_torch.tables.state import AF32_SIGMA_EFF, AI32_FLAGS, VouchTable
 from tests.parity.test_liability_pallas import random_graph
 
@@ -204,6 +210,60 @@ def test_cascade_entry_books_metrics_and_leaves_inputs_alone():
     assert torch.equal(pv.active, before) and torch.equal(sig, torch.from_numpy(np.array(sigma)))
     assert res.metrics is None and res.trace is None
     assert int(res.slashed.sum()) > 0 and not torch.equal(res.vouch.active, before)
+
+
+COUNTER_SEED = 0xFFFFFFF0  # the cascade's tallies wrap the u32 rows past 2^32
+
+
+def _seeded_reference_metrics():
+    """The reference's metrics table, SLASHED and CLIPPED seeded near 2^32;
+    and those counters as the port's int32 bits."""
+    seeded = np.zeros(jax_schema.REGISTRY.counts()[0], np.uint32)
+    seeded[list(liability_kernels.TALLY_ROWS)] = COUNTER_SEED
+    jm = jax_metrics.MetricsTable.create(*jax_schema.REGISTRY.counts(),
+                                         jax_schema.DEFAULT_BUCKET_BOUNDS_US)
+    return jax_replace(jm, counters=jnp.asarray(seeded)), torch.from_numpy(seeded.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 4])
+def test_plain_books_the_reference_tallies_through_the_wrap(seed):
+    """B8's plain version adds the slashed and clipped counts to the
+    counter column it is given, rows SLASHED and CLIPPED, wrapping at
+    2^32 as the reference's u32 rows do."""
+    sessions = 1 + seed % 3
+    v, sigma, seeds = random_graph(seed=seed, sessions=sessions)
+    jm, counters = _seeded_reference_metrics()
+    res = jax_slash_cascade(v, sigma, seeds, seed % sessions, 0.95, 0.0, metrics=jm)
+    counters = counters.clone()
+    got = liability_kernels.slash_cascade_plain(
+        _port_vouches(v), torch.from_numpy(np.array(sigma)), torch.from_numpy(np.array(seeds)),
+        seed % sessions, 0.95, 0.0, counters=counters)
+    _assert_bits(got, _reference_cols(res), f"seed {seed}")
+    want = np.asarray(res.metrics.counters)
+    assert counters.numpy().view(np.uint32).tobytes() == want.tobytes()
+    rows = list(liability_kernels.TALLY_ROWS)
+    assert want[rows].tolist() == [(COUNTER_SEED + int(got[2].sum())) % 2**32,
+                                   (COUNTER_SEED + int(got[3].sum())) % 2**32]
+    assert (want[rows] < COUNTER_SEED).all()  # both rows wrapped
+
+
+def test_cascade_from_wrapping_counters_leaves_the_reference_metrics_table():
+    """`ops.liability.slash_cascade` on CPU tensors, SLASHED and CLIPPED
+    seeded near 2^32: the whole metrics table byte-identical to the
+    reference's."""
+    v, sigma, seeds = random_graph(seed=6, n_agents=10_000, n_edges=8192)
+    jm, counters = _seeded_reference_metrics()
+    res = jax_slash_cascade(v, sigma, seeds, 0, 0.95, 0.0, metrics=jm)
+    pm = PortMetrics.create(device="cpu")
+    pm.counters.copy_(counters)
+    got = liability_ops.slash_cascade(_port_vouches(v), torch.from_numpy(np.array(sigma)),
+                                      torch.from_numpy(np.array(seeds)), 0, 0.95, 0.0,
+                                      metrics=pm)
+    assert got.metrics is pm
+    for name in ("counters", "gauges", "hist", "hist_sum", "bounds"):
+        port = getattr(pm, name).numpy()
+        want = np.asarray(getattr(res.metrics, name))
+        assert port.view(want.dtype).tobytes() == want.tobytes(), name
 
 
 # ── the facade ───────────────────────────────────────────────────────
