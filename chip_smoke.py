@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's governance wave, its facade, the saga
-plane and the slash cascade on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's governance wave, its facade (all eight
+phases: the action gateway and the gauge epilogue too), the sanitizer,
+the saga plane and the slash cascade on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -49,9 +50,11 @@ Phases, one JSON line each:
    and full sessions, and four joins a session; B5 at the wave's
    sessions, lanes, edges and agents in the range form and the
    membership-mask form, on the wave's arange (where the two forms must
-   agree) and on 10,000 sessions scattered over the table; B6, the DeltaLog ring
-   append, at the facade's shape (30,000 rows into 65,536, wrapping),
-   unpadded and with a short live prefix; B1, the batched hash, on
+   agree) and on 10,000 sessions scattered over the table; B2's ring
+   form (B6's DeltaLog append in B2's launch) at the facade's shape
+   (30,000 rows into 65,536, wrapping), at 10,000 and 10,240 sessions
+   (the padded bucket's live prefix) and with no live row, against the
+   plain pair, B2 without the ring and itself; B1, the batched hash, on
    30,000 messages of 2 and 3 blocks, a scrubber strip, and 1, 31, 32,
    33, 4,096 and 30,000 messages of 1-4 blocks (5 and 9 at two counts),
    each call twice and against hashlib on samples, and a 8,192-leaf
@@ -78,22 +81,30 @@ Phases, one JSON line each:
    card, which must give identical tables, outputs and counters;
 6. facade: the lifecycle wave through `HypervisorState.
    run_governance_wave` at bench.py's widths on a fresh state (65,536
-   DeltaLog rows, 32,768 sessions, 24,576 agents): three waves, the
-   second padded to a 10,240 bucket, the third wrapping the ring over
+   DeltaLog rows, 32,768 sessions, 34,576 agents, 10,000 of them
+   standing actors with eight sudo grants): three waves, each with the
+   actors' 10,000 actions through the gateway (bench_suite's
+   `action_gateway_10k` mix) and the gauge epilogue over every table,
+   the second padded to a 10,240 bucket, the third wrapping the ring over
    the first's archived sessions and recycling agent rows; then
    `flush_deltas` on standing sessions, a full `MerkleScrubber` sweep,
    chain verification, `terminate_sessions` and a 8,192-leaf tree. Each
    path's kernels are counted in its own window (launch counts set to 0
    just before, read just after). bench.py's gates and hashlib on two
    lanes per wave, the host cursor mirrors against the device; then the
-   same sequence on the CPU, which must give identical tables, DeltaLog,
-   metrics, trace words, audit index, frontier roots, scrubber reports
-   and roots;
+   same sequence on the CPU, which must give identical verdict lanes,
+   tables (elevations and event log too), DeltaLog, metrics (the gauges
+   too), trace words, audit index, frontier roots, scrubber reports and
+   roots;
    then one lifecycle wave on a scattered layout (12,000 sessions, 1,000
    terminated and 1,000 left standing with a member and a bond between
    the wave's 10,000, which come shuffled and padded to the bucket):
    every kernel once, the standing sessions untouched, and the same
-   wave on the CPU identical;
+   wave on the CPU identical; then one `ops.pipeline.governance_wave`
+   with all eight phases and the sanitizer on, on a fresh facade state
+   with four rows corrupted (phase `sanitized_wave`): the sanitizer flags
+   exactly those four, the escrow is the contribution kernel's second
+   launch, and the CPU run is identical (masks, verdicts, tables);
 7. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
    a fresh state, filled with 5-step sagas whose seeded executors commit
    cleanly, retry then commit, or exhaust into compensation with and
@@ -114,9 +125,10 @@ Phases, one JSON line each:
    time; one wave under torch's sync debug mode "error" (no host
    synchronisation inside the wave); one profiled wave (device time by
    kernel, the device's idle share; admission must be one launch of its
-   unique form); the facade wave's p50/p95, each on
-   a fresh state, with the host split into staging, dispatch and audit
-   booking, and its device time; one scrubber sweep's time; the saga
+   unique form); the facade wave's p50/p95 with its 10,000 actions, each
+   on a fresh state, with the host split into staging, dispatch, the
+   gateway's and the epilogue's enqueue and audit booking, and its
+   device time and device ops; one scrubber sweep's time; the saga
    round's p50/p95 at 8,192 sagas (the table restored between samples)
    with its host split and device time; `apply_slash`'s p50/p95 and
    device time; every device op of one saga round, one `apply_slash`
@@ -222,11 +234,19 @@ def instr_per_message(n_blocks: int) -> int:
     return (sha256_instructions([V] * 16, [C] * 8)
             + (n_blocks - 1) * sha256_instructions([V] * 16, [V] * 8))
 
-#: The facade's fresh state: the reference's DeltaLog and TraceLog sizes,
-#: room for three waves of sessions plus a padded bucket, and agent rows
-#: that run out during the third wave (its tail recycles the free list).
-FACADE_CAPACITY = dict(max_agents=24_576, max_sessions=32_768, max_vouch_edges=65_536,
-                       delta_log_capacity=65_536, trace_log_capacity=8_192)
+#: The facade's standing agents, the actors of its 10,000 actions a wave
+#: (bench_suite's `action_gateway_10k`: ring 2, 40 tokens, uniform slots,
+#: 10% ring-0 probes), and their sudo grants: four to ring 1 that lapse
+#: after the first wave, four to ring 0 that hold.
+N_ACTORS = N_ACTIONS = 10_000
+ACTOR_GRANTS = ((1, 1.5),) * 4 + ((0, 1e6),) * 4
+#: The facade's fresh state: the reference's DeltaLog, TraceLog, EventLog
+#: and ElevationTable sizes, room for three waves of sessions plus a
+#: padded bucket, and agent rows for the actors plus rows that run out
+#: during the third wave (its tail recycles the free list).
+FACADE_CAPACITY = dict(max_agents=24_576 + N_ACTORS, max_sessions=32_768,
+                       max_vouch_edges=65_536, delta_log_capacity=65_536,
+                       trace_log_capacity=8_192)
 FACADE_BUCKET = 10_240
 N_STANDING, DELTAS_PER_STANDING = 13, 5
 SCRUB_BUDGET = 4_096
@@ -282,10 +302,12 @@ CRITICAL_OPS_PER_ROUND = 4
 #: B3 timed beside the wave's shape on full trees of about 640,000 leaves
 #: in all, on each side of the packed kernel's switch: (P, sessions).
 TREE_TIMING_SHAPES = ((64, 10_000), (4096, 156))
-#: Each path's kernels, for its launch-count window.
+#: Each path's kernels, for its launch-count window: the facade's waves
+#: carry the DeltaLog, so B2 runs in its ring form there.
 OP_WAVE_KERNELS = ("contribution_toward", "chain_digests", "tree_roots", "admission_block",
                    "fsm_saga_block")
-FACADE_WAVE_KERNELS = OP_WAVE_KERNELS + ("ring_append",)
+FACADE_WAVE_KERNELS = ("contribution_toward", "chain_digests_ring", "tree_roots",
+                       "admission_block", "fsm_saga_block")
 
 TPU_KERNELS = {
     "contribution_toward": "hypervisor_tpu/ops/liability.py:93",  # an XLA scatter, not Pallas
@@ -293,7 +315,7 @@ TPU_KERNELS = {
     "tree_roots": "hypervisor_tpu/kernels/mtu_pallas.py:237",
     "admission_block": "hypervisor_tpu/kernels/wave_pallas.py:1318",
     "fsm_saga_block": "hypervisor_tpu/kernels/wave_pallas.py:1441",
-    "ring_append": "hypervisor_tpu/kernels/wave_pallas.py:1528",
+    "chain_digests_ring": "hypervisor_tpu/kernels/wave_pallas.py:1528",  # B6, in B2's launch
     "sha256_words": "hypervisor_tpu/kernels/sha256_pallas.py:118",
     "saga_tick_block": "hypervisor_tpu/kernels/wave_pallas.py:1657",
     "slash_cascade": "hypervisor_tpu/kernels/liability_pallas.py:113,130",
@@ -304,14 +326,16 @@ SOURCES = {
     "tree_roots": "hypervisor_tpu_torch/csrc/mtu.cu",
     "admission_block": "hypervisor_tpu_torch/csrc/wave.cu",
     "fsm_saga_block": "hypervisor_tpu_torch/csrc/wave.cu",
-    "ring_append": "hypervisor_tpu_torch/csrc/wave.cu",
+    "chain_digests_ring": "hypervisor_tpu_torch/csrc/mtu.cu",
     "sha256_words": "hypervisor_tpu_torch/csrc/sha256.cu",
     "saga_tick_block": "hypervisor_tpu_torch/csrc/saga.cu",
     "slash_cascade": "hypervisor_tpu_torch/csrc/liability.cu",
 }
-#: The path whose launch window a kernel row reports.
-ROW_PATH = {"sha256_words": "scrubber", "saga_tick_block": "saga_path",
-            "slash_cascade": "slash_path"}
+#: The path whose launch window a kernel row reports (the facade waves
+#: otherwise): B2 without the ring runs on bench.py's op wave, which
+#: carries no DeltaLog.
+ROW_PATH = {"chain_digests": "op_wave", "sha256_words": "scrubber",
+            "saga_tick_block": "saga_path", "slash_cascade": "slash_path"}
 
 
 #: SASS opcodes of a compression: the integer pipe's shifts, 3-input
@@ -401,18 +425,64 @@ def check_bench_gates(result, bodies, tag: str) -> None:
 
 
 def facade_state(device):
-    """A fresh facade state of `FACADE_CAPACITY` on `device`."""
+    """A fresh facade state of `FACADE_CAPACITY` on `device`, with its
+    standing actors and their grants (`place_actors`)."""
     from hypervisor_tpu_torch.config import HypervisorConfig, TableCapacity
     from hypervisor_tpu_torch.state import HypervisorState
 
-    return HypervisorState(HypervisorConfig(capacity=TableCapacity(**FACADE_CAPACITY)), device=device)
+    state = HypervisorState(HypervisorConfig(capacity=TableCapacity(**FACADE_CAPACITY)),
+                            device=device)
+    place_actors(state)
+    return state
+
+
+def place_actors(state) -> None:
+    """`N_ACTORS` standing members of one session, on rows claimed through
+    the state's row allocator (no wave takes them): ring 2, sigma 0.8, 40
+    tokens; and `ACTOR_GRANTS` on the first of them."""
+    import torch
+
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.tables.state import (
+        AF32_RL_TOKENS, AF32_SIGMA_EFF, AF32_SIGMA_RAW, AI32_DID, AI32_FLAGS, AI32_SESSION,
+        FLAG_ACTIVE, SI32_NPART)
+
+    dev = state.device
+    session = state.create_session("facade:actors", SessionConfig(max_participants=N_ACTORS),
+                                   now=0.0)
+    rows = torch.from_numpy(state._claim_wave_rows(N_ACTORS).astype(np.int64)).to(dev)
+    handles = np.array([state.agent_ids.intern(f"did:actor:{i}") for i in range(N_ACTORS)],
+                       np.int32)
+    a = state.agents
+    a.i32[rows, AI32_DID] = torch.from_numpy(handles).to(dev)
+    a.i32[rows, AI32_SESSION] = session
+    a.i32[rows, AI32_FLAGS] = FLAG_ACTIVE
+    a.ring[rows] = 2
+    for col in (AF32_SIGMA_RAW, AF32_SIGMA_EFF):
+        a.f32[rows, col] = 0.8
+    a.f32[rows, AF32_RL_TOKENS] = 40.0
+    state.sessions.i32[session, SI32_NPART] = N_ACTORS
+    state.actor_rows = rows.cpu().numpy()
+    e, g = state.elevations, len(ACTOR_GRANTS)
+    e.agent[:g] = rows[:g].to(torch.int32)
+    e.granted_ring[:g] = torch.tensor([r for r, _ in ACTOR_GRANTS], dtype=torch.int8).to(dev)
+    e.expires_at[:g] = torch.tensor([t for _, t in ACTOR_GRANTS], dtype=torch.float32).to(dev)
+    e.active[:g] = True
+
+
+def facade_actions(state, rng) -> dict:
+    """One wave's `N_ACTIONS` actions by the standing actors: uniform
+    slots (about 2x duplicates), 10% ring-0 probes, the rest ring 2."""
+    return {"slots": state.actor_rows[rng.randint(0, N_ACTORS, N_ACTIONS)],
+            "required_rings": np.where(rng.uniform(size=N_ACTIONS) < 0.1, 0, 2)}
 
 
 def prepare_facade_wave(state, rng, w: int):
     """Wave w's 10,000 sessions, created on the state, and its inputs at
     bench.py's widths: 1,000 vouch edges (bond 0.30) toward the agent rows
     the wave's first lanes will claim (the bump allocator's next rows),
-    sigma 0.5 on those lanes and 0.8 on the rest, random delta bodies."""
+    sigma 0.5 on those lanes and 0.8 on the rest, random delta bodies,
+    and the actors' 10,000 actions."""
     import torch
 
     from hypervisor_tpu_torch.models import SessionConfig
@@ -431,7 +501,27 @@ def prepare_facade_wave(state, rng, w: int):
     sigma = np.full(N_SESSIONS, 0.8, np.float32)
     sigma[:N_VOUCHED] = 0.50
     bodies = rng.randint(0, 2**32, (N_DELTAS, N_SESSIONS, 16), dtype=np.uint64).astype(np.uint32)
-    return slots, [f"did:facade:w{w}:{i}" for i in range(N_SESSIONS)], sigma, bodies
+    return (slots, [f"did:facade:w{w}:{i}" for i in range(N_SESSIONS)], sigma, bodies,
+            facade_actions(state, rng))
+
+
+GATEWAY_LANES = ("verdict", "ring_status", "eff_ring", "sigma_eff", "severity", "anomaly_rate",
+                 "window_calls", "tripped")
+SANITIZER_MASKS = ("agent_mask", "session_mask", "vouch_mask", "saga_mask", "elev_mask",
+                   "log_mask")
+
+
+def all_tables(state) -> dict:
+    """Every device table of a state as the reference's state arrays,
+    metrics and trace words included."""
+    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
+
+    out = to_state_arrays(StateTables(
+        state.agents, state.sessions, state.vouches, state.metrics, state.delta_log,
+        state.sagas, state.elevations, state.event_log))
+    # A copy: on the CPU, .cpu() returns the live table itself.
+    out["trace.words"] = state.tracer.table.words.cpu().numpy().copy()
+    return out
 
 
 def run_facade_sequence(device):
@@ -445,7 +535,6 @@ def run_facade_sequence(device):
     from hypervisor_tpu_torch.models import SessionConfig
     from hypervisor_tpu_torch.ops import merkle
     from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
-    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
 
     rec, windows = {}, {}
 
@@ -462,23 +551,30 @@ def run_facade_sequence(device):
         def waves():
             out = []
             for w in range(3):
-                slots, dids, sigma, bodies = prepare_facade_wave(state, rng, w)
-                res = state.run_governance_wave(
-                    slots, dids, slots, sigma, bodies, now=float(w),
+                slots, dids, sigma, bodies, actions = prepare_facade_wave(state, rng, w)
+                res, gw = state.run_governance_wave(
+                    slots, dids, slots, sigma, bodies, now=float(w), actions=actions,
                     pad_to=(FACADE_BUCKET, FACADE_BUCKET) if w == 1 else None)
                 check_bench_gates(res, bodies, f"facade wave {w}")
-                out.append((slots, res))
+                out.append((slots, res, gw, all_tables(state)))
             return out
 
         wave_out = window("facade_waves", waves)
-        for w, (_, res) in enumerate(wave_out):
+        for w, (_, res, gw, tables_w) in enumerate(wave_out):
             rec[f"wave{w}"] = {
                 f: getattr(res, f).cpu().numpy()
                 for f in ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")
             }
             rec[f"wave{w}"].update(chain=u32.to_numpy_u32(res.chain),
                                    merkle_root=u32.to_numpy_u32(res.merkle_root),
-                                   released=int(res.released))
+                                   released=int(res.released),
+                                   gateway={f: getattr(gw, f).cpu().numpy().copy()
+                                            for f in GATEWAY_LANES},
+                                   tables=tables_w)
+            verdicts = rec[f"wave{w}"]["gateway"]["verdict"]
+            require(verdicts.shape == (N_ACTIONS,) and (verdicts == 0).any()
+                    and (verdicts == 3).any(),
+                    f"facade wave {w}: the gateway must allow and refuse actions")
         standing = [state.create_session(f"facade:standing:{i}", SessionConfig(), now=5.0)
                     for i in range(N_STANDING)]
         for j in range(DELTAS_PER_STANDING):
@@ -516,9 +612,7 @@ def run_facade_sequence(device):
         require(state._delta_cursor == int(state.delta_log.cursor)
                 and state.tracer.cursor == int(state.tracer.table.cursor),
                 "the host cursor mirrors disagree with the device")
-        rec["tables"] = to_state_arrays(StateTables(
-            state.agents, state.sessions, state.vouches, state.metrics, state.delta_log))
-        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+        rec["tables"] = all_tables(state)
         rec["host"] = {
             "audit_rows": state._audit_rows, "turns": state._turns,
             "chain_seed": {s: v.tolist() for s, v in state._chain_seed.items()},
@@ -541,7 +635,6 @@ def run_scattered_facade(device):
 
     from hypervisor_tpu_torch import kernels, u32
     from hypervisor_tpu_torch.models import SessionConfig
-    from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
     from hypervisor_tpu_torch.tables.state import AI32_FLAGS, AI32_SESSION, FLAG_ACTIVE
 
     with counted_trace_ids():
@@ -590,12 +683,65 @@ def run_scattered_facade(device):
                for f in ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")}
         rec.update(chain=u32.to_numpy_u32(res.chain), merkle_root=u32.to_numpy_u32(res.merkle_root),
                    released=int(res.released))
-        rec["tables"] = to_state_arrays(StateTables(
-            state.agents, state.sessions, state.vouches, state.metrics, state.delta_log))
-        rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
+        rec["tables"] = all_tables(state)
         rec["host"] = {"audit_rows": state._audit_rows, "members": sorted(state._members),
                        "frontier_roots": {s: f.root_hex() for s, f in state._frontier.items()},
                        "free_agent_slots": state._free_agent_slots}
+    return rec, launches
+
+
+def run_sanitized_wave(device):
+    """One governance wave through `ops.pipeline.governance_wave` with all
+    eight phases and the sanitizer on, on a fresh facade state: 10,000
+    sessions, the actors' 10,000 actions, the DeltaLog, the epilogue
+    over every table. Four rows are corrupted first (a flags word, a
+    session's seat count, a bond, a grant's holder), so the sanitizer's
+    masks have something to find. Returns (record, launches)."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels, u32
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.ops import pipeline
+    from hypervisor_tpu_torch.tables.state import AI32_FLAGS, SI32_NPART
+
+    with counted_trace_ids():
+        state = facade_state(device)
+        rng = np.random.RandomState(SEED + 12)
+        crowded = state.create_session("facade:crowded", SessionConfig(), now=0.0)
+        slots, dids, sigma, bodies, actions = prepare_facade_wave(state, rng, 0)
+        actor0 = int(state.actor_rows[0])
+        state.agents.i32[actor0, AI32_FLAGS] |= 1 << 9
+        state.sessions.i32[crowded, SI32_NPART] = 99
+        state.vouches.bond[N_VOUCHED + 3] = -1.0
+        state.vouches.active[N_VOUCHED + 3] = True
+        state.elevations.agent[len(ACTOR_GRANTS) - 1] = 10**6
+        lanes = state.stage_wave(state._claim_wave_rows(N_SESSIONS), dids, slots, sigma, bodies)
+        act = state._normalize_actions(actions)
+        gateway_args = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(state.device)
+                             for c in state._pad_gateway_lanes(act))
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = pipeline.governance_wave(
+            **lanes, trace=None, delta_log=state.delta_log, delta_cursor=state._delta_cursor,
+            elevations=state.elevations, gateway_args=gateway_args,
+            breach=state.config.breach, rate_limit=state.config.rate_limit,
+            epilogue_tables=(state.sagas, state.event_log), sanitize=True, config=state.config)
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_bench_gates(res, bodies, "sanitized wave")
+        san = res.sanitizer
+        rec = {f: getattr(san, f).cpu().numpy() for f in SANITIZER_MASKS}
+        rec.update(total=int(san.total), unrepairable=int(san.unrepairable),
+                   gateway={f: getattr(res.gateway, f)[:N_ACTIONS].cpu().numpy()
+                            for f in GATEWAY_LANES},
+                   chain=u32.to_numpy_u32(res.chain), tables=all_tables(state))
+        require(rec["agent_mask"][actor0] and rec["session_mask"][crowded]
+                and rec["vouch_mask"][N_VOUCHED + 3] and rec["elev_mask"][len(ACTOR_GRANTS) - 1]
+                and rec["total"] == 4 and rec["unrepairable"] == 0,
+                f"sanitized wave: the sanitizer must flag the four corrupted rows "
+                f"(total {rec['total']}, unrepairable {rec['unrepairable']})")
     return rec, launches
 
 
@@ -1432,9 +1578,13 @@ def main(argv=None) -> int:
          edges=int(state.vouches.active.shape[0]), agents=n_cap, forms=sorted(fsm_forms),
          released=released_by_form, mask_equals_range_on_arange=True, bit_exact=True,
          max_abs_err=err_b5)
-    # B6: the DeltaLog ring append at the facade's shape, 30,000 rows into
-    # 65,536 from a cursor that makes the append wrap; unpadded, then a
-    # padded 10,240-session bucket whose live prefix is the 30,000 rows.
+    # B2's ring form (B6's work): the chain and the DeltaLog append at the
+    # facade's shape, 30,000 rows into 65,536 from a cursor that makes the
+    # append wrap; unpadded, then a padded 10,240-session bucket whose
+    # live prefix is the 30,000 rows, then no live row at all. Held against
+    # the plain pair (B2's and B6's plain versions) and, for the chain,
+    # against B2's plain form (the kernel without the ring), each ring form
+    # called twice from the same ring.
     c_ring = FACADE_CAPACITY["delta_log_capacity"]
     ring_cursor = 50_000
     n_rows = N_DELTAS * N_SESSIONS
@@ -1448,23 +1598,33 @@ def main(argv=None) -> int:
         log.cursor.fill_(ring_cursor)
         return log
 
-    err_b6, b6_inputs = 0.0, {}
-    for k_lanes in (N_SESSIONS, FACADE_BUCKET):
-        args = (random_words(N_DELTAS, k_lanes, 16), random_words(N_DELTAS, k_lanes, 8),
+    err_ring, ring_inputs = 0.0, {}
+    for k_lanes, n_live in ((N_SESSIONS, n_rows), (FACADE_BUCKET, n_rows), (N_SESSIONS, 0)):
+        args = (random_words(N_DELTAS, k_lanes, 16),
+                torch.zeros((k_lanes, 8), dtype=torch.int32, device=dev), None,
                 torch.arange(20_000, 20_000 + k_lanes, dtype=torch.int32, device=dev),
-                ring_cursor, n_rows)
+                ring_cursor, n_live)
         base_ring = random_ring()
-        got_ring, want_ring = clone(base_ring), clone(base_ring)
-        wave.ring_append(got_ring, *args)
-        wave.ring_append_plain(want_ring, *args)
-        err_b6 = max(err_b6, check_pairs(f"ring_append K={k_lanes}",
-                                         table_pairs("delta_log", got_ring, want_ring),
-                                         ("delta_log.body", "delta_log.digest")))
-        require(int(got_ring.cursor) == ring_cursor + n_rows, "ring_append: device cursor")
-        b6_inputs[k_lanes] = (base_ring, args)
-    emit("parity", kernel="ring_append", rows=n_rows, lanes=[N_SESSIONS, FACADE_BUCKET],
-         capacity=c_ring, cursor=ring_cursor, wraps=ring_cursor + n_rows > c_ring,
-         bit_exact=True, max_abs_err=err_b6)
+        got_ring, again_ring, want_ring = clone(base_ring), clone(base_ring), clone(base_ring)
+        with_ring = lambda log: (args[0], args[1], log, *args[3:])  # noqa: E731
+        got = mtu.chain_digests_ring(*with_ring(got_ring))
+        again = mtu.chain_digests_ring(*with_ring(again_ring))
+        want = mtu.chain_digests_ring_plain(*with_ring(want_ring))
+        pairs = {"chain": (got, want), "chain, B2 without the ring": (
+            mtu.chain_digests(args[0], args[1]), want), "chain, repeat": (again, got)}
+        pairs.update(table_pairs("delta_log", got_ring, want_ring))
+        pairs.update(table_pairs("delta_log repeat", again_ring, got_ring))
+        err_ring = max(err_ring, check_pairs(
+            f"chain_digests_ring K={k_lanes} n_live={n_live}", pairs,
+            ("chain", "chain, B2 without the ring", "chain, repeat", "delta_log.body",
+             "delta_log.digest")))
+        require(int(got_ring.cursor) == ring_cursor + n_live, "chain_digests_ring: device cursor")
+        ring_inputs[(k_lanes, n_live)] = (base_ring, args)
+    emit("parity", kernel="chain_digests_ring", rows=n_rows, lanes=[N_SESSIONS, FACADE_BUCKET],
+         n_live=[n_rows, 0], capacity=c_ring, cursor=ring_cursor,
+         wraps=ring_cursor + n_rows > c_ring,
+         against=["plain pair on the card", "B2 without the ring", "itself"],
+         bit_exact=True, max_abs_err=err_ring)
 
     # B1: chain links (96 bytes, 2 blocks) and hex pairs (128 bytes, 3
     # blocks) at 30,000 messages, and a scrubber strip; hashlib on samples;
@@ -1659,7 +1819,7 @@ def main(argv=None) -> int:
          max_abs_err=err_b8)
     errs = {"contribution_toward": err_contrib, "chain_digests": err_b2, "tree_roots": err_b3,
             "admission_block": err_b4, "fsm_saga_block": err_b5,
-            "ring_append": err_b6, "sha256_words": err_b1, "saga_tick_block": err_b7,
+            "chain_digests_ring": err_ring, "sha256_words": err_b1, "saga_tick_block": err_b7,
             "slash_cascade": err_b8}
 
     # ── 5. the full-width wave through the entry point ───────────────
@@ -1714,7 +1874,16 @@ def main(argv=None) -> int:
     require(not any(any(c.values()) for c in cpu_windows.values()), "the CPU run launched a kernel")
     diff = first_difference("facade", cpu_rec, facade_rec)
     require(diff is None, f"the facade on the CPU differs from the card at {diff}")
+    gauges = facade_rec["tables"]["metrics.gauges"]
     emit("facade", sessions_per_wave=N_SESSIONS, waves=3, padded_bucket=FACADE_BUCKET,
+         actions_per_wave=N_ACTIONS, actors=N_ACTORS,
+         verdicts_by_wave=[np.bincount(facade_rec[f"wave{w}"]["gateway"]["verdict"],
+                                       minlength=6).tolist() for w in range(3)],
+         breakers_tripped=[int(facade_rec[f"wave{w}"]["gateway"]["tripped"].sum())
+                           for w in range(3)],
+         gauges_after={"ring_agents": gauges[:4].tolist(), "agents_active": float(gauges[4]),
+                       "breaker_tripped": float(gauges[6]), "sessions_live": float(gauges[7]),
+                       "table_live_rows": gauges[22:30].tolist()},
          deltalog_cursor=facade._delta_cursor, deltalog_capacity=FACADE_CAPACITY["delta_log_capacity"],
          trace_cursor=facade.tracer.cursor, standing_sessions=N_STANDING,
          flushed=int(facade_rec["flush"]), scrub=facade_rec["scrub_summary"],
@@ -1734,6 +1903,24 @@ def main(argv=None) -> int:
          padded_bucket=FACADE_BUCKET, fsm_form="mask", launches=scat_launches, gates="passed",
          cpu_run="identical")
     windows["scattered_facade"] = scat_launches
+    windows["op_wave"] = launches
+
+    # ── 6c. one pipeline wave with all eight phases, the sanitizer on ─
+    san_rec, san_launches = run_sanitized_wave(dev)
+    want_san = {**{k: 1 for k in FACADE_WAVE_KERNELS}, "contribution_toward": 2}
+    require({k: n for k, n in san_launches.items() if n} == want_san,
+            f"the sanitized wave must launch {want_san} (the escrow is the contribution's "
+            f"second launch): {san_launches}")
+    cpu_san, cpu_san_launches = run_sanitized_wave("cpu")
+    require(not any(cpu_san_launches.values()), "the sanitized wave's CPU run launched a kernel")
+    diff = first_difference("sanitized wave", cpu_san, san_rec)
+    require(diff is None, f"the sanitized wave on the CPU differs from the card at {diff}")
+    emit("sanitized_wave", sessions=N_SESSIONS, actions=N_ACTIONS, launches=san_launches,
+         violations=san_rec["total"], unrepairable=san_rec["unrepairable"],
+         flagged={f: int((san_rec[f] != 0).sum()) for f in SANITIZER_MASKS},
+         verdicts=np.bincount(san_rec["gateway"]["verdict"], minlength=6).tolist(),
+         gates="passed", cpu_run="identical")
+    windows["sanitized_wave"] = san_launches
 
     # ── 7. the saga plane ────────────────────────────────────────────
     saga_rec, saga_launches, saga_state, saga_s, saga_initial = run_saga_sequence(dev)
@@ -1843,7 +2030,8 @@ def main(argv=None) -> int:
         with counted_trace_ids():
             st = facade_state(dev)
             wave_in = prepare_facade_wave(st, np.random.RandomState(SEED + 2), 0)
-            split = {"staging": 0.0, "dispatch": 0.0, "audit_booking": 0.0}
+            split = {"staging": 0.0, "dispatch": 0.0, "gateway": 0.0, "epilogue": 0.0,
+                     "audit_booking": 0.0}
 
             def timed(key, fn):
                 def call(*args, **kwargs):
@@ -1856,17 +2044,27 @@ def main(argv=None) -> int:
 
             st._stage_wave_lanes = timed("staging", st._stage_wave_lanes)
             st._book_wave_audit = timed("audit_booking", st._book_wave_audit)
-            wave_fn = pipeline.governance_wave
+            # The gateway and the epilogue run inside the dispatch: their
+            # enqueue is split out of it.
+            wave_fn, gate_fn, gauge_fn = (pipeline.governance_wave,
+                                          pipeline.gateway_ops.check_actions,
+                                          pipeline.schema.update_gauges)
             pipeline.governance_wave = timed("dispatch", wave_fn)
+            pipeline.gateway_ops.check_actions = timed("gateway", gate_fn)
+            pipeline.schema.update_gauges = timed("epilogue", gauge_fn)
             try:
                 torch.cuda.synchronize()
                 with profiler if profiler is not None else contextlib.nullcontext():
                     t = time.perf_counter_ns()
-                    st.run_governance_wave(wave_in[0], wave_in[1], wave_in[0], *wave_in[2:])
+                    st.run_governance_wave(wave_in[0], wave_in[1], wave_in[0], wave_in[2],
+                                           wave_in[3], actions=wave_in[4])
                     torch.cuda.synchronize()
                     total = (time.perf_counter_ns() - t) / 1e6
             finally:
                 pipeline.governance_wave = wave_fn
+                pipeline.gateway_ops.check_actions = gate_fn
+                pipeline.schema.update_gauges = gauge_fn
+            split["dispatch"] -= split["gateway"] + split["epilogue"]
         return total, split
 
     f_samples = [facade_sample() for _ in range(FACADE_WARMUP + FACADE_ITERS)][FACADE_WARMUP:]
@@ -1878,10 +2076,14 @@ def main(argv=None) -> int:
     f_p50 = float(np.percentile(f_total, 50))
     fprof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     f_prof_wall, _ = facade_sample(fprof)  # profiles the wave alone, not the fresh state
-    f_busy_ms = sum(e.self_device_time_total for e in fprof.key_averages()
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    f_device = [e for e in fprof.key_averages() if e.device_type == DeviceType.CUDA]
+    f_busy_ms = sum(e.self_device_time_total for e in f_device) / 1e3
     emit("facade_timing", wave_ms_p50=f_p50, wave_ms_p95=float(np.percentile(f_total, 95)),
          per_session_us_p50=f_p50 * 1e3 / N_SESSIONS, iters=FACADE_ITERS,
+         actions=N_ACTIONS, n_device_ops=sum(e.count for e in f_device),
+         top_device_ops=[{"name": e.key[:80], "device_us": e.self_device_time_total,
+                          "count": e.count} for e in sorted(
+                              f_device, key=lambda e: -e.self_device_time_total)[:12]],
          host_split_ms_median=f_split, host_split_ms_p95=f_split_p95, device_busy_ms=f_busy_ms,
          profiled_wall_ms=f_prof_wall, device_idle_share=1 - f_busy_ms / f_prof_wall,
          clock="host, synchronised; each sample on a fresh state")
@@ -2034,11 +2236,18 @@ def main(argv=None) -> int:
                                            NORTH_STAR["omega"], 1.0, counters=ctr_k),
         lambda: liab_kernels.slash_cascade_plain(pre_v, pre_sigma, first_t, pre_sess,
                                                  NORTH_STAR["omega"], 1.0, counters=ctr_p), None)
-    ring_base, ring_args = b6_inputs[N_SESSIONS]
+    # B2's ring form at the facade's shape (30,000 rows, wrapping); the
+    # reset puts the plain pair's ring cursor back (the kernel writes its
+    # cursor from the argument, so its calls repeat exactly).
+    ring_base, ring_args = ring_inputs[(N_SESSIONS, n_rows)]
     ring_k, ring_p = clone(ring_base), clone(ring_base)
+    r_bodies, r_seeds, _, r_sess = ring_args[:4]
     strip_words = b1_inputs[(SCRUB_BUDGET, 2)]
-    calls["ring_append"] = (lambda: wave.ring_append(ring_k, *ring_args),
-                            lambda: wave.ring_append_plain(ring_p, *ring_args), None)
+    calls["chain_digests_ring"] = (
+        lambda: mtu.chain_digests_ring(r_bodies, r_seeds, ring_k, r_sess, ring_cursor, n_rows),
+        lambda: mtu.chain_digests_ring_plain(r_bodies, r_seeds, ring_p, r_sess, ring_cursor,
+                                             n_rows),
+        lambda: ring_p.cursor.fill_(ring_cursor))
     calls["sha256_words"] = (lambda: sha_kernels.sha256_words(strip_words, 2),
                              lambda: sha_kernels.sha256_words_plain(strip_words, 2), None)
 
@@ -2049,18 +2258,21 @@ def main(argv=None) -> int:
     vals_l = torch.where(scoped_l, bond_l, torch.zeros_like(bond_l))
     lib_out = torch.zeros((n_cap,), dtype=torch.float32, device=dev)
     library = {"contribution_toward": lambda: lib_out.index_add_(0, vee_l, vals_l)}
-    # The ring append: the four `index_copy_` calls a user would write,
-    # on rows already flattened lane-major (the flattening not timed).
+    # No PyTorch call computes the chain, so the ring form has no library
+    # time. Its append half alone has one: the four `index_copy_` calls a
+    # user would write, on rows already flattened lane-major (the
+    # flattening not timed), reported beside the row.
     ring_l = clone(ring_base)
-    r_bodies, r_chain, r_sess = ring_args[:3]
+    r_chain = mtu.chain_digests(r_bodies, r_seeds)
     flat = (r_bodies.transpose(0, 1).reshape(-1, 16).contiguous(),
             r_chain.transpose(0, 1).reshape(-1, 8).contiguous(),
             r_sess.repeat_interleave(N_DELTAS),
             torch.arange(N_DELTAS, dtype=torch.int32, device=dev).repeat(N_SESSIONS))
     ring_idx = (ring_cursor + torch.arange(n_rows, device=dev)) % c_ring
-    library["ring_append"] = lambda: [
-        col.index_copy_(0, ring_idx, rows_) for col, rows_ in zip(
-            (ring_l.body, ring_l.digest, ring_l.session, ring_l.turn), flat)]
+
+    def append_library():
+        for col, rows_ in zip((ring_l.body, ring_l.digest, ring_l.session, ring_l.turn), flat):
+            col.index_copy_(0, ring_idx, rows_)
 
     # Bounds: the bytes each function must move (inputs read once, outputs
     # written once, counting what this run's data needs) over HBM
@@ -2087,7 +2299,11 @@ def main(argv=None) -> int:
         "fsm_saga_block": (N_SESSIONS * (4 + 8 + 8 + 2) + l_ * 2 + edges * 5
                            + N_VOUCHED * 1 + n_cap * 4 + agent_hits * 8 + 4,
                            N_SESSIONS * 30 + l_ * 2 + edges * 4 + n_cap * 3),
-        "ring_append": (n_rows * (64 + 32) + N_SESSIONS * 4 + n_rows * (64 + 32 + 4 + 4) + 4, 0),
+        # B2's work, plus the append: the ring rows written (body, digest,
+        # session, turn), the wave's sessions read and the cursor written.
+        "chain_digests_ring": (t_ * l_ * 64 + l_ * 32 + t_ * l_ * 32
+                               + n_rows * (64 + 32 + 4 + 4) + l_ * 4 + 4,
+                               t_ * l_ * INSTR_PER_CHAIN_LINK),
         "sha256_words": (SCRUB_BUDGET * (2 * 64 + 32), SCRUB_BUDGET * instr_per_message(2)),
         # B7: read step, retry and undo rows, saga state, n_steps, cursor,
         # the outcome byte; write step and retry rows, saga state, cursor,
@@ -2116,8 +2332,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": TPU_KERNELS[name],
             "launches": windows[ROW_PATH.get(name, "facade_waves")][name],
-            "launches_by_path": {"op_wave": launches.get(name, 0),
-                                 **{path: c[name] for path, c in windows.items()}},
+            "launches_by_path": {path: c[name] for path, c in windows.items()},
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2129,6 +2344,15 @@ def main(argv=None) -> int:
             rows[-1]["ms_by_form"] = blocks_ms["fsm_saga_block"]
         if name == "slash_cascade":
             rows[-1]["clip_table_build_ms"] = blocks_ms["clip_table_build_ms"]
+        if name == "chain_digests_ring":
+            # The same call's B2 without the ring, and the append's own
+            # bound (B6's bytes), library time and share of the ring form.
+            chain_ms = time_device(lambda: mtu.chain_digests(r_bodies, r_seeds))
+            append_bytes = n_rows * (64 + 32) + l_ * 4 + n_rows * (64 + 32 + 4 + 4) + 4
+            rows[-1].update(
+                chain_ms_same_call=chain_ms, ms_over_chain=k_ms - chain_ms,
+                append_bound_ms=append_bytes / HBM_BYTES_PER_S * 1e3,
+                append_library_ms=time_device(append_library, reps=PLAIN_REPS, warmup=1))
         if name == "contribution_toward":
             rows[-1]["ms_hot_vouchee"] = {
                 tag: time_device(lambda vt=vt, tgt=tgt: wave.contribution_toward(vt, tgt, now0))
@@ -2175,10 +2399,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     emit("card_after_timing", clocks_power_limit_temp=clocks,
-         note="library_ms: index_add_ for the contribution, four index_copy_ calls on "
-              "pre-flattened rows for the ring append; no PyTorch call computes SHA-256, "
-              "the admission and fsm/saga blocks, the saga round or the slash cascade, so "
-              "theirs is null")
+         note="library_ms: index_add_ for the contribution; no PyTorch call computes "
+              "SHA-256 (B1, B2 and its ring form, B3), the admission and fsm/saga blocks, "
+              "the saga round or the slash cascade, so theirs is null; the ring form's "
+              "append half alone: four index_copy_ calls on pre-flattened rows "
+              "(append_library_ms)")
 
     print(json.dumps({"kernels": [{k: row[k] for k in KERNEL_KEYS} for row in rows]}), flush=True)
     print(smi, flush=True)

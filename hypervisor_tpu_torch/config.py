@@ -1,7 +1,8 @@
 """Typed configuration: the fields of `hypervisor_tpu.config` the governance
-wave, the saga plane and the slash cascade read, copied with the same
-names and defaults, so a configuration means the same thing in both
-packages. Later slices add the fields their modules read."""
+wave (its action gateway and sanitizer included), the saga plane and the
+slash cascade read, copied with the same names and defaults, so a
+configuration means the same thing in both packages. Later slices add
+the fields their modules read."""
 
 from __future__ import annotations
 
@@ -21,10 +22,33 @@ class TrustConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class RateLimitConfig:
-    """Per-ring token-bucket bursts, indexed by ring 0..3."""
+class BreachConfig:
+    """The sliding-window breach detector the gateway runs per action."""
 
+    window_seconds: float = 60.0
+    window_capacity: int = 1000
+    min_calls_for_analysis: int = 5
+    low_threshold: float = 0.3
+    medium_threshold: float = 0.5
+    high_threshold: float = 0.7
+    critical_threshold: float = 0.9
+    circuit_breaker_cooldown_seconds: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RateLimitConfig:
+    """Per-ring token-bucket refill rates (per second) and bursts,
+    indexed by ring 0..3."""
+
+    ring_rates: tuple[float, float, float, float] = (100.0, 50.0, 20.0, 5.0)
     ring_bursts: tuple[float, float, float, float] = (200.0, 100.0, 40.0, 10.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuarantineConfig:
+    """How long a quarantine holds a row by default."""
+
+    default_duration_seconds: float = 300.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +60,9 @@ class TableCapacity:
     max_vouch_edges: int = 65_536
     max_sagas: int = 8_192
     max_steps_per_saga: int = 16
+    max_elevations: int = 4_096
     delta_log_capacity: int = 65_536
+    event_log_capacity: int = 65_536
     trace_log_capacity: int = 8_192
 
 
@@ -45,7 +71,9 @@ class HypervisorConfig:
     """Top-level config (the ported subsystems only)."""
 
     trust: TrustConfig = TrustConfig()
+    breach: BreachConfig = BreachConfig()
     rate_limit: RateLimitConfig = RateLimitConfig()
+    quarantine: QuarantineConfig = QuarantineConfig()
     capacity: TableCapacity = TableCapacity()
 
 

@@ -34,11 +34,43 @@ constexpr int kChainThreads = 512;  // threads a block, all of them computing mi
 // parent blocks in order from those midstates. Two buffers: while the
 // chain threads run tile j, the other threads already fill tile j + 1,
 // and the chain threads join them after.
+//
+// The ring form (kRing) also does B6's work. It replaces
+// hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas, the DeltaLog
+// live-prefix append (DeltaLog.append_batch_prefix), as this kernel's
+// epilogue: row i = lane * T + t of the wave's lane-major order, if i <
+// n_live, lands at (cursor + i) % C. The thread that fills a tile already
+// holds the row's body, and stores its four 16-byte vectors (a whole
+// 64-byte row, so every sector is used at any stride); the chain thread
+// already holds the digest, and stores it with the row's session
+// (wave_sessions[lane]) and turn. Thread 0 of block 0 writes the device
+// cursor cursor + n_live, which nothing reads. B6's own launch and its
+// second read of bodies and digests are gone; the stores add 104 bytes a
+// row to a kernel bound by its serial chain. kRing = false is the plain
+// chain, for the flush and the chain checks.
+struct RingArgs {
+  uint4* body;                // [C, 16] as 4 x uint4
+  uint4* digest;              // [C, 8] as 2 x uint4
+  int* session;               // [C]
+  int* turn;                  // [C]
+  int* cursor_out;            // []
+  const int* wave_sessions;   // [L]
+  int cursor, n_live, C;
+};
+
+// The ring row of live lane-major row i (< n_live <= C): cursor and i are
+// both below 2^31, so 32-bit unsigned arithmetic holds their sum.
+__device__ __forceinline__ unsigned ring_row(const RingArgs& r, long long i) {
+  return (static_cast<unsigned>(r.cursor) + static_cast<unsigned>(i)) %
+         static_cast<unsigned>(r.C);
+}
+
+template <bool kRing>
 __global__ void __launch_bounds__(kChainThreads) chain_kernel(
     const uint4* __restrict__ bodies,  // [T, L, 16] as 4 x uint4
     const uint4* __restrict__ seeds,   // [L, 8] as 2 x uint4
     uint4* __restrict__ out,           // [T, L, 8] as 2 x uint4
-    int T, int L, int per_block) {
+    int T, int L, int per_block, RingArgs ring) {
   __shared__ uint32_t mid[2][8][kChainThreads];  // [buffer][word][turn-major (turn, lane)]
   const int lane0 = blockIdx.x * per_block;
   const int lanes = min(per_block, L - lane0);
@@ -46,19 +78,38 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(
   const int tid = threadIdx.x;
   const int my_turn = tid / lanes, my_lane = lane0 + tid % lanes;  // in the tile
   uint32_t parent[8];
+  // The chain thread's lane: its session, its first lane-major row and
+  // that row's ring row; turn t of the lane is row + t, and its ring row
+  // one conditional subtraction from lane_dst + t, so no division sits
+  // on the serial chain.
+  int my_session = 0;
+  long long lane_row = 0;
+  unsigned lane_dst = 0;
   if (tid < lanes) {
     const uint4 s0 = seeds[2 * (size_t)(lane0 + tid)], s1 = seeds[2 * (size_t)(lane0 + tid) + 1];
     parent[0] = s0.x; parent[1] = s0.y; parent[2] = s0.z; parent[3] = s0.w;
     parent[4] = s1.x; parent[5] = s1.y; parent[6] = s1.z; parent[7] = s1.w;
+    if (kRing) {
+      my_session = ring.wave_sessions[lane0 + tid];
+      lane_row = static_cast<long long>(lane0 + tid) * T;
+      if (lane_row < ring.n_live) lane_dst = ring_row(ring, lane_row);
+    }
+  }
+  if (kRing && blockIdx.x == 0 && tid == 0) {
+    *ring.cursor_out = static_cast<int>(static_cast<unsigned>(ring.cursor) + ring.n_live);
   }
   for (int t0 = 0, buf = 0; t0 < T; t0 += k, buf ^= 1) {  // block-uniform
     const int t = t0 + my_turn;
     if (my_turn < k && t < T) {
       const size_t row = (size_t)t * L + my_lane;
+      const long long ring_i = static_cast<long long>(my_lane) * T + t;
+      const bool live = kRing && ring_i < ring.n_live;
+      const size_t dst = live ? ring_row(ring, ring_i) : 0;
       uint32_t body[16], st[8];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const uint4 v = bodies[4 * row + q];
+        if (live) ring.body[4 * dst + q] = v;
         body[4 * q] = v.x; body[4 * q + 1] = v.y; body[4 * q + 2] = v.z; body[4 * q + 3] = v.w;
       }
       hv::sha256_body_midstate(body, st);
@@ -76,8 +127,18 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(
         for (int j = 0; j < 8; ++j) st[j] = mid[buf][j][i * lanes + tid];
         hv::sha256_chain_tail(st, parent, d);
         const size_t row = (size_t)(t0 + i) * L + lane0 + tid;
-        out[2 * row] = make_uint4(d[0], d[1], d[2], d[3]);
-        out[2 * row + 1] = make_uint4(d[4], d[5], d[6], d[7]);
+        const uint4 d0 = make_uint4(d[0], d[1], d[2], d[3]), d1 = make_uint4(d[4], d[5], d[6], d[7]);
+        out[2 * row] = d0;
+        out[2 * row + 1] = d1;
+        if (kRing && lane_row + t0 + i < ring.n_live) {
+          // A live row's turn is below n_live <= C, so one subtraction wraps it.
+          unsigned dst = lane_dst + static_cast<unsigned>(t0 + i);
+          if (dst >= static_cast<unsigned>(ring.C)) dst -= static_cast<unsigned>(ring.C);
+          ring.digest[2 * (size_t)dst] = d0;
+          ring.digest[2 * (size_t)dst + 1] = d1;
+          ring.session[dst] = my_session;
+          ring.turn[dst] = t0 + i;
+        }
 #pragma unroll
         for (int j = 0; j < 8; ++j) parent[j] = d[j];
       }
@@ -213,18 +274,48 @@ extern "C" const char* hv_mtu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int hv_chain_digests(const void* bodies, const void* seeds, void* out, int T, int L,
-                                void* stream) {
+namespace {
+
+cudaError_t launch_chain(bool with_ring, const void* bodies, const void* seeds, void* out, int T,
+                         int L, const RingArgs& ring, void* stream) {
   if (T > 0 && L > 0) {
     int sms = 0;
-    if (cudaError_t err = hv::sm_count(&sms)) return static_cast<int>(err);
+    if (cudaError_t err = hv::sm_count(&sms)) return err;
     const int per_block = min((L + sms - 1) / sms, kChainLanes);
-    chain_kernel<<<(L + per_block - 1) / per_block, kChainThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (L + per_block - 1) / per_block;
+    auto kernel = with_ring ? chain_kernel<true> : chain_kernel<false>;
+    kernel<<<blocks, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(bodies), static_cast<const uint4*>(seeds),
-        static_cast<uint4*>(out), T, L, per_block);
+        static_cast<uint4*>(out), T, L, per_block, ring);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hv_chain_digests(const void* bodies, const void* seeds, void* out, int T, int L,
+                                void* stream) {
+  return static_cast<int>(launch_chain(false, bodies, seeds, out, T, L, RingArgs{}, stream));
+}
+
+// The ring form: the chain plus the DeltaLog append of its first n_live
+// lane-major rows at cursor (the host mirror; 0 <= n_live <= min(T * L, C)).
+extern "C" int hv_chain_digests_ring(const void* bodies, const void* seeds, void* out, int T,
+                                     int L, void* ring_body, void* ring_digest,
+                                     void* ring_session, void* ring_turn, void* ring_cursor,
+                                     const void* wave_sessions, int cursor, int n_live, int C,
+                                     void* stream) {
+  RingArgs ring;
+  ring.body = static_cast<uint4*>(ring_body);
+  ring.digest = static_cast<uint4*>(ring_digest);
+  ring.session = static_cast<int*>(ring_session);
+  ring.turn = static_cast<int*>(ring_turn);
+  ring.cursor_out = static_cast<int*>(ring_cursor);
+  ring.wave_sessions = static_cast<const int*>(wave_sessions);
+  ring.cursor = cursor;
+  ring.n_live = n_live;
+  ring.C = C;
+  return static_cast<int>(launch_chain(true, bodies, seeds, out, T, L, ring, stream));
 }
 
 extern "C" int hv_tree_roots(const void* leaves, const void* counts, void* roots, int S, int P,

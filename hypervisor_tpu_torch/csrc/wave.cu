@@ -1,6 +1,6 @@
 // Governance-wave kernels for Hopper (sm_90a): admission (B4), the
-// FSM + saga + terminate walk (B5), the DeltaLog ring append (B6) and
-// the vouched contribution. Plain
+// FSM + saga + terminate walk (B5) and the vouched contribution (B6, the
+// DeltaLog ring append, is B2's ring form in mtu.cu). Plain
 // C entry points, bound with ctypes by hypervisor_tpu_torch/kernels/
 // wave.py. Tables are updated in place on the caller's stream; each
 // entry returns cudaGetLastError().
@@ -625,45 +625,6 @@ __global__ void __launch_bounds__(CONTRIB_BLOCK) contrib_large_kernel(
   }
 }
 
-// B6. Replaces hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas:
-// the DeltaLog live-prefix ring append (DeltaLog.append_batch_prefix).
-// Row i < n_live of the wave's lane-major order (k = i / T, t = i % T)
-// lands at (cursor + i) % C with its body, its chain digest, session
-// wave_sessions[k] and turn t; the device cursor becomes cursor + n_live.
-// It reads the wave's [T, K] bodies and chain in place, so the three
-// transposes and the repeat/tile copies the reference builds first are
-// never made. Bound by bytes (104 read and 104 written per row): one
-// thread per (row, 16-byte vector), six vectors a row (four of body,
-// two of digest); the first of each row also writes session and turn.
-// The cursor arrives from the host mirror as an argument and is written,
-// never read, so no thread races the write.
-__global__ void ring_append_kernel(uint4* __restrict__ body,        // [C, 16] as 4 x uint4
-                                   uint4* __restrict__ digest,      // [C, 8] as 2 x uint4
-                                   int* __restrict__ session,       // [C]
-                                   int* __restrict__ turn,          // [C]
-                                   int* __restrict__ cursor_out,    // []
-                                   const uint4* __restrict__ src_body,    // [T, K, 16]
-                                   const uint4* __restrict__ src_chain,   // [T, K, 8]
-                                   const int* __restrict__ wave_sessions, // [K]
-                                   int cursor, int n_live, int T, int K, int C) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx == 0) *cursor_out = static_cast<int>(static_cast<unsigned>(cursor) + n_live);
-  if (idx >= 6LL * n_live) return;
-  const int i = static_cast<int>(idx / 6), v = static_cast<int>(idx % 6);
-  const int k = i / T, t = i % T;
-  const size_t src = (size_t)t * K + k;
-  const size_t dst = static_cast<size_t>(((long long)cursor + i) % C);
-  if (v < 4) {
-    body[4 * dst + v] = src_body[4 * src + v];
-  } else {
-    digest[2 * dst + (v - 4)] = src_chain[2 * src + (v - 4)];
-  }
-  if (v == 0) {
-    session[dst] = wave_sessions[k];
-    turn[dst] = t;
-  }
-}
-
 }  // namespace
 
 extern "C" const char* hv_wave_error_string(int err) {
@@ -776,20 +737,5 @@ extern "C" int hv_contribution(const void* vouchee, const void* session, const v
     contrib_large_kernel<<<CONTRIB_LARGE_BLOCKS, CONTRIB_BLOCK, 0, st>>>(
         count, offset, bucket, large, b, o);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int hv_ring_append(void* body, void* digest, void* session, void* turn, void* cursor_out,
-                              const void* src_body, const void* src_chain,
-                              const void* wave_sessions, int cursor, int n_live, int T, int K,
-                              int C, void* stream) {
-  const int threads = 256;
-  const long long total = 6LL * n_live;
-  const int blocks = total > 0 ? static_cast<int>((total + threads - 1) / threads) : 1;
-  ring_append_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(body), static_cast<uint4*>(digest), static_cast<int*>(session),
-      static_cast<int*>(turn), static_cast<int*>(cursor_out),
-      static_cast<const uint4*>(src_body), static_cast<const uint4*>(src_chain),
-      static_cast<const int*>(wave_sessions), cursor, n_live, T, K, C);
   return static_cast<int>(cudaGetLastError());
 }

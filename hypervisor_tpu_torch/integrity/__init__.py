@@ -1,1 +1,2 @@
-"""State integrity (`hypervisor_tpu.integrity`): the Merkle scrubber."""
+"""State integrity (`hypervisor_tpu.integrity`): the Merkle scrubber and
+the invariant sanitizer."""

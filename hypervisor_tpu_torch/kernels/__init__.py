@@ -10,7 +10,8 @@ main path went through the kernel.
   B3 `mtu.tree_roots`         <- hypervisor_tpu/kernels/mtu_pallas.py tree_roots
   B4 `wave.admission_block`   <- hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas
   B5 `wave.fsm_saga_block`    <- hypervisor_tpu/kernels/wave_pallas.py fsm_saga_block_pallas
-  B6 `wave.ring_append`       <- hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas
+  B6 `mtu.chain_digests_ring` <- hypervisor_tpu/kernels/wave_pallas.py ring_append_pallas
+                                 (B2's ring form: the chain and the DeltaLog append in one launch)
   B1 `sha256.sha256_words`    <- hypervisor_tpu/kernels/sha256_pallas.py sha256_words
   B7 `saga.saga_tick_block`   <- hypervisor_tpu/kernels/wave_pallas.py saga_tick_block_pallas
   B8 `liability.slash_cascade` <- hypervisor_tpu/kernels/liability_pallas.py slash_cascade_pallas
@@ -28,7 +29,7 @@ WRAPPERS = {
     "tree_roots": mtu.tree_roots,
     "admission_block": wave.admission_block,
     "fsm_saga_block": wave.fsm_saga_block,
-    "ring_append": wave.ring_append,
+    "chain_digests_ring": mtu.chain_digests_ring,
     "sha256_words": sha256.sha256_words,
     "saga_tick_block": saga.saga_tick_block,
     "slash_cascade": liability.slash_cascade,

@@ -14,6 +14,15 @@ compressions to about T + 1, with no load from memory on it, and each
 SMSP holds at most one chain warp. Two buffers let the next tile's
 midstates start while the chain runs.
 
+B2's ring form `chain_digests_ring` also replaces
+`hypervisor_tpu/kernels/wave_pallas.py` `ring_append_pallas` (B6): the
+wave's audit records (lane-major bodies and chain digests, turns
+0..T-1, live prefix only) land on the DeltaLog ring from the same
+launch. The thread that loads a body for its midstate stores it to the
+body's ring row, the chain thread stores the digest with the row's
+session and turn, and the device cursor advances by the live rows. B6's
+own launch and its second read of the bodies and digests are gone.
+
 B3 `tree_roots` replaces `hypervisor_tpu/kernels/mtu_pallas.py`
 `tree_roots`: per-lane Merkle roots with the combine sha256(hex(l) ||
 hex(r)) (128 bytes, 3 blocks), the odd tail duplicated, count <= 1
@@ -40,7 +49,8 @@ import torch
 
 from hypervisor_tpu_torch.kernels import _build
 from hypervisor_tpu_torch.ops.sha256 import hex_pair_message, pad_tail_words, sha256_blocks
-from hypervisor_tpu_torch.tables.logs import BODY_WORDS
+from hypervisor_tpu_torch.tables.logs import BODY_WORDS, DeltaLog
+
 _CHAIN_TAIL = pad_tail_words((BODY_WORDS + 8) * 4, 2)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -107,6 +117,71 @@ def chain_digests(bodies: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
 
 
 chain_digests.launches = 0
+
+
+def chain_digests_ring_plain(
+    bodies: torch.Tensor, seeds: torch.Tensor, delta_log: DeltaLog,
+    wave_sessions: torch.Tensor, cursor: int, n_live: int,
+) -> torch.Tensor:
+    """Plain version of B2's ring form: `chain_digests_plain`, then B6's
+    plain version `kernels.wave.ring_append_plain` of its first `n_live`
+    lane-major rows, IN PLACE. Returns the chain."""
+    from hypervisor_tpu_torch.kernels import wave  # wave imports this module
+
+    chain = chain_digests_plain(bodies, seeds)
+    wave.ring_append_plain(delta_log, bodies, chain, wave_sessions, cursor, n_live)
+    return chain
+
+
+def chain_digests_ring(
+    bodies: torch.Tensor,         # int32[T, K, 16] u32 bits
+    seeds: torch.Tensor,          # int32[K, 8] u32 bits
+    delta_log: DeltaLog,
+    wave_sessions: torch.Tensor,  # i32[K]
+    cursor: int,                  # host mirror of delta_log.cursor
+    n_live: int,                  # rows appended: the lane-major prefix
+) -> torch.Tensor:
+    """B2's ring form: the per-lane chains, and the first `n_live` of the
+    wave's lane-major records (row k * T + t: body, digest, session
+    wave_sessions[k], turn t) appended to the DeltaLog IN PLACE, its
+    cursor advanced by `n_live`. Returns the chain, int32[T, K, 8]. CUDA
+    tensors launch the kernel; CPU tensors take `chain_digests_ring_plain`.
+    Refuses more live rows than the ring holds (one append would write a
+    row twice, in no defined order)."""
+    _require(bodies.dim() == 3 and bodies.shape[2] == BODY_WORDS, "bodies: [T, K, 16]")
+    t, k, _ = bodies.shape
+    _require(tuple(seeds.shape) == (k, 8), "seeds: [K, 8]")
+    _require(tuple(wave_sessions.shape) == (k,), "wave_sessions: [K]")
+    capacity = delta_log.body.shape[0]
+    n_live, cursor = int(n_live), int(cursor)
+    _require(0 <= n_live <= t * k, f"n_live {n_live} outside [0, {t * k}]")
+    _require(n_live <= capacity, f"{n_live} rows in one append exceed the ring's {capacity}")
+    if not _route(bodies):
+        return chain_digests_ring_plain(bodies, seeds, delta_log, wave_sessions, cursor, n_live)
+    _require(0 <= cursor < 2**31, "cursor: a non-negative int32")
+    dev = bodies.device
+    for tn, name, align in [
+        (bodies, "bodies", 16), (seeds, "seeds", 16),
+        (delta_log.body, "delta_log.body", 16), (delta_log.digest, "delta_log.digest", 16),
+        (delta_log.session, "delta_log.session", 4), (delta_log.turn, "delta_log.turn", 4),
+        (delta_log.cursor, "delta_log.cursor", 4), (wave_sessions, "wave_sessions", 4),
+    ]:
+        _check_operand(tn, name, torch.int32, dev, align)
+    out = torch.empty((t, k, 8), dtype=torch.int32, device=dev)
+    fn = _build.entry("mtu", "hv_chain_digests_ring", [_P, _P, _P, _I, _I] + [_P] * 6 + [_I] * 3 + [_P])
+    err = fn(
+        bodies.data_ptr(), seeds.data_ptr(), out.data_ptr(), t, k,
+        delta_log.body.data_ptr(), delta_log.digest.data_ptr(), delta_log.session.data_ptr(),
+        delta_log.turn.data_ptr(), delta_log.cursor.data_ptr(), wave_sessions.data_ptr(),
+        cursor, n_live, capacity, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("mtu", err, "chain_digests_ring")
+    if t > 0 and k > 0:
+        chain_digests_ring.launches += 1
+    return out
+
+
+chain_digests_ring.launches = 0
 
 
 # ── B3: Merkle roots ─────────────────────────────────────────────────

@@ -1,5 +1,6 @@
-"""The wave's table kernels for Hopper: admission (B4), the FSM + saga
-+ terminate walk (B5) and the DeltaLog ring append (B6).
+"""The wave's table kernels for Hopper: admission (B4) and the FSM + saga
++ terminate walk (B5), and B6's plain version (its kernel is B2's ring
+form, `kernels.mtu.chain_digests_ring`).
 
 B4 `admission_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `admission_block_pallas`. It is bound by memory traffic: a few dozen
@@ -29,15 +30,11 @@ sessions are arange(lo, hi) (`wave_range`); otherwise each edge and
 agent block builds the wave's sessions as a bitmap of the session
 table in shared memory, so any layout runs in the same single launch.
 
-B6 `ring_append` replaces `hypervisor_tpu/kernels/wave_pallas.py`
-`ring_append_pallas`: the wave's audit records (its delta bodies and
-chain digests, lane-major, turns 0..T-1) land on the DeltaLog ring at
-the cursor, live prefix only. Bound by bytes (104 read and 104 written
-per row). The kernel reads the wave's [T, K] bodies and chain where
-they lie, one thread per (row, 16-byte vector), so the transposes and
-repeat/tile copies the reference builds before its append never exist.
-It takes the cursor from the caller's host mirror as an argument and
-writes cursor + n_live to the ring's device cursor.
+B6, the DeltaLog ring append (`hypervisor_tpu/kernels/wave_pallas.py`
+`ring_append_pallas`), runs as the epilogue of B2's ring form
+(`kernels.mtu.chain_digests_ring`), which already holds every body and
+digest the append writes; `ring_append_plain` below is B6's plain
+version, the second half of the ring form's.
 
 `contribution_toward` replaces the scatter-add of
 `hypervisor_tpu/ops/liability.py` `contribution_toward` (an XLA scatter
@@ -355,9 +352,9 @@ def ring_append_plain(
 ) -> None:
     """Plain version of B6: `DeltaLog.append_batch_prefix` of the wave's
     lane-major rows (bodies, digests, sessions repeated T times, turns
-    0..T-1 tiled K times), IN PLACE. `cursor` (the host mirror the
-    kernel takes) is not read: the ring's own cursor, which it mirrors,
-    places the rows."""
+    0..T-1 tiled K times), IN PLACE. `cursor` (the host mirror the ring
+    form's kernel takes) is not read: the ring's own cursor, which it
+    mirrors, places the rows."""
     t, k, _ = delta_bodies.shape
     dev = delta_bodies.device
     delta_log.append_batch_prefix(
@@ -367,49 +364,3 @@ def ring_append_plain(
         torch.arange(t, dtype=torch.int32, device=dev).repeat(k),
         n_live,
     )
-
-
-def ring_append(
-    delta_log: DeltaLog,
-    delta_bodies: torch.Tensor,   # int32[T, K, 16] u32 bits
-    chain: torch.Tensor,          # int32[T, K, 8] u32 bits
-    wave_sessions: torch.Tensor,  # i32[K]
-    cursor: int,                  # host mirror of delta_log.cursor
-    n_live: int,                  # rows appended: the lane-major prefix
-) -> None:
-    """B6: append the first `n_live` rows of the wave's lane-major audit
-    records to the ring IN PLACE and advance its cursor by `n_live`.
-    CUDA tensors launch the kernel; CPU tensors take `ring_append_plain`.
-    Refuses more live rows than the ring holds (one append would write a
-    row twice, in no defined order)."""
-    _require(delta_bodies.dim() == 3 and delta_bodies.shape[2] == 16, "delta_bodies: [T, K, 16]")
-    t, k, _ = delta_bodies.shape
-    _require(tuple(chain.shape) == (t, k, 8), "chain: [T, K, 8]")
-    _require(tuple(wave_sessions.shape) == (k,), "wave_sessions: [K]")
-    capacity = delta_log.body.shape[0]
-    n_live, cursor = int(n_live), int(cursor)
-    _require(0 <= n_live <= t * k, f"n_live {n_live} outside [0, {t * k}]")
-    _require(n_live <= capacity, f"{n_live} rows in one append exceed the ring's {capacity}")
-    if not _route(delta_bodies):
-        return ring_append_plain(delta_log, delta_bodies, chain, wave_sessions, cursor, n_live)
-    _require(0 <= cursor < 2**31, "cursor: a non-negative int32")
-    dev = delta_bodies.device
-    for tn, name, align in [
-        (delta_log.body, "delta_log.body", 16), (delta_log.digest, "delta_log.digest", 16),
-        (delta_log.session, "delta_log.session", 4), (delta_log.turn, "delta_log.turn", 4),
-        (delta_log.cursor, "delta_log.cursor", 4), (delta_bodies, "delta_bodies", 16),
-        (chain, "chain", 16), (wave_sessions, "wave_sessions", 4),
-    ]:
-        _check_operand(tn, name, torch.int32, dev, align)
-    fn = _build.entry("wave", "hv_ring_append", [_P] * 8 + [_I] * 5 + [_P])
-    err = fn(
-        delta_log.body.data_ptr(), delta_log.digest.data_ptr(), delta_log.session.data_ptr(),
-        delta_log.turn.data_ptr(), delta_log.cursor.data_ptr(),
-        delta_bodies.data_ptr(), chain.data_ptr(), wave_sessions.data_ptr(),
-        cursor, n_live, t, k, capacity, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("wave", err, "ring_append")
-    ring_append.launches += 1
-
-
-ring_append.launches = 0

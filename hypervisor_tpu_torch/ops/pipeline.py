@@ -8,16 +8,26 @@ One wave of B joining agents and K sessions that live and die in it:
   2. admission onto the agent/session tables        -> kernel B4,
   3./5./6. the session FSM walk, one saga step per lane, terminate
      (bond release, participant deactivation, ARCHIVED walk) -> B5,
-  4. audit: the delta chain (B2) and per-session Merkle roots (B3),
-     and, with a DeltaLog riding along, the wave's records appended to
-     its ring (B6),
+  4. audit: the delta chain (B2) and per-session Merkle roots (B3);
+     with a DeltaLog riding along, B2's ring form appends the wave's
+     records to its ring in the same launch (B6's work),
 
-then, with a metrics table riding along, the in-wave tallies, and with
-a TraceLog the wave's stamps. CUDA tensors always go through the
-kernels, launched in that order on the current stream with no host
-synchronisation inside the wave; CPU tensors go through the kernels'
-plain versions. The tables are updated IN PLACE (the reference donates
-them to the jitted wave).
+  7. with `gateway_args`, the action gateway on the post-terminate
+     table (`ops.gateway.check_actions`),
+
+then, with a metrics table riding along, the in-wave tallies, with a
+TraceLog the wave's stamps, and
+
+  8. with `epilogue_tables`, the epilogue over the post-wave tables: the
+     occupancy gauges (`observability.metrics.update_gauges`) and, with
+     `sanitize`, the invariant sanitizer (`integrity.invariants`).
+
+CUDA tensors always go through the kernels, launched in that order on
+the current stream with no host synchronisation inside the wave; CPU
+tensors go through the kernels' plain versions. Phases 7 and 8 have no
+kernel of their own (the reference has no Pallas form of them): they
+are torch ops on the tables' device. The tables are updated IN PLACE
+(the reference donates them to the jitted wave).
 """
 
 from __future__ import annotations
@@ -26,21 +36,26 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
+from hypervisor_tpu_torch.config import (
+    DEFAULT_CONFIG,
+    BreachConfig,
+    HypervisorConfig,
+    RateLimitConfig,
+    TrustConfig,
+)
+from hypervisor_tpu_torch.integrity import invariants
 from hypervisor_tpu_torch.kernels import mtu, wave
 from hypervisor_tpu_torch.models import SessionState
 from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.ops import admission as admission_ops
+from hypervisor_tpu_torch.ops import gateway as gateway_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import saga_ops, tally
 from hypervisor_tpu_torch.tables import metrics as metrics_ops
 from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
-
-#: The later slice that ports the facade wave's remaining fused phases.
-_LATER = "a later slice of the port (the facade wave's gateway, epilogue and sanitizer)"
 
 
 class WaveResult(NamedTuple):
@@ -59,29 +74,36 @@ class WaveResult(NamedTuple):
     released: torch.Tensor         # i32[] bonds released at terminate
     metrics: MetricsTable | None = None
     trace: TraceLog | None = None        # the ring the wave stamped, in place
+    # The gateway's per-action lanes (agents=None: this result's agents
+    # are the post-gateway table) and the sanitizer's masks (metrics=None:
+    # this result's metrics carry its counts).
+    gateway: gateway_ops.GatewayResult | None = None
+    sanitizer: invariants.IntegrityResult | None = None
     delta_log: DeltaLog | None = None    # the ring the wave appended to, in place
 
 
 class WaveBlocks(NamedTuple):
-    """The wave's kernel-backed blocks."""
+    """The wave's kernel-backed blocks. `chain_ring` is the delta chain
+    with the DeltaLog append (B2's ring form), run when the ring rides;
+    `chain` is the chain alone."""
 
     contribution: Callable
     admission: Callable
     fsm_saga: Callable
     chain: Callable
+    chain_ring: Callable
     tree: Callable
-    ring_append: Callable
 
 
 #: The dispatching wrappers: kernels for CUDA tensors, plain for CPU.
 KERNEL_BLOCKS = WaveBlocks(
     wave.contribution_toward, wave.admission_block, wave.fsm_saga_block, mtu.chain_digests,
-    mtu.tree_roots, wave.ring_append,
+    mtu.chain_digests_ring, mtu.tree_roots,
 )
 #: The plain PyTorch versions on any device (what the kernels are held against).
 PLAIN_BLOCKS = WaveBlocks(
     liability_ops.contribution_toward, wave.admission_block_plain, wave.fsm_saga_block_plain,
-    mtu.chain_digests_plain, mtu.tree_roots_plain, wave.ring_append_plain,
+    mtu.chain_digests_plain, mtu.chain_digests_ring_plain, mtu.tree_roots_plain,
 )
 
 
@@ -113,8 +135,11 @@ def governance_wave(
     n_sessions_valid: int | None = None,
     elevations=None,
     gateway_args=None,
+    breach: BreachConfig = DEFAULT_CONFIG.breach,
+    rate_limit: RateLimitConfig = DEFAULT_CONFIG.rate_limit,
     epilogue_tables=None,
     sanitize: bool = False,
+    config: HypervisorConfig = DEFAULT_CONFIG,
 ) -> WaveResult:
     """The full governance pipeline as one wave over the tables.
 
@@ -126,9 +151,9 @@ def governance_wave(
     histogram are booked in place.
 
     With `delta_log`, the wave's audit records (lane-major bodies and
-    chain digests, turns 0..T-1) append onto the ring in place;
-    `delta_cursor` is the caller's host mirror of its cursor, which the
-    ring-append kernel takes as an argument. With `trace` and
+    chain digests, turns 0..T-1) append onto the ring in place, from
+    B2's ring form; `delta_cursor` is the caller's host mirror of its
+    cursor, which the kernel takes as an argument. With `trace` and
     `trace_ctx`, the root begin/end pair and a begin/end pair per
     `tracing.WAVE_CHILD_STAGES` phase land as one batch.
 
@@ -138,25 +163,30 @@ def governance_wave(
     counts the real session lanes, a prefix, so only their
     n_sessions_valid * T records append.
 
+    Phase 7: `gateway_args` = (slot, required_ring, is_read_only,
+    has_consensus, has_sre_witness, host_tripped, valid), [A] columns
+    padded with valid=False lanes, runs the action gateway with
+    `elevations`, `breach` and `rate_limit` on the post-terminate agents;
+    its lanes return on `WaveResult.gateway`. Phase 8: `epilogue_tables`
+    = (sagas, event_log), read only, refreshes the occupancy gauges over
+    the post-wave tables (it needs `metrics`; pass `elevations` for their
+    row), and `sanitize` adds the invariant sanitizer (thresholds from
+    `config`), its masks on `WaveResult.sanitizer`, its counts on
+    `metrics`.
+
     The indices are trusted: on CUDA the kernels neither bound-check
     `slot`, `session_slot` and `wave_sessions` nor check that admitted
     lanes hold distinct agent slots. `HypervisorState.stage_wave` checks
     both on the host; a caller that builds the lanes itself must too.
-
-    The action gateway, the gauge epilogue and the sanitizer are not
-    ported yet.
     """
-    extras = {"elevations": elevations, "gateway_args": gateway_args,
-              "epilogue_tables": epilogue_tables}
-    given = [k for k, v in extras.items() if v is not None] + (["sanitize"] if sanitize else [])
-    if given:
-        raise NotImplementedError(f"governance_wave({', '.join(given)}=...) arrives with {_LATER}")
     return run_wave(
         KERNEL_BLOCKS, agents, sessions, vouches, slot, did, session_slot, sigma_raw,
         trustworthy, duplicate, wave_sessions, delta_bodies, now, omega, trust,
         ring_bursts, wave_range, unique_sessions, metrics, trace=trace, trace_ctx=trace_ctx,
         delta_log=delta_log, delta_cursor=delta_cursor, lanes_valid=lanes_valid,
-        n_sessions_valid=n_sessions_valid,
+        n_sessions_valid=n_sessions_valid, elevations=elevations, gateway_args=gateway_args,
+        breach=breach, rate_limit=rate_limit, epilogue_tables=epilogue_tables,
+        sanitize=sanitize, config=config,
     )
 
 
@@ -167,7 +197,10 @@ def run_wave(
     trust: TrustConfig = DEFAULT_CONFIG.trust, ring_bursts=None, wave_range=None,
     unique_sessions: bool = False, metrics: MetricsTable | None = None, *,
     trace=None, trace_ctx=None, delta_log=None, delta_cursor=None, lanes_valid=None,
-    n_sessions_valid=None,
+    n_sessions_valid=None, elevations=None, gateway_args=None,
+    breach: BreachConfig = DEFAULT_CONFIG.breach,
+    rate_limit: RateLimitConfig = DEFAULT_CONFIG.rate_limit, epilogue_tables=None,
+    sanitize: bool = False, config: HypervisorConfig = DEFAULT_CONFIG,
 ) -> WaveResult:
     """`governance_wave` through the given blocks: `KERNEL_BLOCKS` is the
     wave itself, `PLAIN_BLOCKS` the same wave through the kernels' plain
@@ -200,18 +233,30 @@ def run_wave(
         agents, sessions, vouches, wave_sessions, ok, now, wave_range
     )
 
-    # 4. audit: delta chain (B2), Merkle roots over the T leaves (B3).
+    # 4. audit: the delta chain (B2; with the ring riding, B2's ring form
+    # also appends the live records), Merkle roots over the T leaves (B3).
     t, k = delta_bodies.shape[0], wave_sessions.shape[0]
-    chain = blocks.chain(
-        delta_bodies, torch.zeros((k, 8), dtype=torch.int32, device=dev)
-    )
+    seeds = torch.zeros((k, 8), dtype=torch.int32, device=dev)
+    if delta_log is not None and t > 0:
+        n_live = k * t if n_sessions_valid is None else int(n_sessions_valid) * t
+        chain = blocks.chain_ring(delta_bodies, seeds, delta_log, wave_sessions, delta_cursor,
+                                  n_live)
+    else:
+        chain = blocks.chain(delta_bodies, seeds)
     p = 1 << max(0, (t - 1).bit_length())
     leaves = torch.zeros((k, p, 8), dtype=torch.int32, device=dev)
     leaves[:, :t] = chain.transpose(0, 1)
     roots = blocks.tree(leaves, torch.full((k,), t, dtype=torch.int32, device=dev))
-    if delta_log is not None and t > 0:
-        n_live = k * t if n_sessions_valid is None else int(n_sessions_valid) * t
-        blocks.ring_append(delta_log, delta_bodies, chain, wave_sessions, delta_cursor, n_live)
+
+    # 7. the action gateway, on the post-terminate agents.
+    gw_lanes = None
+    if gateway_args is not None:
+        *act, act_valid = gateway_args
+        gw = gateway_ops.check_actions(
+            agents, elevations, *act, now_f, valid=act_valid, breach=breach,
+            rate_limit=rate_limit, trust=trust, metrics=metrics,
+        )
+        gw_lanes = gw._replace(agents=None, metrics=None)
 
     if metrics is not None:
         archived = (wave_state == SessionState.ARCHIVED.code) & ~fsm_err
@@ -243,9 +288,22 @@ def run_wave(
             stamps.end(stage, lane=widths[stage])
         stamps.end("governance_wave", lane=b)
         stamps.commit(trace)
+
+    # 8. the epilogue over the post-wave tables: gauges, then the sanitizer.
+    sanitizer = None
+    if epilogue_tables is not None and metrics is not None:
+        ep_sagas, ep_event_log = epilogue_tables
+        schema.update_gauges(metrics, agents, sessions, vouches, ep_sagas, elevations,
+                             delta_log, ep_event_log, trace)
+        if sanitize:
+            bursts = DEFAULT_CONFIG.rate_limit.ring_bursts if ring_bursts is None else ring_bursts
+            sanitizer = invariants.check_invariants(
+                agents, sessions, vouches, ep_sagas, elevations, delta_log, ep_event_log,
+                trace, bursts, metrics=metrics, config=config,
+            )._replace(metrics=None)
     return WaveResult(
         agents=agents, sessions=sessions, vouches=vouches, status=status, ring=ring,
         sigma_eff=sigma_eff, saga_step_state=step_state, merkle_root=roots, chain=chain,
         fsm_error=fsm_err, released=released, metrics=metrics, trace=trace,
-        delta_log=delta_log,
+        gateway=gw_lanes, sanitizer=sanitizer, delta_log=delta_log,
     )

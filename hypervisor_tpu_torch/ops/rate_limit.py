@@ -1,0 +1,41 @@
+"""Token-bucket rate limiting over the agent table's `rl_tokens` and
+`rl_stamp` columns (`hypervisor_tpu.ops.rate_limit`): one branch-free
+refill for every bucket, with each ring's rate and burst."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from hypervisor_tpu_torch.config import DEFAULT_CONFIG, RateLimitConfig
+
+
+def per_ring(ring: torch.Tensor, values: Sequence[float]) -> torch.Tensor:
+    """f32 `values[ring]` for rings clamped to 0..3, built from scalars on
+    the ring's device (no table crosses from the host)."""
+    r = ring.to(torch.int32).clamp(0, 3)
+    out = torch.full(r.shape, float(np.float32(values[3])), dtype=torch.float32,
+                     device=ring.device)
+    for i in (2, 1, 0):
+        out = out.masked_fill(r == i, float(np.float32(values[i])))
+    return out
+
+
+def refill(
+    tokens: torch.Tensor,
+    stamp: torch.Tensor,
+    ring: torch.Tensor,
+    now: torch.Tensor | float,
+    config: RateLimitConfig = DEFAULT_CONFIG.rate_limit,
+) -> torch.Tensor:
+    """f32[N]: every bucket's level rolled forward to `now`, capped at its
+    ring's burst: min(burst, tokens + max(now - stamp, 0) * rate), the
+    multiply and the add rounded separately."""
+    from hypervisor_tpu_torch.ops.admission import f32_scalar
+
+    now_f = f32_scalar(now, tokens.device)
+    elapsed = torch.clamp(now_f - stamp, min=0.0)
+    return torch.minimum(per_ring(ring, config.ring_bursts),
+                         tokens + elapsed * per_ring(ring, config.ring_rates))

@@ -1,4 +1,5 @@
-"""Vectorized execution-ring math (`hypervisor_tpu.ops.rings`)."""
+"""Vectorized execution-ring math (`hypervisor_tpu.ops.rings`): the ring a
+sigma earns, and the privilege gate an action passes through."""
 
 from __future__ import annotations
 
@@ -6,6 +7,14 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
+
+# Ring-check status codes, in the order the gate checks them.
+CHECK_OK = 0
+CHECK_NEEDS_SRE_WITNESS = 1
+CHECK_SIGMA_BELOW_RING1 = 2
+CHECK_NEEDS_CONSENSUS = 3
+CHECK_SIGMA_BELOW_RING2 = 4
+CHECK_RING_INSUFFICIENT = 5
 
 
 def compute_rings(
@@ -24,3 +33,35 @@ def compute_rings(
         torch.tensor(3, dtype=torch.int8, device=sigma_eff.device),
     )
     return torch.where((sigma_eff > r1) & consensus, torch.ones_like(ring), ring)
+
+
+def ring_check(
+    agent_ring: torch.Tensor,
+    required_ring: torch.Tensor,
+    sigma_eff: torch.Tensor,
+    has_consensus: torch.Tensor | bool = False,
+    has_sre_witness: torch.Tensor | bool = False,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+) -> torch.Tensor:
+    """int8 status per action (CHECK_OK == allowed): the first failing
+    check in order — an SRE witness for ring 0, the ring-1 sigma bar,
+    consensus for ring 1, the ring-2 sigma bar, then whether the agent's
+    ring is privileged enough. Thresholds compare in float32."""
+    dev = sigma_eff.device
+    shape = torch.broadcast_shapes(agent_ring.shape, required_ring.shape, sigma_eff.shape)
+    required = required_ring.broadcast_to(shape)
+    consensus = torch.as_tensor(has_consensus, device=dev).broadcast_to(shape)
+    witness = torch.as_tensor(has_sre_witness, device=dev).broadcast_to(shape)
+    sigma = sigma_eff.broadcast_to(shape)
+    r1 = float(np.float32(trust.ring1_threshold))
+    r2 = float(np.float32(trust.ring2_threshold))
+    status = torch.zeros(shape, dtype=torch.int8, device=dev)
+    for cond, code in (
+        ((required == 0) & ~witness, CHECK_NEEDS_SRE_WITNESS),
+        ((required == 1) & (sigma < r1), CHECK_SIGMA_BELOW_RING1),
+        ((required == 1) & ~consensus, CHECK_NEEDS_CONSENSUS),
+        ((required == 2) & (sigma < r2), CHECK_SIGMA_BELOW_RING2),
+        (agent_ring.broadcast_to(shape) > required, CHECK_RING_INSUFFICIENT),
+    ):
+        status = status.masked_fill((status == CHECK_OK) & cond, code)
+    return status

@@ -11,3 +11,8 @@ import torch
 def count_true(*cols: torch.Tensor) -> torch.Tensor:
     """int32[len(cols)]: per-column count of nonzero lanes (one length)."""
     return (torch.stack(cols) != 0).sum(dim=1).to(torch.int32)
+
+
+def count_true_1d(col: torch.Tensor) -> torch.Tensor:
+    """int32[]: the count of nonzero lanes in one column."""
+    return count_true(col)[0]

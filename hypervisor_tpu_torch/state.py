@@ -4,8 +4,9 @@ The counterpart of `hypervisor_tpu.state.HypervisorState` for the
 lifecycle wave, the audit plane behind it, the saga plane and the slash
 cascade:
 
-  * the device tables (agents, sessions, vouch edges, sagas, metrics,
-    the DeltaLog ring and the tracer's TraceLog ring) and the host
+  * the device tables (agents, sessions, vouch edges, sagas, ring
+    elevations, metrics, the DeltaLog and EventLog rings and the
+    tracer's TraceLog ring) and the host
     indices: interning, membership keys, the agent-row and edge-row free
     lists, the fan-out groups, and the audit index (session -> DeltaLog
     rows, turn counters, chain seeds, incremental Merkle frontiers,
@@ -14,8 +15,8 @@ cascade:
   * `run_governance_wave`, the facade's single-device lifecycle wave:
     row claims, lane staging and bucket padding on the host, ONE fused
     wave (`ops.pipeline.governance_wave`, with the in-wave DeltaLog
-    append and the trace stamps), then the membership and audit
-    bookkeeping;
+    append, the trace stamps, the action gateway when actions ride, and
+    the gauge epilogue), then the membership and audit bookkeeping;
   * `stage_delta` / `flush_deltas`, chain verification, the frontier;
   * `terminate_sessions`;
   * vouch edges (`add_vouch`, `release_vouch`, `free_edge_rows`) and the
@@ -30,8 +31,9 @@ The host keeps mirrors of both ring cursors (`_delta_cursor`,
 `tracer.cursor`): it knows every advance, so no wave reads a device
 cursor back. Not thread-safe: the reference's staging lock guards its
 concurrent join producers, which arrive with `enqueue_join`. The WAL,
-the mesh path, the action gateway, the gauge epilogue, the sanitizer
-and the health plane's events arrive with later slices of the port.
+the mesh path, the integrity plane (which arms the facade wave's
+sanitizer on its cadence) and the health plane's events arrive with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -49,12 +51,13 @@ from hypervisor_tpu_torch.models import SessionConfig, SessionState
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
+from hypervisor_tpu_torch.ops import gateway as gateway_ops
 from hypervisor_tpu_torch.ops import pipeline, saga_ops
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.ops.admission import ADMIT_OK
 from hypervisor_tpu_torch.ops.rings import compute_rings
 from hypervisor_tpu_torch.tables.intern import InternTable
-from hypervisor_tpu_torch.tables.logs import DeltaLog
+from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
     AF32_SIGMA_EFF,
@@ -72,6 +75,7 @@ from hypervisor_tpu_torch.tables.state import (
     SI32_SID,
     SI32_STATE,
     AgentTable,
+    ElevationTable,
     SagaTable,
     SessionTable,
     VouchTable,
@@ -126,8 +130,10 @@ class HypervisorState:
         self.sessions = SessionTable.create(cap.max_sessions, self.device)
         self.vouches = VouchTable.create(cap.max_vouch_edges, self.device)
         self.sagas = SagaTable.create(cap.max_sagas, cap.max_steps_per_saga, self.device)
+        self.elevations = ElevationTable.create(cap.max_elevations, self.device)
         self.metrics = MetricsTable.create(device=self.device)
         self.delta_log = DeltaLog.create(cap.delta_log_capacity, self.device)
+        self.event_log = EventLog.create(cap.event_log_capacity, self.device)
         self.tracer = Tracer(capacity=cap.trace_log_capacity, device=self.device)
         self.agent_ids = InternTable()
         self.session_ids = InternTable()
@@ -382,14 +388,21 @@ class HypervisorState:
         mesh=None,
         actions: Optional[dict] = None,
         pad_to: Optional[tuple[int, int]] = None,
-    ) -> pipeline.WaveResult:
+    ):
         """Run the lifecycle wave ON the state tables: claim agent rows,
         stage the lanes on the host, then ONE fused wave admits, walks,
-        audits (chain, roots, the DeltaLog append), runs a saga step and
-        terminates with bond release, stamping the trace ring. Afterwards
-        the wave's admitted memberships are published, its rows return to
-        the free list, and its audit chain is booked into the host index
-        and the sessions' Merkle frontiers.
+        audits (chain, roots, the DeltaLog append), runs a saga step,
+        terminates with bond release, runs the action gateway when
+        `actions` ride and refreshes the occupancy gauges, stamping the
+        trace ring. Afterwards the wave's admitted memberships are
+        published, its rows return to the free list, and its audit chain
+        is booked into the host index and the sessions' Merkle frontiers.
+
+        `actions` is a dict with `slots` (standing agent rows, not this
+        wave's cohort) and optional `required_rings`, `is_read_only`,
+        `has_consensus`, `has_sre_witness` and `host_tripped` columns; the
+        gateway runs on the post-terminate table and the call returns
+        (WaveResult, GatewayResult) instead.
 
         `pad_to` = (lanes_bucket, sessions_bucket) pads the wave to a fixed
         bucket shape: pad join lanes ride duplicate=True (refused, no row
@@ -404,16 +417,17 @@ class HypervisorState:
         """
         if mesh is not None:
             raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
-        if actions is not None:
-            raise NotImplementedError(
-                "run_governance_wave(actions=...) arrives with a later slice of the port (the gateway)"
-            )
         b, k = len(dids), len(session_slots)
         b_wave, k_wave = b, k
         if pad_to is not None:
             if pad_to[0] < b or pad_to[1] < k:
                 raise ValueError(f"pad_to {pad_to} below the wave shape ({b} lanes, {k} sessions)")
             b_wave, k_wave = int(pad_to[0]), int(pad_to[1])
+        act = gateway_args = None
+        if actions is not None:
+            act = self._normalize_actions(actions)
+            self._check_action_slots(act["slots"])
+            gateway_args = self._pad_gateway_lanes(act)
         agent_slots = self._claim_wave_rows(b_wave)
         parked = self._park_sessions(k_wave - k, "padded bucket")
         staged = self._stage_wave_lanes(
@@ -440,11 +454,19 @@ class HypervisorState:
             delta_log=self.delta_log, delta_cursor=audit_base_row,
             lanes_valid=put(np.arange(b_wave) < b) if pad_to is not None else None,
             n_sessions_valid=k if pad_to is not None else None,
+            elevations=self.elevations,
+            gateway_args=None if gateway_args is None else tuple(put(c) for c in gateway_args),
+            breach=self.config.breach, rate_limit=self.config.rate_limit,
+            epilogue_tables=(self.sagas, self.event_log), config=self.config,
         )
         t = staged["bodies"].shape[0]
         if t:
             self._delta_cursor += k * t
         self.tracer.end_wave(th, result.trace)
+        gw_result = None
+        if act is not None:
+            gw_result = self._gateway_result_from_lanes(result.gateway, result.agents,
+                                                        len(act["slots"]))
         if b_wave != b or k_wave != k:
             result = result._replace(
                 status=result.status[:b], ring=result.ring[:b], sigma_eff=result.sigma_eff[:b],
@@ -455,7 +477,72 @@ class HypervisorState:
         self._publish_wave_members(staged["wave_keys"][ok].tolist(), agent_slots.tolist())
         if t:
             self._book_wave_audit(session_slots, u32.to_numpy_u32(result.chain), audit_base_row)
+        if act is not None:
+            return result, gw_result
         return result
+
+    @staticmethod
+    def _normalize_actions(actions: dict) -> dict:
+        """Fill an `actions` dict's optional columns: required ring 2 (a
+        standard write), nothing read-only, no consensus or witness, no
+        host-plane breaker trips."""
+        slots = np.asarray(actions["slots"], np.int32)
+        b = len(slots)
+
+        def col(key, dtype, default):
+            if key in actions and actions[key] is not None:
+                return np.asarray(actions[key], dtype)
+            return np.full((b,), default, dtype)
+
+        return {
+            "slots": slots,
+            "required_rings": col("required_rings", np.int8, 2),
+            "is_read_only": col("is_read_only", bool, False),
+            "has_consensus": col("has_consensus", bool, False),
+            "has_sre_witness": col("has_sre_witness", bool, False),
+            "host_tripped": col("host_tripped", bool, False),
+        }
+
+    def _check_action_slots(self, slots) -> None:
+        """Refuse out-of-range action slots: the gateway would clamp them
+        onto another agent's row (recording its calls, draining its
+        bucket, maybe tripping its breaker)."""
+        arr = np.asarray(slots, np.int32)
+        cap = self.agents.i32.shape[0]
+        if len(arr) and (arr.min() < 0 or arr.max() >= cap):
+            bad = arr[(arr < 0) | (arr >= cap)]
+            raise ValueError(f"action slots out of range [0, {cap}): {bad[:8].tolist()}")
+
+    @staticmethod
+    def _pad_gateway_lanes(act: dict) -> tuple:
+        """The normalized action columns padded to a power-of-two lane
+        block (padding lanes valid=False, touching nothing): the wave's
+        `gateway_args`, as host arrays."""
+        b = len(act["slots"])
+        padded = max(1, 1 << max(0, (b - 1).bit_length()))
+
+        def pad(seq, dtype):
+            arr = np.zeros((padded,), dtype)
+            arr[:b] = np.asarray(seq, dtype)
+            return arr
+
+        return (
+            pad(act["slots"], np.int32), pad(act["required_rings"], np.int8),
+            pad(act["is_read_only"], bool), pad(act["has_consensus"], bool),
+            pad(act["has_sre_witness"], bool), pad(act["host_tripped"], bool),
+            np.arange(padded) < b,
+        )
+
+    @staticmethod
+    def _gateway_result_from_lanes(lanes, agents, b: int) -> gateway_ops.GatewayResult:
+        """The wave's padded gateway lanes trimmed to the caller's `b`
+        actions (the lanes are already in request order)."""
+        return gateway_ops.GatewayResult(
+            agents=agents, verdict=lanes.verdict[:b], ring_status=lanes.ring_status[:b],
+            eff_ring=lanes.eff_ring[:b], sigma_eff=lanes.sigma_eff[:b],
+            severity=lanes.severity[:b], anomaly_rate=lanes.anomaly_rate[:b],
+            window_calls=lanes.window_calls[:b], tripped=lanes.tripped[:b],
+        )
 
     def _publish_wave_members(self, admitted_keys: list, recycle_rows: list) -> None:
         """Record the wave's admitted memberships and return every wave

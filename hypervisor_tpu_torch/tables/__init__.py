@@ -3,8 +3,8 @@
 `from_state_arrays` reads the `"<table>.<column>"` dict that the JAX
 package's checkpoint plane writes (`hypervisor_tpu.runtime.checkpoint.
 state_arrays`) for the agents, sessions and vouches tables, plus the
-optional `"sagas.<column>"`, `"delta_log.<column>"` and
-`"metrics.<column>"` blocks;
+optional `"sagas.<column>"`, `"elevations.<column>"`, `"delta_log.<column>"`,
+`"event_log.<column>"` and `"metrics.<column>"` blocks;
 `to_state_arrays` writes the same dict back, byte for byte (u32 columns
 as uint32). Both packages can then run from one seeded state.
 """
@@ -16,14 +16,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
+from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
-from hypervisor_tpu_torch.tables.state import AgentTable, SagaTable, SessionTable, VouchTable
+from hypervisor_tpu_torch.tables.state import (
+    AgentTable,
+    ElevationTable,
+    SagaTable,
+    SessionTable,
+    VouchTable,
+)
 from hypervisor_tpu_torch.tables.struct import tensors
 
 __all__ = [
     "AgentTable",
     "DeltaLog",
+    "ElevationTable",
+    "EventLog",
     "MetricsTable",
     "SagaTable",
     "SessionTable",
@@ -37,7 +45,9 @@ __all__ = [
 _TABLE_TYPES = {"agents": AgentTable, "sessions": SessionTable, "vouches": VouchTable}
 #: Columns holding u32 values (int32 bits in the port), by optional block.
 _OPTIONAL = {"sagas": (SagaTable, ()),
+             "elevations": (ElevationTable, ()),
              "delta_log": (DeltaLog, ("body", "digest")),
+             "event_log": (EventLog, ("trace", "span")),
              "metrics": (MetricsTable, ("counters", "hist"))}
 
 
@@ -51,6 +61,8 @@ class StateTables:
     metrics: MetricsTable | None = None
     delta_log: DeltaLog | None = None
     sagas: SagaTable | None = None
+    elevations: ElevationTable | None = None
+    event_log: EventLog | None = None
 
 
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Append-only device logs: the DeltaLog of audit records and the TraceLog
-flight-recorder ring (`hypervisor_tpu.tables.logs`; its EventLog ports
-with the epilogue).
+"""Append-only device logs: the DeltaLog of audit records, the EventLog of
+typed events and the TraceLog flight-recorder ring
+(`hypervisor_tpu.tables.logs`).
 
 Both are fixed-capacity ring buffers with a monotonic `cursor` (a 0-d
 int32 tensor; a row lands at `cursor % C`). The reference returns a new
@@ -44,6 +44,10 @@ class DeltaLog:
             cursor=torch.zeros((), dtype=torch.int32, device=device),
         )
 
+    @property
+    def capacity_rows(self) -> int:
+        return int(self.body.shape[0])
+
     def append_batch(self, bodies, digests, sessions, turns) -> None:
         """Append B records at the cursor (wrapping), IN PLACE."""
         self.append_batch_prefix(bodies, digests, sessions, turns, bodies.shape[0])
@@ -62,6 +66,42 @@ class DeltaLog:
         _put(self.session, idx, sessions[:n])
         _put(self.turn, idx, turns[:n])
         self.cursor += n
+
+
+@table
+class EventLog:
+    """[C] ring buffer of typed events. `trace`/`span` hold the causal
+    trace's device key words, so event rows and TraceLog stamps join on
+    the same (trace, span) words. Nothing in the ported paths appends to
+    it yet; the wave's epilogue reads its cursor (a live-row gauge) and
+    the sanitizer checks it."""
+
+    event_type: torch.Tensor  # i32[C] EventType code (-1 = empty)
+    session: torch.Tensor     # i32[C] session slot
+    agent: torch.Tensor       # i32[C] agent slot
+    trace: torch.Tensor       # u32[C] as int32 bits
+    span: torch.Tensor        # u32[C] as int32 bits
+    timestamp: torch.Tensor   # f32[C]
+    cursor: torch.Tensor      # i32[]
+
+    @staticmethod
+    def create(capacity: int, device: str | torch.device) -> "EventLog":
+        def full(value, dtype):
+            return torch.full((capacity,), value, dtype=dtype, device=device)
+
+        return EventLog(
+            event_type=full(-1, torch.int32),
+            session=full(-1, torch.int32),
+            agent=full(-1, torch.int32),
+            trace=full(0, torch.int32),
+            span=full(0, torch.int32),
+            timestamp=full(0.0, torch.float32),
+            cursor=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    @property
+    def capacity_rows(self) -> int:
+        return int(self.event_type.shape[0])
 
 
 @table
@@ -94,6 +134,10 @@ class TraceLog:
         words[:, TraceLog.COL_LANE] = -1
         words[:, TraceLog.COL_WAVE_SEQ] = -1
         return TraceLog(words=words, cursor=torch.zeros((), dtype=torch.int32, device=device))
+
+    @property
+    def capacity_rows(self) -> int:
+        return int(self.words.shape[0])
 
     def stamp_batch(self, traces, spans, stages, kinds, lanes, wave_seqs, sampled=True) -> None:
         """Append B stamps at the cursor, IN PLACE. Each column is [B]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from hypervisor_tpu_torch import u32
@@ -70,6 +71,25 @@ def counters_add(
         else:
             delta[idx] += int(v)
     counters.copy_(u32.add_u32(counters, delta))
+
+
+def gauge_set_many(m: MetricsTable, indices: Sequence[int], values: Sequence) -> None:
+    """Set gauge row `indices[i]` to `values[i]` (as f32), IN PLACE; the
+    rows are distinct. Values may be Python numbers or tensors on the
+    table's device. Each run of consecutive rows is one copy, and no index
+    or value crosses from the host, so nothing waits on the device."""
+    dev = m.gauges.device
+    vals = torch.stack([
+        v.to(torch.float32).reshape(()) if isinstance(v, torch.Tensor)
+        else torch.full((), float(np.float32(v)), dtype=torch.float32, device=dev)
+        for v in values
+    ])
+    idx = list(indices)
+    start = 0
+    for i in range(1, len(idx) + 1):
+        if i == len(idx) or idx[i] != idx[i - 1] + 1:
+            m.gauges[idx[start]:idx[i - 1] + 1] = vals[start:i]
+            start = i
 
 
 def observe(m: MetricsTable, hist_idx: int, values: torch.Tensor) -> None:

@@ -1,4 +1,5 @@
-"""The governance state tables: agents, sessions, sagas, vouch edges.
+"""The governance state tables: agents, sessions, sagas, vouch edges and
+ring elevations.
 
 Same fixed-capacity structure-of-arrays layout as
 `hypervisor_tpu.tables.state`, column for column and dtype for dtype,
@@ -132,6 +133,26 @@ class SessionTable:
             f32=f32,
             enable_audit=torch.ones((capacity,), dtype=torch.bool, device=device),
             has_nonreversible=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
+
+@table
+class ElevationTable:
+    """[M] sudo-with-TTL ring elevations: an active, unexpired grant lifts
+    its agent to `granted_ring` (`ops.security_ops.effective_rings`)."""
+
+    agent: torch.Tensor         # i32[M] agent slot (-1 = free)
+    granted_ring: torch.Tensor  # i8[M] temporary (more privileged) ring
+    expires_at: torch.Tensor    # f32[M]
+    active: torch.Tensor        # bool[M]
+
+    @staticmethod
+    def create(capacity: int, device: str | torch.device) -> "ElevationTable":
+        return ElevationTable(
+            agent=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+            granted_ring=torch.full((capacity,), 3, dtype=torch.int8, device=device),
+            expires_at=torch.zeros((capacity,), dtype=torch.float32, device=device),
+            active=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
 
 

@@ -20,9 +20,9 @@ One seeded sequence runs on the JAX package's `HypervisorState` (unarmed:
   * the refusal to wrap the ring into a live session.
 
 Held equal bit for bit after every step: every `WaveResult` field; the
-agents, sessions and vouches tables; the DeltaLog; the metrics counters,
-histograms and their sums (the gauges are written by the reference's
-fused epilogue, which ports with a later slice); the TraceLog words; the host
+agents, sessions and vouches tables; the DeltaLog; the whole metrics
+table (counters, the gauges the wave's epilogue refreshes, histograms
+and their sums); the TraceLog words; the host
 audit index, frontier roots, ring-row ownership, free lists and
 membership keys; the scrubber reports, the verify verdicts and the
 roots. Trace ids are made deterministic by patching `secrets.token_hex`.
@@ -64,7 +64,7 @@ BUDGET = 16
 #: end for wave 3.
 VOUCHED_ROWS = ([0, 1], [6, 7], [15, 14])
 _TABLES = ("agents", "sessions", "vouches", "delta_log")
-_METRICS = ("counters", "hist", "hist_sum", "bounds")
+_METRICS = ("counters", "gauges", "hist", "hist_sum", "bounds")
 _WAVE_FIELDS = ("status", "ring", "sigma_eff", "saga_step_state", "fsm_error")
 
 
@@ -454,9 +454,290 @@ def test_unported_facade_arguments_are_refused():
                    device="cpu")
     slots = st.create_sessions_batch(["a"], port_models.SessionConfig())
     args = (slots, ["d"], slots, np.ones(1, np.float32), np.zeros((T, 1, 16), np.uint32))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        st.run_governance_wave(*args, actions={"slots": []})
+    with pytest.raises(ValueError, match="action slots out of range"):
+        st.run_governance_wave(*args, actions={"slots": [CAP["max_agents"]]})
     with pytest.raises(NotImplementedError, match="mesh"):
         st.run_governance_wave(*args, mesh=object())
     with pytest.raises(ValueError, match="below the wave shape"):
         st.run_governance_wave(*args, pad_to=(0, 1))
+
+
+# ── the facade with actions, and a sanitized wave on its tables ──────
+
+ACT_CAP = dict(max_agents=48, max_sessions=40, max_vouch_edges=32, delta_log_capacity=40,
+               trace_log_capacity=64)
+#: Standing members the actions come from, past every row a wave claims.
+ACTORS = np.arange(32, 48)
+ACT_K = 4
+_ACT_TABLES = ("agents", "sessions", "vouches", "sagas", "elevations", "delta_log", "event_log")
+_GATEWAY_LANES = ("verdict", "ring_status", "eff_ring", "sigma_eff", "severity", "anomaly_rate",
+                  "window_calls", "tripped")
+
+
+def _act_ref_state():
+    return JaxState(jax_config.HypervisorConfig(capacity=jax_config.TableCapacity(
+        **ACT_CAP, max_sagas=8, max_steps_per_saga=4, max_elevations=8, event_log_capacity=16)))
+
+
+def _act_port_state():
+    return PortState(port_config.HypervisorConfig(capacity=port_config.TableCapacity(
+        **ACT_CAP, max_sagas=8, max_steps_per_saga=4, max_elevations=8, event_log_capacity=16)),
+        device="cpu")
+
+
+def _act_columns(rng):
+    """The standing actors' rows: ring 2 at sigma 0.8 with 40 tokens, but
+    row 40 holds 2.5 tokens, 41 is quarantined, 42's breaker runs to 100,
+    44-47 are ring 3 at sigma 0.4; and two sudo grants, 43 to ring 0 for
+    good and 44 to ring 1 until 11.5 (it lapses after the first wave)."""
+    n = len(ACTORS)
+    flags = np.full(n, 1, np.int32)
+    flags[41 - 32] |= 2
+    flags[42 - 32] |= 4
+    ring = np.where(ACTORS >= 44, 3, 2).astype(np.int8)
+    sigma = np.where(ACTORS >= 44, 0.4, 0.8).astype(np.float32)
+    tokens = np.full(n, 40.0, np.float32)
+    tokens[40 - 32] = 2.5
+    until = np.zeros(n, np.float32)
+    until[42 - 32] = 100.0
+    elev = dict(agent=np.array([43, 44, -1], np.int32), granted_ring=np.array([0, 1, 3], np.int8),
+                expires_at=np.array([1e6, 11.5, 0.0], np.float32),
+                active=np.array([True, True, False]))
+    return flags, ring, sigma, tokens, until, elev
+
+
+def _actions(rng, b):
+    return {
+        "slots": rng.choice(ACTORS, b).astype(np.int32),  # about 2x duplicates
+        "required_rings": np.where(rng.uniform(size=b) < 0.3, 0, rng.randint(1, 4, b)),
+        "is_read_only": rng.uniform(size=b) < 0.2,
+        "has_consensus": rng.uniform(size=b) < 0.5,
+        "has_sre_witness": rng.uniform(size=b) < 0.2,
+        "host_tripped": rng.uniform(size=b) < 0.05,
+    }
+
+
+class _ActRef(_Ref):
+    def __init__(self):
+        self.st = _act_ref_state()
+
+    def session_config(self, **kw):
+        return jax_models.SessionConfig(**kw)
+
+    def place_actors(self, rng):
+        flags, ring, sigma, tokens, until, elev = _act_columns(rng)
+        a, rows = self.st.agents, jnp.asarray(ACTORS)
+        s = self.st.create_session("actors", self.session_config(max_participants=20), now=1.0)
+        self.st.agents = jax_replace(
+            a, did=a.did.at[rows].set(jnp.asarray(1000 + ACTORS, jnp.int32)),
+            session=a.session.at[rows].set(s), flags=a.flags.at[rows].set(flags),
+            ring=a.ring.at[rows].set(ring), sigma_eff=a.sigma_eff.at[rows].set(sigma),
+            sigma_raw=a.sigma_raw.at[rows].set(sigma), rl_tokens=a.rl_tokens.at[rows].set(tokens),
+            bd_breaker_until=a.bd_breaker_until.at[rows].set(until))
+        sess = self.st.sessions
+        self.st.sessions = jax_replace(
+            sess, n_participants=sess.n_participants.at[s].set(len(ACTORS)))
+        e, idx = self.st.elevations, jnp.arange(3)
+        self.st.elevations = jax_replace(e, **{k: getattr(e, k).at[idx].set(v)
+                                               for k, v in elev.items()})
+
+    def corrupt(self):
+        a, s = self.st.agents, self.st.sessions
+        self.st.agents = jax_replace(a, flags=a.flags.at[33].set(a.flags[33] | (1 << 9)))
+        self.st.sessions = jax_replace(s, n_participants=s.n_participants.at[1].set(99))
+        v = self.st.vouches
+        self.st.vouches = jax_replace(v, bond=v.bond.at[2].set(-1.0), active=v.active.at[2].set(True))
+        e = self.st.elevations
+        self.st.elevations = jax_replace(e, agent=e.agent.at[0].set(999))
+
+    def gateway(self, gw):
+        return {f: np.asarray(getattr(gw, f)) for f in _GATEWAY_LANES}
+
+    def sanitized_wave(self, lanes):
+        from hypervisor_tpu.ops import pipeline as jax_pipeline
+        import jax
+
+        st = self.st
+        wave = jax.jit(jax_pipeline.governance_wave,
+                       static_argnames=("use_pallas", "unique_sessions", "wave_kernels", "sanitize"))
+        res = wave(
+            st.agents, st.sessions, st.vouches,
+            *(jnp.asarray(lanes[k]) for k in ("slot", "did", "session_slot", "sigma_raw",
+                                               "trustworthy", "duplicate", "wave_sessions",
+                                               "bodies")),
+            12.5, 0.5, use_pallas=False, wave_kernels=False, unique_sessions=True,
+            metrics=st.metrics.table, elevations=st.elevations,
+            gateway_args=tuple(jnp.asarray(c) for c in lanes["gateway"]),
+            delta_log=st.delta_log, epilogue_tables=(st.sagas, st.event_log), sanitize=True,
+            ring_bursts=jnp.asarray(st.config.rate_limit.ring_bursts, jnp.float32),
+        )
+        st.agents, st.sessions, st.vouches, st.delta_log = (
+            res.agents, res.sessions, res.vouches, res.delta_log)
+        st.metrics.commit(res.metrics)
+        out = {f: np.asarray(getattr(res.sanitizer, f)) for f in (
+            "agent_mask", "session_mask", "vouch_mask", "saga_mask", "elev_mask", "log_mask")}
+        out.update(total=int(res.sanitizer.total), unrepairable=int(res.sanitizer.unrepairable))
+        out["gateway"] = self.gateway(res.gateway)
+        return out
+
+    def snapshot(self):
+        out = {k: v for k, v in state_arrays(self.st).items() if k.split(".")[0] in _ACT_TABLES}
+        for c in _METRICS:
+            out[f"metrics.{c}"] = np.array(getattr(self.st.metrics.table, c))
+        out["trace.words"] = np.array(self.st.tracer.table.words)
+        return out
+
+
+class _ActPort(_ActRef):
+    wave_result = _Port.wave_result
+
+    def __init__(self):
+        self.st = _act_port_state()
+
+    def session_config(self, **kw):
+        return port_models.SessionConfig(**kw)
+
+    def place_actors(self, rng):
+        flags, ring, sigma, tokens, until, elev = _act_columns(rng)
+        a, rows = self.st.agents, torch.from_numpy(ACTORS)
+        s = self.st.create_session("actors", self.session_config(max_participants=20), now=1.0)
+        a.i32[rows, AI32_DID] = torch.from_numpy((1000 + ACTORS).astype(np.int32))
+        a.i32[rows, AI32_SESSION] = s
+        a.i32[rows, AI32_FLAGS] = torch.from_numpy(flags)
+        a.ring[rows] = torch.from_numpy(ring)
+        for col, val in ((0, sigma), (1, sigma), (4, tokens), (6, until)):
+            a.f32[rows, col] = torch.from_numpy(val)
+        self.st.sessions.i32[s, SI32_NPART] = len(ACTORS)
+        for k, v in elev.items():
+            getattr(self.st.elevations, k)[:3] = torch.from_numpy(v)
+
+    def corrupt(self):
+        st = self.st
+        st.agents.i32[33, AI32_FLAGS] |= 1 << 9
+        st.sessions.i32[1, SI32_NPART] = 99
+        st.vouches.bond[2], st.vouches.active[2] = -1.0, True
+        st.elevations.agent[0] = 999
+
+    def gateway(self, gw):
+        return {f: getattr(gw, f).numpy().copy() for f in _GATEWAY_LANES}
+
+    def sanitized_wave(self, lanes):
+        from hypervisor_tpu_torch.ops import pipeline as port_pipeline
+
+        st = self.st
+        t = torch.from_numpy
+        res = port_pipeline.governance_wave(
+            st.agents, st.sessions, st.vouches,
+            *(t(np.ascontiguousarray(lanes[k])) for k in (
+                "slot", "did", "session_slot", "sigma_raw", "trustworthy", "duplicate",
+                "wave_sessions")),
+            u32.from_numpy_u32(lanes["bodies"], "cpu"), 12.5, 0.5, unique_sessions=True,
+            metrics=st.metrics, elevations=st.elevations,
+            gateway_args=tuple(t(np.ascontiguousarray(c)) for c in lanes["gateway"]),
+            delta_log=st.delta_log, delta_cursor=st._delta_cursor,
+            epilogue_tables=(st.sagas, st.event_log), sanitize=True,
+            ring_bursts=st.config.rate_limit.ring_bursts,
+        )
+        out = {f: getattr(res.sanitizer, f).numpy().view(np.uint32).copy() for f in (
+            "agent_mask", "session_mask", "vouch_mask", "saga_mask", "elev_mask", "log_mask")}
+        out.update(total=int(res.sanitizer.total), unrepairable=int(res.sanitizer.unrepairable))
+        out["gateway"] = self.gateway(res.gateway)
+        return out
+
+    def snapshot(self):
+        st = self.st
+        out = port_tables.to_state_arrays(port_tables.StateTables(
+            st.agents, st.sessions, st.vouches, delta_log=st.delta_log, sagas=st.sagas,
+            elevations=st.elevations, event_log=st.event_log))
+        for c in _METRICS:
+            a = getattr(st.metrics, c).numpy().copy()
+            out[f"metrics.{c}"] = a.view(np.uint32) if c in ("counters", "hist") else a
+        out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
+        return out
+
+
+def _run_actions(side) -> dict:
+    """Three facade waves with actions from standing members (the second
+    padded to a bucket), the gauge epilogue on each; then one sanitized
+    pipeline wave on the same tables, one field of four tables corrupted
+    first."""
+    log = {}
+    st = side.st
+    rng = np.random.RandomState(30)
+    side.place_actors(rng)
+    for w in range(3):
+        slots = st.create_sessions_batch([f"a{w}:s{i}" for i in range(ACT_K)],
+                                         side.session_config(min_sigma_eff=0.5, max_participants=1))
+        lane_sessions = np.concatenate([slots, slots[:1]]) if w == 1 else slots
+        b = len(lane_sessions)
+        sigma = rng.uniform(0.4, 1.0, b).astype(np.float32)
+        bodies = rng.randint(0, 2**32, (T, ACT_K, 16), dtype=np.uint64).astype(np.uint32)
+        res, gw = st.run_governance_wave(
+            slots, [f"a:{w}:{i}" for i in range(b)], lane_sessions, sigma, bodies,
+            now=10.0 + w, actions=_actions(rng, (12, 20, 9)[w]),
+            pad_to=(8, 6) if w == 1 else None)
+        log[f"wave{w}"] = side.wave_result(res)
+        log[f"wave{w}:gateway"] = side.gateway(gw)
+        log[f"wave{w}:tables"] = side.snapshot()
+    side.corrupt()
+    slots = st.create_sessions_batch([f"san:s{i}" for i in range(ACT_K)],
+                                     side.session_config(min_sigma_eff=0.5, max_participants=1))
+    act = st._normalize_actions(_actions(rng, 10))
+    lanes = dict(
+        slot=np.arange(16, 16 + ACT_K, dtype=np.int32), did=np.arange(ACT_K, dtype=np.int32) + 500,
+        session_slot=np.asarray(slots, np.int32), sigma_raw=np.full(ACT_K, 0.8, np.float32),
+        trustworthy=np.ones(ACT_K, bool), duplicate=np.zeros(ACT_K, bool),
+        wave_sessions=np.asarray(slots, np.int32),
+        bodies=rng.randint(0, 2**32, (T, ACT_K, 16), dtype=np.uint64).astype(np.uint32),
+        gateway=st._pad_gateway_lanes(act),
+    )
+    if isinstance(lanes["gateway"][0], jnp.ndarray):
+        lanes["gateway"] = tuple(np.asarray(c) for c in lanes["gateway"])
+    log["sanitized"] = side.sanitized_wave(lanes)
+    log["sanitized:tables"] = side.snapshot()
+    return log
+
+
+@pytest.fixture(scope="module")
+def action_runs():
+    counter = itertools.count()
+
+    def token_hex(nbytes=None):
+        return f"{next(counter):0{2 * nbytes}x}"
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HV_WAVE_PALLAS", "0")
+        mp.setenv("HV_SHA256_PALLAS", "0")
+        mp.delenv("HV_TRACE", raising=False)
+        mp.delenv("HV_TRACE_SAMPLE", raising=False)
+        mp.setattr(secrets, "token_hex", token_hex)
+        ref = _run_actions(_ActRef())
+        counter = itertools.count()
+        port = _run_actions(_ActPort())
+    return ref, port
+
+
+@pytest.mark.parametrize("step", ["wave0", "wave1", "wave2"])
+def test_facade_waves_with_actions_match_reference(action_runs, step):
+    """Verdict lanes, the tables after the gateway and the whole metrics
+    table (gateway counters and the epilogue's gauges) equal the
+    reference's after every wave."""
+    ref, port = action_runs
+    for suffix in ("", ":gateway", ":tables"):
+        _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+    seen = {v for w in range(3) for v in port[f"wave{w}:gateway"]["verdict"].tolist()}
+    assert {0, 1, 2, 3} <= seen  # allowed, breaker, quarantine and ring refusals
+    tables = port[step + ":tables"]
+    gauges = tables["metrics.gauges"]
+    assert gauges[4] >= len(ACTORS) - 1 and gauges[29] > 0  # active rows, trace ring rows
+
+
+def test_sanitized_pipeline_wave_on_the_facade_tables_matches_reference(action_runs):
+    ref, port = action_runs
+    _assert_same("sanitized", port["sanitized"], ref["sanitized"])
+    _assert_same("sanitized:tables", port["sanitized:tables"], ref["sanitized:tables"])
+    san = port["sanitized"]
+    assert san["total"] >= 4 and san["agent_mask"][33] and san["session_mask"][1]
+    assert san["vouch_mask"][2] and san["elev_mask"][0]
+    counters = port["sanitized:tables"]["metrics.counters"]
+    assert counters[50] == 1 and counters[51] == san["total"]

@@ -3,8 +3,9 @@
 `DeltaLog` appends (whole batches and live prefixes, wrapping the ring)
 and `TraceLog` stamps (sampled and unsampled) go through the JAX
 package's tables and the port's on the same seeded inputs; the B6 ring
-append's plain version is held against the reference's numpy twin
-`ring_append_np`; and a seeded reference state's `delta_log.*` columns
+append's plain version, and B2's ring form (the chain with the append)
+through its wrapper, are held against the reference's numpy twins
+`ring_append_np` and `chain_digests_np`; and a seeded reference state's `delta_log.*` columns
 round-trip through `tables.from_state_arrays`/`to_state_arrays`.
 Tolerance 0 everywhere.
 """
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from hypervisor_tpu.config import HypervisorConfig, TableCapacity
+from hypervisor_tpu.kernels.mtu_pallas import chain_digests_np
 from hypervisor_tpu.kernels.wave_pallas import ring_append_np
 from hypervisor_tpu.models import SessionConfig
 from hypervisor_tpu.runtime.checkpoint import state_arrays
@@ -26,7 +28,7 @@ from hypervisor_tpu.tables.logs import TraceLog as JaxTraceLog
 from hypervisor_tpu.tables.struct import replace as jax_replace
 from hypervisor_tpu_torch import tables as port_tables
 from hypervisor_tpu_torch import u32
-from hypervisor_tpu_torch.kernels import wave
+from hypervisor_tpu_torch.kernels import mtu, wave
 from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 
 C = 16  # ring rows
@@ -104,23 +106,36 @@ def test_ring_append_plain_matches_ring_append_np(t, k, cursor, n_live):
     wave.ring_append_plain(port, *args)
     _assert_delta_logs_equal(port, JaxDeltaLog(*(jnp.asarray(a) for a in want)))
 
-    # The wrapper takes the plain version for CPU tensors and counts no launch.
+    # B2's ring form takes its plain pair for CPU tensors, counts no
+    # launch, and appends the chain it computes from the bodies.
     again = port_ring()
-    wave.ring_append.launches = 0
-    wave.ring_append(again, *args)
-    assert wave.ring_append.launches == 0
-    _assert_delta_logs_equal(again, JaxDeltaLog(*(jnp.asarray(a) for a in want)))
+    seeds = rng.randint(0, 2**32, (k, 8), dtype=np.uint64).astype(np.uint32)
+    chain_np = chain_digests_np(bodies, seeds)
+    want_ring = ring_append_np(
+        *ring, np.int32(cursor),
+        np.transpose(bodies, (1, 0, 2)).reshape(k * t, 16),
+        np.transpose(chain_np, (1, 0, 2)).reshape(k * t, 8),
+        np.repeat(sessions, t), np.tile(np.arange(t, dtype=np.int32), k), np.int32(n_live),
+    )
+    mtu.chain_digests_ring.launches = 0
+    got_chain = mtu.chain_digests_ring(
+        u32.from_numpy_u32(bodies, "cpu"), u32.from_numpy_u32(seeds, "cpu"), again,
+        torch.from_numpy(sessions), cursor, n_live)
+    assert mtu.chain_digests_ring.launches == 0
+    np.testing.assert_array_equal(u32.to_numpy_u32(got_chain), chain_np)
+    _assert_delta_logs_equal(again, JaxDeltaLog(*(jnp.asarray(a) for a in want_ring)))
 
 
 def test_ring_append_refuses_more_live_rows_than_the_ring_holds():
     log = DeltaLog.create(4, "cpu")
     bodies = torch.zeros((2, 3, 16), dtype=torch.int32)
-    chain = torch.zeros((2, 3, 8), dtype=torch.int32)
+    seeds = torch.zeros((3, 8), dtype=torch.int32)
+    sessions = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="exceed the ring"):
-        wave.ring_append(log, bodies, chain, torch.zeros(3, dtype=torch.int32), 0, 6)
+        mtu.chain_digests_ring(bodies, seeds, log, sessions, 0, 6)
     with pytest.raises(ValueError, match="n_live"):
-        wave.ring_append(log, bodies, chain, torch.zeros(3, dtype=torch.int32), 0, 7)
-    wave.ring_append(log, bodies, chain, torch.zeros(3, dtype=torch.int32), 0, 4)
+        mtu.chain_digests_ring(bodies, seeds, log, sessions, 0, 7)
+    mtu.chain_digests_ring(bodies, seeds, log, sessions, 0, 4)
     assert int(log.cursor) == 4
 
 
@@ -172,7 +187,8 @@ def test_delta_log_round_trips_through_state_arrays():
     assert tables.delta_log is not None and tables.delta_log.body.dtype == torch.int32
     back = port_tables.to_state_arrays(tables)
     want = {k: v for k, v in arrays.items()
-            if k.split(".")[0] in ("agents", "sessions", "vouches", "delta_log", "sagas")}
+            if k.split(".")[0] in ("agents", "sessions", "vouches", "delta_log", "sagas",
+                                    "elevations", "event_log")}
     assert sorted(back) == sorted(want)
     for key, value in want.items():
         assert back[key].dtype == value.dtype and back[key].shape == value.shape, key

@@ -32,7 +32,7 @@ from hypervisor_tpu_torch.tables import state as port_ts
 from hypervisor_tpu_torch.tables.struct import replace as port_replace
 
 CAP = dict(max_agents=64, max_sessions=32, max_vouch_edges=48)
-_KEYS = ("agents", "sessions", "vouches")
+_KEYS = ("agents", "sessions", "vouches", "elevations", "event_log")
 
 
 def _jax_state() -> HypervisorState:
@@ -63,6 +63,24 @@ def _jax_state() -> HypervisorState:
         state.agents,
         f32=jnp.asarray(rng.uniform(-1, 1, (64, 8)).astype(np.float32)),
         i32=jnp.asarray(rng.randint(-2**31, 2**31, (64, 21), dtype=np.int64).astype(np.int32)),
+    )
+    m = state.elevations.agent.shape[0]
+    state.elevations = jax_replace(
+        state.elevations,
+        agent=jnp.asarray(rng.randint(-1, 64, m).astype(np.int32)),
+        granted_ring=jnp.asarray(rng.randint(-128, 128, m).astype(np.int8)),
+        expires_at=jnp.asarray(rng.uniform(0, 500, m).astype(np.float32)),
+        active=jnp.asarray(rng.uniform(size=m) < 0.5),
+    )
+    c = state.event_log.event_type.shape[0]
+    state.event_log = jax_replace(
+        state.event_log,
+        event_type=jnp.asarray(rng.randint(-1, 40, c).astype(np.int32)),
+        agent=jnp.asarray(rng.randint(-1, 64, c).astype(np.int32)),
+        trace=jnp.asarray(rng.randint(0, 2**32, c, dtype=np.uint64).astype(np.uint32)),
+        span=jnp.asarray(rng.randint(0, 2**32, c, dtype=np.uint64).astype(np.uint32)),
+        timestamp=jnp.asarray(rng.uniform(0, 500, c).astype(np.float32)),
+        cursor=jnp.asarray(np.int32(c + 5)),
     )
     return state
 
@@ -136,7 +154,7 @@ def test_saga_table_create_matches_reference():
         assert getattr(port_config.DEFAULT_CONFIG.capacity, f) == getattr(DEFAULT_CONFIG.capacity, f)
 
 
-@pytest.mark.parametrize("name", ["AgentTable", "SessionTable", "VouchTable"])
+@pytest.mark.parametrize("name", ["AgentTable", "SessionTable", "VouchTable", "ElevationTable"])
 def test_create_matches_reference_initial_values(name):
     want = getattr(jax_ts, name).create(37)
     got = getattr(port_ts, name).create(37, "cpu")
@@ -172,6 +190,37 @@ def test_counter_indices_match_reference_registry():
         jax_schema.REGISTRY.counts()
     )
     assert port_schema.DEFAULT_BUCKET_BOUNDS_US == jax_schema.DEFAULT_BUCKET_BOUNDS_US
+
+
+def test_event_log_create_matches_reference():
+    from hypervisor_tpu.tables.logs import EventLog as JaxEventLog
+    from hypervisor_tpu_torch.tables.logs import EventLog
+
+    want, got = JaxEventLog.create(37), EventLog.create(37, "cpu")
+    fields = [f.name for f in dataclasses.fields(want)]
+    assert fields == [f.name for f in dataclasses.fields(got)]
+    for f in fields:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
+        assert g.shape == w.shape and g.tobytes() == w.tobytes(), f"EventLog.{f}"
+    assert got.capacity_rows == want.capacity_rows == 37
+
+
+def test_gauge_indices_match_reference_registry():
+    """The occupancy and sanitizer gauges the epilogue writes, and the
+    sanitizer's counters, sit on the reference registry's rows."""
+    by_key = {(h.name, h.labels): h for h in jax_schema.REGISTRY.handles}
+    for attr in ("AGENTS_ACTIVE", "QUARANTINED", "BREAKER_TRIPPED", "SESSIONS_LIVE",
+                 "VOUCH_EDGES_ACTIVE", "INTEGRITY_VIOLATION_ROWS", "INTEGRITY_UNREPAIRABLE_ROWS",
+                 "INTEGRITY_CHECKS", "INTEGRITY_VIOLATIONS"):
+        want, got = getattr(jax_schema, attr), getattr(port_schema, attr)
+        assert (got.name, got.index) == (want.name, want.index), attr
+        assert by_key[(want.name, want.labels)] is want
+    for got, want in zip(port_schema.RING_AGENTS, jax_schema.RING_AGENTS, strict=True):
+        assert (got.name, got.index) == (want.name, want.index)
+    assert list(port_schema.TABLE_LIVE_ROWS) == list(jax_schema.TABLE_LIVE_ROWS)
+    for name, want in jax_schema.TABLE_LIVE_ROWS.items():
+        got = port_schema.TABLE_LIVE_ROWS[name]
+        assert (got.name, got.index) == (want.name, want.index), name
 
 
 def test_metrics_table_matches_reference_layout():

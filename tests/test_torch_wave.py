@@ -165,9 +165,9 @@ def test_consecutive_waves_match_reference(unique, ranged):
     arrays = state_arrays(ref_state)
     arrays.update(_metrics_arrays(ref_state.metrics.table))
     port = port_tables.from_state_arrays(arrays, "cpu")
-    # The DeltaLog and the SagaTable ride across too; a wave without them
+    # The DeltaLog, SagaTable, ElevationTable and EventLog ride across too; a wave without them
     # leaves them untouched.
-    untouched_log = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas."))}
+    untouched_log = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas.", "elevations.", "event_log."))}
     agents, sessions, vouches = ref_state.agents, ref_state.sessions, ref_state.vouches
     metrics = ref_state.metrics.table
     for w in range(N_WAVES):
@@ -242,23 +242,10 @@ def test_wave_on_a_scattered_layout_with_parked_rows_matches_reference():
         wave_range=None, unique_sessions=False, metrics=port.metrics,
     )
     _assert_outputs_equal(got, ref)
-    untouched = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas."))}
+    untouched = {k: v for k, v in arrays.items() if k.startswith(("delta_log.", "sagas.", "elevations.", "event_log."))}
     _assert_arrays_equal(port_tables.to_state_arrays(port), {**_jax_tables_arrays(ref), **untouched})
     assert not np.array_equal(np.sort(wave_sessions[:K]), wave_sessions[:K])
     assert int(got.released) > 0 and bool(port.agents.i32[VOUCHER_BASE - 1, 2] & 1)
-
-
-def test_unported_wave_arguments_are_refused():
-    tables = port_tables.from_state_arrays(
-        {**state_arrays(_seeded_state(0)), **_metrics_arrays(_seeded_state(0).metrics.table)},
-        "cpu",
-    )
-    with pytest.raises(NotImplementedError, match="gateway_args=.*a later slice of the port"):
-        port_pipeline.governance_wave(
-            tables.agents, tables.sessions, tables.vouches,
-            *([torch.zeros(1, dtype=torch.int32)] * 7), torch.zeros((T, 1, 16), dtype=torch.int32),
-            0.0, gateway_args=object(),
-        )
 
 
 # ── bench.py's staging at a small size, through both states ──────────
