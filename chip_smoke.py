@@ -277,6 +277,20 @@ TABLE_OMEGA = 1e-6
 #: What B7's and B8's parity seeds their counter rows with: the round's
 #: and the cascade's tallies wrap it past 2^32.
 COUNTER_SEED = 0xFFFFFFF0
+#: The join queue and the security surface at the reference's default
+#: tables: flush 1 is tests/parity/test_admission.py's 8,192-join wave
+#: (32 joins into each of 256 sessions of 64 seats), flush 2 a crowded
+#: 7,000-join wave into 128 of them, padded to an 8,192 bucket; then the
+#: breach window (four waves of 16,384 calls), elevation grants and
+#: revokes, quarantines, 10,000 gateway actions and the row writes.
+N_JOINS, N_JOIN_SESSIONS, JOIN_SEATS = 8_192, 256, 64
+JOINS_PER_SESSION = N_JOINS // N_JOIN_SESSIONS
+N_CROWDED, N_CROWDED_SESSIONS, JOIN_BUCKET = 7_000, 128, 8_192
+BREACH_WAVES, BREACH_CALLS = 4, 16_384
+N_GRANTS, N_REVOKES, N_QUARANTINED = 1_024, 16, 2_048
+N_ROW_WRITES, N_TERMINATED, N_BONDS = 256, 64, 512
+JOIN_WARMUP, JOIN_ITERS = 1, 20
+SECURITY_WARMUP, SECURITY_ITERS = 2, 20
 #: The keys of the kernels summary line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -745,6 +759,226 @@ def run_sanitized_wave(device):
     return rec, launches
 
 
+def gateway_actions(rng, rows, n: int) -> dict:
+    """`n` actions in bench_suite's `action_gateway_10k` mix by the given
+    agent rows: uniform slots, 10% ring-0 probes, the rest ring 2."""
+    z = np.zeros(n, bool)
+    return {"slots": rows[rng.randint(0, len(rows), n)],
+            "required_rings": np.where(rng.uniform(size=n) < 0.1, 0, 2),
+            "is_read_only": z, "has_consensus": z, "has_sre_witness": z, "host_tripped": z}
+
+
+def joins_host(state) -> dict:
+    """The host indices the join queue and the security surface keep."""
+    return {"members": sorted(state._members),
+            "slot_of_member": sorted(state._slot_of_member.items()),
+            "free_agent_slots": list(state._free_agent_slots),
+            "free_edge_slots": list(state._free_edge_slots),
+            "free_elev_slots": list(state._free_elev_slots),
+            "scrubbed_edges": list(state._scrubbed_edges),
+            "staged": (sorted(state._staged_members), sorted(state._pending_rows.items())),
+            "last_join_results": sorted(state.last_join_results.items()),
+            "cursors": [state._next_agent_slot, state._next_session_slot, state._next_elev_slot,
+                        state.tracer.cursor]}
+
+
+def enqueue_bulk(state, sessions):
+    """Flush 1's staging: `N_JOINS` joins, `JOINS_PER_SESSION` into each of
+    `N_JOIN_SESSIONS` sessions, sigma 0.8; returns the dids."""
+    dids = [f"did:join:{i}" for i in range(N_JOINS)]
+    for i, did in enumerate(dids):
+        state.enqueue_join(int(sessions[i % N_JOIN_SESSIONS]), did, 0.8)
+    return dids
+
+
+def crowded_joins(state, sessions, dids, rng) -> list:
+    """Flush 2's lanes: `N_CROWDED` joins into the first
+    `N_CROWDED_SESSIONS` of flush 1's sessions (their last two terminated
+    first, which archives them and frees their members' rows), shuffled:
+    5% duplicates of flush 1's members, 5% below the sessions' sigma
+    floor, 2% on the terminated sessions, 10% untrustworthy, eight lanes
+    each at sigma -0.0 and 1.5, and the rest fresh joins that overrun
+    the free seats."""
+    state.terminate_sessions(sessions[N_CROWDED_SESSIONS - 2:N_CROWDED_SESSIONS].tolist(),
+                             now=1.5)
+    n = N_CROWDED
+    kind = np.zeros(n, np.int8)  # 0 fresh, 1 duplicate, 2 below the floor, 3 terminated
+    kind[: n // 20] = 1
+    kind[n // 20: n // 10] = 2
+    kind[n // 10: n // 10 + n // 50] = 3
+    lanes = []
+    for i, k in enumerate(kind.tolist()):
+        if k == 1:
+            j = int(rng.randint(0, N_CROWDED_SESSIONS - 2)) + N_JOIN_SESSIONS * int(
+                rng.randint(0, JOINS_PER_SESSION))
+            lanes.append((int(sessions[j % N_JOIN_SESSIONS]), dids[j], 0.8, True))
+            continue
+        sess = int(sessions[N_CROWDED_SESSIONS - 2 + int(rng.randint(0, 2))] if k == 3
+                   else sessions[int(rng.randint(0, N_CROWDED_SESSIONS - 2))])
+        sigma = 0.65 if k == 2 else float(rng.uniform(0.76, 1.0))
+        lanes.append((sess, f"did:crowd:{i}", sigma, k == 2 or rng.uniform() >= 0.1))
+    for i in range(16):
+        sess, did, _, trust = lanes[n - 1 - i]
+        lanes[n - 1 - i] = (sess, did, -0.0 if i < 8 else 1.5, trust)
+    return [lanes[i] for i in rng.permutation(n)]
+
+
+def run_joins_security(device):
+    """The join queue and the security surface at the reference's default
+    tables (16,384 agents, 4,096 sessions, 65,536 edges, 4,096
+    elevations) on a fresh state: two join flushes (the second crowded
+    and padded to a bucket), the breach window and two sweeps, 1,024
+    elevation grants with a tick and revokes, 2,048 quarantines with
+    re-entries and a tick, rate consumes on unique and repeated slots,
+    the gateway as a wave of its own, ring, risk and session writes, 256
+    leaves, and a terminate wave that reclaims granted rows. Returns
+    (records, launches, state): what a second device must reproduce,
+    and the launch counts of the whole sequence."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.models import ConsistencyMode, SessionConfig
+    from hypervisor_tpu_torch.observability import metrics as schema
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tables.state import FLAG_ACTIVE
+
+    rec = {}
+    with counted_trace_ids():
+        state = HypervisorState(device=device)
+        rng = np.random.RandomState(SEED + 13)
+
+        def record(label, value=None):
+            rec[label] = {"value": value, "tables": all_tables(state), "host": joins_host(state)}
+
+        def live_rows():
+            return np.nonzero((state.agents.flags.cpu().numpy() & FLAG_ACTIVE) != 0)[0]
+
+        def admission_tally():
+            c = state.metrics.counters.cpu().numpy().view(np.uint32)
+            return [int(c[schema.ADMITTED.index]), int(c[schema.REFUSED.index]),
+                    float(state.metrics.hist_sum.cpu().numpy()[schema.WAVE_LANES.index])]
+
+        kernels.reset_launch_counts()
+        sessions = state.create_sessions_batch(
+            [f"join:s{i}" for i in range(N_JOIN_SESSIONS)],
+            SessionConfig(max_participants=JOIN_SEATS, min_sigma_eff=0.75))
+        timed = [state.create_session(f"join:timed{i}", SessionConfig(max_duration_seconds=100),
+                                      now=0.0) for i in range(4)]
+        dids = enqueue_bulk(state, sessions)
+        status1 = state.flush_joins(now=1.0)
+        require((status1 == 0).all(), "join flush 1: every join must be admitted")
+        # Bonds between flush 1's members, some of them later leavers.
+        members = np.array([state.agent_row(d, int(sessions[i % N_JOIN_SESSIONS]))["slot"]
+                            for i, d in enumerate(dids)])
+        for i in rng.choice(N_JOINS, N_BONDS, replace=False):
+            state.add_vouch(int(members[i]), int(members[(i + N_JOIN_SESSIONS) % N_JOINS]),
+                            int(sessions[i % N_JOIN_SESSIONS]), bond=0.1)
+        record("flush1", status1)
+        lanes = crowded_joins(state, sessions, dids, rng)
+        for sess, did, sigma, trust in lanes:
+            state.enqueue_join(sess, did, sigma, trustworthy=trust)
+        before = admission_tally()
+        status2 = state.flush_joins(now=2.0, pad_to=JOIN_BUCKET)
+        after = admission_tally()
+        codes = np.bincount(status2, minlength=5).tolist()
+        require(len(status2) == N_CROWDED and all(codes),
+                f"join flush 2: every status must occur on the crowded wave, got {codes}")
+        require([a - b for a, b in zip(after, before)] == [codes[0], N_CROWDED - codes[0],
+                                                           float(N_CROWDED)],
+                "join flush 2: the pad lanes must stay out of the counters and the histogram")
+        record("flush2", {"status": status2, "codes": codes})
+
+        live = live_rows()
+        bad = rng.choice(live, len(live) // 20, replace=False)
+        for w in range(BREACH_WAVES):
+            slots = np.where(rng.uniform(size=BREACH_CALLS) < 0.25,
+                             rng.choice(bad, BREACH_CALLS), rng.choice(live, BREACH_CALLS))
+            privileged = np.isin(slots, bad) & (rng.uniform(size=BREACH_CALLS) < 0.8)
+            state.record_calls(slots, np.where(privileged, 0, 3), now=10.0 + w)
+        severity, tripped = state.breach_sweep_tick(now=14.0)
+        require(int(tripped.sum()) > 0 and not tripped[np.setdiff1d(live, bad)].any(),
+                "breach sweep: only the privileged callers may trip, and some must")
+        record("breach_sweep", {"severity": severity, "tripped": tripped})
+        cooldown = state.config.breach.circuit_breaker_cooldown_seconds
+        severity, tripped = state.breach_sweep_tick(now=14.0 + cooldown + 1.0)
+        record("breach_release", {"severity": severity, "tripped": tripped})
+
+        grant_rows = rng.choice(live, N_GRANTS, replace=False)
+        ttls = rng.choice([5.0, 8.5, 150.0, 1e9], N_GRANTS)
+        rings = state.agents.ring.cpu().numpy()
+        grants = [state.grant_elevation(int(r), int(rings[r]) - 1, now=50.0, ttl_seconds=float(t))
+                  for r, t in zip(grant_rows, ttls)]
+        record("grants", grants)
+        expired = state.elevation_tick(now=60.0)
+        require(0 < expired < N_GRANTS, "elevation tick: about half the grants must lapse")
+        record("elevation_tick", {"expired": expired, "rings": state.effective_rings(now=60.0)})
+        held = [g for g, t in zip(grants, ttls) if t > 10.0][:N_REVOKES]
+        for g in held:
+            state.revoke_elevation(g, expected_agent=int(state.elevations.agent[g]))
+        record("revokes", held)
+
+        quarantined = rng.choice(live, N_QUARANTINED, replace=False)
+        half = N_QUARANTINED // 2
+        state.quarantine_rows(quarantined[:half], now=70.0, duration=30.0)
+        state.quarantine_rows(quarantined[half:], now=70.0, duration=200.0)
+        state.quarantine_rows(quarantined[: half // 2], now=80.0, duration=500.0)  # re-entries
+        released = state.quarantine_tick(now=105.0)
+        require(sorted(released) == sorted(quarantined[:half].tolist()),
+                "quarantine tick: the first half's deadlines must pass, re-entries included")
+        record("quarantine", {"released": released, "mask": state.quarantined_mask()})
+
+        n_rows = state.agents.ring.shape[0]
+        record("consume_unique", state.consume_rate(rng.permutation(n_rows), now=110.0))
+        # A quarter of the calls on 64 hot rows, which run out of tokens.
+        dup_slots = np.where(rng.uniform(size=n_rows) < 0.25, rng.choice(live[:64], n_rows),
+                             rng.choice(live, n_rows))
+        allowed = state.consume_rate(dup_slots, now=110.5)
+        require(0 < int(allowed.sum()) < n_rows, "consume_rate: the hot rows must run dry")
+        record("consume_duplicates", allowed)
+
+        act = gateway_actions(rng, live, N_ACTIONS)
+        gw = state.check_actions_wave(**act, now=120.0)
+        record("gateway", {f: getattr(gw, f).cpu().numpy().copy() for f in GATEWAY_LANES})
+
+        moved = rng.choice(live, N_ROW_WRITES, replace=False)
+        for r in moved:
+            state.set_agent_ring(int(r), int(rng.randint(1, 4)), now=125.0)
+            state.set_agent_risk(int(r), float(rng.uniform(0, 1)))
+        stayed = np.nonzero(np.arange(N_JOINS) % N_JOIN_SESSIONS
+                            < N_CROWDED_SESSIONS - 2)[0]  # not of a terminated session
+        leavers = rng.choice(stayed, N_ROW_WRITES, replace=False)
+        for j in leavers:
+            state.leave_agent(int(sessions[j % N_JOIN_SESSIONS]), dids[j])
+        for s in sessions[:16]:
+            state.force_session_mode(int(s), ConsistencyMode.STRONG)
+        expiry = [state.session_expiry_sweep(now=t) for t in (50.0, 130.0)]
+        require(expiry == [[], timed], f"session expiry sweep: {expiry}")
+        scrubbed = state.pop_scrubbed_edges()
+        require(len(scrubbed) > 0, "leave_agent: the leavers' bonds must be scrubbed")
+        record("writes", {"expiry": expiry, "scrubbed": scrubbed})
+
+        holder = state.elevations.agent.cpu().numpy()
+        granted = set(holder[state.elevations.active.cpu().numpy()].tolist())
+        sess_col = state.agents.session.cpu().numpy()
+        ending = sorted({int(sess_col[r]) for r in granted if int(sess_col[r]) >= 0}
+                        - {int(s) for s in sessions[N_CROWDED_SESSIONS - 2:N_CROWDED_SESSIONS]}
+                        )[:N_TERMINATED]
+        require(len(ending) == N_TERMINATED, "terminate: too few sessions hold grants")
+        reclaimed = np.nonzero(np.isin(sess_col, ending) & np.isin(np.arange(n_rows), live_rows()))[0]
+        roots = state.terminate_sessions(ending, now=140.0)
+        e_agent = state.elevations.agent.cpu().numpy()
+        e_active = state.elevations.active.cpu().numpy()
+        require(not (e_active & np.isin(e_agent, reclaimed)).any(),
+                "terminate: a reclaimed row still holds an active grant")
+        record("terminate", {"roots": roots, "sessions": ending})
+        if state.device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        require(state.tracer.cursor == int(state.tracer.table.cursor),
+                "the trace cursor mirror disagrees with the device")
+    return rec, launches, state
+
+
 SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
 SAGA_OUTS = ("step_state", "retries_left", "saga_state", "cursor", "committed", "exhausted")
 
@@ -1090,7 +1324,7 @@ def main(argv=None) -> int:
     from hypervisor_tpu_torch.ops.sha256 import digests_to_hex, pad_messages_np
     from hypervisor_tpu_torch.state import HypervisorState
     from hypervisor_tpu_torch.tables.logs import DeltaLog
-    from hypervisor_tpu_torch.tables.state import VouchTable
+    from hypervisor_tpu_torch.tables.state import FLAG_ACTIVE, VouchTable
     from hypervisor_tpu_torch.tables.struct import clone, copy_into, tensors
 
     dev = torch.device("cuda", 0)
@@ -1248,9 +1482,26 @@ def main(argv=None) -> int:
               lanes["sigma_raw"], contribution, OMEGA,
               torch.ones(N_SESSIONS, dtype=torch.bool, device=dev),
               torch.zeros(N_SESSIONS, dtype=torch.bool, device=dev), 0.0, bursts, trust_cfg)
+    # (d) the join queue's form, no contribution (sigma_eff is sigma_raw),
+    # on the crowded wave with sigma's edge values; (e) a join flush padded
+    # from 7,000 lanes to an 8,192 bucket: pad lanes at slot 0, session 0,
+    # duplicate and untrusted, several on one slot.
+    edge_sigma = c_args[3].clone()
+    edge_sigma[:40] = torch.tensor([-0.0, 0.0, 1.5, float("nan"), 1e-42] * 8)
+    nc_args = c_args[:3] + (edge_sigma, None, 0.0) + c_args[6:]
+    n_pad = JOIN_BUCKET - N_CROWDED
+
+    def padded(t, fill):
+        return torch.cat([t[:N_CROWDED], torch.full((n_pad,), fill, dtype=t.dtype, device=dev)])
+
+    pad_args = (padded(c_args[0], 0), padded(c_args[1], -1), padded(c_args[2], 0),
+                padded(edge_sigma, 0.0), None, 0.0, padded(c_args[6], False),
+                padded(c_args[7], True)) + c_args[8:]
     layouts = {"unique": (adm_args, True, pristine["sessions"]),
                "crowded": (c_args, False, crowded),
-               "shared": (s_args, False, pristine["sessions"])}
+               "shared": (s_args, False, pristine["sessions"]),
+               "crowded, no contribution": (nc_args, False, crowded),
+               "padded join flush": (pad_args, False, crowded)}
     # B5 runs on the tables the unique admission leaves: its range form on
     # the wave's arange(0, 10,000), its mask form on the same sessions and
     # on 10,000 sessions drawn without replacement from the table's 16,384
@@ -1309,9 +1560,17 @@ def main(argv=None) -> int:
 
         out = {"admission_block": {}, "fsm_saga_block": {}}
         for tag, (args, unique, src) in layouts.items():
-            out["admission_block"][tag] = time_device(
-                lambda a=args, u=unique: wave.admission_block(tb["agents"], tb["sessions"], *a, u),
-                reset=lambda src=src: restore_into(src))
+            try:
+                out["admission_block"][tag] = time_device(
+                    lambda a=args, u=unique: wave.admission_block(tb["agents"], tb["sessions"],
+                                                                  *a, u),
+                    reset=lambda src=src: restore_into(src))
+            except (TypeError, AttributeError) as exc:
+                if not blocks_only:
+                    raise
+                # --blocks run in an older tree, whose B4 has no
+                # no-contribution form
+                out["admission_block"][tag] = f"refused: {exc}"
 
         def restore_post():
             for k, t in post.items():
@@ -1536,6 +1795,8 @@ def main(argv=None) -> int:
         pairs.update(table_pairs("agents", ka, pa))
         pairs.update(table_pairs("sessions", ks, ps))
         pairs.update(table_pairs("agents repeat", ra, ka))
+        if args[4] is None:  # no contribution: sigma_eff is sigma_raw, bit for bit
+            pairs["sigma_eff = sigma_raw"] = (got[2], args[3])
         return check_pairs(f"admission_block {tag}", pairs), got[0]
 
     err_b4, b4_codes = 0.0, {}
@@ -1543,12 +1804,18 @@ def main(argv=None) -> int:
         err, status_l = admission_parity(tag, args, unique, src)
         err_b4 = max(err_b4, err)
         b4_codes[tag] = sorted(set(status_l.tolist()))
+        if tag == "padded join flush":
+            require(bool((status_l[N_CROWDED:] == 2).all()),
+                    "B4 padded join flush: every pad lane must be refused as a duplicate")
     require(b4_codes["unique"] == [ADMIT_OK] and b4_codes["shared"] == [ADMIT_OK],
             f"the unique and shared lanes must all be admitted: {b4_codes}")
     require({0, 1, 2, 3, 4} <= set(b4_codes["crowded"]),
             f"the crowded wave must hit every status, got {b4_codes['crowded']}")
+    require({0, 1, 2, 3, 4} <= set(b4_codes["crowded, no contribution"]),
+            f"the no-contribution crowded wave must hit every status: {b4_codes}")
     emit("parity", kernel="admission_block", lanes=N_SESSIONS, layouts=sorted(layouts),
-         codes=b4_codes, bit_exact=True, max_abs_err=err_b4)
+         codes=b4_codes, no_contribution_sigma_edges=[-0.0, 0.0, 1.5, "nan", 1e-42],
+         bit_exact=True, max_abs_err=err_b4)
 
     # B5: fsm/saga/terminate on the post-admission tables, in the range
     # form and the mask form (which on the arange layout must also equal
@@ -1921,6 +2188,120 @@ def main(argv=None) -> int:
          verdicts=np.bincount(san_rec["gateway"]["verdict"], minlength=6).tolist(),
          gates="passed", cpu_run="identical")
     windows["sanitized_wave"] = san_launches
+
+    # ── 6d. the join queue and the security surface ──────────────────
+    t0 = time.perf_counter()
+    join_rec, join_launches, join_state = run_joins_security(dev)
+    join_card_s = time.perf_counter() - t0
+    require({k: n for k, n in join_launches.items() if n} == {"admission_block": 2},
+            f"joins_security: B4 must launch once a flush and nothing else run: {join_launches}")
+    t0 = time.perf_counter()
+    cpu_join, cpu_join_launches, _ = run_joins_security("cpu")
+    join_cpu_s = time.perf_counter() - t0
+    require(not any(cpu_join_launches.values()), "the joins_security CPU run launched a kernel")
+    diff = first_difference("joins_security", cpu_join, join_rec)
+    require(diff is None, f"joins_security on the CPU differs from the card at {diff}")
+    windows["joins_security"] = join_launches
+
+    def host_times(fn, warmup=SECURITY_WARMUP, iters=SECURITY_ITERS) -> dict:
+        """p50/p95 ms of `fn` on the host clock, each sample synchronised."""
+        samples = []
+        for i in range(warmup + iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter_ns()
+            fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                samples.append((time.perf_counter_ns() - t) / 1e6)
+        return {"p50": float(np.percentile(samples, 50)), "p95": float(np.percentile(samples, 95)),
+                "iters": iters}
+
+    def flush_sample():
+        st = HypervisorState(device=dev)
+        sess = st.create_sessions_batch([f"join:s{i}" for i in range(N_JOIN_SESSIONS)],
+                                        SessionConfig(max_participants=JOIN_SEATS,
+                                                      min_sigma_eff=0.75))
+        torch.cuda.synchronize()
+        t = time.perf_counter_ns()
+        enqueue_bulk(st, sess)
+        t_enq = time.perf_counter_ns()
+        st.flush_joins(now=1.0)
+        torch.cuda.synchronize()
+        return (t_enq - t) / 1e6, (time.perf_counter_ns() - t_enq) / 1e6
+
+    flush_samples = [flush_sample() for _ in range(JOIN_WARMUP + JOIN_ITERS)][JOIN_WARMUP:]
+    sec_rng = np.random.RandomState(SEED + 14)
+    j_live = np.nonzero((join_state.agents.flags.cpu().numpy() & FLAG_ACTIVE) != 0)[0]
+    n_agents = join_state.agents.ring.shape[0]
+    perm, dup_slots = sec_rng.permutation(n_agents), sec_rng.choice(j_live, n_agents)
+    gw_act = gateway_actions(sec_rng, j_live, N_ACTIONS)
+    timings = {
+        "enqueue_join_loop_ms": {"p50": float(np.percentile([e for e, _ in flush_samples], 50)),
+                                 "p95": float(np.percentile([e for e, _ in flush_samples], 95)),
+                                 "iters": JOIN_ITERS, "joins": N_JOINS},
+        "flush_joins_ms": {"p50": float(np.percentile([f for _, f in flush_samples], 50)),
+                           "p95": float(np.percentile([f for _, f in flush_samples], 95)),
+                           "iters": JOIN_ITERS, "lanes": N_JOINS},
+        "breach_sweep_tick_ms": host_times(lambda: join_state.breach_sweep_tick(now=200.0)),
+        "consume_rate_unique_ms": host_times(lambda: join_state.consume_rate(perm, now=210.0)),
+        "consume_rate_duplicates_ms": host_times(
+            lambda: join_state.consume_rate(dup_slots, now=210.0)),
+        "check_actions_wave_ms": host_times(
+            lambda: join_state.check_actions_wave(**gw_act, now=220.0)),
+        "elevation_tick_ms": host_times(lambda: join_state.elevation_tick(now=230.0)),
+    }
+    # B4 by CUDA events in the join queue's form (no contribution, two
+    # launches) at flush 1's 8,192 lanes, the tables restored each call.
+    b4_state = HypervisorState(device=dev)
+    b4_sessions = b4_state.create_sessions_batch(
+        [f"b4:s{i}" for i in range(N_JOIN_SESSIONS)],
+        SessionConfig(max_participants=JOIN_SEATS, min_sigma_eff=0.75))
+    b4_pristine = {k: clone(getattr(b4_state, k)) for k in ("agents", "sessions")}
+    b4_lanes = (torch.arange(N_JOINS, dtype=torch.int32, device=dev),
+                torch.arange(N_JOINS, dtype=torch.int32, device=dev),
+                torch.from_numpy(b4_sessions[np.arange(N_JOINS) % N_JOIN_SESSIONS]).to(dev),
+                torch.full((N_JOINS,), 0.8, dtype=torch.float32, device=dev), None, 0.0,
+                torch.ones(N_JOINS, dtype=torch.bool, device=dev),
+                torch.zeros(N_JOINS, dtype=torch.bool, device=dev), 1.0, bursts)
+
+    def b4_reset():
+        copy_into(b4_state.agents, b4_pristine["agents"])
+        copy_into(b4_state.sessions, b4_pristine["sessions"])
+
+    b4_ms = time_device(lambda: wave.admission_block(b4_state.agents, b4_state.sessions,
+                                                     *b4_lanes), reset=b4_reset)
+    b4_plain_ms = time_device(lambda: wave.admission_block_plain(
+        b4_state.agents, b4_state.sessions, *b4_lanes), reset=b4_reset, reps=PLAIN_REPS,
+        warmup=1)
+    # B4's no-contribution form reads 18 B a lane (slot, did, session,
+    # sigma, trustworthy, duplicate) and writes 6 (status, ring, sigma_eff);
+    # each distinct session's 16 B row is read and its 4 B count written
+    # once; each admitted lane writes its 117 B agent row.
+    b4_reset()
+    b4_ok = int((wave.admission_block_plain(b4_state.agents, b4_state.sessions, *b4_lanes)[0]
+                 == ADMIT_OK).sum())
+    b4_sess = int(torch.unique(b4_lanes[2]).numel())
+    b4_bytes = N_JOINS * (18 + 6) + b4_sess * (16 + 4) + b4_ok * 117
+    flush2 = join_rec["flush2"]["value"]
+    emit("joins_security", agents=n_agents, sessions=join_state.sessions.i32.shape[0],
+         edges=join_state.vouches.active.shape[0],
+         elevations=join_state.elevations.agent.shape[0],
+         flush1_joins=N_JOINS, flush2_joins=N_CROWDED, flush2_bucket=JOIN_BUCKET,
+         flush2_codes=flush2["codes"],
+         breakers_tripped=int(join_rec["breach_sweep"]["value"]["tripped"].sum()),
+         grants=N_GRANTS, grants_expired=join_rec["elevation_tick"]["value"]["expired"],
+         quarantine_released=len(join_rec["quarantine"]["value"]["released"]),
+         consume_allowed=[int(join_rec["consume_unique"]["value"].sum()),
+                          int(join_rec["consume_duplicates"]["value"].sum())],
+         gateway_verdicts=np.bincount(join_rec["gateway"]["value"]["verdict"],
+                                      minlength=6).tolist(),
+         terminated=N_TERMINATED, b4_launches=join_launches["admission_block"],
+         launches=join_launches, timings_ms=timings,
+         b4_no_contribution_two_launch={"lanes": N_JOINS, "ms": b4_ms, "plain_ms": b4_plain_ms,
+                                        "bound_ms": b4_bytes / HBM_BYTES_PER_S * 1e3,
+                                        "bound_by": "bytes"},
+         card_seconds=join_card_s, cpu_seconds=join_cpu_s, cpu_run="identical", nvidia_smi=smi,
+         clock="host, synchronised; flush_joins on a fresh state each sample")
 
     # ── 7. the saga plane ────────────────────────────────────────────
     saga_rec, saga_launches, saga_state, saga_s, saga_initial = run_saga_sequence(dev)

@@ -1,8 +1,9 @@
 """Typed configuration: the fields of `hypervisor_tpu.config` the governance
-wave (its action gateway and sanitizer included), the saga plane and the
-slash cascade read, copied with the same names and defaults, so a
-configuration means the same thing in both packages. Later slices add
-the fields their modules read."""
+wave (its action gateway and sanitizer included), the saga plane, the
+slash cascade and the state's security surface (elevation grants) read,
+copied with the same names and defaults, so a configuration means the
+same thing in both packages. Later slices add the fields their modules
+read."""
 
 from __future__ import annotations
 
@@ -33,6 +34,15 @@ class BreachConfig:
     high_threshold: float = 0.7
     critical_threshold: float = 0.9
     circuit_breaker_cooldown_seconds: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ElevationConfig:
+    """Sudo-with-TTL ring elevation: the TTL a grant gets by default and
+    the cap on any requested TTL."""
+
+    default_ttl_seconds: float = 300.0
+    max_ttl_seconds: float = 3600.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +82,7 @@ class HypervisorConfig:
 
     trust: TrustConfig = TrustConfig()
     breach: BreachConfig = BreachConfig()
+    elevation: ElevationConfig = ElevationConfig()
     rate_limit: RateLimitConfig = RateLimitConfig()
     quarantine: QuarantineConfig = QuarantineConfig()
     capacity: TableCapacity = TableCapacity()

@@ -48,7 +48,8 @@ constexpr int STEP_FAILED = 6;
 struct AdmissionArgs {
   float* af32; int* ai32; int8_t* aring; int* si32; const float* sf32;
   const int* slot; const int* did; const int* sess; const float* sigma_raw;
-  const float* contrib; const uint8_t* trust; const uint8_t* dup;
+  const float* contrib;  // null: no contribution, sigma_eff = sigma_raw
+  const uint8_t* trust; const uint8_t* dup;
   float omega, now, ring2_threshold;
   float bursts[4];
   int B;
@@ -69,9 +70,11 @@ constexpr int ADMIT_RANKED_THREADS = 256;
 constexpr int RANK_LOADS = 16;
 
 // B4 replaces hypervisor_tpu/kernels/wave_pallas.py admission_block_pallas:
-// the session-row gathers, sigma_eff, the ring, the status ladder, the
-// capacity rank, the packed agent-row writes (every column, so the
-// breach window resets) and the participant counts. Bound by bytes (~30
+// the session-row gathers, sigma_eff (min(sigma + omega * c, 1), or
+// sigma itself when no contribution rides: the join queue's wave), the
+// ring, the status ladder, the capacity rank, the packed agent-row
+// writes (every column, so the breach window resets) and the
+// participant counts. Bound by bytes (~30
 // bytes of lane inputs, a gathered session row and a 117-byte row
 // written at a random slot a lane: 0.5 us at 10,000 lanes), so its time
 // is launches and latency. Two forms:
@@ -96,8 +99,11 @@ __device__ __forceinline__ int lane_ladder(const AdmissionArgs& a, int i, int s,
                                            float* se_out) {
   const int state = a.si32[(size_t)s * SI32_WIDTH + SI32_STATE];
   const float min_sigma = a.sf32[(size_t)s * SF32_WIDTH + SF32_MIN_SIGMA];
-  const float x = __fadd_rn(a.sigma_raw[i], __fmul_rn(a.omega, a.contrib[i]));
-  const float se = x > 1.0f ? 1.0f : x;  // NaN passes through, like minimum
+  float se = a.sigma_raw[i];  // no contribution (contrib null): sigma_raw bit for bit
+  if (a.contrib != nullptr) {
+    const float x = __fadd_rn(se, __fmul_rn(a.omega, a.contrib[i]));
+    se = x > 1.0f ? 1.0f : x;  // NaN passes through, like minimum
+  }
   int8_t ring = se > a.ring2_threshold ? 2 : 3;
   if (!a.trust[i]) ring = 3;
   int st = ADMIT_OK;

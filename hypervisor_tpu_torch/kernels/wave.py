@@ -17,7 +17,10 @@ earlier lanes of its session (a shared-memory hash table of the tile's
 sessions, into which every earlier tile's requests are counted) and
 writes. Each admitted lane writes its own row, the f32 half as two
 16-byte stores. Unlike the TPU kernel it takes any lane count (no
-power-of-two bitonic network, no VMEM caps).
+power-of-two bitonic network, no VMEM caps). Without a contribution
+(`contribution=None`: the join queue's `HypervisorState.flush_joins`)
+sigma_eff is sigma_raw bit for bit, as the reference's `admit_batch`
+keeps it: no clamp to 1, -0.0 stays -0.0.
 
 B5 `fsm_saga_block` replaces `hypervisor_tpu/kernels/wave_pallas.py`
 `fsm_saga_block_pallas`, also bound by memory traffic (it streams the
@@ -174,7 +177,7 @@ def admission_block(
     did: torch.Tensor,           # i32[B]
     session_slot: torch.Tensor,  # i32[B]
     sigma_raw: torch.Tensor,     # f32[B]
-    contribution: torch.Tensor,  # f32[B]
+    contribution: torch.Tensor | None,  # f32[B], or None: no contribution
     omega,
     trustworthy: torch.Tensor,   # bool[B]
     duplicate: torch.Tensor,     # bool[B]
@@ -185,8 +188,10 @@ def admission_block(
 ):
     """B4: the admission phase, updating agents.f32/i32/ring and the
     sessions' participant counts IN PLACE. Returns (status, ring,
-    sigma_eff). The caller guarantees slot and session indices are in
-    range (the kernel does not bound-check them)."""
+    sigma_eff). With `contribution` None (the join queue's wave) sigma_eff
+    is sigma_raw bit for bit, unclamped, and `omega` is unused. The
+    caller guarantees slot and session indices are in range (the kernel
+    does not bound-check them)."""
     if not _route(slot):
         return admission_block_plain(
             agents, sessions, slot, did, session_slot, sigma_raw, contribution,
@@ -205,9 +210,11 @@ def admission_block(
         (agents.ring, "agents.ring", torch.int8), (sessions.i32, "sessions.i32", torch.int32),
         (sessions.f32, "sessions.f32", torch.float32), (slot, "slot", torch.int32),
         (did, "did", torch.int32), (session_slot, "session_slot", torch.int32),
-        (sigma_raw, "sigma_raw", torch.float32), (contribution, "contribution", torch.float32),
-        (trustworthy, "trustworthy", torch.bool), (duplicate, "duplicate", torch.bool),
+        (sigma_raw, "sigma_raw", torch.float32), (trustworthy, "trustworthy", torch.bool),
+        (duplicate, "duplicate", torch.bool),
     ]
+    if contribution is not None:
+        operands.append((contribution, "contribution", torch.float32))
     for t, name, dtype in operands:
         _check_operand(t, name, dtype, dev)
     for t, name, _ in operands[5:]:
@@ -226,7 +233,7 @@ def admission_block(
         agents.f32.data_ptr(), agents.i32.data_ptr(), agents.ring.data_ptr(),
         sessions.i32.data_ptr(), sessions.f32.data_ptr(),
         slot.data_ptr(), did.data_ptr(), session_slot.data_ptr(),
-        sigma_raw.data_ptr(), contribution.data_ptr(),
+        sigma_raw.data_ptr(), None if contribution is None else contribution.data_ptr(),
         trustworthy.data_ptr(), duplicate.data_ptr(),
         _host_f32(omega), _host_f32(now), _host_f32(trust.ring2_threshold),
         *_bursts(bursts),

@@ -1,2 +1,2 @@
 """Host runtimes over the device tables (`hypervisor_tpu.runtime`): the
-saga scheduler."""
+saga scheduler and the join staging queue."""

@@ -11,7 +11,13 @@ cascade:
     lists, the fan-out groups, and the audit index (session -> DeltaLog
     rows, turn counters, chain seeds, incremental Merkle frontiers,
     ring-row ownership);
-  * `create_session` / `create_sessions_batch`;
+  * `create_session` / `create_sessions_batch` and the session-row
+    writes (`set_session_state`, `session_expiry_sweep`,
+    `force_session_mode`);
+  * the join queue: `enqueue_join` stages joins (thread-safe), and
+    `flush_joins` admits them as one wave (kernel B4 on CUDA, in its
+    no-contribution form); `leave_agent`, and the membership accessors
+    (`is_member`, `participant_count`, `agent_row`, `agent_rows`);
   * `run_governance_wave`, the facade's single-device lifecycle wave:
     row claims, lane staging and bucket padding on the host, ONE fused
     wave (`ops.pipeline.governance_wave`, with the in-wave DeltaLog
@@ -24,20 +30,36 @@ cascade:
   * the saga plane: `create_saga` / `create_saga_from_dsl`, the fan-out
     groups (`fanout_dispatch`, `fanout_settle`), `saga_work`,
     `saga_round` (kernel B7 on CUDA), `sagas_settled` and the isolation
-    gate that `runtime.saga_scheduler.SagaScheduler` drives.
+    gate that `runtime.saga_scheduler.SagaScheduler` drives;
+  * the security surface: the breach window (`record_calls`,
+    `breach_sweep_tick`), sudo elevations (`grant_elevation`,
+    `revoke_elevation`, `elevation_tick`, `effective_rings`),
+    quarantine (`quarantine_rows`, `quarantine_tick`,
+    `quarantined_mask`), `set_agent_risk` / `set_agent_ring`, the token
+    buckets (`consume_rate`) and the action gateway as a wave of its own
+    (`check_actions_wave`).
 
 `stage_wave` / `governance_wave` keep the slim bench-shaped op path.
 The host keeps mirrors of both ring cursors (`_delta_cursor`,
 `tracer.cursor`): it knows every advance, so no wave reads a device
-cursor back. Not thread-safe: the reference's staging lock guards its
-concurrent join producers, which arrive with `enqueue_join`. The WAL,
-the mesh path, the integrity plane (which arms the facade wave's
-sanitizer on its cadence) and the health plane's events arrive with
-later slices of the port.
+cursor back.
+
+Thread safety, as in the reference: any number of producer threads may
+call `enqueue_join` while one thread flushes. The staging lock
+(`_enqueue_lock`, reentrant: `leave_agent` resolves its row through
+`agent_row`, whose cache fill takes it too) guards the staging queue and
+every mutation of the membership keys, `_slot_of_member`, the agent-row
+free list and cursor; `flush_joins`, `leave_agent` and `set_agent_ring`
+hold it across their whole table read-modify-write. The other methods
+belong to the one flushing thread. The WAL (and with it the admission
+damper and the shed gate), the mesh path, the integrity plane (which
+arms the facade wave's sanitizer on its cadence) and the health plane's
+events arrive with later slices of the port.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -47,20 +69,29 @@ import torch
 from hypervisor_tpu_torch import resolve_device, u32
 from hypervisor_tpu_torch.audit.frontier import MerkleFrontier
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
+from hypervisor_tpu_torch.kernels import wave as wave_kernels
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
+from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import gateway as gateway_ops
-from hypervisor_tpu_torch.ops import pipeline, saga_ops
+from hypervisor_tpu_torch.ops import pipeline, rate_limit, saga_ops, security_ops
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
-from hypervisor_tpu_torch.ops.admission import ADMIT_OK
+from hypervisor_tpu_torch.ops.admission import ADMIT_OK, tally_admission
 from hypervisor_tpu_torch.ops.rings import compute_rings
+from hypervisor_tpu_torch.runtime.staging import StagingQueue
 from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
+    AF32_BD_BREAKER_UNTIL,
+    AF32_QUARANTINE_UNTIL,
+    AF32_RISK,
+    AF32_RL_STAMP,
+    AF32_RL_TOKENS,
     AF32_SIGMA_EFF,
+    AI32_DID,
     AI32_FLAGS,
     AI32_SESSION,
     FLAG_ACTIVE,
@@ -72,6 +103,7 @@ from hypervisor_tpu_torch.tables.state import (
     SF32_MIN_SIGMA,
     SI32_MAX_PARTICIPANTS,
     SI32_MODE,
+    SI32_NPART,
     SI32_SID,
     SI32_STATE,
     AgentTable,
@@ -80,6 +112,11 @@ from hypervisor_tpu_torch.tables.state import (
     SessionTable,
     VouchTable,
 )
+
+
+def _mkey(session: int, did: int) -> int:
+    """One (session << 32) | did membership key."""
+    return (int(session) << 32) | (int(did) & 0xFFFFFFFF)
 
 
 def _mkeys(sessions: np.ndarray, dids: np.ndarray) -> np.ndarray:
@@ -142,6 +179,7 @@ class HypervisorState:
         self._next_agent_slot = 0
         self._next_saga_slot = 0
         self._next_edge_slot = 0
+        self._next_elev_slot = 0
         # Fan-out groups per saga slot: [(policy_code, [branch idxs])],
         # ordered by first branch index (from create_saga_from_dsl).
         self._fanout_groups: dict[int, list[tuple[int, list[int]]]] = {}
@@ -149,10 +187,25 @@ class HypervisorState:
         # session terminates in-wave); claims pop from the end.
         self._free_agent_slots: list[int] = []
         self._free_edge_slots: list[int] = []
+        # Elevation rows freed by revoke, expiry or a reclaimed holder.
+        self._free_elev_slots: list[int] = []
         # Edge rows the terminate GC deactivated for a reclaimed endpoint.
         self._scrubbed_edges: list[int] = []
-        # Membership keys (session << 32) | did (`_mkeys`).
+        # Membership keys (session << 32) | did (`_mkey`).
         self._members: set[int] = set()
+        # One device row per membership: (did, session) -> agent slot.
+        self._slot_of_member: dict[tuple[int, int], int] = {}
+        # The join queue and its host bookkeeping, keyed by agent slot
+        # (concurrent producers may claim queue entries in another order
+        # than they claim rows): slot -> (did, session, duplicate), and
+        # the membership keys staged but not yet flushed.
+        self._queue = StagingQueue(capacity=cap.max_agents)
+        self._enqueue_lock = threading.RLock()
+        self._pending_rows: dict[int, tuple[int, int, bool]] = {}
+        self._staged_members: set[int] = set()
+        #: The last `flush_joins`' status per membership key (the best of
+        #: a same-wave duplicate pair): how a front door resolves tickets.
+        self.last_join_results: dict[int, int] = {}
         # Timestamps are stored in f32 columns: keep them small, relative
         # to this epoch.
         self._epoch_base = time.time()
@@ -225,6 +278,27 @@ class HypervisorState:
         self.sessions.f32[base:base + k, SF32_MIN_SIGMA] = float(np.float32(config.min_sigma_eff))
         self.sessions.enable_audit[base:base + k] = bool(config.enable_audit)
         return slots
+
+    def set_session_state(self, slot: int, state: SessionState) -> None:
+        """Write a session row's lifecycle state."""
+        self.sessions.i32[slot, SI32_STATE] = state.code
+
+    def session_expiry_sweep(self, now: float) -> list[int]:
+        """Live (HANDSHAKING or ACTIVE) session slots past their max
+        duration (0 = unlimited), for the caller to terminate through the
+        audit path."""
+        state = self.sessions.state.cpu().numpy()
+        live = (state == SessionState.HANDSHAKING.code) | (state == SessionState.ACTIVE.code)
+        created = self.sessions.created_at.cpu().numpy()
+        limit = self.sessions.max_duration.cpu().numpy()
+        overdue = live & (limit > 0) & ((now - created) > limit)
+        return [int(s) for s in np.nonzero(overdue)[0]]
+
+    def force_session_mode(self, slot: int, mode, has_nonreversible: bool = True) -> None:
+        """Rewrite a session row's consistency mode (STRONG forcing when a
+        non-reversible action registers) and its non-reversible flag."""
+        self.sessions.i32[slot, SI32_MODE] = mode.code
+        self.sessions.has_nonreversible[slot] = bool(has_nonreversible)
 
     def stage_wave(
         self,
@@ -304,18 +378,19 @@ class HypervisorState:
         while it lasts, then from the END of the free list (wave rows
         recycle there after every wave). Pad lanes claim rows like real
         ones; the claim is transient."""
-        cap = self.agents.i32.shape[0]
-        fresh_n = min(b_wave, cap - self._next_agent_slot)
-        free = self._free_agent_slots
-        need = b_wave - fresh_n
-        if need > len(free):
-            raise RuntimeError(
-                f"agent table full: {self._next_agent_slot} + {b_wave} > {cap} with "
-                f"{len(free)} free rows; raise config.capacity.max_agents"
-            )
-        fresh = list(range(self._next_agent_slot, self._next_agent_slot + fresh_n))
-        self._next_agent_slot += fresh_n
-        recycled = [free.pop() for _ in range(need)]
+        with self._enqueue_lock:
+            cap = self.agents.i32.shape[0]
+            fresh_n = min(b_wave, cap - self._next_agent_slot)
+            free = self._free_agent_slots
+            need = b_wave - fresh_n
+            if need > len(free):
+                raise RuntimeError(
+                    f"agent table full: {self._next_agent_slot} + {b_wave} > {cap} with "
+                    f"{len(free)} free rows; raise config.capacity.max_agents"
+                )
+            fresh = list(range(self._next_agent_slot, self._next_agent_slot + fresh_n))
+            self._next_agent_slot += fresh_n
+            recycled = [free.pop() for _ in range(need)]
         return np.array(fresh + recycled, np.int32)
 
     def _park_sessions(self, n_parked: int, kind: str) -> np.ndarray:
@@ -547,9 +622,12 @@ class HypervisorState:
     def _publish_wave_members(self, admitted_keys: list, recycle_rows: list) -> None:
         """Record the wave's admitted memberships and return every wave
         row to the free list, in order (rejected rows were never admitted,
-        admitted rows belong to sessions the wave terminated)."""
-        self._members.update(admitted_keys)
-        self._free_agent_slots.extend(recycle_rows)
+        admitted rows belong to sessions the wave terminated). Under the
+        staging lock: `enqueue_join` reads the keys for its duplicate
+        check."""
+        with self._enqueue_lock:
+            self._members.update(admitted_keys)
+            self._free_agent_slots.extend(recycle_rows)
 
     def _book_wave_audit(self, session_slots, chain: np.ndarray, base_row: int) -> None:
         """Book one wave's audit chain (a host copy, u32[T, K, 8]) into the
@@ -570,6 +648,179 @@ class HypervisorState:
             self._turns[s] = self._turns.get(s, 0) + t
             self._chain_seed[s] = chain[t - 1, i]
             self._frontier.setdefault(s, MerkleFrontier()).extend(digests_flat[i * t:(i + 1) * t])
+
+    # ── join waves ───────────────────────────────────────────────────
+
+    def enqueue_join(
+        self, session_slot: int, agent_did: str, sigma_raw: float, trustworthy: bool = True,
+    ) -> int:
+        """Stage one join; returns its queue entry, or -1 when the epoch is
+        full (then nothing is staged and no row is claimed). Thread-safe.
+
+        The join claims its agent row now (the free list's end first,
+        then the cursor) and is a duplicate when its (session, agent)
+        membership is already admitted or staged in this epoch; raises
+        when the agent table is full."""
+        with self._enqueue_lock:
+            cap = self.agents.i32.shape[0]
+            if self._free_agent_slots:
+                agent_slot = self._free_agent_slots[-1]
+            elif self._next_agent_slot < cap:
+                agent_slot = self._next_agent_slot
+            else:
+                raise RuntimeError(f"agent table full ({cap}); raise config.capacity.max_agents")
+            did = self.agent_ids.intern(agent_did)
+            key = _mkey(session_slot, did)
+            duplicate = key in self._members or key in self._staged_members
+            q = self._queue.push(sigma_raw, agent_slot, session_slot, trustworthy)
+            if q < 0:
+                return -1
+            if self._free_agent_slots:
+                self._free_agent_slots.pop()
+            else:
+                self._next_agent_slot += 1
+            if not duplicate:
+                self._staged_members.add(key)
+            self._pending_rows[agent_slot] = (did, session_slot, duplicate)
+        return q
+
+    def flush_joins(self, now: float = 0.0, pad_to: Optional[int] = None) -> np.ndarray:
+        """Admit every staged join as one wave; returns i8[n] status codes.
+
+        Statuses come in harvest order (the queue's claim order), which
+        concurrent producers may make differ from call order: correlate
+        by agent slot, by `is_member`, or by `last_join_results`
+        (membership key -> the best status of this flush).
+
+        The wave is kernel B4 on CUDA (`kernels.wave.admission_block`,
+        two-launch form: join waves share sessions; no contribution, so
+        sigma_eff is sigma_raw), its plain version on the CPU, with the
+        admitted and refused counters, the wave-size histogram and the
+        `admission_wave` trace stamps. `pad_to` pads the wave to a fixed
+        bucket: pad lanes ride duplicate=True (refused, no row written),
+        and a valid mask keeps them out of the counters and the
+        histogram; it raises below the staged count. Rejected rows return
+        to the free list. The whole flush holds the staging lock."""
+        with self._enqueue_lock:
+            n, sigma, agent_slots, session_slots, trustworthy = self._queue.harvest()
+            if n == 0:
+                return np.zeros(0, np.int8)
+            rows = [(int(slot),) + self._pending_rows.pop(int(slot)) for slot in agent_slots]
+            dids = np.array([r[1] for r in rows], np.int32)
+            duplicate = np.array([r[3] for r in rows], bool)
+            valid = None
+            if pad_to is not None:
+                if pad_to < n:
+                    raise ValueError(
+                        f"flush_joins pad_to={pad_to} below the staged wave size {n}; "
+                        "cap staging at the largest bucket"
+                    )
+
+                def pad_arr(arr, dtype, fill):
+                    out = np.full((pad_to,), fill, dtype)
+                    out[:n] = np.asarray(arr, dtype)
+                    return out
+
+                sigma = pad_arr(sigma, np.float32, 0.0)
+                agent_slots = pad_arr(agent_slots, np.int32, 0)
+                session_slots = pad_arr(session_slots, np.int32, 0)
+                trustworthy = pad_arr(trustworthy, np.uint8, 0)
+                dids = pad_arr(dids, np.int32, -1)
+                duplicate = pad_arr(duplicate, bool, True)
+                valid = np.arange(pad_to) < n
+            dev = self.device
+
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+            th = self.tracer.begin_wave(
+                "admission_wave", sessions=np.unique(session_slots[:n]), lanes=n)
+            # The reference's admission wave ranks with the default trust
+            # thresholds, whatever the state's config says.
+            status, _, _ = wave_kernels.admission_block(
+                self.agents, self.sessions, put(agent_slots), put(dids), put(session_slots),
+                put(sigma), None, 0.0, put(trustworthy.astype(bool)), put(duplicate), now,
+                self.config.rate_limit.ring_bursts,
+            )
+            b = len(agent_slots)
+            tally_admission(self.metrics, status == ADMIT_OK, b,
+                            None if valid is None else put(valid))
+            if th is not None:
+                stamps = tracing.WaveStamps(th.ctx, "admission_wave")
+                stamps.begin("admission_wave", lane=b)
+                stamps.end("admission_wave", lane=b)
+                stamps.commit(self.tracer.table)
+            self.tracer.end_wave(th, self.tracer.table)
+            status = status.cpu().numpy()[:n]
+            results: dict[int, int] = {}
+            for (slot, did, sess, dup), st in zip(rows, status.tolist()):
+                key = _mkey(sess, did)
+                if not dup:
+                    self._staged_members.discard(key)
+                if st == ADMIT_OK:
+                    self._members.add(key)
+                    self._slot_of_member[(did, sess)] = slot
+                else:
+                    self._free_agent_slots.append(slot)
+                prev = results.get(key)
+                if prev is None or st < prev:
+                    results[key] = st
+            self.last_join_results = results
+        return status
+
+    def leave_agent(self, session_slot: int, agent_did: str) -> None:
+        """Remove one member from its session: its row loses FLAG_ACTIVE,
+        the session's count drops, the row returns to the free list, and
+        the vouch edges and elevation grants that name the row are
+        deactivated (the edges recorded for `pop_scrubbed_edges`). The
+        membership key stays, so a rejoin is a duplicate; the agent's
+        rows in other sessions are untouched. Holds the staging lock."""
+        with self._enqueue_lock:
+            row = self.agent_row(agent_did, session_slot)
+            if row is None:
+                raise ValueError(
+                    f"{agent_did} holds no active device row in session slot {session_slot}")
+            slot = row["slot"]
+            flags = self.agents.i32[:, AI32_FLAGS]
+            flags[slot] = flags[slot] & ~FLAG_ACTIVE
+            self.sessions.i32[session_slot, SI32_NPART] -= 1
+            did = int(self.agents.did[slot])
+            if self._slot_of_member.get((did, session_slot)) == slot:
+                del self._slot_of_member[(did, session_slot)]
+            self._free_agent_slots.append(slot)
+            voucher = self.vouches.voucher.cpu().numpy()
+            vouchee = self.vouches.vouchee.cpu().numpy()
+            dangling = self.vouches.active.cpu().numpy() & ((voucher == slot) | (vouchee == slot))
+            rows = np.nonzero(dangling)[0]
+            if len(rows):
+                self.vouches.active[torch.from_numpy(rows).to(self.device)] = False
+                self._free_edge_slots.extend(int(r) for r in rows)
+                self._scrubbed_edges.extend(int(r) for r in rows)
+            self._scrub_elevations_for_rows([slot])
+
+    def _scrub_elevations_for_rows(self, agent_rows) -> None:
+        """Deactivate the grants held by freed agent rows (`agent` -> -1,
+        the row back on the elevation free list): left active, a grant
+        would elevate whichever agent the recycled row serves next."""
+        if not len(agent_rows):
+            return
+        e = self.elevations
+        hit = e.active.cpu().numpy() & np.isin(e.agent.cpu().numpy(), np.asarray(agent_rows))
+        rows = np.nonzero(hit)[0]
+        if len(rows):
+            idx = torch.from_numpy(rows).to(self.device)
+            e.active[idx] = False
+            e.agent[idx] = -1
+            self._free_elev_slots.extend(int(r) for r in rows)
+
+    def pop_scrubbed_edges(self) -> list[int]:
+        """Drain the edge rows the GC scrubbed for lost endpoints."""
+        out, self._scrubbed_edges = self._scrubbed_edges, []
+        return out
+
+    def to_device_time(self, absolute_ts: float) -> float:
+        """Absolute unix seconds -> this state's epoch-relative time."""
+        return absolute_ts - self._epoch_base
 
     # ── audit deltas ─────────────────────────────────────────────────
 
@@ -802,7 +1053,8 @@ class HypervisorState:
         k = len(slots)
         # Participants to reclaim, captured before the wave deactivates
         # them; the active-flag guard skips rows already reclaimed.
-        sess_col, flags = self.agents.i32[:, [AI32_SESSION, AI32_FLAGS]].cpu().numpy().T
+        did_col, sess_col, flags = (
+            self.agents.i32[:, [AI32_DID, AI32_SESSION, AI32_FLAGS]].cpu().numpy().T)
         in_wave = np.isin(sess_col, np.array(slots))
         live = (flags & FLAG_ACTIVE) != 0
         reclaim = np.nonzero(in_wave & live)[0]
@@ -840,7 +1092,12 @@ class HypervisorState:
         self.tracer.end_wave(th)
 
         if len(reclaim):
-            self._free_agent_slots.extend(int(r) for r in reclaim)
+            with self._enqueue_lock:
+                for row in reclaim.tolist():
+                    key = (int(did_col[row]), int(sess_col[row]))
+                    if self._slot_of_member.get(key) == row:
+                        del self._slot_of_member[key]
+                    self._free_agent_slots.append(row)
             # Scrub dangling liability edges: a reclaimed row may still be
             # named by edges in other sessions; left active, the bond would
             # pass to whatever agent later reuses the row.
@@ -857,6 +1114,7 @@ class HypervisorState:
                 self.vouches.active[torch.from_numpy(rows).to(self.device)] = False
                 self._free_edge_slots.extend(int(r) for r in rows)
                 self._scrubbed_edges.extend(int(r) for r in rows)
+            self._scrub_elevations_for_rows(reclaim)
         return roots_host
 
     # ── vouch edges ──────────────────────────────────────────────────
@@ -1207,3 +1465,275 @@ class HypervisorState:
             return _isolation_refusal_from(int(flags[agent_slot]), float(until[agent_slot]), now)
 
         return refusal
+
+    # ── security sweeps ──────────────────────────────────────────────
+
+    def record_calls(
+        self, agent_slots: Sequence[int], called_rings: Sequence[int],
+        now: Optional[float] = None,
+    ) -> None:
+        """Record one action wave into the breach sliding window."""
+        now = self.now() if now is None else now
+        dev = self.device
+        new = security_ops.record_calls(
+            self.agents, torch.from_numpy(np.asarray(agent_slots, np.int32)).to(dev),
+            torch.from_numpy(np.asarray(called_rings, np.int8)).to(dev), now, self.config.breach)
+        self.agents.bd_window.copy_(new.bd_window)
+
+    def breach_sweep_tick(self, now: float) -> tuple[np.ndarray, np.ndarray]:
+        """Run the breach analysis over every row; returns (severity i8[N],
+        tripped bool[N])."""
+        result = security_ops.breach_sweep(self.agents, now, self.config.breach)
+        self.agents.i32[:, AI32_FLAGS] = result.agents.flags
+        self.agents.f32[:, AF32_BD_BREAKER_UNTIL] = result.agents.bd_breaker_until
+        return result.severity.cpu().numpy(), result.tripped.cpu().numpy()
+
+    def consume_rate(
+        self, slots: Sequence[int], now: float, rings: Optional[Sequence[int]] = None,
+    ) -> np.ndarray:
+        """Refill every bucket to `now` and take one token per element of
+        `slots`; returns bool[len(slots)] decisions. Duplicate slots
+        settle in call order: the k-th call on one bucket passes iff the
+        refilled level covers k tokens, then each bucket pays exactly
+        its granted tokens. `rings` overrides the rows' rings (e.g. a
+        live sudo grant rates the call at the elevated ring's budget; a
+        slot given twice takes its last ring)."""
+        slots_arr = np.asarray(slots, np.int32)
+        cfg, dev = self.config.rate_limit, self.device
+        n = self.agents.ring.shape[0]
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        ring_vec = self.agents.ring
+        if rings is not None:
+            # The last ring given for a slot wins, in any order the device
+            # would apply repeated writes.
+            rev = slots_arr[::-1]
+            uniq, first_rev = np.unique(rev, return_index=True)
+            last = np.asarray(rings, np.int8)[len(slots_arr) - 1 - first_rev]
+            ring_vec = ring_vec.clone()
+            ring_vec[put(uniq.astype(np.int64))] = put(last)
+        tokens, stamp = self.agents.rl_tokens, self.agents.rl_stamp
+        idx = put(slots_arr.astype(np.int64))
+        if np.unique(slots_arr).size == slots_arr.size:
+            cost = torch.zeros((n,), dtype=torch.float32, device=dev)
+            cost[idx] = 1.0
+            decision = rate_limit.consume(tokens, stamp, ring_vec, now, cost, cfg)
+            allowed = decision.allowed[idx].cpu().numpy()
+        else:
+            refilled = rate_limit.consume(tokens, stamp, ring_vec, now, 0.0,
+                                          cfg).tokens.cpu().numpy()
+            ordinal = np.zeros(len(slots_arr), np.int64)
+            seen: dict[int, int] = {}
+            for i, s in enumerate(slots_arr.tolist()):
+                seen[s] = seen.get(s, 0) + 1
+                ordinal[i] = seen[s]
+            # int64 against f32: numpy compares both as float64.
+            allowed = ordinal <= refilled[slots_arr]
+            grants = np.zeros(n, np.float32)
+            np.add.at(grants, slots_arr, allowed.astype(np.float32))
+            decision = rate_limit.consume(tokens, stamp, ring_vec, now, put(grants), cfg)
+        self.agents.f32[:, AF32_RL_TOKENS] = decision.tokens
+        self.agents.f32[:, AF32_RL_STAMP] = decision.stamp
+        return allowed
+
+    def check_actions_wave(
+        self, slots, required_rings, is_read_only, has_consensus, has_sre_witness,
+        host_tripped, now: float, mesh=None,
+    ) -> gateway_ops.GatewayResult:
+        """Run B actions through the action gateway (`ops.gateway.
+        check_actions`: breaker, quarantine, elevation-aware ring check,
+        the rate settle, breach recording) as one wave on the state's
+        tables, updated in place, with its counters and trace stamps. The
+        lanes are padded to the next power of two with valid=False lanes,
+        which touch nothing; out-of-range slots are refused first."""
+        self._check_action_slots(slots)
+        if mesh is not None:
+            raise NotImplementedError(
+                "check_actions_wave(mesh=...): the sharded gateway arrives with the port's "
+                "multi-device slice (ROADMAP A9)")
+        act = self._normalize_actions({
+            "slots": slots, "required_rings": required_rings, "is_read_only": is_read_only,
+            "has_consensus": has_consensus, "has_sre_witness": has_sre_witness,
+            "host_tripped": host_tripped})
+        lanes = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(self.device)
+                      for c in self._pad_gateway_lanes(act))
+        b = len(act["slots"])
+        th = self.tracer.begin_wave("gateway_wave", lanes=b)
+        result = gateway_ops.check_actions(
+            self.agents, self.elevations, *lanes[:6], now, valid=lanes[6],
+            breach=self.config.breach, rate_limit=self.config.rate_limit,
+            trust=self.config.trust, metrics=self.metrics, trace=self.tracer.table,
+            trace_ctx=th.ctx if th is not None else None,
+        )
+        self.tracer.end_wave(th, result.trace)
+        return self._gateway_result_from_lanes(result, result.agents, b)
+
+    # ── elevations ───────────────────────────────────────────────────
+
+    def grant_elevation(
+        self, agent_slot: int, granted_ring: int, now: float,
+        ttl_seconds: Optional[float] = None,
+    ) -> int:
+        """Grant a sudo-with-TTL elevation; returns its elevation row. The
+        grant must be more privileged than the agent's ring, ring 0 is
+        never granted, and the TTL is capped at `max_ttl_seconds`. The
+        deadline is now + ttl in double precision, stored as f32."""
+        cfg = self.config.elevation
+        if granted_ring == 0:
+            raise ValueError("Ring 0 cannot be granted by elevation")
+        current = int(self.agents.ring[agent_slot])
+        if granted_ring >= current:
+            raise ValueError(
+                f"elevation must be more privileged: agent holds ring {current}, "
+                f"requested {granted_ring}")
+        ttl = min(ttl_seconds if ttl_seconds is not None else cfg.default_ttl_seconds,
+                  cfg.max_ttl_seconds)
+        if self._free_elev_slots:
+            row = self._free_elev_slots.pop()
+        elif self._next_elev_slot < self.elevations.agent.shape[0]:
+            row = self._next_elev_slot
+            self._next_elev_slot += 1
+        else:
+            raise RuntimeError("elevation table full")
+        e = self.elevations
+        e.agent[row] = int(agent_slot)
+        e.granted_ring[row] = int(granted_ring)
+        e.expires_at[row] = float(np.float32(now + ttl))
+        e.active[row] = True
+        return row
+
+    def revoke_elevation(self, row: int, expected_agent: Optional[int] = None) -> None:
+        """Revoke a grant before its expiry; the row recycles. A row whose
+        grant already lapsed is a no-op; `expected_agent` refuses a stale
+        handle whose row a later grant now holds."""
+        holder = int(self.elevations.agent[row])
+        if expected_agent is not None and holder != expected_agent:
+            raise ValueError(
+                f"elevation row {row} now belongs to agent {holder}, not {expected_agent}: "
+                "the grant already expired and the row was recycled")
+        if not bool(self.elevations.active[row]):
+            return
+        self.elevations.active[row] = False
+        self.elevations.agent[row] = -1
+        self._free_elev_slots.append(int(row))
+
+    def elevation_tick(self, now: float) -> int:
+        """Expire every lapsed grant (its row freed, `agent` -1); returns
+        how many expired."""
+        table, expired = security_ops.elevation_expiry(self.elevations, now)
+        self.elevations.active.copy_(table.active)
+        rows = np.nonzero(expired.cpu().numpy())[0]
+        if len(rows):
+            self.elevations.agent[torch.from_numpy(rows).to(self.device)] = -1
+            self._free_elev_slots.extend(int(r) for r in rows)
+        return len(rows)
+
+    def effective_rings(self, now: float) -> np.ndarray:
+        """i8[N] assigned rings with the active grants applied."""
+        return security_ops.effective_rings(self.agents.ring, self.elevations, now).cpu().numpy()
+
+    # ── quarantine and row writes ────────────────────────────────────
+
+    def quarantine_rows(self, rows, now: float, duration: Optional[float] = None) -> None:
+        """Put agent rows into read-only isolation until now + duration
+        (default `config.quarantine`); a row already held keeps its
+        deadline."""
+        if duration is None:
+            duration = self.config.quarantine.default_duration_seconds
+        enter = torch.zeros(self.agents.flags.shape, dtype=torch.bool, device=self.device)
+        enter[torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)] = True
+        new = security_ops.quarantine_enter(self.agents, enter, now, float(duration))
+        self.agents.i32[:, AI32_FLAGS] = new.flags
+        self.agents.f32[:, AF32_QUARANTINE_UNTIL] = new.quarantine_until
+
+    def quarantine_tick(self, now: float) -> list[int]:
+        """Release every quarantine strictly past its deadline; returns the
+        released rows."""
+        sweep = security_ops.quarantine_sweep(self.agents, now)
+        self.agents.i32[:, AI32_FLAGS] = sweep.agents.flags
+        return [int(r) for r in np.nonzero(sweep.released.cpu().numpy())[0]]
+
+    def quarantined_mask(self) -> np.ndarray:
+        """bool[N]: rows in read-only isolation."""
+        return (self.agents.flags.cpu().numpy() & FLAG_QUARANTINED) != 0
+
+    def set_agent_risk(self, slot: int, risk: float) -> None:
+        """Write a membership row's liability risk score."""
+        self.agents.f32[slot, AF32_RISK] = float(np.float32(risk))
+
+    def set_agent_ring(self, slot: int, ring: int, now: float) -> None:
+        """Reassign a row's ring; its token bucket is recreated full at the
+        new ring's burst, stamped `now`. Holds the staging lock."""
+        burst = float(np.float32(self.config.rate_limit.ring_bursts[int(ring)]))
+        with self._enqueue_lock:
+            self.agents.ring[slot] = int(ring)
+            self.agents.f32[slot, AF32_RL_TOKENS] = burst
+            self.agents.f32[slot, AF32_RL_STAMP] = float(np.float32(now))
+
+    # ── views ────────────────────────────────────────────────────────
+
+    def session_slot_of(self, session_id: str) -> Optional[int]:
+        """The table slot of a session id (None if unknown): the last row
+        whose sid column holds its handle."""
+        sid = self.session_ids.lookup(session_id)
+        if sid < 0:
+            return None
+        hits = np.nonzero(self.sessions.sid.cpu().numpy() == sid)[0]
+        return int(hits[-1]) if len(hits) else None
+
+    def is_member(self, session_slot: int, agent_did: str) -> bool:
+        """Was this agent admitted into the session (by any flush or wave)?"""
+        did = self.agent_ids.lookup(agent_did)
+        return did >= 0 and _mkey(session_slot, did) in self._members
+
+    def participant_count(self, session_slot: int) -> int:
+        return int(self.sessions.n_participants[session_slot])
+
+    def _live_rows_of(self, did: int) -> np.ndarray:
+        """The live agent rows holding `did`, by a scan of the table."""
+        did_col, flags = self.agents.i32[:, [AI32_DID, AI32_FLAGS]].cpu().numpy().T
+        return np.nonzero((did_col == did) & ((flags & FLAG_ACTIVE) != 0))[0]
+
+    def _row_view(self, i: int) -> dict:
+        return {"slot": int(i), "session": int(self.agents.session[i]),
+                "sigma_eff": float(self.agents.sigma_eff[i]), "ring": int(self.agents.ring[i])}
+
+    def agent_row(self, agent_did: str, session_slot: Optional[int] = None) -> Optional[dict]:
+        """The agent's live device row, one per (agent, session).
+
+        With `session_slot`, that membership's row (None if the agent is
+        not live there), from the `_slot_of_member` cache, else a scan
+        whose hit fills the cache (only live rows match: a reclaimed row
+        keeps its last did and session until reuse). Without, the agent's
+        most recently joined live row across sessions."""
+        did = self.agent_ids.lookup(agent_did)
+        if did < 0:
+            return None
+        if session_slot is not None:
+            i = self._slot_of_member.get((did, session_slot))
+            if i is None:
+                hits = self._live_rows_of(did)
+                hits = hits[self.agents.session.cpu().numpy()[hits] == session_slot]
+                if len(hits) == 0:
+                    return None
+                i = int(hits[-1])
+                with self._enqueue_lock:
+                    self._slot_of_member[(did, session_slot)] = i
+        else:
+            hits = self._live_rows_of(did)
+            if len(hits) == 0:
+                return None
+            i = int(hits[np.argmax(self.agents.joined_at.cpu().numpy()[hits])])
+        return self._row_view(i)
+
+    def agent_rows(self, agent_did: str) -> list[dict]:
+        """All live device rows of an agent, one per session membership, in
+        join order (by joined_at: slot order lies once rows recycle)."""
+        did = self.agent_ids.lookup(agent_did)
+        if did < 0:
+            return []
+        hits = self._live_rows_of(did)
+        hits = hits[np.argsort(self.agents.joined_at.cpu().numpy()[hits], kind="stable")]
+        return [self._row_view(i) for i in hits]

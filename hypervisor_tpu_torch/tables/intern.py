@@ -23,6 +23,10 @@ class InternTable:
             self._to_string.append(s)
         return h
 
+    def lookup(self, s: str) -> int:
+        """The handle for `s`, or -1 if it was never interned."""
+        return self._to_handle.get(s, -1)
+
     def string(self, handle: int) -> str:
         """Reverse lookup; raises IndexError on unknown handle."""
         if handle < 0:
