@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's governance wave, its facade (all eight
-phases: the action gateway and the gauge epilogue too), the sanitizer,
-the saga plane and the slash cascade on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's governance wave, its facade wave (all
+eight phases: the action gateway and the gauge epilogue too), the
+sanitizer, the join queue and security surface, the `Hypervisor` facade's
+public API, the saga plane and the slash cascade on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -105,6 +106,9 @@ Phases, one JSON line each:
    with four rows corrupted (phase `sanitized_wave`): the sanitizer flags
    exactly those four, the escrow is the contribution kernel's second
    launch, and the CPU run is identical (masks, verdicts, tables);
+   then the join queue and the security surface (phase
+   `joins_security`, at the reference's default tables, equal to its
+   CPU run);
 7. saga: the reference's default SagaTable (8,192 sagas x 16 steps) on
    a fresh state, filled with 5-step sagas whose seeded executors commit
    cleanly, retry then commit, or exhaust into compensation with and
@@ -139,7 +143,25 @@ Phases, one JSON line each:
    the clip-factor table's build at a tiny omega; beside them B1 at each of its paths' shapes (the scrubber's strip,
    verify's links, the big tree's 13 levels) with each path's
    launches x (ms - bound), the contribution on the two hot-vouchee
-   tables and B3 on full trees at P = 64 and P = 4096.
+   tables and B3 on full trees at P = 64 and P = 4096;
+10. facade_api, after the other profiles: the `Hypervisor` facade's
+   public async API on `Hypervisor(device="cuda")` at the default tables:
+   1,024 sessions of 8 members (8,192 `join_session` calls, 1,000
+   vouches made before the vouchee joins), each session activated with
+   3 captures (64 in every 64th, whose host root takes B3) and one
+   8-action `check_actions`, 64 grants, 16 `verify_behavior` slashes
+   through an injected CMVK verifier, 16 kills, 64 leaves, the event bus
+   mirrored into the EventLog, and every session terminated, the
+   facade's own cross-plane checks (device against host root, rings,
+   membership) holding throughout; ids and times from counters and a
+   manual clock. B4 must launch once a join, B2 once a block (its first
+   terminate flushes every staged delta), B3 once a long session, B8
+   once a slash, and nothing else; the first 128 sessions run under
+   torch.profiler (device activity only), whose census must name the
+   four kernels, and are replayed on the CPU, which must give identical
+   returns, tables, metrics, host counters, event-bus rows and ledger;
+   the other 896 give the p50/p95 of `join_session`, `check_actions`,
+   `verify_behavior` and `terminate_session` (host clock, synchronised).
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -291,6 +313,19 @@ N_GRANTS, N_REVOKES, N_QUARANTINED = 1_024, 16, 2_048
 N_ROW_WRITES, N_TERMINATED, N_BONDS = 256, 64, 512
 JOIN_WARMUP, JOIN_ITERS = 1, 20
 SECURITY_WARMUP, SECURITY_ITERS = 2, 20
+#: The facade's public API at the reference's default tables: 1,024
+#: sessions of 8 members (8,192 `join_session` calls), 1,000 vouches made
+#: before the vouchee joins, every session activated with 3 captures (64
+#: in every 64th session, whose host root then takes B3) and one
+#: 8-action `check_actions`, 64 grants, 16 drift slashes, 16 kills, 64
+#: leaves, and every session terminated. Two blocks: the first 128
+#: sessions (profiled, and replayed on the CPU), then the other 896
+#: (timed).
+API_SESSIONS, API_MEMBERS, API_REPLAY, API_VOUCHES = 1_024, 8, 128, 1_000
+API_CAPTURES, API_LONG_CAPTURES = 3, 64
+#: The manual clock's start (2026-01-01T00:00:00Z) for the facade's ids
+#: and times; it moves in dyadic steps only.
+API_T0 = 1_767_225_600.0
 #: The keys of the kernels summary line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -979,6 +1014,241 @@ def run_joins_security(device):
     return rec, launches, state
 
 
+@contextlib.contextmanager
+def manual_ids_and_time(clock: list):
+    """Ids and times the same on every run, for the port's callers only
+    (torch.profiler draws a uuid of its own): `uuid.uuid4` and
+    `secrets.token_hex` count up from 1, and `time.time` and the port's
+    `datetime.now` read `clock[0]`, which only the caller moves."""
+    import datetime as dt
+    import uuid
+
+    class ManualDatetime(dt.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return cls.fromtimestamp(clock[0], tz)
+
+    def for_the_port(manual, real):
+        def pick(*args):
+            caller = sys._getframe(1).f_globals.get("__name__", "")
+            return (manual if caller.startswith("hypervisor_tpu_torch") else real)(*args)
+        return pick
+
+    ids, words = itertools.count(1), itertools.count(1)
+    saved = (uuid.uuid4, secrets.token_hex, time.time)
+    uuid.uuid4 = for_the_port(lambda: uuid.UUID(int=next(ids)), saved[0])
+    secrets.token_hex = for_the_port(
+        lambda nbytes=None: f"{next(words):0{2 * (nbytes or 32)}x}", saved[1])
+    time.time = for_the_port(lambda: clock[0], saved[2])
+    patched = [m for name, m in list(sys.modules.items())
+               if name.startswith("hypervisor_tpu_torch") and getattr(m, "datetime", None)
+               is dt.datetime]
+    for m in patched:
+        m.datetime = ManualDatetime
+    try:
+        yield
+    finally:
+        uuid.uuid4, secrets.token_hex, time.time = saved
+        for m in patched:
+            m.datetime = dt.datetime
+
+
+def plain(value):
+    """A facade return value as plain data (dataclasses as dicts, enums as
+    values, datetimes as ISO strings), for comparing two runs."""
+    import dataclasses
+    import datetime as dt
+    import enum
+
+    import torch
+
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return {f.name: plain(getattr(value, f.name)) for f in dataclasses.fields(value)}
+    if isinstance(value, enum.Enum):
+        return value.value
+    if isinstance(value, dt.datetime):
+        return value.isoformat()
+    if isinstance(value, BaseException):
+        return f"raised {type(value).__name__}: {value}"
+    if isinstance(value, dict):
+        return {str(k): plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [plain(v) for v in value]
+    if isinstance(value, torch.Tensor):
+        return value.cpu().numpy().copy()
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
+class Drift:
+    """The CMVK verifier the facade phase injects: the drift score is
+    |claimed - observed|."""
+
+    def verify_embeddings(self, embedding_a, embedding_b, **_):
+        import types
+
+        return types.SimpleNamespace(drift_score=abs(float(embedding_a) - float(embedding_b)),
+                                     explanation=None)
+
+
+def api_snapshot(hv) -> dict:
+    """Every table's bytes, the metrics table, the host counters, the
+    event bus rows and events, the ledger and the facade's host indices."""
+    st = hv.state
+    return {
+        "tables": all_tables(st),
+        "host_counters": st.host_metrics.counters.copy(),
+        "bus_rows": list(hv.event_bus.device_rows(0)),
+        "bus_events": [e.to_dict() for e in hv.event_bus.all_events],
+        "ledger": plain([hv.ledger.get_agent_history(a) for a in sorted(hv.ledger.tracked_agents)]),
+        "edge_of_vouch": sorted(hv._edge_of_vouch.items()),
+        "penalized_in": {k: sorted(v) for k, v in sorted(hv._penalized_in.items())},
+        "elev_row_of": sorted(hv._elev_row_of.items()),
+        "members": sorted(st._members),
+        "free_agent_slots": list(st._free_agent_slots),
+        "free_edge_slots": list(st._free_edge_slots),
+    }
+
+
+def run_facade_api(device, blocks, census_block=None):
+    """The facade's public async API on `device` at the reference's
+    default tables (`API_*`): each block of session indices [lo, hi)
+    creates its sessions, joins their members (vouches before the vouchee
+    joins), activates, captures and checks actions, runs the security
+    calls, and terminates them all. Ids and times come from
+    `manual_ids_and_time`. Returns (records, launches, times, census):
+    per block the returned values and the snapshot at its end, the
+    kernel launch counts of the whole run, the host-clock milliseconds of
+    each timed call (CUDA only, synchronised; none in `census_block`),
+    and `census_block`'s device ops by name from torch.profiler, with the
+    block's wall and device-busy milliseconds."""
+    import asyncio
+
+    import torch
+
+    import hypervisor_tpu_torch as hvt
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.integrations.cmvk_adapter import CMVKAdapter
+    from hypervisor_tpu_torch.security.kill_switch import KillReason
+
+    on_card = torch.device(device).type == "cuda"
+    clock = [API_T0]
+    rec, times, census = {}, {k: [] for k in ("join_session", "check_actions",
+                                              "verify_behavior", "terminate_session")}, {}
+
+    async def timed(name, awaitable, measure):
+        if not measure:
+            return await awaitable
+        torch.cuda.synchronize()
+        t = time.perf_counter_ns()
+        out = await awaitable
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter_ns() - t) / 1e6)
+        return out
+
+    def member(s, j):
+        return f"did:api:{s}:{j}"
+
+    async def block(hv, lo, hi, measure):
+        rng = np.random.RandomState(SEED + 20 + lo)
+        sigma = rng.uniform(0.3, 0.99, (hi - lo, API_MEMBERS))
+        sigma[:, :2] = rng.uniform(0.7, 0.9, (hi - lo, 2))  # the voucher and the grantee
+        out = {"sessions": [], "rings": [], "vouches": [], "checks": [], "security": [],
+               "roots": []}
+        managed = []
+        for s in range(lo, hi):
+            ms = await hv.create_session(hvt.SessionConfig(), creator_did="did:api:lead")
+            managed.append(ms)
+            out["sessions"].append((ms.sso.session_id, ms.slot))
+        for i, ms in enumerate(managed):
+            s, sid = lo + i, ms.sso.session_id
+            for j in range(API_MEMBERS):
+                if j == API_MEMBERS // 2 and s < API_VOUCHES:
+                    out["vouches"].append(plain(hv.vouching.vouch(
+                        member(s, 0), member(s, 5), sid, voucher_sigma=float(sigma[i, 0]))))
+                out["rings"].append(int(await timed("join_session", hv.join_session(
+                    sid, member(s, j), sigma_raw=float(sigma[i, j])), measure)))
+        for i, ms in enumerate(managed):
+            s, sid = lo + i, ms.sso.session_id
+            await hv.activate_session(sid)
+            turns = API_LONG_CAPTURES if s % 64 == 63 else API_CAPTURES
+            for t in range(turns):
+                ms.delta_engine.capture(member(s, t % API_MEMBERS), [hvt.VFSChange(
+                    path=f"/s{s}/t{t}.md", operation="add", content_hash=f"{s * 4096 + t:064x}")])
+            requests = [(member(s, j), hvt.ActionDescriptor(
+                action_id=f"act{j}", name="write", execute_api="/x", undo_api="/undo",
+                reversibility=hvt.ReversibilityLevel.FULL, is_read_only=j % 2 == 0,
+                is_admin=j == API_MEMBERS - 1)) for j in range(API_MEMBERS)]
+            out["checks"].append(plain(await timed("check_actions",
+                                                   hv.check_actions(sid, requests), measure)))
+        clock[0] += 1.0
+        for i, ms in enumerate(managed):
+            s, sid = lo + i, ms.sso.session_id
+            if s % 16 == 0:
+                out["security"].append(("grant", s, plain(await hv.grant_elevation(
+                    sid, member(s, 1), hvt.ExecutionRing.RING_1_PRIVILEGED, ttl_seconds=600))))
+            if s % 64 == 5:
+                out["security"].append(("slash", s, plain(await timed(
+                    "verify_behavior", hv.verify_behavior(
+                        sid, member(s, 5), claimed_embedding=0.9, observed_embedding=0.0),
+                    measure))))
+            if s % 64 == 37:
+                hv.kill_switch.register_substitute(sid, member(s, 3))
+                out["security"].append(("kill", s, plain(await hv.kill_agent(
+                    sid, member(s, 2), reason=KillReason.RING_BREACH,
+                    in_flight_steps=[{"step_id": f"step{s}", "saga_id": f"saga{s}"}]))))
+            if s % 16 == 9:
+                await hv.leave_session(sid, member(s, 6))
+                out["security"].append(("leave", s))
+        clock[0] += 1.0
+        out["mirrored"] = [hv.sync_events_to_device()]
+        for ms in managed:
+            out["roots"].append(await timed("terminate_session",
+                                            hv.terminate_session(ms.sso.session_id), measure))
+        out["mirrored"].append(hv.sync_events_to_device())
+        out["ledger_profiles"] = plain([hv.ledger.compute_risk_profile(member(s, j))
+                                        for s in range(lo, min(hi, lo + 8))
+                                        for j in range(API_MEMBERS)])
+        out["snapshot"] = api_snapshot(hv)
+        return out
+
+    async def drive():
+        hv = hvt.Hypervisor(device=device, event_bus=hvt.HypervisorEventBus(),
+                            cmvk=CMVKAdapter(verifier=Drift()))
+        for lo, hi in blocks:
+            profiled = on_card and (lo, hi) == census_block
+            if profiled:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                with prof:
+                    t0 = time.perf_counter_ns()
+                    rec[f"block{lo}"] = await block(hv, lo, hi, False)
+                    torch.cuda.synchronize()
+                    census["wall_ms"] = (time.perf_counter_ns() - t0) / 1e6
+                ops = census["ops"] = {}
+                for e in prof.key_averages():
+                    if e.device_type == DeviceType.CUDA:
+                        ops[e.key[:100]] = ops.get(e.key[:100], 0) + e.count
+                        census["busy_ms"] = census.get("busy_ms", 0.0) + e.self_device_time_total / 1e3
+            else:
+                rec[f"block{lo}"] = await block(hv, lo, hi, on_card)
+        if on_card:
+            torch.cuda.synchronize()
+        return hv
+
+    with manual_ids_and_time(clock):
+        kernels.reset_launch_counts()
+        hv = asyncio.run(drive())
+        launches = kernels.launch_counts()
+    require(hv.state.tracer.cursor == int(hv.state.tracer.table.cursor),
+            "facade_api: the trace cursor mirror disagrees with the device")
+    return rec, launches, times, census
+
+
 SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
 SAGA_OUTS = ("step_state", "retries_left", "saga_state", "cursor", "committed", "exhausted")
 
@@ -1296,6 +1566,14 @@ def first_difference(label, got, want):
         got = np.asarray(got)
         same = got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
         return None if same else label
+    if isinstance(want, (list, tuple)):
+        if type(got) is not type(want) or len(got) != len(want):
+            return label
+        for i, (g, w) in enumerate(zip(got, want)):
+            found = first_difference(f"{label}[{i}]", g, w)
+            if found:
+                return found
+        return None
     return None if got == want else label
 
 
@@ -2560,6 +2838,55 @@ def main(argv=None) -> int:
     # Every device op of one saga round, one apply_slash and one B8 call.
     emit("path_profile", **profile_device_ops(path_calls(saga_state, saga_initial, slash_state,
                                                          slash_pre)))
+
+    # ── 10. the facade's public API ──────────────────────────────────
+    # After the other profiles: this one records ~100,000 device events.
+    t0 = time.perf_counter()
+    api_rec, api_launches, api_times, api_census = run_facade_api(
+        dev, [(0, API_REPLAY), (API_REPLAY, API_SESSIONS)], census_block=(0, API_REPLAY))
+    api_card_s = time.perf_counter() - t0
+    # A block's first terminate flushes every delta its sessions staged:
+    # one chain launch a block, a lane per session.
+    api_want = {"admission_block": API_SESSIONS * API_MEMBERS,
+                "chain_digests": 2,
+                "tree_roots": sum(1 for s in range(API_SESSIONS) if s % 64 == 63),
+                "slash_cascade": sum(1 for s in range(API_SESSIONS) if s % 64 == 5)}
+    require({k: n for k, n in api_launches.items() if n} == api_want,
+            f"facade_api: B4 once a join, B2 once a block, B3 once a long session's "
+            f"host root, B8 once a slash, and nothing else: {api_launches}")
+    api_kernels = {"admission_block": "admission_", "chain_digests": "chain_kernel",
+                   "tree_roots": "tree_", "slash_cascade": "slash_cascade_kernel"}
+    api_named = {k: sum(n for name, n in api_census["ops"].items() if sub in name)
+                 for k, sub in api_kernels.items()}
+    require(all(api_named.values()),
+            f"facade_api: the profiler's census must name B2, B3, B4 and B8: {api_named}")
+    t0 = time.perf_counter()
+    cpu_api, cpu_api_launches, _, _ = run_facade_api("cpu", [(0, API_REPLAY)])
+    api_cpu_s = time.perf_counter() - t0
+    require(not any(cpu_api_launches.values()), "the facade_api CPU run launched a kernel")
+    diff = first_difference("facade_api", cpu_api["block0"], api_rec["block0"])
+    require(diff is None, f"facade_api: the {API_REPLAY}-session CPU replay differs from the "
+                          f"card at {diff}")
+    windows["facade_api"] = api_launches
+    emit("facade_api", sessions=API_SESSIONS, members=API_MEMBERS,
+         joins=API_SESSIONS * API_MEMBERS, vouches_before_join=API_VOUCHES,
+         agents=DEFAULT_CONFIG.capacity.max_agents, table_sessions=DEFAULT_CONFIG.capacity.max_sessions,
+         edges=DEFAULT_CONFIG.capacity.max_vouch_edges,
+         elevations=DEFAULT_CONFIG.capacity.max_elevations,
+         launches={k: n for k, n in api_launches.items() if n},
+         census_block_sessions=API_REPLAY,
+         census=dict(sorted(api_census["ops"].items(), key=lambda kv: -kv[1])[:25]),
+         census_device_ops=sum(api_census["ops"].values()), census_ours=api_named,
+         census_wall_ms=api_census["wall_ms"], census_device_busy_ms=api_census["busy_ms"],
+         census_device_idle_share=1 - api_census["busy_ms"] / api_census["wall_ms"],
+         host_ms={k: {"p50": float(np.percentile(v, 50)), "p95": float(np.percentile(v, 95)),
+                      "samples": len(v)} for k, v in api_times.items()},
+         sequence_wall_s=api_card_s, cpu_replay_s=api_cpu_s,
+         replay_sessions=API_REPLAY, cpu_run="identical",
+         roots=sum(r is not None for b in api_rec.values() for r in b["roots"]),
+         events_mirrored=[b["mirrored"] for b in api_rec.values()], nvidia_smi=smi,
+         clock="host, synchronised; timed on the second block (sessions 128-1,023); "
+               "the first block runs under torch.profiler for the census")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

@@ -1,9 +1,8 @@
 """Typed configuration: the fields of `hypervisor_tpu.config` the governance
 wave (its action gateway and sanitizer included), the saga plane, the
-slash cascade and the state's security surface (elevation grants) read,
-copied with the same names and defaults, so a configuration means the
-same thing in both packages. Later slices add the fields their modules
-read."""
+slash cascade, the state's security surface and the facade's host
+engines (vouching, the liability ledger, the history verifier) read, copied with the same names and defaults, so a
+configuration means the same thing in both packages."""
 
 from __future__ import annotations
 
@@ -12,11 +11,15 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class TrustConfig:
-    """Ring thresholds on sigma_eff, and the slash cascade's depth, floor
-    and wipe margin."""
+    """Ring thresholds on sigma_eff, the Nexus score scale, the vouching
+    limits, and the slash cascade's depth, floor and wipe margin."""
 
     ring1_threshold: float = 0.95
     ring2_threshold: float = 0.60
+    score_scale: float = 1000.0          # Nexus 0-1000 -> 0.0-1.0
+    min_voucher_sigma: float = 0.50
+    default_bond_pct: float = 0.20
+    max_exposure: float = 0.80           # of voucher sigma, across vouchees
     max_cascade_depth: int = 2
     sigma_floor: float = 0.05
     cascade_wipe_epsilon: float = 0.01   # sigma_after < floor+eps => cascade
@@ -55,10 +58,32 @@ class RateLimitConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LedgerConfig:
+    """Liability-ledger risk weights, the clean-session credit and the
+    admission gate's probation and deny thresholds."""
+
+    slash_weight: float = 0.15
+    quarantine_weight: float = 0.10
+    fault_weight: float = 0.05
+    clean_session_credit: float = 0.05
+    probation_threshold: float = 0.3
+    deny_threshold: float = 0.6
+
+
+@dataclasses.dataclass(frozen=True)
 class QuarantineConfig:
     """How long a quarantine holds a row by default."""
 
     default_duration_seconds: float = 300.0
+
+
+@dataclasses.dataclass(frozen=True)
+class VerifierConfig:
+    """Transaction-history verification: the history depth and hash
+    length a trustworthy agent shows."""
+
+    min_history_depth: int = 5
+    min_hash_length: int = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,13 +103,15 @@ class TableCapacity:
 
 @dataclasses.dataclass(frozen=True)
 class HypervisorConfig:
-    """Top-level config (the ported subsystems only)."""
+    """Top-level config composing every ported subsystem's knobs."""
 
     trust: TrustConfig = TrustConfig()
     breach: BreachConfig = BreachConfig()
     elevation: ElevationConfig = ElevationConfig()
     rate_limit: RateLimitConfig = RateLimitConfig()
+    ledger: LedgerConfig = LedgerConfig()
     quarantine: QuarantineConfig = QuarantineConfig()
+    verifier: VerifierConfig = VerifierConfig()
     capacity: TableCapacity = TableCapacity()
 
 

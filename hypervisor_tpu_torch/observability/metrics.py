@@ -12,7 +12,9 @@ rest of the registry ports with the observability plane.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
+import numpy as np
 import torch
 
 
@@ -55,6 +57,10 @@ COUNTERS = tuple(MetricHandle(n, i) for i, n in enumerate(_COUNTER_NAMES))
     EVENTS_MIRRORED,
 ) = COUNTERS
 
+#: Counters the facade books on the host plane (`HostCounters`).
+COLLUSION_FINDINGS = MetricHandle("hv_collusion_findings_total", 24)
+CASCADE_DEDUPED = MetricHandle("hv_slash_cascade_deduped_total", 25)
+
 #: The sanitizer's counters (`integrity.invariants.book_sanitizer_metrics`).
 INTEGRITY_CHECKS = MetricHandle("hv_integrity_checks_total", 50)
 INTEGRITY_VIOLATIONS = MetricHandle("hv_integrity_violations_total", 51)
@@ -90,6 +96,21 @@ WAVE_LANES = MetricHandle("hv_wave_lanes", 13)
 
 #: Shared histogram upper bounds, 2^0 .. 2^24 (+Inf implied).
 DEFAULT_BUCKET_BOUNDS_US: tuple[float, ...] = tuple(float(1 << k) for k in range(25))
+
+
+class HostCounters:
+    """The host plane's counter rows (the reference's `Metrics.inc`):
+    tallies from paths that already run on the host, in the device
+    counters' row layout, int64 (no wrap). The drain that merges both
+    planes ports with the rest of the metrics plane."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.counters = np.zeros(N_COUNTERS, np.int64)
+
+    def inc(self, handle: MetricHandle, n: int = 1) -> None:
+        with self._lock:
+            self.counters[handle.index] += n
 
 
 # ── the occupancy gauges (the wave's epilogue) ───────────────────────

@@ -72,6 +72,7 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.kernels import wave as wave_kernels
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
 from hypervisor_tpu_torch.observability import tracing
+from hypervisor_tpu_torch.observability.metrics import HostCounters
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
@@ -169,6 +170,9 @@ class HypervisorState:
         self.sagas = SagaTable.create(cap.max_sagas, cap.max_steps_per_saga, self.device)
         self.elevations = ElevationTable.create(cap.max_elevations, self.device)
         self.metrics = MetricsTable.create(device=self.device)
+        #: Host-plane counters (the facade's collusion, cascade-dedupe and
+        #: event-mirror tallies).
+        self.host_metrics = HostCounters()
         self.delta_log = DeltaLog.create(cap.delta_log_capacity, self.device)
         self.event_log = EventLog.create(cap.event_log_capacity, self.device)
         self.tracer = Tracer(capacity=cap.trace_log_capacity, device=self.device)

@@ -11,6 +11,7 @@ needed. u32 columns hold int32 bits (the package's u32 convention).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hypervisor_tpu_torch import u32
@@ -72,9 +73,9 @@ class DeltaLog:
 class EventLog:
     """[C] ring buffer of typed events. `trace`/`span` hold the causal
     trace's device key words, so event rows and TraceLog stamps join on
-    the same (trace, span) words. Nothing in the ported paths appends to
-    it yet; the wave's epilogue reads its cursor (a live-row gauge) and
-    the sanitizer checks it."""
+    the same (trace, span) words. The facade mirrors its event bus here
+    (`Hypervisor.sync_events_to_device`); the wave's epilogue reads its
+    cursor (a live-row gauge) and the sanitizer checks it."""
 
     event_type: torch.Tensor  # i32[C] EventType code (-1 = empty)
     session: torch.Tensor     # i32[C] session slot
@@ -98,6 +99,30 @@ class EventLog:
             timestamp=full(0.0, torch.float32),
             cursor=torch.zeros((), dtype=torch.int32, device=device),
         )
+
+    def append_batch(self, event_types, sessions, agents, traces, timestamps,
+                     spans=None) -> None:
+        """Append B events at the cursor (wrapping), IN PLACE. Columns are
+        [B] host arrays (u32 trace and span words as their values or as
+        int32 bits); `spans` defaults to 0. When B exceeds the capacity,
+        only the last `capacity` rows land, as a sequential append would
+        leave them."""
+        capacity = self.event_type.shape[0]
+        b = len(event_types)
+        if spans is None:
+            spans = np.zeros(b, np.int64)
+        tail = slice(b - min(b, capacity), b)
+        dev = self.cursor.device
+        idx = (self.cursor.to(torch.int64)
+               + torch.arange(tail.start, b, dtype=torch.int64, device=dev)) % capacity
+        for col, rows, dtype in ((self.event_type, event_types, np.int32),
+                                 (self.session, sessions, np.int32),
+                                 (self.agent, agents, np.int32), (self.trace, traces, np.int64),
+                                 (self.span, spans, np.int64),
+                                 (self.timestamp, timestamps, np.float32)):
+            t = torch.from_numpy(np.asarray(rows, dtype)[tail]).to(dev)
+            col[idx] = u32.narrow(t) if dtype is np.int64 else t
+        self.cursor += b
 
     @property
     def capacity_rows(self) -> int:
