@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's governance wave, its facade wave (all
 eight phases: the action gateway and the gauge epilogue too), the
-sanitizer, the join queue and security surface, the `Hypervisor` facade's
-public API, the saga plane and the slash cascade on one NVIDIA GPU.
+sanitizer, the join queue and security surface, the saga plane, the
+slash cascade, the lock and write waves, the native host runtime and the
+`Hypervisor` facade's public API on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -144,7 +145,43 @@ Phases, one JSON line each:
    verify's links, the big tree's 13 levels) with each path's
    launches x (ms - bound), the contribution on the two hot-vouchee
    tables and B3 on full trees at P = 64 and P = 4096;
-10. facade_api, after the other profiles: the `Hypervisor` facade's
+10. locks_writes: the lock waves on `LockWave(device="cuda")` with
+   4,096 agents of seeded sigma and 6,144 paths: 8,192 requests (70%
+   READ, 25% WRITE, 5% EXCLUSIVE; repeats give several occurrence
+   batches), 64 declared wait cycles of 2-8 lock holders, 2,048
+   requests of which half close a cycle (refused DEADLOCK), then
+   `deadlock_report()` (12 squarings at N = 4,096) and
+   `contention_counts()`; the write waves through
+   `Hypervisor(device="cuda")`: 256 sessions of 8 members, each one
+   `write_wave()` of 64 writes over 32 paths (rings 1-3, ring 3's burst
+   running out, read barriers before some writes, two writers
+   quarantined in every 16th session, 16 sessions under SNAPSHOT and 16
+   under SERIALIZABLE with half the writers holding write locks, `now`
+   in dyadic steps). Only B4 may launch (once a join). Both replayed on
+   the CPU and held bit for bit (statuses, granted locks, blockers, the
+   lock manager, the deadlock report, contention counts, VFS contents,
+   clock matrices, token columns, tables); the report also against
+   strongly connected components from scipy. p50/p95 of
+   `LockWave.flush` (8,192 requests), `deadlock_report` and
+   `WriteWave.flush` (64 writes), host clock, synchronised, and the
+   closure's device time by CUDA events beside its bound;
+11. native: the port's C++ host runtime, which must have built (no
+   fallback): `sha256_batch_host` on 65,536 96-byte link messages
+   against hashlib and B1, `chain_digests_host` / `verify_chain_host` on
+   64 chains of 1,024 bodies with one tampered digest against hashlib and
+   B2 (and `verify_chain_digests_host` on the card and through the C++
+   route), `merkle_root_hex_host` on 8,192 leaves against
+   `merkle_root_device` (B1 level by level), hashlib and
+   `tree_roots_host`'s two routes; `tree_roots_host` on 8 lanes of 4,096
+   leaves at mixed counts on the card (B3, one launch) against its C++
+   route and hashlib; a scrubber sweep on a card state, which must take
+   B1 for every strip with the library built; 8 threads staging 16,384
+   joins into a card state's native queue (every entry unique), whose
+   flush (B4) equals the same joins pushed into a fallback-form queue;
+   each host route's time beside its kernel's; the enqueue loop of the
+   16,384 joins (one thread and 8) and the bare queue's push loop, the
+   native queue and the fallback form taking turns;
+12. facade_api, after the other profiles: the `Hypervisor` facade's
    public async API on `Hypervisor(device="cuda")` at the default tables:
    1,024 sessions of 8 members (8,192 `join_session` calls, 1,000
    vouches made before the vouchee joins), each session activated with
@@ -201,6 +238,9 @@ PLAIN_REPS = 5
 # counts an FMA as two operations on 128 lanes per SM; the integer pipe
 # issues one instruction per lane on 64 lanes per SM.
 HBM_BYTES_PER_S = 3.35e12
+#: The float32 rate outside the tensor cores (the lock closure's f32
+#: matrix products without TF32).
+F32_FLOP_PER_S = 67e12
 INT32_INSTRUCTIONS_PER_S = 67e12 / 2 / 2
 
 
@@ -326,6 +366,31 @@ API_CAPTURES, API_LONG_CAPTURES = 3, 64
 #: The manual clock's start (2026-01-01T00:00:00Z) for the facade's ids
 #: and times; it moves in dyadic steps only.
 API_T0 = 1_767_225_600.0
+#: The lock waves: 4,096 agents of seeded sigma 0.3-0.99 over 6,144
+#: paths, wave 1 of 8,192 requests (70% READ, 25% WRITE, 5% EXCLUSIVE),
+#: 64 declared wait cycles of 2-8 lock holders, and wave 2 of 2,048
+#: requests, half of them by cycle members against paths their cycle
+#: holds (refused DEADLOCK) and half drawn as in wave 1.
+LOCK_AGENTS, LOCK_PATHS, LOCK_WAVE1, LOCK_WAVE2, LOCK_CYCLES = 4_096, 6_144, 8_192, 2_048, 64
+LOCK_MAX_PATHS = 16_384
+LOCK_INTENT_MIX = (0.70, 0.25, 0.05)
+LOCK_WARMUP, LOCK_ITERS = 1, 5
+SWEEP_WARMUP, SWEEP_ITERS = 2, 10
+#: The write waves: `Hypervisor(device="cuda")` at the default tables,
+#: 256 sessions of 8 members, each session one `write_wave()` of 64
+#: writes over 32 paths at rings 1-3 (its ring-3 writer's third of them
+#: runs past the burst of 10); two writers quarantined in every 16th session;
+#: 16 sessions under SNAPSHOT and 16 under SERIALIZABLE, where half the
+#: writers hold write locks; `now` in dyadic steps.
+WRITE_SESSIONS, WRITE_MEMBERS, WRITE_WRITES, WRITE_PATHS = 256, 8, 64, 32
+#: The native host runtime against the kernels: 65,536 link messages of
+#: 96 bytes (B1), 64 chains of 1,024 bodies (B2), a tree of 8,192 leaves
+#: (the big-tree form through B1), 8 lanes of 4,096 leaves at mixed counts
+#: (B3's widest tile), and 16,384 joins from 8 threads.
+NATIVE_LINKS, NATIVE_LANES, NATIVE_TURNS, NATIVE_LEAVES = 65_536, 64, 1_024, 8_192
+NATIVE_TREE_P, NATIVE_TREE_COUNTS = 4_096, (4_096, 4_095, 3_001, 2_049, 2_048, 1_000, 1, 0)
+NATIVE_JOINS, NATIVE_THREADS, NATIVE_SESSIONS = 16_384, 8, 2_048
+NATIVE_REPS = 5
 #: The keys of the kernels summary line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
@@ -1036,7 +1101,10 @@ def manual_ids_and_time(clock: list):
 
     ids, words = itertools.count(1), itertools.count(1)
     saved = (uuid.uuid4, secrets.token_hex, time.time)
-    uuid.uuid4 = for_the_port(lambda: uuid.UUID(int=next(ids)), saved[0])
+    # The count sits in the top and the bottom bits, so ids cut from a
+    # uuid's first 8 hex digits (locks, elevations) stay distinct too.
+    uuid.uuid4 = for_the_port(lambda: uuid.UUID(int=(lambda n: n << 96 | n)(next(ids))),
+                              saved[0])
     secrets.token_hex = for_the_port(
         lambda nbytes=None: f"{next(words):0{2 * (nbytes or 32)}x}", saved[1])
     time.time = for_the_port(lambda: clock[0], saved[2])
@@ -1251,6 +1319,373 @@ def run_facade_api(device, blocks, census_block=None):
 
 SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
 SAGA_OUTS = ("step_state", "retries_left", "saga_state", "cursor", "committed", "exhausted")
+
+
+def lock_plain(lock):
+    """An IntentLock (or None) as plain data."""
+    if lock is None:
+        return None
+    return [lock.lock_id, lock.agent_did, lock.session_id, lock.resource_path, lock.intent.value,
+            lock.acquired_at.isoformat(), lock.is_active, lock.saga_step_id]
+
+
+def lock_manager_plain(manager) -> dict:
+    return {"locks": {k: lock_plain(v) for k, v in manager._locks.items()},
+            "by_resource": {k: list(v) for k, v in manager._by_resource.items()},
+            "wait_for": {k: sorted(v) for k, v in manager._wait_for.items()}}
+
+
+def lock_requests(rng, agents, n: int) -> list:
+    """n seeded requests: (agent, session, path, intent code, step id)."""
+    who = rng.randint(0, len(agents), n)
+    paths = rng.randint(0, LOCK_PATHS, n)
+    intents = rng.choice(3, n, p=LOCK_INTENT_MIX)
+    return [(agents[a], f"lk:s{a % 64}", f"/r/{p}", int(i), None if a % 3 else f"step{a}")
+            for a, p, i in zip(who, paths, intents)]
+
+
+def run_lock_waves(device, clock):
+    """The lock waves on `device` (`LOCK_*`): wave 1, the declared wait
+    cycles, wave 2 with its DEADLOCK refusals, the deadlock report and the
+    contention counts. Returns (records, wave, sigma)."""
+    from hypervisor_tpu_torch.runtime.lock_wave import LockWave
+    from hypervisor_tpu_torch.session.intent_locks import LockIntent
+
+    intents = (LockIntent.READ, LockIntent.WRITE, LockIntent.EXCLUSIVE)
+    rec = {}
+    rng = np.random.RandomState(SEED + 31)
+    agents = [f"did:l{i}" for i in range(LOCK_AGENTS)]
+    sigma = rng.uniform(0.3, 0.99, LOCK_AGENTS).astype(np.float32)
+    with manual_ids_and_time(clock):
+        wave = LockWave(device=device, max_agents=LOCK_AGENTS, max_paths=LOCK_MAX_PATHS)
+        for did, sg in zip(agents, sigma):
+            wave.observe_sigma(did, float(sg))
+
+        def flush(label, requests):
+            for agent, session, path, intent, step in requests:
+                wave.submit(agent, session, path, intents[intent], saga_step_id=step)
+            report = wave.flush()
+            rec[label] = {"status": report.status, "locks": [lock_plain(x) for x in report.locks],
+                          "blockers": [sorted(b) for b in report.blockers],
+                          "manager": lock_manager_plain(wave.manager)}
+            return report
+
+        report1 = flush("wave1", lock_requests(rng, agents, LOCK_WAVE1))
+        held: dict[str, list[str]] = {}
+        for lock in report1.locks:
+            if lock is not None:
+                held.setdefault(lock.agent_did, []).append(lock.resource_path)
+        holders = sorted(held)
+        cycles = []
+        for _ in range(LOCK_CYCLES):
+            members = [holders[i] for i in rng.choice(len(holders), rng.randint(2, 9),
+                                                      replace=False)]
+            for a, b in zip(members, members[1:] + members[:1]):
+                wave.manager.declare_wait(a, {b})
+            cycles.append(members)
+        closing = []
+        for k in range(LOCK_WAVE2 // 2):
+            members = cycles[k % LOCK_CYCLES]
+            a, b = members[0], members[1 + k % (len(members) - 1)]
+            closing.append((a, f"lk:s{agents.index(a) % 64}", held[b][k % len(held[b])], 1, None))
+        requests = closing + lock_requests(rng, agents, LOCK_WAVE2 - len(closing))
+        order = rng.permutation(len(requests))
+        flush("wave2", [requests[i] for i in order])
+        report = wave.deadlock_report()
+        rec["deadlock_report"] = {"on_cycle": report.on_cycle, "victim": report.victim}
+        rec["contention"] = wave.contention_counts()
+    return rec, wave, sigma
+
+
+def scc_oracle(wave, sigma) -> dict:
+    """The standing cycles by strongly connected components
+    (scipy.sparse.csgraph), independent of the closure: a node is on a
+    cycle iff its component has more than one node or it waits on
+    itself; the victim is the first lowest-sigma member."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    rows = {did: wave._agents.lookup(did) for did in wave.manager._wait_for}
+    src, dst = [], []
+    for waiter, blockers in wave.manager._wait_for.items():
+        for b in blockers:
+            src.append(rows[waiter])
+            dst.append(wave._agents.lookup(b))
+    n = LOCK_AGENTS
+    graph = csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    _, label = connected_components(graph, directed=True, connection="strong")
+    size = np.bincount(label, minlength=n)
+    on = (size[label] > 1)
+    on[[s for s, d in zip(src, dst) if s == d]] = True
+    members = [wave._agents.string(int(r)) for r in np.nonzero(on)[0] if r < len(wave._agents)]
+    masked = np.where(on, sigma, np.inf)
+    victim = wave._agents.string(int(np.argmin(masked))) if on.any() else None
+    return {"on_cycle": members, "victim": victim}
+
+
+def write_plan(rng, s: int) -> dict:
+    """Session s's write wave: its isolation, quarantined members, lock
+    grants and 64 writes (writer, path, ring, observe first)."""
+    iso = "SNAPSHOT" if s % 16 == 3 else "SERIALIZABLE" if s % 16 == 7 else None
+    weights = np.full(WRITE_MEMBERS, 1.0)
+    weights[2] = 3.5  # the ring-3 writer: a third of the 64 writes
+    weights /= weights.sum()
+    writers = rng.choice(WRITE_MEMBERS, WRITE_WRITES, p=weights)
+    return {
+        "isolation": iso,
+        "quarantined": [0, 5] if s % 16 == 0 else [],
+        "writes": [(int(w), int(rng.randint(WRITE_PATHS)), 3 if w == 2 else 1 + int(w) % 2,
+                    bool(rng.uniform() < 0.3)) for w in writers],
+    }
+
+
+def run_write_waves(device, clock, times=None):
+    """The write waves through `Hypervisor(device=...)` (`WRITE_*`): each
+    session's `ManagedSession.write_wave()` with its plan. Returns the
+    records (statuses, counts, VFS contents, clock matrices, token
+    columns, the state's tables); appends each flush's host ms (its
+    device work synchronised) to `times`."""
+    import asyncio
+
+    import torch
+
+    from hypervisor_tpu_torch import Hypervisor
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.session.intent_locks import IntentLockManager, LockIntent
+    from hypervisor_tpu_torch.session.isolation import IsolationLevel
+
+    rng = np.random.RandomState(SEED + 32)
+    rec = {}
+
+    async def drive():
+        hv = Hypervisor(device=device)
+        for s in range(WRITE_SESSIONS):
+            plan = write_plan(rng, s)
+            ms = await hv.create_session(SessionConfig(max_participants=WRITE_MEMBERS,
+                                                       min_sigma_eff=0.0), "did:lead")
+            sid = ms.sso.session_id
+            members = [f"did:w{s}.{k}" for k in range(WRITE_MEMBERS)]
+            for k, did in enumerate(members):
+                await hv.join_session(sid, did, sigma_raw=0.6 + 0.04 * k)
+            await hv.activate_session(sid)
+            if plan["quarantined"]:
+                rows = [hv.state.agent_row(members[k], ms.slot)["slot"] for k in plan["quarantined"]]
+                hv.state.quarantine_rows(rows, now=hv.state.now())
+            kw = {}
+            if plan["isolation"]:
+                kw["isolation"] = getattr(IsolationLevel, plan["isolation"])
+            if plan["isolation"] == "SERIALIZABLE":
+                locks = IntentLockManager()
+                for k in range(WRITE_MEMBERS // 2):
+                    for p in range(k, WRITE_PATHS, WRITE_MEMBERS // 2):
+                        locks.acquire(members[k], sid, f"/d{p}", LockIntent.WRITE)
+                kw["lock_manager"] = locks
+            wave = ms.write_wave(**kw)
+            for i, (w, p, ring, observe) in enumerate(plan["writes"]):
+                if observe:
+                    wave.observe(members[w], f"/d{p}")
+                wave.submit(members[w], f"/d{p}", f"{s}.{i}", ring=ring)
+            on_card = torch.device(device).type == "cuda"
+            if on_card:
+                torch.cuda.synchronize()
+            t = time.perf_counter_ns()
+            report = wave.flush(now=16.0 + 0.125 * s)
+            if on_card:
+                torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter_ns() - t) / 1e6)
+            rec[f"s{s}"] = {
+                "report": plain(report),
+                "vfs": {p: ms.sso.vfs.read(p) for p in ms.sso.vfs.list_files()},
+                "edits": [(e.path, e.agent_did) for e in ms.sso.vfs.edit_log],
+                "path_clocks": wave._path_clocks.cpu().numpy(),
+                "agent_clocks": wave._agent_clocks.cpu().numpy(),
+                "tokens": wave._rl_tokens.cpu().numpy(),
+                "stamps": wave._rl_stamp.cpu().numpy(),
+            }
+        rec["tables"] = all_tables(hv.state)
+
+    with manual_ids_and_time(clock):
+        asyncio.run(drive())
+    return rec
+
+
+def write_codes(rec) -> list:
+    """The write waves' status counts, WRITE_OK..WRITE_LOCK_REQUIRED."""
+    codes = np.zeros(5, np.int64)
+    for key, r in rec.items():
+        if key.startswith("s"):
+            codes += np.bincount(r["report"]["status"], minlength=5)
+    return codes.tolist()
+
+
+def stage_from_threads(state, sessions, dids, sigmas, n_threads: int) -> list:
+    """`enqueue_join` from n_threads threads at once, each a strided share
+    of the joins; returns every claimed queue entry."""
+    import threading
+
+    claimed: list[int] = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(n_threads)
+
+    def producer(t):
+        barrier.wait()
+        mine = [state.enqueue_join(int(sessions[i]), dids[i], float(sigmas[i]))
+                for i in range(t, len(dids), n_threads)]
+        with lock:
+            claimed.extend(mine)
+
+    threads = [threading.Thread(target=producer, args=(t,)) for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return claimed
+
+
+def native_joins():
+    """The native phase's NATIVE_JOINS seeded joins: (dids, session
+    indices, sigmas). 512 agents join twice: a duplicate where both land
+    in one session."""
+    rng = np.random.RandomState(SEED + 33)
+    dids = [f"did:n{i % (NATIVE_JOINS - 512)}" for i in range(NATIVE_JOINS)]
+    sess_idx = rng.randint(0, NATIVE_SESSIONS, NATIVE_JOINS)
+    sigmas = rng.uniform(0.2, 1.0, NATIVE_JOINS).astype(np.float32)
+    return dids, sess_idx, sigmas
+
+
+def native_state(device):
+    """A fresh state at the default tables with NATIVE_SESSIONS sessions;
+    returns (state, session slots)."""
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    st = HypervisorState(device=device)
+    slots = st.create_sessions_batch([f"n:s{i}" for i in range(NATIVE_SESSIONS)],
+                                     SessionConfig(max_participants=8, min_sigma_eff=0.5))
+    return st, slots
+
+
+def run_native_staging(device):
+    """NATIVE_JOINS seeded joins into a fresh state on `device` from
+    NATIVE_THREADS threads through the native queue, and flushed; then
+    the same joins, in the order the queue harvested them, pushed one by
+    one into a fallback-form queue of a second fresh state, and flushed.
+    Returns (claimed entries, push ms, the two records)."""
+    from hypervisor_tpu_torch.runtime import StagingQueue, native
+
+    dids, sess_idx, sigmas = native_joins()
+
+    def fresh():
+        return native_state(device)
+
+    def outcome(st, status):
+        return {"status": status, "results": dict(st.last_join_results),
+                "members": sorted(st._members), "tables": all_tables(st)}
+
+    with counted_trace_ids():
+        st, slots = fresh()
+        t = time.perf_counter_ns()
+        claimed = stage_from_threads(st, slots[sess_idx], dids, sigmas, NATIVE_THREADS)
+        push_ms = (time.perf_counter_ns() - t) / 1e6
+        q = st._queue
+        order = [(int(q.session[i]), int(q.agent[i]), float(q.sigma[i]), bool(q.trustworthy[i]))
+                 for i in range(len(claimed))]
+        pending = {slot: st.agent_ids.string(did)
+                   for slot, (did, _s, _d) in st._pending_rows.items()}
+        threaded = outcome(st, st.flush_joins(now=1.0))
+
+    saved = native.HAVE_NATIVE
+    with counted_trace_ids():
+        st2, _ = fresh()
+        native.HAVE_NATIVE = False
+        try:
+            st2._queue = StagingQueue(capacity=st2._queue.capacity)
+            for i, (sess, agent, sigma, trust) in enumerate(order):
+                st2._next_agent_slot = agent  # the row the threaded run claimed
+                require(st2.enqueue_join(sess, pending[agent], sigma, trust) == i,
+                        "native: the fallback queue must claim entries in harvest order")
+            fallback = outcome(st2, st2.flush_joins(now=1.0))
+        finally:
+            native.HAVE_NATIVE = saved
+    return claimed, push_ms, threaded, fallback
+
+
+def run_native_scrub(device) -> tuple[int, int]:
+    """One scrubber sweep, 64 links a tick, over a fresh state's chains
+    (64 sessions of 1-8 deltas) with HV_SCRUB_NATIVE=1 set, the reference's switch to its C++
+    strip. Returns (ticks that verified links, B1 launches in the sweep):
+    on the card every such tick must launch B1."""
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.integrity.scrubber import MerkleScrubber
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    st = HypervisorState(device=device)
+    for s in range(64):
+        slot = st.create_session(f"n:scrub{s}", SessionConfig(), now=0.0)
+        for t in range(1 + s % 8):
+            st.stage_delta(slot, -1, ts=float(t), change_words=[s, t])
+    st.flush_deltas()
+    scrubber = MerkleScrubber(st, budget=64)
+    saved = os.environ.get("HV_SCRUB_NATIVE")
+    os.environ["HV_SCRUB_NATIVE"] = "1"
+    try:
+        before = kernels.launch_counts()["sha256_words"]
+        reports = [scrubber.tick()]
+        while not reports[-1]["sweep_completed"]:
+            reports.append(scrubber.tick())
+        launched = kernels.launch_counts()["sha256_words"] - before
+    finally:
+        if saved is None:
+            os.environ.pop("HV_SCRUB_NATIVE")
+        else:
+            os.environ["HV_SCRUB_NATIVE"] = saved
+    require(scrubber.mismatches == 0, "native: the scrubber flagged a clean chain")
+    return sum(1 for r in reports if r["links"]), launched
+
+
+def time_staging_queues(device) -> dict:
+    """The two forms of `StagingQueue` on the same joins, taking turns
+    NATIVE_REPS times: the native queue and the fallback form (the
+    reference's Python queue, `HAVE_NATIVE` off while it is built and
+    fed). Each turn times, on a fresh state, the `enqueue_join` loop of
+    the native phase's joins on one thread and from NATIVE_THREADS
+    threads, and the bare queue's `push` loop. Returns {form: {measure:
+    [host ms, ...]}}."""
+    from hypervisor_tpu_torch.runtime import StagingQueue, native
+
+    dids, sess_idx, sigmas = native_joins()
+    sig = [float(x) for x in sigmas]
+    saved = native.HAVE_NATIVE
+    out = {form: {"enqueue_1_thread": [], f"enqueue_{NATIVE_THREADS}_threads": [], "push": []}
+           for form in ("native", "fallback")}
+    for _ in range(NATIVE_REPS):
+        for form in ("native", "fallback"):
+            native.HAVE_NATIVE = saved and form == "native"
+            try:
+                st, slots = native_state(device)
+                sessions = [int(x) for x in slots[sess_idx]]
+                t = time.perf_counter_ns()
+                for i in range(NATIVE_JOINS):
+                    st.enqueue_join(sessions[i], dids[i], sig[i])
+                out[form]["enqueue_1_thread"].append((time.perf_counter_ns() - t) / 1e6)
+                st._queue.harvest()
+                st, slots = native_state(device)
+                t = time.perf_counter_ns()
+                stage_from_threads(st, slots[sess_idx], dids, sigmas, NATIVE_THREADS)
+                out[form][f"enqueue_{NATIVE_THREADS}_threads"].append(
+                    (time.perf_counter_ns() - t) / 1e6)
+                st._queue.harvest()
+                q = StagingQueue(capacity=NATIVE_JOINS)
+                t = time.perf_counter_ns()
+                for i in range(NATIVE_JOINS):
+                    q.push(sig[i], i, sessions[i], True)
+                out[form]["push"].append((time.perf_counter_ns() - t) / 1e6)
+                require(q.harvest()[0] == NATIVE_JOINS, f"native: the {form} queue lost pushes")
+            finally:
+                native.HAVE_NATIVE = saved
+    return out
 
 
 def random_saga_table(rng, g: int, m: int) -> dict:
@@ -2839,7 +3274,246 @@ def main(argv=None) -> int:
     emit("path_profile", **profile_device_ops(path_calls(saga_state, saga_initial, slash_state,
                                                          slash_pre)))
 
-    # ── 10. the facade's public API ──────────────────────────────────
+    # ── 10. the lock and write waves ─────────────────────────────────
+    from hypervisor_tpu_torch.ops import locks as lock_ops
+    from hypervisor_tpu_torch.runtime.lock_wave import (
+        LOCK_CONTENTION, LOCK_DEADLOCK, LOCK_GRANTED, LockWave)
+    from hypervisor_tpu_torch.runtime.write_wave import WRITE_OK
+    from hypervisor_tpu_torch.session.intent_locks import LockIntent
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    lock_rec, lock_card, lock_sigma = run_lock_waves(dev, [API_T0])
+    write_ms: list = []
+    write_rec = run_write_waves(dev, [API_T0], write_ms)
+    torch.cuda.synchronize()
+    lw_launches = kernels.launch_counts()
+    lw_card_s = time.perf_counter() - t0
+    # The lock and write waves launch none of the port's kernels; the
+    # write waves' facade admits its members through B4, once a join.
+    require({k: n for k, n in lw_launches.items() if n}
+            == {"admission_block": WRITE_SESSIONS * WRITE_MEMBERS},
+            f"locks_writes: B4 once a join and no other kernel: {lw_launches}")
+    windows["locks_writes"] = lw_launches
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    cpu_lock_rec, _, _ = run_lock_waves("cpu", [API_T0])
+    cpu_write_rec = run_write_waves("cpu", [API_T0])
+    lw_cpu_s = time.perf_counter() - t0
+    require(not any(kernels.launch_counts().values()), "the locks_writes CPU run launched a kernel")
+    for label, got, want in (("lock_waves", cpu_lock_rec, lock_rec),
+                             ("write_waves", cpu_write_rec, write_rec)):
+        diff = first_difference(label, got, want)
+        require(diff is None, f"locks_writes: the CPU replay differs from the card at {diff}")
+    oracle = scc_oracle(lock_card, lock_sigma)
+    require(oracle == lock_rec["deadlock_report"],
+            f"locks_writes: the deadlock report {lock_rec['deadlock_report']['victim']} "
+            f"disagrees with the SCC oracle {oracle['victim']}")
+    lock_codes = {w: np.bincount(lock_rec[w]["status"], minlength=3).tolist()
+                  for w in ("wave1", "wave2")}
+    require(lock_codes["wave1"][LOCK_GRANTED] and lock_codes["wave1"][LOCK_CONTENTION],
+            f"locks_writes: wave 1 must grant and contend: {lock_codes}")
+    require(lock_codes["wave2"][LOCK_DEADLOCK] >= LOCK_WAVE2 // 2,
+            f"locks_writes: every cycle-closing request of wave 2 must be refused: {lock_codes}")
+    w_codes = write_codes(write_rec)
+    require(all(w_codes), f"locks_writes: every write status must occur: {w_codes}")
+    on_cycle = len(lock_rec["deadlock_report"]["on_cycle"])
+
+    lock_rng = np.random.RandomState(SEED + 35)
+    lock_agents = [f"did:l{i}" for i in range(LOCK_AGENTS)]
+    intents = (LockIntent.READ, LockIntent.WRITE, LockIntent.EXCLUSIVE)
+    flush_ms = []
+    for i in range(LOCK_WARMUP + LOCK_ITERS):
+        lw = LockWave(device=dev, max_agents=LOCK_AGENTS, max_paths=LOCK_MAX_PATHS)
+        for agent, session, path, intent, step in lock_requests(lock_rng, lock_agents,
+                                                                 LOCK_WAVE1):
+            lw.submit(agent, session, path, intents[intent], saga_step_id=step)
+        torch.cuda.synchronize()
+        t = time.perf_counter_ns()
+        lw.flush()
+        torch.cuda.synchronize()
+        if i >= LOCK_WARMUP:
+            flush_ms.append((time.perf_counter_ns() - t) / 1e6)
+    report_ms = []
+    for i in range(SWEEP_WARMUP + SWEEP_ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter_ns()
+        lock_card.deadlock_report()
+        torch.cuda.synchronize()
+        if i >= SWEEP_WARMUP:
+            report_ms.append((time.perf_counter_ns() - t) / 1e6)
+    wait_t = torch.from_numpy(lock_card._wait_matrix()).to(dev)
+    closure_ms = time_device(lambda: lock_ops.transitive_closure(wait_t), reps=10,
+                             sleep_cycles=40_000_000)
+    squarings = lock_ops.closure_squarings(LOCK_AGENTS)
+    # The closure's least time: its squarings' multiply-adds (2 N^3 each)
+    # at the f32 rate outside the tensor cores, against its one read of
+    # the N x N 0/1 matrix (as 1-byte bools) and one write of the result.
+    closure_flop_ms = squarings * 2 * LOCK_AGENTS ** 3 / F32_FLOP_PER_S * 1e3
+    closure_byte_ms = 2 * LOCK_AGENTS ** 2 / HBM_BYTES_PER_S * 1e3
+
+    def pct(v, q):
+        return float(np.percentile(v, q))
+
+    emit("locks_writes", lock_agents=LOCK_AGENTS, lock_paths=LOCK_PATHS,
+         wave1_requests=LOCK_WAVE1, wave2_requests=LOCK_WAVE2, wait_cycles=LOCK_CYCLES,
+         lock_codes=lock_codes, on_cycle=on_cycle,
+         victim=lock_rec["deadlock_report"]["victim"], scc_oracle="equal",
+         contention_points=sum(1 for c in lock_rec["contention"].values() if c > 1),
+         write_sessions=WRITE_SESSIONS, writes_per_wave=WRITE_WRITES, write_codes=w_codes,
+         launches={k: n for k, n in lw_launches.items() if n}, cpu_replay="identical",
+         card_s=lw_card_s, cpu_replay_s=lw_cpu_s,
+         lock_flush_ms={"p50": pct(flush_ms, 50), "p95": pct(flush_ms, 95),
+                        "iters": LOCK_ITERS, "requests": LOCK_WAVE1},
+         deadlock_report_ms={"p50": pct(report_ms, 50), "p95": pct(report_ms, 95),
+                             "iters": SWEEP_ITERS, "agents": LOCK_AGENTS},
+         write_flush_ms={"p50": pct(write_ms, 50), "p95": pct(write_ms, 95),
+                         "samples": len(write_ms), "writes": WRITE_WRITES},
+         closure_device_ms=closure_ms, closure_squarings=squarings,
+         closure_bound_ms=max(closure_flop_ms, closure_byte_ms),
+         closure_bound_by="operations" if closure_flop_ms >= closure_byte_ms else "bytes",
+         tf32=torch.backends.cuda.matmul.allow_tf32, nvidia_smi=smi,
+         clock="host, synchronised; the closure by CUDA events")
+
+    # ── 11. the native host runtime against the kernels ──────────────
+    from hypervisor_tpu_torch.audit import delta as audit_delta
+    from hypervisor_tpu_torch.runtime import native
+
+    require(native.HAVE_NATIVE, "native: the host library did not build (g++ is required)")
+    kernels.reset_launch_counts()
+    nat_rng = np.random.RandomState(SEED + 34)
+
+    def nat_host_ms(fn, reps=NATIVE_REPS):
+        """Median host ms of fn(), each call synchronised."""
+        samples = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter_ns()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter_ns() - t) / 1e6)
+        return float(np.median(samples))
+
+    def to_bytes(words):
+        return np.ascontiguousarray(np.asarray(words, np.uint32).astype(">u4")).view(
+            np.uint8).reshape(words.shape[:-1] + (4 * words.shape[-1],))
+
+    # B1: 96-byte link messages (a 64-byte body and its 32-byte parent).
+    nat_links = nat_rng.randint(0, 256, (NATIVE_LINKS, 96)).astype(np.uint8)
+    link_host = native.sha256_batch_host(nat_links)
+    require(all(link_host[i].tobytes() == hashlib.sha256(nat_links[i].tobytes()).digest()
+                for i in range(NATIVE_LINKS)), "native: sha256_batch_host differs from hashlib")
+    link_words, link_blocks = pad_messages_np(nat_links, 96)
+    link_t = u32.from_numpy_u32(link_words, dev)
+    require(np.array_equal(to_bytes(u32.to_numpy_u32(sha_kernels.sha256_words(link_t, link_blocks))),
+                           link_host), "native: sha256_batch_host differs from B1")
+    # B2: 64 chains of 1,024 bodies, one digest bit tampered.
+    nat_bodies = nat_rng.randint(0, 2**32, (NATIVE_TURNS, NATIVE_LANES, 16),
+                             dtype=np.uint64).astype(np.uint32)
+    chain_card = u32.to_numpy_u32(merkle.chain_digests(u32.from_numpy_u32(nat_bodies, dev)))
+    chain_host = np.stack([native.chain_digests_host(np.ascontiguousarray(nat_bodies[:, lane]))
+                           for lane in range(NATIVE_LANES)], axis=1)
+    require(np.array_equal(to_bytes(chain_card), chain_host),
+            "native: chain_digests_host differs from B2")
+    for lane in range(NATIVE_LANES):
+        parent = b"\x00" * 32
+        for turn in range(NATIVE_TURNS):
+            parent = hashlib.sha256(to_bytes(nat_bodies[turn, lane]).tobytes() + parent).digest()
+            require(parent == chain_host[turn, lane].tobytes(),
+                    f"native: chain_digests_host differs from hashlib at {turn}, {lane}")
+    tamper_turn, tamper_lane = NATIVE_TURNS * 11 // 16, NATIVE_LANES * 17 // 64
+    recorded = chain_card.copy()
+    recorded[tamper_turn, tamper_lane, 3] ^= 1 << 9
+    rec_bytes = to_bytes(recorded)
+    first_bad = [native.verify_chain_host(np.ascontiguousarray(nat_bodies[:, lane]),
+                                          np.ascontiguousarray(rec_bytes[:, lane]))
+                 for lane in range(NATIVE_LANES)]
+    want_bad = [tamper_turn if lane == tamper_lane else -1 for lane in range(NATIVE_LANES)]
+    require(first_bad == want_bad, f"native: verify_chain_host misses the tampered row: {first_bad}")
+    counts_v = np.full(NATIVE_LANES, NATIVE_TURNS, np.int32)
+    verdict_card = merkle.verify_chain_digests_host(nat_bodies, recorded, counts_v, dev)
+    verdict_cpu = merkle.verify_chain_digests_host(nat_bodies, recorded, counts_v, "cpu")
+    require(verdict_card.tolist() == verdict_cpu.tolist() == [b < 0 for b in want_bad],
+            "native: the chain check's C++ route and B2 disagree")
+    # The big tree: B1 level by level on the card, the C++ unit, hashlib.
+    nat_leaves = nat_rng.randint(0, 256, (NATIVE_LEAVES, 32)).astype(np.uint8)
+    leaf_hex = [leaf.tobytes().hex() for leaf in nat_leaves]
+    root_native = native.merkle_root_hex_host(nat_leaves)
+    root_device = audit_delta.merkle_root_device(leaf_hex, dev)
+    root_hashlib = audit_delta.merkle_root_host(leaf_hex)
+    require(root_native == root_device == root_hashlib == audit_delta.merkle_root_native(leaf_hex),
+            "native: merkle_root_hex_host, merkle_root_device and hashlib disagree")
+    leaf_words = nat_leaves.view(">u4").astype(np.uint32)[None]
+    require(np.array_equal(merkle.tree_roots_host(leaf_words, NATIVE_LEAVES, dev),
+                           merkle.tree_roots_host(leaf_words, NATIVE_LEAVES, "cpu")),
+            "native: tree_roots_host's C++ route and the card disagree")
+    # B3: 8 lanes of 4,096 leaves (its widest tile) at mixed counts, one
+    # launch, against the C++ route lane by lane and hashlib.
+    tree_cnt = np.array(NATIVE_TREE_COUNTS, np.int32)
+    tree_leaves = nat_rng.randint(0, 2**32, (len(tree_cnt), NATIVE_TREE_P, 8),
+                                  dtype=np.uint64).astype(np.uint32)
+    b3_before = kernels.launch_counts()["tree_roots"]
+    tree_card = merkle.tree_roots_host(tree_leaves, tree_cnt, dev)
+    require(kernels.launch_counts()["tree_roots"] == b3_before + 1,
+            "native: tree_roots_host at 4,096 leaves must launch B3 once")
+    require(np.array_equal(tree_card, merkle.tree_roots_host(tree_leaves, tree_cnt, "cpu")),
+            "native: tree_roots_host's C++ route and B3 disagree")
+    for lane, c in enumerate(NATIVE_TREE_COUNTS):
+        want = (audit_delta.merkle_root_host([to_bytes(w).tobytes().hex() for w in tree_leaves[lane, :c]])
+                if c > 1 else to_bytes(tree_leaves[lane, 0]).tobytes().hex())
+        require(to_bytes(tree_card[lane]).tobytes().hex() == want,
+                f"native: B3's root differs from hashlib in lane {lane} ({c} leaves)")
+    # The scrubber on a card state takes B1 for every strip with the
+    # library built; the reference's HV_SCRUB_NATIVE=1 changes nothing.
+    scrub_ticks, scrub_b1 = run_native_scrub(dev)
+    require(scrub_b1 == scrub_ticks > 0,
+            f"native: the scrubber on the card launched B1 {scrub_b1} times in {scrub_ticks} ticks")
+    # The staging queue under 8 threads, then B4's flush.
+    claimed, push_ms, threaded, fallback = run_native_staging(dev)
+    require(sorted(claimed) == list(range(NATIVE_JOINS)),
+            "native: every staged join must claim its own queue entry")
+    diff = first_difference("native_staging", threaded, fallback)
+    require(diff is None, f"native: the threaded flush differs from the fallback queue's at {diff}")
+    torch.cuda.synchronize()
+    native_launches = kernels.launch_counts()
+    windows["native"] = native_launches
+    staging_codes = np.bincount(threaded["status"], minlength=5).tolist()
+    require(staging_codes[0] and sum(staging_codes[1:]),
+            f"native: the staged wave must admit and refuse: {staging_codes}")
+    route_ms = {
+        "sha256_batch_host_ms": nat_host_ms(lambda: native.sha256_batch_host(nat_links)),
+        "sha256_words_ms": time_device(lambda: sha_kernels.sha256_words(link_t, link_blocks)),
+        "chain_digests_host_ms": nat_host_ms(lambda: [native.chain_digests_host(
+            np.ascontiguousarray(nat_bodies[:, lane])) for lane in range(NATIVE_LANES)]),
+        "chain_digests_ms": time_device(lambda b=u32.from_numpy_u32(nat_bodies, dev):
+                                        merkle.chain_digests(b)),
+        "verify_chain_host_ms": nat_host_ms(lambda: [native.verify_chain_host(
+            np.ascontiguousarray(nat_bodies[:, lane]), np.ascontiguousarray(rec_bytes[:, lane]))
+            for lane in range(NATIVE_LANES)]),
+        "verify_chain_digests_host_card_ms": nat_host_ms(
+            lambda: merkle.verify_chain_digests_host(nat_bodies, recorded, counts_v, dev)),
+        "merkle_root_hex_host_ms": nat_host_ms(lambda: native.merkle_root_hex_host(nat_leaves)),
+        "merkle_root_device_ms": nat_host_ms(lambda: audit_delta.merkle_root_device(leaf_hex, dev)),
+        "merkle_root_hashlib_ms": nat_host_ms(lambda: audit_delta.merkle_root_host(leaf_hex)),
+        "tree_roots_host_card_ms": nat_host_ms(
+            lambda: merkle.tree_roots_host(tree_leaves, tree_cnt, dev)),
+        "tree_roots_host_cpp_ms": nat_host_ms(
+            lambda: merkle.tree_roots_host(tree_leaves, tree_cnt, "cpu")),
+        "staging_push_8_threads_ms": push_ms,
+    }
+    queue_ms = time_staging_queues(dev)
+    emit("native", have_native=True, library=native.library_path().name,
+         links=NATIVE_LINKS, chains=[NATIVE_LANES, NATIVE_TURNS], leaves=NATIVE_LEAVES,
+         tampered=[tamper_turn, tamper_lane], joins=NATIVE_JOINS, threads=NATIVE_THREADS,
+         staging_codes=staging_codes, fallback_queue="identical",
+         tree_lanes=list(NATIVE_TREE_COUNTS), scrub_ticks=scrub_ticks,
+         launches={k: n for k, n in native_launches.items() if n}, ms=route_ms,
+         staging_queues_ms={form: {k: {"median": float(np.median(v)), "samples": v}
+                                   for k, v in m.items()} for form, m in queue_ms.items()},
+         nvidia_smi=smi,
+         clock="host ms: median of %d, synchronised; kernel ms: CUDA events" % NATIVE_REPS)
+
+    # ── 12. the facade's public API ──────────────────────────────────
     # After the other profiles: this one records ~100,000 device events.
     t0 = time.perf_counter()
     api_rec, api_launches, api_times, api_census = run_facade_api(

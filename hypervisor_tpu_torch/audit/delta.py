@@ -6,17 +6,15 @@ field set — the hex chain format is an interchange format, kept
 bit-compatible), bottom-up Merkle root with odd-node duplication, and full
 chain verification.
 
-The port's copy of `hypervisor_tpu.audit.delta`. Two functions differ:
-
-  * `merkle_root_device` runs the port's `ops.merkle.merkle_root_lanes` on
-    an explicit torch device: kernel B3 (one tree launch) up to 4,096
-    leaves and B1 level by level above it on CUDA, their plain versions on
-    the CPU. The engine takes the device at construction (`ManagedSession`
-    hands it the state's) and uses it from `_DEVICE_ROOT_THRESHOLD` deltas;
-  * `merkle_root_native` has no C++ library to call: the reference's
-    `native/` tree builder is not bound by the port, so it is the hashlib
-    loop `merkle_root_host`, which gives the same root (the reference
-    itself falls back to it when its library is absent).
+The port's copy of `hypervisor_tpu.audit.delta`. One function differs:
+`merkle_root_device` runs the port's `ops.merkle.merkle_root_lanes` on
+an explicit torch device: kernel B3 (one tree launch) up to 4,096 leaves
+and B1 level by level above it on CUDA, their plain versions on the CPU.
+The engine takes the device at construction (`ManagedSession` hands it
+the state's) and uses it from `_DEVICE_ROOT_THRESHOLD` deltas.
+`merkle_root_native` runs the port's C++ tree build
+(`runtime.native.merkle_root_hex_host`), or the hashlib loop where the
+library did not build.
 
 All three builders return the same root for the same hashes.
 """
@@ -104,9 +102,18 @@ def merkle_root_host(hashes: list[str]) -> str:
 
 
 def merkle_root_native(hashes: list[str]) -> str:
-    """The reference's C++ tree builder has no binding in the port: this is
-    `merkle_root_host`, the same hex-pair tree and the same root."""
-    return merkle_root_host(hashes)
+    """C++ tree build (`csrc/hv_runtime.cpp`), Python-loop fallback.
+
+    Same hex-pair semantics as `merkle_root_host`.
+    """
+    from hypervisor_tpu_torch.runtime import native
+
+    if not native.HAVE_NATIVE:
+        return merkle_root_host(hashes)
+    import numpy as np
+
+    leaves = np.frombuffer(bytes.fromhex("".join(hashes)), np.uint8).reshape(-1, 32)
+    return native.merkle_root_hex_host(leaves)
 
 
 def merkle_root_device(hashes: list[str], device="cuda") -> str:

@@ -28,10 +28,11 @@ chains every staged session), and B3 in the delta engine's root when
 the session holds 64 deltas or more (`terminate_sessions` folds its
 roots from the live frontier on the host); a drift slash runs B8
 (`apply_slash`). Device columns are read back through
-`_host`. Not ported yet, each refused with a message naming a later
-slice of the port: `ManagedSession.write_wave` (the write wave),
-`attach_front_door` / `serving_scheduler` (the serving plane) and
-`consistency_runtime` (the multi-device plane). With an event bus the
+`_host`. `ManagedSession.write_wave` builds a `runtime.write_wave.
+WriteWave` on the state's device. Not ported yet, each refused with a
+message naming a later slice of the port: `attach_front_door` /
+`serving_scheduler` (the serving plane) and `consistency_runtime` (the
+multi-device plane). With an event bus the
 facade emits its own events, but the health plane's events and the
 incident bundle's event slice (`_on_health_event`,
 `_incident_events_block`) are not registered: the port has no health
@@ -127,9 +128,25 @@ class ManagedSession:
 
     def write_wave(self, **kwargs):
         """A batched write path over this session's VFS, pre-wired to the
-        device plane (quarantined writers refused before any token burns).
-        Refused: the write wave (`runtime/write_wave`) is not ported yet."""
-        raise _later("ManagedSession.write_wave", "the lock and write waves, ROADMAP A3")
+        device plane: writers whose agent rows carry FLAG_QUARANTINED are
+        refused before any rate-limit token burns (read-only isolation,
+        reference `liability/quarantine.py` semantics). The wave's clocks
+        and buckets live on the state's device unless `device=` is given."""
+        from hypervisor_tpu_torch.runtime.write_wave import WriteWave
+
+        state = self._state
+
+        slot = self.slot
+
+        def quarantined(did: str) -> bool:
+            if state is None:
+                return False
+            row = state.agent_row(did, slot)
+            return bool(row is not None and state.quarantined_mask()[row["slot"]])
+
+        if state is not None:
+            kwargs.setdefault("device", state.device)
+        return WriteWave(self.sso.vfs, is_quarantined=quarantined, **kwargs)
 
 
 class Hypervisor:
@@ -257,7 +274,7 @@ class Hypervisor:
     def attach_front_door(self, config=None):
         """Attach (or return) the serving front door + wave scheduler.
         Refused: the serving plane is not ported yet."""
-        raise _later("Hypervisor.attach_front_door", "the serving plane, ROADMAP A6")
+        raise _later("Hypervisor.attach_front_door", "the serving plane, ROADMAP A5")
 
     @property
     def serving_scheduler(self):
@@ -1700,7 +1717,7 @@ class Hypervisor:
     def consistency_runtime(self, mesh):
         """The mixed-mode distributed tick driver bound to this facade's
         device state. Refused: the multi-device plane is not ported yet."""
-        raise _later("Hypervisor.consistency_runtime", "the multi-device plane, ROADMAP A9")
+        raise _later("Hypervisor.consistency_runtime", "the multi-device plane, ROADMAP A8")
 
     def sync_events_to_device(self) -> int:
         """Mirror new bus events into the device EventLog ring buffer.

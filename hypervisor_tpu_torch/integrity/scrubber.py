@@ -17,8 +17,12 @@ bounded cadence without stalling the wave path. Each tick:
      last row must equal the committed chain head,
   3. re-validates the strip against the live index (a ring wrap between
      ticks recycles archived sessions' rows), then hashes it as ONE
-     batch through `ops.merkle.verify_chain_links` on the state's device
-     — kernel B1 on CUDA, lanes padded to the budget,
+     batch, lanes padded to the budget: through `ops.merkle.
+     verify_chain_links` on the state's device (kernel B1 on CUDA), or
+     through the native C++ hash unit (`ops.merkle.
+     verify_chain_links_host`: one `sha256_batch` sweep) when the state
+     is not on CUDA and the library built (the device alone decides:
+     the reference's `HV_SCRUB_NATIVE` has no counterpart here),
   4. reports mismatching rows.
 """
 

@@ -1,10 +1,13 @@
-"""Builds the port's CUDA sources into shared libraries and loads them.
+"""Builds the port's C and CUDA sources into shared libraries and loads them.
 
-Each `csrc/<name>.cu` compiles on first use with nvcc into
+Each `csrc/<name>.cu` compiles on first use with nvcc, and the host
+runtime `csrc/hv_runtime.cpp` with g++, into
 `hypervisor_tpu_torch/_build/<name>-<hash>.so` (a plain C interface,
 bound with ctypes), where the hash covers the sources and the flags, so
-an edited source rebuilds and an unchanged one is reused. `build_all`
-starts one nvcc per source, all together. Nothing here runs at import.
+an edited source rebuilds and an unchanged one is reused. Each build
+writes a file of its own and renames it into place, so processes that
+build at once never load a half-written library. `build_all` starts one
+nvcc per CUDA source, all together. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mtu", "wave", "sha256", "saga", "liability")
+#: Host C++ sources, built with g++ (the reference's flags).
+HOST_SOURCES = ("hv_runtime",)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -40,10 +46,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _compiler(name: str) -> str:
+    if name not in HOST_SOURCES:
+        return _nvcc()
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host runtime needs a C++ compiler")
+    return found
+
+
+def _spec(name: str) -> tuple[tuple[str, ...], Path, list[Path]]:
+    """(flags, source, headers the hash covers) for csrc/<name>."""
+    if name in HOST_SOURCES:
+        return GXX_FLAGS, CSRC / f"{name}.cpp", []
+    return NVCC_FLAGS, CSRC / f"{name}.cu", sorted(CSRC.glob("*.cuh"))
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    flags, source, headers = _spec(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    for header in headers:
         h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -55,7 +78,8 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     log = BUILD_DIR / f"{name}.log"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    flags, source, _ = _spec(name)
+    cmd = [_compiler(name), *flags, "-o", str(tmp), str(source)]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return target, tmp, proc
@@ -66,8 +90,9 @@ def _finish(name: str, started) -> None:
         return
     target, tmp, proc = started
     if proc.wait() != 0:
+        tmp.unlink(missing_ok=True)
         log = (BUILD_DIR / f"{name}.log").read_text()
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"csrc/{_spec(name)[1].name} did not build:\n{log}")
     os.replace(tmp, target)
 
 

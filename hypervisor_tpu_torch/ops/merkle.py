@@ -3,8 +3,12 @@ per-lane Merkle roots, chain verification and the host entries the facade
 and the scrubber call. CUDA tensors run the Hopper kernels — B2 chains
 and B3 trees (`kernels.mtu`), B1 for every other batched hash
 (`ops.sha256.sha256_blocks_dispatch`); CPU tensors run their plain
-versions. There is no native C++ route: the host entries take the
-state's device and run the device forms there.
+versions.
+
+The host entries (`*_host`) dispatch as the reference's do: a CUDA
+device takes the kernels; a CPU device takes the C++ hash unit
+(`runtime.native`) when its library built; otherwise the plain torch
+versions run on the CPU. All three give the same bits.
 
 Reference semantics: the interior combine is sha256(ascii_hex(left) +
 ascii_hex(right)), the odd node is duplicated at each level, and each
@@ -21,7 +25,8 @@ import torch
 from hypervisor_tpu_torch import u32
 from hypervisor_tpu_torch.kernels import mtu
 from hypervisor_tpu_torch.kernels.mtu import _CHAIN_TAIL, BODY_WORDS, TREE_MAX_LEAVES
-from hypervisor_tpu_torch.ops.sha256 import sha256_blocks_dispatch, sha256_hex_pair
+from hypervisor_tpu_torch.ops.sha256 import hex_to_words, sha256_blocks_dispatch, sha256_hex_pair
+from hypervisor_tpu_torch.runtime import native
 
 __all__ = [
     "BODY_WORDS",
@@ -136,31 +141,64 @@ def verify_chain_links(
     return ok | ~valid
 
 
-# ── host entries: numpy in, numpy out, the device forms on `device` ──
+# ── host entries: the kernels on CUDA, the C++ unit on a CPU ─────────
 
 
 def _put_u32(arr, device) -> torch.Tensor:
     return u32.from_numpy_u32(np.asarray(arr, np.uint32), device)
 
 
+def _native_route(device) -> bool:
+    """True when a CPU device can take the C++ hash unit (its library
+    built); a CUDA device always takes the kernels."""
+    return torch.device(device).type != "cuda" and native.HAVE_NATIVE
+
+
+def _be_bytes(words: np.ndarray) -> np.ndarray:
+    """u32[..., W] words -> u8[..., 4W] big-endian bytes."""
+    words = np.asarray(words, np.uint32)
+    return np.ascontiguousarray(words.astype(">u4")).view(np.uint8).reshape(
+        words.shape[:-1] + (4 * words.shape[-1],))
+
+
 def tree_roots_host(leaves: np.ndarray, counts, device) -> np.ndarray:
     """Per-session Merkle roots over host leaves u32[S, P, 8] (P a power
-    of two), counts i32[S] or a scalar, on `device`: B3 (or B1 above
-    4096 leaves) on CUDA. Returns u32[S, 8]; count <= 1 gives leaf 0."""
+    of two), counts i32[S] or a scalar: B3 (or B1 above 4096 leaves) on
+    CUDA, the C++ unit lane by lane on a CPU with the library, else the
+    plain versions. Returns u32[S, 8]; count <= 1 gives leaf 0."""
     leaves = np.asarray(leaves, np.uint32)
     s = leaves.shape[0]
     cnt = np.array(np.broadcast_to(np.asarray(counts, np.int32), (s,)))
+    if _native_route(device):
+        roots = np.zeros((s, 8), np.uint32)
+        for i in range(s):
+            c = int(cnt[i])
+            if c <= 1:
+                roots[i] = leaves[i, 0]
+                continue
+            roots[i] = hex_to_words([native.merkle_root_hex_host(_be_bytes(leaves[i, :c]))])[0]
+        return roots
     roots = merkle_root_lanes(_put_u32(leaves, device), torch.from_numpy(cnt).to(device))
     return u32.to_numpy_u32(roots)
 
 
 def verify_chain_digests_host(bodies, recorded, counts, device) -> np.ndarray:
     """`verify_chain_digests` over host arrays (u32[N, L, 16] bodies,
-    u32[N, L, 8] recorded, counts i32[L]) on `device`; zero-seed chains
-    only — the DeltaLog's full-history format. Returns bool[L]."""
+    u32[N, L, 8] recorded, counts i32[L]): B2 on CUDA, the C++ unit lane
+    by lane on a CPU with the library, else the plain version. Zero-seed
+    chains only — the DeltaLog's full-history format. Returns bool[L]."""
     bodies = np.asarray(bodies, np.uint32)
     lanes = bodies.shape[1]
     cnt = np.array(np.broadcast_to(np.asarray(counts, np.int32), (lanes,)))
+    if _native_route(device):
+        rec_bytes = _be_bytes(recorded)
+        ok = np.zeros((lanes,), bool)
+        for lane in range(lanes):
+            c = int(cnt[lane])
+            ok[lane] = c <= 0 or native.verify_chain_host(
+                np.ascontiguousarray(bodies[:c, lane]),
+                np.ascontiguousarray(rec_bytes[:c, lane])) == -1
+        return ok
     ok = verify_chain_digests(
         _put_u32(bodies, device), _put_u32(recorded, device), torch.from_numpy(cnt).to(device)
     )
@@ -168,10 +206,22 @@ def verify_chain_digests_host(bodies, recorded, counts, device) -> np.ndarray:
 
 
 def verify_chain_links_host(body_col, digest_col, rows, prev_rows, use_seed, valid) -> np.ndarray:
-    """`verify_chain_links` for a strip given as host arrays, on the
-    device the DeltaLog columns lie on (the columns are tensors there, so
-    only the strip crosses). Returns bool[B]."""
+    """`verify_chain_links` for a strip given as host arrays, over the
+    DeltaLog columns (tensors on the state's device). On CUDA only the
+    strip crosses and B1 hashes it; on a CPU with the library one
+    `sha256_batch_host` sweep over the strip's 96-byte link messages;
+    else the plain version. Returns bool[B]."""
     dev = body_col.device
+    if _native_route(dev):
+        def gather(col, idx):  # rows clipped into the ring, as in the reference
+            idx = np.clip(np.asarray(idx, np.int64), 0, col.shape[0] - 1)
+            return u32.to_numpy_u32(col[torch.from_numpy(idx).to(dev)])
+
+        seed = np.asarray(use_seed, bool)[:, None]
+        parent = np.where(seed, np.uint32(0), gather(digest_col, prev_rows))
+        msg = np.concatenate([_be_bytes(gather(body_col, rows)), _be_bytes(parent)], axis=1)
+        ok = (native.sha256_batch_host(msg) == _be_bytes(gather(digest_col, rows))).all(axis=1)
+        return ok | ~np.asarray(valid, bool)
 
     def put(a, dtype):
         return torch.from_numpy(np.array(a, dtype)).to(dev)

@@ -81,7 +81,7 @@ from hypervisor_tpu_torch.ops import pipeline, rate_limit, saga_ops, security_op
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.ops.admission import ADMIT_OK, tally_admission
 from hypervisor_tpu_torch.ops.rings import compute_rings
-from hypervisor_tpu_torch.runtime.staging import StagingQueue
+from hypervisor_tpu_torch.runtime import StagingQueue
 from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
@@ -1556,7 +1556,7 @@ class HypervisorState:
         if mesh is not None:
             raise NotImplementedError(
                 "check_actions_wave(mesh=...): the sharded gateway arrives with the port's "
-                "multi-device slice (ROADMAP A9)")
+                "multi-device slice (ROADMAP A8)")
         act = self._normalize_actions({
             "slots": slots, "required_rings": required_rings, "is_read_only": is_read_only,
             "has_consensus": has_consensus, "has_sre_witness": has_sre_witness,

@@ -1,1 +1,2 @@
-"""Host utilities: the injectable clock (`clock`)."""
+"""Host utilities: the injectable clock (`clock`) and the status-code
+tables (`status`)."""

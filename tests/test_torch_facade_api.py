@@ -19,7 +19,7 @@ the whole device metrics table, the host-plane counters, the trace ring,
 the ledger's entries, and the facade's host indices must be equal.
 
 The reference's health-plane bridge onto the bus is detached: the port
-has no health plane yet (ROADMAP A5), so both buses carry the facade's
+has no health plane yet (ROADMAP A4), so both buses carry the facade's
 own events. Ids and times are made deterministic the same way for both packages:
 `uuid.uuid4` and `secrets.token_hex` count up from 1, `time.time` and
 every module's `datetime.now` read one manual clock that only the
@@ -49,6 +49,7 @@ import torch
 import hypervisor_tpu as REF
 import hypervisor_tpu_torch as PORT
 from hypervisor_tpu import config as jax_config
+from hypervisor_tpu.observability import health as jax_health
 from hypervisor_tpu.runtime.checkpoint import state_arrays
 from hypervisor_tpu.state import HypervisorState as JaxState
 from hypervisor_tpu_torch import config as port_config
@@ -80,10 +81,17 @@ def install_determinism(mp: pytest.MonkeyPatch, clock: ManualTime) -> None:
     """Patch ids and time for one package run (counters restart at 1)."""
     ids = itertools.count(1)
     words = itertools.count(1)
-    mp.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids)))
+    # The count sits in the top and the bottom bits, so ids cut from a
+    # uuid's first 8 hex digits (locks, elevations) stay distinct too.
+    mp.setattr(uuid, "uuid4", lambda: uuid.UUID(int=(lambda n: n << 96 | n)(next(ids))))
     mp.setattr(secrets, "token_hex",
                lambda nbytes=None: f"{next(words):0{2 * (nbytes or 32)}x}")
     mp.setattr(time, "time", lambda: clock.t)
+    # Facades left by earlier tests keep their health monitors subscribed
+    # to the reference's process-wide compile log until they are
+    # collected: a recompile in this run would reach their bus bridges
+    # and draw from the patched uuid4.
+    mp.setattr(jax_health._LOG, "_subscribers", [])
 
     class ManualDatetime(_dt.datetime):
         @classmethod
@@ -125,7 +133,7 @@ class Side:
     def hypervisor(self, **kw):
         hv = self.pkg.Hypervisor(state=self.state(), **kw)
         if self.is_ref and hv.event_bus is not None:
-            # The port has no health plane yet (ROADMAP A5), so its bus
+            # The port has no health plane yet (ROADMAP A4), so its bus
             # carries the facade's own events only: detach the
             # reference's health bridge (recompile events) to match.
             hv.state.health._listeners.remove(hv._on_health_event)
@@ -765,6 +773,153 @@ async def saga_gateway(s: Side):
     s.record("ungated", await ms.saga.execute_step(probe.saga_id, external.step_id, ok))
 
 
+# ── tests/integration/test_security_waves.py: the facade's write wave ──
+
+
+async def write_wave_prewired(s: Side):
+    """`ManagedSession.write_wave()` on the state's device: a quarantined
+    member refused before any token burns, ring 3's burst, a causally
+    stale writer and its read barrier, a released quarantine, and a
+    SERIALIZABLE wave that needs write locks."""
+    hv = s.hypervisor()
+    ms = await session_with(s, hv, ("did:iso", 0.8), ("did:ok", 0.8), ("did:low", 0.4))
+    sid = ms.sso.session_id
+    await hv.activate_session(sid)
+    row = hv.state.agent_row("did:iso", ms.slot)
+    hv.state.quarantine_rows([row["slot"]], now=hv.state.now())
+    wave = ms.write_wave()
+    for i in range(12):
+        wave.submit("did:low", f"/burst/{i}", f"b{i}", ring=3)
+    wave.submit("did:iso", "/doc.md", "nope", ring=2)
+    wave.submit("did:ok", "/doc.md", "yes", ring=2)
+    wave.submit("did:ok", "/doc.md", "again", ring=2)
+    s.record("first", wave.flush(now=hv.state.now()))
+    s.clock.advance(0.5)
+    wave.submit("did:low", "/doc.md", "blind", ring=1)
+    s.record("stale", wave.flush(now=hv.state.now()))
+    wave.observe("did:low", "/doc.md")
+    wave.submit("did:low", "/doc.md", "seen", ring=1)
+    s.record("fresh", (wave.flush(now=hv.state.now()), ms.sso.vfs.read("/doc.md")))
+    s.clock.advance(512.0)
+    s.record("released", hv.state.quarantine_tick(hv.state.now()))
+    il = s.mod("session.intent_locks")
+    locks = il.IntentLockManager()
+    locks.acquire("did:ok", sid, "/ser.md", il.LockIntent.WRITE)
+    ser = ms.write_wave(isolation=s.mod("session.isolation").IsolationLevel.SERIALIZABLE,
+                        lock_manager=locks)
+    ser.submit("did:ok", "/ser.md", "locked", ring=2)
+    ser.submit("did:iso", "/ser.md", "unlocked", ring=2)
+    s.record("serializable", ser.flush(now=hv.state.now()))
+    s.record("vfs", ({p: ms.sso.vfs.read(p) for p in ms.sso.vfs.list_files()},
+                     [(e.path, e.agent_did) for e in ms.sso.vfs.edit_log]))
+
+
+# ── seeded random public-API sequences ───────────────────────────────
+
+_RANDOM_OPS = ("create", "join", "join", "join", "vouch", "activate", "capture", "check",
+               "checks", "drift", "grant", "revoke", "kill", "leave", "ring", "terminate",
+               "sweep", "clock", "sync", "collusion", "write_wave", "write_wave")
+
+
+async def random_api(s: Side, seed: int):
+    """Up to 40 public-API calls drawn from one seed: creates, joins (some
+    with admin or irreversible manifests), vouches, activations, captures,
+    single and batched checks, CMVK drift, grants and revokes, kills,
+    leaves, ring updates, terminates, both sweeps, dyadic clock steps,
+    event mirroring, collusion scans and write waves. Every call's return
+    (or exception) is recorded, with the tables and host indices."""
+    m = s.pkg
+    rng = np.random.RandomState(seed)
+    hv = s.hypervisor(event_bus=m.HypervisorEventBus(), cmvk=s.cmvk())
+    agents = [f"did:r{i}" for i in range(8)]
+    live: list[str] = []
+    grants: list[str] = []
+
+    def pick(seq):
+        return seq[int(rng.randint(len(seq)))]
+
+    for step in range(int(rng.randint(24, 41))):
+        op = pick(_RANDOM_OPS)
+        if op not in ("create", "sweep", "clock", "sync", "collusion", "revoke") and not live:
+            op = "create"
+        sid = pick(live) if live else None
+        members = sorted(p.agent_did for p in hv.get_session(sid).sso.participants) if sid else []
+        # Mostly a member of the session, else anyone (joins: anyone).
+        anyone = op == "join" or not members or rng.uniform() < 0.2
+        did = pick(agents) if anyone else pick(members)
+        if op == "create":
+            config = m.SessionConfig(max_participants=int(rng.randint(2, 6)),
+                                     min_sigma_eff=float(pick([0.0, 0.5])))
+            ms = await hv.create_session(config, creator_did="did:lead")
+            live.append(ms.sso.session_id)
+            out = (ms.sso.session_id, ms.slot)
+        elif op == "join":
+            kind = int(rng.randint(3))
+            actions = [None, [admin_action(s)],
+                       [action(s, reversibility=m.ReversibilityLevel.NONE, undo_api=None)]][kind]
+            out = await attempt(hv.join_session(sid, did, actions=actions,
+                                                sigma_raw=float(pick([0.3, 0.55, 0.8, 0.95]))))
+        elif op == "vouch":
+            out = call(hv.vouching.vouch, did, pick(agents), sid, voucher_sigma=0.9)
+        elif op == "activate":
+            out = await attempt(hv.activate_session(sid))
+        elif op == "capture":
+            engine = hv.get_session(sid).delta_engine
+            out = [call(engine.capture, did, change(s, int(rng.randint(1000))))
+                   for _ in range(int(rng.randint(1, 4)))]
+        elif op == "check":
+            out = await attempt(hv.check_action(sid, did, action(s, ring3=bool(rng.randint(2)))))
+        elif op == "checks":
+            out = await attempt(hv.check_actions(sid, [
+                (pick(members or agents), pick([action(s), action(s, ring3=True),
+                                                admin_action(s)]))
+                for _ in range(int(rng.randint(1, 5)))]))
+        elif op == "drift":
+            out = await attempt(hv.verify_behavior(
+                sid, did, claimed_embedding=float(pick([0.1, 0.35, 0.6, 0.95])),
+                observed_embedding=0.0))
+        elif op == "grant":
+            out = await attempt(hv.grant_elevation(
+                sid, did, m.ExecutionRing(int(rng.randint(1, 3))),
+                ttl_seconds=int(pick([8, 60]))))
+            if not isinstance(out, BaseException):
+                grants.append(out.elevation_id)
+        elif op == "revoke":
+            out = await attempt(hv.revoke_elevation(pick(grants) if grants else "elev:none"))
+        elif op == "kill":
+            out = await attempt(hv.kill_agent(sid, did))
+        elif op == "leave":
+            out = await attempt(hv.leave_session(sid, did))
+        elif op == "ring":
+            out = await attempt(hv.update_agent_ring(sid, did, m.ExecutionRing(
+                int(rng.randint(1, 4))), reason="random"))
+        elif op == "terminate":
+            out = await attempt(hv.terminate_session(sid))
+            if not isinstance(out, BaseException):
+                live.remove(sid)
+        elif op == "sweep":
+            out = (await hv.sweep_expired_sessions(), hv.sweep_elevations())
+            live = [x for x in live if hv.get_session(x).sso.state.value != "archived"]
+        elif op == "clock":
+            s.clock.advance(float(pick([0.5, 4.0, 64.0])))
+            out = hv.state.now()
+        elif op == "sync":
+            out = hv.sync_events_to_device()
+        elif op == "collusion":
+            out = hv.detect_collusion()
+        else:  # write_wave
+            ms = hv.get_session(sid)
+            wave = ms.write_wave()
+            for i in range(int(rng.randint(1, 9))):
+                writer = pick(members or agents)
+                if rng.uniform() < 0.25:
+                    wave.observe(writer, f"/w{i % 3}")
+                wave.submit(writer, f"/w{i % 3}", f"{step}.{i}", ring=int(rng.randint(0, 4)))
+            out = (wave.flush(now=hv.state.now()),
+                   {p: ms.sso.vfs.read(p) for p in ms.sso.vfs.list_files()})
+        s.record(f"{step}:{op}", out)
+
+
 SEQUENCES = {
     f.__name__: f for f in (
         lifecycle_readme, lifecycle_admission_edges, lifecycle_saga_compensation,
@@ -772,6 +927,7 @@ SEQUENCES = {
         kill_with_scheduler, elevation_grant_and_revoke, elevation_expiry_and_recycling,
         elevation_demotion_and_drift, ledger_probation_and_deny, ledger_cascade_and_credit,
         ledger_attribution_and_collusion, gateway_gates, gateway_rate_limits, saga_gateway,
+        write_wave_prewired,
     )
 }
 
@@ -780,6 +936,45 @@ SEQUENCES = {
 def test_facade_sequence_matches_reference(name):
     ref_log, port_log = run_both(SEQUENCES[name])
     assert_logs_equal(ref_log, port_log)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_api_sequence_matches_reference(seed):
+    ref_log, port_log = run_both(lambda side: random_api(side, seed))
+    assert_logs_equal(ref_log, port_log)
+    ops = {label.split(":")[1] for label, _ in port_log if label.count(":") == 1}
+    assert "write_wave" in ops or seed != 0
+
+
+async def left_participant(s: Side):
+    m = s.pkg
+    hv = s.hypervisor()
+    ms = await session_with(s, hv, ("did:stay", 0.8), ("did:gone", 0.8))
+    sid = ms.sso.session_id
+    await hv.leave_session(sid, "did:gone")
+    s.record("check", await attempt(hv.check_action(sid, "did:gone", action(s))))
+    s.record("checks", await attempt(hv.check_actions(sid, [("did:stay", action(s)),
+                                                           ("did:gone", action(s))])))
+    grant = await attempt(hv.grant_elevation(sid, "did:gone", m.ExecutionRing.RING_1_PRIVILEGED))
+    s.record("grant", (grant, hv.elevation.get_active_elevation("did:gone", sid),
+                       sorted(hv._elev_row_of.items()),
+                       hv.state.effective_rings(hv.state.now())))
+
+
+def test_left_participant_keeps_the_reference_behaviour():
+    """Held by design (ROADMAP C.2): for a participant who has left, both
+    facades raise "no live device row ... plane divergence" from
+    `check_action(s)` and grant an elevation on the host only (no device
+    row, so no device grant)."""
+    ref_log, port_log = run_both(left_participant)
+    log = assert_logs_equal(ref_log, port_log)
+    for key in ("check", "checks"):
+        kind, exc_type, message = log[key]
+        assert (kind, exc_type) == ("raised", "RuntimeError")
+        assert "no live device row" in message and "plane divergence" in message
+    grant, held, elev_rows, _rings = log["grant"]
+    assert grant[0] == "RingElevation" and held == grant
+    assert elev_rows == []  # granted on the host, no device row claimed
 
 
 def test_readme_lifecycle_root_commits_and_verifies():
@@ -801,9 +996,6 @@ def test_unported_entries_name_a_later_slice():
         hv.serving_scheduler  # noqa: B018 — the property is the entry
     with pytest.raises(NotImplementedError, match="a later slice of the port"):
         hv.consistency_runtime(mesh=None)
-    ms = asyncio.run(hv.create_session(PORT.SessionConfig(), "did:lead"))
-    with pytest.raises(NotImplementedError, match="a later slice of the port"):
-        ms.write_wave()
 
 
 def test_default_hypervisor_runs_on_cuda_and_never_falls_back():

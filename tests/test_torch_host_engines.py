@@ -66,7 +66,7 @@ COPIES = (
     "session/__init__.py", "session/intent_locks.py", "session/isolation.py",
     "session/vector_clock.py", "session/vfs.py",
     "tables/intern.py",
-    "utils/clock.py",
+    "utils/clock.py", "utils/status.py",
     "verification/__init__.py",
 )
 
@@ -74,11 +74,12 @@ COPIES = (
 EXCEPTIONS = {
     "core.py": "tables on a torch device (`device=`); device columns read back "
                "through `_host`; host counters on `state.host_metrics`; the write "
-               "wave, the serving front door and the consistency runtime refused for "
-               "later slices; no health bridge or incident provider registered",
+               "wave on the state's device; the serving front door and the "
+               "consistency runtime refused for later slices; no health bridge or "
+               "incident provider registered",
     "audit/delta.py": "the device root runs `ops.merkle.merkle_root_lanes` on the "
-                      "engine's torch device; the native root is the hashlib loop "
-                      "(the reference's C++ library has no binding in the port)",
+                      "engine's torch device; the native root binds the port's own "
+                      "C++ library (`runtime.native`)",
     "liability/vouching.py": "`to_device` builds the port's `VouchTable` of torch "
                              "tensors on a given device",
 }

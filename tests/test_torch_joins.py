@@ -42,7 +42,7 @@ from hypervisor_tpu_torch import models as port_models
 from hypervisor_tpu_torch import tables as port_tables
 from hypervisor_tpu_torch.kernels import wave
 from hypervisor_tpu_torch.ops import admission
-from hypervisor_tpu_torch.runtime.staging import StagingQueue
+from hypervisor_tpu_torch.runtime import StagingQueue
 from hypervisor_tpu_torch.state import HypervisorState as PortState
 from hypervisor_tpu_torch.tables.state import FLAG_ACTIVE
 from hypervisor_tpu_torch.tables.state import AgentTable as PAgents
