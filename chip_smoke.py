@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's governance wave, its facade wave (all
 eight phases: the action gateway and the gauge epilogue too), the
 sanitizer, the join queue and security surface, the saga plane, the
-slash cascade, the lock and write waves, the native host runtime and the
-`Hypervisor` facade's public API on one NVIDIA GPU.
+slash cascade, the lock and write waves, the native host runtime, the
+`Hypervisor` facade's public API and durability (the write-ahead log,
+checkpoints and crash recovery) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -198,7 +199,34 @@ Phases, one JSON line each:
    four kernels, and are replayed on the CPU, which must give identical
    returns, tables, metrics, host counters, event-bus rows and ledger;
    the other 896 give the p50/p95 of `join_session`, `check_actions`,
-   `verify_behavior` and `terminate_session` (host clock, synchronised).
+   `verify_behavior` and `terminate_session` (host clock, synchronised);
+13. durability: a fresh state at the facade's tables journals into a
+   `WriteAheadLog` with fsync on every record, in a temporary directory:
+   two facade waves of 10,000 sessions and actions (the second padded to
+   the bucket, the vouch edges through `add_vouch`), a background
+   checkpoint after the first (`checkpoint_with_watermark`, awaited
+   through `wait_durable`), 8,192 joins into 256 sessions and their
+   flush, 512 vouches, 256 staged deltas and a flush, 1,024 five-step
+   sagas over three rounds, one `apply_slash`, 2,048 rate consumes, 16
+   grants, 64 quarantines and a terminate, with a fingerprint (every
+   checkpointed column by its SHA-256, chain seeds, membership, turns,
+   the cursor mirror) at each step boundary. `recover(device="cuda")`
+   must reproduce the tip (timed whole, then by piece: restore,
+   `verify_audit_heads`, the scan and the replay by op), each step
+   boundary past the watermark and three torn cuts (inside the second
+   wave's intent line, inside the join flush's commit line, 3 bytes
+   before the end), each on a truncated copy of the log; one more tip
+   recovery, with `verify_session_chain` on 24 sessions and an
+   8,192-leaf tree over the recovered DeltaLog, is the counted window:
+   every kernel of the main path must launch in it and be named by
+   torch.profiler, and no device op may be neither the port's nor
+   torch's. The same checkpoint and log recovered on the CPU must equal
+   the card; five seeded corruptions (`testing.chaos.InjectedCorruption`)
+   at one dispatch must land alike on the card and the CPU; a second card
+   state runs the sequence under `WaveChaosInjector(seed=11,
+   fail_rate=0.4)`, each faulted dispatch retried by hand, and must end
+   equal to the clean run. Then facade waves on fresh states, journaled
+   and not in turns: the journal's cost per wave and its bytes.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -218,6 +246,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -593,25 +622,19 @@ def facade_actions(state, rng) -> dict:
 
 def prepare_facade_wave(state, rng, w: int):
     """Wave w's 10,000 sessions, created on the state, and its inputs at
-    bench.py's widths: 1,000 vouch edges (bond 0.30) toward the agent rows
-    the wave's first lanes will claim (the bump allocator's next rows),
-    sigma 0.5 on those lanes and 0.8 on the rest, random delta bodies,
-    and the actors' 10,000 actions."""
-    import torch
-
+    bench.py's widths: 1,000 vouch edges (bond 0.30, through `add_vouch`,
+    so a journal records them) toward the agent rows the wave's first
+    lanes will claim (the bump allocator's next rows), sigma 0.5 on those
+    lanes and 0.8 on the rest, random delta bodies, and the actors'
+    10,000 actions."""
     from hypervisor_tpu_torch.models import SessionConfig
 
     slots = state.create_sessions_batch(
         [f"facade:w{w}:s{i}" for i in range(N_SESSIONS)], SessionConfig(min_sigma_eff=0.0))
     base, cap = state._next_agent_slot, state.agents.i32.shape[0]
     require(base + N_VOUCHED <= cap, "the vouched lanes must claim fresh agent rows")
-    dev, v = state.device, state.vouches
-    e = slice(w * N_VOUCHED, (w + 1) * N_VOUCHED)
-    v.voucher[e] = torch.arange(cap - N_VOUCHED, cap, dtype=torch.int32, device=dev)
-    v.vouchee[e] = torch.arange(base, base + N_VOUCHED, dtype=torch.int32, device=dev)
-    v.session[e] = torch.from_numpy(slots[:N_VOUCHED]).to(dev)
-    v.bond[e] = 0.30
-    v.active[e] = True
+    for i in range(N_VOUCHED):
+        state.add_vouch(cap - N_VOUCHED + i, base + i, int(slots[i]), 0.30, bond_pct=0.0)
     sigma = np.full(N_SESSIONS, 0.8, np.float32)
     sigma[:N_VOUCHED] = 0.50
     bodies = rng.randint(0, 2**32, (N_DELTAS, N_SESSIONS, 16), dtype=np.uint64).astype(np.uint32)
@@ -1315,6 +1338,408 @@ def run_facade_api(device, blocks, census_block=None):
     require(hv.state.tracer.cursor == int(hv.state.tracer.table.cursor),
             "facade_api: the trace cursor mirror disagrees with the device")
     return rec, launches, times, census
+
+
+#: The durability phase: the facade cell's tables, journaled with fsync
+#: into a write-ahead log in a temporary directory, through every kind of
+#: journaled dispatch the main path has. Two facade waves (10,000
+#: sessions and actions each, the second padded to the bucket; their
+#: 1,000 vouch edges through `add_vouch`), `DUR_JOINS` joins over
+#: `DUR_JOIN_SESSIONS` sessions and their flush, `DUR_VOUCHES` vouches
+#: among the members, `DUR_DELTA_SESSIONS` x `DUR_DELTAS` staged deltas
+#: and a flush, `DUR_SAGAS` five-step sagas over `DUR_ROUNDS` rounds, one
+#: `apply_slash`, `DUR_CONSUMES` rate consumes, `DUR_GRANTS` grants,
+#: `DUR_QUARANTINED` quarantines and a terminate of the delta sessions;
+#: a checkpoint after the first wave. `DUR_TIMING_ITERS` pairs of facade
+#: waves, with and without the journal, give its cost per wave.
+DUR_JOINS, DUR_JOIN_SESSIONS, DUR_JOIN_SEATS = 8_192, 256, 64
+DUR_VOUCHES, DUR_DELTA_SESSIONS, DUR_DELTAS = 512, 64, 4
+DUR_SAGAS, DUR_ROUNDS = 1_024, 3
+DUR_CONSUMES, DUR_GRANTS, DUR_QUARANTINED = 2_048, 16, 64
+DUR_VERIFY_SAMPLE = 8
+DUR_TIMING_ITERS = 4
+#: The chaos run's plan: the reference's end-to-end drill seed.
+DUR_CHAOS = dict(seed=11, fail_rate=0.4)
+#: Kernel name fragments in a torch.profiler census: the port's own
+#: kernels, and torch's (ATen, its cub, the copies and fills).
+OUR_KERNELS = {"sha256_words": "sha256_kernel", "chain_digests": "chain_kernel<false>",
+               "chain_digests_ring": "chain_kernel<true>", "tree_roots": "tree_",
+               "admission_block": "admission_", "fsm_saga_block": "fsm_saga_kernel",
+               "contribution_toward": "contrib_", "saga_tick_block": "saga_tick_kernel",
+               "slash_cascade": "slash_cascade_kernel"}
+TORCH_KERNELS = ("at::", "at_cuda_detail", "Memcpy", "Memset")
+
+
+def durable_fingerprint(state) -> dict:
+    """What recovery must reproduce bit for bit: every checkpointed column
+    (by the SHA-256 of its bytes, with its dtype and shape), the chain
+    seeds, the membership keys, the turn counters and the host mirror of
+    the DeltaLog cursor."""
+    from hypervisor_tpu_torch.runtime.checkpoint import state_arrays
+
+    arrays = {k: (str(v.dtype), v.shape, hashlib.sha256(v.tobytes()).hexdigest())
+              for k, v in state_arrays(state).items()}
+    members = hashlib.sha256(np.array(sorted(state._members), np.int64).tobytes()).hexdigest()
+    return {"arrays": arrays, "chain": {s: tuple(int(w) for w in v)
+                                        for s, v in state._chain_seed.items()},
+            "members": members, "turns": dict(state._turns),
+            "delta_cursor": state._delta_cursor}
+
+
+def journaled_facade_wave(state, rng, w: int, dispatch, mark):
+    """Facade wave w (`prepare_facade_wave`), `mark` between its staging
+    and the wave, the wave through `dispatch`, and bench.py's gates.
+    Returns the wave's session slots."""
+    slots, dids, sigma, bodies, actions = prepare_facade_wave(state, rng, w)
+    mark(f"wave {w} staged")
+    res, _ = dispatch(state.run_governance_wave, slots, dids, slots, sigma, bodies,
+                      now=float(w), actions=actions,
+                      pad_to=(FACADE_BUCKET, FACADE_BUCKET) if w == 1 else None)
+    check_bench_gates(res, bodies, f"durability wave {w}")
+    return slots
+
+
+def durability_sequence(state, dispatch, mark, checkpoint) -> dict:
+    """The durability phase's sequence on a fresh facade state: every
+    gated dispatch (waves, flushes, saga rounds, the slash, the
+    terminate) goes through `dispatch`, `mark(label)` runs at each step
+    boundary and `checkpoint()` once, after the first wave. Returns the
+    waves' and the delta sessions' slots, which the checks sample."""
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    rng = np.random.RandomState(SEED + 30)
+    out = {"waves": [journaled_facade_wave(state, rng, 0, dispatch, mark)]}
+    checkpoint()
+    out["waves"].append(journaled_facade_wave(state, rng, 1, dispatch, mark))
+    mark("wave 1")
+    sessions = state.create_sessions_batch(
+        [f"dur:s{i}" for i in range(DUR_JOIN_SESSIONS)],
+        SessionConfig(min_sigma_eff=0.0, max_participants=DUR_JOIN_SEATS))
+    dids = [f"did:dur:{i}" for i in range(DUR_JOINS)]
+    # Below ring 1's threshold (0.95), so every member can take a grant.
+    sigma = rng.uniform(0.3, 0.94, DUR_JOINS).astype(np.float32)
+    for i, did in enumerate(dids):
+        state.enqueue_join(int(sessions[i % DUR_JOIN_SESSIONS]), did, float(sigma[i]))
+    mark("enqueued")
+    status = dispatch(state.flush_joins, now=2.0)
+    require((status == 0).all(), f"durability: a join was refused: {np.unique(status)}")
+    mark("joins flushed")
+
+    def member(i):  # the row of join i (session i % DUR_JOIN_SESSIONS)
+        return state.agent_row(dids[i], int(sessions[i % DUR_JOIN_SESSIONS]))["slot"]
+
+    n_s = DUR_JOIN_SESSIONS
+    for k in range(DUR_VOUCHES):
+        s, voucher = k % n_s, (k // n_s) * 2 * n_s  # members 0 and 2 vouch for member 1
+        state.add_vouch(member(s + voucher), member(s + n_s), int(sessions[s]), 0.125,
+                        bond_pct=0.25)
+    mark("vouched")
+    for j in range(DUR_DELTAS):
+        for s in range(DUR_DELTA_SESSIONS):
+            state.stage_delta(int(sessions[s]), member(s + (j % 4) * n_s), ts=2.0 + j / 8,
+                              change_words=rng.randint(0, 2**31, 8))
+    dispatch(state.flush_deltas)
+    mark("deltas flushed")
+    sagas = [state.create_saga(f"dur:saga:{g}", int(sessions[g % n_s]),
+                               [{"retries": 1, "has_undo": True}] * SAGA_STEPS)
+             for g in range(DUR_SAGAS)]
+    for r in range(DUR_ROUNDS):
+        ok = rng.uniform(size=DUR_SAGAS) > 0.2
+        dispatch(state.saga_round, {g: bool(o) for g, o in zip(sagas, ok)})
+        mark(f"saga round {r}")
+    slash = dispatch(state.apply_slash, int(sessions[0]), member(n_s), 0.95, now=3.0)
+    require(slash["clipped"], "durability: the slash must clip the vouchers")
+    mark("slashed")
+    pool = np.array([member(i) for i in range(n_s, 2 * n_s)], np.int32)
+    state.consume_rate(pool[rng.randint(0, len(pool), DUR_CONSUMES)], now=3.25)
+    for s in range(1, DUR_GRANTS + 1):
+        state.grant_elevation(member(s + 3 * n_s), 1, now=3.5, ttl_seconds=60.0)
+    state.quarantine_rows([member(s + 4 * n_s) for s in range(100, 100 + DUR_QUARANTINED)],
+                          now=3.75)
+    mark("security")
+    out["delta_sessions"] = [int(s) for s in sessions[:DUR_DELTA_SESSIONS]]
+    dispatch(state.terminate_sessions, out["delta_sessions"], now=4.0)
+    mark("terminated")
+    return out
+
+
+def retry_by_hand(counter: list):
+    """A dispatch that retries an injected wave fault until the call goes
+    through: the supervisor's retry ladder, which waits for ROADMAP A4."""
+    from hypervisor_tpu_torch.testing import InjectedWaveFault
+
+    def dispatch(fn, *args, **kw):
+        while True:
+            try:
+                return fn(*args, **kw)
+            except InjectedWaveFault:
+                counter.append(fn.__name__)
+
+    return dispatch
+
+
+def mount_of(path) -> str:
+    """The mount point and filesystem type holding `path` (/proc/mounts)."""
+    best = ("?", "?")
+    with contextlib.suppress(OSError), open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) > 2 and str(path).startswith(parts[1]) and len(parts[1]) >= len(best[0]):
+                best = (parts[1], parts[2])
+    return f"{best[0]} ({best[1]})"
+
+
+def run_durability(device, workdir) -> dict:
+    """The durability phase on `device` (a CUDA device; the CPU recovery
+    is part of it): the journaled sequence with its checkpoint, recovery
+    at the tip (timed whole and by piece, then once more under the
+    launch window and torch.profiler), at every step boundary past the
+    watermark and at three torn cuts, each on a truncated copy of the
+    log, and the CPU recovery; the hand-retried chaos run; one seeded
+    corruption on the card and the CPU; the journal's cost per facade
+    wave. Returns the records `main` checks and prints."""
+    import pathlib
+
+    import torch
+
+    from hypervisor_tpu_torch import kernels, u32
+    from hypervisor_tpu_torch.ops import merkle
+    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
+    from hypervisor_tpu_torch.resilience import WriteAheadLog, scan
+    from hypervisor_tpu_torch.resilience.recovery import (
+        checkpoint_with_watermark, recover, replay, verify_audit_heads)
+    from hypervisor_tpu_torch.runtime.checkpoint import restore_state, wait_durable
+    from hypervisor_tpu_torch.testing import InjectedCorruption, WaveChaosInjector, WaveChaosPlan
+
+    on_card = torch.device(device).type == "cuda"
+    workdir = pathlib.Path(workdir)
+    wal_path, ckdir = workdir / "wal.log", workdir / "ckpt"
+    rec: dict = {"tmp": f"{workdir} on {mount_of(workdir)}"}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def ms_since(t0) -> float:
+        sync()
+        return (time.perf_counter_ns() - t0) / 1e6
+
+    # ── the journaled run ────────────────────────────────────────────
+    state = facade_state(device)
+    state.journal = WriteAheadLog(wal_path, fsync=True)
+    config = state.config
+    marks: list = []  # (label, WAL bytes, committed seq, fingerprint)
+    step_ms: dict = {}
+    clock = [time.perf_counter_ns()]
+
+    def mark(label):
+        step_ms[label] = ms_since(clock[0])
+        marks.append((label, wal_path.stat().st_size, state.journal.last_seq,
+                      durable_fingerprint(state)))
+        clock[0] = time.perf_counter_ns()
+
+    def checkpoint():
+        t0 = time.perf_counter_ns()
+        target = checkpoint_with_watermark(state, ckdir, step=1, background=True)
+        rec["save_sync_ms"] = (time.perf_counter_ns() - t0) / 1e6
+        require(wait_durable(target, timeout=120.0), "durability: the background save never "
+                                                     "became durable")
+        rec["save_durable_ms"] = (time.perf_counter_ns() - t0) / 1e6
+        rec["tables_npz_mb"] = (target / "tables.npz").stat().st_size / 1e6
+        rec["host_json_mb"] = (target / "host.json").stat().st_size / 1e6
+        mark("checkpoint")
+
+    t0 = time.perf_counter_ns()
+    seq_out = durability_sequence(state, lambda fn, *a, **kw: fn(*a, **kw), mark, checkpoint)
+    rec["sequence_s"] = ms_since(t0) / 1e3
+    rec["step_ms"] = step_ms
+    raw = wal_path.read_bytes()
+    lines = raw.splitlines(keepends=True)
+    ops = [json.loads(line[9:])["op"] for line in lines if b'"k":"I"' in line]
+    rec["wal"] = {"bytes": len(raw), "records": len(ops), "fsync": True,
+                  "by_op": {op: ops.count(op) for op in sorted(set(ops))},
+                  "wave_bytes": [len(a) + len(b) for a, b in zip(lines, lines[1:])
+                                 if b'"op":"governance_wave"' in a]}
+    live = durable_fingerprint(state)
+    watermark_i = next(i for i, m in enumerate(marks) if m[0] == "checkpoint")
+
+    # ── recovery at the tip: once whole, once by piece, once counted ─
+    t0 = time.perf_counter_ns()
+    back, report = recover(ckdir, wal_path, config=config, device=device)
+    rec["recover_tip_ms"] = ms_since(t0)
+    rec["recover_report"] = report
+    require(durable_fingerprint(back) == live, "durability: recovery at the tip differs from "
+                                                 f"the live run at {first_difference('tip', durable_fingerprint(back), live)}")
+    del back
+    pieces: dict = {}
+    t0 = time.perf_counter_ns()
+    back = restore_state(ckdir / "step_1", config, device=device)
+    pieces["restore_ms"] = ms_since(t0)
+    t0 = time.perf_counter_ns()
+    rec["audit_sessions_verified"] = verify_audit_heads(back)
+    pieces["verify_audit_heads_ms"] = ms_since(t0)
+    t0 = time.perf_counter_ns()
+    committed = scan(wal_path, after_seq=back._restored_wal_seq).committed
+    pieces["scan_ms"] = ms_since(t0)
+    by_op: dict = {}
+    run: list = []
+    for r in list(committed) + [None]:
+        if run and (r is None or r.op != run[0].op):
+            t0 = time.perf_counter_ns()
+            replay(back, run)
+            ms = ms_since(t0)
+            n, total = by_op.get(run[0].op, (0, 0.0))
+            by_op[run[0].op] = (n + len(run), total + ms)
+            run = []
+        if r is not None:
+            run.append(r)
+    pieces["replay_ms_by_op"] = {op: {"records": n, "ms": ms} for op, (n, ms) in by_op.items()}
+    pieces["replay_ms"] = sum(ms for _, ms in by_op.values())
+    rec["recover_pieces"] = pieces
+    require(durable_fingerprint(back) == live, "durability: the piecewise replay differs")
+    del back
+
+    # The counted window: the tip recovery, then verify_session_chain on
+    # a sample of the recovered sessions and a big tree over the
+    # recovered DeltaLog.
+    def recovery_window():
+        got, _ = recover(ckdir, wal_path, config=config, device=device)
+        sample = ([int(s) for w in seq_out["waves"] for s in w[:DUR_VERIFY_SAMPLE]]
+                  + seq_out["delta_sessions"][:DUR_VERIFY_SAMPLE])
+        verified = [got.verify_session_chain(s) for s in sample]
+        leaves = u32.to_numpy_u32(got.delta_log.digest[:BIG_TREE_LEAVES])
+        root = merkle.tree_roots_host(leaves[None], np.array([BIG_TREE_LEAVES], np.int32),
+                                      device)
+        return got, verified, leaves, root
+
+    kernels.reset_launch_counts()
+    census: dict = {}  # device op name -> launches
+    if on_card:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter_ns()
+            got, verified, leaves, root = recovery_window()
+            rec["census_wall_ms"] = ms_since(t0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                census[e.key[:100]] = census.get(e.key[:100], 0) + e.count
+    else:
+        got, verified, leaves, root = recovery_window()
+    rec["window"] = kernels.launch_counts()
+    rec["census"] = census
+    require(all(verified), f"durability: verify_session_chain failed after recovery: {verified}")
+    require(digests_to_hex(root)[0] == merkle.merkle_root_host(digests_to_hex(leaves)),
+            "durability: the recovered DeltaLog's big tree != hashlib")
+    require(durable_fingerprint(got) == live, "durability: the counted recovery differs")
+    require(got._delta_cursor == int(got.delta_log.cursor) == state._delta_cursor,
+            "durability: the recovered cursor mirror disagrees with the device")
+    rec["verified_sessions"] = len(verified)
+
+    # ── every step boundary past the watermark, and three torn cuts ──
+    starts = np.cumsum([0] + [len(x) for x in lines]).tolist()
+    intent = next(i for i, line in enumerate(lines)
+                  if b'"op":"governance_wave"' in line and starts[i] >= marks[watermark_i][1])
+    flush = next(i for i, line in enumerate(lines) if b'"op":"flush_joins"' in line)
+
+    def end_of(i):
+        return starts[i + 1]
+
+    def mark_of(label):
+        return next(m for m in marks if m[0] == label)
+
+    cuts = [(m[0], m[1], m) for m in marks[watermark_i:]]
+    cuts += [("torn inside the wave's intent line", end_of(intent) - len(lines[intent]) // 2,
+              mark_of("wave 1 staged")),
+             ("torn inside the flush's commit line", end_of(flush + 1) - 4, mark_of("enqueued")),
+             ("torn 3 bytes before the end", len(raw) - 3, marks[-2])]
+    rec["cuts"] = []
+    for label, nbytes, (mlabel, _, mseq, fp) in cuts:
+        cut = workdir / "cut.log"
+        cut.write_bytes(raw[:nbytes])
+        t0 = time.perf_counter_ns()
+        got, report = recover(ckdir, cut, config=config, device=device)
+        ms = ms_since(t0)
+        diff = first_difference(label, durable_fingerprint(got), fp)
+        require(diff is None, f"durability: recovery at {label} ({nbytes} bytes) differs from "
+                              f"the live run at '{mlabel}': {diff}")
+        rec["cuts"].append({"cut": label, "bytes": nbytes, "equals": mlabel, "seq": mseq,
+                            "replayed": report["wal_records_replayed"],
+                            "torn_bytes": report["wal_torn_tail_bytes"],
+                            "open_intents": report["wal_open_intents_skipped"], "ms": ms})
+        del got
+    cut.unlink()
+
+    # ── the same checkpoint and log on the CPU ───────────────────────
+    t0 = time.perf_counter_ns()
+    on_cpu, _ = recover(ckdir, wal_path, config=config, device="cpu")
+    rec["cpu_recover_s"] = (time.perf_counter_ns() - t0) / 1e9
+    diff = first_difference("cpu", durable_fingerprint(on_cpu), live)
+    require(diff is None, f"durability: the CPU recovery differs from the card at {diff}")
+
+    # ── one seeded corruption on the card and on the CPU ─────────────
+    plan = WaveChaosPlan(seed=5, corruptions=tuple(
+        InjectedCorruption(kind, at_dispatch=1, table=table)
+        for kind, table in (("bit_flip", "agents"), ("bit_flip", "delta_log"),
+                            ("row_rewrite", "sessions"), ("row_rewrite", "vouches"),
+                            ("chain_tamper", "agents"))))
+    applied = []
+    for st in (state, on_cpu):
+        st.journal = None
+        st.fault_injector = WaveChaosInjector(plan)
+        st.saga_round({})
+        applied.append(st.fault_injector.report()["corruptions_applied"])
+    require(applied[0] == applied[1] and len(applied[0]) == 5,
+            f"durability: the corruptions landed apart: {applied}")
+    diff = first_difference("corrupted", durable_fingerprint(on_cpu), durable_fingerprint(state))
+    require(diff is None, f"durability: a corruption on the card differs from the CPU at {diff}")
+    rec["corruptions"] = applied[0]
+    del on_cpu
+
+    # ── the chaos run ────────────────────────────────────────────────
+    retries: list = []
+    chaotic = facade_state(device)
+    chaotic.fault_injector = WaveChaosInjector(WaveChaosPlan(**DUR_CHAOS))
+    t0 = time.perf_counter_ns()
+    durability_sequence(chaotic, retry_by_hand(retries), lambda label: None, lambda: None)
+    rec["chaos_s"] = ms_since(t0) / 1e3
+    diff = first_difference("chaos", durable_fingerprint(chaotic), live)
+    require(diff is None, f"durability: the hand-retried chaos run differs from the clean run "
+                          f"at {diff}")
+    require(retries, "durability: the chaos plan injected nothing")
+    rec["chaos"] = {"retries": len(retries), "by_call": {c: retries.count(c)
+                                                        for c in sorted(set(retries))},
+                    "report": {k: v for k, v in chaotic.fault_injector.report().items()
+                               if k in ("dispatches", "faults", "by_stage")}}
+    del chaotic, state
+
+    # ── the journal's cost per facade wave ───────────────────────────
+    times = {"journaled": [], "unjournaled": []}
+    wave_bytes = []
+    for i in range(DUR_TIMING_ITERS):
+        for journaled in ((False, True) if i % 2 == 0 else (True, False)):
+            st = facade_state(device)
+            path = workdir / f"timing{i}{int(journaled)}.log"
+            if journaled:
+                st.journal = WriteAheadLog(path, fsync=True)
+            slots, dids, sigma, bodies, actions = prepare_facade_wave(
+                st, np.random.RandomState(SEED + 40 + i), 0)
+            size0 = path.stat().st_size if journaled else 0
+            sync()
+            t0 = time.perf_counter_ns()
+            st.run_governance_wave(slots, dids, slots, sigma, bodies, now=0.0, actions=actions)
+            times["journaled" if journaled else "unjournaled"].append(ms_since(t0))
+            if journaled:
+                wave_bytes.append(path.stat().st_size - size0)
+                st.journal.close()
+                path.unlink()
+            del st
+    rec["wave_ms"] = {k: {"p50": float(np.percentile(v, 50)), "p95": float(np.percentile(v, 95)),
+                          "samples": v} for k, v in times.items()}
+    rec["wal_bytes_per_wave"] = wave_bytes
+    return rec
 
 
 SAGA_COLS = ("step_state", "retries_left", "has_undo", "saga_state", "n_steps", "cursor")
@@ -3561,6 +3986,44 @@ def main(argv=None) -> int:
          events_mirrored=[b["mirrored"] for b in api_rec.values()], nvidia_smi=smi,
          clock="host, synchronised; timed on the second block (sessions 128-1,023); "
                "the first block runs under torch.profiler for the census")
+
+    # ── 13. durability: the WAL, the checkpoint, crash recovery ───────
+    dur_dir = tempfile.mkdtemp(prefix="hv_durability_")
+    try:
+        t0 = time.perf_counter()
+        dur = run_durability(dev, dur_dir)
+        dur_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(dur_dir, ignore_errors=True)
+    window = {k: n for k, n in dur["window"].items() if n}
+    require(set(window) == set(OUR_KERNELS),
+            f"durability: the recovery window must launch every kernel of the main path "
+            f"and no other: {window}")
+    dur_named = {k: sum(n for name, n in dur["census"].items() if sub in name)
+                 for k, sub in OUR_KERNELS.items()}
+    require(all(dur_named.values()),
+            f"durability: the profiler's census must name every kernel: {dur_named}")
+    unnamed = {name: n for name, n in dur["census"].items()
+               if not any(sub in name for sub in OUR_KERNELS.values())
+               and not any(t in name for t in TORCH_KERNELS)}
+    require(not unnamed, f"durability: device ops neither the port's nor torch's: {unnamed}")
+    windows["durability"] = dur["window"]
+    census_ops = sum(dur["census"].values())
+    emit("durability", seconds=dur_s, tmp=dur["tmp"], capacity=FACADE_CAPACITY,
+         sequence_s=dur["sequence_s"], step_ms=dur["step_ms"], wal=dur["wal"],
+         save_sync_ms=dur["save_sync_ms"], save_durable_ms=dur["save_durable_ms"],
+         tables_npz_mb=dur["tables_npz_mb"], host_json_mb=dur["host_json_mb"],
+         recover_tip_ms=dur["recover_tip_ms"], recover_report=dur["recover_report"],
+         recover_pieces=dur["recover_pieces"],
+         audit_sessions_verified=dur["audit_sessions_verified"],
+         launches=window, census_ours=dur_named, census_device_ops=census_ops,
+         census_wall_ms=dur["census_wall_ms"], verified_sessions=dur["verified_sessions"],
+         cuts=dur["cuts"], cpu_recover_s=dur["cpu_recover_s"], cpu_run="identical",
+         corruptions=dur["corruptions"], chaos=dur["chaos"], chaos_s=dur["chaos_s"],
+         chaos_run="identical to the clean run",
+         wave_ms=dur["wave_ms"], wal_bytes_per_wave=dur["wal_bytes_per_wave"], nvidia_smi=smi,
+         clock="host, synchronised; waves each on a fresh state, journaled and unjournaled "
+               "in turns; the WAL fsyncs every record")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

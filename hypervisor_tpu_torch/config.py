@@ -99,6 +99,9 @@ class TableCapacity:
     delta_log_capacity: int = 65_536
     event_log_capacity: int = 65_536
     trace_log_capacity: int = 8_192
+    #: Read by no table; kept so a checkpoint's `capacity` record is the
+    #: reference's, field for field.
+    max_participants_per_session: int = 64
 
 
 @dataclasses.dataclass(frozen=True)

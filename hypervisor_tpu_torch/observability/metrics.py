@@ -57,6 +57,15 @@ COUNTERS = tuple(MetricHandle(n, i) for i, n in enumerate(_COUNTER_NAMES))
     EVENTS_MIRRORED,
 ) = COUNTERS
 
+#: Counters the resilience plane books on the host plane (`HostCounters`):
+#: the supervisor's retry ladder (rows kept for ROADMAP A4), the state's
+#: shed gate and crash recovery's replay.
+DISPATCH_RETRIES = MetricHandle("hv_dispatch_retries_total", 18)
+DISPATCH_FAILURES = MetricHandle("hv_dispatch_failures_total", 19)
+DEGRADED_ENTRIES = MetricHandle("hv_degraded_entries_total", 20)
+ADMISSIONS_SHED = MetricHandle("hv_admissions_shed_total", 21)
+WAL_REPLAYED_OPS = MetricHandle("hv_wal_replayed_ops_total", 22)
+ADMISSIONS_DAMPED = MetricHandle("hv_admissions_damped_total", 23)
 #: Counters the facade books on the host plane (`HostCounters`).
 COLLUSION_FINDINGS = MetricHandle("hv_collusion_findings_total", 24)
 CASCADE_DEDUPED = MetricHandle("hv_slash_cascade_deduped_total", 25)

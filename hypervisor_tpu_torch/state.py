@@ -51,10 +51,19 @@ call `enqueue_join` while one thread flushes. The staging lock
 every mutation of the membership keys, `_slot_of_member`, the agent-row
 free list and cursor; `flush_joins`, `leave_agent` and `set_agent_ring`
 hold it across their whole table read-modify-write. The other methods
-belong to the one flushing thread. The WAL (and with it the admission
-damper and the shed gate), the mesh path, the integrity plane (which
-arms the facade wave's sanitizer on its cadence) and the health plane's
-events arrive with later slices of the port.
+belong to the one flushing thread.
+
+The resilience plane, as in the reference: every mutating op journals an
+intent/commit bracket into an attached `resilience.WriteAheadLog`
+(`_journal`, the same op names and payloads as the reference, so one
+call sequence writes the same log bytes on both packages, and
+`resilience.recovery` replays either package's log); the dispatch sites
+consult a fault injector before any mutation (`_predispatch`); a
+degraded-mode policy sheds joins (`_shed_gate`) and pauses the fan-out,
+and the admission damper watches the join stream. The mesh path, the
+supervisor, the integrity plane (which arms the facade wave's sanitizer
+on its cadence) and the health plane's events arrive with later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -72,7 +81,11 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.kernels import wave as wave_kernels
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
 from hypervisor_tpu_torch.observability import tracing
-from hypervisor_tpu_torch.observability.metrics import HostCounters
+from hypervisor_tpu_torch.observability.metrics import (
+    ADMISSIONS_DAMPED,
+    ADMISSIONS_SHED,
+    HostCounters,
+)
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
@@ -81,6 +94,7 @@ from hypervisor_tpu_torch.ops import pipeline, rate_limit, saga_ops, security_op
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.ops.admission import ADMIT_OK, tally_admission
 from hypervisor_tpu_torch.ops.rings import compute_rings
+from hypervisor_tpu_torch.resilience.policy import DegradedModeRefusal, SybilShedRefusal
 from hypervisor_tpu_torch.runtime import StagingQueue
 from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog
@@ -113,6 +127,34 @@ from hypervisor_tpu_torch.tables.state import (
     SessionTable,
     VouchTable,
 )
+
+
+class _NullTxn:
+    """No-journal stand-in for `_journal` (shared, stateless)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def cancel(self) -> None:
+        pass
+
+
+_NULL_TXN = _NullTxn()
+
+
+def _config_payload(config: SessionConfig) -> dict:
+    """SessionConfig -> its WAL fields (`resilience.recovery.
+    _session_config` is the inverse)."""
+    return {
+        "mode": config.consistency_mode.value,
+        "max_participants": int(config.max_participants),
+        "max_duration_seconds": int(config.max_duration_seconds or 0),
+        "min_sigma_eff": float(config.min_sigma_eff),
+        "enable_audit": bool(config.enable_audit),
+    }
 
 
 def _mkey(session: int, did: int) -> int:
@@ -226,10 +268,114 @@ class HypervisorState:
         self._row_session = np.full(cap.delta_log_capacity, -1, np.int32)
         #: Host mirror of `delta_log.cursor`.
         self._delta_cursor = 0
+        # The resilience plane, all opt-in: the write-ahead log bracketing
+        # every mutating op (`_journal`), the seeded dispatch interposer
+        # (`testing.chaos.WaveChaosInjector`) consulted before any mutation,
+        # the degraded-mode policy (joins shed, fan-out paused), swapped
+        # whole under `_policy_lock` by whoever installs it, and the
+        # admission-rate sybil damper. The supervisor (`resilience`) and
+        # the integrity plane (`integrity`) stay None until ROADMAP A4.
+        self.journal = None
+        self.fault_injector = None
+        self.degraded_policy = None
+        self._policy_lock = threading.Lock()
+        self.admission_damper = None
+        self.resilience = None
+        self.integrity = None
+        #: The WAL watermark a restored checkpoint carries: recovery
+        #: replays the committed records past it.
+        self._restored_wal_seq: Optional[int] = None
 
     def now(self) -> float:
         """Seconds since this state's epoch — the f32-safe device time."""
         return time.time() - self._epoch_base
+
+    # ── resilience hooks ─────────────────────────────────────────────
+
+    def _journal(self, op: str, build=None, **payload):
+        """WAL intent/commit bracket for one state-mutating op, a no-op
+        context when no journal is attached. Re-entrant: an op journaled
+        inside another journaled op is suppressed, and the outer record
+        replays the composite. Every op name used here has a handler in
+        `resilience.recovery.REPLAY`; payloads hold numpy arrays and
+        Python scalars only, never a tensor. `build`, where given, makes
+        the payload, and runs only when a journal is attached: the sites
+        whose payload is a Python pass over a wave's lanes pay nothing
+        without one."""
+        if self.journal is None:
+            return _NULL_TXN
+        return self.journal.txn(op, build() if build is not None else payload)
+
+    def _chaos(self, stage: str) -> None:
+        """Fault-injection gate at a dispatch site, consulted before any
+        mutation, so an injected raise leaves the tables, the host indices
+        and the staging queue as they were (a retry dispatches cleanly)."""
+        inj = self.fault_injector
+        if inj is not None:
+            inj.on_dispatch(stage)
+
+    def _predispatch(self, stage: str) -> None:
+        """The dispatch-site gate: the injector's raise or stall first
+        (pre-mutation, retry-safe), then its scheduled real corruptions
+        (`testing.chaos.InjectedCorruption`: silent table damage). The
+        integrity plane's cadence hook joins here with ROADMAP A4."""
+        self._chaos(stage)
+        inj = self.fault_injector
+        if inj is not None and getattr(inj, "has_pending_corruptions", False):
+            inj.apply_due_corruptions(self)
+
+    def _shed_gate(self, sigma_raw: Optional[float] = None) -> None:
+        """Degraded-mode admission shedding (`resilience.policy`): a
+        degraded plane refuses new joins loudly while terminations and
+        audit commits keep flowing. `shed_admissions` refuses every join;
+        `admission_sigma_floor` > 0 refuses only joins below the floor
+        (the sybil damper's targeted shed)."""
+        policy = self.degraded_policy
+        if policy is None:
+            return
+        if policy.shed_admissions:
+            self.host_metrics.inc(ADMISSIONS_SHED)
+            raise DegradedModeRefusal(
+                f"admission shed: degraded mode active ({policy.reason})"
+            )
+        if (
+            policy.admission_sigma_floor > 0.0
+            and sigma_raw is not None
+            and sigma_raw < policy.admission_sigma_floor
+        ):
+            self.host_metrics.inc(ADMISSIONS_SHED)
+            self.host_metrics.inc(ADMISSIONS_DAMPED)
+            if self.admission_damper is not None:
+                self.admission_damper.note_damped()
+            raise SybilShedRefusal(
+                f"admission damped: sigma {sigma_raw:.3f} below the "
+                f"active floor {policy.admission_sigma_floor:.2f} "
+                f"({policy.reason})"
+            )
+
+    def resilience_summary(self) -> dict:
+        """The resilience plane's state without a supervisor (ROADMAP A4
+        brings the supervisor's summary): the mode, the active degraded
+        policy and the journal's status."""
+        return {
+            "enabled": False,
+            "mode": "degraded" if self.degraded_policy is not None else "normal",
+            "degraded": {
+                "active_policy": (
+                    self.degraded_policy.to_dict()
+                    if self.degraded_policy is not None
+                    else None
+                ),
+            },
+            "journal": (
+                self.journal.status() if self.journal is not None else None
+            ),
+        }
+
+    def integrity_summary(self) -> dict:
+        """The integrity plane's summary: disabled until ROADMAP A4 ports
+        the plane."""
+        return {"enabled": False}
 
     # ── sessions ─────────────────────────────────────────────────────
 
@@ -245,18 +391,20 @@ class HypervisorState:
             )
         if now is None:
             now = self.now()
-        slot = self._next_session_slot
-        self._next_session_slot += 1
-        sid = self.session_ids.intern(session_id)
-        i32, f32 = self.sessions.i32[slot], self.sessions.f32[slot]
-        i32[SI32_SID] = sid
-        i32[SI32_STATE] = SessionState.HANDSHAKING.code
-        i32[SI32_MODE] = config.consistency_mode.code
-        i32[SI32_MAX_PARTICIPANTS] = config.max_participants
-        f32[SF32_MIN_SIGMA] = float(np.float32(config.min_sigma_eff))
-        f32[SF32_CREATED_AT] = float(np.float32(now))
-        f32[SF32_MAX_DURATION] = float(np.float32(config.max_duration_seconds or 0))
-        self.sessions.enable_audit[slot] = bool(config.enable_audit)
+        with self._journal("create_session", sid=session_id, now=float(now),
+                           **_config_payload(config)):
+            slot = self._next_session_slot
+            self._next_session_slot += 1
+            sid = self.session_ids.intern(session_id)
+            i32, f32 = self.sessions.i32[slot], self.sessions.f32[slot]
+            i32[SI32_SID] = sid
+            i32[SI32_STATE] = SessionState.HANDSHAKING.code
+            i32[SI32_MODE] = config.consistency_mode.code
+            i32[SI32_MAX_PARTICIPANTS] = config.max_participants
+            f32[SF32_MIN_SIGMA] = float(np.float32(config.min_sigma_eff))
+            f32[SF32_CREATED_AT] = float(np.float32(now))
+            f32[SF32_MAX_DURATION] = float(np.float32(config.max_duration_seconds or 0))
+            self.sessions.enable_audit[slot] = bool(config.enable_audit)
         return slot
 
     def create_sessions_batch(
@@ -265,27 +413,31 @@ class HypervisorState:
         """Allocate K session rows in HANDSHAKING; returns their slots
         (the contiguous block arange(base, base + K))."""
         k = len(session_ids)
-        base = self._next_session_slot
-        if base + k > self.sessions.i32.shape[0]:
-            raise RuntimeError(
-                f"session table full: {base} + {k} > {self.sessions.i32.shape[0]}; "
-                "raise config.capacity.max_sessions"
-            )
-        self._next_session_slot += k
-        slots = np.arange(base, base + k, dtype=np.int32)
-        sids = np.array([self.session_ids.intern(s) for s in session_ids], np.int32)
-        rows = self.sessions.i32[base:base + k]
-        rows[:, SI32_SID] = torch.from_numpy(sids).to(self.device)
-        rows[:, SI32_STATE] = SessionState.HANDSHAKING.code
-        rows[:, SI32_MODE] = config.consistency_mode.code
-        rows[:, SI32_MAX_PARTICIPANTS] = config.max_participants
-        self.sessions.f32[base:base + k, SF32_MIN_SIGMA] = float(np.float32(config.min_sigma_eff))
-        self.sessions.enable_audit[base:base + k] = bool(config.enable_audit)
+        with self._journal("create_sessions_batch", sids=list(session_ids),
+                           **_config_payload(config)):
+            base = self._next_session_slot
+            if base + k > self.sessions.i32.shape[0]:
+                raise RuntimeError(
+                    f"session table full: {base} + {k} > {self.sessions.i32.shape[0]}; "
+                    "raise config.capacity.max_sessions"
+                )
+            self._next_session_slot += k
+            slots = np.arange(base, base + k, dtype=np.int32)
+            sids = np.array([self.session_ids.intern(s) for s in session_ids], np.int32)
+            rows = self.sessions.i32[base:base + k]
+            rows[:, SI32_SID] = torch.from_numpy(sids).to(self.device)
+            rows[:, SI32_STATE] = SessionState.HANDSHAKING.code
+            rows[:, SI32_MODE] = config.consistency_mode.code
+            rows[:, SI32_MAX_PARTICIPANTS] = config.max_participants
+            self.sessions.f32[base:base + k, SF32_MIN_SIGMA] = float(
+                np.float32(config.min_sigma_eff))
+            self.sessions.enable_audit[base:base + k] = bool(config.enable_audit)
         return slots
 
     def set_session_state(self, slot: int, state: SessionState) -> None:
         """Write a session row's lifecycle state."""
-        self.sessions.i32[slot, SI32_STATE] = state.code
+        with self._journal("set_session_state", slot=int(slot), state=state.value):
+            self.sessions.i32[slot, SI32_STATE] = state.code
 
     def session_expiry_sweep(self, now: float) -> list[int]:
         """Live (HANDSHAKING or ACTIVE) session slots past their max
@@ -301,8 +453,10 @@ class HypervisorState:
     def force_session_mode(self, slot: int, mode, has_nonreversible: bool = True) -> None:
         """Rewrite a session row's consistency mode (STRONG forcing when a
         non-reversible action registers) and its non-reversible flag."""
-        self.sessions.i32[slot, SI32_MODE] = mode.code
-        self.sessions.has_nonreversible[slot] = bool(has_nonreversible)
+        with self._journal("force_session_mode", slot=int(slot), mode=mode.value,
+                           has_nonreversible=bool(has_nonreversible)):
+            self.sessions.i32[slot, SI32_MODE] = mode.code
+            self.sessions.has_nonreversible[slot] = bool(has_nonreversible)
 
     def stage_wave(
         self,
@@ -493,18 +647,47 @@ class HypervisorState:
         tests membership by range when the wave's sessions plus any parked
         rows are one contiguous slot block (`create_sessions_batch`'s
         layout), else by a bitmap of them.
+
+        The fault-injection gate runs before anything mutates; the wave
+        journals as "governance_wave" with its resolved action columns
+        and `pad_to`, so a replay re-dispatches the identical padded wave.
         """
         if mesh is not None:
             raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
+        if pad_to is not None and (pad_to[0] < len(dids) or pad_to[1] < len(session_slots)):
+            raise ValueError(f"pad_to {pad_to} below the wave shape ({len(dids)} lanes, "
+                             f"{len(session_slots)} sessions)")
+        self._predispatch("governance_wave")
+        act = None if actions is None else self._normalize_actions(actions)
+        with self._journal(
+            "governance_wave",
+            session_slots=np.asarray(session_slots, np.int32),
+            dids=list(dids),
+            agent_sessions=np.asarray(agent_sessions, np.int32),
+            sigma_raw=np.asarray(sigma_raw, np.float32),
+            delta_bodies=np.asarray(delta_bodies, np.uint32),
+            now=float(now),
+            omega=float(omega),
+            trustworthy=None if trustworthy is None else np.asarray(trustworthy, bool),
+            use_pallas=None,  # the reference's kernel switch; the port has none
+            actions=act,
+            pad_to=None if pad_to is None else list(pad_to),
+        ):
+            return self._governance_wave_impl(session_slots, dids, agent_sessions, sigma_raw,
+                                              delta_bodies, now, omega, trustworthy, act, pad_to)
+
+    def _governance_wave_impl(
+        self, session_slots, dids, agent_sessions, sigma_raw, delta_bodies, now, omega,
+        trustworthy, act, pad_to,
+    ):
+        """`run_governance_wave`'s body, inside its WAL bracket (`act`: the
+        normalized action columns, or None)."""
         b, k = len(dids), len(session_slots)
         b_wave, k_wave = b, k
         if pad_to is not None:
-            if pad_to[0] < b or pad_to[1] < k:
-                raise ValueError(f"pad_to {pad_to} below the wave shape ({b} lanes, {k} sessions)")
             b_wave, k_wave = int(pad_to[0]), int(pad_to[1])
-        act = gateway_args = None
-        if actions is not None:
-            act = self._normalize_actions(actions)
+        gateway_args = None
+        if act is not None:
             self._check_action_slots(act["slots"])
             gateway_args = self._pad_gateway_lanes(act)
         agent_slots = self._claim_wave_rows(b_wave)
@@ -657,6 +840,7 @@ class HypervisorState:
 
     def enqueue_join(
         self, session_slot: int, agent_did: str, sigma_raw: float, trustworthy: bool = True,
+        now: Optional[float] = None,
     ) -> int:
         """Stage one join; returns its queue entry, or -1 when the epoch is
         full (then nothing is staged and no row is claimed). Thread-safe.
@@ -664,8 +848,23 @@ class HypervisorState:
         The join claims its agent row now (the free list's end first,
         then the cursor) and is a duplicate when its (session, agent)
         membership is already admitted or staged in this epoch; raises
-        when the agent table is full."""
-        with self._enqueue_lock:
+        when the agent table is full.
+
+        A degraded-mode policy sheds here (`DegradedModeRefusal`, or
+        `SybilShedRefusal` below a targeted policy's sigma floor). `now`
+        feeds only the admission damper's arrival window (default
+        `self.now()`); it touches no table, so a replay ignores it. The
+        record journals inside the staging lock, so intent seqs allocate
+        in the order the host indices change, and a refused push cancels
+        it (nothing was staged)."""
+        damper = self.admission_damper
+        if damper is not None:
+            damper.note_join(self, float(sigma_raw), self.now() if now is None else now)
+        self._shed_gate(float(sigma_raw))
+        with self._enqueue_lock, self._journal(
+            "enqueue_join", session_slot=int(session_slot), did=agent_did,
+            sigma_raw=float(sigma_raw), trustworthy=bool(trustworthy),
+        ) as txn:
             cap = self.agents.i32.shape[0]
             if self._free_agent_slots:
                 agent_slot = self._free_agent_slots[-1]
@@ -678,6 +877,7 @@ class HypervisorState:
             duplicate = key in self._members or key in self._staged_members
             q = self._queue.push(sigma_raw, agent_slot, session_slot, trustworthy)
             if q < 0:
+                txn.cancel()
                 return -1
             if self._free_agent_slots:
                 self._free_agent_slots.pop()
@@ -704,8 +904,13 @@ class HypervisorState:
         bucket: pad lanes ride duplicate=True (refused, no row written),
         and a valid mask keeps them out of the counters and the
         histogram; it raises below the staged count. Rejected rows return
-        to the free list. The whole flush holds the staging lock."""
-        with self._enqueue_lock:
+        to the free list. The whole flush holds the staging lock.
+
+        The fault-injection gate runs before the harvest (a raise leaves
+        the queue intact, so a retry flushes the same wave); the flush
+        journals as "flush_joins" with its `now` and `pad_to`."""
+        self._predispatch("admission_wave")
+        with self._enqueue_lock, self._journal("flush_joins", now=float(now), pad_to=pad_to):
             n, sigma, agent_slots, session_slots, trustworthy = self._queue.harvest()
             if n == 0:
                 return np.zeros(0, np.int8)
@@ -779,7 +984,9 @@ class HypervisorState:
         deactivated (the edges recorded for `pop_scrubbed_edges`). The
         membership key stays, so a rejoin is a duplicate; the agent's
         rows in other sessions are untouched. Holds the staging lock."""
-        with self._enqueue_lock:
+        with self._enqueue_lock, self._journal(
+            "leave_agent", session_slot=int(session_slot), did=agent_did
+        ):
             row = self.agent_row(agent_did, session_slot)
             if row is None:
                 raise ValueError(
@@ -840,25 +1047,35 @@ class HypervisorState:
         `change_words` (u32[<= 8]) go into the packed body; the recorded
         leaf is the chain digest computed at flush unless `digest_words`
         (u32[8]) pins an explicit leaf."""
-        turn = self._turns.get(session_slot, 0)
-        self._turns[session_slot] = turn + 1
-        change = np.zeros(8, np.uint32)
-        if change_words is not None:
-            w = np.asarray(change_words, np.uint32).ravel()[:8]
-            change[:len(w)] = w
-        self._pending_deltas.append((
-            session_slot, agent_slot, change, float(ts),
-            None if digest_words is None else np.asarray(digest_words, np.uint32),
-        ))
+        with self._journal(
+            "stage_delta", session_slot=int(session_slot), agent_slot=int(agent_slot),
+            ts=float(ts),
+            change_words=None if change_words is None else np.asarray(change_words, np.uint32),
+            digest_words=None if digest_words is None else np.asarray(digest_words, np.uint32),
+        ):
+            turn = self._turns.get(session_slot, 0)
+            self._turns[session_slot] = turn + 1
+            change = np.zeros(8, np.uint32)
+            if change_words is not None:
+                w = np.asarray(change_words, np.uint32).ravel()[:8]
+                change[:len(w)] = w
+            self._pending_deltas.append((
+                session_slot, agent_slot, change, float(ts),
+                None if digest_words is None else np.asarray(digest_words, np.uint32),
+            ))
         return turn
 
     def flush_deltas(self) -> int:
         """Chain-hash every staged delta (B2 on CUDA), each session's lane
         chained from its running seed, and append them to the DeltaLog
         lane-major. Returns the record count."""
-        staged = self._pending_deltas
-        if not staged:
+        if not self._pending_deltas:
             return 0
+        with self._journal("flush_deltas", use_pallas=None):
+            return self._flush_deltas_impl()
+
+    def _flush_deltas_impl(self) -> int:
+        staged = self._pending_deltas
         self._pending_deltas = []
         b = len(staged)
         sess_arr = np.array([r[0] for r in staged], np.int32)
@@ -1040,6 +1257,10 @@ class HypervisorState:
         return to the free list, and vouch edges that still name them
         are deactivated and their rows recycled. `pad_to` pads the wave
         with `pad_slot`, a memberless park session.
+
+        Terminations are never shed: a degraded plane keeps draining live
+        work. The fault-injection gate runs before any mutation; the wave
+        journals as "terminate_sessions" with the padded slot list.
         """
         slots = [int(s) for s in session_slots]
         k = len(slots)
@@ -1051,7 +1272,10 @@ class HypervisorState:
             if pad_slot is None:
                 raise ValueError("terminate pad_to requires pad_slot (a memberless park session)")
             slots = slots + [int(pad_slot)] * (pad_to - k)
-        return self._terminate_sessions_impl(slots, now)[:k]
+        self._predispatch("terminate_wave")
+        with self._journal("terminate_sessions", session_slots=slots, now=float(now),
+                           use_pallas=None):
+            return self._terminate_sessions_impl(slots, now)[:k]
 
     def _terminate_sessions_impl(self, slots: list, now: float) -> np.ndarray:
         k = len(slots)
@@ -1134,35 +1358,44 @@ class HypervisorState:
     ) -> int:
         """Insert one liability edge; returns the edge row (rows released
         by release_vouch / free_edge_rows are recycled, last in first)."""
-        if self._free_edge_slots:
-            row = self._free_edge_slots.pop()
-        elif self._next_edge_slot < self.vouches.voucher.shape[0]:
-            row = self._next_edge_slot
-            self._next_edge_slot += 1
-        else:
-            raise RuntimeError(
-                f"vouch table full ({self.vouches.voucher.shape[0]}); "
-                "raise config.capacity.max_vouch_edges"
-            )
-        v = self.vouches
-        v.voucher[row] = int(voucher_slot)
-        v.vouchee[row] = int(vouchee_slot)
-        v.session[row] = int(session_slot)
-        v.bond[row] = float(np.float32(bond))
-        v.bond_pct[row] = float(np.float32(bond_pct))
-        v.active[row] = True
-        v.expiry[row] = float(np.float32(expiry))
+        with self._journal(
+            "add_vouch", voucher_slot=int(voucher_slot), vouchee_slot=int(vouchee_slot),
+            session_slot=int(session_slot), bond=float(bond), bond_pct=float(bond_pct),
+            expiry=float(expiry),
+        ):
+            if self._free_edge_slots:
+                row = self._free_edge_slots.pop()
+            elif self._next_edge_slot < self.vouches.voucher.shape[0]:
+                row = self._next_edge_slot
+                self._next_edge_slot += 1
+            else:
+                raise RuntimeError(
+                    f"vouch table full ({self.vouches.voucher.shape[0]}); "
+                    "raise config.capacity.max_vouch_edges"
+                )
+            v = self.vouches
+            v.voucher[row] = int(voucher_slot)
+            v.vouchee[row] = int(vouchee_slot)
+            v.session[row] = int(session_slot)
+            v.bond[row] = float(np.float32(bond))
+            v.bond_pct[row] = float(np.float32(bond_pct))
+            v.active[row] = True
+            v.expiry[row] = float(np.float32(expiry))
         return row
 
     def release_vouch(self, edge_row: int) -> None:
         """Deactivate one liability edge and recycle its row."""
-        self.vouches.active[edge_row] = False
-        self._free_edge_slots.append(edge_row)
+        with self._journal("release_vouch", edge_row=int(edge_row)):
+            self.vouches.active[edge_row] = False
+            self._free_edge_slots.append(edge_row)
 
     def free_edge_rows(self, edge_rows) -> None:
         """Recycle rows a device wave already deactivated (host-only
-        bookkeeping, no device write)."""
-        self._free_edge_slots.extend(int(r) for r in edge_rows)
+        bookkeeping, no device write; journaled so a replay recycles the
+        same rows in the same order)."""
+        rows = [int(r) for r in edge_rows]
+        with self._journal("free_edge_rows", rows=rows):
+            self._free_edge_slots.extend(rows)
 
     # ── the slash cascade ────────────────────────────────────────────
 
@@ -1180,7 +1413,11 @@ class HypervisorState:
         consumed bonds and recompute the touched agents' rings from the
         new sigma. Returns {"slashed": [...], "clipped": [...]}, agent
         slots in ascending order."""
-        return self._apply_slash_impl(session_slot, vouchee_slot, risk_weight, now)
+        self._predispatch("slash_cascade")
+        with self._journal("apply_slash", session_slot=int(session_slot),
+                           vouchee_slot=int(vouchee_slot), risk_weight=float(risk_weight),
+                           now=float(now)):
+            return self._apply_slash_impl(session_slot, vouchee_slot, risk_weight, now)
 
     def _apply_slash_impl(
         self, session_slot: int, vouchee_slot: int, risk_weight: float, now: float
@@ -1214,12 +1451,13 @@ class HypervisorState:
         sessions `apply_slash` did not cascade through)."""
         if not len(rows):
             return
-        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
-        self.agents.f32[idx, AF32_SIGMA_EFF] = 0.0
-        rings = compute_rings(self.agents.sigma_eff, False)
-        self.agents.ring[idx] = rings[idx]
-        flags = self.agents.i32[:, AI32_FLAGS]
-        flags[idx] = flags[idx] | FLAG_BLACKLISTED
+        with self._journal("blacklist_rows", rows=[int(r) for r in rows]):
+            idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+            self.agents.f32[idx, AF32_SIGMA_EFF] = 0.0
+            rings = compute_rings(self.agents.sigma_eff, False)
+            self.agents.ring[idx] = rings[idx]
+            flags = self.agents.i32[:, AI32_FLAGS]
+            flags[idx] = flags[idx] | FLAG_BLACKLISTED
 
     # ── sagas ────────────────────────────────────────────────────────
 
@@ -1235,25 +1473,31 @@ class HypervisorState:
                 f"saga table full ({self.sagas.saga_state.shape[0]}); "
                 "raise config.capacity.max_sagas"
             )
-        slot = self._next_saga_slot
-        self._next_saga_slot += 1
-        self.saga_ids.intern(saga_id)
-        retries = np.zeros(max_steps, np.int8)
-        has_undo = np.zeros(max_steps, bool)
-        timeout = np.full(max_steps, 300.0, np.float32)
-        for i, st in enumerate(steps):
-            retries[i] = st.get("retries", 0)
-            has_undo[i] = st.get("has_undo", False)
-            timeout[i] = st.get("timeout", 300.0)
-        g, dev = self.sagas, self.device
-        g.step_state[slot] = saga_ops.STEP_PENDING
-        g.retries_left[slot] = torch.from_numpy(retries).to(dev)
-        g.has_undo[slot] = torch.from_numpy(has_undo).to(dev)
-        g.timeout[slot] = torch.from_numpy(timeout).to(dev)
-        g.saga_state[slot] = saga_ops.SAGA_RUNNING
-        g.session[slot] = int(session_slot)
-        g.n_steps[slot] = len(steps)
-        g.cursor[slot] = 0
+        with self._journal(
+            "create_saga", saga_id=saga_id, session_slot=int(session_slot),
+            steps=[{"retries": int(st.get("retries", 0)),
+                    "has_undo": bool(st.get("has_undo", False)),
+                    "timeout": float(st.get("timeout", 300.0))} for st in steps],
+        ):
+            slot = self._next_saga_slot
+            self._next_saga_slot += 1
+            self.saga_ids.intern(saga_id)
+            retries = np.zeros(max_steps, np.int8)
+            has_undo = np.zeros(max_steps, bool)
+            timeout = np.full(max_steps, 300.0, np.float32)
+            for i, st in enumerate(steps):
+                retries[i] = st.get("retries", 0)
+                has_undo[i] = st.get("has_undo", False)
+                timeout[i] = st.get("timeout", 300.0)
+            g, dev = self.sagas, self.device
+            g.step_state[slot] = saga_ops.STEP_PENDING
+            g.retries_left[slot] = torch.from_numpy(retries).to(dev)
+            g.has_undo[slot] = torch.from_numpy(has_undo).to(dev)
+            g.timeout[slot] = torch.from_numpy(timeout).to(dev)
+            g.saga_state[slot] = saga_ops.SAGA_RUNNING
+            g.session[slot] = int(session_slot)
+            g.n_steps[slot] = len(steps)
+            g.cursor[slot] = 0
         return slot
 
     def create_saga_from_dsl(self, definition, session_slot: int) -> int:
@@ -1288,7 +1532,12 @@ class HypervisorState:
                     "Reorder the steps so each group's branches are adjacent."
                 )
         if groups:
-            self._fanout_groups[slot] = sorted(groups, key=lambda grp: grp[1][0])
+            ordered = sorted(groups, key=lambda grp: grp[1][0])
+            # Its own record: `create_saga` replays the table row, and the
+            # group index is host state a replay must rebuild too.
+            with self._journal("register_fanout_groups", slot=int(slot),
+                               groups=[[policy, list(idxs)] for policy, idxs in ordered]):
+                self._fanout_groups[slot] = ordered
         return slot
 
     # ── fan-out groups (device-scheduled) ────────────────────────────
@@ -1312,7 +1561,14 @@ class HypervisorState:
 
     def fanout_dispatch(self) -> list[tuple[int, int]]:
         """(saga_slot, step_idx) pairs for every group front: the whole
-        group's PENDING branches dispatch concurrently."""
+        group's PENDING branches dispatch concurrently.
+
+        A degraded-mode policy pauses the fan-out (an empty list): the
+        branches stay PENDING until the mode exits, while cursor steps
+        and compensations keep settling through `saga_round`."""
+        policy = self.degraded_policy
+        if policy is not None and policy.pause_saga_fanout:
+            return []
         if not self._fanout_groups:
             return []
         step_state = self.sagas.step_state.cpu().numpy()
@@ -1331,7 +1587,9 @@ class HypervisorState:
         (`ops.saga_ops.fanout_round`), the saga table updated in place."""
         if not outcomes:
             return
-        self._fanout_settle_impl(outcomes)
+        with self._journal("fanout_settle", build=lambda: {
+            "outcomes": [[int(s), int(i), bool(ok)] for (s, i), ok in outcomes.items()]}):
+            self._fanout_settle_impl(outcomes)
 
     def _fanout_settle_impl(self, outcomes: dict[tuple[int, int], bool]) -> None:
         g_cap, m = self.sagas.step_state.shape
@@ -1409,7 +1667,12 @@ class HypervisorState:
         (e.g. fan-out group fronts settled by `fanout_settle` in the same
         round) are left untouched. The four outcome masks travel to the
         device as one packed byte per saga."""
-        self._saga_round_impl(exec_outcomes, undo_outcomes)
+        self._predispatch("saga_round")
+        with self._journal("saga_round", build=lambda: {
+            "exec": {int(k): bool(v) for k, v in (exec_outcomes or {}).items()},
+            "undo": {int(k): bool(v) for k, v in (undo_outcomes or {}).items()},
+        }):
+            self._saga_round_impl(exec_outcomes, undo_outcomes)
 
     def _saga_round_impl(
         self,
@@ -1478,18 +1741,23 @@ class HypervisorState:
     ) -> None:
         """Record one action wave into the breach sliding window."""
         now = self.now() if now is None else now
-        dev = self.device
-        new = security_ops.record_calls(
-            self.agents, torch.from_numpy(np.asarray(agent_slots, np.int32)).to(dev),
-            torch.from_numpy(np.asarray(called_rings, np.int8)).to(dev), now, self.config.breach)
-        self.agents.bd_window.copy_(new.bd_window)
+        slots = np.asarray(agent_slots, np.int32)
+        rings = np.asarray(called_rings, np.int8)
+        with self._journal("record_calls", agent_slots=slots, called_rings=rings,
+                           now=float(now)):
+            dev = self.device
+            new = security_ops.record_calls(
+                self.agents, torch.from_numpy(slots).to(dev), torch.from_numpy(rings).to(dev),
+                now, self.config.breach)
+            self.agents.bd_window.copy_(new.bd_window)
 
     def breach_sweep_tick(self, now: float) -> tuple[np.ndarray, np.ndarray]:
         """Run the breach analysis over every row; returns (severity i8[N],
         tripped bool[N])."""
-        result = security_ops.breach_sweep(self.agents, now, self.config.breach)
-        self.agents.i32[:, AI32_FLAGS] = result.agents.flags
-        self.agents.f32[:, AF32_BD_BREAKER_UNTIL] = result.agents.bd_breaker_until
+        with self._journal("breach_sweep_tick", now=float(now)):
+            result = security_ops.breach_sweep(self.agents, now, self.config.breach)
+            self.agents.i32[:, AI32_FLAGS] = result.agents.flags
+            self.agents.f32[:, AF32_BD_BREAKER_UNTIL] = result.agents.bd_breaker_until
         return result.severity.cpu().numpy(), result.tripped.cpu().numpy()
 
     def consume_rate(
@@ -1502,6 +1770,15 @@ class HypervisorState:
         its granted tokens. `rings` overrides the rows' rings (e.g. a
         live sudo grant rates the call at the elevated ring's budget; a
         slot given twice takes its last ring)."""
+        with self._journal(
+            "consume_rate", slots=np.asarray(slots, np.int32), now=float(now),
+            rings=None if rings is None else np.asarray(rings, np.int8),
+        ):
+            return self._consume_rate_impl(slots, now, rings)
+
+    def _consume_rate_impl(
+        self, slots: Sequence[int], now: float, rings: Optional[Sequence[int]],
+    ) -> np.ndarray:
         slots_arr = np.asarray(slots, np.int32)
         cfg, dev = self.config.rate_limit, self.device
         n = self.agents.ring.shape[0]
@@ -1551,12 +1828,31 @@ class HypervisorState:
         the rate settle, breach recording) as one wave on the state's
         tables, updated in place, with its counters and trace stamps. The
         lanes are padded to the next power of two with valid=False lanes,
-        which touch nothing; out-of-range slots are refused first."""
+        which touch nothing; out-of-range slots are refused first. The
+        fault-injection gate runs before any mutation; the wave journals
+        as "gateway_wave"."""
+        self._predispatch("gateway_wave")
         self._check_action_slots(slots)
         if mesh is not None:
             raise NotImplementedError(
                 "check_actions_wave(mesh=...): the sharded gateway arrives with the port's "
                 "multi-device slice (ROADMAP A8)")
+        with self._journal(
+            "gateway_wave", slots=np.asarray(slots, np.int32),
+            required_rings=np.asarray(required_rings, np.int8),
+            is_read_only=np.asarray(is_read_only, bool),
+            has_consensus=np.asarray(has_consensus, bool),
+            has_sre_witness=np.asarray(has_sre_witness, bool),
+            host_tripped=np.asarray(host_tripped, bool), now=float(now),
+        ):
+            return self._check_actions_wave_local(slots, required_rings, is_read_only,
+                                                  has_consensus, has_sre_witness,
+                                                  host_tripped, now)
+
+    def _check_actions_wave_local(
+        self, slots, required_rings, is_read_only, has_consensus, has_sre_witness,
+        host_tripped, now: float,
+    ) -> gateway_ops.GatewayResult:
         act = self._normalize_actions({
             "slots": slots, "required_rings": required_rings, "is_read_only": is_read_only,
             "has_consensus": has_consensus, "has_sre_witness": has_sre_witness,
@@ -1594,18 +1890,22 @@ class HypervisorState:
                 f"requested {granted_ring}")
         ttl = min(ttl_seconds if ttl_seconds is not None else cfg.default_ttl_seconds,
                   cfg.max_ttl_seconds)
-        if self._free_elev_slots:
-            row = self._free_elev_slots.pop()
-        elif self._next_elev_slot < self.elevations.agent.shape[0]:
-            row = self._next_elev_slot
-            self._next_elev_slot += 1
-        else:
-            raise RuntimeError("elevation table full")
-        e = self.elevations
-        e.agent[row] = int(agent_slot)
-        e.granted_ring[row] = int(granted_ring)
-        e.expires_at[row] = float(np.float32(now + ttl))
-        e.active[row] = True
+        with self._journal(
+            "grant_elevation", agent_slot=int(agent_slot), granted_ring=int(granted_ring),
+            now=float(now), ttl_seconds=None if ttl_seconds is None else float(ttl_seconds),
+        ):
+            if self._free_elev_slots:
+                row = self._free_elev_slots.pop()
+            elif self._next_elev_slot < self.elevations.agent.shape[0]:
+                row = self._next_elev_slot
+                self._next_elev_slot += 1
+            else:
+                raise RuntimeError("elevation table full")
+            e = self.elevations
+            e.agent[row] = int(agent_slot)
+            e.granted_ring[row] = int(granted_ring)
+            e.expires_at[row] = float(np.float32(now + ttl))
+            e.active[row] = True
         return row
 
     def revoke_elevation(self, row: int, expected_agent: Optional[int] = None) -> None:
@@ -1619,19 +1919,22 @@ class HypervisorState:
                 "the grant already expired and the row was recycled")
         if not bool(self.elevations.active[row]):
             return
-        self.elevations.active[row] = False
-        self.elevations.agent[row] = -1
-        self._free_elev_slots.append(int(row))
+        with self._journal("revoke_elevation", row=int(row),
+                           expected_agent=None if expected_agent is None else int(expected_agent)):
+            self.elevations.active[row] = False
+            self.elevations.agent[row] = -1
+            self._free_elev_slots.append(int(row))
 
     def elevation_tick(self, now: float) -> int:
         """Expire every lapsed grant (its row freed, `agent` -1); returns
         how many expired."""
-        table, expired = security_ops.elevation_expiry(self.elevations, now)
-        self.elevations.active.copy_(table.active)
-        rows = np.nonzero(expired.cpu().numpy())[0]
-        if len(rows):
-            self.elevations.agent[torch.from_numpy(rows).to(self.device)] = -1
-            self._free_elev_slots.extend(int(r) for r in rows)
+        with self._journal("elevation_tick", now=float(now)):
+            table, expired = security_ops.elevation_expiry(self.elevations, now)
+            self.elevations.active.copy_(table.active)
+            rows = np.nonzero(expired.cpu().numpy())[0]
+            if len(rows):
+                self.elevations.agent[torch.from_numpy(rows).to(self.device)] = -1
+                self._free_elev_slots.extend(int(r) for r in rows)
         return len(rows)
 
     def effective_rings(self, now: float) -> np.ndarray:
@@ -1646,17 +1949,21 @@ class HypervisorState:
         deadline."""
         if duration is None:
             duration = self.config.quarantine.default_duration_seconds
-        enter = torch.zeros(self.agents.flags.shape, dtype=torch.bool, device=self.device)
-        enter[torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)] = True
-        new = security_ops.quarantine_enter(self.agents, enter, now, float(duration))
-        self.agents.i32[:, AI32_FLAGS] = new.flags
-        self.agents.f32[:, AF32_QUARANTINE_UNTIL] = new.quarantine_until
+        with self._journal("quarantine_rows", build=lambda: {
+            "rows": [int(r) for r in np.asarray(rows, np.int32)], "now": float(now),
+            "duration": float(duration)}):
+            enter = torch.zeros(self.agents.flags.shape, dtype=torch.bool, device=self.device)
+            enter[torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)] = True
+            new = security_ops.quarantine_enter(self.agents, enter, now, float(duration))
+            self.agents.i32[:, AI32_FLAGS] = new.flags
+            self.agents.f32[:, AF32_QUARANTINE_UNTIL] = new.quarantine_until
 
     def quarantine_tick(self, now: float) -> list[int]:
         """Release every quarantine strictly past its deadline; returns the
         released rows."""
-        sweep = security_ops.quarantine_sweep(self.agents, now)
-        self.agents.i32[:, AI32_FLAGS] = sweep.agents.flags
+        with self._journal("quarantine_tick", now=float(now)):
+            sweep = security_ops.quarantine_sweep(self.agents, now)
+            self.agents.i32[:, AI32_FLAGS] = sweep.agents.flags
         return [int(r) for r in np.nonzero(sweep.released.cpu().numpy())[0]]
 
     def quarantined_mask(self) -> np.ndarray:
@@ -1665,13 +1972,15 @@ class HypervisorState:
 
     def set_agent_risk(self, slot: int, risk: float) -> None:
         """Write a membership row's liability risk score."""
-        self.agents.f32[slot, AF32_RISK] = float(np.float32(risk))
+        with self._journal("set_agent_risk", slot=int(slot), risk=float(risk)):
+            self.agents.f32[slot, AF32_RISK] = float(np.float32(risk))
 
     def set_agent_ring(self, slot: int, ring: int, now: float) -> None:
         """Reassign a row's ring; its token bucket is recreated full at the
         new ring's burst, stamped `now`. Holds the staging lock."""
         burst = float(np.float32(self.config.rate_limit.ring_bursts[int(ring)]))
-        with self._enqueue_lock:
+        with self._enqueue_lock, self._journal("set_agent_ring", slot=int(slot), ring=int(ring),
+                                               now=float(now)):
             self.agents.ring[slot] = int(ring)
             self.agents.f32[slot, AF32_RL_TOKENS] = burst
             self.agents.f32[slot, AF32_RL_STAMP] = float(np.float32(now))

@@ -59,6 +59,11 @@ SF32_CREATED_AT = 1
 SF32_TERMINATED_AT = 2
 SF32_MAX_DURATION = 3
 SF32_WIDTH = 4
+# The session i8 block of checkpoints written before the state and mode
+# codes joined the i32 block; read only by `runtime.checkpoint`'s
+# migration.
+LEGACY_SI8_STATE = 0
+LEGACY_SI8_MODE = 1
 
 
 @table(

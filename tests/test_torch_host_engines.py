@@ -57,6 +57,7 @@ COPIES = (
     "liability/slashing.py",
     "models/__init__.py",
     "observability/causal_trace.py", "observability/event_bus.py",
+    "resilience/policy.py", "resilience/wal.py",
     "reversibility/__init__.py",
     "rings/__init__.py", "rings/breach_detector.py", "rings/classifier.py",
     "rings/elevation.py",
