@@ -3,8 +3,10 @@
 eight phases: the action gateway and the gauge epilogue too), the
 sanitizer, the join queue and security surface, the saga plane, the
 slash cascade, the lock and write waves, the native host runtime, the
-`Hypervisor` facade's public API and durability (the write-ahead log,
-checkpoints and crash recovery) on one NVIDIA GPU.
+`Hypervisor` facade's public API, durability (the write-ahead log,
+checkpoints and crash recovery) and observability (the metrics drain,
+the health and hindsight planes, the integrity plane and the supervisor)
+on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -226,7 +228,37 @@ Phases, one JSON line each:
    state runs the sequence under `WaveChaosInjector(seed=11,
    fail_rate=0.4)`, each faulted dispatch retried by hand, and must end
    equal to the clean run. Then facade waves on fresh states, journaled
-   and not in turns: the journal's cost per wave and its bytes.
+   and not in turns: the journal's cost per wave and its bytes;
+14. observability: `Hypervisor` over a fresh state at the facade's
+   tables (its event bus bridged to the health plane), journaled with
+   fsync in a temporary directory, with an `IntegrityPlane` (the
+   sanitizer every 2nd dispatch, a scrub strip of 4,096 links every
+   dispatch) and a `Supervisor` (a checkpoint first, then one every 2nd
+   clean dispatch): three facade waves of 10,000 sessions and actions
+   (the 2nd and 3rd fused-sanitized; 32,768 session rows hold three),
+   1,024 staged deltas and their flush, 256 five-step sagas and a round,
+   64 vouches and one `apply_slash` with one injected `InjectedWaveFault`
+   that the ladder retries, every dispatch through `Supervisor.dispatch`
+   and a drain after each (the dispatches under torch.profiler); then
+   `metrics_prometheus`, `health_summary`, `memory_summary`,
+   `flight_summary`, `session_trace` of three sessions, `history_query`,
+   a seeded σ corruption the repair rung clears and a seeded FSM-code
+   corruption the restore rung clears through `recover` on the card
+   (each of its stages timed, the journal's reopen among them), to the
+   uninterrupted history, with chain checks and an 8,192-leaf tree over
+   the recovered DeltaLog. Every kernel must launch in the window and be
+   named by the profiler; the same sequence on the CPU must give the
+   same drains (wall-clock stage series and compile counts set apart),
+   the mode (normal or degraded) at each drain and dispatch, exposition,
+   summaries, span trees, history, incidents, integrity and supervisor
+   accounting and tables.
+   Then, by the host clock: the drain fresh and refreshing (each
+   profiled once: one wait on the device, and only its copies when
+   fresh), `to_prometheus`, `health_summary`, the compile watch's key,
+   the watchdog and the plane's cadence hook per dispatch, a scrub tick,
+   the repair rung, and the facade wave under four variants of the plane
+   (none, the fused sanitizer, a scrub tick, both), rotated over sixteen
+   fresh states of three waves.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -236,6 +268,7 @@ that line. Exits 2 without printing a result when CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import itertools
 import json
@@ -654,7 +687,7 @@ def all_tables(state) -> dict:
     from hypervisor_tpu_torch.tables import StateTables, to_state_arrays
 
     out = to_state_arrays(StateTables(
-        state.agents, state.sessions, state.vouches, state.metrics, state.delta_log,
+        state.agents, state.sessions, state.vouches, state.metrics.table, state.delta_log,
         state.sagas, state.elevations, state.event_log))
     # A copy: on the CPU, .cpu() returns the live table itself.
     out["trace.words"] = state.tracer.table.words.cpu().numpy().copy()
@@ -977,9 +1010,9 @@ def run_joins_security(device):
             return np.nonzero((state.agents.flags.cpu().numpy() & FLAG_ACTIVE) != 0)[0]
 
         def admission_tally():
-            c = state.metrics.counters.cpu().numpy().view(np.uint32)
+            c = state.metrics.table.counters.cpu().numpy().view(np.uint32)
             return [int(c[schema.ADMITTED.index]), int(c[schema.REFUSED.index]),
-                    float(state.metrics.hist_sum.cpu().numpy()[schema.WAVE_LANES.index])]
+                    float(state.metrics.table.hist_sum.cpu().numpy()[schema.WAVE_LANES.index])]
 
         kernels.reset_launch_counts()
         sessions = state.create_sessions_batch(
@@ -1189,7 +1222,7 @@ def api_snapshot(hv) -> dict:
     st = hv.state
     return {
         "tables": all_tables(st),
-        "host_counters": st.host_metrics.counters.copy(),
+        "host_counters": st.metrics._h_counters.copy(),
         "bus_rows": list(hv.event_bus.device_rows(0)),
         "bus_events": [e.to_dict() for e in hv.event_bus.all_events],
         "ledger": plain([hv.ledger.get_agent_history(a) for a in sorted(hv.ledger.tracked_agents)]),
@@ -1222,6 +1255,7 @@ def run_facade_api(device, blocks, census_block=None):
     from hypervisor_tpu_torch import kernels
     from hypervisor_tpu_torch.integrations.cmvk_adapter import CMVKAdapter
     from hypervisor_tpu_torch.security.kill_switch import KillReason
+    from hypervisor_tpu_torch.testing import same_health_on_every_run
 
     on_card = torch.device(device).type == "cuda"
     clock = [API_T0]
@@ -1307,6 +1341,7 @@ def run_facade_api(device, blocks, census_block=None):
     async def drive():
         hv = hvt.Hypervisor(device=device, event_bus=hvt.HypervisorEventBus(),
                             cmvk=CMVKAdapter(verifier=Drift()))
+        same_health_on_every_run(hv)
         for lo, hi in blocks:
             profiled = on_card and (lo, hi) == census_block
             if profiled:
@@ -1465,7 +1500,8 @@ def durability_sequence(state, dispatch, mark, checkpoint) -> dict:
 
 def retry_by_hand(counter: list):
     """A dispatch that retries an injected wave fault until the call goes
-    through: the supervisor's retry ladder, which waits for ROADMAP A4."""
+    through, by hand (phase `observability` drives the supervisor's
+    ladder)."""
     from hypervisor_tpu_torch.testing import InjectedWaveFault
 
     def dispatch(fn, *args, **kw):
@@ -1739,6 +1775,546 @@ def run_durability(device, workdir) -> dict:
     rec["wave_ms"] = {k: {"p50": float(np.percentile(v, 50)), "p95": float(np.percentile(v, 95)),
                           "samples": v} for k, v in times.items()}
     rec["wal_bytes_per_wave"] = wave_bytes
+    return rec
+
+
+# ── phase observability: the metrics drain, health, hindsight, the
+# integrity plane and the supervisor ──────────────────────────────────
+
+#: The sequence's three facade waves (32,768 session rows hold three waves
+#: of 10,000, and rows are never reused), the standing sessions that take
+#: staged deltas and sagas, the actors' vouch edges the slash clips.
+OBS_WAVES = 3
+OBS_DELTA_SESSIONS, OBS_DELTAS = 256, 4
+OBS_SAGAS = 256
+OBS_VOUCHERS = 64
+OBS_TRACED = 3
+#: The plane's cadence: the sanitizer every 2nd dispatch (it folds into
+#: the 2nd and 4th dispatch, both facade waves), a scrub strip every
+#: dispatch; periodic checkpoints every 2nd clean supervised dispatch.
+OBS_EVERY, OBS_SCRUB_EVERY, OBS_CHECKPOINT_EVERY = 2, 1, 2
+#: One injected fault at the slash, which the ladder retries: seed 1's
+#: first draw (0.134) faults and its second (0.847) does not.
+OBS_SLASH_CHAOS = dict(seed=1, fail_rate=0.5, stages=("slash_cascade",))
+#: The seeded corruptions: an agent σ exponent flip (the repair rung) and
+#: a session row rewrite, whose FSM code is restore-class.
+OBS_SIGMA = dict(kind="bit_flip", table="agents")
+OBS_FSM = dict(kind="row_rewrite", table="sessions")
+OBS_REPS, OBS_RUNG_REPS = 20, 3
+#: The plane's cost on the facade wave: its variants ((sanitizer every,
+#: scrub every) on each dispatch, None for no plane attached), timed over
+#: sixteen fresh states of three waves each (twelve samples a variant).
+OBS_WAVE_VARIANTS = {"bare": None, "sanitizer": (1, 0), "scrub": (0, 1), "plane": (1, 1)}
+OBS_WAVE_STATES = 16
+OBS_STAGE_NAMES = ("hv_stage_latency_us_bucket", "hv_stage_latency_us_sum")
+OBS_COMPILE_NAMES = ("hv_compiles_total", "hv_recompiles_total", "hv_donation_failures_total",
+                     "hv_compile_wall_ms_total")
+
+
+def obs_masked(snap) -> dict:
+    """A drain's arrays with the host plane's wall-clock stage histograms
+    cut to their observation counts and the compile counters set apart
+    (the compile watch is process-global: the CPU rerun meets no novel
+    signature)."""
+    from hypervisor_tpu_torch.observability import metrics as mp
+
+    stage_rows = sorted(h.index for h in mp.STAGE_LATENCY.values())
+    compile_rows = [mp.COMPILES.index, mp.RECOMPILES.index, mp.DONATION_FAILURES.index,
+                    mp.COMPILE_WALL_MS.index]
+    counters, hist, hist_sum = snap.counters.copy(), snap.hist.copy(), snap.hist_sum.copy()
+    counters[compile_rows] = 0
+    stage_counts = hist[stage_rows].sum(axis=1)
+    hist[stage_rows] = 0
+    hist_sum[stage_rows] = 0.0
+    return {"counters": counters, "gauges": snap.gauges.copy(), "hist": hist,
+            "hist_sum": hist_sum, "stage_counts": stage_counts}
+
+
+def obs_prom(text: str) -> list:
+    """Exposition lines, the stage buckets and sums cut to their names and
+    labels, the compile counters to their names."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith(OBS_STAGE_NAMES):
+            line = line.rsplit(" ", 1)[0]
+        elif line.startswith(OBS_COMPILE_NAMES):
+            line = line.split(" ", 1)[0].split("{", 1)[0]
+        out.append(line)
+    return out
+
+
+def span_tree(span) -> tuple:
+    """A reconstructed span tree without its wall times."""
+    return (span.name, span.stage, span.trace_id, span.span_word, span.parent_span_word,
+            span.wave_seq, [dict(e) for e in span.events], [span_tree(c) for c in span.children])
+
+
+def obs_health(h: dict) -> dict:
+    """`health_summary` without wall times and compile counts."""
+    h = dict(h)
+    for key in ("uptime_s", "compiles", "backend"):
+        h.pop(key)
+    h["stages"] = {k: v["n"] for k, v in h["stages"].items()}
+    h["watchdog"] = {k: v for k, v in h["watchdog"].items() if k != "deadlines_us"}
+    # A bundle's size counts the wall times in its trace block.
+    h["incidents"] = {**h["incidents"], "last": [{k: v for k, v in row.items() if k != "bytes"}
+                                                 for row in h["incidents"]["last"]]}
+    return h
+
+
+def obs_flight(f: dict) -> dict:
+    f = dict(f)
+    f["recent_waves"] = [{k: v for k, v in w.items() if k != "duration_us"}
+                         for w in f["recent_waves"]]
+    return f
+
+
+def obs_corrupt(state, seed: int, corruption: dict) -> list:
+    """Apply one seeded corruption to the state now (no dispatch, so no
+    journal record): the injector's first gate, as the reference's tests
+    apply it."""
+    from hypervisor_tpu_torch.testing import InjectedCorruption, WaveChaosInjector, WaveChaosPlan
+
+    inj = WaveChaosInjector(WaveChaosPlan(seed=seed, corruptions=(
+        InjectedCorruption(at_dispatch=1, **corruption),)))
+    inj.dispatches = 1
+    return inj.apply_due_corruptions(state)
+
+
+@contextlib.contextmanager
+def timed_recovery_stages(sync):
+    """Time `recover`'s stages where it calls them, each ended by `sync`:
+    find the newest durable checkpoint, restore it, verify the audit
+    heads, scan the WAL past the watermark, replay, and reopen the journal
+    (`WriteAheadLog` scans the whole file for its tail and next seq);
+    yields {stage: ms}, filled as they run."""
+    from hypervisor_tpu_torch.resilience import recovery
+
+    stages: dict = {}
+    saved = {name: getattr(recovery, name)
+             for name in ("latest_durable_checkpoint", "restore_state", "verify_audit_heads",
+                          "scan", "replay", "WriteAheadLog")}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            result = fn(*args, **kwargs)
+            sync()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter_ns() - t0) / 1e6
+            return result
+        return call
+
+    for name, fn in saved.items():
+        setattr(recovery, name, timed(name, fn))
+    try:
+        yield stages
+    finally:
+        for name, fn in saved.items():
+            setattr(recovery, name, fn)
+
+
+def observability_sequence(device, workdir, profile_census: bool) -> dict:
+    """The observability phase's sequence on `device`: a facade state at
+    the facade cell's tables behind `Hypervisor` (its event bus bridged),
+    journaled (fsync on) into `workdir/run`, with an `IntegrityPlane`
+    (sanitizer every 2nd dispatch, scrub every dispatch) and a
+    `Supervisor` (periodic checkpoints) over it; three facade waves (the
+    2nd and 3rd fused-sanitized), 1,024 staged deltas and their flush, 256
+    five-step sagas and one round, 64 vouches and one slash (one injected
+    fault the ladder retries), every dispatch through `Supervisor.dispatch`
+    and a drain after each; then the readers, a σ corruption the repair
+    rung clears and an FSM-code corruption the restore rung clears
+    through `recover` on `device`, and the restore's checks (chain checks
+    and a big tree over the recovered DeltaLog). `profile_census` runs the
+    dispatches under torch.profiler (device activity). Returns the
+    deterministic record (equal on the card and the CPU; it holds the
+    mode each dispatch ran in and the drain at which degraded mode began),
+    and, apart, the launch window, the census, the rungs' times and the
+    restore's stages."""
+    import pathlib
+
+    import torch
+
+    from hypervisor_tpu_torch import Hypervisor, HypervisorEventBus, kernels, u32
+    from hypervisor_tpu_torch.integrity import IntegrityPlane
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.observability import metrics as mp
+    from hypervisor_tpu_torch.ops import merkle
+    from hypervisor_tpu_torch.ops.sha256 import digests_to_hex
+    from hypervisor_tpu_torch.resilience import Supervisor, WriteAheadLog
+    from hypervisor_tpu_torch.testing import (
+        WaveChaosInjector, WaveChaosPlan, same_health_on_every_run, supervisor_accounting)
+
+    on_card = torch.device(device).type == "cuda"
+    run_dir = pathlib.Path(workdir) / "run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    det: dict = {"drains": [], "mode_at_drain": [], "dispatch_modes": [], "degraded_from": None}
+    out: dict = {"det": det}
+    step = [0]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    hv = Hypervisor(state=facade_state(device), event_bus=HypervisorEventBus())
+    same_health_on_every_run(hv)
+    state = hv.state
+    state.hindsight_clock = lambda: float(step[0])
+    state.journal = WriteAheadLog(run_dir / "wal.log", fsync=True)
+    sup = Supervisor(state, checkpoint_dir=str(run_dir / "ckpt"),
+                     checkpoint_every=OBS_CHECKPOINT_EVERY, sleep=lambda s: None)
+    plane = IntegrityPlane(state, every=OBS_EVERY, scrub_every=OBS_SCRUB_EVERY,
+                           scrub_budget=SCRUB_BUDGET)
+    sup.checkpoint()  # the watermark's base: the actors, before any record
+    rng = np.random.RandomState(SEED + 50)
+
+    def mode() -> str:
+        return "normal" if sup.state.degraded_policy is None else "degraded"
+
+    def drain(label):
+        step[0] += 1
+        det["drains"].append((label, obs_masked(sup.state.metrics_snapshot())))
+        det["mode_at_drain"].append((label, mode()))
+        if det["degraded_from"] is None and mode() == "degraded":
+            det["degraded_from"] = label
+
+    def dispatch(stage, fn, *args, **kwargs):
+        """`Supervisor.dispatch`, with the mode it ran in (degraded mode
+        sheds joins and pauses the saga fan-out) and the mode after."""
+        before = mode()
+        out = sup.dispatch(stage, fn, *args, **kwargs)
+        det["dispatch_modes"].append((stage, before, mode()))
+        return out
+
+    kernels.reset_launch_counts()
+    census: dict = {}
+    prof = None
+    if on_card and profile_census:
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter_ns()
+    sessions = None
+    sagas: list = []
+    for w in range(OBS_WAVES):
+        slots, dids, sigma, bodies, actions = prepare_facade_wave(state, rng, w)
+        res, _ = dispatch("governance_wave", state.run_governance_wave, slots, dids, slots,
+                          sigma, bodies, now=float(w), actions=actions)
+        check_bench_gates(res, bodies, f"observability wave {w}")
+        drain(f"wave {w}")
+        if w == 1:
+            sessions = state.create_sessions_batch(
+                [f"obs:s{i}" for i in range(OBS_DELTA_SESSIONS)], SessionConfig(min_sigma_eff=0.0))
+            for j in range(OBS_DELTAS):
+                for s in sessions:
+                    state.stage_delta(int(s), int(state.actor_rows[j]), ts=4.0 + j / 8,
+                                      change_words=rng.randint(0, 2**31, 8))
+            dispatch("delta_chain", state.flush_deltas)
+            drain("deltas flushed")
+            sagas = [state.create_saga(f"obs:saga:{g}", int(sessions[g % len(sessions)]),
+                                       [{"retries": 1, "has_undo": True}] * SAGA_STEPS)
+                     for g in range(OBS_SAGAS)]
+            ok = rng.uniform(size=OBS_SAGAS) > 0.2
+            dispatch("saga_round", state.saga_round, {g: bool(o) for g, o in zip(sagas, ok)})
+            drain("saga round")
+    actors = state.actor_rows
+    actors_session = int(state.agents.session[int(actors[0])])
+    for k in range(OBS_VOUCHERS):
+        state.add_vouch(int(actors[2 + k]), int(actors[1]), actors_session, 0.125, bond_pct=0.25)
+    state.fault_injector = WaveChaosInjector(WaveChaosPlan(**OBS_SLASH_CHAOS))
+    slash = dispatch("slash_cascade", state.apply_slash, actors_session, int(actors[1]),
+                     0.95, now=5.0)
+    require(len(slash["clipped"]) == OBS_VOUCHERS, f"observability: the slash clipped "
+                                                   f"{len(slash['clipped'])} vouchers")
+    det["slash"] = slash
+    det["slash_chaos"] = {k: v for k, v in state.fault_injector.report().items()
+                          if k in ("dispatches", "faults", "by_stage")}
+    state.fault_injector = None
+    drain("slash")
+    sync()
+    out["dispatch_ms"] = (time.perf_counter_ns() - t0) / 1e6
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        prof.__exit__(None, None, None)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                census[e.key[:100]] = census.get(e.key[:100], 0) + e.count
+    out["census"] = census
+
+    # ── the readers ──────────────────────────────────────────────────
+    det["prometheus"] = obs_prom(state.metrics_prometheus())
+    det["health"] = obs_health(state.health_summary())
+    det["memory"] = state.memory_summary()
+    det["flight"] = obs_flight(state.flight_summary())
+    traced = [int(s) for s in sessions[:OBS_TRACED]]
+    det["session_trace"] = {s: [span_tree(sp) for sp in state.session_trace(s)] for s in traced}
+    det["history"] = state.history_query()
+    det["history_points"] = {s: state.history_query(series=s)["points"]
+                             for s in state.history.series
+                             if s not in ("hv_compiles_total", "hv_recompiles_total")}
+    det["history"].pop("digest")  # it covers the compile series too
+    before = durable_fingerprint(state)
+    det["fingerprint"] = before
+
+    # ── the repair rung: a σ out of range ────────────────────────────
+    det["sigma_corruption"] = obs_corrupt(state, 21, OBS_SIGMA)
+    sync()
+    t0 = time.perf_counter_ns()
+    det["repair_report"] = plane.sanitize()
+    sync()
+    out["repair_ms"] = (time.perf_counter_ns() - t0) / 1e6
+    require(det["repair_report"]["repaired_rows"] >= 1 and not det["repair_report"]["restored"],
+            f"observability: the σ corruption was not repaired: {det['repair_report']}")
+    drain("repaired")
+    require(det["drains"][-1][1]["gauges"][mp.INTEGRITY_VIOLATION_ROWS.index] == 0,
+            "observability: the repair's recheck still sees violating rows")
+    det["integrity_after_repair"] = state.integrity_summary()
+
+    # ── the restore rung: an FSM code ────────────────────────────────
+    det["fsm_corruption"] = obs_corrupt(state, 13, OBS_FSM)
+    sync()
+    t0 = time.perf_counter_ns()
+    with timed_recovery_stages(sync) as stages:
+        det["restore_report"] = plane.sanitize()
+    sync()
+    out["restore_ms"] = (time.perf_counter_ns() - t0) / 1e6
+    out["recover_stages_ms"] = stages
+    require(det["restore_report"]["restored"], f"observability: the FSM corruption did not "
+                                               f"restore: {det['restore_report']}")
+    restored = sup.state
+    require(restored is not state and restored.device == state.device,
+            "observability: the restore must rebuild the state on its own device")
+    out["recover_wall_ms"] = sup.last_restore["wall_ms"]
+    diff = first_difference("restored", durable_fingerprint(restored), before)
+    require(diff is None, f"observability: the restored state differs from the uninterrupted "
+                          f"history at {diff}")
+    sample = ([int(s) for s in sessions[:DUR_VERIFY_SAMPLE]]
+              + [int(s) for s in restored._audit_rows if s < N_SESSIONS][:DUR_VERIFY_SAMPLE])
+    verified = [restored.verify_session_chain(s) for s in sample]
+    require(all(verified), f"observability: chain checks failed after the restore: {verified}")
+    leaves = u32.to_numpy_u32(restored.delta_log.digest[:BIG_TREE_LEAVES])
+    root = merkle.tree_roots_host(leaves[None], np.array([BIG_TREE_LEAVES], np.int32), device)
+    require(digests_to_hex(root)[0] == merkle.merkle_root_host(digests_to_hex(leaves)),
+            "observability: the restored DeltaLog's big tree != hashlib")
+    drain("restored")
+    out["window"] = kernels.launch_counts()
+    det["integrity_after_restore"] = restored.integrity_summary()
+    det["supervisor"] = supervisor_accounting(sup)
+    det["incidents"] = {tag: st.incidents_summary() for tag, st in (("live", state),
+                                                                     ("restored", restored))}
+    for summary in det["incidents"].values():
+        for row in summary["last"]:
+            row.pop("bytes")  # bundle sizes count wall times in their trace blocks
+    det["incident_rules"] = [
+        {k: st.incident_bundle(row["id"])[k] for k in ("id", "class", "kind", "seq", "rule")}
+        for st, summary in ((state, det["incidents"]["live"]),
+                            (restored, det["incidents"]["restored"])) for row in summary["last"]]
+    det["bus"] = [e.event_type.value for e in hv.event_bus.all_events]
+    det["conservation"] = [st.history.verify_conservation()["ok"] for st in (state, restored)]
+    require(all(det["conservation"]), "observability: a history plane broke conservation")
+    det["chain_checks"] = verified
+    return out
+
+
+def obs_timings(device, workdir) -> dict:
+    """The observability planes' costs on the card (no limit set for any):
+    the drain, fresh and refreshing, each profiled once for its device
+    waits and ops; `to_prometheus`; `health_summary`; the compile watch's
+    key, the watchdog and the plane's cadence hook per dispatch; a scrub
+    tick; the repair rung; the facade wave under each of
+    `OBS_WAVE_VARIANTS`, rotated over fresh states."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypervisor_tpu_torch import state as state_mod
+    from hypervisor_tpu_torch.integrity import IntegrityPlane
+
+    rec: dict = {}
+
+    def timed(fn, reps=OBS_REPS, reset=None) -> list:
+        samples = []
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter_ns() - t0) / 1e6)
+        return samples
+
+    def pcts(samples) -> dict:
+        return {"p50": float(np.percentile(samples, 50)), "p95": float(np.percentile(samples, 95)),
+                "n": len(samples)}
+
+    st = facade_state(device)
+    plane = IntegrityPlane(st, every=0, scrub_every=0, scrub_budget=SCRUB_BUDGET)
+    rng = np.random.RandomState(SEED + 60)
+    slots, dids, sigma, bodies, actions = prepare_facade_wave(st, rng, 0)
+    captured: dict = {}
+    real_fn = state_mod._WAVE._fn
+
+    def capture(*a, **k):
+        captured.update(args=a, kwargs=k)
+        return real_fn(*a, **k)
+
+    state_mod._WAVE._fn = capture
+    try:
+        st.run_governance_wave(slots, dids, slots, sigma, bodies, now=0.0, actions=actions)
+    finally:
+        state_mod._WAVE._fn = real_fn
+    require(st._gauges_fresh, "observability: the facade wave must leave its gauges fresh")
+
+    def stale():
+        st._gauges_fresh = False
+
+    table = st.metrics.table
+    rec["drain_bytes"] = sum(t.numel() * t.element_size()
+                             for t in (table.counters, table.gauges, table.hist, table.hist_sum))
+    rec["drain_fresh_ms"] = pcts(timed(st.metrics_snapshot))
+    rec["drain_refreshing_ms"] = pcts(timed(st.metrics_snapshot, reset=stale))
+    def profiled(fn, reps: int) -> tuple[dict, dict]:
+        """(waits on the device, device ops) the profiler records over
+        `reps` calls of fn (one short call alone can lose its device
+        records)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+        waits, device_ops = {}, {}
+        for e in p.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                device_ops[e.key[:80]] = device_ops.get(e.key[:80], 0) + e.count
+            elif "Synchronize" in e.key or e.key in ("cudaMemcpy", "cudaStreamWaitEvent"):
+                waits[e.key] = waits.get(e.key, 0) + e.count
+        return waits, device_ops
+
+    # The profiler's own waits (its stop synchronises the device), from an
+    # empty window, come off the drains' count.
+    base_waits, _ = profiled(lambda: None, 1)
+    rec["drain_profile"] = {"profiler_own_waits": base_waits, "drains": OBS_REPS}
+    for tag, reset in (("fresh", lambda: setattr(st, "_gauges_fresh", True)), ("refreshing", stale)):
+        def drain():
+            reset()
+            st.metrics_snapshot()
+
+        waits, device_ops = profiled(drain, OBS_REPS)
+        own = {k: n - base_waits.get(k, 0) for k, n in waits.items() if n - base_waits.get(k, 0)}
+        rec["drain_profile"][tag] = {"waits": own, "device_ops": device_ops}
+        require(sum(own.values()) == OBS_REPS,
+                f"observability: each {tag} drain must wait on the device once: {waits} over "
+                f"{OBS_REPS} drains (the profiler's own: {base_waits})")
+    fresh = rec["drain_profile"]["fresh"]
+    require(fresh["device_ops"] and all("Memcpy DtoH" in k for k in fresh["device_ops"]),
+            f"observability: a fresh drain runs device ops besides its copies: "
+            f"{fresh['device_ops']}")
+    snap = st.metrics_snapshot()
+    rec["to_prometheus_ms"] = pcts(timed(snap.to_prometheus))
+    rec["exposition_bytes"] = len(snap.to_prometheus())
+    rec["health_summary_ms"] = pcts(timed(st.health_summary))
+
+    # The compile watch keys every dispatch's abstract signature (the
+    # port has no jit cache); the watchdog reads its stage's histogram.
+    watch = state_mod._WAVE
+    t0 = time.perf_counter_ns()
+    for _ in range(200):
+        watch._sig_key(captured["args"], captured["kwargs"])
+    rec["compile_watch_key_us"] = (time.perf_counter_ns() - t0) / 200 / 1e3
+    record = st.tracer.last_closed
+    t0 = time.perf_counter_ns()
+    for _ in range(2000):
+        st.health.observe_wave(record)
+    rec["watchdog_us"] = (time.perf_counter_ns() - t0) / 2000 / 1e3
+
+    rec["scrub_tick_ms"] = pcts(timed(plane.scrub_tick))
+    # The sanitizer's pass on its own (the plane's non-fused cadence:
+    # the same checks the fused wave folds in, queued with no read-back).
+    rec["sanitizer_pass_ms"] = pcts(timed(plane._run_check))
+    rec["scrub_budget"] = SCRUB_BUDGET
+    repairs = []
+    for i in range(OBS_RUNG_REPS):
+        obs_corrupt(st, 100 + i, OBS_SIGMA)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        report = plane.sanitize()
+        torch.cuda.synchronize()
+        repairs.append((time.perf_counter_ns() - t0) / 1e6)
+        require(report["repaired_rows"] >= 1, f"observability: repair rung {i}: {report}")
+    rec["repair_rung_ms"] = {"samples": repairs, **pcts(repairs)}
+
+    # The plane's cadence hook alone, when nothing is due.
+    t0 = time.perf_counter_ns()
+    for _ in range(2000):
+        plane.on_dispatch("governance_wave", fused=True)
+    rec["cadence_hook_us"] = (time.perf_counter_ns() - t0) / 2000 / 1e3
+    del st, plane
+
+    # The facade wave under each of the plane's variants, split: none
+    # attached, the fused sanitizer alone, a scrub tick alone, both. A
+    # fresh state holds three waves; wave w of state i takes variant
+    # (i + w) mod 4, so each variant meets each wave position equally.
+    # Each sample starts after a full garbage collection.
+    times: dict = {k: [] for k in OBS_WAVE_VARIANTS}
+    positions: dict = {k: [] for k in OBS_WAVE_VARIANTS}
+    names = list(OBS_WAVE_VARIANTS)
+    build_ms = []
+    for i in range(OBS_WAVE_STATES):
+        t0 = time.perf_counter_ns()
+        st = facade_state(device)
+        plane = IntegrityPlane(st, every=0, scrub_every=0, scrub_budget=SCRUB_BUDGET)
+        build_ms.append((time.perf_counter_ns() - t0) / 1e6)
+        wave_rng = np.random.RandomState(SEED + 70 + i)
+        for w in range(OBS_WAVES):
+            name = names[(i + w) % len(names)]
+            cadence = OBS_WAVE_VARIANTS[name]
+            st.integrity = None if cadence is None else plane
+            if cadence is not None:
+                plane.every, plane.scrub_every = cadence
+            args = prepare_facade_wave(st, wave_rng, w)
+            gc.collect()  # the states before leave their garbage out of the sample
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            st.run_governance_wave(args[0], args[1], args[0], args[2], args[3], now=float(w),
+                                   actions=args[4])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter_ns() - t0) / 1e6)
+            positions[name].append(w)
+        fused = sum((OBS_WAVE_VARIANTS[names[(i + w) % len(names)]] or (0, 0))[0]
+                    for w in range(OBS_WAVES))
+        require(plane.checks == fused, f"observability: state {i}'s sanitizer ran "
+                                       f"{plane.checks} times, not {fused}")
+        del st, plane
+    rec["state_build_ms"] = pcts(build_ms)
+    rec["wave_ms"] = {k: {"samples": v, "positions": positions[k], **pcts(v)}
+                      for k, v in times.items()}
+    rec["wave_p50_over_bare_ms"] = {k: rec["wave_ms"][k]["p50"] - rec["wave_ms"]["bare"]["p50"]
+                                    for k in names if k != "bare"}
+    return rec
+
+
+def run_observability(device, workdir) -> dict:
+    """The observability phase: the sequence on `device` under the launch
+    window (its dispatches under torch.profiler), the same sequence on the
+    CPU, which must give the same deterministic record, and the costs on
+    the card. Returns the records `main` checks and prints."""
+    clock = [1_767_225_600.0]
+    with manual_ids_and_time(clock):
+        card = observability_sequence(device, workdir, profile_census=True)
+    rec = dict(card)
+    t0 = time.perf_counter()
+    clock[0] = 1_767_225_600.0
+    with manual_ids_and_time(clock):
+        cpu = observability_sequence("cpu", workdir, profile_census=False)
+    rec["cpu_s"] = time.perf_counter() - t0
+    diff = first_difference("observability", cpu["det"], card["det"])
+    require(diff is None, f"observability: the CPU run differs from the card at {diff}")
+    del cpu, card
+    rec["timing"] = obs_timings(device, workdir)
     return rec
 
 
@@ -2249,7 +2825,7 @@ def run_saga_sequence(device):
         require(state.tracer.cursor == int(state.tracer.table.cursor),
                 "saga path: the tracer's cursor mirror disagrees with the device")
         rec = {"tables": to_state_arrays(StateTables(
-            state.agents, state.sessions, state.vouches, state.metrics, sagas=state.sagas))}
+            state.agents, state.sessions, state.vouches, state.metrics.table, sagas=state.sagas))}
         rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
         rec["results"] = {f"{k}": v for k, v in sched.results.items()}
         rec["errors"] = {f"{k}": v for k, v in sched.errors.items()}
@@ -2337,7 +2913,7 @@ def run_slash_sequence(device):
         require(state.tracer.cursor == int(state.tracer.table.cursor),
                 "slash path: the tracer's cursor mirror disagrees with the device")
         rec = {"returned": out, "rows": rows, "tables": to_state_arrays(StateTables(
-            state.agents, state.sessions, state.vouches, state.metrics))}
+            state.agents, state.sessions, state.vouches, state.metrics.table))}
         rec["tables"]["trace.words"] = state.tracer.table.words.cpu().numpy()
     return rec, launches, state, pre
 
@@ -2367,7 +2943,7 @@ def path_calls(saga_state, saga_initial, slash_state, slash_pre) -> dict:
     sigma = pre_agents.sigma_eff.contiguous()
     first = torch.zeros(sigma.shape, dtype=torch.bool, device=sigma.device)
     first[vouchee] = True
-    kw = tally_kw(liab_kernels.slash_cascade, slash_state.metrics.counters)
+    kw = tally_kw(liab_kernels.slash_cascade, slash_state.metrics.table.counters)
 
     def restore_sagas():
         copy_into(saga_state.sagas, saga_initial)
@@ -2581,13 +3157,14 @@ def main(argv=None) -> int:
     lanes = state.stage_wave(agent_slots, dids, session_slots, sigma, bodies)
     require(lanes["unique_sessions"] and lanes["wave_range"] == (0, N_SESSIONS),
             "bench staging must take the unique-sessions, wave-range layout")
-    pristine = {k: clone(getattr(state, k)) for k in ("agents", "sessions", "vouches", "metrics")}
+    live = {"agents": state.agents, "sessions": state.sessions, "vouches": state.vouches,
+            "metrics": state.metrics.table}
+    pristine = {k: clone(t) for k, t in live.items()}
 
     def restore(dst: dict, src: dict) -> None:
         for k, t in src.items():
             copy_into(dst[k], t)
 
-    live = {k: getattr(state, k) for k in pristine}
     n_cap = state.agents.i32.shape[0]
     slot_t, sess_t = lanes["slot"], lanes["session_slot"]
     target = torch.full((n_cap,), -2, dtype=torch.int32, device=dev)
@@ -2663,7 +3240,7 @@ def main(argv=None) -> int:
     b7_pristine = {k: torch.from_numpy(np.array(b7_table[k], copy=True)).to(dev) for k in SAGA_COLS}
     b7_cols = {k: t.clone() for k, t in b7_pristine.items()}
     b7_outcomes = torch.from_numpy(saga_ops.pack_outcomes(*b7_table["masks"])).to(dev)
-    b7_counters = torch.zeros(state.metrics.counters.shape, dtype=torch.int32, device=dev)
+    b7_counters = torch.zeros(state.metrics.table.counters.shape, dtype=torch.int32, device=dev)
 
     def restore_b7():
         for k, t in b7_pristine.items():
@@ -3082,7 +3659,7 @@ def main(argv=None) -> int:
     # and on the CPU; all six outputs, and the metrics counters riding in
     # with the tally rows seeded at 0xFFFFFFF0, so the round's counts wrap
     # them past 2^32.
-    n_counters = state.metrics.counters.shape[0]
+    n_counters = state.metrics.table.counters.shape[0]
 
     def seeded_counters(rows, d):
         c = np.zeros(n_counters, np.uint32)
@@ -4024,6 +4601,51 @@ def main(argv=None) -> int:
          wave_ms=dur["wave_ms"], wal_bytes_per_wave=dur["wal_bytes_per_wave"], nvidia_smi=smi,
          clock="host, synchronised; waves each on a fresh state, journaled and unjournaled "
                "in turns; the WAL fsyncs every record")
+
+    # ── 14. observability: the drain, health, hindsight, integrity, ──
+    # the supervisor
+    obs_dir = tempfile.mkdtemp(prefix="hv_observability_")
+    try:
+        t0 = time.perf_counter()
+        obs = run_observability(dev, obs_dir)
+        obs_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    window = {k: n for k, n in obs["window"].items() if n}
+    require(set(window) == set(OUR_KERNELS),
+            f"observability: the window must launch every kernel of the main path and no "
+            f"other: {window}")
+    obs_named = {k: sum(n for name, n in obs["census"].items() if sub in name)
+                 for k, sub in OUR_KERNELS.items()}
+    require(all(obs_named.values()),
+            f"observability: the profiler's census must name every kernel: {obs_named}")
+    unnamed = {name: n for name, n in obs["census"].items()
+               if not any(sub in name for sub in OUR_KERNELS.values())
+               and not any(t in name for t in TORCH_KERNELS)}
+    require(not unnamed, f"observability: device ops neither the port's nor torch's: {unnamed}")
+    windows["observability"] = obs["window"]
+    det = obs["det"]
+    emit("observability", seconds=obs_s, capacity=FACADE_CAPACITY, waves=OBS_WAVES,
+         sessions_per_wave=N_SESSIONS, actions_per_wave=N_ACTIONS,
+         cadence={"sanitize_every": OBS_EVERY, "scrub_every": OBS_SCRUB_EVERY,
+                  "checkpoint_every": OBS_CHECKPOINT_EVERY, "scrub_budget": SCRUB_BUDGET},
+         launches=window, census_ours=obs_named, census_device_ops=sum(obs["census"].values()),
+         dispatch_ms=obs["dispatch_ms"], drains=len(det["drains"]),
+         checks=det["integrity_after_restore"]["sampling"]["checks"],
+         slash_chaos=det["slash_chaos"], repair=det["repair_report"],
+         restore={k: v for k, v in det["restore_report"].items() if k != "violations"},
+         repair_rung_ms=obs["repair_ms"], restore_rung_ms=obs["restore_ms"],
+         restore_rung_recover_ms=obs["recover_wall_ms"],
+         restore_rung_recover_stages_ms=obs["recover_stages_ms"],
+         degraded_from_drain=det["degraded_from"], mode_at_drain=det["mode_at_drain"],
+         dispatch_modes=det["dispatch_modes"],
+         supervisor=det["supervisor"]["dispatch"], degraded=det["supervisor"]["degraded"],
+         restores=det["supervisor"]["restores"], checkpoint=det["supervisor"]["checkpoint"],
+         incidents={k: v["captured"] for k, v in det["incidents"].items()},
+         bus=sorted(set(det["bus"])), cpu_s=obs["cpu_s"], cpu_run="identical",
+         restored="equal to the uninterrupted history", timing=obs["timing"], nvidia_smi=smi,
+         clock="host; rungs, drains, summaries and waves synchronised; the drain and the "
+               "wave timings on fresh states; the compile watch and watchdog per call")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

@@ -33,11 +33,9 @@ WriteWave` on the state's device. Not ported yet, each refused with a
 message naming a later slice of the port: `attach_front_door` /
 `serving_scheduler` (the serving plane) and `consistency_runtime` (the
 multi-device plane). With an event bus the
-facade emits its own events, but the health plane's events and the
-incident bundle's event slice (`_on_health_event`,
-`_incident_events_block`) are not registered: the port has no health
-monitor or incident recorder yet, and so no `_gauges_fresh` mark either.
-Host-plane counters go to `state.host_metrics`.
+facade emits its own events and bridges the health plane's onto it
+(`_on_health_event`), and incident bundles carry the bus's slice
+(`_incident_events_block`).
 """
 
 from __future__ import annotations
@@ -259,9 +257,18 @@ class Hypervisor:
         # Optional structured event emission (facade-wired, unlike reference).
         self.event_bus = event_bus
         self._events_mirrored = 0
-        # The health-plane bridge (`_on_health_event`) and the incident
-        # bundle's event slice (`_incident_events_block`) register here
-        # once the port has a health monitor and an incident recorder.
+        # Health-plane events (stragglers, capacity warnings,
+        # recompiles) bridge onto the same bus: the straggler payload
+        # carries the wave's CausalTraceId, so `GET /trace/{session}`
+        # joins the event onto the stalled wave's spans.
+        if self.event_bus is not None:
+            self.state.health.add_listener(self._on_health_event)
+            # Incident bundles carry an event-bus slice; the bus lives
+            # on the facade (not the state), so its context provider
+            # registers here (`observability.incidents`).
+            self.state.incidents.register_provider(
+                "events", self._incident_events_block
+            )
 
         self._sessions: dict[str, ManagedSession] = {}
         # Keyed by Mesh (hashable): same mesh -> same runtime instance.
@@ -1032,7 +1039,7 @@ class Hypervisor:
             if (f.session_id, f.members) not in self._collusion_charged
         }
         if fresh_keys:
-            self.state.host_metrics.inc(
+            self.state.metrics.inc(
                 metrics_plane.COLLUSION_FINDINGS, len(fresh_keys)
             )
         for finding in findings:
@@ -1479,7 +1486,7 @@ class Hypervisor:
                 - self._cascade_dedupes_mirrored
             )
             if new_dedupes > 0:
-                self.state.host_metrics.inc(
+                self.state.metrics.inc(
                     metrics_plane.CASCADE_DEDUPED, new_dedupes
                 )
                 self._cascade_dedupes_mirrored = (
@@ -1733,6 +1740,9 @@ class Hypervisor:
         )
         if not len(codes):
             return 0
+        # Device-ring mutation outside the journal gate: staleness-mark
+        # the fused-epilogue gauges so the next drain refreshes.
+        self.state._gauges_fresh = False
         self.state.event_log.append_batch(codes, sess, agents, traces, stamps, spans)
         # The metrics-plane twin of the EventLog cursor: every mirrored
         # row counts once, so the two planes can be cross-checked
@@ -1741,7 +1751,7 @@ class Hypervisor:
         # here would buy nothing the snapshot merge doesn't provide.
         from hypervisor_tpu_torch.observability import metrics as metrics_plane
 
-        self.state.host_metrics.inc(metrics_plane.EVENTS_MIRRORED, len(codes))
+        self.state.metrics.inc(metrics_plane.EVENTS_MIRRORED, len(codes))
         self._events_mirrored += len(codes)
         return len(codes)
 

@@ -28,6 +28,7 @@ bounded cadence without stalling the wave path. Each tick:
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -37,10 +38,21 @@ from hypervisor_tpu_torch import u32
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 
 
-class MerkleScrubber:
-    """One deployment's chain scrubber over a `state.HypervisorState`."""
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    try:
+        return int(raw) if raw is not None else default
+    except ValueError:
+        return default
 
-    def __init__(self, state, budget: int = 64) -> None:
+
+class MerkleScrubber:
+    """One deployment's chain scrubber over a `state.HypervisorState`
+    (owned by the IntegrityPlane). `budget` defaults to `HV_SCRUB_BUDGET`
+    (64)."""
+
+    def __init__(self, state, budget: Optional[int] = None) -> None:
+        budget = budget if budget is not None else _env_int("HV_SCRUB_BUDGET", 64)
         if budget <= 0:
             raise ValueError("scrub budget must be positive")
         self.state = state
@@ -189,6 +201,16 @@ class MerkleScrubber:
             "position": self._pos,
             "sweep_size": self.sweep_size,
         }
+
+    def adopt_stats(self, other: "MerkleScrubber") -> None:
+        """Carry another scrubber's cumulative counters (the plane's
+        re-attach after a restore: sweep cursors reset, totals don't)."""
+        self.sweeps_completed = other.sweeps_completed
+        self.links_verified = other.links_verified
+        self.heads_verified = other.heads_verified
+        self.stale_skipped = other.stale_skipped
+        self.mismatches = other.mismatches
+        self.last_mismatch = other.last_mismatch
 
     def summary(self) -> dict:
         return {

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -109,13 +110,21 @@ def build_all() -> dict[str, str]:
     return reports
 
 
+#: Cumulative wall clock, ms, spent building and loading libraries at
+#: first use (the health plane's compile telemetry reads it).
+load_wall_ms = 0.0
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it if needed."""
+    global load_wall_ms
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
+        load_wall_ms += (time.perf_counter() - t0) * 1e3
     return lib
 
 

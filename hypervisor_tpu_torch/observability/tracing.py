@@ -1,6 +1,5 @@
-"""Flight recorder: the trace ring's stamps and the host span
-reconstruction (`hypervisor_tpu.observability.tracing`, without its
-exporters and health watchdog).
+"""Flight recorder: the trace ring's stamps, the host span reconstruction
+and its export (`hypervisor_tpu.observability.tracing`).
 
 Three pieces:
 
@@ -14,10 +13,14 @@ Three pieces:
     bracket around the dispatch, and host-mirrored stamp rows for the
     dispatches that stamp on the host (`stamp_wave_host`, from the same
     `WAVE_CHILD_STAGES` rule set the in-wave stamps follow).
-  * **Reconstruction** — `drain()` copies the ring to the host once,
-    merges both planes, joins rows to the wave index, and rebuilds
+  * **Reconstruction + export** — `drain()` copies the ring to the host
+    once, merges both planes, joins rows to the wave index, and rebuilds
     parent/child spans (a stack walk over the seq order; stamp times
-    interpolate inside the host-measured bracket).
+    interpolate inside the host-measured bracket). Exporters render
+    Chrome `trace_event` JSON (loadable in Perfetto) and an OTLP-lite
+    JSON form; `attach_bus_events` joins host event-bus rows onto spans
+    via the shared device-key words. Every closed bracket is offered to
+    the health plane's watchdog (`Tracer.health`).
 
 The sample bit is resolved on the host and the context is plain Python
 values: there is no jit here, so nothing needs to be traced.
@@ -106,6 +109,11 @@ class TraceContext(NamedTuple):
     wave_seq: int  # host wave sequence number
     sampled: bool  # head-based sample bit
 
+    def child(self, stage_name: str) -> "TraceContext":
+        """Context for a nested op: same wave, span re-rooted at the
+        stage's derived word (the nested op then stamps uniformly)."""
+        return self._replace(span=child_span_word(self.span, STAGE_ID[stage_name]))
+
 
 class WaveStamps:
     """Stamp builder for one op's rows: `begin`/`end` record structural
@@ -180,6 +188,7 @@ class Span:
     end_us: float
     wave_seq: int
     children: list["Span"] = dataclasses.field(default_factory=list)
+    events: list[dict] = dataclasses.field(default_factory=list)
 
     def walk(self) -> Iterable["Span"]:
         yield self
@@ -230,13 +239,24 @@ class Tracer:
         self._max_waves = int(max_waves)
         # Host-plane stamp rows: (wave_seq, seq, trace, span, stage, kind, lane).
         self._host_rows: list[tuple[int, int, int, int, int, int, int]] = []
+        # µs clock: monotonic for brackets, unix anchor for OTLP export.
         self._perf0 = time.perf_counter()
+        self._unix0 = time.time()
         self.table: Optional[TraceLog] = (
             TraceLog.create(self.capacity, device) if self.enabled else None
         )
+        #: Most recently closed wave bracket.
+        self.last_closed: Optional[WaveRecord] = None
+        #: The wave watchdog (`observability.health.HealthMonitor`): every
+        #: closed bracket is offered to it, outside the tracer's lock.
+        self.health = None
 
     def _now_us(self) -> float:
         return (time.perf_counter() - self._perf0) * 1e6
+
+    def unix_us(self, us: float) -> float:
+        """Tracer-clock µs -> unix µs (the OTLP export anchor)."""
+        return self._unix0 * 1e6 + us
 
     # ── wave bracket ─────────────────────────────────────────────────
 
@@ -291,8 +311,12 @@ class Tracer:
                 if handle.record.sampled:
                     self.cursor += stamp_count(handle.record.stage)
             self._waves[handle.record.wave_seq] = handle.record
+            self.last_closed = handle.record
             while len(self._waves) > self._max_waves:
                 del self._waves[next(iter(self._waves))]
+        health = self.health
+        if health is not None:
+            health.observe_wave(handle.record)
 
     def stamp_wave_host(self, handle: Optional[WaveHandle]) -> None:
         """Mirror one dispatch's stamp rows on the host plane, from the
@@ -396,3 +420,215 @@ class Tracer:
         if root is not None:
             root.start_us, root.end_us = t0, t1
         return root
+
+    # ── queries ──────────────────────────────────────────────────────
+
+    def session_spans(self, session_slot: int) -> list[Span]:
+        """Reconstructed waves that touched this session slot."""
+        out = []
+        for span in self.drain():
+            record = self._waves.get(span.wave_seq)
+            if record is not None and session_slot in record.sessions:
+                out.append(span)
+        return out
+
+    def flight_summary(self, last: int = 32) -> dict:
+        """The /debug/flight payload: recorder state + recent waves."""
+        with self._lock:
+            records = [
+                self._waves[k] for k in sorted(self._waves)[-last:]
+            ]
+            cursor = self.cursor if self.table is not None else 0
+        return {
+            "enabled": self.enabled,
+            "sample_rate": self.sample_rate,
+            "ring_capacity": self.capacity,
+            "ring_cursor": cursor,
+            "waves_indexed": len(self._waves),
+            "next_wave_seq": self._next_wave,
+            "recent_waves": [
+                {
+                    "wave_seq": r.wave_seq,
+                    "trace_id": r.trace.full_id,
+                    "stage": f"hv.{r.stage}",
+                    # Bounded payload: a bench wave names 10k slots.
+                    "sessions": [int(s) for s in r.sessions[:16]],
+                    "n_sessions": int(r.sessions.size),
+                    "lanes": r.lanes,
+                    "sampled": r.sampled,
+                    "mode": r.mode,
+                    "duration_us": round(max(r.t1_us - r.t0_us, 0.0), 1),
+                }
+                for r in records
+            ],
+        }
+
+
+# ── joins ────────────────────────────────────────────────────────────
+
+
+def attach_bus_events(spans: list[Span], bus, session_id=None, events=None) -> int:
+    """Join host event-bus rows onto spans via the device-key words.
+
+    An event whose `causal_trace_id` keys to a span's (trace, span)
+    word pair lands on that span; a trace-word-only match lands on the
+    wave's root span. Returns the number of events attached. `events`
+    overrides the bus query — the trace endpoint uses it to join
+    session-less health events (stragglers carry only the wave's trace
+    id) onto the session's waves.
+    """
+    from hypervisor_tpu_torch.observability.causal_trace import device_key_of
+
+    by_word: dict[tuple[int, int], Span] = {}
+    roots_by_trace: dict[int, Span] = {}
+    for root in spans:
+        root_trace_w = fnv1a32(root.trace_id)
+        roots_by_trace.setdefault(root_trace_w, root)
+        for span in root.walk():
+            by_word[(root_trace_w, span.span_word)] = span
+    attached = 0
+    if events is None:
+        events = (
+            bus.query(session_id=session_id) if session_id else bus.all_events
+        )
+    for event in events:
+        t_w, s_w = device_key_of(event.causal_trace_id)
+        target = by_word.get((t_w, s_w)) or roots_by_trace.get(t_w)
+        if target is None:
+            continue
+        target.events.append(
+            {
+                "name": event.event_type.value,
+                "ts_us": event.timestamp.timestamp() * 1e6,
+                "session_id": event.session_id,
+                "agent_did": event.agent_did,
+            }
+        )
+        attached += 1
+    return attached
+
+
+# ── exporters ────────────────────────────────────────────────────────
+
+
+def to_chrome_trace(spans: list[Span], tracer: Optional[Tracer] = None) -> dict:
+    """Chrome `trace_event` JSON (the Perfetto/about:tracing format).
+
+    Complete "X" duration events, one track (tid) per wave; span events
+    become "i" instant events on the same track.
+    """
+    events: list[dict] = [
+        {
+            "name": "process_name",
+            "ph": "M",
+            "pid": 1,
+            "args": {"name": "hypervisor_tpu_torch"},
+        }
+    ]
+    for root in spans:
+        for span in root.walk():
+            events.append(
+                {
+                    "name": span.name,
+                    "cat": "hv",
+                    "ph": "X",
+                    "ts": round(span.start_us, 3),
+                    "dur": round(max(span.end_us - span.start_us, 0.0), 3),
+                    "pid": 1,
+                    "tid": span.wave_seq,
+                    "args": {
+                        "trace_id": span.trace_id,
+                        "span": f"{span.span_word:08x}",
+                        "parent_span": (
+                            f"{span.parent_span_word:08x}"
+                            if span.parent_span_word is not None
+                            else None
+                        ),
+                    },
+                }
+            )
+            for ev in span.events:
+                events.append(
+                    {
+                        "name": ev["name"],
+                        "cat": "hv.event",
+                        "ph": "i",
+                        "s": "t",
+                        "ts": round(span.start_us, 3),
+                        "pid": 1,
+                        "tid": span.wave_seq,
+                        "args": {
+                            k: v for k, v in ev.items() if k != "name"
+                        },
+                    }
+                )
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def to_otlp(spans: list[Span], tracer: Optional[Tracer] = None) -> dict:
+    """OTLP-lite JSON: the `resourceSpans` shape OTLP/HTTP JSON uses,
+    ids hex-padded to OTLP widths, times in unix nanoseconds (anchored
+    to the tracer's unix clock when one is supplied)."""
+
+    def unix_ns(us: float) -> int:
+        if tracer is not None:
+            return int(tracer.unix_us(us) * 1e3)
+        return int(us * 1e3)
+
+    otlp_spans: list[dict] = []
+    for root in spans:
+        trace_hex = root.trace_id.rjust(32, "0")[:32]
+        for span in root.walk():
+            otlp_spans.append(
+                {
+                    "traceId": trace_hex,
+                    "spanId": f"{span.span_word:016x}",
+                    "parentSpanId": (
+                        f"{span.parent_span_word:016x}"
+                        if span.parent_span_word is not None
+                        else ""
+                    ),
+                    "name": span.name,
+                    "kind": 1,  # SPAN_KIND_INTERNAL
+                    "startTimeUnixNano": unix_ns(span.start_us),
+                    "endTimeUnixNano": unix_ns(span.end_us),
+                    "attributes": [
+                        {
+                            "key": "hv.wave_seq",
+                            "value": {"intValue": span.wave_seq},
+                        },
+                        {
+                            "key": "hv.stage",
+                            "value": {"stringValue": span.stage},
+                        },
+                    ],
+                    "events": [
+                        {
+                            "name": ev["name"],
+                            "timeUnixNano": unix_ns(span.start_us),
+                        }
+                        for ev in span.events
+                    ],
+                    "status": {},
+                }
+            )
+    return {
+        "resourceSpans": [
+            {
+                "resource": {
+                    "attributes": [
+                        {
+                            "key": "service.name",
+                            "value": {"stringValue": "hypervisor_tpu_torch"},
+                        }
+                    ]
+                },
+                "scopeSpans": [
+                    {
+                        "scope": {"name": "hypervisor_tpu_torch.tracing"},
+                        "spans": otlp_spans,
+                    }
+                ],
+            }
+        ]
+    }

@@ -10,10 +10,9 @@ The counterpart of `hypervisor_tpu.resilience`:
   * `policy` — the degraded-mode policy and the admission-rate sybil
     damper the state enforces at its dispatch sites.
 
-The supervisor (retry with backoff, watermarked checkpoints on a
-cadence, the degraded-mode switch) listens to the health plane, which
-the port does not have yet: asking for `Supervisor` raises until it
-arrives (ROADMAP A4).
+  * `supervisor` — the retry ladder with backoff over injected chaos
+    faults, watermarked periodic checkpoints, the degraded-mode switch
+    driven by the health plane's events, and the restore rung.
 
 `policy` is a leaf module (`state.py` imports it for enforcement);
 `recovery` resolves lazily to avoid the state <-> recovery import cycle.
@@ -60,9 +59,7 @@ def __getattr__(name):
 
         return getattr(recovery, name)
     if name == "Supervisor":
-        raise NotImplementedError(
-            "resilience.Supervisor listens to the health plane "
-            "(`observability.health`), which the port has not ported yet: "
-            "it arrives with ROADMAP A4"
-        )
+        from hypervisor_tpu_torch.resilience.supervisor import Supervisor
+
+        return Supervisor
     raise AttributeError(name)

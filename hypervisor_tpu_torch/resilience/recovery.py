@@ -32,10 +32,9 @@ became observable, and the transition simply never happened. After
 recover, the device tables and audit chain heads are bit-identical to an
 uninterrupted run at the same committed prefix.
 
-The reference also announces a replay on its health plane
-(`wal_replayed`); the port's health plane arrives with ROADMAP A4, and
-until then the replay shows only in the `hv_wal_replayed_ops_total`
-host counter and the returned report.
+A replay publishes on the recovered deployment's own planes: the
+`hv_wal_replayed_ops_total` host counter and the health plane's
+`wal_replayed` event.
 """
 
 from __future__ import annotations
@@ -491,7 +490,17 @@ def recover(
         open_intents = s.open_intents
         replayed = replay(state, s.committed)
         if replayed:
-            state.host_metrics.inc(WAL_REPLAYED_OPS, replayed)
+            state.metrics.inc(WAL_REPLAYED_OPS, replayed)
+            state.health.emit_event(
+                "wal_replayed",
+                {
+                    "records": replayed,
+                    "watermark_seq": watermark,
+                    "open_intents_skipped": open_intents,
+                    "torn_tail_bytes": torn_bytes,
+                    "checkpoint": str(target),
+                },
+            )
         if attach_journal:
             state.journal = WriteAheadLog(wal_path)
     report = {

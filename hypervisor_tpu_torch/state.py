@@ -58,16 +58,28 @@ intent/commit bracket into an attached `resilience.WriteAheadLog`
 (`_journal`, the same op names and payloads as the reference, so one
 call sequence writes the same log bytes on both packages, and
 `resilience.recovery` replays either package's log); the dispatch sites
-consult a fault injector before any mutation (`_predispatch`); a
-degraded-mode policy sheds joins (`_shed_gate`) and pauses the fan-out,
-and the admission damper watches the join stream. The mesh path, the
-supervisor, the integrity plane (which arms the facade wave's sanitizer
-on its cadence) and the health plane's events arrive with later slices
-of the port.
+consult a fault injector before any mutation, then the integrity plane's
+cadence (`_predispatch`; on the facade wave a cadence hit folds the
+sanitizer into the wave); a degraded-mode policy sheds joins
+(`_shed_gate`) and pauses the fan-out, and the admission damper watches
+the join stream. An attached `resilience.Supervisor` retries injected
+faults and restores from its checkpoints.
+
+The observability planes, as in the reference: `metrics` is an
+`observability.metrics.Metrics` (the device table the waves add into,
+its host plane and the drain, `metrics_snapshot` / `metrics_prometheus`);
+the 13 stage timers bracket the dispatch sites and measure the host's
+enqueue; `health` is the watchdog over the tracer's bracket, occupancy
+and the compile watch around the module-level dispatch entries;
+`history` and `incidents` are the hindsight plane fed by the drain;
+`session_trace` / `flight_summary` drain the flight recorder. The mesh
+path arrives with a later slice of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import threading
 import time
 from typing import Optional, Sequence
@@ -80,12 +92,11 @@ from hypervisor_tpu_torch.audit.frontier import MerkleFrontier
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.kernels import wave as wave_kernels
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
+from hypervisor_tpu_torch.observability import health as health_plane
+from hypervisor_tpu_torch.observability import history as history_plane
+from hypervisor_tpu_torch.observability import incidents as incidents_plane
+from hypervisor_tpu_torch.observability import metrics as metrics_plane
 from hypervisor_tpu_torch.observability import tracing
-from hypervisor_tpu_torch.observability.metrics import (
-    ADMISSIONS_DAMPED,
-    ADMISSIONS_SHED,
-    HostCounters,
-)
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
@@ -98,7 +109,6 @@ from hypervisor_tpu_torch.resilience.policy import DegradedModeRefusal, SybilShe
 from hypervisor_tpu_torch.runtime import StagingQueue
 from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog
-from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
     AF32_BD_BREAKER_UNTIL,
     AF32_QUARANTINE_UNTIL,
@@ -143,6 +153,46 @@ class _NullTxn:
 
 
 _NULL_TXN = _NullTxn()
+
+
+def _comp_backlog_warn() -> int:
+    """Compensation backlog at/above which `saga_work` emits the
+    `comp_backlog` health event (the Supervisor's storm-pressure signal).
+    Read per call, so an environment set after import holds."""
+    try:
+        return int(os.environ.get("HV_COMP_BACKLOG_WARN", "16"))
+    except ValueError:
+        return 16
+
+
+# Every module-level dispatch entry is wrapped in compile telemetry
+# (`observability.health.instrument`), under the reference's program
+# names: the watch keys each call's abstract signature, times the novel
+# ones and names the argument that forced a recompile — all on the host.
+_ADMIT = health_plane.instrument("admit_batch", wave_kernels.admission_block)
+_SAGA_TICK = health_plane.instrument("saga_table_tick", saga_ops.saga_table_tick)
+_TERMINATE = health_plane.instrument("terminate_batch", terminate_ops.terminate_batch)
+# The fused wave's static surface, as in the reference: a change of any of
+# these (the sanitize variant among them) is a new signature.
+_WAVE_STATICS = ("unique_sessions", "trust", "breach", "rate_limit", "sanitize", "config")
+_WAVE = health_plane.instrument(
+    "governance_wave", pipeline.governance_wave, static_argnames=_WAVE_STATICS)
+_RECORD_CALLS = health_plane.instrument(
+    "record_calls", security_ops.record_calls, static_argnames=("config",))
+_SLASH = health_plane.instrument("slash_cascade", liability_ops.slash_cascade)
+_BREACH_SWEEP = health_plane.instrument(
+    "breach_sweep", security_ops.breach_sweep, static_argnames=("config",))
+_ELEV_EXPIRY = health_plane.instrument("elevation_expiry", security_ops.elevation_expiry)
+_QUAR_ENTER = health_plane.instrument("quarantine_enter", security_ops.quarantine_enter)
+_RATE_CONSUME = health_plane.instrument(
+    "rate_consume", rate_limit.consume, static_argnames=("config",))
+_QUAR_SWEEP = health_plane.instrument("quarantine_sweep", security_ops.quarantine_sweep)
+_FANOUT_ROUND = health_plane.instrument("fanout_round", saga_ops.fanout_round)
+_EFF_RINGS = health_plane.instrument("effective_rings", security_ops.effective_rings)
+_GATEWAY = health_plane.instrument(
+    "gateway_check_actions", gateway_ops.check_actions,
+    static_argnames=("breach", "rate_limit", "trust"))
+_UPDATE_GAUGES = health_plane.instrument("update_gauges", metrics_plane.update_gauges)
 
 
 def _config_payload(config: SessionConfig) -> dict:
@@ -211,13 +261,35 @@ class HypervisorState:
         self.vouches = VouchTable.create(cap.max_vouch_edges, self.device)
         self.sagas = SagaTable.create(cap.max_sagas, cap.max_steps_per_saga, self.device)
         self.elevations = ElevationTable.create(cap.max_elevations, self.device)
-        self.metrics = MetricsTable.create(device=self.device)
-        #: Host-plane counters (the facade's collusion, cascade-dedupe and
-        #: event-mirror tallies).
-        self.host_metrics = HostCounters()
         self.delta_log = DeltaLog.create(cap.delta_log_capacity, self.device)
         self.event_log = EventLog.create(cap.event_log_capacity, self.device)
-        self.tracer = Tracer(capacity=cap.trace_log_capacity, device=self.device)
+        # The metrics plane: the device table the waves add into (in
+        # place), its host plane, and the drain (`metrics_snapshot`, the
+        # one read, outside every wave).
+        self.metrics = self._make_metrics()
+        # The flight recorder: the TraceLog ring the waves stamp and the
+        # host bracket around every dispatch. HV_TRACE=0 disables it.
+        self.tracer = self._make_tracer(cap.trace_log_capacity)
+        # The health plane: the wave watchdog (deadlines from the stages'
+        # own host-plane latency histograms) on the tracer's bracket, the
+        # occupancy high-water and warn accounting, and the event fan-out
+        # the facade bridges onto the event bus.
+        self.health = health_plane.HealthMonitor(self.metrics)
+        self.tracer.health = self.health
+        # The hindsight plane: the tiered history fed from the drain's
+        # snapshot, and the incident recorder on the health fan-out.
+        # `hindsight_clock` (callable -> float) overrides their clock, so
+        # a virtual-clock run replays its history and incident digests
+        # bit for bit; None = `now()`.
+        self.hindsight_clock = None
+        self.history = history_plane.HistoryPlane(metrics=self.metrics)
+        self.incidents = incidents_plane.IncidentRecorder(
+            history=self.history, metrics=self.metrics, clock=self._hindsight_now,
+        )
+        self.incidents.emit = self.health.emit_event
+        self.health.add_listener(self.incidents.observe)
+        self.incidents.register_provider("wal", self._incident_wal_block)
+        self.incidents.register_provider("trace", self._incident_trace_block)
         self.agent_ids = InternTable()
         self.session_ids = InternTable()
         self.saga_ids = InternTable()
@@ -273,8 +345,9 @@ class HypervisorState:
         # (`testing.chaos.WaveChaosInjector`) consulted before any mutation,
         # the degraded-mode policy (joins shed, fan-out paused), swapped
         # whole under `_policy_lock` by whoever installs it, and the
-        # admission-rate sybil damper. The supervisor (`resilience`) and
-        # the integrity plane (`integrity`) stay None until ROADMAP A4.
+        # admission-rate sybil damper; the attached supervisor
+        # (`resilience.Supervisor`) and integrity plane
+        # (`integrity.IntegrityPlane`) publish themselves here.
         self.journal = None
         self.fault_injector = None
         self.degraded_policy = None
@@ -285,6 +358,20 @@ class HypervisorState:
         #: The WAL watermark a restored checkpoint carries: recovery
         #: replays the committed records past it.
         self._restored_wal_seq: Optional[int] = None
+        # Fused-epilogue gauge freshness: True only between a facade
+        # wave (its epilogue refreshed every occupancy gauge) and the
+        # NEXT mutation; `metrics_snapshot` then skips its refresh.
+        # Cleared at `_journal`, `_predispatch`, `sync_events_to_device`
+        # and the integrity repair.
+        self._gauges_fresh = False
+
+    def _make_metrics(self) -> metrics_plane.Metrics:
+        """Metrics-plane factory (the reference's override hook)."""
+        return metrics_plane.Metrics(device=self.device)
+
+    def _make_tracer(self, capacity: int) -> Tracer:
+        """Trace-plane factory (same hook as `_make_metrics`)."""
+        return Tracer(capacity=capacity, device=self.device)
 
     def now(self) -> float:
         """Seconds since this state's epoch — the f32-safe device time."""
@@ -301,7 +388,9 @@ class HypervisorState:
         Python scalars only, never a tensor. `build`, where given, makes
         the payload, and runs only when a journal is attached: the sites
         whose payload is a Python pass over a wave's lanes pay nothing
-        without one."""
+        without one. Any journaled mutation marks the epilogue's gauges
+        stale."""
+        self._gauges_fresh = False
         if self.journal is None:
             return _NULL_TXN
         return self.journal.txn(op, build() if build is not None else payload)
@@ -314,15 +403,23 @@ class HypervisorState:
         if inj is not None:
             inj.on_dispatch(stage)
 
-    def _predispatch(self, stage: str) -> None:
+    def _predispatch(self, stage: str, fused_sanitizer: bool = False) -> None:
         """The dispatch-site gate: the injector's raise or stall first
         (pre-mutation, retry-safe), then its scheduled real corruptions
-        (`testing.chaos.InjectedCorruption`: silent table damage). The
-        integrity plane's cadence hook joins here with ROADMAP A4."""
+        (`testing.chaos.InjectedCorruption`: silent table damage), then
+        the integrity plane's cadence hook (`IntegrityPlane.on_dispatch`:
+        a sampled sanitizer pass, a scrub tick, the settling of damage a
+        drain flagged). `fused_sanitizer`: the upcoming dispatch folds the
+        sanitizer into its own wave, so a cadence hit arms that instead
+        of queueing a pass of its own."""
+        self._gauges_fresh = False
         self._chaos(stage)
         inj = self.fault_injector
         if inj is not None and getattr(inj, "has_pending_corruptions", False):
             inj.apply_due_corruptions(self)
+        plane = self.integrity
+        if plane is not None:
+            plane.on_dispatch(stage, fused=fused_sanitizer)
 
     def _shed_gate(self, sigma_raw: Optional[float] = None) -> None:
         """Degraded-mode admission shedding (`resilience.policy`): a
@@ -334,7 +431,7 @@ class HypervisorState:
         if policy is None:
             return
         if policy.shed_admissions:
-            self.host_metrics.inc(ADMISSIONS_SHED)
+            self.metrics.inc(metrics_plane.ADMISSIONS_SHED)
             raise DegradedModeRefusal(
                 f"admission shed: degraded mode active ({policy.reason})"
             )
@@ -343,8 +440,8 @@ class HypervisorState:
             and sigma_raw is not None
             and sigma_raw < policy.admission_sigma_floor
         ):
-            self.host_metrics.inc(ADMISSIONS_SHED)
-            self.host_metrics.inc(ADMISSIONS_DAMPED)
+            self.metrics.inc(metrics_plane.ADMISSIONS_SHED)
+            self.metrics.inc(metrics_plane.ADMISSIONS_DAMPED)
             if self.admission_damper is not None:
                 self.admission_damper.note_damped()
             raise SybilShedRefusal(
@@ -354,9 +451,11 @@ class HypervisorState:
             )
 
     def resilience_summary(self) -> dict:
-        """The resilience plane's state without a supervisor (ROADMAP A4
-        brings the supervisor's summary): the mode, the active degraded
-        policy and the journal's status."""
+        """The supervisor's summary when one is attached; otherwise the
+        bare plane state: the mode, the active degraded policy and the
+        journal's status."""
+        if self.resilience is not None:
+            return self.resilience.summary()
         return {
             "enabled": False,
             "mode": "degraded" if self.degraded_policy is not None else "normal",
@@ -373,8 +472,11 @@ class HypervisorState:
         }
 
     def integrity_summary(self) -> dict:
-        """The integrity plane's summary: disabled until ROADMAP A4 ports
-        the plane."""
+        """The integrity plane's summary (sanitizer cadence, violation,
+        repair and restore accounting, scrub progress, the catalog), or
+        the bare plane state when none is attached."""
+        if self.integrity is not None:
+            return self.integrity.summary()
         return {"enabled": False}
 
     # ── sessions ─────────────────────────────────────────────────────
@@ -521,7 +623,7 @@ class HypervisorState:
             ring_bursts=self.config.rate_limit.ring_bursts,
             wave_range=_contiguous_range_host(wave_sessions),
             unique_sessions=bool(np.unique(seated).size == seated.size),
-            metrics=self.metrics,
+            metrics=self.metrics.table,
         )
 
     def governance_wave(self, *args, **kwargs) -> pipeline.WaveResult:
@@ -657,7 +759,7 @@ class HypervisorState:
         if pad_to is not None and (pad_to[0] < len(dids) or pad_to[1] < len(session_slots)):
             raise ValueError(f"pad_to {pad_to} below the wave shape ({len(dids)} lanes, "
                              f"{len(session_slots)} sessions)")
-        self._predispatch("governance_wave")
+        self._predispatch("governance_wave", fused_sanitizer=True)
         act = None if actions is None else self._normalize_actions(actions)
         with self._journal(
             "governance_wave",
@@ -703,24 +805,34 @@ class HypervisorState:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        # A sampled integrity check folds into this very wave (the plane's
+        # cadence armed it at `_predispatch`): the sanitizer runs as the
+        # epilogue's tail and its masks come back on the result.
+        plane = self.integrity
+        sanitize = plane is not None and plane.take_fused_due()
         audit_base_row = self._delta_cursor
-        result = pipeline.governance_wave(
-            self.agents, self.sessions, self.vouches,
-            put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
-            put(staged["sigma_raw"]), put(staged["trustworthy"]), put(staged["duplicate"]),
-            put(wave_sessions), u32.from_numpy_u32(staged["bodies"], dev), now, omega,
-            trust=self.config.trust, ring_bursts=self.config.rate_limit.ring_bursts,
-            wave_range=staged["range_host"], unique_sessions=staged["unique_sessions"],
-            metrics=self.metrics, trace=self.tracer.table,
-            trace_ctx=th.ctx if th is not None else None,
-            delta_log=self.delta_log, delta_cursor=audit_base_row,
-            lanes_valid=put(np.arange(b_wave) < b) if pad_to is not None else None,
-            n_sessions_valid=k if pad_to is not None else None,
-            elevations=self.elevations,
-            gateway_args=None if gateway_args is None else tuple(put(c) for c in gateway_args),
-            breach=self.config.breach, rate_limit=self.config.rate_limit,
-            epilogue_tables=(self.sagas, self.event_log), config=self.config,
-        )
+        with self.metrics.stage("governance_wave"):
+            result = _WAVE(
+                self.agents, self.sessions, self.vouches,
+                put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
+                put(staged["sigma_raw"]), put(staged["trustworthy"]), put(staged["duplicate"]),
+                put(wave_sessions), u32.from_numpy_u32(staged["bodies"], dev), now, omega,
+                trust=self.config.trust, ring_bursts=self.config.rate_limit.ring_bursts,
+                wave_range=staged["range_host"], unique_sessions=staged["unique_sessions"],
+                metrics=self.metrics.table, trace=self.tracer.table,
+                trace_ctx=th.ctx if th is not None else None,
+                delta_log=self.delta_log, delta_cursor=audit_base_row,
+                lanes_valid=put(np.arange(b_wave) < b) if pad_to is not None else None,
+                n_sessions_valid=k if pad_to is not None else None,
+                elevations=self.elevations,
+                gateway_args=(None if gateway_args is None
+                              else tuple(put(c) for c in gateway_args)),
+                breach=self.config.breach, rate_limit=self.config.rate_limit,
+                epilogue_tables=(self.sagas, self.event_log), sanitize=sanitize,
+                config=self.config,
+            )
+        if sanitize:
+            plane.absorb_fused(result.sanitizer)
         t = staged["bodies"].shape[0]
         if t:
             self._delta_cursor += k * t
@@ -739,6 +851,10 @@ class HypervisorState:
         self._publish_wave_members(staged["wave_keys"][ok].tolist(), agent_slots.tolist())
         if t:
             self._book_wave_audit(session_slots, u32.to_numpy_u32(result.chain), audit_base_row)
+        # The epilogue refreshed every occupancy gauge over the post-wave
+        # tables, and everything since was host bookkeeping: until the
+        # next mutation the drain can skip its refresh.
+        self._gauges_fresh = True
         if act is not None:
             return result, gw_result
         return result
@@ -946,19 +1062,20 @@ class HypervisorState:
                 "admission_wave", sessions=np.unique(session_slots[:n]), lanes=n)
             # The reference's admission wave ranks with the default trust
             # thresholds, whatever the state's config says.
-            status, _, _ = wave_kernels.admission_block(
-                self.agents, self.sessions, put(agent_slots), put(dids), put(session_slots),
-                put(sigma), None, 0.0, put(trustworthy.astype(bool)), put(duplicate), now,
-                self.config.rate_limit.ring_bursts,
-            )
-            b = len(agent_slots)
-            tally_admission(self.metrics, status == ADMIT_OK, b,
-                            None if valid is None else put(valid))
-            if th is not None:
-                stamps = tracing.WaveStamps(th.ctx, "admission_wave")
-                stamps.begin("admission_wave", lane=b)
-                stamps.end("admission_wave", lane=b)
-                stamps.commit(self.tracer.table)
+            with self.metrics.stage("admission_wave"):
+                status, _, _ = _ADMIT(
+                    self.agents, self.sessions, put(agent_slots), put(dids),
+                    put(session_slots), put(sigma), None, 0.0, put(trustworthy.astype(bool)),
+                    put(duplicate), now, self.config.rate_limit.ring_bursts,
+                )
+                b = len(agent_slots)
+                tally_admission(self.metrics.table, status == ADMIT_OK, b,
+                                None if valid is None else put(valid))
+                if th is not None:
+                    stamps = tracing.WaveStamps(th.ctx, "admission_wave")
+                    stamps.begin("admission_wave", lane=b)
+                    stamps.end("admission_wave", lane=b)
+                    stamps.commit(self.tracer.table)
             self.tracer.end_wave(th, self.tracer.table)
             status = status.cpu().numpy()[:n]
             results: dict[int, int] = {}
@@ -1114,9 +1231,10 @@ class HypervisorState:
         th = self.tracer.begin_wave("delta_chain", sessions=np.unique(sess_arr), lanes=b,
                                     device=False)
         dev = self.device
-        digests = u32.to_numpy_u32(merkle_ops.chain_digests(
-            u32.from_numpy_u32(bodies, dev), u32.from_numpy_u32(seeds, dev)
-        ))
+        with self.metrics.stage("delta_chain"):
+            digests = u32.to_numpy_u32(merkle_ops.chain_digests(
+                u32.from_numpy_u32(bodies, dev), u32.from_numpy_u32(seeds, dev)
+            ))
         self.tracer.stamp_wave_host(th)
         self.tracer.end_wave(th)
 
@@ -1311,11 +1429,13 @@ class HypervisorState:
 
         slot_arr = np.array(slots, np.int32)
         th = self.tracer.begin_wave("terminate_wave", sessions=slots, lanes=k, device=False)
-        terminate_ops.terminate_batch(
-            self.agents, self.sessions, self.vouches,
-            torch.from_numpy(slot_arr).to(self.device), u32.from_numpy_u32(roots_host, self.device),
-            now, wave_range=_contiguous_range_host(slot_arr),
-        )
+        with self.metrics.stage("terminate_wave"):
+            _TERMINATE(
+                self.agents, self.sessions, self.vouches,
+                torch.from_numpy(slot_arr).to(self.device),
+                u32.from_numpy_u32(roots_host, self.device),
+                now, wave_range=_contiguous_range_host(slot_arr),
+            )
         self.tracer.stamp_wave_host(th)
         self.tracer.end_wave(th)
 
@@ -1426,12 +1546,13 @@ class HypervisorState:
         seeds = np.zeros(n, bool)
         seeds[vouchee_slot] = True
         th = self.tracer.begin_wave("slash_cascade", sessions=(session_slot,), lanes=n)
-        result = liability_ops.slash_cascade(
-            self.vouches, self.agents.sigma_eff, torch.from_numpy(seeds).to(self.device),
-            session_slot, risk_weight, now,
-            metrics=self.metrics, trace=self.tracer.table,
-            trace_ctx=th.ctx if th is not None else None,
-        )
+        with self.metrics.stage("slash_cascade"):
+            result = _SLASH(
+                self.vouches, self.agents.sigma_eff, torch.from_numpy(seeds).to(self.device),
+                session_slot, risk_weight, now,
+                metrics=self.metrics.table, trace=self.tracer.table,
+                trace_ctx=th.ctx if th is not None else None,
+            )
         self.tracer.end_wave(th, result.trace)
         touched = result.slashed | result.clipped
         self.agents.f32[:, AF32_SIGMA_EFF] = result.sigma
@@ -1614,7 +1735,7 @@ class HypervisorState:
             return torch.from_numpy(a).to(self.device)
 
         g = self.sagas
-        step_state, saga_state, cursor = saga_ops.fanout_round(
+        step_state, saga_state, cursor = _FANOUT_ROUND(
             g.step_state, g.saga_state, g.cursor, put(group), put(active), put(success),
             put(policy))
         g.step_state.copy_(step_state)
@@ -1631,7 +1752,8 @@ class HypervisorState:
         compensate: (saga_slot, step_idx) reverse-order targets of
         COMPENSATING sagas. `comp_budget` bounds the compensation list
         per round, a deterministic prefix: slots in ascending order, each
-        saga's reverse step order kept.
+        saga's reverse step order kept. A backlog at or above
+        `HV_COMP_BACKLOG_WARN` (16) emits the `comp_backlog` health event.
         """
         g = self._next_saga_slot
         if g == 0:
@@ -1652,7 +1774,13 @@ class HypervisorState:
             committed = np.nonzero(step_state[s] == saga_ops.STEP_COMMITTED)[0]
             if len(committed):
                 compensate.append((int(s), int(committed[-1])))
-        if comp_budget is not None and len(compensate) > comp_budget:
+        backlog = len(compensate)
+        if backlog >= _comp_backlog_warn():
+            # The storm signal: a subscribed supervisor flips degraded
+            # mode (the fan-out pauses, admissions shed) so the backlog
+            # drains before new load piles on.
+            self.health.emit_event("comp_backlog", {"backlog": backlog, "budget": comp_budget})
+        if comp_budget is not None and backlog > comp_budget:
             compensate = compensate[: max(int(comp_budget), 0)]
         return execute, compensate
 
@@ -1693,12 +1821,13 @@ class HypervisorState:
         outcomes = saga_ops.pack_outcomes(exec_success, undo_success, exec_attempted, undo_attempted)
         th = self.tracer.begin_wave("saga_round", lanes=g_cap)
         g = self.sagas
-        *_, t_table = saga_ops.saga_table_tick(
-            g.step_state, g.retries_left, g.has_undo, g.saga_state, g.n_steps, g.cursor,
-            torch.from_numpy(outcomes).to(self.device),
-            metrics=self.metrics, trace=self.tracer.table,
-            trace_ctx=th.ctx if th is not None else None,
-        )
+        with self.metrics.stage("saga_round"):
+            *_, t_table = _SAGA_TICK(
+                g.step_state, g.retries_left, g.has_undo, g.saga_state, g.n_steps, g.cursor,
+                torch.from_numpy(outcomes).to(self.device),
+                metrics=self.metrics.table, trace=self.tracer.table,
+                trace_ctx=th.ctx if th is not None else None,
+            )
         self.tracer.end_wave(th, t_table)
 
     def sagas_settled(self) -> bool:
@@ -1746,7 +1875,7 @@ class HypervisorState:
         with self._journal("record_calls", agent_slots=slots, called_rings=rings,
                            now=float(now)):
             dev = self.device
-            new = security_ops.record_calls(
+            new = _RECORD_CALLS(
                 self.agents, torch.from_numpy(slots).to(dev), torch.from_numpy(rings).to(dev),
                 now, self.config.breach)
             self.agents.bd_window.copy_(new.bd_window)
@@ -1755,7 +1884,8 @@ class HypervisorState:
         """Run the breach analysis over every row; returns (severity i8[N],
         tripped bool[N])."""
         with self._journal("breach_sweep_tick", now=float(now)):
-            result = security_ops.breach_sweep(self.agents, now, self.config.breach)
+            with self.metrics.stage("breach_sweep"):
+                result = _BREACH_SWEEP(self.agents, now, self.config.breach)
             self.agents.i32[:, AI32_FLAGS] = result.agents.flags
             self.agents.f32[:, AF32_BD_BREAKER_UNTIL] = result.agents.bd_breaker_until
         return result.severity.cpu().numpy(), result.tripped.cpu().numpy()
@@ -1800,10 +1930,10 @@ class HypervisorState:
         if np.unique(slots_arr).size == slots_arr.size:
             cost = torch.zeros((n,), dtype=torch.float32, device=dev)
             cost[idx] = 1.0
-            decision = rate_limit.consume(tokens, stamp, ring_vec, now, cost, cfg)
+            decision = _RATE_CONSUME(tokens, stamp, ring_vec, now, cost, cfg)
             allowed = decision.allowed[idx].cpu().numpy()
         else:
-            refilled = rate_limit.consume(tokens, stamp, ring_vec, now, 0.0,
+            refilled = _RATE_CONSUME(tokens, stamp, ring_vec, now, 0.0,
                                           cfg).tokens.cpu().numpy()
             ordinal = np.zeros(len(slots_arr), np.int64)
             seen: dict[int, int] = {}
@@ -1814,7 +1944,7 @@ class HypervisorState:
             allowed = ordinal <= refilled[slots_arr]
             grants = np.zeros(n, np.float32)
             np.add.at(grants, slots_arr, allowed.astype(np.float32))
-            decision = rate_limit.consume(tokens, stamp, ring_vec, now, put(grants), cfg)
+            decision = _RATE_CONSUME(tokens, stamp, ring_vec, now, put(grants), cfg)
         self.agents.f32[:, AF32_RL_TOKENS] = decision.tokens
         self.agents.f32[:, AF32_RL_STAMP] = decision.stamp
         return allowed
@@ -1861,12 +1991,13 @@ class HypervisorState:
                       for c in self._pad_gateway_lanes(act))
         b = len(act["slots"])
         th = self.tracer.begin_wave("gateway_wave", lanes=b)
-        result = gateway_ops.check_actions(
-            self.agents, self.elevations, *lanes[:6], now, valid=lanes[6],
-            breach=self.config.breach, rate_limit=self.config.rate_limit,
-            trust=self.config.trust, metrics=self.metrics, trace=self.tracer.table,
-            trace_ctx=th.ctx if th is not None else None,
-        )
+        with self.metrics.stage("gateway_wave"):
+            result = _GATEWAY(
+                self.agents, self.elevations, *lanes[:6], now, valid=lanes[6],
+                breach=self.config.breach, rate_limit=self.config.rate_limit,
+                trust=self.config.trust, metrics=self.metrics.table, trace=self.tracer.table,
+                trace_ctx=th.ctx if th is not None else None,
+            )
         self.tracer.end_wave(th, result.trace)
         return self._gateway_result_from_lanes(result, result.agents, b)
 
@@ -1929,7 +2060,7 @@ class HypervisorState:
         """Expire every lapsed grant (its row freed, `agent` -1); returns
         how many expired."""
         with self._journal("elevation_tick", now=float(now)):
-            table, expired = security_ops.elevation_expiry(self.elevations, now)
+            table, expired = _ELEV_EXPIRY(self.elevations, now)
             self.elevations.active.copy_(table.active)
             rows = np.nonzero(expired.cpu().numpy())[0]
             if len(rows):
@@ -1939,7 +2070,7 @@ class HypervisorState:
 
     def effective_rings(self, now: float) -> np.ndarray:
         """i8[N] assigned rings with the active grants applied."""
-        return security_ops.effective_rings(self.agents.ring, self.elevations, now).cpu().numpy()
+        return _EFF_RINGS(self.agents.ring, self.elevations, now).cpu().numpy()
 
     # ── quarantine and row writes ────────────────────────────────────
 
@@ -1954,7 +2085,7 @@ class HypervisorState:
             "duration": float(duration)}):
             enter = torch.zeros(self.agents.flags.shape, dtype=torch.bool, device=self.device)
             enter[torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)] = True
-            new = security_ops.quarantine_enter(self.agents, enter, now, float(duration))
+            new = _QUAR_ENTER(self.agents, enter, now, float(duration))
             self.agents.i32[:, AI32_FLAGS] = new.flags
             self.agents.f32[:, AF32_QUARANTINE_UNTIL] = new.quarantine_until
 
@@ -1962,7 +2093,7 @@ class HypervisorState:
         """Release every quarantine strictly past its deadline; returns the
         released rows."""
         with self._journal("quarantine_tick", now=float(now)):
-            sweep = security_ops.quarantine_sweep(self.agents, now)
+            sweep = _QUAR_SWEEP(self.agents, now)
             self.agents.i32[:, AI32_FLAGS] = sweep.agents.flags
         return [int(r) for r in np.nonzero(sweep.released.cpu().numpy())[0]]
 
@@ -1984,6 +2115,206 @@ class HypervisorState:
             self.agents.ring[slot] = int(ring)
             self.agents.f32[slot, AF32_RL_TOKENS] = burst
             self.agents.f32[slot, AF32_RL_STAMP] = float(np.float32(now))
+
+    # ── metrics drain ────────────────────────────────────────────────
+
+    def metrics_snapshot(self) -> metrics_plane.MetricsSnapshot:
+        """Refresh the occupancy gauges on the device, then drain the
+        plane: between waves, never inside one.
+
+        The fault injector's drain gate comes first (a corrupt drain is
+        device loss from the host's point of view). The compile totals and
+        the tables' static bytes and capacities publish on the host plane
+        (tensor metadata, no transfer). Unless the last dispatch was a
+        facade wave and nothing mutated since (`_gauges_fresh`), the
+        gauges are recomputed over every table into a copy of the gauge
+        column, which is drained without being written back. The drain
+        itself waits on the device once (`Metrics.snapshot`); then the
+        high-water marks and capacity warnings, the integrity plane's
+        detection and the history's sample read the snapshot it
+        returned."""
+        inj = self.fault_injector
+        if inj is not None:
+            inj.on_drain("metrics_drain")
+        health_plane.publish_compile_counters(self.metrics)
+        self.health.publish_footprints(self.health_tables())
+        refresh = None
+        if not self._gauges_fresh:
+            def refresh(table):
+                view = dataclasses.replace(table, gauges=table.gauges.clone())
+                _UPDATE_GAUGES(
+                    view, self.agents, self.sessions, self.vouches, self.sagas,
+                    self.elevations, self.delta_log, self.event_log, self.tracer.table,
+                )
+                return view
+        snap = self.metrics.snapshot(refresh=refresh)
+        self.health.update_occupancy(snap)
+        if self.integrity is not None:
+            self.integrity.observe_snapshot(snap)
+        self.history.sample_snapshot(snap, now=self._hindsight_now())
+        return snap
+
+    def metrics_prometheus(self) -> str:
+        """Prometheus text exposition of the merged metrics plane (the
+        serving front door's exemplar lines join it with ROADMAP A5)."""
+        return self.metrics_snapshot().to_prometheus()
+
+    # ── health plane ─────────────────────────────────────────────────
+
+    def health_tables(self) -> dict:
+        """Named tables for the footprint protocol (the occupancy set plus
+        the static metrics and trace rings)."""
+        tables = {
+            "agents": self.agents,
+            "sessions": self.sessions,
+            "vouches": self.vouches,
+            "sagas": self.sagas,
+            "elevations": self.elevations,
+            "delta_log": self.delta_log,
+            "event_log": self.event_log,
+            "metrics": self.metrics.table,
+        }
+        if self.tracer.table is not None:
+            tables["trace_log"] = self.tracer.table
+        return tables
+
+    def health_summary(self) -> dict:
+        """One drain's worth of watchdog state, occupancy, compile totals
+        and per-stage latency quantiles, with the integrity and hindsight
+        panels. `backend` is the torch device type of the tables; the
+        serving and SLO panels stay disabled until the serving plane is
+        ported (ROADMAP A5)."""
+        snap = self.metrics_snapshot()
+        stages = {
+            stage: {"n": n, "p50_us": round(p50, 1), "p99_us": round(p99, 1)}
+            for stage, n, (p50, p99) in metrics_plane.iter_stage_quantiles(snap, (0.5, 0.99))
+        }
+        monitor = self.health.summary(snap)
+        return {
+            "status": "ok",
+            "backend": self.device.type,
+            "uptime_s": monitor["uptime_s"],
+            "watchdog": monitor["watchdog"],
+            "occupancy": monitor["occupancy"],
+            "compiles": health_plane.compile_summary(last=8),
+            "stages": stages,
+            "integrity": self.integrity_summary(),
+            "serving": {"enabled": False},
+            "slo": {"enabled": False},
+            "incidents": self.incidents.summary(),
+            "history": {
+                "samples": self.history.samples_total,
+                "evictions": self.history.evictions_total,
+                "points_retained": self.history.points_retained(),
+            },
+        }
+
+    def memory_summary(self) -> dict:
+        """Per-table device bytes, capacities, live rows, high-water marks
+        and occupancy."""
+        snap = self.metrics_snapshot()
+        occupancy = self.health.occupancy_summary(snap)
+        return {
+            "hbm_total_bytes": health_plane.hbm_total_bytes(
+                {name: t.footprint() for name, t in self.health_tables().items()}
+            ),
+            "warn_threshold": occupancy["warn_threshold"],
+            "warnings_fired": occupancy["warnings_fired"],
+            "recent_warnings": occupancy["recent_warnings"],
+            "tables": occupancy["tables"],
+        }
+
+    def compile_summary(self) -> dict:
+        """The process-global compile watch's payload."""
+        return health_plane.compile_summary()
+
+    # ── hindsight plane (retained history + incidents) ───────────────
+
+    def _hindsight_now(self) -> float:
+        """History and incident timestamps: the virtual-clock override
+        when one is set, `now()` otherwise."""
+        if self.hindsight_clock is not None:
+            return float(self.hindsight_clock())
+        return self.now()
+
+    def _incident_wal_block(self, trigger: dict) -> dict:
+        """The bundle's recovery pointer: the WAL watermark and the last
+        checkpoint — what a postmortem replays from."""
+        journal = self.journal
+        sup = self.resilience
+        ckpt = getattr(sup, "last_checkpoint", None) if sup is not None else None
+        return {
+            "wal_seq": getattr(journal, "last_seq", None) if journal is not None else None,
+            "restored_wal_seq": self._restored_wal_seq,
+            "checkpoint": (
+                {"path": ckpt.get("path"), "step": ckpt.get("step"),
+                 "wal_seq": ckpt.get("wal_seq")}
+                if ckpt else None
+            ),
+        }
+
+    def _incident_trace_block(self, trigger: dict) -> dict:
+        """The bundle's trace fragment: the trigger's causal trace id and
+        the flight recorder's recent waves."""
+        return {"trace_id": trigger.get("trace_id"), "flight": self.flight_summary()}
+
+    def incidents_summary(self) -> dict:
+        return self.incidents.summary()
+
+    def incident_bundle(self, incident_id: str) -> Optional[dict]:
+        """One captured bundle by content address (None = unknown)."""
+        return self.incidents.get(incident_id)
+
+    def history_query(
+        self, series: Optional[str] = None, start: Optional[float] = None,
+        end: Optional[float] = None, tier: int = 0,
+    ) -> dict:
+        """Without `series`, the history plane's summary and its
+        conservation witness; with one, the retained points of that
+        series and tier clipped to [start, end] on the caller's clock."""
+        if series is None:
+            out = self.history.summary()
+            out["conservation"] = self.history.verify_conservation()["ok"]
+            return out
+        return {
+            "series": series,
+            "tier": int(tier),
+            "points": self.history.query(series, start, end, int(tier)),
+        }
+
+    # ── trace drain ──────────────────────────────────────────────────
+
+    def session_trace(self, session_slot: int) -> list:
+        """The flight recorder's spans of every wave that touched this
+        session slot (one read of the ring, outside every wave). The
+        newest wave's `delta_chain` span (else its root) carries the
+        session's newest DeltaLog records: turn and digest head, from one
+        read of the touched rows of `delta_log.turn` and `.digest`."""
+        spans = self.tracer.session_spans(session_slot)
+        rows = self._audit_rows.get(session_slot, [])
+        if spans and rows:
+            newest = rows[-16:]  # the newest records; keep payloads small
+            idx = torch.tensor(newest, dtype=torch.int64, device=self.device)
+            turn_host, head_host = torch.stack(
+                [self.delta_log.turn[idx], self.delta_log.digest[idx, 0]]).cpu().numpy()
+            head_host = head_host.view(np.uint32)
+            root = spans[-1]
+            target = next((sp for sp in root.walk() if sp.stage == "delta_chain"), root)
+            target.events.extend(
+                {
+                    "name": "audit.delta_recorded",
+                    "session_slot": session_slot,
+                    "log_row": int(r),
+                    "turn": int(turn_host[i]),
+                    "digest_head": f"{int(head_host[i]):08x}",
+                }
+                for i, r in enumerate(newest)
+            )
+        return spans
+
+    def flight_summary(self) -> dict:
+        """The flight recorder's state and its recent waves."""
+        return self.tracer.flight_summary()
 
     # ── views ────────────────────────────────────────────────────────
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch import u32
-from hypervisor_tpu_torch.tables.struct import table
+from hypervisor_tpu_torch.tables.struct import footprint, table
 
 #: Body words per delta record (64 bytes); a chain link hashes body || parent.
 BODY_WORDS = 16
@@ -48,6 +48,10 @@ class DeltaLog:
     @property
     def capacity_rows(self) -> int:
         return int(self.body.shape[0])
+
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.capacity_rows)
 
     def append_batch(self, bodies, digests, sessions, turns) -> None:
         """Append B records at the cursor (wrapping), IN PLACE."""
@@ -128,6 +132,10 @@ class EventLog:
     def capacity_rows(self) -> int:
         return int(self.event_type.shape[0])
 
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.capacity_rows)
+
 
 @table
 class TraceLog:
@@ -163,6 +171,10 @@ class TraceLog:
     @property
     def capacity_rows(self) -> int:
         return int(self.words.shape[0])
+
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.capacity_rows)
 
     def stamp_batch(self, traces, spans, stages, kinds, lanes, wave_seqs, sampled=True) -> None:
         """Append B stamps at the cursor, IN PLACE. Each column is [B]

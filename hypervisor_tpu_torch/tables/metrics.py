@@ -16,7 +16,7 @@ import torch
 
 from hypervisor_tpu_torch import u32
 from hypervisor_tpu_torch.observability import metrics as schema
-from hypervisor_tpu_torch.tables.struct import table
+from hypervisor_tpu_torch.tables.struct import footprint, table
 
 
 @table
@@ -45,6 +45,15 @@ class MetricsTable:
             hist=torch.zeros((max(n_hists, 1), nb), dtype=torch.int32, device=device),
             hist_sum=torch.zeros((max(n_hists, 1),), dtype=torch.float32, device=device),
             bounds=b,
+        )
+
+    def footprint(self) -> dict:
+        """Health-plane bytes and capacity (`tables.struct.footprint`):
+        the rows are the registered metric rows of the three kinds. The
+        layout is static, so it never saturates; the health plane
+        reports its bytes but leaves it out of the occupancy warn set."""
+        return footprint(
+            self, self.counters.shape[0] + self.gauges.shape[0] + self.hist.shape[0]
         )
 
 

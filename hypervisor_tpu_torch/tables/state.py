@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from hypervisor_tpu_torch.tables.struct import table
+from hypervisor_tpu_torch.tables.struct import footprint, table
 
 # Agent-table flag bits (int32 bitmask column).
 FLAG_ACTIVE = 1 << 0
@@ -101,6 +101,10 @@ class AgentTable:
             ring=torch.full((capacity,), 3, dtype=torch.int8, device=device),
         )
 
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.ring.shape[0])
+
 
 @table(
     packed={
@@ -140,6 +144,10 @@ class SessionTable:
             has_nonreversible=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
 
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.enable_audit.shape[0])
+
 
 @table
 class ElevationTable:
@@ -159,6 +167,10 @@ class ElevationTable:
             expires_at=torch.zeros((capacity,), dtype=torch.float32, device=device),
             active=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
+
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.agent.shape[0])
 
 
 @table
@@ -192,6 +204,10 @@ class SagaTable:
             cursor=full((capacity,), 0, torch.int32),
         )
 
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.saga_state.shape[0])
+
 
 @table
 class VouchTable:
@@ -219,3 +235,7 @@ class VouchTable:
             active=full(False, torch.bool),
             expiry=full(float("inf"), torch.float32),
         )
+
+    def footprint(self) -> dict:
+        """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
+        return footprint(self, self.voucher.shape[0])

@@ -96,3 +96,18 @@ def copy_into(dst: T, src: T) -> None:
     """Overwrite `dst`'s columns in place with `src`'s (same shapes)."""
     for name, t in tensors(src).items():
         getattr(dst, name).copy_(t)
+
+
+def footprint(obj, capacity_rows: int) -> dict:
+    """The shared health-plane `footprint()` protocol, one rule for every
+    table and ring: the bytes of the dataclass's tensor fields plus the
+    caller-named row capacity. Pure metadata (`numel` and element size),
+    so it reads nothing from the device."""
+    return {
+        "bytes": int(sum(
+            v.numel() * v.element_size()
+            for v in (getattr(obj, f.name) for f in dataclasses.fields(obj))
+            if isinstance(v, torch.Tensor)
+        )),
+        "capacity_rows": int(capacity_rows),
+    }

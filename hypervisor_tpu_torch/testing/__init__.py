@@ -1,5 +1,6 @@
 """Test utilities shipped with the framework: seeded chaos injection
-(`testing.chaos`). The adversarial scenario harness (`testing.scenarios`)
+(`testing.chaos`) and the masks that hold two runs of one sequence equal
+(`testing.compare`). The adversarial scenario harness (`testing.scenarios`)
 comes with the upper planes (ROADMAP A7)."""
 
 from hypervisor_tpu_torch.testing.chaos import (
@@ -13,6 +14,7 @@ from hypervisor_tpu_torch.testing.chaos import (
     WaveChaosInjector,
     WaveChaosPlan,
 )
+from hypervisor_tpu_torch.testing.compare import same_health_on_every_run, supervisor_accounting
 
 __all__ = [
     "ChaosExecutorFactory",
@@ -24,4 +26,6 @@ __all__ = [
     "InjectedWaveFault",
     "WaveChaosInjector",
     "WaveChaosPlan",
+    "same_health_on_every_run",
+    "supervisor_accounting",
 ]

@@ -155,7 +155,7 @@ class _Port(_Ref):
         out = port_tables.to_state_arrays(port_tables.StateTables(
             st.agents, st.sessions, st.vouches, delta_log=st.delta_log))
         for c in _METRICS:
-            a = getattr(st.metrics, c).numpy().copy()
+            a = getattr(st.metrics.table, c).numpy().copy()
             out[f"metrics.{c}"] = a.view(np.uint32) if c in ("counters", "hist") else a.copy()
         out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
         out["trace.cursor"] = st.tracer.table.cursor.numpy().copy()
@@ -632,7 +632,7 @@ class _ActPort(_ActRef):
                 "slot", "did", "session_slot", "sigma_raw", "trustworthy", "duplicate",
                 "wave_sessions")),
             u32.from_numpy_u32(lanes["bodies"], "cpu"), 12.5, 0.5, unique_sessions=True,
-            metrics=st.metrics, elevations=st.elevations,
+            metrics=st.metrics.table, elevations=st.elevations,
             gateway_args=tuple(t(np.ascontiguousarray(c)) for c in lanes["gateway"]),
             delta_log=st.delta_log, delta_cursor=st._delta_cursor,
             epilogue_tables=(st.sagas, st.event_log), sanitize=True,
@@ -650,7 +650,7 @@ class _ActPort(_ActRef):
             st.agents, st.sessions, st.vouches, delta_log=st.delta_log, sagas=st.sagas,
             elevations=st.elevations, event_log=st.event_log))
         for c in _METRICS:
-            a = getattr(st.metrics, c).numpy().copy()
+            a = getattr(st.metrics.table, c).numpy().copy()
             out[f"metrics.{c}"] = a.view(np.uint32) if c in ("counters", "hist") else a
         out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
         return out

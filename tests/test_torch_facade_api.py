@@ -18,9 +18,12 @@ sessions, vouches, sagas, elevations, DeltaLog, EventLog) byte for byte,
 the whole device metrics table, the host-plane counters, the trace ring,
 the ledger's entries, and the facade's host indices must be equal.
 
-The reference's health-plane bridge onto the bus is detached: the port
-has no health plane yet (ROADMAP A4), so both buses carry the facade's
-own events. Ids and times are made deterministic the same way for both packages:
+Both facades bridge their health planes onto the bus (capacity,
+resilience, integrity and incident events), so the bus rows compared
+include them; `testing.same_health_on_every_run` keeps the `recompile`
+kind off both buses (the packages count compiles differently, ROADMAP
+C.2) and both watchdogs unarmed (their deadlines are wall time). Ids and
+times are made deterministic the same way for both packages:
 `uuid.uuid4` and `secrets.token_hex` count up from 1, `time.time` and
 every module's `datetime.now` read one manual clock that only the
 sequence advances (by dyadic steps, so the token refill's product is
@@ -54,7 +57,9 @@ from hypervisor_tpu.runtime.checkpoint import state_arrays
 from hypervisor_tpu.state import HypervisorState as JaxState
 from hypervisor_tpu_torch import config as port_config
 from hypervisor_tpu_torch import tables as port_tables
+from hypervisor_tpu_torch.observability import health as port_health
 from hypervisor_tpu_torch.state import HypervisorState as PortState
+from hypervisor_tpu_torch.testing import same_health_on_every_run
 
 CAP = dict(max_agents=40, max_sessions=16, max_vouch_edges=24, max_sagas=4,
            max_steps_per_saga=4, max_elevations=8, delta_log_capacity=192,
@@ -88,10 +93,11 @@ def install_determinism(mp: pytest.MonkeyPatch, clock: ManualTime) -> None:
                lambda nbytes=None: f"{next(words):0{2 * (nbytes or 32)}x}")
     mp.setattr(time, "time", lambda: clock.t)
     # Facades left by earlier tests keep their health monitors subscribed
-    # to the reference's process-wide compile log until they are
+    # to each package's process-wide compile log until they are
     # collected: a recompile in this run would reach their bus bridges
     # and draw from the patched uuid4.
     mp.setattr(jax_health._LOG, "_subscribers", [])
+    mp.setattr(port_health._LOG, "_subscribers", [])
 
     class ManualDatetime(_dt.datetime):
         @classmethod
@@ -132,11 +138,8 @@ class Side:
 
     def hypervisor(self, **kw):
         hv = self.pkg.Hypervisor(state=self.state(), **kw)
-        if self.is_ref and hv.event_bus is not None:
-            # The port has no health plane yet (ROADMAP A4), so its bus
-            # carries the facade's own events only: detach the
-            # reference's health bridge (recompile events) to match.
-            hv.state.health._listeners.remove(hv._on_health_event)
+        if hv.event_bus is not None:
+            same_health_on_every_run(hv)
         self.facades.append(hv)
         return hv
 
@@ -193,9 +196,9 @@ def tables(st) -> dict:
         out["trace.cursor"] = np.array(st.tracer.table.cursor)
         return out
     out = port_tables.to_state_arrays(port_tables.StateTables(
-        st.agents, st.sessions, st.vouches, st.metrics, delta_log=st.delta_log,
+        st.agents, st.sessions, st.vouches, st.metrics.table, delta_log=st.delta_log,
         sagas=st.sagas, elevations=st.elevations, event_log=st.event_log))
-    out["host_counters"] = st.host_metrics.counters.copy()
+    out["host_counters"] = st.metrics._h_counters.copy()
     out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
     out["trace.cursor"] = st.tracer.table.cursor.numpy().copy()
     return out

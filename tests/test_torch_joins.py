@@ -65,7 +65,7 @@ def snapshot(st) -> dict:
         out["trace.cursor"] = np.array(st.tracer.table.cursor)
         return out
     out = port_tables.to_state_arrays(port_tables.StateTables(
-        st.agents, st.sessions, st.vouches, st.metrics, elevations=st.elevations))
+        st.agents, st.sessions, st.vouches, st.metrics.table, elevations=st.elevations))
     out = {k: np.array(v, copy=True) for k, v in out.items()}
     out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
     out["trace.cursor"] = st.tracer.table.cursor.numpy().copy()

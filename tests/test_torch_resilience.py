@@ -13,12 +13,12 @@ with the reference unarmed (`HV_WAVE_PALLAS=0`):
 * a checkpoint and log written by the reference recover on the port,
   at every commit boundary and at torn cuts, bit-identical to the
   reference's own state at the same committed prefix;
-* a chaos run whose faulted dispatches are retried by hand (the
-  supervisor waits for ROADMAP A4) ends equal to the clean run, with the
-  same fault schedule, on both packages;
+* a chaos run whose faulted dispatches are retried by hand ends equal
+  to the clean run, with the same fault schedule, on both packages (the
+  supervisor's ladder is held in `test_torch_supervisor.py`);
 * the shed gate, the damper's targeted shed, the fan-out pause, the
-  no-supervisor `resilience_summary`, `recover_tenant` and the
-  `Supervisor` refusal behave as the reference's do.
+  no-supervisor `resilience_summary` and `recover_tenant` behave as the
+  reference's do, and the package resolves the `Supervisor`.
 
 Tolerance 0 everywhere: every checkpointed column byte for byte, the
 chain seeds, the membership keys and the turn counters.
@@ -106,7 +106,7 @@ class Pkg:
 
     def host_counter(self, st, handle: str) -> int:
         idx = getattr(self.metrics, handle).index
-        return int(st.metrics._h_counters[idx] if self.ref else st.host_metrics.counters[idx])
+        return int(st.metrics._h_counters[idx])
 
 
 REF, PORT = Pkg(True), Pkg(False)
@@ -586,7 +586,7 @@ def wave_workload(st, pkg: Pkg, dispatch) -> None:
 
 def retry_by_hand(pkg: Pkg, counter: list):
     """A dispatch that retries an injected fault until it goes through
-    (the supervisor's retry ladder, which waits for ROADMAP A4)."""
+    (by hand: the supervisor's ladder is tested on its own)."""
 
     def dispatch(fn, *args):
         while True:
@@ -784,7 +784,7 @@ def test_degraded_policy_pauses_the_fan_out():
     assert outs[1][0] and outs[1][1] == [] and outs[1][3] == outs[1][0]
 
 
-# ── the summaries, recover_tenant, the supervisor refusal ────────────
+# ── the summaries, recover_tenant, the supervisor ────────────────────
 
 
 def test_resilience_summary_without_a_supervisor(tmp_path):
@@ -823,10 +823,16 @@ def test_recover_tenant_reads_either_packages_bundle(tmp_path):
 
 
 def test_supervisor_waits_for_the_health_plane():
+    """The supervisor arrived with the health plane: the package resolves
+    it, and attaching one subscribes it to the state's health fan-out
+    and publishes it as `state.resilience`."""
     import hypervisor_tpu_torch.resilience as res
+    from hypervisor_tpu_torch.resilience import supervisor as port_supervisor
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        res.Supervisor
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        from hypervisor_tpu_torch.resilience import Supervisor  # noqa: F401
+    assert res.Supervisor is port_supervisor.Supervisor
     assert res.recover is port_recovery.recover
+    st = PORT.state()
+    sup = res.Supervisor(st)
+    assert st.resilience is sup
+    assert sup._on_health_event in st.health._listeners
+    assert st.resilience_summary()["enabled"] is True

@@ -411,7 +411,7 @@ class _Port(_Ref):
         out = port_tables.to_state_arrays(port_tables.StateTables(
             st.agents, st.sessions, st.vouches, sagas=st.sagas))
         out = {k: v for k, v in out.items() if k.startswith("sagas.")}
-        out["metrics.counters"] = st.metrics.counters.numpy().view(np.uint32).copy()
+        out["metrics.counters"] = st.metrics.table.counters.numpy().view(np.uint32).copy()
         out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
         out["trace.cursor"] = st.tracer.table.cursor.numpy().copy()
         return out

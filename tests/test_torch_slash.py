@@ -308,7 +308,7 @@ class _Port(_Ref):
         st = self.st
         out = port_tables.to_state_arrays(port_tables.StateTables(st.agents, st.sessions, st.vouches))
         out = {k: v for k, v in out.items() if k.split(".")[0] in ("agents", "vouches")}
-        out["metrics.counters"] = st.metrics.counters.numpy().view(np.uint32).copy()
+        out["metrics.counters"] = st.metrics.table.counters.numpy().view(np.uint32).copy()
         out["trace.words"] = st.tracer.table.words.numpy().view(np.uint32).copy()
         out["free_edge_slots"] = list(st._free_edge_slots)
         out["next_edge_slot"] = st._next_edge_slot

@@ -314,7 +314,7 @@ def test_bench_wave_through_both_states():
     _assert_outputs_equal(got, ref)
     _assert_arrays_equal(
         port_tables.to_state_arrays(port_tables.StateTables(
-            state.agents, state.sessions, state.vouches, state.metrics,
+            state.agents, state.sessions, state.vouches, state.metrics.table,
         )),
         _jax_tables_arrays(ref),
     )
