@@ -259,6 +259,25 @@ Phases, one JSON line each:
    the repair rung, and the facade wave under four variants of the plane
    (none, the fused sanitizer, a scrub tick, both), rotated over sixteen
    fresh states of three waves.
+15. serving: the serving front door (`serving.run_soak`) on a fresh
+   state of the default tables (16,384 agents, 4,096 sessions, 65,536
+   edges, 8,192 sagas), buckets (4, 8, 16, 32), an `IntegrityPlane`
+   every 8th dispatch: the reference's soak (seed 11, 150 Hz, 0.8 s) on
+   the card and on the CPU, whose decisions and chain-heads digests,
+   offered, served, shed and orphaned counts, waves and padded lanes must
+   be equal; the same soak again under torch.profiler, which must name
+   every kernel of the serving path (B1, B2's ring form, B3, B4, B5, B7
+   and the contribution); the overload soak (seed 18, 2,200 Hz, 0.6 s,
+   95% lifecycles) on the card. Each soak: offered = served + shed +
+   orphaned, no novel signature after warm-up, no invariant violation,
+   every dispatch's wave wall at or above its CUDA-event device time,
+   every roofline share at most 1.05; per-class latency p50/p95/p99,
+   goodput, shed rate, deadline misses, waves, walls beside device times
+   and the roofline's models and floor are printed. Then one
+   `profiling.capture_window` around lifecycle waves, whose trace must
+   name B2-B5, and one API sequence through the stdlib transport on a
+   localhost port on the card and on the CPU, equal but for the wall
+   clock and the backend's name.
 
 Then the kernels summary, the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -295,68 +314,18 @@ ITERS = 30
 KERNEL_REPS = 20
 PLAIN_REPS = 5
 
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth,
-# and the 32-bit integer instruction rate — the 67 TFLOP/s FP32 figure
-# counts an FMA as two operations on 128 lanes per SM; the integer pipe
-# issues one instruction per lane on 64 lanes per SM.
-HBM_BYTES_PER_S = 3.35e12
-#: The float32 rate outside the tensor cores (the lock closure's f32
-#: matrix products without TF32).
-F32_FLOP_PER_S = 67e12
-INT32_INSTRUCTIONS_PER_S = 67e12 / 2 / 2
-
-
-def sha256_instructions(var_words, var_state) -> int:
-    """Integer instructions one SHA-256 compression needs on sm_90, given
-    which of its 16 message words and 8 state words vary with the data;
-    work on constants alone folds at compile time and counts nothing.
-    A rotate is one funnel shift (SHF), a 3-input logic function one
-    LOP3 (each Sigma's XOR, Ch, Maj), a 3-input add one IADD3, and a
-    constant operand (K_i + W_i where W_i is constant) one immediate."""
-    def add(*terms):  # (instructions, varies)
-        n_var = sum(terms)
-        n = n_var + (n_var < len(terms))  # the constants fold into one
-        return (n // 2 if n_var else 0), n_var > 0
-
-    w, st, cost = list(var_words), list(var_state), 0
-    a, b, c, d, e, f, g, h = st
-    for i in range(64):
-        if i < 16:
-            wi = w[i]
-        else:
-            s0, s1 = w[(i - 15) & 15], w[(i - 2) & 15]    # 2 SHF + SHR + LOP3 each
-            n, wi = add(w[i & 15], s0, w[(i - 7) & 15], s1)
-            cost += 4 * s0 + 4 * s1 + n
-            w[i & 15] = wi
-        n1, t1 = add(h, e, e or f or g, False, wi)        # h + S1 + Ch + K + W
-        n2, e_new = add(d, t1)
-        n3, a_new = add(t1, a, a or b or c)               # t1 + S0 + Maj
-        cost += 4 * e + (e or f or g) + 4 * a + (a or b or c) + n1 + n2 + n3
-        h, g, f, e, d, c, b, a = g, f, e, e_new, c, b, a, a_new
-    return cost + sum(add(x, y)[0] for x, y in zip(st, (a, b, c, d, e, f, g, h)))
-
-
-V, C = True, False
-#: sha256(body || parent): the first block from the constant initial
-#: state, then 8 parent words and 8 constant padding words.
-INSTR_PER_CHAIN_LINK = (sha256_instructions([V] * 16, [C] * 8)
-                        + sha256_instructions([V] * 8 + [C] * 8, [V] * 8))
-#: One digest as 16 ASCII hex words, 8 instructions a word in a SWAR form:
-#: PRMT spreads two bytes, SHF + LOP3 split the nibbles, IADD + LOP3 + SHF
-#: find the nibbles above 9, IADD + IMAD add '0' and the 0x27 letter gap.
-INSTR_PER_HEX_DIGEST = 16 * 8
-#: sha256(hex(l) || hex(r)): two data blocks, then a constant padding
-#: block whose schedule folds away. An odd tail's pair (r := l) hexes once.
-INSTR_PER_PAIR = (sha256_instructions([V] * 16, [C] * 8) + sha256_instructions([V] * 16, [V] * 8)
-                  + sha256_instructions([C] * 16, [V] * 8) + 2 * INSTR_PER_HEX_DIGEST)
-INSTR_PER_DUP_PAIR = INSTR_PER_PAIR - INSTR_PER_HEX_DIGEST
-
-
-def instr_per_message(n_blocks: int) -> int:
-    """One pre-padded n-block message through the batched hash (B1): the
-    kernel cannot tell padding from data, so every word varies."""
-    return (sha256_instructions([V] * 16, [C] * 8)
-            + (n_blocks - 1) * sha256_instructions([V] * 16, [V] * 8))
+# The published H100 SXM peaks and the model of each kernel's work (bytes
+# moved, 32-bit integer instructions issued) live in the package, shared
+# with the wrappers' accounting for the roofline observatory's gauges.
+from hypervisor_tpu_torch.kernels.work import (  # noqa: E402
+    F32_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    INSTR_PER_PAIR,
+    INT32_INSTRUCTIONS_PER_S,
+    instr_per_message,
+    kernel_work,
+    tree_pairs,
+)
 
 #: The facade's standing agents, the actors of its 10,000 actions a wave
 #: (bench_suite's `action_gateway_10k`: ring 2, 40 tokens, uniform slots,
@@ -2302,6 +2271,22 @@ def run_observability(device, workdir) -> dict:
     window (its dispatches under torch.profiler), the same sequence on the
     CPU, which must give the same deterministic record, and the costs on
     the card. Returns the records `main` checks and prints."""
+    # The roofline observatory models each device's own work (ROADMAP
+    # C.2), so its gauges part between the card and the CPU: off for the
+    # compared runs, as in every parity run.
+    saved = os.environ.get("HV_ROOFLINE")
+    os.environ["HV_ROOFLINE"] = "0"
+    try:
+        return observability_records(device, workdir)
+    finally:
+        if saved is None:
+            os.environ.pop("HV_ROOFLINE", None)
+        else:
+            os.environ["HV_ROOFLINE"] = saved
+
+
+def observability_records(device, workdir) -> dict:
+    """`run_observability`'s runs, with the roofline observatory off."""
     clock = [1_767_225_600.0]
     with manual_ids_and_time(clock):
         card = observability_sequence(device, workdir, profile_census=True)
@@ -2986,6 +2971,415 @@ def profile_device_ops(calls: dict) -> dict:
                      "device_us": sum(us for us, _, _ in ops),
                      "ops": [{"name": k[:100], "count": n, "device_us": us} for us, k, n in ops]}
     return out
+
+
+# ── phase serving: the front door, its SLO plane, the roofline, the API ──
+
+#: The reference's `soak` row (BENCH_r11.json-BENCH_r21.json `soak.spec`):
+#: the other fields at `WorkloadSpec`'s defaults.
+SERVE_REPLAY = dict(seed=11, rate_hz=150.0, duration_s=0.8)
+#: The reference's overload phase (BENCH_r17.json `autopilot_soak.phases[1]`),
+#: run without the autopilot.
+SERVE_OVERLOAD = dict(seed=18, rate_hz=2200.0, duration_s=0.6, lifecycle_fraction=0.95,
+                      max_lifetime_s=2.0)
+#: The kernels the serving path reaches: B4's join form in the join
+#: flush; the contribution, B4, B5, B2's ring form and B3 in the lifecycle
+#: wave; B7 in the saga round; B1 in the integrity plane's scrub strips
+#: and the contribution's escrow in its fused sanitizer.
+SERVE_KERNELS = ("contribution_toward", "admission_block", "fsm_saga_block",
+                 "chain_digests_ring", "tree_roots", "saga_tick_block", "sha256_words")
+#: The lifecycle wave's kernels a capture window must name (B2-B5).
+SERVE_WINDOW_KERNELS = ("chain_digests_ring", "tree_roots", "admission_block", "fsm_saga_block")
+#: The replay keys the card's soak must share with the CPU's.
+SERVE_REPLAY_KEYS = ("decisions_digest", "chain_heads_digest", "offered", "served", "shed",
+                     "orphaned", "waves", "padded_lanes")
+#: The integrity plane's scrub strip cadence for the soaks (HV_SCRUB_EVERY,
+#: off by default): a strip of the DeltaLog every 8th dispatch, beside
+#: the sanitizer's every 8th (`run_soak`'s `integrity_every`).
+SERVE_SCRUB_EVERY = 8
+#: A roofline share above this means the model or the wall is wrong.
+SERVE_SHARE_MAX = 1.05
+SERVE_CAPTURE_S = 2.0
+#: Lifecycle waves of a full bucket run inside the capture window.
+SERVE_WINDOW_WAVES = 8
+#: The API sequence held equal between the card and the CPU (the
+#: transport is the stdlib server on a localhost port).
+SERVE_API = (
+    ("health", "GET", "/health", None),
+    ("create", "POST", "/api/v1/sessions", {"creator_did": "did:admin", "min_sigma_eff": 0.0}),
+    ("join_a", "POST", "/api/v1/sessions/{sid}/join", {"agent_did": "did:a", "sigma_raw": 0.8}),
+    ("join_b", "POST", "/api/v1/sessions/{sid}/join", {"agent_did": "did:b", "sigma_raw": 0.95}),
+    ("join_dup", "POST", "/api/v1/sessions/{sid}/join", {"agent_did": "did:a", "sigma_raw": 0.8}),
+    ("activate", "POST", "/api/v1/sessions/{sid}/activate", None),
+    ("rings", "GET", "/api/v1/sessions/{sid}/rings", None),
+    ("action", "POST", "/api/v1/sessions/{sid}/actions/check",
+     {"agent_did": "did:a", "action": {"action_id": "w1", "name": "write", "execute_api": "/x",
+                                       "undo_api": "/u", "reversibility": "full"}}),
+    ("vouch", "POST", "/api/v1/sessions/{sid}/vouch",
+     {"voucher_did": "did:b", "vouchee_did": "did:a", "voucher_sigma": 0.9}),
+    ("join_wave", "POST", "/api/v1/sessions/{sid}/join-wave",
+     {"joins": [{"agent_did": f"did:w{i}", "sigma_raw": 0.8} for i in range(5)]}),
+    ("serving", "GET", "/debug/serving", None),
+    ("slo", "GET", "/debug/slo", None),
+    ("device", "GET", "/api/v1/device/stats", None),
+    ("events", "GET", "/api/v1/events/stats", None),
+    ("stats", "GET", "/api/v1/stats", None),
+    ("terminate", "POST", "/api/v1/sessions/{sid}/terminate", None),
+    ("get", "GET", "/api/v1/sessions/{sid}", None),
+)
+#: Fields of the API's bodies that are the host's wall clock or the device.
+SERVE_API_WALL = ("latency_ms", "retry_after_live_s", "latency_p99_ms", "backend", "classes",
+                  "attribution", "alerts", "alert_digest", "recent_alerts", "deadline_misses",
+                  "slo_states", "alert_counts", "recent_paths", "exemplar_rows", "phase_shares")
+
+
+def pct(values, q):
+    return float(np.percentile(np.asarray(values, np.float64), q)) if len(values) else None
+
+
+class DispatchWalls:
+    """Each serving dispatch's wave wall (the scheduler's own bracket,
+    `FrontDoor.resolve`'s `wall_s`) beside the device time of the state
+    call it made, by CUDA events, and every ticket's latency per class.
+    Installed on one state and the `FrontDoor` class for one soak."""
+
+    CALLS = ("flush_joins", "run_governance_wave", "check_actions_wave", "terminate_sessions",
+             "saga_round")
+
+    def __init__(self, state, front_door_cls, on_card: bool) -> None:
+        import torch
+
+        self.rows: list = []            # (queue, wall_ms, start, end)
+        self.latency: dict = {}         # queue -> [ms]
+        self.last = None
+        self._wall = None
+        self._restore = []
+        cls = front_door_cls
+        resolve, note_wave = cls.resolve, cls.note_wave
+
+        def wrap(name):
+            fn = getattr(state, name)
+
+            def call(*args, **kwargs):
+                if not on_card:
+                    return fn(*args, **kwargs)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                self.last = (start, end)
+                return out
+            return call
+
+        for name in self.CALLS:
+            setattr(state, name, wrap(name))
+        self._restore.append(lambda: [state.__dict__.pop(n, None) for n in self.CALLS])
+
+        def resolve_(fd, ticket, **kw):
+            resolve(fd, ticket, **kw)
+            self._wall = kw["wall_s"]
+            self.latency.setdefault(ticket.kind, []).append(ticket.latency_s * 1e3)
+
+        def note_wave_(fd, queue, lanes, bucket, now=None):
+            note_wave(fd, queue, lanes, bucket, now=now)
+            if self._wall is not None:
+                self.rows.append((queue, self._wall * 1e3, *(self.last or (None, None))))
+            self._wall, self.last = None, None
+
+        cls.resolve, cls.note_wave = resolve_, note_wave_
+        self._restore.append(lambda: (setattr(cls, "resolve", resolve),
+                                      setattr(cls, "note_wave", note_wave)))
+
+    def close(self) -> dict:
+        """Unhook; returns per-class walls and device times (ms) and the
+        dispatches whose wall fell short of their device time."""
+        import torch
+
+        for undo in self._restore:
+            undo()
+        if any(r[2] is not None for r in self.rows):
+            torch.cuda.synchronize()
+        by_class: dict = {}
+        short = []
+        for queue, wall_ms, start, end in self.rows:
+            dev_ms = start.elapsed_time(end) if start is not None else None
+            row = by_class.setdefault(queue, {"wall_ms": [], "device_ms": []})
+            row["wall_ms"].append(wall_ms)
+            if dev_ms is not None:
+                row["device_ms"].append(dev_ms)
+                if wall_ms < dev_ms:
+                    short.append((queue, wall_ms, dev_ms))
+        summary = {q: {"dispatches": len(r["wall_ms"]),
+                       "wall_ms": {"p50": pct(r["wall_ms"], 50), "p95": pct(r["wall_ms"], 95),
+                                   "max": max(r["wall_ms"])},
+                       "device_ms": ({"p50": pct(r["device_ms"], 50),
+                                      "p95": pct(r["device_ms"], 95), "max": max(r["device_ms"])}
+                                     if r["device_ms"] else None)}
+                   for q, r in sorted(by_class.items())}
+        latency = {q: {"n": len(v), "p50": pct(v, 50), "p95": pct(v, 95), "p99": pct(v, 99)}
+                   for q, v in sorted(self.latency.items())}
+        return {"walls": summary, "short": short, "latency_ms": latency}
+
+
+def serving_soak(device, spec_kw: dict, measure: bool, profile: bool = False) -> dict:
+    """One open-workload soak through `serving.run_soak` on a fresh state
+    of the default tables on `device`: the report, and with `measure` the
+    per-dispatch walls, the launch window and the roofline summary; with
+    `profile` the torch.profiler census of the whole soak (the card)."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.serving import FrontDoor, WorkloadSpec, run_soak
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    on_card = torch.device(device).type == "cuda"
+    state = HypervisorState(device=device)
+    walls = DispatchWalls(state, FrontDoor, on_card) if measure else None
+    kernels.reset_launch_counts()
+    prof = None
+    if profile and on_card:
+        from torch.profiler import ProfilerActivity, profile as profile_
+
+        prof = profile_(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    try:
+        report = run_soak(WorkloadSpec(**spec_kw), state=state)
+    finally:
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        timed = walls.close() if walls is not None else None
+    out = {"report": report, "seconds": time.perf_counter() - t0,
+           "window": kernels.launch_counts(), "state": state}
+    if timed is not None:
+        out.update(timed)
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        census: dict = {}
+        busy_us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                census[e.key[:100]] = census.get(e.key[:100], 0) + e.count
+                busy_us += e.self_device_time_total
+        out["census"] = census
+        out["busy_ms"] = busy_us / 1e3
+    if measure:
+        out["roofline"] = state.roofline_summary()
+        out["serving"] = state.serving_summary()
+    return out
+
+
+def capture_lifecycle_window(device, workdir: str) -> dict:
+    """One `profiling.capture_window` around lifecycle waves on a fresh
+    state of the default tables behind a front door: the window runs on
+    its own thread while this one submits full buckets of lifecycles and
+    drains them (`SERVE_WINDOW_WAVES` waves, then it waits for the window
+    to close). Returns the window's result and the kernel names its trace
+    holds."""
+    import threading
+
+    from hypervisor_tpu_torch.observability import profiling
+    from hypervisor_tpu_torch.serving import FrontDoor, WaveScheduler
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    fd = FrontDoor(HypervisorState(device=device))
+    sched = WaveScheduler(fd)
+    result: dict = {}
+    th = threading.Thread(target=lambda: result.update(
+        profiling.capture_window(workdir, SERVE_CAPTURE_S)), daemon=True)
+    th.start()
+    deadline = time.perf_counter() + 60.0
+    while not profiling.is_active() and th.is_alive() and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    waves, now, i = 0, 0.0, 0
+    while profiling.is_active():
+        if waves >= SERVE_WINDOW_WAVES:
+            time.sleep(0.01)
+            continue
+        for _ in range(fd.config.max_bucket):
+            fd.submit_lifecycle(f"window:{i}", f"did:window:{i}", 0.8, now=now)
+            i += 1
+        waves += sched.drain(now=now)
+        now += 1.0
+    th.join(SERVE_CAPTURE_S + 60.0)
+    names: dict = {}
+    if result.get("status") == "captured":
+        with open(result["trace"]) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") == "kernel":
+                    names[e["name"][:100]] = names.get(e["name"][:100], 0) + 1
+    return {"result": {k: v for k, v in result.items() if k != "detail"} | (
+        {"detail": result["detail"]} if "detail" in result else {}),
+            "waves": waves, "kernels": names}
+
+
+def serving_api(device) -> list:
+    """`SERVE_API` through the stdlib transport over a `Hypervisor` of the
+    default tables on `device`: [(label, status, body)] with the wall-clock
+    and device fields taken out."""
+    import http.client
+
+    from hypervisor_tpu_torch import Hypervisor
+    from hypervisor_tpu_torch.api import HypervisorHTTPServer, HypervisorService
+    from hypervisor_tpu_torch.observability import HypervisorEventBus
+    from hypervisor_tpu_torch.testing import same_health_on_every_run
+
+    bus = HypervisorEventBus()
+    hv = Hypervisor(event_bus=bus, device=device)
+    same_health_on_every_run(hv)
+    svc = HypervisorService(hypervisor=hv, event_bus=bus)
+    server = HypervisorHTTPServer(service=svc, port=0).start()
+
+    def scrub(value):
+        if isinstance(value, dict):
+            return {k: scrub(v) for k, v in value.items() if k not in SERVE_API_WALL}
+        if isinstance(value, list):
+            return [scrub(v) for v in value]
+        return value
+
+    ids: dict = {}
+    out = []
+    try:
+        for label, method, path, body in SERVE_API:
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=120)
+            conn.request(method, path.format(**ids),
+                         body=None if body is None else json.dumps(body))
+            resp = conn.getresponse()
+            got = json.loads(resp.read())
+            conn.close()
+            if label == "create":
+                ids["sid"] = got["session_id"]
+            out.append((label, resp.status, scrub(got)))
+    finally:
+        server.stop()
+    return out
+
+
+def run_serving(device, workdir: str) -> dict:
+    """The serving phase: the reference's soak replayed on `device` and on
+    the CPU (equal replay keys), the overload soak on `device`, a profiled
+    replay's census, a capture window around lifecycle waves, and the API
+    sequence on `device` and on the CPU. Returns the records `main`
+    checks and prints."""
+    rec: dict = {}
+    clock = [1_767_225_600.0]
+    saved = os.environ.get("HV_SCRUB_EVERY")
+    os.environ["HV_SCRUB_EVERY"] = str(SERVE_SCRUB_EVERY)
+    try:
+        return serving_records(device, workdir, rec, clock)
+    finally:
+        if saved is None:
+            os.environ.pop("HV_SCRUB_EVERY", None)
+        else:
+            os.environ["HV_SCRUB_EVERY"] = saved
+
+
+def serving_records(device, workdir: str, rec: dict, clock: list) -> dict:
+    """`run_serving`'s runs, with the scrub cadence set."""
+    with manual_ids_and_time(clock):
+        replay = serving_soak(device, SERVE_REPLAY, measure=True)
+    rec["replay"] = replay
+    t0 = time.perf_counter()
+    with manual_ids_and_time(clock):
+        cpu = serving_soak("cpu", SERVE_REPLAY, measure=False)
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["cpu_report"] = cpu["report"]
+    with manual_ids_and_time(clock):
+        rec["profiled"] = serving_soak(device, SERVE_REPLAY, measure=False, profile=True)
+        rec["overload"] = serving_soak(device, SERVE_OVERLOAD, measure=True)
+    rec["window"] = capture_lifecycle_window(device, workdir)
+    with manual_ids_and_time(clock):
+        rec["api"] = serving_api(device)
+    clock[0] = 1_767_225_600.0
+    with manual_ids_and_time(clock):
+        rec["api_cpu"] = serving_api("cpu")
+    for key in ("replay", "profiled", "overload"):
+        rec[key].pop("state", None)
+    return rec
+
+
+def check_serving(rec: dict, on_card: bool) -> dict:
+    """Every requirement of the serving phase; returns the summary `main`
+    prints."""
+    card, cpu = rec["replay"]["report"], rec["cpu_report"]
+    for key in SERVE_REPLAY_KEYS:
+        require(card[key] == cpu[key], f"serving: the replay's {key} differs from the CPU's: "
+                                       f"{card[key]} != {cpu[key]}")
+        require(rec["profiled"]["report"][key] == card[key],
+                f"serving: the profiled replay's {key} differs")
+    summary = {}
+    for name in ("replay", "overload"):
+        r = rec[name]
+        rep = r["report"]
+        offered = rep["offered"]["total"]
+        require(offered == rep["served"] + sum(rep["shed"].values()) + rep["orphaned"],
+                f"serving: {name}: offered != served + shed + orphaned")
+        require(rep["compiles_after_warmup"] == 0 and rep["recompiles_after_warmup"] == 0,
+                f"serving: {name}: novel signatures after warm-up: "
+                f"{rep['compiles_after_warmup']}, {rep['recompiles_after_warmup']}")
+        require(rep["invariant_violations"] == 0,
+                f"serving: {name}: {rep['invariant_violations']} invariant violations")
+        require(not r["short"], f"serving: {name}: a wave wall below its device time: "
+                                f"{r['short'][:4]}")
+        launched = {k for k, n in r["window"].items() if n}
+        if on_card:
+            require(launched == set(SERVE_KERNELS),
+                    f"serving: {name}: the soak must launch the serving path's kernels and "
+                    f"no other: {r['window']}")
+        roof = r["roofline"]
+        require(roof.get("enabled"), f"serving: {name}: the roofline observatory is off")
+        shares = {p: row["achieved_bw_frac"] for p, row in roof["programs"].items()
+                  if row["achieved_bw_frac"] is not None}
+        require(all(s <= SERVE_SHARE_MAX for s in shares.values()),
+                f"serving: {name}: a roofline share above {SERVE_SHARE_MAX}: {shares}")
+        summary[name] = {
+            "spec": rep["spec"], "offered": rep["offered"], "served": rep["served"],
+            "shed": rep["shed"], "orphaned": rep["orphaned"], "shed_rate": rep["shed_rate"],
+            "goodput_ops_s": rep["goodput_ops_s"], "goodput_ratio": rep["goodput_ratio"],
+            "deadline_misses": rep["deadline_misses"], "waves": rep["waves"],
+            "padded_lanes": rep["padded_lanes"], "latency_ms": r["latency_ms"],
+            "report_latency_ms": rep["latency_ms"], "walls_vs_device": r["walls"],
+            "warm_s": rep["warm_s"], "wall_s": rep["wall_s"], "soak_s": r["seconds"],
+            "launches": r["window"], "slo": rep["slo"],
+            "roofline": {
+                "shares": shares,
+                "modeled_bytes": {p: row["model"]["bytes_accessed"]
+                                  for p, row in roof["programs"].items()},
+                "kernels": {p: row["model"]["kernels"] for p, row in roof["programs"].items()},
+                "floor": roof["floor"], "peaks": roof["peaks"],
+                "worst_program": roof["worst_program"]},
+        }
+    census = rec["profiled"].get("census", {})
+    named = {k: sum(n for name, n in census.items() if OUR_KERNELS[k] in name)
+             for k in SERVE_KERNELS}
+    window_named = {k: sum(n for name, n in rec["window"]["kernels"].items()
+                           if OUR_KERNELS[k] in name) for k in SERVE_WINDOW_KERNELS}
+    require(rec["window"]["result"].get("status") == "captured",
+            f"serving: the capture window was refused: {rec['window']['result']}")
+    if on_card:
+        require(all(named.values()), f"serving: the profiler must name every kernel of the "
+                                     f"serving path: {named}")
+        require(all(window_named.values()),
+                f"serving: the capture window's trace must name B2-B5: {window_named}")
+    diff = first_difference("serving_api", rec["api_cpu"], rec["api"])
+    require(diff is None, f"serving: the API sequence on the card differs from the CPU at {diff}")
+    summary["census_ours"] = named
+    prof_rep = rec["profiled"]["report"]
+    if "busy_ms" in rec["profiled"]:
+        # The soak's loop after warm-up, under the profiler: device busy
+        # time over its host wall.
+        summary["profiled_replay"] = {
+            "device_busy_ms": rec["profiled"]["busy_ms"], "wall_s": prof_rep["wall_s"],
+            "warm_s": prof_rep["warm_s"],
+            "device_idle_share": 1.0 - rec["profiled"]["busy_ms"] / 1e3 / (
+                prof_rep["wall_s"] + prof_rep["warm_s"])}
+    summary["capture_window"] = {"result": rec["window"]["result"], "waves": rec["window"]["waves"],
+                                 "kernels_named": window_named}
+    summary["api"] = [(label, status) for label, status, _ in rec["api"]]
+    summary["cpu_replay_s"] = rec["cpu_s"]
+    return summary
 
 
 def first_difference(label, got, want):
@@ -3996,7 +4390,8 @@ def main(argv=None) -> int:
     b4_ok = int((wave.admission_block_plain(b4_state.agents, b4_state.sessions, *b4_lanes)[0]
                  == ADMIT_OK).sum())
     b4_sess = int(torch.unique(b4_lanes[2]).numel())
-    b4_bytes = N_JOINS * (18 + 6) + b4_sess * (16 + 4) + b4_ok * 117
+    b4_bytes = kernel_work("admission_block", lanes=N_JOINS, admitted=b4_ok,
+                           contribution=False, sessions=b4_sess)[0]
     flush2 = join_rec["flush2"]["value"]
     emit("joins_security", agents=n_agents, sessions=join_state.sessions.i32.shape[0],
          edges=join_state.vouches.active.shape[0],
@@ -4647,6 +5042,27 @@ def main(argv=None) -> int:
          clock="host; rungs, drains, summaries and waves synchronised; the drain and the "
                "wave timings on fresh states; the compile watch and watchdog per call")
 
+    # ── 15. serving: the front door, its SLO and critical-path planes, ─
+    # the roofline and profiling observatories, the API
+    serve_dir = tempfile.mkdtemp(prefix="hv_serving_")
+    try:
+        t0 = time.perf_counter()
+        serve = run_serving(dev, serve_dir)
+        serve_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_summary = check_serving(serve, on_card=True)
+    windows["serving"] = serve["replay"]["window"]
+    emit("serving", seconds=serve_s,
+         tables={k: getattr(DEFAULT_CONFIG.capacity, k) for k in (
+             "max_agents", "max_sessions", "max_vouch_edges", "max_sagas")},
+         buckets=list(serve["replay"]["serving"]["buckets"]), integrity_every=8,
+         **serve_summary, cpu_run="identical replay keys", nvidia_smi=smi,
+         clock="latency = virtual queue wait + the wave wall (host perf_counter around each "
+               "dispatch, after its results are on the host); device_ms by CUDA events "
+               "around the same dispatch's state call; the replay's census comes from a "
+               "second, profiled replay")
+
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):
         for k, t in post.items():
@@ -4744,47 +5160,27 @@ def main(argv=None) -> int:
     # Bounds: the bytes each function must move (inputs read once, outputs
     # written once, counting what this run's data needs) over HBM
     # bandwidth, against its 32-bit integer instructions (counted as the
-    # work needs them, see sha256_instructions) over the integer rate.
+    # work needs them) over the integer rate: `kernels.work.kernel_work`.
     l_, t_ = N_SESSIONS, N_DELTAS
-    pairs = dup_pairs = 0
-    for c in counts3.tolist():
-        m = leaves.shape[1]
-        while m > 1 and c > 1:
-            pairs += (c + 1) // 2
-            dup_pairs += c % 2
-            c, m = (c + 1) // 2, m // 2
+    pairs, dup_pairs = tree_pairs(counts3.tolist(), leaves.shape[1])
     n_ok = int(ok_m.sum())
     agent_hits = int(((post["agents"].i32[:, 1] >= 0)
                       & (post["agents"].i32[:, 1] < N_SESSIONS)).sum())
     edges = int(state.vouches.session.shape[0])
     work = {
-        "contribution_toward": (edges * (4 + 4 + 1 + 4 + 4) + n_cap * 4 + n_cap * 4, edges * 8),
-        "chain_digests": (t_ * l_ * 64 + l_ * 32 + t_ * l_ * 32, t_ * l_ * INSTR_PER_CHAIN_LINK),
-        "tree_roots": (l_ * min(N_DELTAS, 4) * 32 + l_ * 4 + l_ * 32,
-                       (pairs - dup_pairs) * INSTR_PER_PAIR + dup_pairs * INSTR_PER_DUP_PAIR),
-        "admission_block": (l_ * 22 + l_ * 16 + l_ * 6 + n_ok * (117 + 4), l_ * 40),
-        "fsm_saga_block": (N_SESSIONS * (4 + 8 + 8 + 2) + l_ * 2 + edges * 5
-                           + N_VOUCHED * 1 + n_cap * 4 + agent_hits * 8 + 4,
-                           N_SESSIONS * 30 + l_ * 2 + edges * 4 + n_cap * 3),
-        # B2's work, plus the append: the ring rows written (body, digest,
-        # session, turn), the wave's sessions read and the cursor written.
-        "chain_digests_ring": (t_ * l_ * 64 + l_ * 32 + t_ * l_ * 32
-                               + n_rows * (64 + 32 + 4 + 4) + l_ * 4 + 4,
-                               t_ * l_ * INSTR_PER_CHAIN_LINK),
-        "sha256_words": (SCRUB_BUDGET * (2 * 64 + 32), SCRUB_BUDGET * instr_per_message(2)),
-        # B7: read step, retry and undo rows, saga state, n_steps, cursor,
-        # the outcome byte; write step and retry rows, saga state, cursor,
-        # committed and exhausted; read and write the two tally counters.
-        # About 2M + 20 integer operations a saga for the two row scans.
-        "saga_tick_block": (saga_cap * (3 * 16 + 1 + 4 + 4 + 1) + saga_cap * (2 * 16 + 1 + 4 + 1 + 1)
-                            + 2 * 8, saga_cap * (2 * 16 + 20)),
-        # B8: read voucher, vouchee, session, active, expiry per edge and
-        # sigma and the first wave per agent; write sigma, slashed, clipped
-        # and wave_of per agent and active per edge; read and write the two
-        # tally counters. Per depth about ten operations an edge and twenty
-        # an agent.
-        "slash_cascade": (cap.max_vouch_edges * (4 + 4 + 4 + 1 + 4 + 1) + cap.max_agents * (5 + 7)
-                          + 2 * 8, depths * (cap.max_vouch_edges * 10 + cap.max_agents * 20)),
+        "contribution_toward": kernel_work("contribution_toward", edges=edges, agents=n_cap),
+        "chain_digests": kernel_work("chain_digests", turns=t_, lanes=l_),
+        "tree_roots": kernel_work("tree_roots", lanes=l_, leaves=l_ * min(N_DELTAS, 4),
+                                  pairs=pairs, dup_pairs=dup_pairs),
+        "admission_block": kernel_work("admission_block", lanes=l_, admitted=n_ok),
+        "fsm_saga_block": kernel_work("fsm_saga_block", sessions=N_SESSIONS, lanes=l_,
+                                      edges=edges, vouched=N_VOUCHED, agents=n_cap,
+                                      agent_hits=agent_hits),
+        "chain_digests_ring": kernel_work("chain_digests_ring", turns=t_, lanes=l_, rows=n_rows),
+        "sha256_words": kernel_work("sha256_words", messages=SCRUB_BUDGET, blocks=2),
+        "saga_tick_block": kernel_work("saga_tick_block", sagas=saga_cap, steps=16),
+        "slash_cascade": kernel_work("slash_cascade", edges=cap.max_vouch_edges,
+                                     agents=cap.max_agents, depths=depths),
     }
     blocks_ms = time_blocks((pre_v, pre_sigma, first_t, pre_sess))
     rows = []

@@ -170,7 +170,10 @@ from hypervisor_tpu_torch.security import (  # noqa: E402
     TokenBucket,
 )
 
+__version__ = "0.4.0"
+
 __all__ = [
+    "__version__",
     "resolve_device",
     "DEFAULT_CONFIG",
     "HypervisorConfig",

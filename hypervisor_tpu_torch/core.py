@@ -29,10 +29,11 @@ the session holds 64 deltas or more (`terminate_sessions` folds its
 roots from the live frontier on the host); a drift slash runs B8
 (`apply_slash`). Device columns are read back through
 `_host`. `ManagedSession.write_wave` builds a `runtime.write_wave.
-WriteWave` on the state's device. Not ported yet, each refused with a
-message naming a later slice of the port: `attach_front_door` /
-`serving_scheduler` (the serving plane) and `consistency_runtime` (the
-multi-device plane). With an event bus the
+WriteWave` on the state's device. `attach_front_door` attaches the
+serving front door and its wave scheduler (`serving`) to the state, on
+the state's device. Not ported yet, refused with a message naming a
+later slice of the port: `consistency_runtime` (the multi-device plane).
+With an event bus the
 facade emits its own events and bridges the health plane's onto it
 (`_on_health_event`), and incident bundles carry the bus's slice
 (`_incident_events_block`).
@@ -279,9 +280,16 @@ class Hypervisor:
         self._serving_scheduler = None
 
     def attach_front_door(self, config=None):
-        """Attach (or return) the serving front door + wave scheduler.
-        Refused: the serving plane is not ported yet."""
-        raise _later("Hypervisor.attach_front_door", "the serving plane, ROADMAP A5")
+        """Attach (or return) the serving front door + wave scheduler
+        (`hypervisor_tpu_torch.serving`): bounded ingestion queues with the
+        degraded-mode valve, draining into shape-bucketed waves. The
+        batched/streaming API endpoints call this lazily."""
+        if self.front_door is None:
+            from hypervisor_tpu_torch.serving import FrontDoor, WaveScheduler
+
+            self.front_door = FrontDoor(self.state, config)
+            self._serving_scheduler = WaveScheduler(self.front_door)
+        return self.front_door
 
     @property
     def serving_scheduler(self):

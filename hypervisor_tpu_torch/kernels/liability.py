@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
-from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
 from hypervisor_tpu_torch.kernels.wave import _host_f32 as _f32
 from hypervisor_tpu_torch.observability import metrics as schema
@@ -313,6 +313,7 @@ def slash_cascade(
         )
     _build.check("liability", err, "slash_cascade")
     slash_cascade.launches += 1
+    work.note_launch("slash_cascade", edges=e, agents=n, depths=trust.max_cascade_depth + 1)
     return out_sigma, active, slashed, clipped, wave_of
 
 

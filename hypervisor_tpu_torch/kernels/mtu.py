@@ -47,7 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
-from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.ops.sha256 import hex_pair_message, pad_tail_words, sha256_blocks
 from hypervisor_tpu_torch.tables.logs import BODY_WORDS, DeltaLog
 
@@ -113,6 +113,7 @@ def chain_digests(bodies: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
              torch.cuda.current_stream(bodies.device).cuda_stream)
     _build.check("mtu", err, "chain_digests")
     chain_digests.launches += 1
+    work.note_launch("chain_digests", turns=t, lanes=lanes)
     return out
 
 
@@ -178,6 +179,7 @@ def chain_digests_ring(
     _build.check("mtu", err, "chain_digests_ring")
     if t > 0 and k > 0:
         chain_digests_ring.launches += 1
+        work.note_launch("chain_digests_ring", turns=t, lanes=k, rows=n_live)
     return out
 
 
@@ -241,6 +243,12 @@ def tree_roots(leaves: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
              tree_lanes_per_session(p), torch.cuda.current_stream(leaves.device).cuda_stream)
     _build.check("mtu", err, "tree_roots")
     tree_roots.launches += 1
+    if work.counting():
+        with work.paused():
+            cs = counts.tolist()
+        pairs, dup_pairs = work.tree_pairs(cs, p)
+        work.note_launch("tree_roots", lanes=s, leaves=sum(min(max(c, 0), p) for c in cs),
+                         pairs=pairs, dup_pairs=dup_pairs)
     return out
 
 

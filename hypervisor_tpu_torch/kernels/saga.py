@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
 from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.ops import saga_ops as ops
@@ -165,6 +165,7 @@ def saga_tick_block(
     )
     _build.check("saga", err, "saga_tick_block")
     saga_tick_block.launches += 1
+    work.note_launch("saga_tick_block", sagas=g, steps=m)
     return committed, exhausted
 
 

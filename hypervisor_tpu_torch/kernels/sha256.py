@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
 from hypervisor_tpu_torch.ops.sha256 import sha256_blocks
 
@@ -52,6 +52,7 @@ def sha256_words(words: torch.Tensor, n_blocks: int) -> torch.Tensor:
              torch.cuda.current_stream(words.device).cuda_stream)
     _build.check("sha256", err, "sha256_words")
     sha256_words.launches += 1
+    work.note_launch("sha256_words", messages=b, blocks=n_blocks)
     return out
 
 

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
-from hypervisor_tpu_torch.kernels import _build
+from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
 from hypervisor_tpu_torch.models import SessionState
 from hypervisor_tpu_torch.ops import admission as admission_ops
@@ -76,6 +76,7 @@ from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.tables.logs import DeltaLog
 from hypervisor_tpu_torch.tables.state import (
     AF32_WIDTH,
+    AI32_SESSION,
     AI32_WIDTH,
     SF32_TERMINATED_AT,
     SF32_WIDTH,
@@ -145,6 +146,7 @@ def contribution_toward(
              out.data_ptr(), e, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("wave", err, "contribution_toward")
     contribution_toward.launches += 1
+    work.note_launch("contribution_toward", edges=e, agents=n)
     return out
 
 
@@ -244,6 +246,12 @@ def admission_block(
     )
     _build.check("wave", err, "admission_block")
     admission_block.launches += 1
+    if work.counting():
+        with work.paused():
+            admitted = int((status == admission_ops.ADMIT_OK).sum())
+            sessions_hit = int(torch.unique(session_slot).numel())
+        work.note_launch("admission_block", lanes=b, admitted=admitted,
+                         contribution=contribution is not None, sessions=sessions_hit)
     return status, ring, sigma_eff
 
 
@@ -345,6 +353,12 @@ def fsm_saga_block(
     )
     _build.check("wave", rc, "fsm_saga_block")
     fsm_saga_block.launches += 1
+    if work.counting():
+        with work.paused():
+            hits = int(torch.isin(agents.i32[:, AI32_SESSION], k_sessions).sum())
+            vouched = int(released)
+        work.note_launch("fsm_saga_block", sessions=k, lanes=b, edges=e, vouched=vouched,
+                         agents=n, agent_hits=hits)
     return step, wstate, err, released
 
 

@@ -3,12 +3,26 @@ causal trace ids, the flight recorder (`tracing`), the structured event
 bus (`event_bus`), whose rows the facade mirrors into the device
 EventLog, the runtime health plane (`health`: compile telemetry around
 the dispatch entries, occupancy over the `footprint()` protocol, the
-wave watchdog) and the hindsight plane (`history`, `incidents`). The
-roofline and profiling observatories arrive with a later slice (ROADMAP
-A4b), the SLO engine and the critical-path attribution with the serving
-plane (A5)."""
+wave watchdog) and the hindsight plane (`history`, `incidents`).
+`attribution` + `slo` are the latency observatory over the serving front
+door: per-ticket critical-path decomposition with /metrics exemplars, and
+the per-class multi-window burn-rate engine. `roofline` is the roofline
+observatory: a process-global registry of byte and instruction models
+counted at each program's first dispatch of a signature, joined with the
+measured stage walls against the card's peaks. `profiling` opens
+`torch.profiler` windows and the `hv.<stage>` ranges."""
 
-from hypervisor_tpu_torch.observability import health, history, incidents, metrics, tracing
+from hypervisor_tpu_torch.observability import (
+    attribution,
+    health,
+    history,
+    incidents,
+    metrics,
+    profiling,
+    roofline,
+    slo,
+    tracing,
+)
 from hypervisor_tpu_torch.observability.causal_trace import (
     CausalTraceId,
     device_key_of,
@@ -27,11 +41,15 @@ __all__ = [
     "EventType",
     "HypervisorEvent",
     "HypervisorEventBus",
+    "attribution",
     "device_key_of",
     "fnv1a32",
     "health",
     "history",
     "incidents",
     "metrics",
+    "profiling",
+    "roofline",
+    "slo",
     "tracing",
 ]

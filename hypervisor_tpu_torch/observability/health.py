@@ -47,6 +47,7 @@ default 0.85).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import os
@@ -126,6 +127,25 @@ def _leaf_summary(leaf) -> str:
         dtype = str(getattr(leaf, "dtype", "?")).removeprefix("torch.")
         return f"{dtype}[{','.join(str(d) for d in shape)}]"
     return type(leaf).__name__
+
+
+@contextlib.contextmanager
+def _roofline_count():
+    """The roofline observatory's count of one first dispatch
+    (`roofline.counting`), or None when the observatory is off or fails
+    to start one: the dispatch itself always runs."""
+    try:
+        from hypervisor_tpu_torch.observability import roofline
+
+        ctx = roofline.counting()
+        count = ctx.__enter__()
+    except Exception:  # noqa: BLE001 — observability never raises
+        yield None
+        return
+    try:
+        yield count
+    finally:
+        ctx.__exit__(None, None, None)
 
 
 class CompileWatch:
@@ -232,18 +252,20 @@ class CompileWatch:
                     self.compile_wall_ms += built
             return out
         t0 = time.perf_counter()
-        out = self._fn(*args, **kwargs)
+        with _roofline_count() as count:
+            out = self._fn(*args, **kwargs)
         wall_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             first = not self._keys
             self._keys.add(key)
-        self._record(args, kwargs, wall_ms, first=first)
+        self._record(args, kwargs, wall_ms, first=first, count=count, out=out)
         return out
 
-    def _record(self, args, kwargs, wall_ms, first: bool) -> None:
+    def _record(self, args, kwargs, wall_ms, first: bool, count=None, out=None) -> None:
         """Book one compile (the rare path: binding argument names and
         diffing summaries only happens here). Nothing is donated, so no
-        compile fails a donation."""
+        compile fails a donation. The roofline observatory takes the
+        dispatch's count (`count`, from `roofline.counting`)."""
         detail = self._sig_detail(args, kwargs)
         with self._lock:
             changed = () if first else self._diff(self._last_detail, detail)
@@ -262,6 +284,19 @@ class CompileWatch:
                 donation_failed=False,
             )
             self.last_event = event
+        # Roofline observatory intake (`observability.roofline`): every
+        # compile queues the modeled work its first dispatch counted; the
+        # model resolves off the dispatch path, at the metrics drain.
+        # Exception-proof: the observatory must never take down the
+        # dispatch that compiled.
+        try:
+            from hypervisor_tpu_torch.observability import roofline
+
+            roofline.note_compile(
+                self.name, count, args, kwargs, out, detail=detail, wall_ms=wall_ms,
+            )
+        except Exception:  # noqa: BLE001 — observability never raises
+            pass
         _LOG.record(event)
 
     def stats(self) -> dict:

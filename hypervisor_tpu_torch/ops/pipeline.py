@@ -47,7 +47,7 @@ from hypervisor_tpu_torch.integrity import invariants
 from hypervisor_tpu_torch.kernels import mtu, wave
 from hypervisor_tpu_torch.models import SessionState
 from hypervisor_tpu_torch.observability import metrics as schema
-from hypervisor_tpu_torch.observability import tracing
+from hypervisor_tpu_torch.observability import profiling, tracing
 from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import gateway as gateway_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
@@ -213,49 +213,55 @@ def run_wave(
     b = slot.shape[0]
     now_f = admission_ops.f32_scalar(now, dev)
 
+    # Each phase runs in a `stage_scope`: a profiler range `hv.<stage>`,
+    # which also attributes its ops to the phase in a roofline count.
     # 1. vouched contributions, scoped to the session each slot joins now.
-    slot_idx = slot.to(torch.int64)
-    target_session = torch.full((agents.i32.shape[0],), -2, dtype=torch.int32, device=dev)
-    target_session[slot_idx] = session_slot
-    contribution = blocks.contribution(vouches, target_session, now_f)[slot_idx]
+    with profiling.stage_scope("admission_wave"):
+        slot_idx = slot.to(torch.int64)
+        target_session = torch.full((agents.i32.shape[0],), -2, dtype=torch.int32, device=dev)
+        target_session[slot_idx] = session_slot
+        contribution = blocks.contribution(vouches, target_session, now_f)[slot_idx]
 
-    # 2. admission (B4).
-    status, ring, sigma_eff = blocks.admission(
-        agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
-        trustworthy, duplicate, now, ring_bursts, trust, unique_sessions,
-    )
-    ok = status == admission_ops.ADMIT_OK
+        # 2. admission (B4).
+        status, ring, sigma_eff = blocks.admission(
+            agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
+            trustworthy, duplicate, now, ring_bursts, trust, unique_sessions,
+        )
+        ok = status == admission_ops.ADMIT_OK
     if metrics is not None:
         admission_ops.tally_admission(metrics, ok, b, lanes_valid)
 
     # 3./5./6. session walk, saga step, terminate (B5).
-    step_state, wave_state, fsm_err, released = blocks.fsm_saga(
-        agents, sessions, vouches, wave_sessions, ok, now, wave_range
-    )
+    with profiling.stage_scope("session_fsm"):
+        step_state, wave_state, fsm_err, released = blocks.fsm_saga(
+            agents, sessions, vouches, wave_sessions, ok, now, wave_range
+        )
 
     # 4. audit: the delta chain (B2; with the ring riding, B2's ring form
     # also appends the live records), Merkle roots over the T leaves (B3).
     t, k = delta_bodies.shape[0], wave_sessions.shape[0]
-    seeds = torch.zeros((k, 8), dtype=torch.int32, device=dev)
-    if delta_log is not None and t > 0:
-        n_live = k * t if n_sessions_valid is None else int(n_sessions_valid) * t
-        chain = blocks.chain_ring(delta_bodies, seeds, delta_log, wave_sessions, delta_cursor,
-                                  n_live)
-    else:
-        chain = blocks.chain(delta_bodies, seeds)
-    p = 1 << max(0, (t - 1).bit_length())
-    leaves = torch.zeros((k, p, 8), dtype=torch.int32, device=dev)
-    leaves[:, :t] = chain.transpose(0, 1)
-    roots = blocks.tree(leaves, torch.full((k,), t, dtype=torch.int32, device=dev))
+    with profiling.stage_scope("delta_chain"):
+        seeds = torch.zeros((k, 8), dtype=torch.int32, device=dev)
+        if delta_log is not None and t > 0:
+            n_live = k * t if n_sessions_valid is None else int(n_sessions_valid) * t
+            chain = blocks.chain_ring(delta_bodies, seeds, delta_log, wave_sessions,
+                                      delta_cursor, n_live)
+        else:
+            chain = blocks.chain(delta_bodies, seeds)
+        p = 1 << max(0, (t - 1).bit_length())
+        leaves = torch.zeros((k, p, 8), dtype=torch.int32, device=dev)
+        leaves[:, :t] = chain.transpose(0, 1)
+        roots = blocks.tree(leaves, torch.full((k,), t, dtype=torch.int32, device=dev))
 
     # 7. the action gateway, on the post-terminate agents.
     gw_lanes = None
     if gateway_args is not None:
         *act, act_valid = gateway_args
-        gw = gateway_ops.check_actions(
-            agents, elevations, *act, now_f, valid=act_valid, breach=breach,
-            rate_limit=rate_limit, trust=trust, metrics=metrics,
-        )
+        with profiling.stage_scope("gateway_wave"):
+            gw = gateway_ops.check_actions(
+                agents, elevations, *act, now_f, valid=act_valid, breach=breach,
+                rate_limit=rate_limit, trust=trust, metrics=metrics,
+            )
         gw_lanes = gw._replace(agents=None, metrics=None)
 
     if metrics is not None:
@@ -293,14 +299,16 @@ def run_wave(
     sanitizer = None
     if epilogue_tables is not None and metrics is not None:
         ep_sagas, ep_event_log = epilogue_tables
-        schema.update_gauges(metrics, agents, sessions, vouches, ep_sagas, elevations,
-                             delta_log, ep_event_log, trace)
-        if sanitize:
-            bursts = DEFAULT_CONFIG.rate_limit.ring_bursts if ring_bursts is None else ring_bursts
-            sanitizer = invariants.check_invariants(
-                agents, sessions, vouches, ep_sagas, elevations, delta_log, ep_event_log,
-                trace, bursts, metrics=metrics, config=config,
-            )._replace(metrics=None)
+        with profiling.stage_scope("epilogue"):
+            schema.update_gauges(metrics, agents, sessions, vouches, ep_sagas, elevations,
+                                 delta_log, ep_event_log, trace)
+            if sanitize:
+                bursts = (DEFAULT_CONFIG.rate_limit.ring_bursts if ring_bursts is None
+                          else ring_bursts)
+                sanitizer = invariants.check_invariants(
+                    agents, sessions, vouches, ep_sagas, elevations, delta_log, ep_event_log,
+                    trace, bursts, metrics=metrics, config=config,
+                )._replace(metrics=None)
     return WaveResult(
         agents=agents, sessions=sessions, vouches=vouches, status=status, ring=ring,
         sigma_eff=sigma_eff, saga_step_state=step_state, merkle_root=roots, chain=chain,

@@ -72,8 +72,12 @@ the 13 stage timers bracket the dispatch sites and measure the host's
 enqueue; `health` is the watchdog over the tracer's bracket, occupancy
 and the compile watch around the module-level dispatch entries;
 `history` and `incidents` are the hindsight plane fed by the drain;
-`session_trace` / `flight_summary` drain the flight recorder. The mesh
-path arrives with a later slice of the port.
+`session_trace` / `flight_summary` drain the flight recorder; the drain
+publishes the roofline observatory's gauges (`roofline_summary`). An
+attached serving front door (`serving`) adds its panels
+(`serving_summary`, `slo_summary`) and the exemplar lines of
+`metrics_prometheus`. The mesh path arrives with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -96,6 +100,7 @@ from hypervisor_tpu_torch.observability import health as health_plane
 from hypervisor_tpu_torch.observability import history as history_plane
 from hypervisor_tpu_torch.observability import incidents as incidents_plane
 from hypervisor_tpu_torch.observability import metrics as metrics_plane
+from hypervisor_tpu_torch.observability import roofline as roofline_plane
 from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.observability.tracing import Tracer
 from hypervisor_tpu_torch.ops import merkle as merkle_ops
@@ -276,6 +281,10 @@ class HypervisorState:
         # the facade bridges onto the event bus.
         self.health = health_plane.HealthMonitor(self.metrics)
         self.tracer.health = self.health
+        # The roofline observatory's event cursor: the registry is
+        # process-global; each state drains its own view of the shift
+        # events at its own metrics drain.
+        self._roofline_event_seq = 0
         # The hindsight plane: the tiered history fed from the drain's
         # snapshot, and the incident recorder on the health fan-out.
         # `hindsight_clock` (callable -> float) overrides their clock, so
@@ -289,6 +298,7 @@ class HypervisorState:
         self.incidents.emit = self.health.emit_event
         self.health.add_listener(self.incidents.observe)
         self.incidents.register_provider("wal", self._incident_wal_block)
+        self.incidents.register_provider("slo", lambda trigger: self.slo_summary())
         self.incidents.register_provider("trace", self._incident_trace_block)
         self.agent_ids = InternTable()
         self.session_ids = InternTable()
@@ -355,6 +365,9 @@ class HypervisorState:
         self.admission_damper = None
         self.resilience = None
         self.integrity = None
+        # The serving front door (opt-in, `serving.FrontDoor` sets it):
+        # `health_summary` carries its queue, shed and deadline panel.
+        self.serving = None
         #: The WAL watermark a restored checkpoint carries: recovery
         #: replays the committed records past it.
         self._restored_wal_seq: Optional[int] = None
@@ -1038,7 +1051,7 @@ class HypervisorState:
                 if pad_to < n:
                     raise ValueError(
                         f"flush_joins pad_to={pad_to} below the staged wave size {n}; "
-                        "cap staging at the largest bucket"
+                        "the serving scheduler must cap staging at the largest bucket"
                     )
 
                 def pad_arr(arr, dtype, fill):
@@ -1388,7 +1401,8 @@ class HypervisorState:
             if pad_to < k:
                 raise ValueError(f"terminate pad_to={pad_to} below the wave size {k}")
             if pad_slot is None:
-                raise ValueError("terminate pad_to requires pad_slot (a memberless park session)")
+                raise ValueError(
+                    "terminate pad_to requires pad_slot (the serving front door's park session)")
             slots = slots + [int(pad_slot)] * (pad_to - k)
         self._predispatch("terminate_wave")
         with self._journal("terminate_sessions", session_slots=slots, now=float(now),
@@ -2137,6 +2151,16 @@ class HypervisorState:
         if inj is not None:
             inj.on_drain("metrics_drain")
         health_plane.publish_compile_counters(self.metrics)
+        # The roofline observatory: resolve a bounded batch of pending
+        # counts and join the models with the host-plane stage walls into
+        # the hv_roofline_* gauges (host only). Shift events (a recount
+        # whose modeled bytes moved past the tolerance) fan through the
+        # health plane onto the bus.
+        roofline_plane.publish(self.metrics)
+        self._roofline_event_seq, shifts = roofline_plane.registry().events_since(
+            self._roofline_event_seq)
+        for shift in shifts:
+            self.health.emit_event("roofline_shift", shift)
         self.health.publish_footprints(self.health_tables())
         refresh = None
         if not self._gauges_fresh:
@@ -2155,9 +2179,18 @@ class HypervisorState:
         return snap
 
     def metrics_prometheus(self) -> str:
-        """Prometheus text exposition of the merged metrics plane (the
-        serving front door's exemplar lines join it with ROADMAP A5)."""
-        return self.metrics_snapshot().to_prometheus()
+        """Prometheus text exposition of the merged metrics plane. With a
+        serving front door attached, the attribution plane's exemplar
+        COMMENT lines ride along (`# EXEMPLAR ...`: each populated latency
+        bucket names its latest ticket's CausalTraceId and its wave's
+        trace id)."""
+        text = self.metrics_snapshot().to_prometheus()
+        serving = self.serving
+        if serving is not None and getattr(serving, "attribution", None):
+            lines = serving.attribution.exemplar_lines()
+            if lines:
+                text += "\n".join(lines) + "\n"
+        return text
 
     # ── health plane ─────────────────────────────────────────────────
 
@@ -2180,10 +2213,9 @@ class HypervisorState:
 
     def health_summary(self) -> dict:
         """One drain's worth of watchdog state, occupancy, compile totals
-        and per-stage latency quantiles, with the integrity and hindsight
-        panels. `backend` is the torch device type of the tables; the
-        serving and SLO panels stay disabled until the serving plane is
-        ported (ROADMAP A5)."""
+        and per-stage latency quantiles, with the integrity, serving, SLO
+        and hindsight panels. `backend` is the torch device type of the
+        tables."""
         snap = self.metrics_snapshot()
         stages = {
             stage: {"n": n, "p50_us": round(p50, 1), "p99_us": round(p99, 1)}
@@ -2199,8 +2231,8 @@ class HypervisorState:
             "compiles": health_plane.compile_summary(last=8),
             "stages": stages,
             "integrity": self.integrity_summary(),
-            "serving": {"enabled": False},
-            "slo": {"enabled": False},
+            "serving": self.serving_summary(),
+            "slo": self.slo_summary(),
             "incidents": self.incidents.summary(),
             "history": {
                 "samples": self.history.samples_total,
@@ -2227,6 +2259,49 @@ class HypervisorState:
     def compile_summary(self) -> dict:
         """The process-global compile watch's payload."""
         return health_plane.compile_summary()
+
+    def roofline_summary(self, join_phases: bool = True) -> dict:
+        """The roofline observatory in one poll: each program's modeled
+        bytes and operations (every counted bucket), the modeled-vs-
+        measured table, the per-phase byte model joined with the measured
+        wave-phase shares, the live-buffer peak against the tables'
+        footprints, the headroom ranking and the floor block.
+
+        Resolves every pending count and, with `join_phases`, refreshes the
+        phase shares from the trace ring (one drain of it, the cost
+        `slo_summary`'s callers pay); the clean-path drain never does."""
+        tracer = self.tracer if join_phases and self.tracer.enabled else None
+        out = roofline_plane.summary(self.metrics, tracer=tracer)
+        if not out.get("enabled"):
+            return out
+        out["backend"] = self.device.type
+        footprints = {name: t.footprint() for name, t in self.health_tables().items()}
+        out["hbm"]["tables_total_bytes"] = health_plane.hbm_total_bytes(footprints)
+        return out
+
+    def serving_summary(self) -> dict:
+        """Queue depths and backpressure, shed accounting by reason,
+        deadline misses, wave cadence and the bucket set; the bare plane
+        state when no `serving.FrontDoor` is attached."""
+        if self.serving is not None:
+            return self.serving.summary()
+        return {"enabled": False}
+
+    def slo_summary(self) -> dict:
+        """Per-class burn-rate states, objectives, the alert log, the
+        critical-path decomposition quantiles and the live Retry-After
+        hints, all host-plane (no device read)."""
+        serving = self.serving
+        if serving is None or getattr(serving, "slo", None) is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            **serving.slo.summary(),
+            "attribution": serving.attribution.summary(),
+            "retry_after_live_s": {
+                q: serving.retry_after_for(q) for q in serving._queues
+            },
+        }
 
     # ── hindsight plane (retained history + incidents) ───────────────
 

@@ -248,6 +248,7 @@ def run_both(sequence) -> tuple[list, list]:
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HV_WAVE_PALLAS", "0")
         mp.setenv("HV_SHA256_PALLAS", "0")
+        mp.setenv("HV_ROOFLINE", "0")
         mp.delenv("HV_TRACE", raising=False)
         mp.delenv("HV_TRACE_SAMPLE", raising=False)
         for pkg in (REF, PORT):
@@ -992,13 +993,20 @@ def test_readme_lifecycle_root_commits_and_verifies():
 
 
 def test_unported_entries_name_a_later_slice():
+    """The multi-device runtime (ROADMAP A8) and the API's fleet and
+    autopilot endpoints (A7) refuse, naming their slice. The serving
+    front door is ported: `tests/test_torch_serving.py` holds it to the
+    reference."""
+    from hypervisor_tpu_torch.api import ApiError, HypervisorService
+
     hv = PORT.Hypervisor(device="cpu")
-    with pytest.raises(NotImplementedError, match="a later slice of the port"):
-        hv.attach_front_door()
-    with pytest.raises(NotImplementedError, match="a later slice of the port"):
-        hv.serving_scheduler  # noqa: B018 — the property is the entry
-    with pytest.raises(NotImplementedError, match="a later slice of the port"):
+    with pytest.raises(NotImplementedError, match="a later slice of the port.*A8"):
         hv.consistency_runtime(mesh=None)
+    svc = HypervisorService(hypervisor=hv)
+    for endpoint in (svc.debug_autopilot, svc.debug_fleet, svc.fleet_workers):
+        with pytest.raises(ApiError, match="a later slice of the port.*A7") as err:
+            asyncio.run(endpoint())
+        assert err.value.status == 501
 
 
 def test_default_hypervisor_runs_on_cuda_and_never_falls_back():

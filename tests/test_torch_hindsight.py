@@ -127,7 +127,7 @@ def test_incident_ids_and_rule_fields_match_reference():
                  if e.event_type.value.startswith("incident.")]
         replay = all(st.incidents.replay_check(row["id"]) for row in summary["last"])
         # A bundle's size counts its context, whose trace block holds wall
-        # times (and the reference's its ledger and SLO blocks).
+        # times (and the reference's its ledger block).
         for row in summary["last"]:
             row.pop("bytes")
         return summary, bundles, contexts, trace["trace_id"], kinds, replay
@@ -141,9 +141,10 @@ def test_incident_ids_and_rule_fields_match_reference():
     assert port[4] == ref[4] and port[4]
     assert port[5] is ref[5] is True
     # The port's bundle carries the blocks of the planes it has: history,
-    # the WAL pointer, the trace fragment and the facade's bus slice.
-    assert port[2] == ["events", "history", "trace", "wal"]
-    assert set(port[2]) < set(ref[2])
+    # the WAL pointer, the SLO panel, the trace fragment and the facade's
+    # bus slice; only the autopilot's ledger block waits (ROADMAP A7).
+    assert port[2] == ["events", "history", "slo", "trace", "wal"]
+    assert set(ref[2]) - set(port[2]) == {"ledger"}
 
 
 def test_a_missing_incident_is_none_and_the_wal_block_points_at_the_journal(tmp_path):

@@ -56,9 +56,11 @@ COPIES = (
     "liability/__init__.py", "liability/attribution.py", "liability/collusion.py",
     "liability/ledger.py", "liability/matrix.py", "liability/quarantine.py",
     "liability/slashing.py",
+    "api/__init__.py", "api/models.py", "api/server.py",
     "models/__init__.py",
-    "observability/causal_trace.py", "observability/event_bus.py",
-    "observability/history.py", "observability/incidents.py",
+    "observability/attribution.py", "observability/causal_trace.py",
+    "observability/event_bus.py", "observability/history.py",
+    "observability/incidents.py", "observability/slo.py",
     "resilience/policy.py", "resilience/wal.py",
     "reversibility/__init__.py",
     "rings/__init__.py", "rings/breach_detector.py", "rings/classifier.py",
@@ -66,6 +68,7 @@ COPIES = (
     "saga/__init__.py", "saga/checkpoint.py", "saga/fan_out.py", "saga/orchestrator.py",
     "security/__init__.py", "security/action_gateway.py", "security/kill_switch.py",
     "security/rate_limiter.py",
+    "serving/__init__.py", "serving/front_door.py",
     "session/__init__.py", "session/intent_locks.py", "session/isolation.py",
     "session/vector_clock.py", "session/vfs.py",
     "tables/intern.py",
@@ -87,6 +90,14 @@ EXCEPTIONS = {
                       "C++ library (`runtime.native`)",
     "liability/vouching.py": "`to_device` builds the port's `VouchTable` of torch "
                              "tensors on a given device",
+    "serving/scheduler.py": "each wave's lanes are read back from torch tensors inside "
+                            "the wall bracket, and the saga round waits for the device, "
+                            "so the wave wall covers the device time",
+    "serving/loadgen.py": "`autopilot=True` refuses, naming the later slice that "
+                          "brings the autopilot",
+    "api/service.py": "`device_stats.backend` is the state's torch device type; "
+                      "`/debug/profile` opens a torch.profiler window; the fleet and "
+                      "autopilot endpoints refuse with a 501 naming a later slice",
 }
 
 #: Modules the port copies with a module docstring of its own, and why:
@@ -140,6 +151,7 @@ def run_both(sequence) -> tuple[list, list]:
         clock = ManualTime()
         with pytest.MonkeyPatch.context() as mp:
             install_determinism(mp, clock)
+            mp.setenv("HV_ROOFLINE", "0")
             log: list = []
             api = types.SimpleNamespace(
                 pkg=pkg, clock=clock, rng=np.random.RandomState(7),

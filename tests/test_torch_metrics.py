@@ -5,8 +5,9 @@ quantiles, the wrap-safe drain, exposition, the host-plane tallies) and
 of the drain half of `tests/unit/test_health.py`, on
 `hypervisor_tpu_torch.observability.metrics` and the port's
 `HypervisorState(device="cpu")`. The reference runs unarmed
-(`HV_WAVE_PALLAS=0`) with its roofline observatory off (`HV_ROOFLINE=0`:
-the port's arrives with ROADMAP A4b, so its gauges stay 0 on both).
+(`HV_WAVE_PALLAS=0`), and both packages run with their roofline
+observatories off (`HV_ROOFLINE=0`: the reference models XLA programs, the
+port the card's work, ROADMAP C.2), so the roofline gauges stay 0 on both.
 
 Tolerance 0: after every op of the seeded all-ops sequence
 (`test_torch_resilience.rich_sequence`), both states drain and every
