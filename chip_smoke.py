@@ -4,9 +4,10 @@ eight phases: the action gateway and the gauge epilogue too), the
 sanitizer, the join queue and security surface, the saga plane, the
 slash cascade, the lock and write waves, the native host runtime, the
 `Hypervisor` facade's public API, durability (the write-ahead log,
-checkpoints and crash recovery) and observability (the metrics drain,
-the health and hindsight planes, the integrity plane and the supervisor)
-on one NVIDIA GPU.
+checkpoints and crash recovery), observability (the metrics drain, the
+health and hindsight planes, the integrity plane and the supervisor),
+serving, tenancy (T tenants' waves in one launch of each kernel's tenant
+form) and the autopilot on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -278,8 +279,34 @@ Phases, one JSON line each:
    name B2-B5, and one API sequence through the stdlib transport on a
    localhost port on the card and on the CPU, equal but for the wall
    clock and the backend's name.
+16. tenancy: a `TenantArena` of 8 tenants, each on the default tables:
+   a bucket-32 batched wave of three audit deltas (ragged lanes, vouched
+   joiners), a sanitized one, a third with one tenant idle (its tables
+   must not move). Each tenant equals its own solo waves
+   (`run_governance_wave(..., pad_to=(32, 32))` on a solo state: tables,
+   DeltaLog, metrics, chain heads, roots, members) and the same sequence
+   on the CPU; each kernel's tenant form (the contribution, B4, B5, B2's
+   ring form with B6's append) launches as often in a batched wave as
+   its solo form in one solo wave, and is held against its plain loop
+   on the card and on the CPU at the first wave's inputs, tolerance 0;
+   the batched wave's device ops (torch.profiler) at most twice one solo
+   wave's; its host p50 beside that of 8 solo waves. Then the
+   reference's `tenant_dense` row (seed 17, T = 100, 6 rounds of 2
+   lifecycles, buckets (4, 8)) through `TenantWaveScheduler` on the card
+   and on the CPU (offered, served, waves and chain heads equal; no
+   novel signature after warm-up; one launch of each form a round; the
+   worst per-tenant p99 against its 100 ms), the flooding-tenant drill
+   (the flood sheds alone, every neighbour served, their chain heads
+   equal a solo oracle's) and one `recover_tenant` + `splice_tenant`.
+17. autopilot: the reference's `autopilot_soak` row (`_PHASES_QUICK`,
+   seed 17, 20 ms ticks, two replays, the 100 ms p99 SLO) on the card:
+   one decisions digest across the replays, no invariant violation, the
+   goodput against the static config, p99, the decisions and their
+   outcomes, the unplanned novel signatures; then `GET /debug/autopilot`
+   from a service whose state carries an autopilot that decided.
 
-Then the kernels summary, the nvidia-smi line, and a last line
+Then the kernels summary (each tenant form with its times at T = 8 and
+at T = 100), the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
 that line. Exits 2 without printing a result when CUDA is absent.
 """
@@ -287,6 +314,7 @@ that line. Exits 2 without printing a result when CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import itertools
@@ -1366,8 +1394,8 @@ DUR_TIMING_ITERS = 4
 DUR_CHAOS = dict(seed=11, fail_rate=0.4)
 #: Kernel name fragments in a torch.profiler census: the port's own
 #: kernels, and torch's (ATen, its cub, the copies and fills).
-OUR_KERNELS = {"sha256_words": "sha256_kernel", "chain_digests": "chain_kernel<false>",
-               "chain_digests_ring": "chain_kernel<true>", "tree_roots": "tree_",
+OUR_KERNELS = {"sha256_words": "sha256_kernel", "chain_digests": "chain_kernel<false",
+               "chain_digests_ring": "chain_kernel<true, false>", "tree_roots": "tree_",
                "admission_block": "admission_", "fsm_saga_block": "fsm_saga_kernel",
                "contribution_toward": "contrib_", "saga_tick_block": "saga_tick_kernel",
                "slash_cascade": "slash_cascade_kernel"}
@@ -3382,6 +3410,923 @@ def check_serving(rec: dict, on_card: bool) -> dict:
     return summary
 
 
+# ── tenancy: the arena's batched wave, its tenant forms, tenant_dense ─
+
+#: The full-width cell: T tenants, each on the default tables (the
+#: serving phase's), bucket-32 batched waves of TEN_TURNS audit deltas.
+TEN_T = 8
+TEN_BUCKET = 32
+TEN_TURNS = 3
+#: Lanes of each tenant's wave that carry a vouched contribution (one
+#: edge a vouchee, bond 0.3), and the timed waves.
+TEN_VOUCHED = 8
+TEN_TIMED_WAVES = 10
+#: The reference's `tenant_dense` row (`benchmarks/bench_suite.py`
+#: `tenant_dense_benchmark`, quick): seed 17, T = 100, 6 rounds of 2
+#: lifecycles a tenant, buckets (4, 8), its per-tenant capacity, and the
+#: 100 ms device SLO it states for the worst per-tenant p99.
+TEN_DENSE = dict(seed=17, tenants=100, rounds=6, lanes=2, buckets=(4, 8), slo_p99_ms=100.0)
+#: The flooding-tenant drill (`tests/unit/test_tenancy.py`): 4 tenants,
+#: tenant 3 offers 40 lifecycles a round, its neighbours 2.
+TEN_FLOOD = dict(tenants=4, rounds=5, flood=40, lanes=2)
+#: Each tenant form of `kernels.work.TENANT_FORMS` (form -> the solo
+#: kernel it stands for): the block of `pipeline.TenantWaveBlocks` that
+#: calls it, the TPU kernel it replaces and its source.
+TENANT_FORM_ROWS = {
+    "contribution_toward_tenants": ("contribution", "hypervisor_tpu/ops/liability.py:93",
+                                    "hypervisor_tpu_torch/csrc/wave.cu"),  # an XLA scatter
+    "admission_block_tenants": ("admission", "hypervisor_tpu/kernels/wave_pallas.py:1318",
+                                "hypervisor_tpu_torch/csrc/wave.cu"),
+    "fsm_saga_block_tenants": ("fsm_saga", "hypervisor_tpu/kernels/wave_pallas.py:1441",
+                               "hypervisor_tpu_torch/csrc/wave.cu"),
+    "chain_digests_ring_tenants": ("chain_ring", "hypervisor_tpu/kernels/mtu_pallas.py:319",
+                                   "hypervisor_tpu_torch/csrc/mtu.cu"),
+}
+#: The tenant wave's kernels held against their plain versions on its
+#: inputs, by block: the four tenant forms and B3, which takes the T x K
+#: lanes flat in its solo form.
+TENANT_PARITY = {**{form: row[0] for form, row in TENANT_FORM_ROWS.items()}, "tree_roots": "tree"}
+
+
+def tenant_forms() -> dict:
+    """`kernels.work.TENANT_FORMS` (form -> solo kernel), which must name
+    the forms of TENANT_FORM_ROWS."""
+    from hypervisor_tpu_torch.kernels.work import TENANT_FORMS
+
+    require(set(TENANT_FORMS) == set(TENANT_FORM_ROWS),
+            f"tenancy: the tenant forms {sorted(TENANT_FORMS)} are not the smoke's rows")
+    return TENANT_FORMS
+
+
+def dense_config():
+    """`tenant_dense`'s per-tenant tables (bench_suite's capacity)."""
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TableCapacity
+
+    rounds, lanes = TEN_DENSE["rounds"], TEN_DENSE["lanes"]
+    return dataclasses.replace(DEFAULT_CONFIG, capacity=TableCapacity(
+        max_agents=64, max_sessions=max(64, (rounds + 8) * lanes + 16), max_vouch_edges=64,
+        max_sagas=16, max_steps_per_saga=4, max_elevations=16, delta_log_capacity=1024,
+        event_log_capacity=64, trace_log_capacity=64))
+
+
+def small_config():
+    """The small per-tenant tables of the reference's tenancy tests."""
+    from hypervisor_tpu_torch.config import HypervisorConfig, TableCapacity
+
+    return HypervisorConfig(capacity=TableCapacity(
+        max_agents=64, max_sessions=64, max_vouch_edges=64, max_sagas=16, max_steps_per_saga=4,
+        max_elevations=16, delta_log_capacity=256, event_log_capacity=64, trace_log_capacity=64))
+
+
+def _clone_arg(a):
+    import torch
+
+    from hypervisor_tpu_torch.tables.struct import clone
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if is_table(a):
+        return clone(a)
+    return a
+
+
+def is_table(a) -> bool:
+    """A table or ring: a dataclass of tensors (not a config)."""
+    import torch
+
+    return (dataclasses.is_dataclass(a) and not isinstance(a, type)
+            and all(isinstance(getattr(a, f.name), torch.Tensor) for f in dataclasses.fields(a)))
+
+
+@contextlib.contextmanager
+def recorded_tenant_blocks():
+    """Inside, each tenant-wave block records the inputs of its first call
+    (tables cloned before the call writes them) by block name."""
+    from hypervisor_tpu_torch.ops import pipeline
+
+    calls: dict = {}
+    orig = pipeline.TENANT_KERNEL_BLOCKS
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            if name not in calls:
+                calls[name] = ([_clone_arg(a) for a in args], dict(kw))
+            return fn(*args, **kw)
+        return call
+
+    pipeline.TENANT_KERNEL_BLOCKS = pipeline.TenantWaveBlocks(
+        *(recording(f, getattr(orig, f)) for f in orig._fields))
+    try:
+        yield calls
+    finally:
+        pipeline.TENANT_KERNEL_BLOCKS = orig
+
+
+def ten_workload(rng, t: int, w: int, k: int) -> dict:
+    """Tenant t's wave w: k lifecycles (sessions, joiners, sigma, bodies)."""
+    return {
+        "ids": [f"ten:{t}:{w}:{i}" for i in range(k)],
+        "dids": [f"did:ten:{t}:{w}:{i}" for i in range(k)],
+        "sigma": rng.uniform(0.35, 0.95, k).astype(np.float32),
+        "bodies": rng.randint(0, 2**32, (TEN_TURNS, k, 16), dtype=np.uint64).astype(np.uint32),
+    }
+
+
+def ten_k(t: int, w: int) -> int:
+    """Tenant t's lifecycles in wave w: ragged, every tenant present."""
+    return TEN_BUCKET - (t + w) % 4 * 5
+
+
+def vouch_wave(st, slots, k: int) -> None:
+    """One live edge toward each of the wave's first TEN_VOUCHED joiners
+    (the rows the wave will claim: the bump cursor's next), each from a
+    voucher row at the table's end, scoped to the joiner's session."""
+    cap = st.agents.i32.shape[0]
+    for i in range(min(TEN_VOUCHED, k)):
+        st.add_vouch(cap - 1 - i, st._next_agent_slot + i, int(slots[i]), 0.3)
+
+
+def solo_state(config, device):
+    """A solo state whose tracer is off: the tenant wave stamps no trace
+    ring, so the solo oracle's epilogue must see none either."""
+    from hypervisor_tpu_torch.state import HypervisorState
+
+    saved = os.environ.get("HV_TRACE")
+    os.environ["HV_TRACE"] = "0"
+    try:
+        return HypervisorState(config, device=device)
+    finally:
+        if saved is None:
+            os.environ.pop("HV_TRACE", None)
+        else:
+            os.environ["HV_TRACE"] = saved
+
+
+def tenant_tables(st) -> dict:
+    """A tenant's (or solo state's) device tables and metrics, host numpy."""
+    from hypervisor_tpu_torch.tables.struct import tensors
+
+    out = {}
+    for name in ("agents", "sessions", "vouches", "sagas", "elevations", "delta_log", "event_log"):
+        for k, v in tensors(getattr(st, name)).items():
+            out[f"{name}.{k}"] = v.cpu().numpy().copy()
+    for k, v in tensors(st.metrics.table).items():
+        out[f"metrics.{k}"] = v.cpu().numpy().copy()
+    return out
+
+
+def tenant_host(st) -> dict:
+    return {"chain_seed": {int(s): np.asarray(v).tobytes().hex()
+                           for s, v in sorted(st._chain_seed.items())},
+            "members": sorted(st._members), "turns": dict(sorted(st._turns.items())),
+            "delta_cursor": st._delta_cursor, "next_agent": st._next_agent_slot,
+            "next_session": st._next_session_slot}
+
+
+#: A name fragment of each kernel a governance wave launches (solo or
+#: tenant form): a census that misses one missed part of the wave.
+WAVE_KERNEL_NAMES = ("contrib_scope_kernel", "admission_", "fsm_saga_kernel", "chain_kernel",
+                     "tree_")
+
+
+def count_device_ops(fn) -> tuple[int, dict]:
+    """The device events (kernels, copies, fills) of one call, by
+    torch.profiler on the card: their number and their census by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profile_
+
+    torch.cuda.synchronize()
+    with profile_(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    census: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            census[e.key[:80]] = census.get(e.key[:80], 0) + e.count
+    return sum(census.values()), census
+
+
+def tenant_census_child() -> None:
+    """In a fresh process: the device ops of one batched wave of TEN_T
+    tenants of the default tables and of one solo wave, after two warm
+    waves each; prints them as the last line (JSON)."""
+    import torch
+
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.tenancy import TenantArena
+
+    dev = torch.device("cuda", 0)
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    arena = TenantArena(TEN_T, DEFAULT_CONFIG, device=dev)
+    st = solo_state(DEFAULT_CONFIG, dev)
+    rng = np.random.RandomState(SEED + 2)
+    out = {}
+    for i in range(3):
+        lanes, loads = ten_wave_lanes(arena, rng, 50 + i, range(TEN_T))
+        slots = st.create_sessions_batch(loads[0]["ids"], scfg)
+
+        def batched(lanes=lanes, now=float(50 + i)):
+            arena.governance_wave_batch(lanes, TEN_BUCKET, now=now)
+
+        def solo(slots=slots, load=loads[0], now=float(50 + i)):
+            st.run_governance_wave(slots, load["dids"], slots.copy(), load["sigma"],
+                                   load["bodies"], now=now, pad_to=(TEN_BUCKET, TEN_BUCKET))
+
+        if i < 2:
+            batched()
+            solo()
+        else:
+            out["batched"] = count_device_ops(batched)
+            out["solo"] = count_device_ops(solo)
+    print(json.dumps(out), flush=True)
+
+
+def tenant_census() -> dict:
+    """`tenant_census_child` in a fresh Python process on the card. In
+    the whole script, a profiler session entered after earlier phases'
+    sessions missed a wave's first events (its staging copies and first
+    kernels: 22 to 28 of 181); a fresh process sees every one."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.tenant_census_child()"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    require(run.returncode == 0,
+            f"tenancy: the census process failed ({run.returncode}): {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def full_width_arena(device, record=False) -> dict:
+    """TEN_T tenants on the default tables: a bucket-32 batched wave, a
+    sanitized one, and a third with the last tenant idle. Returns the
+    arena, each wave's workloads and results, the kernel launches of the
+    first wave and (with `record`) its tenant forms' inputs."""
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.integrity import IntegrityPlane
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.tenancy import TenantArena
+
+    rng = np.random.RandomState(SEED)
+    arena = TenantArena(TEN_T, DEFAULT_CONFIG, device=device)
+    plane = IntegrityPlane(arena.tenants[0], every=0)
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    rec = {"arena": arena, "waves": [], "plane": plane}
+    for w in range(3):
+        present = range(TEN_T) if w < 2 else range(TEN_T - 1)
+        loads = {t: ten_workload(rng, t, w, ten_k(t, w)) for t in present}
+        slots = arena.create_sessions_batch({t: loads[t]["ids"] for t in loads}, scfg,
+                                            pad_to=TEN_BUCKET)
+        for t in loads:
+            vouch_wave(arena.tenants[t], slots[t], len(loads[t]["ids"]))
+        lanes = {t: {"session_slots": slots[t], "dids": loads[t]["dids"],
+                     "agent_sessions": slots[t].copy(), "sigma_raw": loads[t]["sigma"],
+                     "delta_bodies": loads[t]["bodies"]} for t in loads}
+        if w == 1:
+            plane._fused_due = True
+        if w == 2:
+            idle_before = tenant_tables(arena.tenants[TEN_T - 1])
+        kernels.reset_launch_counts()
+        if record and w == 0:
+            with recorded_tenant_blocks() as calls:
+                out = arena.governance_wave_batch(lanes, TEN_BUCKET, now=float(w + 1))
+            rec["calls"] = calls
+        else:
+            out = arena.governance_wave_batch(lanes, TEN_BUCKET, now=float(w + 1))
+        rec["waves"].append({"loads": loads, "slots": slots, "out": out,
+                             "launches": kernels.launch_counts(),
+                             "sanitized": arena.last_wave["sanitized"]})
+        if w == 1:
+            rec["after_two"] = [(tenant_tables(st), tenant_host(st)) for st in arena.tenants]
+        if w == 2:
+            rec["idle_before"] = idle_before
+    rec["lend_log"] = lend_commit_log(arena, rng, scfg)
+    return rec
+
+
+def dirty_sets(arena) -> dict:
+    return {k: sorted(v) for k, v in arena._dirty.items()}
+
+
+def lend_commit_log(arena, rng, scfg) -> list:
+    """The arena's `_dirty` sets and `sync()` counts around one solo wave
+    on tenant 2's lent tables (its kernels write them through raw
+    pointers; the wrappers move the tables' version counters, as the
+    plain version's torch writes do)."""
+    log = [("after wave", dirty_sets(arena), arena.sync())]
+    st = arena.tenants[2]
+    load = ten_workload(rng, 2, 9, ten_k(2, 9))
+    slots = st.create_sessions_batch(load["ids"], scfg)
+    st.run_governance_wave(slots, load["dids"], slots.copy(), load["sigma"], load["bodies"],
+                           now=9.0, pad_to=(TEN_BUCKET, TEN_BUCKET))
+    log.append(("after solo wave", dirty_sets(arena)))
+    log.append(("sync", arena.sync(), dirty_sets(arena)))
+    return log
+
+
+def solo_oracles(device, rec) -> list:
+    """Each tenant's first two waves as its own solo waves
+    (`run_governance_wave(..., pad_to=(bucket, bucket))`, the second
+    sanitized) on a fresh solo state of the default tables; with the
+    kernel launches of tenant 0's two waves."""
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.integrity import IntegrityPlane
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    solos = []
+    for t in range(TEN_T):
+        st = solo_state(DEFAULT_CONFIG, device)
+        plane = IntegrityPlane(st, every=0)
+        roots, launches = [], []
+        for w in range(2):
+            load = rec["waves"][w]["loads"][t]
+            slots = st.create_sessions_batch(load["ids"], scfg)
+            vouch_wave(st, slots, len(load["ids"]))
+            plane._fused_due = w == 1
+            kernels.reset_launch_counts()
+            res = st.run_governance_wave(slots, load["dids"], slots.copy(), load["sigma"],
+                                         load["bodies"], now=float(w + 1),
+                                         pad_to=(TEN_BUCKET, TEN_BUCKET))
+            launches.append(kernels.launch_counts())
+            roots.append(u32_roots(res.merkle_root))
+        solos.append({"state": st, "roots": roots, "launches": launches})
+    return solos
+
+
+def u32_roots(t) -> list:
+    return [r.tobytes().hex() for r in t.cpu().numpy().astype(np.int32).view(np.uint32)]
+
+
+def check_full_width(rec, solos, cpu_rec) -> dict:
+    """Each tenant equal to its solo oracle after two waves (tables, DeltaLog,
+    metrics, chain heads, roots, members), the idle tenant untouched by the
+    third, each cursor mirror equal to its device cursor, every table equal
+    to the CPU's run after the three, and each tenant form launched as
+    often as the solo wave launches its kernel."""
+    arena = rec["arena"]
+    for t in range(TEN_T):
+        got, want = rec["after_two"][t][0], tenant_tables(solos[t]["state"])
+        diff = first_difference(f"tenant {t}", got, want)
+        require(diff is None, f"tenancy: tenant {t}'s slice differs from its solo wave at {diff}")
+        for w in range(2):
+            res = rec["waves"][w]["out"][t]
+            require([r.tobytes().hex() for r in res.merkle_root] == solos[t]["roots"][w][
+                :len(res.merkle_root)], f"tenancy: tenant {t} wave {w}: roots differ from solo")
+        h_t, h_s = rec["after_two"][t][1], tenant_host(solos[t]["state"])
+        for key in ("chain_seed", "members", "turns", "delta_cursor"):
+            require(h_t[key] == h_s[key], f"tenancy: tenant {t}'s {key} differs from its solo")
+    idle_now = tenant_tables(arena.tenants[TEN_T - 1])
+    for name in ("agents", "sessions", "vouches", "delta_log"):
+        for k, v in rec["idle_before"].items():
+            if k.startswith(name + "."):
+                require(np.array_equal(idle_now[k], v), f"tenancy: the idle tenant's {k} moved")
+    for t, st in enumerate(arena.tenants):
+        require(int(st.delta_log.cursor) == st._delta_cursor,
+                f"tenancy: tenant {t}'s DeltaLog cursor mirror {st._delta_cursor} differs from "
+                f"the device's {int(st.delta_log.cursor)}")
+    cpu_arena = cpu_rec["arena"]
+    for w, (got, want) in enumerate(zip(rec["waves"], cpu_rec["waves"])):
+        for t, res in got["out"].items():
+            require(np.array_equal(np.asarray(res.merkle_root),
+                                   np.asarray(want["out"][t].merkle_root)),
+                    f"tenancy: tenant {t} wave {w}: roots differ from the CPU run")
+    require(rec["lend_log"] == cpu_rec["lend_log"],
+            f"tenancy: the card's dirty sets and sync() counts {rec['lend_log']} differ from "
+            f"the CPU's {cpu_rec['lend_log']}")
+    require(2 in rec["lend_log"][1][1]["delta_log"],
+            "tenancy: the solo wave's DeltaLog append left tenant 2 clean")
+    for t in range(TEN_T):
+        diff = first_difference(f"tenant {t}", tenant_tables(arena.tenants[t]),
+                                tenant_tables(cpu_arena.tenants[t]))
+        require(diff is None, f"tenancy: the card's arena differs from the CPU's at {diff}")
+        require(tenant_host(arena.tenants[t]) == tenant_host(cpu_arena.tenants[t]),
+                f"tenancy: tenant {t}'s host indices differ from the CPU run")
+    launches = {}
+    forms = tenant_forms()
+    for w in range(2):
+        tenant_l, solo_l = rec["waves"][w]["launches"], solos[0]["launches"][w]
+        for form, solo_name in forms.items():
+            require(tenant_l[form] == solo_l[solo_name] >= 1,
+                    f"tenancy: wave {w}: {form} launched {tenant_l[form]} times, the solo "
+                    f"wave's {solo_name} {solo_l[solo_name]}")
+        require(tenant_l["tree_roots"] == solo_l["tree_roots"] == 1,
+                f"tenancy: wave {w}: B3 launches {tenant_l['tree_roots']} vs "
+                f"{solo_l['tree_roots']}")
+        solo_kernels = {k for k, n in solo_l.items() if n}
+        tenant_kernels = {k for k, n in tenant_l.items() if n}
+        require(tenant_kernels == {"tree_roots", *forms},
+                f"tenancy: wave {w} launched {tenant_kernels}")
+        launches[f"wave{w}"] = {"tenant": {k: tenant_l[k] for k in sorted(tenant_kernels)},
+                                "solo": {k: solo_l[k] for k in sorted(solo_kernels)}}
+    require(rec["waves"][1]["sanitized"] and not rec["waves"][0]["sanitized"],
+            "tenancy: the second wave must carry the sanitizer")
+    return launches
+
+
+def tenant_form_parity(calls, device) -> dict:
+    """Each tenant form, and B3 at the tenant wave's T x K lanes, against
+    its plain version (a form's: the loop of the solo plain versions) on
+    the recorded inputs: on the card, and on the CPU (where the
+    contribution's plain version sums in edge order). Bitwise: outputs
+    and every table the call writes. Returns {kernel: max_abs_err}."""
+    import torch
+
+    from hypervisor_tpu_torch.ops import pipeline
+    from hypervisor_tpu_torch.tables.struct import tensors
+
+    errs = {}
+    for form, block in TENANT_PARITY.items():
+        args, kw = calls[block]
+        fk = getattr(pipeline.TENANT_KERNEL_BLOCKS, block)
+        fp = getattr(pipeline.TENANT_PLAIN_BLOCKS, block)
+        worst = 0.0
+        for dev_plain in (device, "cpu"):
+            a_k = [_clone_arg(a) for a in args]
+            a_p = [_to(a, dev_plain) for a in args]
+            out_k, out_p = fk(*a_k, **kw), fp(*a_p, **kw)
+            pairs = list(zip(_flat(out_k), _flat(out_p)))
+            for x, y in zip(a_k, a_p):
+                if is_table(x):
+                    pairs += list(zip(tensors(x).values(), tensors(y).values()))
+            for x, y in pairs:
+                y = y.to(x.device)
+                require(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y),
+                        f"tenancy: {form} differs from its plain loop ({dev_plain})")
+                if x.dtype.is_floating_point:
+                    worst = max(worst, float((x - y).abs().max()) if x.numel() else 0.0)
+        errs[form] = worst
+    return errs
+
+
+def _to(a, device):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone().to(device)
+    if is_table(a):
+        return dataclasses.replace(a, **{f.name: getattr(a, f.name).clone().to(device)
+                                         for f in dataclasses.fields(a)})
+    return a
+
+
+def _flat(out):
+    import torch
+
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def tenant_form_rows(calls, device, launches: dict, errs: dict, time_device) -> dict:
+    """Each tenant form's kernel and plain times (CUDA events, the recorded
+    inputs restored before each call), its bound from `kernel_work` at
+    these inputs' totals, and the library call where one computes the
+    same function (the contribution: one `index_add_` over the flattened
+    tenants)."""
+    import torch
+
+    from hypervisor_tpu_torch.kernels.work import HBM_BYTES_PER_S, INT32_INSTRUCTIONS_PER_S
+    from hypervisor_tpu_torch.kernels.work import kernel_work
+    from hypervisor_tpu_torch.ops import liability, pipeline
+    from hypervisor_tpu_torch.ops.admission import ADMIT_OK
+    from hypervisor_tpu_torch.tables.struct import copy_into, tenant_view
+
+    rows = {}
+    for form, (block, _, _) in TENANT_FORM_ROWS.items():
+        args, kw = calls[block]
+        live = [_clone_arg(a) for a in args]
+
+        def reset(live=live, args=args):
+            for x, a in zip(live, args):
+                if is_table(x):
+                    copy_into(x, a)
+
+        fk = getattr(pipeline.TENANT_KERNEL_BLOCKS, block)
+        fp = getattr(pipeline.TENANT_PLAIN_BLOCKS, block)
+        k_ms = time_device(lambda: fk(*live, **kw), reset)
+        # Two calls: the ring form's plain loop takes seconds a call.
+        p_ms = time_device(lambda: fp(*live, **kw), reset, reps=2, warmup=0)
+        lib_ms = None
+        if block == "contribution":
+            vouches, target, now = args
+            t_count, n = target.shape
+            vee, scoped = zip(*(liability.scoped_edges(tenant_view(vouches, t), target[t], now)
+                                for t in range(t_count)))
+            offs = torch.arange(t_count, device=target.device)[:, None] * n
+            flat_vee = (torch.stack(vee) + offs).reshape(-1)
+            vals = torch.where(torch.stack(scoped), vouches.bond, torch.zeros_like(vouches.bond))
+            vals = vals.reshape(-1)
+            lib_out = torch.zeros((t_count * n,), dtype=torch.float32, device=target.device)
+            lib_ms = time_device(lambda: lib_out.index_add_(0, flat_vee, vals),
+                                 reps=PLAIN_REPS, warmup=1)
+            work = kernel_work(form, edges=int(vouches.bond.numel()), agents=t_count * n)
+        elif block == "admission":
+            reset()
+            status, _, _ = fk(*live, **kw)
+            lanes = int(status.numel())
+            work = kernel_work(form, lanes=lanes, admitted=int((status == ADMIT_OK).sum()))
+        elif block == "fsm_saga":
+            agents, sessions, vouches, ks, ok, now, lo, hi = args
+            lo_t = torch.tensor(list(lo), device=ks.device)[:, None]
+            hi_t = torch.tensor(list(hi), device=ks.device)[:, None]
+            hits = int(((agents.session >= lo_t) & (agents.session < hi_t)).sum())
+            vouched = int((vouches.active & (vouches.session >= lo_t)
+                           & (vouches.session < hi_t)).sum())
+            work = kernel_work(form, sessions=int(ks.numel()), lanes=int(ok.numel()),
+                               edges=int(vouches.session.numel()), vouched=vouched,
+                               agents=int(agents.session.numel()), agent_hits=hits)
+        else:
+            bodies, seeds, delta_log, wave_sessions, cursors, n_live = args
+            work = kernel_work(form, turns=bodies.shape[0], lanes=bodies.shape[1] * bodies.shape[2],
+                               rows=int(sum(n_live)))
+        nbytes, nops = work
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_INSTRUCTIONS_PER_S * 1e3
+        rows[form] = {"launches": launches[form], "max_abs_err": errs[form], "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                      "library_ms": lib_ms, "bytes": nbytes, "int_instructions": nops}
+    return rows
+
+
+def ten_wave_lanes(arena, rng, w: int, present) -> tuple:
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    loads = {t: ten_workload(rng, t, w, ten_k(t, w)) for t in present}
+    slots = arena.create_sessions_batch({t: loads[t]["ids"] for t in loads}, scfg,
+                                        pad_to=TEN_BUCKET)
+    return {t: {"session_slots": slots[t], "dids": loads[t]["dids"],
+                "agent_sessions": slots[t].copy(), "sigma_raw": loads[t]["sigma"],
+                "delta_bodies": loads[t]["bodies"]} for t in loads}, loads
+
+
+def time_tenant_waves(device, rec, solos) -> dict:
+    """Host p50 / p95 of one batched wave of all TEN_T tenants against
+    TEN_T solo waves one after another (each sample synchronised, fresh
+    sessions every wave), and each side's device events by torch.profiler
+    in a fresh process (`tenant_census`)."""
+    import torch
+
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    arena = rec["arena"]
+    rng = np.random.RandomState(SEED + 1)
+    batched, solo = [], []
+    for i in range(TEN_TIMED_WAVES + 1):
+        lanes, loads = ten_wave_lanes(arena, rng, 10 + i, range(TEN_T))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arena.governance_wave_batch(lanes, TEN_BUCKET, now=float(20 + i))
+        torch.cuda.synchronize()
+        if i:
+            batched.append((time.perf_counter() - t0) * 1e3)
+        prepared = []
+        for t in range(TEN_T):
+            st = solos[t]["state"]
+            slots = st.create_sessions_batch(loads[t]["ids"], scfg)
+            prepared.append((st, slots, loads[t]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for st, slots, load in prepared:
+            st.run_governance_wave(slots, load["dids"], slots.copy(), load["sigma"],
+                                   load["bodies"], now=float(20 + i),
+                                   pad_to=(TEN_BUCKET, TEN_BUCKET))
+        torch.cuda.synchronize()
+        if i:
+            solo.append((time.perf_counter() - t0) * 1e3)
+    counted = tenant_census()
+    (tenant_ops, batched_census), (solo_ops, solo_census) = counted["batched"], counted["solo"]
+    for side, names in (("batched", batched_census), ("solo", solo_census)):
+        missed = [k for k in WAVE_KERNEL_NAMES if not any(k in name for name in names)]
+        require(not missed, f"tenancy: the {side} wave's census misses {missed}")
+    require(tenant_ops <= 2 * solo_ops,
+            f"tenancy: the batched wave's {tenant_ops} device ops exceed 2x one solo wave's "
+            f"{solo_ops}")
+    return {"batched_wave_ms": {"p50": pct(batched, 50), "p95": pct(batched, 95)},
+            f"{TEN_T}_solo_waves_ms": {"p50": pct(solo, 50), "p95": pct(solo, 95)},
+            "samples": len(batched), "device_ops": {"batched": tenant_ops, "solo": solo_ops},
+            "device_op_census": {"batched": batched_census, "solo": solo_census}}
+
+
+def tenant_dense_run(device, record=False) -> dict:
+    """The reference's `tenant_dense` row through `TenantWaveScheduler` on
+    `device`: T = 100 tenants of its small tables, 6 rounds of 2
+    lifecycles each, buckets (4, 8), warmed first. Returns offered and
+    served, the worst per-tenant p99, novel signatures after warm-up, each
+    tenant's chain heads digest, the kernel launches of the first driven
+    round and (with `record`) that round's tenant-form inputs."""
+    import hashlib
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.observability import health as health_plane
+    from hypervisor_tpu_torch.serving import ServingConfig
+    from hypervisor_tpu_torch.tenancy import TenantArena, TenantFrontDoor, TenantWaveScheduler
+
+    spec = TEN_DENSE
+    tenants = spec["tenants"]
+    serving = ServingConfig(buckets=spec["buckets"], lifecycle_deadline_s=0.05,
+                            lifecycle_queue_depth=32)
+    t0 = time.perf_counter()
+    arena = TenantArena(tenants, dense_config(), device=device)
+    front = TenantFrontDoor(arena, serving)
+    sched = TenantWaveScheduler(front)
+    sched.warm(now=0.0)
+    warm_s = time.perf_counter() - t0
+    base = health_plane.compile_summary(last=0)
+    rng = np.random.RandomState(spec["seed"])
+    now = 10.0
+    held = []
+    calls, launches = None, None
+    t1 = time.perf_counter()
+    for r in range(spec["rounds"]):
+        for t in range(tenants):
+            for i in range(spec["lanes"]):
+                tk = front.submit_lifecycle(t, f"td:{t}:{r}:{i}", f"did:td:{t}:{r}:{i}",
+                                            float(0.6 + 0.3 * rng.random()), now=now)
+                if not tk.refused:
+                    held.append((t, tk))
+        if r == 0:
+            kernels.reset_launch_counts()
+            if record:
+                with recorded_tenant_blocks() as calls:
+                    sched.lifecycle_round(now)
+            else:
+                sched.lifecycle_round(now)
+            launches = kernels.launch_counts()
+        else:
+            sched.lifecycle_round(now)
+        now += 0.1
+    sched.drain(now)
+    drive_s = time.perf_counter() - t1
+    after = health_plane.compile_summary(last=0)
+    lat: dict = {t: [] for t in range(tenants)}
+    for t, tk in held:
+        if tk.done:
+            lat[t].append(tk.latency_s * 1e3)
+    p99s = {t: pct(v, 99) for t, v in lat.items() if v}
+    mirrors = [st._delta_cursor for st in arena.tenants]
+    require(arena._stacked["delta_log"].cursor.tolist() == mirrors,
+            "tenancy: tenant_dense's DeltaLog cursor mirrors differ from the device's")
+    heads = hashlib.sha256()
+    for st in arena.tenants:
+        for s in sorted(st._chain_seed):
+            heads.update(np.asarray(st._chain_seed[s], np.uint32).tobytes())
+    return {
+        "tenants": tenants, "rounds": spec["rounds"],
+        "offered": tenants * spec["rounds"] * spec["lanes"],
+        "served": sum(d.served["lifecycle"] for d in front.doors),
+        "shed": sum(sum(d.shed.values()) for d in front.doors),
+        "waves": arena.waves, "lifecycle_rounds": sched.lifecycle_rounds,
+        "worst_tenant_p99_ms": max(p99s.values()) if p99s else None,
+        "median_tenant_p99_ms": pct(list(p99s.values()), 50),
+        "slo_p99_ms": spec["slo_p99_ms"],
+        "compiles_after_warmup": after["compiles"] - base["compiles"],
+        "recompiles_after_warmup": after["recompiles"] - base["recompiles"],
+        "chain_heads_digest": heads.hexdigest(), "warm_s": warm_s, "drive_s": drive_s,
+        "launches_first_round": launches, "calls": calls,
+    }
+
+
+def flood_drill(device) -> dict:
+    """The flooding-tenant drill: tenant 3 offers 40 lifecycles a round to
+    its neighbours' 2; the flood sheds against its own queue alone, every
+    neighbour lifecycle is served, no novel signature after warm-up, and
+    each neighbour's chain heads equal a solo oracle's (a solo state
+    replaying that tenant's batched waves as solo waves at their bucket)."""
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.observability import health as health_plane
+    from hypervisor_tpu_torch.serving import ServingConfig
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tenancy import TenantArena, TenantFrontDoor, TenantWaveScheduler
+
+    spec = TEN_FLOOD
+    n_t = spec["tenants"]
+    arena = TenantArena(n_t, small_config(), device=device)
+    cfg = ServingConfig(buckets=(4, 8), lifecycle_deadline_s=0.05, lifecycle_queue_depth=16)
+    front = TenantFrontDoor(arena, cfg)
+    sched = TenantWaveScheduler(front)
+    sched.warm(now=0.0)
+    base = health_plane.compile_summary(last=0)
+    log, created = [], []
+    batch, create = arena.governance_wave_batch, arena.create_sessions_batch
+
+    def logged_create(ids_per_tenant, config, pad_to=None):
+        created.append({t: list(v) for t, v in ids_per_tenant.items()})
+        return create(ids_per_tenant, config, pad_to)
+
+    def logged(lanes, bucket, now, omega=0.5):
+        log.append((created[-1], {t: dict(v) for t, v in lanes.items()}, bucket, now))
+        return batch(lanes, bucket, now, omega)
+
+    arena.governance_wave_batch, arena.create_sessions_batch = logged, logged_create
+    now = 10.0
+    shed = {t: 0 for t in range(n_t)}
+    ids = {}
+    for r in range(spec["rounds"]):
+        for t in range(n_t):
+            for i in range(spec["flood"] if t == n_t - 1 else spec["lanes"]):
+                sid = f"s:{t}:{r}:{i}"
+                res = front.submit_lifecycle(t, sid, f"did:{t}:{r}:{i}", 0.8, now=now)
+                if res.refused:
+                    shed[t] += 1
+        sched.tick(now)
+        now += 0.1
+    for _ in range(20):
+        if not any(len(d.lifecycles) for d in front.doors):
+            break
+        sched.lifecycle_round(now)
+        now += 0.05
+    arena.governance_wave_batch, arena.create_sessions_batch = batch, create
+    after = health_plane.compile_summary(last=0)
+    served = {t: front.doors[t].served["lifecycle"] for t in range(n_t)}
+    neighbours = range(n_t - 1)
+    require(all(served[t] == spec["rounds"] * spec["lanes"] and shed[t] == 0
+                for t in neighbours),
+            f"tenancy: flood drill: a neighbour lost goodput: served {served}, shed {shed}")
+    require(shed[n_t - 1] > 0, "tenancy: flood drill: the flooding tenant never shed")
+    require(after["compiles"] == base["compiles"] and after["recompiles"] == base["recompiles"],
+            "tenancy: flood drill: a novel signature after warm-up")
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    for t in neighbours:
+        solo = HypervisorState(small_config(), device=device)
+        st = arena.tenants[t]
+        checked = 0
+        for names, lanes, bucket, now_w in log:
+            spec_t = lanes.get(t)
+            if spec_t is None:
+                continue
+            slots = solo.create_sessions_batch(names[t], scfg)
+            solo.run_governance_wave(
+                slots, spec_t["dids"], slots.copy(), spec_t["sigma_raw"],
+                spec_t["delta_bodies"], now=now_w, trustworthy=spec_t.get("trustworthy"),
+                pad_to=(bucket, bucket))
+            for a_slot, s_slot in zip(spec_t["session_slots"], slots):
+                require(np.array_equal(st._chain_seed[int(a_slot)],
+                                       solo._chain_seed[int(s_slot)]),
+                        f"tenancy: flood drill: tenant {t}'s chain head of slot {a_slot} "
+                        "differs from the solo oracle")
+                checked += 1
+        require(checked >= spec["rounds"] * spec["lanes"],
+                f"tenancy: flood drill: tenant {t}: {checked} heads checked")
+    return {"served": served, "shed": shed, "waves": arena.waves,
+            "lifecycle_rounds": sched.lifecycle_rounds}
+
+
+def splice_drill(device, workdir: str) -> dict:
+    """One `recover_tenant` + `splice_tenant`: tenant 1 of a 3-tenant arena
+    journaled through two rounds, recovered from its checkpoint and WAL
+    onto a solo state on `device`, spliced into slot 1 of a fresh arena;
+    that slot then equals the tenant that was never lost, before and after
+    one more round on both."""
+    from pathlib import Path
+
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.resilience import WriteAheadLog
+    from hypervisor_tpu_torch.resilience.recovery import recover_tenant
+    from hypervisor_tpu_torch.runtime.checkpoint import save_state, wait_durable
+    from hypervisor_tpu_torch.tenancy import TenantArena
+
+    bundle = Path(workdir) / "bundle"
+    tdir = bundle / "tenant_1"
+    tdir.mkdir(parents=True)
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    arena = TenantArena(3, small_config(), device=device)
+    tenant = arena.tenants[1]
+    wait_durable(save_state(tenant, tdir, step=0))
+    tenant.journal = WriteAheadLog(tdir / "wal.log", fsync=True)
+    rng = np.random.RandomState(5)
+
+    def round_(arena_, r, only=None):
+        loads = {t: {"ids": [f"sp:{t}:{r}:{i}" for i in range(2 + t)],
+                     "sigma": rng.uniform(0.4, 0.9, 2 + t).astype(np.float32),
+                     "bodies": rng.randint(0, 2**32, (2, 2 + t, 16), dtype=np.uint64)
+                     .astype(np.uint32)} for t in (only or range(3))}
+        slots = arena_.create_sessions_batch({t: v["ids"] for t, v in loads.items()}, scfg,
+                                             pad_to=4)
+        arena_.governance_wave_batch({t: {
+            "session_slots": slots[t], "dids": [f"did:{x}" for x in loads[t]["ids"]],
+            "agent_sessions": slots[t].copy(), "sigma_raw": loads[t]["sigma"],
+            "delta_bodies": loads[t]["bodies"]} for t in loads}, 4, now=float(r + 1))
+        return loads
+
+    for r in range(2):
+        round_(arena, r)
+    tenant.journal.flush()
+    t0 = time.perf_counter()
+    back, report = recover_tenant(bundle, 1, config=small_config(), device=device)
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    fresh = TenantArena(3, small_config(), device=device)
+    fresh.splice_tenant(1, back)
+    keys = ("agents", "sessions", "vouches", "delta_log")
+
+    def same_slot(label):
+        a, b = tenant_tables(fresh.tenants[1]), tenant_tables(arena.tenants[1])
+        for k in a:
+            if k.split(".")[0] in keys:
+                require(np.array_equal(a[k], b[k]), f"tenancy: splice: {label}: {k} differs")
+        ha, hb = tenant_host(fresh.tenants[1]), tenant_host(arena.tenants[1])
+        require(ha == hb, f"tenancy: splice: {label}: host indices differ")
+
+    same_slot("after the splice")
+    tenant.journal = None
+    state = rng.get_state()
+    round_(arena, 2, only=[1])
+    rng.set_state(state)
+    round_(fresh, 2, only=[1])
+    same_slot("after one more round")
+    return {"wal_records_replayed": report["wal_records_replayed"], "recover_ms": recover_ms,
+            "sessions": len(fresh.tenants[1]._chain_seed)}
+
+
+def run_tenancy(device, workdir: str) -> dict:
+    """The tenancy phase on the card: the full-width batched waves against
+    their solo oracles and the CPU, the tenant forms against their plain
+    loops, launches and device ops, the timings, `tenant_dense` on the
+    card and the CPU, the flood drill and the splice."""
+    out = {}
+    rec = full_width_arena(device, record=True)
+    solos = solo_oracles(device, rec)
+    t0 = time.perf_counter()
+    cpu_rec = full_width_arena("cpu")
+    out["cpu_full_width_s"] = time.perf_counter() - t0
+    out["launches"] = check_full_width(rec, solos, cpu_rec)
+    out["lend_log"] = rec["lend_log"]
+    out["errs_t8"] = tenant_form_parity(rec["calls"], device)
+    out["calls_t8"] = rec["calls"]
+    out["timing"] = time_tenant_waves(device, rec, solos)
+    dense = tenant_dense_run(device, record=True)
+    t0 = time.perf_counter()
+    dense_cpu = tenant_dense_run("cpu")
+    out["cpu_dense_s"] = time.perf_counter() - t0
+    for key in ("offered", "served", "shed", "waves", "lifecycle_rounds", "chain_heads_digest"):
+        require(dense[key] == dense_cpu[key],
+                f"tenancy: tenant_dense's {key} differs from the CPU replay: "
+                f"{dense[key]} != {dense_cpu[key]}")
+    require(dense["compiles_after_warmup"] == 0 and dense["recompiles_after_warmup"] == 0,
+            f"tenancy: tenant_dense: novel signatures after warm-up: "
+            f"{dense['compiles_after_warmup']}, {dense['recompiles_after_warmup']}")
+    first = dense["launches_first_round"]
+    for form, solo_name in tenant_forms().items():
+        require(first[form] == 1, f"tenancy: tenant_dense's round launched {form} "
+                                  f"{first[form]} times, one solo wave's {solo_name} once")
+    require(first["tree_roots"] == 1, "tenancy: tenant_dense's round must launch B3 once")
+    out["errs_t100"] = tenant_form_parity(dense["calls"], device)
+    out["calls_t100"] = dense.pop("calls")
+    dense_cpu.pop("calls")
+    out["dense"] = dense
+    out["dense_cpu"] = {k: dense_cpu[k] for k in ("offered", "served", "worst_tenant_p99_ms")}
+    out["flood"] = flood_drill(device)
+    out["splice"] = splice_drill(device, workdir)
+    return out
+
+
+# ── autopilot: the shifting-mix soak, static against the autopilot ────
+
+#: The reference's `autopilot_soak` row: `_PHASES_QUICK`, seed 17, a
+#: 20 ms tick, two replays, and the 100 ms p99 SLO it states for a device.
+AUTOPILOT_SOAK = dict(seed=17, quick=True, tick_s=0.02, replays=2, slo_p99_ms=100.0)
+
+
+def run_autopilot(device) -> dict:
+    """The autopilot soak on `device` (two autopilot replays and the static
+    baseline) and `GET /debug/autopilot` from a service whose state has an
+    autopilot attached and stepped."""
+    import asyncio
+
+    from hypervisor_tpu_torch import Hypervisor
+    from hypervisor_tpu_torch.api import HypervisorService
+    from hypervisor_tpu_torch.autopilot import Autopilot
+    from hypervisor_tpu_torch.autopilot.soak import run_autopilot_soak
+    from hypervisor_tpu_torch.serving import FrontDoor, ServingConfig, WaveScheduler
+
+    t0 = time.perf_counter()
+    row = run_autopilot_soak(device=device, **AUTOPILOT_SOAK)
+    soak_s = time.perf_counter() - t0
+    require(row["digest_match"], "autopilot: the two replays' decision digests differ")
+    require(row["invariant_violations"] == 0,
+            f"autopilot: {row['invariant_violations']} invariant violations")
+    require(row["decisions"] >= 1, "autopilot: the soak made no decision")
+    svc = HypervisorService(hypervisor=Hypervisor(device=device))
+    state = svc.hv.state
+    require(asyncio.run(svc.debug_autopilot()) == {"enabled": False},
+            "autopilot: a bare service must answer the bare plane state")
+    front = FrontDoor(state, ServingConfig(buckets=(4,), lifecycle_queue_depth=8))
+    sched = WaveScheduler(front)
+    sched.warm(now=0.0)
+    pilot = Autopilot(state, sched)
+    pilot.step(1.0)
+    for i in range(front.config.lifecycle_queue_depth + 3):
+        front.submit_lifecycle(f"ap:{i}", f"did:ap:{i}", 0.8, now=1.05)
+    pilot.step(1.2)
+    debug = asyncio.run(svc.debug_autopilot())
+    json.dumps(debug)
+    require(debug["enabled"] and debug["decisions"] >= 1,
+            f"autopilot: /debug/autopilot after a shed window: {debug}")
+    return {"row": row, "soak_s": soak_s, "debug_autopilot": debug}
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -5063,6 +6008,56 @@ def main(argv=None) -> int:
                "around the same dispatch's state call; the replay's census comes from a "
                "second, profiled replay")
 
+    # ── 16. tenancy: T tenants' waves in one launch of each tenant form ─
+    ten_dir = tempfile.mkdtemp(prefix="hv_tenancy_")
+    try:
+        t0 = time.perf_counter()
+        ten = run_tenancy(dev, ten_dir)
+        ten_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ten_dir, ignore_errors=True)
+    wave0 = ten["launches"]["wave0"]["tenant"]
+    dense = ten["dense"]
+    tenant_rows = tenant_form_rows(ten.pop("calls_t8"), dev, wave0, ten["errs_t8"], time_device)
+    tenant_rows_100 = tenant_form_rows(ten.pop("calls_t100"), dev, dense["launches_first_round"],
+                                       ten["errs_t100"], time_device)
+    emit("tenancy", seconds=ten_s, tenants=TEN_T, bucket=TEN_BUCKET, turns=TEN_TURNS,
+         tables={k: getattr(DEFAULT_CONFIG.capacity, k) for k in (
+             "max_agents", "max_sessions", "max_vouch_edges", "max_sagas")},
+         launches=ten["launches"], lend_commit=ten["lend_log"], timing=ten["timing"],
+         max_abs_err_t8=ten["errs_t8"],
+         max_abs_err_t100=ten["errs_t100"], cpu_full_width_s=ten["cpu_full_width_s"],
+         solo_oracles="equal (tables, DeltaLog, metrics, chain heads, roots, members)",
+         cpu_run="identical", idle_tenant="untouched",
+         tenant_dense={k: v for k, v in dense.items() if k != "launches_first_round"},
+         tenant_dense_launches={k: v for k, v in dense["launches_first_round"].items() if v},
+         tenant_dense_cpu=ten["dense_cpu"], cpu_dense_s=ten["cpu_dense_s"],
+         tenant_dense_within_slo=(dense["worst_tenant_p99_ms"] is not None
+                                  and dense["worst_tenant_p99_ms"] <= dense["slo_p99_ms"]),
+         flood=ten["flood"], splice=ten["splice"], nvidia_smi=smi,
+         clock="waves: host perf_counter, synchronised, fresh sessions each; p99: virtual queue "
+               "wait + the measured wave wall; device ops by torch.profiler")
+
+    # ── 17. autopilot: the shifting-mix soak, static against autopilot ──
+    t0 = time.perf_counter()
+    ap = run_autopilot(dev)
+    ap_s = time.perf_counter() - t0
+    ap_row = ap["row"]
+    emit("autopilot", seconds=ap_s, spec=AUTOPILOT_SOAK, events=ap_row["events"],
+         decisions_digest=ap_row["decisions_digest"], digest_match=ap_row["digest_match"],
+         replays=ap_row["replays"], goodput_ratio=ap_row["goodput_ratio"],
+         static=ap_row.get("static"), goodput_improvement=ap_row.get("goodput_improvement"),
+         p99_ms=ap_row["p99_ms"], slo_p99_ms=ap_row["slo_p99_ms"], slo_ok=ap_row["slo_ok"],
+         shed=ap_row["shed"], buckets_final=ap_row["buckets_final"],
+         decisions=ap_row["decisions"], decision_outcomes=ap_row["decision_outcomes"],
+         unplanned_compiles_after_warmup=ap_row["compiles_after_warmup"],
+         unplanned_recompiles_after_warmup=ap_row["recompiles_after_warmup"],
+         recompiles_after_warmup_raw=ap_row["recompiles_after_warmup_raw"],
+         prewarm=ap_row["prewarm"], invariant_violations=ap_row["invariant_violations"],
+         last_decisions=ap_row["last_decisions"], debug_autopilot=ap["debug_autopilot"],
+         soak_s=ap["soak_s"], nvidia_smi=smi,
+         clock="latency = virtual queue wait + the measured wave wall (host perf_counter)")
+
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):
         for k, t in post.items():
@@ -5256,6 +6251,19 @@ def main(argv=None) -> int:
                 rows[-1]["by_path"][path] = {
                     "launches": n_launch, "shapes": entries,
                     "loss_ms": n_launch / len(entries) * sum(e["ms"] - e["bound_ms"] for e in entries)}
+        emit("kernel_timing", **rows[-1])
+    # The tenant forms: at the full-width wave's inputs (T = 8 tenants of
+    # the default tables, bucket 32) and at tenant_dense's (T = 100, bucket
+    # 8); their launches from each cell's batched wave.
+    for form, row in tenant_rows.items():
+        at_100 = tenant_rows_100[form]
+        _, replaces, source = TENANT_FORM_ROWS[form]
+        rows.append({
+            "name": form, "route": "cuda", "source": source, "replaces": replaces, **row,
+            "solo_form": tenant_forms()[form], "tenants": TEN_T,
+            "at_t100": {k: at_100[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")},
+        })
         emit("kernel_timing", **rows[-1])
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",

@@ -776,9 +776,8 @@ class HypervisorService:
         static defaults, pre-warm compile accounting, and the
         replayable decisions digest. A deployment with no attached
         `autopilot.Autopilot` answers `{"enabled": false}` (hv_top's
-        `--url` panel degrades to n/a against such servers). Refused:
-        the autopilot arrives with a later slice of the port."""
-        raise _later_api("GET /debug/autopilot", "the autopilot, ROADMAP A7")
+        `--url` panel degrades to n/a against such servers)."""
+        return self.hv.state.autopilot_summary()
 
     async def debug_fleet(self) -> dict:
         """`GET /debug/fleet`: the fleet observatory in one poll —

@@ -48,24 +48,52 @@ constexpr int kChainThreads = 512;  // threads a block, all of them computing mi
 // second read of bodies and digests are gone; the stores add 104 bytes a
 // row to a kernel bound by its serial chain. kRing = false is the plain
 // chain, for the flush and the chain checks.
+//
+// The tenant ring form (kTenants) serves T tenants' waves in the same
+// launch: L = T * lanes_t lanes, lane g belonging to tenant g / lanes_t,
+// whose records go to its own ring, rows [t * C, (t + 1) * C) of the
+// stacked DeltaLog, at its own cursor cursors[t] (the host mirrors) and
+// with its own live prefix n_lives[t], in its own lane-major order. The
+// chain itself is lane-independent, so only the ring arithmetic changes.
 struct RingArgs {
-  uint4* body;                // [C, 16] as 4 x uint4
+  uint4* body;                // [C, 16] as 4 x uint4 ([T, C, 16] for tenants)
   uint4* digest;              // [C, 8] as 2 x uint4
   int* session;               // [C]
   int* turn;                  // [C]
-  int* cursor_out;            // []
+  int* cursor_out;            // [] ([T] for tenants)
   const int* wave_sessions;   // [L]
   int cursor, n_live, C;
+  const int* cursors;         // [T] tenants only
+  const int* n_lives;         // [T] tenants only
+  int lanes_t, T;             // tenants only
 };
 
-// The ring row of live lane-major row i (< n_live <= C): cursor and i are
-// both below 2^31, so 32-bit unsigned arithmetic holds their sum.
-__device__ __forceinline__ unsigned ring_row(const RingArgs& r, long long i) {
-  return (static_cast<unsigned>(r.cursor) + static_cast<unsigned>(i)) %
-         static_cast<unsigned>(r.C);
+// The ring row of live lane-major row i (< n_live <= C) of a ring at
+// `cursor`: cursor and i are both below 2^31, so 32-bit unsigned
+// arithmetic holds their sum.
+__device__ __forceinline__ unsigned ring_row(int cursor, int C, long long i) {
+  return (static_cast<unsigned>(cursor) + static_cast<unsigned>(i)) % static_cast<unsigned>(C);
 }
 
-template <bool kRing>
+// Lane g's ring: its tenant's cursor, live prefix, row base and its lane
+// within the tenant (the whole ring and lane g itself without tenants).
+struct LaneRing {
+  int cursor, n_live, lane;
+  size_t base;
+};
+
+template <bool kTenants>
+__device__ __forceinline__ LaneRing lane_ring(const RingArgs& r, int g) {
+  if constexpr (kTenants) {
+    const int tn = g / r.lanes_t;
+    return LaneRing{r.cursors[tn], r.n_lives[tn], g - tn * r.lanes_t,
+                    static_cast<size_t>(tn) * r.C};
+  } else {
+    return LaneRing{r.cursor, r.n_live, g, 0};
+  }
+}
+
+template <bool kRing, bool kTenants = false>
 __global__ void __launch_bounds__(kChainThreads) chain_kernel(
     const uint4* __restrict__ bodies,  // [T, L, 16] as 4 x uint4
     const uint4* __restrict__ seeds,   // [L, 8] as 2 x uint4
@@ -84,27 +112,44 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(
   // on the serial chain.
   int my_session = 0;
   long long lane_row = 0;
+  int lane_live = 0;
+  size_t lane_base = 0;
   unsigned lane_dst = 0;
   if (tid < lanes) {
     const uint4 s0 = seeds[2 * (size_t)(lane0 + tid)], s1 = seeds[2 * (size_t)(lane0 + tid) + 1];
     parent[0] = s0.x; parent[1] = s0.y; parent[2] = s0.z; parent[3] = s0.w;
     parent[4] = s1.x; parent[5] = s1.y; parent[6] = s1.z; parent[7] = s1.w;
     if (kRing) {
+      const LaneRing lr = lane_ring<kTenants>(ring, lane0 + tid);
       my_session = ring.wave_sessions[lane0 + tid];
-      lane_row = static_cast<long long>(lane0 + tid) * T;
-      if (lane_row < ring.n_live) lane_dst = ring_row(ring, lane_row);
+      lane_row = static_cast<long long>(lr.lane) * T;
+      lane_live = lr.n_live;
+      lane_base = lr.base;
+      if (lane_row < lr.n_live) lane_dst = ring_row(lr.cursor, ring.C, lane_row);
     }
   }
-  if (kRing && blockIdx.x == 0 && tid == 0) {
-    *ring.cursor_out = static_cast<int>(static_cast<unsigned>(ring.cursor) + ring.n_live);
+  if (kRing && blockIdx.x == 0) {
+    if constexpr (kTenants) {
+      for (int tn = tid; tn < ring.T; tn += blockDim.x) {
+        ring.cursor_out[tn] =
+            static_cast<int>(static_cast<unsigned>(ring.cursors[tn]) + ring.n_lives[tn]);
+      }
+    } else if (tid == 0) {
+      *ring.cursor_out = static_cast<int>(static_cast<unsigned>(ring.cursor) + ring.n_live);
+    }
   }
   for (int t0 = 0, buf = 0; t0 < T; t0 += k, buf ^= 1) {  // block-uniform
     const int t = t0 + my_turn;
     if (my_turn < k && t < T) {
       const size_t row = (size_t)t * L + my_lane;
-      const long long ring_i = static_cast<long long>(my_lane) * T + t;
-      const bool live = kRing && ring_i < ring.n_live;
-      const size_t dst = live ? ring_row(ring, ring_i) : 0;
+      bool live = false;
+      size_t dst = 0;
+      if (kRing) {
+        const LaneRing lr = lane_ring<kTenants>(ring, my_lane);
+        const long long ring_i = static_cast<long long>(lr.lane) * T + t;
+        live = ring_i < lr.n_live;
+        if (live) dst = lr.base + ring_row(lr.cursor, ring.C, ring_i);
+      }
       uint32_t body[16], st[8];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -130,12 +175,13 @@ __global__ void __launch_bounds__(kChainThreads) chain_kernel(
         const uint4 d0 = make_uint4(d[0], d[1], d[2], d[3]), d1 = make_uint4(d[4], d[5], d[6], d[7]);
         out[2 * row] = d0;
         out[2 * row + 1] = d1;
-        if (kRing && lane_row + t0 + i < ring.n_live) {
+        if (kRing && lane_row + t0 + i < lane_live) {
           // A live row's turn is below n_live <= C, so one subtraction wraps it.
-          unsigned dst = lane_dst + static_cast<unsigned>(t0 + i);
-          if (dst >= static_cast<unsigned>(ring.C)) dst -= static_cast<unsigned>(ring.C);
-          ring.digest[2 * (size_t)dst] = d0;
-          ring.digest[2 * (size_t)dst + 1] = d1;
+          unsigned d = lane_dst + static_cast<unsigned>(t0 + i);
+          if (d >= static_cast<unsigned>(ring.C)) d -= static_cast<unsigned>(ring.C);
+          const size_t dst = lane_base + d;
+          ring.digest[2 * dst] = d0;
+          ring.digest[2 * dst + 1] = d1;
           ring.session[dst] = my_session;
           ring.turn[dst] = t0 + i;
         }
@@ -277,13 +323,14 @@ extern "C" const char* hv_mtu_error_string(int err) {
 namespace {
 
 cudaError_t launch_chain(bool with_ring, const void* bodies, const void* seeds, void* out, int T,
-                         int L, const RingArgs& ring, void* stream) {
+                         int L, const RingArgs& ring, void* stream, bool tenants = false) {
   if (T > 0 && L > 0) {
     int sms = 0;
     if (cudaError_t err = hv::sm_count(&sms)) return err;
     const int per_block = min((L + sms - 1) / sms, kChainLanes);
     const int blocks = (L + per_block - 1) / per_block;
-    auto kernel = with_ring ? chain_kernel<true> : chain_kernel<false>;
+    auto kernel = tenants ? chain_kernel<true, true>
+                          : (with_ring ? chain_kernel<true> : chain_kernel<false>);
     kernel<<<blocks, kChainThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint4*>(bodies), static_cast<const uint4*>(seeds),
         static_cast<uint4*>(out), T, L, per_block, ring);
@@ -316,6 +363,31 @@ extern "C" int hv_chain_digests_ring(const void* bodies, const void* seeds, void
   ring.n_live = n_live;
   ring.C = C;
   return static_cast<int>(launch_chain(true, bodies, seeds, out, T, L, ring, stream));
+}
+
+// The tenant ring form: T tenants' chains over L = T * lanes_t lanes and
+// their appends, each onto its own ring of C rows of the stacked DeltaLog
+// ([T, C] columns, cursor [T]) at cursors[t], its first n_lives[t]
+// lane-major rows (device arrays, i32[T]; 0 <= n_lives[t] <= min(T_turns
+// * lanes_t, C)).
+extern "C" int hv_chain_digests_ring_tenants(
+    const void* bodies, const void* seeds, void* out, int T_turns, int tenants, int lanes_t,
+    void* ring_body, void* ring_digest, void* ring_session, void* ring_turn, void* ring_cursor,
+    const void* wave_sessions, const void* cursors, const void* n_lives, int C, void* stream) {
+  RingArgs ring{};
+  ring.body = static_cast<uint4*>(ring_body);
+  ring.digest = static_cast<uint4*>(ring_digest);
+  ring.session = static_cast<int*>(ring_session);
+  ring.turn = static_cast<int*>(ring_turn);
+  ring.cursor_out = static_cast<int*>(ring_cursor);
+  ring.wave_sessions = static_cast<const int*>(wave_sessions);
+  ring.cursors = static_cast<const int*>(cursors);
+  ring.n_lives = static_cast<const int*>(n_lives);
+  ring.C = C;
+  ring.lanes_t = lanes_t;
+  ring.T = tenants;
+  return static_cast<int>(
+      launch_chain(true, bodies, seeds, out, T_turns, tenants * lanes_t, ring, stream, true));
 }
 
 extern "C" int hv_tree_roots(const void* leaves, const void* counts, void* roots, int S, int P,

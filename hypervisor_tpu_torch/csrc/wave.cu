@@ -59,6 +59,10 @@ struct AdmissionArgs {
   // maxima, read before any write.
   int* key;
   int* seats;
+  // The tenant form: B = T * lanes_t lanes over T stacked tables of
+  // agents_t agent and sessions_t session rows each; lane i belongs to
+  // tenant i / lanes_t, and its key is the flat session row.
+  int lanes_t, agents_t, sessions_t;
 };
 
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
@@ -119,14 +123,14 @@ __device__ __forceinline__ float burst(const AdmissionArgs& a, int ring) {
   return a.bursts[ring < 0 ? 0 : (ring > 3 ? 3 : ring)];
 }
 
-// An admitted lane writes its agent row: the f32 row as two 16-byte
-// stores, the i32 row and the ring byte.
-__device__ __forceinline__ void write_row(const AdmissionArgs& a, int i, int s, int8_t ring,
-                                          float se) {
+// An admitted lane writes its agent row r: the f32 row as two 16-byte
+// stores, the i32 row (session s, the tenant's own slot) and the ring
+// byte.
+__device__ __forceinline__ void write_row(const AdmissionArgs& a, int i, size_t r, int s,
+                                          int8_t ring, float se) {
   static_assert(AF32_WIDTH == 8 && AF32_SIGMA_RAW == 0 && AF32_SIGMA_EFF == 1 &&
                 AF32_JOINED_AT == 2 && AF32_RL_TOKENS == 4 && AF32_RL_STAMP == 5,
                 "the two 16-byte stores below spell the f32 row");
-  const size_t r = static_cast<size_t>(a.slot[i]);
   float4* f = reinterpret_cast<float4*>(a.af32 + r * AF32_WIDTH);
   f[0] = make_float4(a.sigma_raw[i], se, a.now, 0.0f);
   f[1] = make_float4(burst(a, ring), a.now, 0.0f, 0.0f);
@@ -155,16 +159,19 @@ __global__ void __launch_bounds__(ADMIT_UNIQUE_THREADS) admission_unique(Admissi
   a.status[i] = static_cast<int8_t>(st);
   a.ring[i] = ring;
   a.sigma_eff[i] = se;
-  if (st == ADMIT_OK) write_row(a, i, s, ring, se);
+  if (st == ADMIT_OK) write_row(a, i, static_cast<size_t>(a.slot[i]), s, ring, se);
 }
 
 // Two-pass form, pass 1: every read of the participant counts happens
 // here, before pass 2 writes any. A lane's status is final here unless
-// pass 2 refuses it for capacity.
+// pass 2 refuses it for capacity. kTenants: the lane's session row is
+// its tenant's, so keys are flat rows and never match across tenants.
+template <bool kTenants>
 __global__ void admission_lanes(AdmissionArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
-  const int s = a.sess[i];
+  int s = a.sess[i];
+  if constexpr (kTenants) s += (i / a.lanes_t) * a.sessions_t;
   int8_t ring;
   float se;
   const int st = lane_ladder(a, i, s, &ring, &se);
@@ -185,7 +192,9 @@ __device__ __forceinline__ unsigned rank_hash(int key) {
 // participant-count increment for each admitted lane. The hash table has
 // twice as many slots as the tile has lanes. A thread reads B / n keys of
 // earlier tiles, so the pass's loads grow as B^2 / n: 39 a thread at
-// 10,000 lanes.
+// 10,000 lanes. kTenants: lane i writes row slot[i] of its tenant's
+// agents, with the tenant's own session slot.
+template <bool kTenants>
 __global__ void __launch_bounds__(ADMIT_RANKED_THREADS) admission_ranked(AdmissionArgs a) {
   constexpr int n = ADMIT_RANKED_THREADS;
   constexpr unsigned mask = 2 * n - 1;
@@ -239,7 +248,14 @@ __global__ void __launch_bounds__(ADMIT_RANKED_THREADS) admission_ranked(Admissi
     for (; q < t; ++q) rank += tile_key[q] == key;
     if (a.seats[i] + rank < a.seats[a.B + i]) {
       atomicAdd(a.si32 + (size_t)key * SI32_WIDTH + SI32_NPART, 1);
-      write_row(a, i, key, a.ring[i], a.sigma_eff[i]);
+      size_t r = static_cast<size_t>(a.slot[i]);
+      int s = key;
+      if constexpr (kTenants) {
+        const int tn = i / a.lanes_t;
+        r += static_cast<size_t>(tn) * a.agents_t;
+        s -= tn * a.sessions_t;
+      }
+      write_row(a, i, r, s, a.ring[i], a.sigma_eff[i]);
     } else {
       a.status[i] = ADMIT_CAPACITY;
     }
@@ -255,6 +271,9 @@ struct FsmSagaArgs {
   int K, B, E, N;
   int walk_blocks, step_blocks, edge_blocks;
   int8_t* step; int8_t* wstate; uint8_t* err; int* released;
+  // The tenant form: T tenants, each with K, B, E and N above and s_cap
+  // session rows, its wave the range [lo_t[t], hi_t[t]); released [T].
+  int T; const int* lo_t; const int* hi_t;
 };
 
 constexpr int FSM_THREADS = 512;
@@ -309,8 +328,30 @@ __device__ __forceinline__ bool in_wave(const FsmSagaArgs& a, const unsigned* me
 // slot 0, as the reference's unarmed path clips it (the facade never
 // passes one), and the walk indexes it from the table's end, as torch
 // and the reference index.
+// The tenant form (kTenants) runs T tenants' waves in one launch: the grid
+// gains a y dimension, one row of blocks a tenant, each block offsetting
+// every pointer by its tenant's table, lanes and edges and taking the
+// tenant's range [lo_t[t], hi_t[t]) (a tenant wave's sessions are one
+// block, so there is no mask form); released is per tenant, [T].
+template <bool kTenants>
 __global__ void __launch_bounds__(FSM_THREADS) fsm_saga_kernel(FsmSagaArgs a) {
   extern __shared__ unsigned member[];
+  if constexpr (kTenants) {
+    const int tn = blockIdx.y;
+    a.ai32 += static_cast<size_t>(tn) * a.N * AI32_WIDTH;
+    a.si32 += static_cast<size_t>(tn) * a.s_cap * SI32_WIDTH;
+    a.sf32 += static_cast<size_t>(tn) * a.s_cap * SF32_WIDTH;
+    a.vsess += static_cast<size_t>(tn) * a.E;
+    a.vact += static_cast<size_t>(tn) * a.E;
+    a.ksess += static_cast<size_t>(tn) * a.K;
+    a.wstate += static_cast<size_t>(tn) * a.K;
+    a.err += static_cast<size_t>(tn) * a.K;
+    a.ok += static_cast<size_t>(tn) * a.B;
+    a.step += static_cast<size_t>(tn) * a.B;
+    a.released += tn;
+    a.lo = a.lo_t[tn];
+    a.hi = a.hi_t[tn];
+  }
   int blk = blockIdx.x;
   if (blk < a.walk_blocks) {
     const int idx = blk * blockDim.x + threadIdx.x;
@@ -446,6 +487,11 @@ __global__ void __launch_bounds__(FSM_THREADS) fsm_saga_kernel(FsmSagaArgs a) {
 //          in the bucket beyond), and one thread folds it in that order.
 // Edge indices are unique, so any sort gives edge order, and the sums
 // equal the reference's bit for bit.
+// The tenant form (kTenants) runs T tenants' tables stacked [T, E] and
+// [T, N] as one table of T*E edges and T*N slots: edge e's vouchee is
+// slot vouchee[e] of tenant e / E_t, so its key is that plus the
+// tenant's N_t offset. Flat edge order is each tenant's edge order, so
+// every fold is its tenant's; the five launches serve all T.
 constexpr int CONTRIB_THREADS = 256;
 constexpr int CONTRIB_SMALL = 32;
 constexpr int CONTRIB_BLOCK = 1024;
@@ -453,6 +499,7 @@ constexpr int CONTRIB_SCAN_ITEMS = 16;
 constexpr int CONTRIB_SMEM = 8192;
 constexpr int CONTRIB_LARGE_BLOCKS = 16;
 
+template <bool kTenants>
 __global__ void contrib_scope_kernel(const int* __restrict__ vouchee,   // [E]
                                      const int* __restrict__ session,   // [E]
                                      const uint8_t* __restrict__ active,  // [E] bool
@@ -461,13 +508,15 @@ __global__ void contrib_scope_kernel(const int* __restrict__ vouchee,   // [E]
                                      const float* __restrict__ now,     // []
                                      int* __restrict__ count,           // [N], zeroed
                                      int* __restrict__ place,           // [E] out: -1 unscoped
-                                     int E) {
+                                     int E, int E_t, int N_t) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const int vee = vouchee[e];
+  int key = vee;
+  if constexpr (kTenants) key += (e / E_t) * N_t;
   int p = -1;
-  if (active[e] && __ldg(now) <= expiry[e] && vee >= 0 && session[e] == target[vee]) {
-    p = atomicAdd(&count[vee], 1);
+  if (active[e] && __ldg(now) <= expiry[e] && vee >= 0 && session[e] == target[key]) {
+    p = atomicAdd(&count[key], 1);
   }
   place[e] = p;
 }
@@ -536,15 +585,18 @@ __global__ void __launch_bounds__(CONTRIB_BLOCK) contrib_scan_kernel(
   if (threadIdx.x == 0) large[0] = n_large;
 }
 
+template <bool kTenants>
 __global__ void contrib_fill_kernel(const int* __restrict__ vouchee,  // [E]
                                     const int* __restrict__ place,    // [E]
                                     const int* __restrict__ offset,   // [N]
                                     int* __restrict__ bucket,         // [E]
-                                    int E) {
+                                    int E, int E_t, int N_t) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   const int p = place[e];
-  if (p >= 0) bucket[offset[vouchee[e]] + p] = e;
+  int key = vouchee[e];
+  if constexpr (kTenants) key += (e / E_t) * N_t;
+  if (p >= 0) bucket[offset[key] + p] = e;
 }
 
 __global__ void contrib_fold_kernel(const int* __restrict__ count,   // [N]
@@ -637,6 +689,71 @@ extern "C" const char* hv_wave_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+namespace {
+
+// The arguments both forms of B4 share; the tenant form adds its strides.
+AdmissionArgs admission_args(
+    void* af32, void* ai32, void* aring, void* si32, const void* sf32,
+    const void* slot, const void* did, const void* sess, const void* sigma_raw,
+    const void* contrib, const void* trust, const void* dup,
+    float omega, float now, float ring2_threshold,
+    float burst0, float burst1, float burst2, float burst3, int B,
+    void* status, void* ring, void* sigma_eff, void* key, void* seats) {
+  AdmissionArgs a{};
+  a.af32 = static_cast<float*>(af32); a.ai32 = static_cast<int*>(ai32);
+  a.aring = static_cast<int8_t*>(aring); a.si32 = static_cast<int*>(si32);
+  a.sf32 = static_cast<const float*>(sf32); a.slot = static_cast<const int*>(slot);
+  a.did = static_cast<const int*>(did); a.sess = static_cast<const int*>(sess);
+  a.sigma_raw = static_cast<const float*>(sigma_raw);
+  a.contrib = static_cast<const float*>(contrib);
+  a.trust = static_cast<const uint8_t*>(trust); a.dup = static_cast<const uint8_t*>(dup);
+  a.omega = omega; a.now = now; a.ring2_threshold = ring2_threshold;
+  a.bursts[0] = burst0; a.bursts[1] = burst1; a.bursts[2] = burst2; a.bursts[3] = burst3;
+  a.B = B;
+  a.status = static_cast<int8_t*>(status); a.ring = static_cast<int8_t*>(ring);
+  a.sigma_eff = static_cast<float*>(sigma_eff);
+  a.key = static_cast<int*>(key); a.seats = static_cast<int*>(seats);
+  return a;
+}
+
+// B4's two-pass (ranked) form: two launches over the B lanes.
+template <bool kTenants>
+void launch_admission_ranked(const AdmissionArgs& a, cudaStream_t st) {
+  const int blocks = (a.B + ADMIT_RANKED_THREADS - 1) / ADMIT_RANKED_THREADS;
+  admission_lanes<kTenants><<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
+  admission_ranked<kTenants><<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
+}
+
+// The arguments both forms of B5 share, and its grid: the blocks of one
+// wave (a tenant's, in the tenant form), walk, step, edge and agent.
+FsmSagaArgs fsm_saga_args(
+    void* ai32, void* si32, void* sf32, const void* vsess, void* vact,
+    const void* ksess, const void* ok, float now, int s_cap,
+    unsigned int bits_lo, unsigned int bits_hi, int n_rows, int n_cols,
+    int active, int terminating, int archived, int K, int B, int E, int N,
+    void* step, void* wstate, void* err, void* released, int* blocks) {
+  FsmSagaArgs a{};
+  a.ai32 = static_cast<int*>(ai32); a.si32 = static_cast<int*>(si32);
+  a.sf32 = static_cast<float*>(sf32); a.vsess = static_cast<const int*>(vsess);
+  a.vact = static_cast<uint8_t*>(vact); a.ksess = static_cast<const int*>(ksess);
+  a.ok = static_cast<const uint8_t*>(ok);
+  a.now = now; a.s_cap = s_cap;
+  a.bits_lo = bits_lo; a.bits_hi = bits_hi; a.n_rows = n_rows; a.n_cols = n_cols;
+  a.active = active; a.terminating = terminating; a.archived = archived;
+  a.K = K; a.B = B; a.E = E; a.N = N;
+  a.step = static_cast<int8_t*>(step); a.wstate = static_cast<int8_t*>(wstate);
+  a.err = static_cast<uint8_t*>(err); a.released = static_cast<int*>(released);
+  a.walk_blocks = (K + FSM_THREADS - 1) / FSM_THREADS;
+  a.step_blocks = (B + FSM_THREADS - 1) / FSM_THREADS;
+  const int edges_per_block = FSM_THREADS * FSM_EDGES_PER_THREAD;
+  a.edge_blocks = (E + edges_per_block - 1) / edges_per_block;
+  const int agent_blocks = (N + FSM_THREADS - 1) / FSM_THREADS;
+  *blocks = a.walk_blocks + a.step_blocks + a.edge_blocks + agent_blocks;
+  return a;
+}
+
+}  // namespace
+
 extern "C" int hv_admission_block(
     void* af32, void* ai32, void* aring, void* si32, const void* sf32,
     const void* slot, const void* did, const void* sess, const void* sigma_raw,
@@ -646,29 +763,40 @@ extern "C" int hv_admission_block(
     int unique, int B,
     void* status, void* ring, void* sigma_eff, void* key, void* seats, void* stream) {
   if (B > 0) {
-    AdmissionArgs a;
-    a.af32 = static_cast<float*>(af32); a.ai32 = static_cast<int*>(ai32);
-    a.aring = static_cast<int8_t*>(aring); a.si32 = static_cast<int*>(si32);
-    a.sf32 = static_cast<const float*>(sf32); a.slot = static_cast<const int*>(slot);
-    a.did = static_cast<const int*>(did); a.sess = static_cast<const int*>(sess);
-    a.sigma_raw = static_cast<const float*>(sigma_raw);
-    a.contrib = static_cast<const float*>(contrib);
-    a.trust = static_cast<const uint8_t*>(trust); a.dup = static_cast<const uint8_t*>(dup);
-    a.omega = omega; a.now = now; a.ring2_threshold = ring2_threshold;
-    a.bursts[0] = burst0; a.bursts[1] = burst1; a.bursts[2] = burst2; a.bursts[3] = burst3;
-    a.B = B;
-    a.status = static_cast<int8_t*>(status); a.ring = static_cast<int8_t*>(ring);
-    a.sigma_eff = static_cast<float*>(sigma_eff);
-    a.key = static_cast<int*>(key); a.seats = static_cast<int*>(seats);
+    const AdmissionArgs a = admission_args(
+        af32, ai32, aring, si32, sf32, slot, did, sess, sigma_raw, contrib, trust, dup,
+        omega, now, ring2_threshold, burst0, burst1, burst2, burst3, B,
+        status, ring, sigma_eff, key, seats);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (unique) {
       const int blocks = (B + ADMIT_UNIQUE_THREADS - 1) / ADMIT_UNIQUE_THREADS;
       admission_unique<<<blocks, ADMIT_UNIQUE_THREADS, 0, st>>>(a);
     } else {
-      const int blocks = (B + ADMIT_RANKED_THREADS - 1) / ADMIT_RANKED_THREADS;
-      admission_lanes<<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
-      admission_ranked<<<blocks, ADMIT_RANKED_THREADS, 0, st>>>(a);
+      launch_admission_ranked<false>(a, st);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tenant form of B4: T tenants' waves of B_t lanes each over agent
+// and session tables stacked [T, N_t] and [T, S_t], always the two-pass
+// (ranked) form.
+extern "C" int hv_admission_block_tenants(
+    void* af32, void* ai32, void* aring, void* si32, const void* sf32,
+    const void* slot, const void* did, const void* sess, const void* sigma_raw,
+    const void* contrib, const void* trust, const void* dup,
+    float omega, float now, float ring2_threshold,
+    float burst0, float burst1, float burst2, float burst3,
+    int T, int B_t, int N_t, int S_t,
+    void* status, void* ring, void* sigma_eff, void* key, void* seats, void* stream) {
+  const int B = T * B_t;
+  if (B > 0) {
+    AdmissionArgs a = admission_args(
+        af32, ai32, aring, si32, sf32, slot, did, sess, sigma_raw, contrib, trust, dup,
+        omega, now, ring2_threshold, burst0, burst1, burst2, burst3, B,
+        status, ring, sigma_eff, key, seats);
+    a.lanes_t = B_t; a.agents_t = N_t; a.sessions_t = S_t;
+    launch_admission_ranked<true>(a, static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -681,31 +809,41 @@ extern "C" int hv_fsm_saga_block(
     int active, int terminating, int archived,
     int K, int B, int E, int N,
     void* step, void* wstate, void* err, void* released, void* stream) {
-  FsmSagaArgs a;
-  a.ai32 = static_cast<int*>(ai32); a.si32 = static_cast<int*>(si32);
-  a.sf32 = static_cast<float*>(sf32); a.vsess = static_cast<const int*>(vsess);
-  a.vact = static_cast<uint8_t*>(vact); a.ksess = static_cast<const int*>(ksess);
-  a.ok = static_cast<const uint8_t*>(ok);
-  a.now = now; a.lo = lo; a.hi = hi; a.use_mask = use_mask; a.s_cap = s_cap;
-  a.bits_lo = bits_lo; a.bits_hi = bits_hi; a.n_rows = n_rows; a.n_cols = n_cols;
-  a.active = active; a.terminating = terminating; a.archived = archived;
-  a.K = K; a.B = B; a.E = E; a.N = N;
-  a.step = static_cast<int8_t*>(step); a.wstate = static_cast<int8_t*>(wstate);
-  a.err = static_cast<uint8_t*>(err); a.released = static_cast<int*>(released);
-  a.walk_blocks = (K + FSM_THREADS - 1) / FSM_THREADS;
-  a.step_blocks = (B + FSM_THREADS - 1) / FSM_THREADS;
-  const int edges_per_block = FSM_THREADS * FSM_EDGES_PER_THREAD;
-  a.edge_blocks = (E + edges_per_block - 1) / edges_per_block;
-  const int agent_blocks = (N + FSM_THREADS - 1) / FSM_THREADS;
-  const int blocks = a.walk_blocks + a.step_blocks + a.edge_blocks + agent_blocks;
+  int blocks = 0;
+  FsmSagaArgs a = fsm_saga_args(
+      ai32, si32, sf32, vsess, vact, ksess, ok, now, s_cap, bits_lo, bits_hi, n_rows, n_cols,
+      active, terminating, archived, K, B, E, N, step, wstate, err, released, &blocks);
+  a.lo = lo; a.hi = hi; a.use_mask = use_mask;
   const size_t smem = use_mask ? ((static_cast<size_t>(s_cap) + 31) / 32) * 4 : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fsm_saga_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        fsm_saga_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (blocks > 0) {
-    fsm_saga_kernel<<<blocks, FSM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    fsm_saga_kernel<false><<<blocks, FSM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tenant form of B5: T tenants, each with K sessions, B lanes, E
+// edges, N agents and S session rows, its wave the range [lo[t], hi[t]).
+// released is i32[T], zeroed by the caller.
+extern "C" int hv_fsm_saga_block_tenants(
+    void* ai32, void* si32, void* sf32, const void* vsess, void* vact,
+    const void* ksess, const void* ok, const void* lo, const void* hi,
+    float now, unsigned int bits_lo, unsigned int bits_hi, int n_rows, int n_cols,
+    int active, int terminating, int archived,
+    int T, int K, int B, int E, int N, int S,
+    void* step, void* wstate, void* err, void* released, void* stream) {
+  int blocks = 0;
+  FsmSagaArgs a = fsm_saga_args(
+      ai32, si32, sf32, vsess, vact, ksess, ok, now, S, bits_lo, bits_hi, n_rows, n_cols,
+      active, terminating, archived, K, B, E, N, step, wstate, err, released, &blocks);
+  a.T = T; a.lo_t = static_cast<const int*>(lo); a.hi_t = static_cast<const int*>(hi);
+  if (blocks > 0 && T > 0) {
+    fsm_saga_kernel<true><<<dim3(blocks, T), FSM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -713,12 +851,13 @@ extern "C" int hv_fsm_saga_block(
 // scratch: int32 [N] count, which must arrive zeroed, then [N] offset,
 // [1 + N] large, [E] place and [E] bucket, which need no initial value.
 // out needs no zeroing either: every slot is written.
-extern "C" int hv_contribution(const void* vouchee, const void* session, const void* active,
-                               const void* expiry, const void* bond, const void* target,
-                               const void* now, void* scratch, void* out, int E, int N,
-                               void* stream) {
+namespace {
+
+cudaError_t launch_contribution(bool tenants, const void* vouchee, const void* session,
+                                const void* active, const void* expiry, const void* bond,
+                                const void* target, const void* now, void* scratch, void* out,
+                                int E, int N, int E_t, int N_t, cudaStream_t st) {
   if (N > 0) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
     int* count = static_cast<int*>(scratch);
     int* offset = count + N;
     int* large = offset + N;
@@ -728,20 +867,45 @@ extern "C" int hv_contribution(const void* vouchee, const void* session, const v
     const float* b = static_cast<const float*>(bond);
     float* o = static_cast<float*>(out);
     const int edge_blocks = (E + CONTRIB_THREADS - 1) / CONTRIB_THREADS;
+    auto scope = tenants ? contrib_scope_kernel<true> : contrib_scope_kernel<false>;
+    auto fill = tenants ? contrib_fill_kernel<true> : contrib_fill_kernel<false>;
     if (E > 0) {
-      contrib_scope_kernel<<<edge_blocks, CONTRIB_THREADS, 0, st>>>(
+      scope<<<edge_blocks, CONTRIB_THREADS, 0, st>>>(
           vee, static_cast<const int*>(session), static_cast<const uint8_t*>(active),
           static_cast<const float*>(expiry), static_cast<const int*>(target),
-          static_cast<const float*>(now), count, place, E);
+          static_cast<const float*>(now), count, place, E, E_t, N_t);
     }
     contrib_scan_kernel<<<1, CONTRIB_BLOCK, 0, st>>>(count, offset, large, N);
     if (E > 0) {
-      contrib_fill_kernel<<<edge_blocks, CONTRIB_THREADS, 0, st>>>(vee, place, offset, bucket, E);
+      fill<<<edge_blocks, CONTRIB_THREADS, 0, st>>>(vee, place, offset, bucket, E, E_t, N_t);
     }
     contrib_fold_kernel<<<(N + CONTRIB_THREADS - 1) / CONTRIB_THREADS, CONTRIB_THREADS, 0, st>>>(
         count, offset, bucket, b, o, N);
     contrib_large_kernel<<<CONTRIB_LARGE_BLOCKS, CONTRIB_BLOCK, 0, st>>>(
         count, offset, bucket, large, b, o);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int hv_contribution(const void* vouchee, const void* session, const void* active,
+                               const void* expiry, const void* bond, const void* target,
+                               const void* now, void* scratch, void* out, int E, int N,
+                               void* stream) {
+  return static_cast<int>(launch_contribution(false, vouchee, session, active, expiry, bond,
+                                              target, now, scratch, out, E, N, E, N,
+                                              static_cast<cudaStream_t>(stream)));
+}
+
+// The tenant form: T tenants' edges [T, E_t] toward their slots [T, N_t],
+// the same five launches over T*E_t edges and T*N_t slots (scratch as
+// above at E = T*E_t, N = T*N_t).
+extern "C" int hv_contribution_tenants(const void* vouchee, const void* session,
+                                       const void* active, const void* expiry, const void* bond,
+                                       const void* target, const void* now, void* scratch,
+                                       void* out, int T, int E_t, int N_t, void* stream) {
+  return static_cast<int>(launch_contribution(true, vouchee, session, active, expiry, bond,
+                                              target, now, scratch, out, T * E_t, T * N_t, E_t,
+                                              N_t, static_cast<cudaStream_t>(stream)));
 }

@@ -12,7 +12,9 @@ surviving DeltaLog turns are a contiguous, duplicate-free run.
 
 The result is a violation bitmask per row of each table (u32 bits held
 in int32, the package's convention) and two counts, booked into the
-metrics table without a host transfer. `repair_*` are the deterministic
+metrics table without a host transfer. Tables stacked over tenants
+(`[T, ...]`, the tenant wave's epilogue) check per tenant in the same
+ops: masks [T, rows], counts [T]. `repair_*` are the deterministic
 fixes for the repairable classes (clamp, recompute, mask, deactivate,
 quarantine the row); the restore classes need a checkpoint.
 
@@ -182,18 +184,21 @@ def _check_sessions(sessions) -> tuple:
 
 def _escrow(vouches: VouchTable, counted: torch.Tensor, bonds: torch.Tensor, n_agents: int):
     """f32[N]: the counted edges' bonds summed per voucher in edge order
-    (the contribution kernel's fold, every edge in one scope)."""
+    (the contribution kernel's fold, every edge in one scope); f32[T, N]
+    through its tenant form for stacked tables."""
     from hypervisor_tpu_torch.kernels import wave as wave_kernels
 
     dev = bonds.device
-    e = bonds.shape[0]
-    zeros_e = torch.zeros((e,), dtype=torch.int32, device=dev)
+    lead = bonds.shape[:-1]
     keyed = VouchTable(
         voucher=vouches.voucher, vouchee=vouches.voucher.clamp(0, n_agents - 1),
-        session=zeros_e, bond_pct=vouches.bond_pct, bond=bonds, active=counted,
-        expiry=torch.full((e,), float("inf"), dtype=torch.float32, device=dev),
+        session=torch.zeros(bonds.shape, dtype=torch.int32, device=dev),
+        bond_pct=vouches.bond_pct, bond=bonds, active=counted,
+        expiry=torch.full(bonds.shape, float("inf"), dtype=torch.float32, device=dev),
     )
-    scope = torch.zeros((n_agents,), dtype=torch.int32, device=dev)
+    scope = torch.zeros(lead + (n_agents,), dtype=torch.int32, device=dev)
+    if lead:
+        return wave_kernels.contribution_toward_tenants(keyed, scope, 0.0)
     return wave_kernels.contribution_toward(keyed, scope, 0.0)
 
 
@@ -212,19 +217,19 @@ def _check_vouches(vouches, n_agents: int) -> tuple:
                         torch.zeros((), dtype=torch.float32, device=bond.device))
     escrow = _escrow(vouches, counted, bonds, n_agents)
     safe = voucher.clamp(0, n_agents - 1).to(torch.int64)
-    escrow_bad = counted & (escrow[safe] > _f32(ESCROW_CAP))
+    escrow_bad = counted & (torch.gather(escrow, -1, safe) > _f32(ESCROW_CAP))
     mask = _bits(endpoint_bad, V_ENDPOINT) | _bits(bond_bad, V_BOND) | _bits(escrow_bad, V_ESCROW)
     return mask, escrow_bad
 
 
 def _check_sagas(sagas) -> tuple:
     live = sagas.session >= 0
-    max_steps = sagas.step_state.shape[1]
+    max_steps = sagas.step_state.shape[-1]
     state_bad = live & ((sagas.saga_state < 0) | (sagas.saga_state >= N_SAGA_STATES))
     cursor_bad = live & ((sagas.cursor < 0) | (sagas.cursor > max_steps))
     nsteps_bad = live & ((sagas.n_steps < 0) | (sagas.n_steps > max_steps))
     step = sagas.step_state
-    step_bad = live & ((step < 0) | (step >= N_STEP_STATES)).any(dim=1)
+    step_bad = live & ((step < 0) | (step >= N_STEP_STATES)).any(dim=-1)
     mask = (_bits(state_bad, G_STATE) | _bits(cursor_bad, G_CURSOR)
             | _bits(nsteps_bad, G_NSTEPS) | _bits(step_bad, G_STEP_STATE))
     return mask, state_bad | cursor_bad | nsteps_bad | step_bad
@@ -238,41 +243,49 @@ def _check_elevations(elevations, n_agents: int) -> tuple:
 
 
 def _check_delta_ring(delta_log, n_sessions: int) -> torch.Tensor:
-    """int32[] L_* bits for the DeltaLog ring.
+    """int32[] L_* bits for the DeltaLog ring (int32[T] for T stacked rings).
 
     Within the live rows each session's surviving turns are a contiguous,
     duplicate-free run (appends stamp increasing turns and a wrap evicts
     only the oldest rows). Contiguity over [min, max] with the right count
     and the exact arithmetic-series sum pin all three: a rewritten,
     duplicated or vanished turn breaks at least one."""
-    capacity = delta_log.body.shape[0]
+    capacity = delta_log.body.shape[-2]
     cursor = delta_log.cursor
     dev = cursor.device
+    lead = cursor.shape
     bits = _bits(cursor < 0, L_CURSOR)
-    live = torch.arange(capacity, dtype=torch.int32, device=dev) < torch.clamp(cursor, 0, capacity)
+    live = (torch.arange(capacity, dtype=torch.int32, device=dev)
+            < torch.clamp(cursor, 0, capacity)[..., None])
     sess, turn = delta_log.session, delta_log.turn
     tracked = live & (sess >= 0)
     row_bad = live & ((sess < -1) | (sess >= n_sessions) | (tracked & (turn < 0)))
     bits = bits | _bits(tally.count_true_1d(row_bad) > 0, L_DELTA_ROW)
 
-    safe = sess.clamp(0, n_sessions - 1).to(torch.int64)
+    # Each tenant's sessions take their own rows of one flat table.
+    tenants = int(np.prod(lead, dtype=np.int64))
+    offset = (torch.arange(tenants, dtype=torch.int64, device=dev) * n_sessions).reshape(
+        lead + (1,))
+    safe = (sess.clamp(0, n_sessions - 1).to(torch.int64) + offset).reshape(-1)
     big = 2**30
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     neg_big = torch.full((), -big, dtype=torch.int32, device=dev)
     # Integer sums (exact in any order) and maxima: min(x) = -max(-x).
-    sums = torch.zeros((n_sessions, 2), dtype=torch.int32, device=dev).index_add_(
-        0, safe, torch.stack([tracked.to(torch.int32), torch.where(tracked, turn, zero)], dim=1))
+    sums = torch.zeros((tenants * n_sessions, 2), dtype=torch.int32, device=dev).index_add_(
+        0, safe, torch.stack([tracked.to(torch.int32), torch.where(tracked, turn, zero)],
+                             dim=-1).reshape(-1, 2))
     count, tsum = sums[:, 0], sums[:, 1]
-    exts = torch.full((n_sessions, 2), -big, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, safe[:, None].expand(capacity, 2),
+    exts = torch.full((tenants * n_sessions, 2), -big, dtype=torch.int32,
+                      device=dev).scatter_reduce_(
+        0, safe[:, None].expand(safe.shape[0], 2),
         torch.stack([torch.where(tracked, turn, neg_big), torch.where(tracked, -turn, neg_big)],
-                    dim=1),
+                    dim=-1).reshape(-1, 2),
         "amax")
     tmax, tmin = exts[:, 0], -exts[:, 1]
     present = count > 0
     contiguous = count == (tmax - tmin + 1)
     series = 2 * tsum == (tmin + tmax) * count
-    chain_bad = present & ~(contiguous & series)
+    chain_bad = (present & ~(contiguous & series)).reshape(lead + (n_sessions,))
     return bits | _bits(tally.count_true_1d(chain_bad) > 0, L_TURN_CHAIN)
 
 
@@ -287,8 +300,8 @@ def check_invariants(
 ) -> IntegrityResult:
     """Re-check every invariant over the tables, rings and logs; with
     `metrics`, book the pass IN PLACE. No host transfer."""
-    n_agents = agents.did.shape[0]
-    n_sessions = sessions.sid.shape[0]
+    n_agents = agents.did.shape[-1]
+    n_sessions = sessions.sid.shape[-1]
     agent_mask, agent_restore = _check_agents(agents, n_sessions, ring_bursts, config.trust)
     session_mask, session_restore = _check_sessions(sessions)
     vouch_mask, vouch_restore = _check_vouches(vouches, n_agents)
@@ -296,14 +309,14 @@ def check_invariants(
     elev_mask, _ = _check_elevations(elevations, n_agents)
     dev = agent_mask.device
     trace_bits = (_cursor_bits(trace_log) if trace_log is not None
-                  else torch.zeros((), dtype=torch.int32, device=dev))
+                  else torch.zeros(agent_mask.shape[:-1], dtype=torch.int32, device=dev))
     log_mask = torch.stack([_check_delta_ring(delta_log, n_sessions), _cursor_bits(event_log),
-                            trace_bits])
+                            trace_bits], dim=-1)
     total = tally.count_true_1d(torch.cat([
         agent_mask != 0, session_mask != 0, vouch_mask != 0, saga_mask != 0, elev_mask != 0,
-        log_mask != 0]))
+        log_mask != 0], dim=-1))
     unrepairable = tally.count_true_1d(torch.cat([
-        agent_restore, session_restore, vouch_restore, saga_restore, log_mask != 0]))
+        agent_restore, session_restore, vouch_restore, saga_restore, log_mask != 0], dim=-1))
     if metrics is not None:
         book_sanitizer_metrics(metrics, total, unrepairable)
     return IntegrityResult(

@@ -164,6 +164,27 @@ class IntegrityPlane:
         self.last_restore: Optional[dict] = None
         state.integrity = self
 
+    def retune(
+        self,
+        every: Optional[int] = None,
+        scrub_every: Optional[int] = None,
+    ) -> dict:
+        """Retune the sanitizer/scrub cadence live and return the
+        before/after knob values. Cadence checks read `self.every` per
+        dispatch, so the new pace applies from the next wave; 0 still
+        means off. The autopilot tightens on violation deltas and
+        relaxes after a clean-window streak with roofline headroom."""
+        before = {"every": self.every, "scrub_every": self.scrub_every}
+        with self._lock:
+            if every is not None:
+                self.every = max(0, int(every))
+            if scrub_every is not None:
+                self.scrub_every = max(0, int(scrub_every))
+        return {
+            "before": before,
+            "after": {"every": self.every, "scrub_every": self.scrub_every},
+        }
+
     # -- the dispatch-site gate -----------------------------------------
 
     def on_dispatch(self, stage: str, fused: bool = False) -> None:

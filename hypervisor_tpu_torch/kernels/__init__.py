@@ -17,6 +17,14 @@ main path went through the kernel.
   B8 `liability.slash_cascade` <- hypervisor_tpu/kernels/liability_pallas.py slash_cascade_pallas
   `wave.contribution_toward`  <- hypervisor_tpu/ops/liability.py contribution_toward
                                  (an XLA scatter-add there, no Pallas kernel)
+
+The tenant forms serve T tenants' waves in the launches the solo form
+takes for one (the reference's `jax.vmap` of its wave puts the tenant
+axis on each Pallas grid):
+
+  `wave.contribution_toward_tenants`, `wave.admission_block_tenants` (B4),
+  `wave.fsm_saga_block_tenants` (B5), `mtu.chain_digests_ring_tenants`
+  (B2's ring form, with B6's append); B3 takes the T x K lanes flat.
 """
 
 from __future__ import annotations
@@ -33,6 +41,10 @@ WRAPPERS = {
     "sha256_words": sha256.sha256_words,
     "saga_tick_block": saga.saga_tick_block,
     "slash_cascade": liability.slash_cascade,
+    "contribution_toward_tenants": wave.contribution_toward_tenants,
+    "admission_block_tenants": wave.admission_block_tenants,
+    "fsm_saga_block_tenants": wave.fsm_saga_block_tenants,
+    "chain_digests_ring_tenants": mtu.chain_digests_ring_tenants,
 }
 
 

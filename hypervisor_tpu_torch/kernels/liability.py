@@ -64,7 +64,7 @@ import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
 from hypervisor_tpu_torch.kernels import _build, work
-from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
+from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route, _wrote
 from hypervisor_tpu_torch.kernels.wave import _host_f32 as _f32
 from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.tables.metrics import counters_add
@@ -312,6 +312,7 @@ def slash_cascade(
             wipe_threshold(trust), e, n, stream,
         )
     _build.check("liability", err, "slash_cascade")
+    _wrote(counters)
     slash_cascade.launches += 1
     work.note_launch("slash_cascade", edges=e, agents=n, depths=trust.max_cascade_depth + 1)
     return out_sigma, active, slashed, clipped, wave_of

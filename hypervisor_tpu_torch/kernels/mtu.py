@@ -36,6 +36,12 @@ session with its level in shared memory (P x 8 words, 128 KB at P =
 4096). Both hash only the pairs the root depends on. The TPU's
 bit-reversed node order and 128-lane padding are dropped.
 
+B2's tenant ring form `chain_digests_ring_tenants` serves T tenants'
+waves in one launch (the reference vmaps its wave over tenants, and a
+Pallas kernel batches by putting the tenant axis on its grid): the
+chains over T x K lanes, and each tenant's live records appended onto
+its own ring of the stacked DeltaLog at its own cursor.
+
 Sources: `csrc/mtu.cu`, `csrc/sha256.cuh`. The plain versions below are
 what CPU tensors run and what the kernels are held against on the card.
 """
@@ -50,6 +56,7 @@ import torch
 from hypervisor_tpu_torch.kernels import _build, work
 from hypervisor_tpu_torch.ops.sha256 import hex_pair_message, pad_tail_words, sha256_blocks
 from hypervisor_tpu_torch.tables.logs import BODY_WORDS, DeltaLog
+from hypervisor_tpu_torch.tables.struct import tenant_view
 
 _CHAIN_TAIL = pad_tail_words((BODY_WORDS + 8) * 4, 2)
 
@@ -76,6 +83,16 @@ def _check_operand(t: torch.Tensor, name: str, dtype, device, align: int = 1) ->
     _require(t.device == device, f"{name}: expected device {device}, got {t.device}")
     _require(t.is_contiguous(), f"{name}: must be contiguous")
     _require(t.data_ptr() % align == 0, f"{name}: must be {align}-byte aligned")
+
+
+def _wrote(*written: torch.Tensor | None) -> None:
+    """Move the version counter of each tensor a kernel wrote in place, as
+    the plain version's in-place torch ops move it: a write through
+    `data_ptr` leaves the counter where it was, and the tenant arena reads
+    the counters of its lent tables to find what a solo op wrote."""
+    for t in written:
+        if t is not None:
+            torch.autograd.graph.increment_version(t)
 
 
 # ── B2: chains ───────────────────────────────────────────────────────
@@ -177,6 +194,7 @@ def chain_digests_ring(
         cursor, n_live, capacity, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("mtu", err, "chain_digests_ring")
+    _wrote(delta_log.body, delta_log.digest, delta_log.session, delta_log.turn, delta_log.cursor)
     if t > 0 and k > 0:
         chain_digests_ring.launches += 1
         work.note_launch("chain_digests_ring", turns=t, lanes=k, rows=n_live)
@@ -184,6 +202,82 @@ def chain_digests_ring(
 
 
 chain_digests_ring.launches = 0
+
+
+def chain_digests_ring_tenants_plain(
+    bodies: torch.Tensor, seeds: torch.Tensor, delta_log: DeltaLog,
+    wave_sessions: torch.Tensor, cursors, n_live,
+) -> torch.Tensor:
+    """Plain version of B2's tenant ring form: `chain_digests_ring_plain`
+    on each tenant's lanes and ring view, stacked -> int32[T_turns, T, K, 8]."""
+    return torch.stack([
+        chain_digests_ring_plain(bodies[:, t], seeds[t], tenant_view(delta_log, t),
+                                 wave_sessions[t], int(cursors[t]), int(n_live[t]))
+        for t in range(wave_sessions.shape[0])
+    ], dim=1)
+
+
+def chain_digests_ring_tenants(
+    bodies: torch.Tensor,         # int32[T_turns, T, K, 16] u32 bits
+    seeds: torch.Tensor,          # int32[T, K, 8] u32 bits
+    delta_log: DeltaLog,          # stacked [T, C]
+    wave_sessions: torch.Tensor,  # i32[T, K]
+    cursors,                      # [T] host mirrors of each tenant's cursor
+    n_live,                       # [T] rows each tenant appends
+) -> torch.Tensor:
+    """B2's tenant ring form: every tenant's chains, and each tenant's
+    first `n_live[t]` lane-major records appended onto its own ring at
+    `cursors[t]`, its cursor advanced by `n_live[t]`, IN PLACE, in one
+    launch. Returns the chains, int32[T_turns, T, K, 8]. CPU tensors take
+    `chain_digests_ring_tenants_plain`."""
+    _require(bodies.dim() == 4 and bodies.shape[3] == BODY_WORDS, "bodies: [T_turns, T, K, 16]")
+    turns, t_count, k, _ = bodies.shape
+    _require(tuple(seeds.shape) == (t_count, k, 8), "seeds: [T, K, 8]")
+    _require(tuple(wave_sessions.shape) == (t_count, k), "wave_sessions: [T, K]")
+    capacity = delta_log.body.shape[1]
+    cursors = [int(c) for c in cursors]
+    n_live = [int(n) for n in n_live]
+    _require(len(cursors) == t_count and len(n_live) == t_count, "cursors, n_live: [T]")
+    for n in n_live:
+        _require(0 <= n <= turns * k, f"n_live {n} outside [0, {turns * k}]")
+        _require(n <= capacity, f"{n} rows in one append exceed the ring's {capacity}")
+    if not _route(bodies):
+        return chain_digests_ring_tenants_plain(bodies, seeds, delta_log, wave_sessions,
+                                                cursors, n_live)
+    _require(all(0 <= c < 2**31 for c in cursors), "cursors: non-negative int32")
+    dev = bodies.device
+    for tn, name, align in [
+        (bodies, "bodies", 16), (seeds, "seeds", 16),
+        (delta_log.body, "delta_log.body", 16), (delta_log.digest, "delta_log.digest", 16),
+        (delta_log.session, "delta_log.session", 4), (delta_log.turn, "delta_log.turn", 4),
+        (delta_log.cursor, "delta_log.cursor", 4), (wave_sessions, "wave_sessions", 4),
+    ]:
+        _check_operand(tn, name, torch.int32, dev, align)
+    _require(tuple(delta_log.cursor.shape) == (t_count,), "delta_log.cursor: [T]")
+    # The cursors cross as one pinned, non-blocking copy: the launch is not
+    # held behind a host-synchronous one.
+    rings = torch.tensor([cursors, n_live], dtype=torch.int32).pin_memory().to(
+        dev, non_blocking=True)
+    out = torch.empty((turns, t_count, k, 8), dtype=torch.int32, device=dev)
+    fn = _build.entry("mtu", "hv_chain_digests_ring_tenants",
+                      [_P, _P, _P, _I, _I, _I] + [_P] * 8 + [_I, _P])
+    err = fn(
+        bodies.data_ptr(), seeds.data_ptr(), out.data_ptr(), turns, t_count, k,
+        delta_log.body.data_ptr(), delta_log.digest.data_ptr(), delta_log.session.data_ptr(),
+        delta_log.turn.data_ptr(), delta_log.cursor.data_ptr(), wave_sessions.data_ptr(),
+        rings[0].data_ptr(), rings[1].data_ptr(), capacity,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("mtu", err, "chain_digests_ring_tenants")
+    _wrote(delta_log.body, delta_log.digest, delta_log.session, delta_log.turn, delta_log.cursor)
+    if turns > 0 and t_count * k > 0:
+        chain_digests_ring_tenants.launches += 1
+        work.note_launch("chain_digests_ring_tenants", turns=turns, lanes=t_count * k,
+                         rows=sum(n_live))
+    return out
+
+
+chain_digests_ring_tenants.launches = 0
 
 
 # ── B3: Merkle roots ─────────────────────────────────────────────────

@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from hypervisor_tpu_torch.kernels import _build, work
-from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
+from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route, _wrote
 from hypervisor_tpu_torch.observability import metrics as schema
 from hypervisor_tpu_torch.ops import saga_ops as ops
 from hypervisor_tpu_torch.tables.metrics import counters_add
@@ -164,6 +164,7 @@ def saga_tick_block(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("saga", err, "saga_tick_block")
+    _wrote(step_state, retries_left, saga_state, cursor, counters)
     saga_tick_block.launches += 1
     work.note_launch("saga_tick_block", sagas=g, steps=m)
     return committed, exhausted

@@ -53,6 +53,17 @@ edge index and folds its bonds in that order (a thread for up to 32
 edges, a block that sorts a larger bucket). Edges that add nothing touch
 no output. Bound by memory traffic; at the wave's size by launch latency.
 
+The tenant forms (`contribution_toward_tenants`, `admission_block_tenants`,
+`fsm_saga_block_tenants`) take T tenants' tables stacked along a leading
+axis (`tables.struct.stack`) and their lanes as [T, ...] columns, and
+launch as many times for T tenants as the solo form does for one: the
+reference batches its wave over tenants with `jax.vmap`, whose Pallas
+batching rule puts the tenant axis on each kernel's grid. B5's reads its
+tenant from the grid (one row of blocks a tenant, `blockIdx.y`), the
+others from the element's flat index, and each offsets its rows by the
+tenant's table; their plain versions loop over the tenants' views
+(`tables.struct.tenant_view`) through the solo plain versions.
+
 All compile with --fmad=false, so sigma + omega * c rounds like the
 reference. Sources: `csrc/wave.cu`. The plain versions below are what
 CPU tensors run and what the kernels are held against on the card.
@@ -61,19 +72,21 @@ CPU tensors run and what the kernels are held against on the card.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
 from hypervisor_tpu_torch.kernels import _build, work
-from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route
+from hypervisor_tpu_torch.kernels.mtu import _check_operand, _require, _route, _wrote
 from hypervisor_tpu_torch.models import SessionState
 from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import saga_ops, session_fsm
 from hypervisor_tpu_torch.ops import terminate as terminate_ops
 from hypervisor_tpu_torch.tables.logs import DeltaLog
+from hypervisor_tpu_torch.tables.struct import tenant_view
 from hypervisor_tpu_torch.tables.state import (
     AF32_WIDTH,
     AI32_SESSION,
@@ -151,6 +164,55 @@ def contribution_toward(
 
 
 contribution_toward.launches = 0
+
+
+def contribution_toward_tenants_plain(vouches: VouchTable, target_session_of_slot, now):
+    """Plain version of the contribution's tenant form: the solo plain
+    version on each tenant's view, stacked -> f32[T, N]."""
+    return torch.stack([
+        liability_ops.contribution_toward(tenant_view(vouches, t), target_session_of_slot[t], now)
+        for t in range(target_session_of_slot.shape[0])
+    ])
+
+
+def contribution_toward_tenants(
+    vouches: VouchTable,                   # stacked [T, E]
+    target_session_of_slot: torch.Tensor,  # i32[T, N]
+    now,
+) -> torch.Tensor:
+    """The contribution's tenant form: f32[T, N], each tenant's edges
+    toward its own slots, summed in edge order, in the solo form's five
+    launches. CPU tensors take `contribution_toward_tenants_plain`."""
+    if not _route(vouches.bond):
+        return contribution_toward_tenants_plain(vouches, target_session_of_slot, now)
+    dev = vouches.bond.device
+    t_count, n = target_session_of_slot.shape
+    e = vouches.bond.shape[1]
+    cols = [  # (tensor, name, dtype, shape)
+        (vouches.vouchee, "vouches.vouchee", torch.int32, (t_count, e)),
+        (vouches.session, "vouches.session", torch.int32, (t_count, e)),
+        (vouches.active, "vouches.active", torch.bool, (t_count, e)),
+        (vouches.expiry, "vouches.expiry", torch.float32, (t_count, e)),
+        (vouches.bond, "vouches.bond", torch.float32, (t_count, e)),
+        (target_session_of_slot, "target_session_of_slot", torch.int32, (t_count, n)),
+    ]
+    for t, name, dtype, shape in cols:
+        _check_operand(t, name, dtype, dev)
+        _require(tuple(t.shape) == shape, f"{name}: expected shape {shape}")
+    now_t = admission_ops.f32_scalar(now, dev)
+    nt, et = t_count * n, t_count * e
+    scratch = torch.zeros((nt + nt + 1 + nt + 2 * et,), dtype=torch.int32, device=dev)
+    out = torch.empty((t_count, n), dtype=torch.float32, device=dev)
+    fn = _build.entry("wave", "hv_contribution_tenants", [_P] * 9 + [_I, _I, _I, _P])
+    err = fn(*(col[0].data_ptr() for col in cols), now_t.data_ptr(), scratch.data_ptr(),
+             out.data_ptr(), t_count, e, n, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("wave", err, "contribution_toward_tenants")
+    contribution_toward_tenants.launches += 1
+    work.note_launch("contribution_toward_tenants", edges=et, agents=nt)
+    return out
+
+
+contribution_toward_tenants.launches = 0
 
 
 # ── B4: admission ────────────────────────────────────────────────────
@@ -245,6 +307,7 @@ def admission_block(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("wave", err, "admission_block")
+    _wrote(agents.f32, agents.i32, agents.ring, sessions.i32)
     admission_block.launches += 1
     if work.counting():
         with work.paused():
@@ -256,6 +319,106 @@ def admission_block(
 
 
 admission_block.launches = 0
+
+
+def admission_block_tenants_plain(
+    agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega, trustworthy,
+    duplicate, now, bursts=None, trust: TrustConfig = DEFAULT_CONFIG.trust,
+):
+    """Plain version of B4's tenant form: the solo plain version (its
+    ranked form) on each tenant's views and lanes, stacked."""
+    outs = [
+        admission_block_plain(
+            tenant_view(agents, t), tenant_view(sessions, t), slot[t], did[t], session_slot[t],
+            sigma_raw[t], None if contribution is None else contribution[t], omega,
+            trustworthy[t], duplicate[t], now, bursts, trust, False,
+        )
+        for t in range(slot.shape[0])
+    ]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def admission_block_tenants(
+    agents: AgentTable,          # stacked [T, N]
+    sessions: SessionTable,      # stacked [T, S]
+    slot: torch.Tensor,          # i32[T, B] each tenant's agent rows
+    did: torch.Tensor,           # i32[T, B]
+    session_slot: torch.Tensor,  # i32[T, B] each tenant's own session rows
+    sigma_raw: torch.Tensor,     # f32[T, B]
+    contribution: torch.Tensor | None,  # f32[T, B]
+    omega,
+    trustworthy: torch.Tensor,   # bool[T, B]
+    duplicate: torch.Tensor,     # bool[T, B]
+    now,
+    bursts=None,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+):
+    """B4's tenant form: T tenants' admission waves, each on its own
+    slice of the stacked tables, IN PLACE, always the ranked (two-launch)
+    form: the lanes of one tenant may share a session. Returns (status
+    i8[T, B], ring i8[T, B], sigma_eff f32[T, B]). CPU tensors take
+    `admission_block_tenants_plain`."""
+    if not _route(slot):
+        return admission_block_tenants_plain(
+            agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
+            trustworthy, duplicate, now, bursts, trust,
+        )
+    dev = slot.device
+    t_count, b = slot.shape
+    n, sc = agents.ring.shape[1], sessions.i32.shape[1]
+    _require(tuple(agents.f32.shape) == (t_count, n, AF32_WIDTH), "agents.f32: [T, N, 8]")
+    _require(tuple(agents.i32.shape) == (t_count, n, AI32_WIDTH), "agents.i32: [T, N, 21]")
+    _require(tuple(sessions.i32.shape) == (t_count, sc, SI32_WIDTH), "sessions.i32: [T, S, 5]")
+    _require(tuple(sessions.f32.shape) == (t_count, sc, SF32_WIDTH), "sessions.f32: [T, S, 4]")
+    operands = [
+        (agents.f32, "agents.f32", torch.float32), (agents.i32, "agents.i32", torch.int32),
+        (agents.ring, "agents.ring", torch.int8), (sessions.i32, "sessions.i32", torch.int32),
+        (sessions.f32, "sessions.f32", torch.float32), (slot, "slot", torch.int32),
+        (did, "did", torch.int32), (session_slot, "session_slot", torch.int32),
+        (sigma_raw, "sigma_raw", torch.float32), (trustworthy, "trustworthy", torch.bool),
+        (duplicate, "duplicate", torch.bool),
+    ]
+    if contribution is not None:
+        operands.append((contribution, "contribution", torch.float32))
+    for t, name, dtype in operands:
+        _check_operand(t, name, dtype, dev)
+    for t, name, _ in operands[5:]:
+        _require(tuple(t.shape) == (t_count, b), f"{name}: [T, B]")
+    _check_operand(agents.f32, "agents.f32", torch.float32, dev, 16)
+    status = torch.empty((t_count, b), dtype=torch.int8, device=dev)
+    ring = torch.empty((t_count, b), dtype=torch.int8, device=dev)
+    sigma_eff = torch.empty((t_count, b), dtype=torch.float32, device=dev)
+    lanes = t_count * b
+    scratch = torch.empty((3 * lanes,), dtype=torch.int32, device=dev)
+    fn = _build.entry(
+        "wave", "hv_admission_block_tenants",
+        [_P] * 12 + [_F] * 7 + [_I] * 4 + [_P] * 6,
+    )
+    err = fn(
+        agents.f32.data_ptr(), agents.i32.data_ptr(), agents.ring.data_ptr(),
+        sessions.i32.data_ptr(), sessions.f32.data_ptr(),
+        slot.data_ptr(), did.data_ptr(), session_slot.data_ptr(),
+        sigma_raw.data_ptr(), None if contribution is None else contribution.data_ptr(),
+        trustworthy.data_ptr(), duplicate.data_ptr(),
+        _host_f32(omega), _host_f32(now), _host_f32(trust.ring2_threshold),
+        *_bursts(bursts),
+        t_count, b, n, sc,
+        status.data_ptr(), ring.data_ptr(), sigma_eff.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * lanes,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("wave", err, "admission_block_tenants")
+    _wrote(agents.f32, agents.i32, agents.ring, sessions.i32)
+    admission_block_tenants.launches += 1
+    if work.counting():
+        with work.paused():
+            admitted = int((status == admission_ops.ADMIT_OK).sum())
+        work.note_launch("admission_block_tenants", lanes=lanes, admitted=admitted,
+                         contribution=contribution is not None)
+    return status, ring, sigma_eff
+
+
+admission_block_tenants.launches = 0
 
 
 # ── B5: fsm + saga + terminate ───────────────────────────────────────
@@ -352,6 +515,7 @@ def fsm_saga_block(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("wave", rc, "fsm_saga_block")
+    _wrote(agents.i32, sessions.i32, sessions.f32, vouches.active)
     fsm_saga_block.launches += 1
     if work.counting():
         with work.paused():
@@ -363,6 +527,96 @@ def fsm_saga_block(
 
 
 fsm_saga_block.launches = 0
+
+
+def fsm_saga_block_tenants_plain(agents, sessions, vouches, k_sessions, ok, now, lo, hi):
+    """Plain version of B5's tenant form: the solo plain version on each
+    tenant's views in its range form, stacked (`released` i32[T])."""
+    outs = [
+        fsm_saga_block_plain(
+            tenant_view(agents, t), tenant_view(sessions, t), tenant_view(vouches, t),
+            k_sessions[t], ok[t], now, (int(lo[t]), int(hi[t])),
+        )
+        for t in range(ok.shape[0])
+    ]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def fsm_saga_block_tenants(
+    agents: AgentTable,        # stacked [T, N]
+    sessions: SessionTable,    # stacked [T, S]
+    vouches: VouchTable,       # stacked [T, E]
+    k_sessions: torch.Tensor,  # i32[T, K] each tenant's wave sessions, arange(lo, hi)
+    ok: torch.Tensor,          # bool[T, B] admission outcomes
+    now,
+    lo: Sequence[int],         # [T] host: each tenant's wave range
+    hi: Sequence[int],
+):
+    """B5's tenant form: T tenants' FSM walks, saga steps and terminates
+    in one launch, IN PLACE, each tenant's wave the range [lo[t], hi[t])
+    (the caller checked that k_sessions[t] is that range). Returns
+    (step_state i8[T, B], wave_state i8[T, K], fsm_error bool[T, K],
+    released i32[T]). CPU tensors take `fsm_saga_block_tenants_plain`."""
+    if not _route(ok):
+        return fsm_saga_block_tenants_plain(agents, sessions, vouches, k_sessions, ok, now,
+                                            lo, hi)
+    dev = ok.device
+    t_count, b = ok.shape
+    k = k_sessions.shape[1]
+    e, n = vouches.session.shape[1], agents.i32.shape[1]
+    s_cap = sessions.i32.shape[1]
+    _require(len(lo) == t_count and len(hi) == t_count, "lo, hi: one range a tenant")
+    _require(tuple(agents.i32.shape) == (t_count, n, AI32_WIDTH), "agents.i32: [T, N, 21]")
+    _require(tuple(sessions.i32.shape) == (t_count, s_cap, SI32_WIDTH)
+             and tuple(sessions.f32.shape) == (t_count, s_cap, SF32_WIDTH),
+             "sessions: i32[T, S, 5], f32[T, S, 4]")
+    _require(tuple(k_sessions.shape) == (t_count, k), "k_sessions: [T, K]")
+    for t, name, dtype in [
+        (agents.i32, "agents.i32", torch.int32), (sessions.i32, "sessions.i32", torch.int32),
+        (sessions.f32, "sessions.f32", torch.float32),
+        (vouches.session, "vouches.session", torch.int32),
+        (vouches.active, "vouches.active", torch.bool),
+        (k_sessions, "k_sessions", torch.int32), (ok, "ok", torch.bool),
+    ]:
+        _check_operand(t, name, dtype, dev)
+    # The ranges cross as one pinned, non-blocking copy: the launch is not
+    # held behind a host-synchronous one.
+    ranges = torch.tensor([list(lo), list(hi)], dtype=torch.int32).pin_memory().to(
+        dev, non_blocking=True)
+    step = torch.empty((t_count, b), dtype=torch.int8, device=dev)
+    wstate = torch.empty((t_count, k), dtype=torch.int8, device=dev)
+    err = torch.empty((t_count, k), dtype=torch.bool, device=dev)
+    released = torch.zeros((t_count,), dtype=torch.int32, device=dev)
+    bits_lo, bits_hi, n_rows, n_cols = session_fsm.TRANSITION_BITS
+    fn = _build.entry(
+        "wave", "hv_fsm_saga_block_tenants",
+        [_P] * 9 + [_F, _U, _U, _I, _I] + [_I] * 9 + [_P] * 5,
+    )
+    rc = fn(
+        agents.i32.data_ptr(), sessions.i32.data_ptr(), sessions.f32.data_ptr(),
+        vouches.session.data_ptr(), vouches.active.data_ptr(),
+        k_sessions.data_ptr(), ok.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
+        _host_f32(now), bits_lo, bits_hi, n_rows, n_cols,
+        _ACTIVE, _TERMINATING, _ARCHIVED, t_count, k, b, e, n, s_cap,
+        step.data_ptr(), wstate.data_ptr(), err.data_ptr(), released.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("wave", rc, "fsm_saga_block_tenants")
+    _wrote(agents.i32, sessions.i32, sessions.f32, vouches.active)
+    fsm_saga_block_tenants.launches += 1
+    if work.counting():
+        with work.paused():
+            in_range = ((agents.session >= ranges[0][:, None])
+                        & (agents.session < ranges[1][:, None]))
+            hits = int(in_range.sum())
+            vouched = int(released.sum())
+        work.note_launch("fsm_saga_block_tenants", sessions=t_count * k, lanes=t_count * b,
+                         edges=t_count * e, vouched=vouched, agents=t_count * n,
+                         agent_hits=hits)
+    return step, wstate, err, released
+
+
+fsm_saga_block_tenants.launches = 0
 
 
 # ── B6: the DeltaLog ring append ─────────────────────────────────────

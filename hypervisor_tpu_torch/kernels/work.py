@@ -114,6 +114,14 @@ def tree_pairs(counts, max_leaves: int) -> tuple[int, int]:
 
 # ── the model ────────────────────────────────────────────────────────
 
+#: The tenant forms and the solo kernel whose work each does at T x the shapes.
+TENANT_FORMS = {
+    "contribution_toward_tenants": "contribution_toward",
+    "admission_block_tenants": "admission_block",
+    "fsm_saga_block_tenants": "fsm_saga_block",
+    "chain_digests_ring_tenants": "chain_digests_ring",
+}
+
 
 def kernel_work(name: str, **s) -> tuple[int, int]:
     """(bytes, int32 instructions) of one launch of kernel `name`.
@@ -132,7 +140,12 @@ def kernel_work(name: str, **s) -> tuple[int, int]:
       sha256_words         messages, blocks
       saga_tick_block      sagas, steps
       slash_cascade        edges, agents, depths
+
+    A tenant form (`<kernel>_tenants`) does its solo form's work over
+    all T tenants: its shapes are the totals over the tenants.
     """
+    if name in TENANT_FORMS:
+        return kernel_work(TENANT_FORMS[name], **s)
     if name == "contribution_toward":
         e, n = s["edges"], s["agents"]
         return e * (4 + 4 + 1 + 4 + 4) + n * 4 + n * 4, e * 8
@@ -237,6 +250,7 @@ __all__ = [
     "INSTR_PER_PAIR",
     "INT32_INSTRUCTIONS_PER_S",
     "PEAKS",
+    "TENANT_FORMS",
     "counting",
     "instr_per_message",
     "is_paused",

@@ -105,7 +105,8 @@ def tally_admission(
     """Book admitted/refused counts and the wave-size histogram, IN PLACE.
     `valid` (bool[B]) marks a bucket-padded wave's real lanes: pad lanes
     are refused by construction but count neither as refusals nor in
-    the observed wave size."""
+    the observed wave size. A table stacked over tenants takes [T, B]
+    lanes and books each tenant's row."""
     if valid is None:
         n_ok = tally.count_true(ok)[0]
         n_refused = b - n_ok
@@ -113,7 +114,7 @@ def tally_admission(
     else:
         n_ok, n_valid = tally.count_true(ok & valid, valid)
         n_refused = n_valid - n_ok
-        lanes_observed = n_valid.to(torch.float32)[None]
+        lanes_observed = n_valid.to(torch.float32)[..., None]
     metrics_ops.counter_add_many(
         metrics, (schema.ADMITTED.index, schema.REFUSED.index), (n_ok, n_refused)
     )

@@ -28,12 +28,24 @@ tensors go through the kernels' plain versions. Phases 7 and 8 have no
 kernel of their own (the reference has no Pallas form of them): they
 are torch ops on the tables' device. The tables are updated IN PLACE
 (the reference donates them to the jitted wave).
+
+`tenant_governance_wave` is the same wave for T tenants at once (the
+reference's `state._tenant_wave_fn`, its fused wave under `jax.vmap`):
+every table stacked along a leading tenant axis, lanes [T, B] and
+sessions [T, K], each tenant's sessions one contiguous range, no
+gateway and no trace stamps. The kernels run in their tenant forms,
+each launching as often for T tenants as the solo form does for one;
+the tallies, the gauges and the sanitizer are torch ops over the
+`[T, ...]` tensors. Tenant t's slice of every table, ring and metrics
+row ends exactly as its own solo wave would leave it with
+`unique_sessions=False` and that range.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from hypervisor_tpu_torch.config import (
@@ -105,6 +117,50 @@ PLAIN_BLOCKS = WaveBlocks(
     liability_ops.contribution_toward, wave.admission_block_plain, wave.fsm_saga_block_plain,
     mtu.chain_digests_plain, mtu.chain_digests_ring_plain, mtu.tree_roots_plain,
 )
+
+
+class TenantWaveBlocks(NamedTuple):
+    """The tenant forms of the wave's kernel-backed blocks (B3 takes the
+    T x K lanes flat, so its solo form serves)."""
+
+    contribution: Callable
+    admission: Callable
+    fsm_saga: Callable
+    chain_ring: Callable
+    tree: Callable
+
+
+#: The tenant forms' dispatching wrappers: kernels for CUDA tensors.
+TENANT_KERNEL_BLOCKS = TenantWaveBlocks(
+    wave.contribution_toward_tenants, wave.admission_block_tenants, wave.fsm_saga_block_tenants,
+    mtu.chain_digests_ring_tenants, mtu.tree_roots,
+)
+#: Their plain versions, each a loop of the solo plain version over the tenants.
+TENANT_PLAIN_BLOCKS = TenantWaveBlocks(
+    wave.contribution_toward_tenants_plain, wave.admission_block_tenants_plain,
+    wave.fsm_saga_block_tenants_plain, mtu.chain_digests_ring_tenants_plain,
+    mtu.tree_roots_plain,
+)
+
+
+class TenantWaveResult(NamedTuple):
+    """One batched tenant wave over the stacked tables (updated in place);
+    each lane column carries a leading tenant axis."""
+
+    agents: AgentTable
+    sessions: SessionTable
+    vouches: VouchTable
+    status: torch.Tensor           # i8[T, B]
+    ring: torch.Tensor             # i8[T, B]
+    sigma_eff: torch.Tensor        # f32[T, B]
+    saga_step_state: torch.Tensor  # i8[T, B]
+    merkle_root: torch.Tensor      # int32[T, K, 8]
+    chain: torch.Tensor            # int32[T, turns, K, 8]
+    fsm_error: torch.Tensor        # bool[T, K]
+    released: torch.Tensor         # i32[T]
+    metrics: MetricsTable
+    delta_log: DeltaLog
+    sanitizer: invariants.IntegrityResult | None = None  # masks [T, rows], counts [T]
 
 
 def governance_wave(
@@ -315,3 +371,155 @@ def run_wave(
         fsm_error=fsm_err, released=released, metrics=metrics, trace=trace,
         gateway=gw_lanes, sanitizer=sanitizer, delta_log=delta_log,
     )
+
+
+def tenant_governance_wave(*args, **kwargs) -> TenantWaveResult:
+    """The batched tenant wave through the kernels' tenant forms
+    (`run_tenant_wave` with `TENANT_KERNEL_BLOCKS`)."""
+    return run_tenant_wave(TENANT_KERNEL_BLOCKS, *args, **kwargs)
+
+
+def run_tenant_wave(
+    blocks: TenantWaveBlocks,
+    agents: AgentTable,           # every table stacked [T, ...]
+    sessions: SessionTable,
+    vouches: VouchTable,
+    metrics: MetricsTable,
+    delta_log: DeltaLog,
+    sagas,
+    event_log,
+    elevations,
+    slot: torch.Tensor,           # i32[T, B] each tenant's claimed agent rows
+    did: torch.Tensor,            # i32[T, B]
+    session_slot: torch.Tensor,   # i32[T, B]
+    sigma_raw: torch.Tensor,      # f32[T, B]
+    trustworthy: torch.Tensor,    # bool[T, B]
+    duplicate: torch.Tensor,      # bool[T, B]
+    wave_sessions: torch.Tensor,  # i32[T, K], tenant t's = arange(range_lo[t], range_hi[t])
+    delta_bodies: torch.Tensor,   # int32[T, turns, K, 16] u32 bits
+    range_lo,                     # [T] host ints
+    range_hi,
+    lanes_valid: torch.Tensor,    # bool[T, B]
+    n_sessions_valid,             # [T] host ints: each tenant's real sessions, a prefix
+    now: float,
+    omega: float = 0.5,
+    ring_bursts=None,
+    *,
+    delta_cursors,                # [T] host mirrors of each tenant's DeltaLog cursor
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+    sanitize: bool = False,
+    config: HypervisorConfig = DEFAULT_CONFIG,
+) -> TenantWaveResult:
+    """T tenants' governance waves as one wave over their stacked tables,
+    IN PLACE: per tenant, `run_wave` with `wave_range=(range_lo[t],
+    range_hi[t])`, `unique_sessions=False`, `lanes_valid`,
+    `n_sessions_valid`, the DeltaLog riding at the tenant's cursor, the
+    epilogue over its sagas and event log and no trace ring or gateway."""
+    dev = slot.device
+    t_count, b = slot.shape
+    k = wave_sessions.shape[1]
+    turns = delta_bodies.shape[1]
+    now_f = admission_ops.f32_scalar(now, dev)
+
+    # 1./2. contributions toward each tenant's joining rows, admission.
+    with profiling.stage_scope("admission_wave"):
+        slot_idx = slot.to(torch.int64)
+        target_session = torch.full((t_count, agents.i32.shape[1]), -2, dtype=torch.int32,
+                                    device=dev)
+        target_session.scatter_(1, slot_idx, session_slot)
+        contribution = torch.gather(blocks.contribution(vouches, target_session, now_f), 1,
+                                    slot_idx)
+        status, ring, sigma_eff = blocks.admission(
+            agents, sessions, slot, did, session_slot, sigma_raw, contribution, omega,
+            trustworthy, duplicate, now, ring_bursts, trust,
+        )
+        ok = status == admission_ops.ADMIT_OK
+    admission_ops.tally_admission(metrics, ok, b, lanes_valid)
+
+    # 3./5./6. each tenant's session walk, saga step, terminate.
+    with profiling.stage_scope("session_fsm"):
+        step_state, wave_state, fsm_err, released = blocks.fsm_saga(
+            agents, sessions, vouches, wave_sessions, ok, now, range_lo, range_hi,
+        )
+
+    # 4. audit: every tenant's chains and ring appends, then the roots of
+    # all T x K lanes.
+    with profiling.stage_scope("delta_chain"):
+        seeds = torch.zeros((t_count, k, 8), dtype=torch.int32, device=dev)
+        n_live = [int(n) * turns for n in n_sessions_valid]
+        chain = blocks.chain_ring(delta_bodies.transpose(0, 1).contiguous(), seeds, delta_log,
+                                  wave_sessions, delta_cursors, n_live)
+        p = 1 << max(0, (turns - 1).bit_length())
+        leaves = torch.zeros((t_count * k, p, 8), dtype=torch.int32, device=dev)
+        leaves[:, :turns] = chain.permute(1, 2, 0, 3).reshape(t_count * k, turns, 8)
+        roots = blocks.tree(
+            leaves, torch.full((t_count * k,), turns, dtype=torch.int32, device=dev)
+        ).reshape(t_count, k, 8)
+
+    archived = (wave_state == SessionState.ARCHIVED.code) & ~fsm_err
+    committed, failed = tally.count_true(
+        (step_state == saga_ops.STEP_COMMITTED) & lanes_valid,
+        (step_state == saga_ops.STEP_FAILED) & lanes_valid,
+    )
+    metrics_ops.counter_add_many(
+        metrics,
+        (
+            schema.WAVE_TICKS.index,
+            schema.SAGA_STEPS_COMMITTED.index,
+            schema.SAGA_STEPS_FAILED.index,
+            schema.SESSIONS_ARCHIVED.index,
+            schema.BONDS_RELEASED.index,
+        ),
+        (1, committed, failed, tally.count_true(archived)[0], released),
+    )
+
+    # 8. the epilogue over every tenant's post-wave tables.
+    sanitizer = None
+    with profiling.stage_scope("epilogue"):
+        schema.update_gauges(metrics, agents, sessions, vouches, sagas, elevations, delta_log,
+                             event_log, None)
+        if sanitize:
+            bursts = DEFAULT_CONFIG.rate_limit.ring_bursts if ring_bursts is None else ring_bursts
+            sanitizer = invariants.check_invariants(
+                agents, sessions, vouches, sagas, elevations, delta_log, event_log, None,
+                bursts, metrics=metrics, config=config,
+            )._replace(metrics=None)
+    return TenantWaveResult(
+        agents=agents, sessions=sessions, vouches=vouches, status=status, ring=ring,
+        sigma_eff=sigma_eff, saga_step_state=step_state, merkle_root=roots,
+        chain=chain.transpose(0, 1), fsm_error=fsm_err, released=released, metrics=metrics,
+        delta_log=delta_log, sanitizer=sanitizer,
+    )
+
+
+def tenant_sessions_create(
+    sessions: SessionTable,       # stacked [T, S]
+    rows: torch.Tensor,           # i32[T, K] each tenant's new session rows
+    sids: torch.Tensor,           # i32[T, K]
+    valid: torch.Tensor,          # bool[T, K] the real lanes (tenants create ragged counts)
+    state_code: int,
+    mode_code: int,
+    max_participants: int,
+    min_sigma_eff: float,
+    enable_audit: bool,
+) -> SessionTable:
+    """Initialise every tenant's freshly allocated session rows IN PLACE,
+    one write for the whole arena (the reference's
+    `state._tenant_sessions_create_fn`): each valid lane's row gets the
+    solo `create_sessions_batch`'s columns; invalid lanes write nothing."""
+    from hypervisor_tpu_torch.tables.state import (
+        SF32_MIN_SIGMA, SI32_MAX_PARTICIPANTS, SI32_MODE, SI32_SID, SI32_STATE,
+    )
+
+    s_cap = sessions.i32.shape[1]
+    flat = (torch.arange(rows.shape[0], dtype=torch.int64, device=rows.device)[:, None] * s_cap
+            + rows.to(torch.int64))[valid]
+    i32 = sessions.i32.view(-1, sessions.i32.shape[-1])
+    i32[flat, SI32_SID] = sids[valid]
+    i32[flat, SI32_STATE] = int(state_code)
+    i32[flat, SI32_MODE] = int(mode_code)
+    i32[flat, SI32_MAX_PARTICIPANTS] = int(max_participants)
+    sessions.f32.view(-1, sessions.f32.shape[-1])[flat, SF32_MIN_SIGMA] = float(
+        np.float32(min_sigma_eff))
+    sessions.enable_audit.view(-1)[flat] = bool(enable_audit)
+    return sessions

@@ -201,9 +201,13 @@ def run_soak(
     time is measured. Decisions digest + chain-heads digest are the
     replay-determinism keys.
 
-    `state=None` builds a `HypervisorState()` of the default tables, on
-    the card. `autopilot=True` raises: the autopilot arrives with a later
-    slice of the port (ROADMAP A7).
+    With `autopilot=True` an `autopilot.Autopilot` attaches after
+    warmup and steps once per virtual tick (decision windows pace
+    themselves on the virtual clock, so the decision stream is as
+    replayable as the admission stream). Its grow-rule pre-warms are
+    ledger-bracketed PLANNED compiles: the report's
+    `recompiles_after_warmup` is net of them (the zero-UNPLANNED-
+    recompile contract) with the raw count alongside.
     """
     from hypervisor_tpu_torch.state import HypervisorState
 
@@ -225,10 +229,9 @@ def run_soak(
     warm_s = time.perf_counter() - warm_t0
     pilot = None
     if autopilot:
-        raise NotImplementedError(
-            "run_soak(autopilot=True): the autopilot arrives with a later "
-            "slice of the port (ROADMAP A7)"
-        )
+        from hypervisor_tpu_torch.autopilot import Autopilot
+
+        pilot = Autopilot(state, sched, config=autopilot_config)
     wall_t0 = time.perf_counter()
 
     decisions = hashlib.sha256()

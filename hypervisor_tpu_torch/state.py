@@ -199,6 +199,59 @@ _GATEWAY = health_plane.instrument(
     static_argnames=("breach", "rate_limit", "trust"))
 _UPDATE_GAUGES = health_plane.instrument("update_gauges", metrics_plane.update_gauges)
 
+# The tenant arena's batched entries (`tenancy.arena.TenantArena`): T
+# tenants' stacked tables in one dispatch each. The fused tenant wave is
+# watched under the reference's two names: the port updates in place and
+# donates nothing, so both run the same wave, and `HV_DONATE_TABLES=0`
+# only picks the other name (bit-identical by construction).
+_TENANT_WAVE_STATICS = ("trust", "sanitize", "config")
+_TENANT_WAVE = health_plane.instrument(
+    "tenant_governance_wave", pipeline.tenant_governance_wave,
+    static_argnames=_TENANT_WAVE_STATICS)
+_TENANT_WAVE_DONATED = health_plane.instrument(
+    "tenant_governance_wave_donated", pipeline.tenant_governance_wave,
+    static_argnames=_TENANT_WAVE_STATICS)
+_TENANT_SESSIONS_CREATE = health_plane.instrument(
+    "tenant_sessions_create", pipeline.tenant_sessions_create)
+_TENANT_UPDATE_GAUGES = health_plane.instrument(
+    "tenant_update_gauges", metrics_plane.update_gauges)
+
+
+def _donate_tables() -> bool:
+    """The reference's donation switch (`HV_DONATE_TABLES`, default on),
+    read per call. The port donates nothing; the switch only names the
+    watched tenant-wave entry, as the reference's does."""
+    return os.environ.get("HV_DONATE_TABLES", "1") != "0"
+
+
+#: Host bookkeeping `adopt_host_from` moves between states: the in-memory
+#: twin of `runtime.checkpoint.host_metadata`'s fields, plus `_row_session`
+#: (the checkpoint carries it in the npz) and `_delta_cursor`, the host
+#: mirror of the DeltaLog cursor that the checkpoint restores from it.
+_HOST_ADOPT_ATTRS: tuple[str, ...] = (
+    "agent_ids",
+    "session_ids",
+    "saga_ids",
+    "_next_agent_slot",
+    "_next_session_slot",
+    "_next_saga_slot",
+    "_next_edge_slot",
+    "_next_elev_slot",
+    "_members",
+    "_audit_rows",
+    "_chain_seed",
+    "_turns",
+    "_frontier",
+    "_fanout_groups",
+    "_free_agent_slots",
+    "_free_edge_slots",
+    "_free_elev_slots",
+    "_epoch_base",
+    "_restored_wal_seq",
+    "_row_session",
+    "_delta_cursor",
+)
+
 
 def _config_payload(config: SessionConfig) -> dict:
     """SessionConfig -> its WAL fields (`resilience.recovery.
@@ -298,6 +351,7 @@ class HypervisorState:
         self.incidents.emit = self.health.emit_event
         self.health.add_listener(self.incidents.observe)
         self.incidents.register_provider("wal", self._incident_wal_block)
+        self.incidents.register_provider("ledger", lambda trigger: self.autopilot_summary())
         self.incidents.register_provider("slo", lambda trigger: self.slo_summary())
         self.incidents.register_provider("trace", self._incident_trace_block)
         self.agent_ids = InternTable()
@@ -368,6 +422,9 @@ class HypervisorState:
         # The serving front door (opt-in, `serving.FrontDoor` sets it):
         # `health_summary` carries its queue, shed and deadline panel.
         self.serving = None
+        # The autopilot decision plane (opt-in, `autopilot.Autopilot` sets
+        # it): its ledger serves `autopilot_summary`.
+        self.autopilot = None
         #: The WAL watermark a restored checkpoint carries: recovery
         #: replays the committed records past it.
         self._restored_wal_seq: Optional[int] = None
@@ -389,6 +446,23 @@ class HypervisorState:
     def now(self) -> float:
         """Seconds since this state's epoch — the f32-safe device time."""
         return time.time() - self._epoch_base
+
+    def adopt_host_from(self, other: "HypervisorState") -> None:
+        """Take another state's host bookkeeping whole: the tenant-splice
+        half of failover (`tenancy.TenantArena.splice_tenant`), whose
+        device tables move through the arena's component protocol.
+        Everything `runtime.checkpoint.host_metadata` carries moves here
+        (`_HOST_ADOPT_ATTRS`); a field added to the checkpoint must be
+        added there too. Refuses a donor of another capacity."""
+        if dataclasses.asdict(other.config.capacity) != dataclasses.asdict(self.config.capacity):
+            raise ValueError(
+                "adopt_host_from across capacity configs: the donor's "
+                "table shapes would not fit this state's slices"
+            )
+        for name in _HOST_ADOPT_ATTRS:
+            setattr(self, name, getattr(other, name))
+        # Derived caches anchored to the old tables are stale now.
+        self._packed_bodies = {}
 
     # ── resilience hooks ─────────────────────────────────────────────
 
@@ -522,6 +596,28 @@ class HypervisorState:
             self.sessions.enable_audit[slot] = bool(config.enable_audit)
         return slot
 
+    def _stage_sessions_batch(
+        self, session_ids: Sequence[str], config: SessionConfig
+    ) -> np.ndarray:
+        """The host half of `create_sessions_batch`: the slot allocation and
+        the WAL record, no device write. The tenant arena stages T tenants'
+        batches through this and writes all their rows at once
+        (`ops.pipeline.tenant_sessions_create`); a WAL replay runs the
+        whole `create_sessions_batch`, whose write equals the arena's
+        slice."""
+        k = len(session_ids)
+        base = self._next_session_slot
+        cap = self.sessions.i32.shape[0]
+        if base + k > cap:
+            raise RuntimeError(
+                f"session table full: {base} + {k} > {cap}; "
+                "raise config.capacity.max_sessions"
+            )
+        with self._journal("create_sessions_batch", sids=list(session_ids),
+                           **_config_payload(config)):
+            self._next_session_slot += k
+        return np.arange(base, base + k, dtype=np.int32)
+
     def create_sessions_batch(
         self, session_ids: Sequence[str], config: SessionConfig
     ) -> np.ndarray:
@@ -530,14 +626,10 @@ class HypervisorState:
         k = len(session_ids)
         with self._journal("create_sessions_batch", sids=list(session_ids),
                            **_config_payload(config)):
-            base = self._next_session_slot
-            if base + k > self.sessions.i32.shape[0]:
-                raise RuntimeError(
-                    f"session table full: {base} + {k} > {self.sessions.i32.shape[0]}; "
-                    "raise config.capacity.max_sessions"
-                )
-            self._next_session_slot += k
-            slots = np.arange(base, base + k, dtype=np.int32)
+            # The journal is re-entrant: the staging record inside this
+            # bracket is suppressed, so the op journals once either way.
+            slots = self._stage_sessions_batch(session_ids, config)
+            base = int(slots[0]) if k else self._next_session_slot
             sids = np.array([self.session_ids.intern(s) for s in session_ids], np.int32)
             rows = self.sessions.i32[base:base + k]
             rows[:, SI32_SID] = torch.from_numpy(sids).to(self.device)
@@ -2302,6 +2394,15 @@ class HypervisorState:
                 q: serving.retry_after_for(q) for q in serving._queues
             },
         }
+
+    def autopilot_summary(self) -> dict:
+        """The `GET /debug/autopilot` payload: the last decisions with
+        their outcomes, live knob values against the static defaults, the
+        replayable decisions digest and the pre-warm compile accounting;
+        the bare plane state when no `autopilot.Autopilot` is attached."""
+        if self.autopilot is not None:
+            return self.autopilot.summary()
+        return {"enabled": False}
 
     # ── hindsight plane (retained history + incidents) ───────────────
 

@@ -47,7 +47,7 @@ class DeltaLog:
 
     @property
     def capacity_rows(self) -> int:
-        return int(self.body.shape[0])
+        return int(self.body.shape[-2])  # [C, 16], or [T, C, 16] stacked
 
     def footprint(self) -> dict:
         """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
@@ -130,7 +130,7 @@ class EventLog:
 
     @property
     def capacity_rows(self) -> int:
-        return int(self.event_type.shape[0])
+        return int(self.event_type.shape[-1])  # [C], or [T, C] stacked
 
     def footprint(self) -> dict:
         """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
@@ -170,7 +170,7 @@ class TraceLog:
 
     @property
     def capacity_rows(self) -> int:
-        return int(self.words.shape[0])
+        return int(self.words.shape[-2])  # [C, 7], or [T, C, 7] stacked
 
     def footprint(self) -> dict:
         """Health-plane bytes and row capacity (`tables.struct.footprint`)."""

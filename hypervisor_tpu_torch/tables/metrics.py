@@ -65,6 +65,8 @@ def counter_add_many(
     Values may be Python ints (added as kernel scalars) or integer
     tensors on the table's device, so no host transfer or host sync
     happens here. Duplicate indices accumulate, as in the reference.
+    A table stacked over tenants ([T, C] counters) takes a [T] tensor
+    per row, each tenant's add into its own row.
     """
     counters_add(m.counters, indices, values)
 
@@ -73,12 +75,13 @@ def counters_add(
     counters: torch.Tensor, indices: Sequence[int], values: Sequence
 ) -> None:
     """`counter_add_many` on a bare counter column (u32 bits in int32)."""
+    lead = counters.shape[:-1]
     delta = torch.zeros(counters.shape, dtype=torch.int64, device=counters.device)
     for idx, v in zip(indices, values):
         if isinstance(v, torch.Tensor):
-            delta[idx] += v.to(torch.int64).reshape(())
+            delta[..., idx] += v.to(torch.int64).reshape(lead)
         else:
-            delta[idx] += int(v)
+            delta[..., idx] += int(v)
     counters.copy_(u32.add_u32(counters, delta))
 
 
@@ -86,27 +89,32 @@ def gauge_set_many(m: MetricsTable, indices: Sequence[int], values: Sequence) ->
     """Set gauge row `indices[i]` to `values[i]` (as f32), IN PLACE; the
     rows are distinct. Values may be Python numbers or tensors on the
     table's device. Each run of consecutive rows is one copy, and no index
-    or value crosses from the host, so nothing waits on the device."""
+    or value crosses from the host, so nothing waits on the device. A
+    table stacked over tenants takes a [T] tensor per row."""
     dev = m.gauges.device
+    lead = m.gauges.shape[:-1]
     vals = torch.stack([
-        v.to(torch.float32).reshape(()) if isinstance(v, torch.Tensor)
-        else torch.full((), float(np.float32(v)), dtype=torch.float32, device=dev)
+        v.to(torch.float32).reshape(lead) if isinstance(v, torch.Tensor)
+        else torch.full(lead, float(np.float32(v)), dtype=torch.float32, device=dev)
         for v in values
-    ])
+    ], dim=-1)
     idx = list(indices)
     start = 0
     for i in range(1, len(idx) + 1):
         if i == len(idx) or idx[i] != idx[i - 1] + 1:
-            m.gauges[idx[start]:idx[i - 1] + 1] = vals[start:i]
+            m.gauges[..., idx[start]:idx[i - 1] + 1] = vals[..., start:i]
             start = i
 
 
 def observe(m: MetricsTable, hist_idx: int, values: torch.Tensor) -> None:
     """Record samples into histogram row `hist_idx`, IN PLACE: bucket b
-    counts values <= bounds[b] (Prometheus `le`), overflow last."""
+    counts values <= bounds[b] (Prometheus `le`), overflow last. A table
+    stacked over tenants takes [T, n] samples, each tenant's into its own
+    row."""
     values = values.to(torch.float32)
     bucket = torch.searchsorted(m.bounds, values, right=False)
-    counts = torch.zeros(m.hist.shape[1], dtype=torch.int64, device=values.device)
-    counts.index_add_(0, bucket, torch.ones_like(bucket))
-    m.hist[hist_idx].copy_(u32.add_u32(m.hist[hist_idx], counts))
-    m.hist_sum[hist_idx] += values.sum()
+    counts = torch.zeros(values.shape[:-1] + m.hist.shape[-1:], dtype=torch.int64,
+                         device=values.device)
+    counts.scatter_add_(-1, bucket, torch.ones_like(bucket))
+    m.hist[..., hist_idx, :].copy_(u32.add_u32(m.hist[..., hist_idx, :], counts))
+    m.hist_sum[..., hist_idx] += values.sum(-1)

@@ -35,17 +35,19 @@ def table(cls: type[T] | None = None, *, packed=None, slices=None):
             raise ValueError(f"virtual names shadow real fields: {clash}")
         c._PACKED = virtual
         c._SLICES = sliced
+        # Indexed from the last axis, so a table stacked over a leading
+        # tenant axis ([T, N, W] blocks) reads [T, N] columns.
         for name, (block, idx) in virtual.items():
             setattr(
                 c, name,
-                property(lambda self, _b=block, _i=idx: getattr(self, _b)[:, _i]),
+                property(lambda self, _b=block, _i=idx: getattr(self, _b)[..., _i]),
             )
         for name, (block, start, stop) in sliced.items():
             setattr(
                 c, name,
                 property(
                     lambda self, _b=block, _s=start, _e=stop:
-                    getattr(self, _b)[:, _s:_e]
+                    getattr(self, _b)[..., _s:_e]
                 ),
             )
         return c
@@ -96,6 +98,22 @@ def copy_into(dst: T, src: T) -> None:
     """Overwrite `dst`'s columns in place with `src`'s (same shapes)."""
     for name, t in tensors(src).items():
         getattr(dst, name).copy_(t)
+
+
+def stack(objs: list[T]) -> T:
+    """One table of the same class whose every column stacks the given
+    tables' columns along a new leading axis (a new contiguous tensor
+    each): the tenant arena's `[T, ...]` layout."""
+    first = objs[0]
+    return dataclasses.replace(
+        first, **{k: torch.stack([tensors(o)[k] for o in objs]) for k in tensors(first)}
+    )
+
+
+def tenant_view(obj: T, t: int) -> T:
+    """Tenant `t`'s slice of a stacked table: every column the view
+    `col[t]`, contiguous, so writes through it land in the stack."""
+    return dataclasses.replace(obj, **{k: v[t] for k, v in tensors(obj).items()})
 
 
 def footprint(obj, capacity_rows: int) -> dict:

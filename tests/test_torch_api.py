@@ -4,8 +4,8 @@
 (held as text by `test_torch_host_engines`); `api/service.py` differs
 where it meets the device (`device_stats.backend` is the state's torch
 device type, `/debug/profile` opens a `torch.profiler` window) and where
-a later slice brings the plane (the fleet and autopilot endpoints refuse
-with a 501 naming ROADMAP A7).
+a later slice brings the plane (the fleet endpoints refuse with a 501
+naming ROADMAP A7).
 
 One call sequence (`SEQUENCE`, the reference's `tests/unit/test_api.py`
 calls: sessions, joins, rings, actions, sagas, vouches, events,
@@ -297,10 +297,17 @@ def test_routes_match_reference():
 
 
 def test_fleet_and_autopilot_endpoints_name_a_later_slice():
+    """The fleet endpoints refuse, naming their slice; `/debug/autopilot`
+    answers the bare plane state, as the reference's does."""
     svc = service_for(Pkg(PORT))
     server = PORT.api.HypervisorHTTPServer(service=svc, port=0).start()
     try:
-        for path in ("/debug/autopilot", "/debug/fleet", "/fleet/workers", "/fleet/metrics",
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+        conn.request("GET", "/debug/autopilot")
+        resp = conn.getresponse()
+        assert resp.status == 200 and json.loads(resp.read()) == {"enabled": False}
+        conn.close()
+        for path in ("/debug/fleet", "/fleet/workers", "/fleet/metrics",
                      "/fleet/slo", "/fleet/trace/t1", "/fleet/incidents", "/fleet/ownership",
                      "/fleet/failover", "/fleet/rebalance"):
             conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)

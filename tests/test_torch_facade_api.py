@@ -993,17 +993,18 @@ def test_readme_lifecycle_root_commits_and_verifies():
 
 
 def test_unported_entries_name_a_later_slice():
-    """The multi-device runtime (ROADMAP A8) and the API's fleet and
-    autopilot endpoints (A7) refuse, naming their slice. The serving
-    front door is ported: `tests/test_torch_serving.py` holds it to the
-    reference."""
+    """The multi-device runtime (ROADMAP A8) and the API's fleet
+    endpoints (A7) refuse, naming their slice. The serving front door and
+    the autopilot are ported: `tests/test_torch_serving.py` and
+    `tests/test_torch_autopilot.py` hold them to the reference."""
     from hypervisor_tpu_torch.api import ApiError, HypervisorService
 
     hv = PORT.Hypervisor(device="cpu")
     with pytest.raises(NotImplementedError, match="a later slice of the port.*A8"):
         hv.consistency_runtime(mesh=None)
     svc = HypervisorService(hypervisor=hv)
-    for endpoint in (svc.debug_autopilot, svc.debug_fleet, svc.fleet_workers):
+    assert asyncio.run(svc.debug_autopilot()) == {"enabled": False}
+    for endpoint in (svc.debug_fleet, svc.fleet_workers):
         with pytest.raises(ApiError, match="a later slice of the port.*A7") as err:
             asyncio.run(endpoint())
         assert err.value.status == 501

@@ -126,11 +126,12 @@ def test_incident_ids_and_rule_fields_match_reference():
         kinds = [e.event_type.value for e in hv.event_bus.all_events
                  if e.event_type.value.startswith("incident.")]
         replay = all(st.incidents.replay_check(row["id"]) for row in summary["last"])
+        ledgers = [st.incident_bundle(row["id"])["context"]["ledger"] for row in summary["last"]]
         # A bundle's size counts its context, whose trace block holds wall
-        # times (and the reference's its ledger block).
+        # times.
         for row in summary["last"]:
             row.pop("bytes")
-        return summary, bundles, contexts, trace["trace_id"], kinds, replay
+        return summary, bundles, contexts, trace["trace_id"], kinds, replay, ledgers
 
     ref, port = both(run)
     assert port[0] == ref[0]
@@ -140,11 +141,10 @@ def test_incident_ids_and_rule_fields_match_reference():
     assert port[3] == ref[3]
     assert port[4] == ref[4] and port[4]
     assert port[5] is ref[5] is True
-    # The port's bundle carries the blocks of the planes it has: history,
-    # the WAL pointer, the SLO panel, the trace fragment and the facade's
-    # bus slice; only the autopilot's ledger block waits (ROADMAP A7).
-    assert port[2] == ["events", "history", "slo", "trace", "wal"]
-    assert set(ref[2]) - set(port[2]) == {"ledger"}
+    # The bundle carries every plane's block, the autopilot's ledger among
+    # them (the bare plane state: no autopilot rides this run).
+    assert port[2] == ref[2] == ["events", "history", "ledger", "slo", "trace", "wal"]
+    assert port[6] == ref[6] and port[6][0] == {"enabled": False}
 
 
 def test_a_missing_incident_is_none_and_the_wal_block_points_at_the_journal(tmp_path):

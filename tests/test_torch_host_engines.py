@@ -68,7 +68,9 @@ COPIES = (
     "saga/__init__.py", "saga/checkpoint.py", "saga/fan_out.py", "saga/orchestrator.py",
     "security/__init__.py", "security/action_gateway.py", "security/kill_switch.py",
     "security/rate_limiter.py",
-    "serving/__init__.py", "serving/front_door.py",
+    "serving/__init__.py", "serving/front_door.py", "serving/loadgen.py",
+    "autopilot/ledger.py", "autopilot/plane.py", "autopilot/rules.py",
+    "autopilot/signals.py",
     "session/__init__.py", "session/intent_locks.py", "session/isolation.py",
     "session/vector_clock.py", "session/vfs.py",
     "tables/intern.py",
@@ -93,11 +95,11 @@ EXCEPTIONS = {
     "serving/scheduler.py": "each wave's lanes are read back from torch tensors inside "
                             "the wall bracket, and the saga round waits for the device, "
                             "so the wave wall covers the device time",
-    "serving/loadgen.py": "`autopilot=True` refuses, naming the later slice that "
-                          "brings the autopilot",
     "api/service.py": "`device_stats.backend` is the state's torch device type; "
-                      "`/debug/profile` opens a torch.profiler window; the fleet and "
-                      "autopilot endpoints refuse with a 501 naming a later slice",
+                      "`/debug/profile` opens a torch.profiler window; the fleet "
+                      "endpoints refuse with a 501 naming a later slice",
+    "autopilot/soak.py": "`run_autopilot_soak(device=)` builds each run's state on "
+                         "that torch device; the docstrings name no bench gate",
 }
 
 #: Modules the port copies with a module docstring of its own, and why:
@@ -105,6 +107,12 @@ EXCEPTIONS = {
 DOCSTRING_EDITS = {
     "observability/snapshot.py": "the docstring leaves out the reference's "
                                  "change-request numbers",
+    "autopilot/__init__.py": "the docstring leaves out the reference's "
+                             "change-request number",
+    "tenancy/front_door.py": "the docstring leaves out the reference's "
+                             "change-request numbers",
+    "tenancy/__init__.py": "the docstring describes the port's tenant forms, "
+                           "not the reference's TPU footprint",
 }
 
 #: Modules of the same packages ported by earlier slices (not copies).

@@ -628,9 +628,12 @@ def test_soak_replay_determinism_and_invariants():
 
 
 def test_soak_refuses_the_autopilot_naming_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        PORT.serving.run_soak(PORT.serving.WorkloadSpec(duration_s=0.01),
-                              state=Pkg(PORT).state(), autopilot=True)
+    """The autopilot is ported: `run_soak(autopilot=True)` attaches it
+    after the warm-up on both packages, and the whole report, its
+    `autopilot` block among them, is the reference's (wall times aside)."""
+    rec = same(lambda P: soak_report(P, dict(seed=3, rate_hz=80.0, duration_s=0.2), False,
+                                     autopilot=True))
+    assert rec["autopilot"]["enabled"] is True and rec["autopilot"]["windows"] > 0
 
 
 # ── the facade's front door ──────────────────────────────────────────

@@ -31,6 +31,12 @@ import uuid
 
 import numpy as np
 import pytest
+# torch imports its compiler on the first call of some ops (`torch.full`
+# among them), and that import draws two `uuid.uuid4()`s
+# (`torch.distributed._composable.contract`). Imported here, those draws
+# stay off the mirrored per-package id counters whatever ran before in
+# the process.
+import torch._dynamo  # noqa: F401
 from hypothesis import settings
 from hypothesis import strategies as st
 from hypothesis.stateful import RuleBasedStateMachine, invariant, precondition, rule
