@@ -7,7 +7,8 @@ slash cascade, the lock and write waves, the native host runtime, the
 checkpoints and crash recovery), observability (the metrics drain, the
 health and hindsight planes, the integrity plane and the supervisor),
 serving, tenancy (T tenants' waves in one launch of each kernel's tenant
-form) and the autopilot on one NVIDIA GPU.
+form), the autopilot, the adversarial scenario set and the fleet's
+workers on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -304,6 +305,24 @@ Phases, one JSON line each:
    goodput against the static config, p99, the decisions and their
    outcomes, the unplanned novel signatures; then `GET /debug/autopilot`
    from a service whose state carries an autopilot that decided.
+18. adversarial: `testing.scenarios` at seed 11, every scenario hardened
+   and bare, on the card and on the CPU in this process under one set of
+   manual ids and clock: each `ScenarioResult.to_dict()` equal (score,
+   components, attack events, trace digest, details; tolerance 0), each
+   hardened score at or above the containment floor (0.8), each
+   scenario's kernels in its own launch window (`ADV_KERNELS`;
+   slash_cascade runs host engines and launches none), and named by
+   torch.profiler in a fresh process (`adversarial_census`); each
+   scenario's score, attack events, digest and host wall.
+19. fleet: two `WorkerSpec`s on the card (a solo worker and a 2-tenant
+   arena; each a `python -m hypervisor_tpu_torch.fleet.worker`
+   subprocess), a `FleetObservatory` and `FleetRegistry` behind a
+   service: `GET /debug/fleet` and `/fleet/{workers,metrics,slo,trace,
+   incidents}` over the stdlib transport, every merged sample labelled
+   `worker=` (coverage 1.0) and the arena's rows `tenant=` too, each
+   worker's kernel launches (SIGUSR1), the lease log's digest equal to
+   its replay and to a fresh run of the same seeded schedule, a SIGKILL
+   drill to DEAD with its fleet incident, and every process exited.
 
 Then the kernels summary (each tenant form with its times at T = 8 and
 at T = 100), the nvidia-smi line, and a last line
@@ -4327,6 +4346,440 @@ def run_autopilot(device) -> dict:
     return {"row": row, "soak_s": soak_s, "debug_autopilot": debug}
 
 
+# ── adversarial: the six scenarios on the card against their CPU run ──
+
+#: The scenario harness's seed (the reference's tests and bench row use 11).
+ADV_SEED = 11
+#: The kernels each scenario must launch on the card, by mode (hardened,
+#: bare): B4's join form through `flush_joins` (sybil_flood); B4, B8
+#: through `verify_behavior` -> `apply_slash` and the contribution
+#: through the sanitizer's escrow (collusion_ring); B7 (compensation_storm);
+#: B4 through the API (byzantine_fuzz); the tenant forms and B3 in the
+#: arena (noisy_neighbor hardened), the solo wave's B2-B5 and the
+#: contribution (noisy_neighbor bare). slash_cascade runs host engines
+#: only and launches nothing.
+_SOLO_WAVE = ("contribution_toward", "admission_block", "fsm_saga_block", "chain_digests_ring",
+              "tree_roots")
+ADV_KERNELS = {
+    "sybil_flood": (("admission_block",),) * 2,
+    "collusion_ring": (("admission_block", "slash_cascade", "contribution_toward"),) * 2,
+    "slash_cascade": ((), ()),
+    "compensation_storm": (("saga_tick_block",),) * 2,
+    "byzantine_fuzz": (("admission_block",),) * 2,
+    "noisy_neighbor": (("contribution_toward_tenants", "admission_block_tenants",
+                        "fsm_saga_block_tenants", "chain_digests_ring_tenants", "tree_roots"),
+                       _SOLO_WAVE),
+}
+#: Kernel name fragments in a profiler census, the tenant forms too.
+ADV_NAMES = {**OUR_KERNELS, "contribution_toward_tenants": "contrib_",
+             "admission_block_tenants": "admission_", "fsm_saga_block_tenants": "fsm_saga_kernel",
+             "chain_digests_ring_tenants": "chain_kernel<true, true>"}
+
+
+def adversarial_runs(device, clock: list) -> dict:
+    """`scenarios.run_all(ADV_SEED)` hardened and bare on `device`, each
+    scenario under the same manual ids and clock, with its kernel launches
+    and host wall. Returns {(name, hardened): record}."""
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.testing import scenarios
+
+    out = {}
+    for hardened in (True, False):
+        for name in scenarios.SCENARIO_NAMES:
+            clock[0] = 1_767_225_600.0
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with manual_ids_and_time(clock):
+                result = scenarios.run_scenario(name, ADV_SEED, hardened=hardened, device=device)
+            wall = time.perf_counter() - t0
+            out[name, hardened] = {"result": result.to_dict(), "wall_s": wall,
+                                   "launches": kernels.launch_counts()}
+    return out
+
+
+def adversarial_census_child() -> None:
+    """In a fresh process on the card: every scenario, hardened and bare,
+    inside ONE torch.profiler session, each inside a `record_function`
+    range; prints each run's kernel names by count (a kernel belongs to
+    the range its start falls in) as the last line (JSON)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profile_, record_function
+
+    from hypervisor_tpu_torch.testing import scenarios
+
+    dev = torch.device("cuda", 0)
+    clock = [1_767_225_600.0]
+    ranges = [f"adv.{name}.{int(h)}" for h in (True, False) for name in scenarios.SCENARIO_NAMES]
+    with profile_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label in ranges:
+            _, name, hardened = label.split(".")
+            with record_function(label), manual_ids_and_time(clock):
+                scenarios.run_scenario(name, ADV_SEED, hardened=bool(int(hardened)), device=dev)
+                torch.cuda.synchronize()
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name in ranges}
+    census = {label: {} for label in ranges}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for label, (lo, hi) in spans.items():
+            if lo <= e.time_range.start <= hi:
+                census[label][e.name[:80]] = census[label].get(e.name[:80], 0) + 1
+                break
+    print(json.dumps(census), flush=True)
+
+
+def adversarial_census() -> dict:
+    """`adversarial_census_child` in a fresh Python process (a profiler
+    session late in the whole script can miss a call's first events)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.adversarial_census_child()"],
+        cwd=here, capture_output=True, text=True, timeout=900)
+    require(run.returncode == 0,
+            f"adversarial: the census process failed ({run.returncode}): {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def leftover_parity(device) -> dict:
+    """The ported ops-layer leftovers (`ops.liability`'s queries, the rings,
+    the session FSM, the metrics table, the event log) on `device` against the
+    CPU at tolerance 0, on seeded inputs at the default tables (65,536
+    edges toward 64 vouchees: about a thousand live edges a query, where
+    the summation order decides the last bits). Returns what was held and
+    the contribution kernel's launches (`contribution_by_agent`)."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.observability import metrics as mp
+    from hypervisor_tpu_torch.ops import liability, rings, session_fsm
+    from hypervisor_tpu_torch.tables import logs, metrics as mt
+    from hypervisor_tpu_torch.tables.state import VouchTable
+
+    cap = DEFAULT_CONFIG.capacity
+    e, n = cap.max_vouch_edges, cap.max_agents
+    rng = np.random.RandomState(SEED + 16)
+    cols = {"voucher": rng.randint(-1, n, e).astype(np.int32),
+            "vouchee": rng.randint(0, 64, e).astype(np.int32),
+            "session": rng.randint(0, 2, e).astype(np.int32),
+            "bond_pct": rng.uniform(size=e).astype(np.float32),
+            "bond": (rng.uniform(size=e) * rng.uniform(size=e)).astype(np.float32),
+            "active": rng.uniform(size=e) < 0.8,
+            "expiry": np.where(rng.uniform(size=e) < 0.9, np.inf,
+                               rng.uniform(size=e) * 10).astype(np.float32)}
+    q_agent = rng.randint(0, 64, 64).astype(np.int32)
+    q_sess = rng.randint(0, 2, 64).astype(np.int32)
+    session_of = rng.randint(-1, 2, n).astype(np.int32)
+    sigma = rng.uniform(size=n).astype(np.float32)
+    ring = rng.randint(0, 4, n).astype(np.int8)
+    codes = np.repeat(np.arange(-1, 6), 7).astype(np.int8)
+    events = rng.randint(-1, 40, cap.event_log_capacity).astype(np.int32)
+
+    def run(dev):
+        t = {k: torch.from_numpy(np.array(c)).to(dev) for k, c in cols.items()}
+        v = VouchTable(**t)
+        qa, qs = torch.from_numpy(q_agent).to(dev), torch.from_numpy(q_sess).to(dev)
+        contrib = liability.contribution_by_agent(v, torch.from_numpy(session_of).to(dev), 5.0)
+        table = mt.MetricsTable.create(dev)
+        mt.counter_inc(table, mp.ADMITTED.index, 2**32 - 3)
+        mt.counter_inc(table, mp.ADMITTED.index, 7)
+        mt.gauge_set(table, 0, 0.1)
+        log = logs.EventLog.create(cap.event_log_capacity, dev)
+        log.event_type.copy_(torch.from_numpy(events))
+        frm = torch.from_numpy(codes).to(dev)
+        return {
+            "voucher_contribution": liability.voucher_contribution(v, qa, qs, 5.0),
+            "exposure_by_voucher": liability.exposure_by_voucher(v, qa, qs, 5.0),
+            "contribution_by_agent": contrib,
+            "sigma_eff": liability.sigma_eff(torch.from_numpy(sigma).to(dev), 0.35, contrib),
+            "should_demote": rings.should_demote(torch.from_numpy(ring).to(dev),
+                                                 torch.from_numpy(sigma).to(dev)),
+            "required_rings": rings.required_rings(frm == 1, frm, frm == 3),
+            "session_transition_valid": session_fsm.session_transition_valid(
+                frm, torch.roll(frm, 3)),
+            "bucket_of": mt.bucket_of(table.bounds, torch.from_numpy(sigma * 1e7).to(dev)),
+            "count_by_type": log.count_by_type(40),
+            "counter_inc": table.counters, "gauge_set": table.gauges,
+        }
+
+    kernels.reset_launch_counts()
+    card = run(device)
+    launches = kernels.launch_counts()["contribution_toward"]
+    cpu = run("cpu")
+    for name, got in card.items():
+        want = cpu[name]
+        same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(
+            got.cpu().view(torch.int32) if got.dtype == torch.float32 else got.cpu(),
+            want.view(torch.int32) if want.dtype == torch.float32 else want)
+        require(same, f"adversarial: the ported {name} differs between the card and the CPU")
+    return {"functions": sorted(card), "max_abs_err": 0.0, "edges": e, "queries": 64,
+            "contribution_launches": launches}
+
+
+def run_adversarial(device) -> dict:
+    """The adversarial phase: the scenario set on `device` and on the CPU
+    (each `to_dict()` equal, tolerance 0), every hardened score at the
+    floor, and on the card each scenario's kernels in its launch window
+    and in the profiler's census; returns the records `main` prints."""
+    from hypervisor_tpu_torch.testing import scenarios
+
+    clock = [1_767_225_600.0]
+    card = adversarial_runs(device, clock)
+    t0 = time.perf_counter()
+    cpu = adversarial_runs("cpu", clock)
+    cpu_s = time.perf_counter() - t0
+    on_card = str(device) != "cpu"
+    rows, window = {}, {}
+    for (name, hardened), rec in card.items():
+        res = rec["result"]
+        diff = first_difference(f"{name}.{hardened}", res, cpu[name, hardened]["result"])
+        require(diff is None, f"adversarial: the card's result differs from the CPU's at {diff}")
+        require(not any(cpu[name, hardened]["launches"].values()),
+                f"adversarial: the CPU run of {name} launched a kernel")
+        if hardened:
+            require(res["score"] >= scenarios.DEFAULT_CONTAINMENT_FLOOR,
+                    f"adversarial: {name} scored {res['score']} below the floor "
+                    f"{scenarios.DEFAULT_CONTAINMENT_FLOOR}: {res['components']}")
+        launched = {k: n for k, n in rec["launches"].items() if n}
+        need = ADV_KERNELS[name][0 if hardened else 1]
+        if on_card:
+            require(all(launched.get(k) for k in need),
+                    f"adversarial: {name} (hardened={hardened}) must launch {need}: {launched}")
+            if not need:
+                require(not launched, f"adversarial: {name} runs host engines only, yet "
+                                      f"launched {launched}")
+        for k, n in rec["launches"].items():
+            window[k] = window.get(k, 0) + n
+        rows[f"{name}.{'hardened' if hardened else 'bare'}"] = {
+            "score": res["score"], "attack_events": res["attack_events"],
+            "trace_digest": res["trace_digest"], "wall_s": rec["wall_s"],
+            "cpu_wall_s": cpu[name, hardened]["wall_s"], "launches": launched,
+            "components": res["components"]}
+    out = {"rows": rows, "window": window, "cpu_s": cpu_s, "leftovers": leftover_parity(device)}
+    if on_card:
+        require(out["leftovers"]["contribution_launches"] == 1,
+                "adversarial: contribution_by_agent must launch the contribution's kernel once")
+        named = {}
+        for label, ops in adversarial_census().items():
+            _, name, hardened = label.split(".")
+            need = ADV_KERNELS[name][0 if int(hardened) else 1]
+            got = {k: sum(n for op, n in ops.items() if ADV_NAMES[k] in op) for k in need}
+            ours = sum(n for op, n in ops.items() if any(f in op for f in ADV_NAMES.values()))
+            require(all(got.values()), f"adversarial: the profiler must name {name}'s kernels "
+                                       f"(hardened={bool(int(hardened))}): {got}")
+            if not need:
+                require(ours == 0, f"adversarial: slash_cascade's window names a kernel: {ops}")
+            named[f"{name}.{'hardened' if int(hardened) else 'bare'}"] = {
+                "named": got, "our_kernels": ours, "device_ops": sum(ops.values())}
+        out["census"] = named
+    return out
+
+
+# ── fleet: two workers on the card behind one observatory ─────────────
+
+#: The lease plane's seed and window; the seeded observation schedule runs
+#: in `fleet_schedule`.
+FLEET_SEED = 9
+FLEET_LEASE = dict(heartbeat_interval_s=1.0, suspect_windows=1.0, dead_windows=2.0,
+                   recover_beats=2)
+#: Worker w0: one tenant, no arena (the solo service); w1: a 2-tenant arena.
+FLEET_WORKERS = (("w0", (0,)), ("w1", (0, 1)))
+#: The kernels each worker must have launched: w0 through its API (joins
+#: flush through B4), w1 through its arena's warm rounds (the tenant forms
+#: and B3).
+FLEET_KERNELS = {"w0": ("admission_block",),
+                 "w1": ("contribution_toward_tenants", "admission_block_tenants",
+                        "fsm_saga_block_tenants", "chain_digests_ring_tenants", "tree_roots")}
+
+
+def fleet_http(port: int, method: str, path: str, body=None):
+    """(status, body, ms) of one request over the stdlib transport."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        ms = (time.perf_counter() - t0) * 1e3
+        ctype = resp.getheader("Content-Type", "")
+        return resp.status, json.loads(raw) if ctype.startswith("application/json") else raw, ms
+    finally:
+        conn.close()
+
+
+def fleet_schedule(registry, observe=None) -> None:
+    """The seeded lease schedule: both workers beat each window for three
+    windows (`observe(now)` after each evaluation: a drain), then w0 falls
+    silent (killed) while w1 beats on, until w0 is dead."""
+    for k in (1, 2, 3):
+        for worker, _ in FLEET_WORKERS:
+            registry.heartbeat(worker, float(k))
+        registry.evaluate(float(k))
+        if observe is not None:
+            observe(float(k), live=True)
+    if observe is not None:
+        observe(None, live=False)
+    for k in (4, 5):
+        registry.heartbeat("w1", float(k))
+        registry.evaluate(float(k))
+
+
+def run_fleet(device, workdir: str) -> dict:
+    """The fleet phase: two `WorkerSpec`s on `device` (a solo worker and a
+    2-tenant arena), a `FleetObservatory` and `FleetRegistry` behind a
+    service, `GET /debug/fleet` and `/fleet/{workers,metrics,slo,trace,
+    incidents}` over the stdlib transport, the workers' kernel launches,
+    the lease log's digest against its replay, a SIGKILL drill, and every
+    process stopped. Returns the records `main` checks and prints."""
+    from hypervisor_tpu_torch import Hypervisor
+    from hypervisor_tpu_torch.api import HypervisorHTTPServer, HypervisorService
+    from hypervisor_tpu_torch.fleet import (
+        DEAD,
+        FleetObservatory,
+        FleetRegistry,
+        FleetSupervisor,
+        LeaseConfig,
+        WorkerSpec,
+        worker_label_coverage,
+    )
+
+    dev = "cuda" if str(device).startswith("cuda") else "cpu"
+    specs = [WorkerSpec(worker_id=w, tenants=t, device=dev) for w, t in FLEET_WORKERS]
+    sup = FleetSupervisor(specs, ready_timeout_s=300, log_dir=workdir)
+    rec: dict = {"drain_ms": [], "routes": {}}
+    server = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        rec["start_s"] = time.perf_counter() - t0
+        ports = {w: sup.workers[w]["port"] for w, _ in FLEET_WORKERS}
+        # Traffic on the solo worker through its API: a session, joins
+        # (each flushed through B4), activation, then its trace.
+        _, created, _ = fleet_http(ports["w0"], "POST", "/api/v1/sessions",
+                                   {"creator_did": "did:fleet", "min_sigma_eff": 0.0})
+        sid = created["session_id"]
+        joins = [fleet_http(ports["w0"], "POST", f"/api/v1/sessions/{sid}/join",
+                            {"agent_did": f"did:fleet:{i}", "sigma_raw": 0.8})[0]
+                 for i in range(3)]
+        require(joins == [200] * 3, f"fleet: joins on w0 answered {joins}")
+        require(fleet_http(ports["w0"], "POST", f"/api/v1/sessions/{sid}/activate")[0] == 200,
+                "fleet: activate on w0 failed")
+        rec["launches"] = {w: sup.launch_counts(w) for w, _ in FLEET_WORKERS}
+
+        cfg = LeaseConfig(**FLEET_LEASE)
+        reg = FleetRegistry(cfg, seed=FLEET_SEED)
+        for w, _ in FLEET_WORKERS:
+            reg.register(w, 0.0)
+        obs = FleetObservatory(sup.urls(), registry=reg)
+        svc = HypervisorService(hypervisor=Hypervisor(device=device))
+        svc.fleet = obs
+        server = HypervisorHTTPServer(svc, port=0).start()
+
+        def observe(now, live):
+            if live:
+                t = time.perf_counter()
+                merged, snap = obs.drain(now=now)
+                rec["drain_ms"].append((time.perf_counter() - t) * 1e3)
+                require(snap.errors == (), f"fleet: a live worker failed a scrape: {snap.errors}")
+                rec["merged"], rec["snapshot"] = merged, snap
+                return
+            # Every route, then the SIGKILL drill.
+            for label, path in (("debug_fleet", "/debug/fleet"), ("workers", "/fleet/workers"),
+                                ("metrics", "/fleet/metrics"), ("slo", "/fleet/slo"),
+                                ("trace", f"/fleet/trace/{sid}"),
+                                ("incidents", "/fleet/incidents")):
+                status, body, ms = fleet_http(server.port, "GET", path)
+                rec["routes"][label] = {"status": status, "ms": ms, "body": body}
+            sup.kill("w0")
+            rec["killed_alive"] = sup.alive("w0")
+
+        fleet_schedule(reg, observe)
+        # `/debug/fleet` drains (and captures the dead worker's incident),
+        # then `/fleet/incidents` reads it.
+        rec["debug_after_kill"] = fleet_http(server.port, "GET", "/debug/fleet")[1]
+        rec["after_kill"] = fleet_http(server.port, "GET", "/fleet/incidents")[1]
+        replay = FleetRegistry.replay(reg.observations, cfg, seed=FLEET_SEED)
+        again = FleetRegistry(cfg, seed=FLEET_SEED)
+        for w, _ in FLEET_WORKERS:
+            again.register(w, 0.0)
+        fleet_schedule(again)
+        rec["lease"] = {"digest": reg.transition_digest(), "replay": replay.transition_digest(),
+                        "fresh_schedule": again.transition_digest(),
+                        "transitions": [t.to_dict() for t in reg.transitions],
+                        "state_w0": reg.state_of("w0"), "dead": DEAD}
+        rec["coverage"] = worker_label_coverage(rec["merged"])
+        obs.close()
+    finally:
+        if server is not None:
+            server.stop()
+        sup.stop()
+    rec["alive_after_stop"] = {w: sup.alive(w) for w, _ in FLEET_WORKERS}
+    rec["exit_codes"] = {w: sup.workers[w]["proc"].returncode for w, _ in FLEET_WORKERS}
+    return rec
+
+
+def check_fleet(rec: dict, on_card: bool) -> dict:
+    """Every requirement of the fleet phase; returns the summary `main`
+    prints."""
+    merged = rec["merged"]
+    routes = rec["routes"]
+    require(rec["coverage"] == 1.0, f"fleet: worker label coverage {rec['coverage']}, not 1.0")
+    arena_rows = [ln for ln in merged.splitlines() if ln.startswith("hv_")
+                  and 'worker="w1"' in ln and 'tenant="' in ln]
+    require(arena_rows and any('tenant="1"' in ln for ln in arena_rows),
+            "fleet: the arena worker's rows carry no tenant label")
+    require(all(v["status"] == 200 for v in routes.values()),
+            f"fleet: a route failed: {({k: v['status'] for k, v in routes.items()})}")
+    dbg = routes["debug_fleet"]["body"]
+    require(dbg["enabled"] and sorted(dbg["workers"]) == ["w0", "w1"]
+            and all(w["state"] == "alive" for w in dbg["workers"].values()),
+            f"fleet: /debug/fleet: {dbg.get('workers')}")
+    require(routes["workers"]["body"]["counts"] == {"alive": 2, "suspected": 0, "dead": 0},
+            f"fleet: /fleet/workers counts {routes['workers']['body']['counts']}")
+    from hypervisor_tpu_torch.fleet import worker_label_coverage
+
+    require(worker_label_coverage(routes["metrics"]["body"]) == 1.0,
+            "fleet: /fleet/metrics has a row without a worker label")
+    trace = routes["trace"]["body"]["fleet"]
+    require(trace["workers"] == ["w0"] and trace["missing"] == ["w1"],
+            f"fleet: /fleet/trace stitched {trace}")
+    require(sorted(routes["slo"]["body"]["workers"]) == ["w0", "w1"], "fleet: /fleet/slo")
+    require(sorted(routes["incidents"]["body"]["workers"]) == ["w0", "w1"], "fleet: /fleet/incidents")
+    lease = rec["lease"]
+    require(lease["digest"] == lease["replay"] == lease["fresh_schedule"],
+            f"fleet: the lease log's digest differs from its replay: {lease}")
+    require(lease["state_w0"] == lease["dead"] and not rec["killed_alive"],
+            f"fleet: the killed worker is {lease['state_w0']}")
+    require(rec["after_kill"]["fleet"]["captured"] >= 1,
+            "fleet: the dead worker left no fleet incident")
+    require(not any(rec["alive_after_stop"].values()),
+            f"fleet: a worker still runs after stop: {rec['alive_after_stop']}")
+    launched = {w: {k: n for k, n in c.items() if n} for w, c in rec["launches"].items()}
+    if on_card:
+        for w, need in FLEET_KERNELS.items():
+            require(all(launched[w].get(k) for k in need),
+                    f"fleet: worker {w} must have launched {need}: {launched[w]}")
+    window: dict = {}
+    for counts in rec["launches"].values():
+        for k, n in counts.items():
+            window[k] = window.get(k, 0) + n
+    return {
+        "start_s": rec["start_s"], "drain_ms": rec["drain_ms"],
+        "route_ms": {k: v["ms"] for k, v in routes.items()},
+        "merged_series": rec["snapshot"].merged_series, "series": dict(rec["snapshot"].series),
+        "coverage": rec["coverage"], "arena_rows": len(arena_rows),
+        "launches_by_worker": launched, "window": window,
+        "lease_digest": lease["digest"], "transitions": len(lease["transitions"]),
+        "incidents_after_kill": rec["after_kill"]["fleet"]["captured"],
+        "exit_codes": rec["exit_codes"],
+    }
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -4375,6 +4828,7 @@ def main(argv=None) -> int:
     from hypervisor_tpu_torch.ops import liability, merkle, pipeline, saga_ops
     from hypervisor_tpu_torch.ops.admission import ADMIT_OK, f32_scalar
     from hypervisor_tpu_torch.ops.sha256 import digests_to_hex, pad_messages_np
+    from hypervisor_tpu_torch import state as state_mod
     from hypervisor_tpu_torch.state import HypervisorState
     from hypervisor_tpu_torch.tables.logs import DeltaLog
     from hypervisor_tpu_torch.tables.state import FLAG_ACTIVE, VouchTable
@@ -5458,10 +5912,12 @@ def main(argv=None) -> int:
     # The facade wave: p50/p95 on the host clock, synchronised, each
     # sample on a fresh state built (sessions created, edges placed)
     # outside the timed window; the host share split into staging
-    # (`_stage_wave_lanes`), dispatch (the fused wave's enqueue,
-    # `pipeline.governance_wave`) and audit booking (`_book_wave_audit`),
+    # (`_stage_wave_lanes`), dispatch (the fused wave's enqueue: the
+    # state's `_WAVE`, the instrumented `pipeline.governance_wave` bound at
+    # import, which is what runs) and audit booking (`_book_wave_audit`),
     # timed around those calls; the rest is row claims, copies to the
-    # card, the wait for the device and the membership bookkeeping.
+    # card, the wait for the device and the membership bookkeeping. Every
+    # part must come out at or above zero.
     def facade_sample(profiler=None):
         with counted_trace_ids():
             st = facade_state(dev)
@@ -5482,10 +5938,10 @@ def main(argv=None) -> int:
             st._book_wave_audit = timed("audit_booking", st._book_wave_audit)
             # The gateway and the epilogue run inside the dispatch: their
             # enqueue is split out of it.
-            wave_fn, gate_fn, gauge_fn = (pipeline.governance_wave,
+            wave_fn, gate_fn, gauge_fn = (state_mod._WAVE,
                                           pipeline.gateway_ops.check_actions,
                                           pipeline.schema.update_gauges)
-            pipeline.governance_wave = timed("dispatch", wave_fn)
+            state_mod._WAVE = timed("dispatch", wave_fn)
             pipeline.gateway_ops.check_actions = timed("gateway", gate_fn)
             pipeline.schema.update_gauges = timed("epilogue", gauge_fn)
             try:
@@ -5497,7 +5953,7 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                     total = (time.perf_counter_ns() - t) / 1e6
             finally:
-                pipeline.governance_wave = wave_fn
+                state_mod._WAVE = wave_fn
                 pipeline.gateway_ops.check_actions = gate_fn
                 pipeline.schema.update_gauges = gauge_fn
             split["dispatch"] -= split["gateway"] + split["epilogue"]
@@ -5507,6 +5963,8 @@ def main(argv=None) -> int:
     f_total = [t for t, _ in f_samples]
     f_rest = [t - sum(sp.values()) for t, sp in f_samples]
     f_parts = {**{k: [sp[k] for _, sp in f_samples] for k in f_samples[0][1]}, "rest": f_rest}
+    negative = {k: min(v) for k, v in f_parts.items() if min(v) < 0}
+    require(not negative, f"facade_timing: a part of the host split is negative: {negative}")
     f_split = {k: float(np.median(v)) for k, v in f_parts.items()}
     f_split_p95 = {k: float(np.percentile(v, 95)) for k, v in f_parts.items()}
     f_p50 = float(np.percentile(f_total, 50))
@@ -6057,6 +6515,33 @@ def main(argv=None) -> int:
          last_decisions=ap_row["last_decisions"], debug_autopilot=ap["debug_autopilot"],
          soak_s=ap["soak_s"], nvidia_smi=smi,
          clock="latency = virtual queue wait + the measured wave wall (host perf_counter)")
+
+    # ── 18. adversarial: the six scenarios on the card against the CPU ──
+    t0 = time.perf_counter()
+    adv = run_adversarial(dev)
+    adv_s = time.perf_counter() - t0
+    windows["adversarial"] = adv["window"]
+    emit("adversarial", seconds=adv_s, seed=ADV_SEED, scenarios=adv["rows"],
+         census=adv["census"], cpu_s=adv["cpu_s"], cpu_run="identical to_dict()",
+         leftovers=adv["leftovers"],
+         launches={k: n for k, n in adv["window"].items() if n}, nvidia_smi=smi,
+         clock="wall_s: host perf_counter around each run_scenario on the card")
+
+    # ── 19. fleet: two workers on the card behind one observatory ──────
+    fleet_dir = tempfile.mkdtemp(prefix="hv_fleet_")
+    try:
+        t0 = time.perf_counter()
+        fleet = run_fleet(dev, fleet_dir)
+        fleet_s = time.perf_counter() - t0
+        fleet_summary = check_fleet(fleet, on_card=True)
+    finally:
+        shutil.rmtree(fleet_dir, ignore_errors=True)
+    windows["fleet"] = fleet_summary.pop("window")
+    emit("fleet", seconds=fleet_s, workers=[list(w) for w in FLEET_WORKERS], **fleet_summary,
+         nvidia_smi=smi,
+         clock="host perf_counter: start = both workers READY and answering /health; "
+               "drain = one FleetObservatory.drain of both workers; route = one request over "
+               "the stdlib transport")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

@@ -9,9 +9,7 @@ which each transport maps to its error shape.
 
 The port's service: `device_stats.backend` is the state's torch device
 type; `/debug/profile` opens a `torch.profiler` window
-(`observability.profiling.capture_window`); the fleet and autopilot
-endpoints refuse, naming the later slice of the port that brings them
-(ROADMAP A7) with a 501.
+(`observability.profiling.capture_window`).
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 from hypervisor_tpu_torch import __version__
-from hypervisor_tpu_torch.core import Hypervisor, ManagedSession, _later
+from hypervisor_tpu_torch.core import Hypervisor, ManagedSession
 from hypervisor_tpu_torch.models import ActionDescriptor, ExecutionRing, SessionConfig
 from hypervisor_tpu_torch.observability import EventType, HypervisorEventBus
 
@@ -39,12 +37,6 @@ class ApiError(Exception):
         # Backpressure hint: transports surface this as the HTTP
         # Retry-After header (whole seconds, rounded up) on 429s.
         self.retry_after_s = retry_after_s
-
-
-def _later_api(feature: str, slice_: str) -> ApiError:
-    """A 501 naming the later slice of the port that brings `feature`
-    (the facade's `_later` text), mapped by both transports."""
-    return ApiError(501, str(_later(feature, slice_)))
 
 
 class PrometheusText(str):
@@ -788,14 +780,23 @@ class HypervisorService:
         replayable transition log when one is attached). A deployment
         with no attached fleet (`service.fleet = FleetObservatory(...)`)
         answers `{"enabled": false}` — hv_top's fleet panel degrades to
-        n/a against such servers, pre-r18 servers 404 instead. Refused:
-        the fleet arrives with a later slice of the port."""
-        raise _later_api("GET /debug/fleet", "the fleet, ROADMAP A7")
+        n/a against such servers, pre-r18 servers 404 instead."""
+        obs = getattr(self, "fleet", None)
+        if obs is None:
+            return {"enabled": False}
+        out = obs.summary()
+        out["enabled"] = True
+        return out
 
     def _fleet_or_503(self):
-        """Refused: every fleet endpoint arrives with a later slice of the
-        port."""
-        raise _later_api("the fleet endpoints", "the fleet, ROADMAP A7")
+        obs = getattr(self, "fleet", None)
+        if obs is None:
+            raise ApiError(
+                503,
+                "no fleet attached (service.fleet = "
+                "fleet.FleetObservatory(workers, registry))",
+            )
+        return obs
 
     async def fleet_workers(self) -> dict:
         """`GET /fleet/workers`: worker id -> URL + lease state (the
@@ -840,9 +841,9 @@ class HypervisorService:
         listed in `fleet.missing`, not errors."""
         if format not in (None, "", "chrome", "otlp"):
             raise ApiError(400, f"unknown trace format {format!r}")
-        obs = self._fleet_or_503()
         from hypervisor_tpu_torch.fleet.trace import stitch_fleet_trace
 
+        obs = self._fleet_or_503()
         doc = stitch_fleet_trace(
             obs.workers, trace_id, fmt=format or "chrome",
             timeout_s=obs.timeout_s,

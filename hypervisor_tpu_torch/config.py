@@ -1,7 +1,5 @@
-"""Typed configuration: the fields of `hypervisor_tpu.config` the governance
-wave (its action gateway and sanitizer included), the saga plane, the
-slash cascade, the state's security surface and the facade's host
-engines (vouching, the liability ledger, the history verifier) read, copied with the same names and defaults, so a
+"""Typed configuration: the dataclasses of `hypervisor_tpu.config`, copied
+field for field with the same names, order and defaults, so a
 configuration means the same thing in both packages."""
 
 from __future__ import annotations
@@ -78,6 +76,16 @@ class QuarantineConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RetentionPolicy:
+    """Ephemeral-GC retention: how long deltas are kept, whether the
+    summary hash outlives them, and whether a terminate purges the VFS."""
+
+    delta_retention_days: int = 90
+    keep_summary_hash_permanently: bool = True
+    purge_vfs_on_terminate: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class VerifierConfig:
     """Transaction-history verification: the history depth and hash
     length a trustworthy agent shows."""
@@ -106,7 +114,7 @@ class TableCapacity:
 
 @dataclasses.dataclass(frozen=True)
 class HypervisorConfig:
-    """Top-level config composing every ported subsystem's knobs."""
+    """Top-level config composing every subsystem's knobs."""
 
     trust: TrustConfig = TrustConfig()
     breach: BreachConfig = BreachConfig()
@@ -114,8 +122,12 @@ class HypervisorConfig:
     rate_limit: RateLimitConfig = RateLimitConfig()
     ledger: LedgerConfig = LedgerConfig()
     quarantine: QuarantineConfig = QuarantineConfig()
+    retention: RetentionPolicy = RetentionPolicy()
     verifier: VerifierConfig = VerifierConfig()
     capacity: TableCapacity = TableCapacity()
+
+    def replace(self, **kw) -> "HypervisorConfig":
+        return dataclasses.replace(self, **kw)
 
 
 DEFAULT_CONFIG = HypervisorConfig()

@@ -1,5 +1,6 @@
 """Joint-liability math (`hypervisor_tpu.ops.liability`): live edges, the
-bonded contribution toward each joining agent, and the depth-bounded
+bonded contribution toward each joining agent (and the query forms:
+per vouchee, per agent, per voucher, sigma_eff), and the depth-bounded
 slash cascade.
 
 The cascade is `max_cascade_depth + 1` masked edge passes: depth d
@@ -26,6 +27,91 @@ from hypervisor_tpu_torch.tables.struct import replace
 def edge_live(v: VouchTable, now: torch.Tensor | float) -> torch.Tensor:
     """bool[E]: active, unexpired edges."""
     return v.active & (now <= v.expiry)
+
+
+#: The reference's masked `[B, E]` sums are XLA:CPU reductions, which
+#: XLA rewrites into windows of this many elements (each summed in order
+#: from zero), then sums the window sums the same way, until one window
+#: is left. `_row_sum_xla_order` adds in that order, so the f32 result is
+#: the reference's bit for bit on any device.
+_REDUCE_WINDOW = 32
+
+
+def _row_sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis in index order from +0.0 (one f32 add a step)."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _row_sum_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """f32[B] row sums of f32[B, E] in XLA:CPU's tree order: pad the row
+    with zeros to a multiple of the window (half the padding in front,
+    the odd one behind), sum each window in order, repeat on the window
+    sums."""
+    while x.shape[-1] > _REDUCE_WINDOW:
+        pad = -x.shape[-1] % _REDUCE_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _row_sum_in_order(x.reshape(*x.shape[:-1], -1, _REDUCE_WINDOW))
+    return _row_sum_in_order(x)
+
+
+def _pair_sum(
+    v: VouchTable, key: torch.Tensor, slots: torch.Tensor,
+    session_slots: torch.Tensor, now: torch.Tensor | float,
+) -> torch.Tensor:
+    """f32[B]: the live bonds whose `key` column and session match each
+    query pair, summed in the reference's order."""
+    m = (edge_live(v, now)[None, :]
+         & (key[None, :] == slots[:, None])
+         & (v.session[None, :] == session_slots[:, None]))
+    return _row_sum_xla_order(torch.where(m, v.bond[None, :], torch.zeros((), device=v.bond.device)))
+
+
+def voucher_contribution(
+    v: VouchTable,
+    vouchee_slots: torch.Tensor,
+    session_slots: torch.Tensor,
+    now: torch.Tensor | float,
+    n_agents: int | None = None,
+) -> torch.Tensor:
+    """f32[B] sum of the live bonds toward each queried (vouchee,
+    session) pair, from an i32[B] batch of each (`n_agents` is the
+    reference's parameter and is not read)."""
+    return _pair_sum(v, v.vouchee, vouchee_slots, session_slots, now)
+
+
+def exposure_by_voucher(
+    v: VouchTable,
+    voucher_slots: torch.Tensor,
+    session_slots: torch.Tensor,
+    now: torch.Tensor | float,
+) -> torch.Tensor:
+    """f32[B] total sigma bonded by each queried (voucher, session) pair."""
+    return _pair_sum(v, v.voucher, voucher_slots, session_slots, now)
+
+
+def contribution_by_agent(
+    v: VouchTable, session_of_agent: torch.Tensor, now: torch.Tensor | float
+) -> torch.Tensor:
+    """f32[N] live bonds toward each agent slot, counting only edges in
+    the session the agent is in now. It is `contribution_toward` with the
+    agent's current session as its target, so it runs the contribution's
+    kernel on CUDA and sums in edge order on every device."""
+    from hypervisor_tpu_torch.kernels import wave as wave_kernels
+
+    return wave_kernels.contribution_toward(v, session_of_agent, now)
+
+
+def sigma_eff(
+    vouchee_sigma: torch.Tensor,
+    risk_weight: torch.Tensor | float,
+    contribution: torch.Tensor,
+) -> torch.Tensor:
+    """sigma_eff = sigma + omega * contribution, capped at 1.0 (the
+    multiply and the add rounded apart, as the reference's eager ops)."""
+    return torch.clamp(vouchee_sigma + risk_weight * contribution, max=1.0)
 
 
 def scoped_edges(

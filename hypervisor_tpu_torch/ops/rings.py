@@ -1,5 +1,6 @@
 """Vectorized execution-ring math (`hypervisor_tpu.ops.rings`): the ring a
-sigma earns, and the privilege gate an action passes through."""
+sigma earns, the ring an action requires, the privilege gate an action
+passes through, and the demotion scan."""
 
 from __future__ import annotations
 
@@ -35,6 +36,20 @@ def compute_rings(
     return torch.where((sigma_eff > r1) & consensus, torch.ones_like(ring), ring)
 
 
+def required_rings(
+    is_admin: torch.Tensor,
+    reversibility_code: torch.Tensor,
+    is_read_only: torch.Tensor,
+) -> torch.Tensor:
+    """int8 ring each action requires (`ActionDescriptor.required_ring`):
+    0 for admin, 1 for a non-reversible write, 3 for a read, else 2.
+    reversibility_code: 0=FULL 1=PARTIAL 2=NONE."""
+    nonrev = (reversibility_code == 2) & ~is_read_only
+    ring = torch.where(is_read_only, 3, 2)
+    ring = torch.where(nonrev, 1, ring)
+    return torch.where(is_admin, 0, ring).to(torch.int8)
+
+
 def ring_check(
     agent_ring: torch.Tensor,
     required_ring: torch.Tensor,
@@ -65,3 +80,13 @@ def ring_check(
     ):
         status = status.masked_fill((status == CHECK_OK) & cond, code)
     return status
+
+
+def should_demote(
+    current_ring: torch.Tensor,
+    sigma_eff: torch.Tensor,
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+) -> torch.Tensor:
+    """bool per agent: the ring its sigma earns (without consensus) is
+    less privileged than the ring it holds."""
+    return compute_rings(sigma_eff, False, trust) > current_ring.to(torch.int8)

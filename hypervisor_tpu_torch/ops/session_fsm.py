@@ -28,6 +28,11 @@ for _frm, _tos in {
 TRANSITION_BITS = pack_matrix_bits(SESSION_TRANSITION_MATRIX)
 
 
+def session_transition_valid(frm: torch.Tensor, to: torch.Tensor) -> torch.Tensor:
+    """bool[...]: legality of each session transition (bitmask test)."""
+    return matrix_bits_valid(TRANSITION_BITS, frm, to)
+
+
 def apply_session_transitions(
     state: torch.Tensor, target: int, select: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,22 +16,34 @@ import dataclasses
 import numpy as np
 import torch
 
+from hypervisor_tpu_torch.tables.intern import InternTable
 from hypervisor_tpu_torch.tables.logs import DeltaLog, EventLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import (
+    FLAG_ACTIVE,
+    FLAG_BLACKLISTED,
+    FLAG_BREAKER_TRIPPED,
+    FLAG_PROBATIONARY,
+    FLAG_QUARANTINED,
     AgentTable,
     ElevationTable,
     SagaTable,
     SessionTable,
     VouchTable,
 )
-from hypervisor_tpu_torch.tables.struct import tensors
+from hypervisor_tpu_torch.tables.struct import replace, table, tensors
 
 __all__ = [
     "AgentTable",
     "DeltaLog",
     "ElevationTable",
     "EventLog",
+    "FLAG_ACTIVE",
+    "FLAG_BLACKLISTED",
+    "FLAG_BREAKER_TRIPPED",
+    "FLAG_PROBATIONARY",
+    "FLAG_QUARANTINED",
+    "InternTable",
     "MetricsTable",
     "SagaTable",
     "SessionTable",
@@ -39,6 +51,8 @@ __all__ = [
     "TraceLog",
     "VouchTable",
     "from_state_arrays",
+    "replace",
+    "table",
     "to_state_arrays",
 ]
 

@@ -136,6 +136,13 @@ class EventLog:
         """Health-plane bytes and row capacity (`tables.struct.footprint`)."""
         return footprint(self, self.capacity_rows)
 
+    def count_by_type(self, n_types: int) -> torch.Tensor:
+        """i32[n_types] histogram over the live entries (type codes >= 0;
+        a code at or past `n_types` is not counted)."""
+        codes = self.event_type[self.event_type >= 0].to(torch.int64)
+        codes = codes[codes < n_types]
+        return torch.bincount(codes, minlength=n_types)[:n_types].to(torch.int32)
+
 
 @table
 class TraceLog:

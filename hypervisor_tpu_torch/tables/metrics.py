@@ -57,6 +57,26 @@ class MetricsTable:
         )
 
 
+def bucket_of(bounds: torch.Tensor, values) -> torch.Tensor:
+    """i32 bucket index per value under Prometheus `le` semantics: the
+    first bucket whose upper bound covers the value (value <= bounds[b]);
+    a value above every bound lands in the overflow bucket (index
+    len(bounds))."""
+    values = torch.as_tensor(values, dtype=torch.float32, device=bounds.device)
+    return torch.searchsorted(bounds, values, right=False).to(torch.int32)
+
+
+def counter_inc(m: MetricsTable, idx, n: torch.Tensor | int = 1) -> None:
+    """Add `n` to counter row `idx`, IN PLACE (u32 wrap); `n` may be a
+    Python int or an integer tensor on the table's device."""
+    counters_add(m.counters, [idx], [n % (1 << 32) if isinstance(n, int) else n])
+
+
+def gauge_set(m: MetricsTable, idx, value) -> None:
+    """Set gauge row `idx` to `value` (as f32), IN PLACE; last write wins."""
+    m.gauges[..., idx] = torch.as_tensor(value, dtype=torch.float32, device=m.gauges.device)
+
+
 def counter_add_many(
     m: MetricsTable, indices: Sequence[int], values: Sequence
 ) -> None:

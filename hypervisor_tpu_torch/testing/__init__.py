@@ -1,7 +1,7 @@
 """Test utilities shipped with the framework: seeded chaos injection
-(`testing.chaos`) and the masks that hold two runs of one sequence equal
-(`testing.compare`). The adversarial scenario harness (`testing.scenarios`)
-comes with the upper planes (ROADMAP A7)."""
+(`testing.chaos`), the masks that hold two runs of one sequence equal
+(`testing.compare`), and the seeded adversarial scenario harness
+(`testing.scenarios`)."""
 
 from hypervisor_tpu_torch.testing.chaos import (
     ChaosExecutorFactory,
@@ -15,6 +15,7 @@ from hypervisor_tpu_torch.testing.chaos import (
     WaveChaosPlan,
 )
 from hypervisor_tpu_torch.testing.compare import same_health_on_every_run, supervisor_accounting
+from hypervisor_tpu_torch.testing import scenarios
 
 __all__ = [
     "ChaosExecutorFactory",
@@ -27,5 +28,6 @@ __all__ = [
     "WaveChaosInjector",
     "WaveChaosPlan",
     "same_health_on_every_run",
+    "scenarios",
     "supervisor_accounting",
 ]

@@ -3,9 +3,7 @@
 `api/models.py` and `api/server.py` are copies of the reference's modules
 (held as text by `test_torch_host_engines`); `api/service.py` differs
 where it meets the device (`device_stats.backend` is the state's torch
-device type, `/debug/profile` opens a `torch.profiler` window) and where
-a later slice brings the plane (the fleet endpoints refuse with a 501
-naming ROADMAP A7).
+device type, `/debug/profile` opens a `torch.profiler` window).
 
 One call sequence (`SEQUENCE`, the reference's `tests/unit/test_api.py`
 calls: sessions, joins, rings, actions, sagas, vouches, events,
@@ -297,28 +295,37 @@ def test_routes_match_reference():
 
 
 def test_fleet_and_autopilot_endpoints_name_a_later_slice():
-    """The fleet endpoints refuse, naming their slice; `/debug/autopilot`
-    answers the bare plane state, as the reference's does."""
-    svc = service_for(Pkg(PORT))
-    server = PORT.api.HypervisorHTTPServer(service=svc, port=0).start()
-    try:
-        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
-        conn.request("GET", "/debug/autopilot")
-        resp = conn.getresponse()
-        assert resp.status == 200 and json.loads(resp.read()) == {"enabled": False}
-        conn.close()
-        for path in ("/debug/fleet", "/fleet/workers", "/fleet/metrics",
-                     "/fleet/slo", "/fleet/trace/t1", "/fleet/incidents", "/fleet/ownership",
-                     "/fleet/failover", "/fleet/rebalance"):
-            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
-            conn.request("GET", path)
-            resp = conn.getresponse()
-            body = json.loads(resp.read())
-            conn.close()
-            assert resp.status == 501, path
-            assert re.search(r"a later slice of the port \(.*ROADMAP A7\)", body["detail"]), path
-    finally:
-        server.stop()
+    """With no fleet and no autopilot attached, `/debug/fleet` and
+    `/debug/autopilot` answer `{"enabled": false}` and the other fleet
+    routes the reference's typed 503, status and body equal to the
+    reference's over the stdlib transport (the fleet's own parity is in
+    `tests/test_torch_fleet.py`). The name is the one this test had while
+    the fleet routes refused."""
+    paths = ["/debug/autopilot", "/debug/fleet", "/fleet/workers", "/fleet/metrics",
+             "/fleet/slo", "/fleet/trace/t1", "/fleet/incidents", "/fleet/ownership",
+             "/fleet/failover", "/fleet/rebalance"]
+
+    def drive(P):
+        server = P.mod("api").HypervisorHTTPServer(service=service_for(P), port=0).start()
+        out = []
+        try:
+            for path in paths:
+                conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+                conn.request("GET", path)
+                resp = conn.getresponse()
+                out.append((path, resp.status, json.loads(resp.read())))
+                conn.close()
+        finally:
+            server.stop()
+        return out
+
+    ref, port = both(drive)
+    assert port == ref
+    rec = {path: (status, body) for path, status, body in port}
+    assert rec["/debug/autopilot"] == rec["/debug/fleet"] == (200, {"enabled": False})
+    for path in paths[2:]:
+        assert rec[path][0] == 503, path
+        assert re.search(r"no fleet attached", rec[path][1]["detail"]), path
 
 
 def test_debug_profile_captures_and_refuses_while_a_trace_runs(tmp_path):

@@ -993,21 +993,26 @@ def test_readme_lifecycle_root_commits_and_verifies():
 
 
 def test_unported_entries_name_a_later_slice():
-    """The multi-device runtime (ROADMAP A8) and the API's fleet
-    endpoints (A7) refuse, naming their slice. The serving front door and
-    the autopilot are ported: `tests/test_torch_serving.py` and
-    `tests/test_torch_autopilot.py` hold them to the reference."""
+    """The multi-device runtime (ROADMAP A8) and the fleet's failover and
+    rebalance planes refuse, naming their slice. The serving front door,
+    the autopilot and the fleet's first half are ported:
+    `tests/test_torch_serving.py`, `tests/test_torch_autopilot.py` and
+    `tests/test_torch_fleet.py` hold them to the reference; with none
+    attached, the API's fleet routes answer the reference's 503."""
+    from hypervisor_tpu_torch import fleet
     from hypervisor_tpu_torch.api import ApiError, HypervisorService
 
     hv = PORT.Hypervisor(device="cpu")
     with pytest.raises(NotImplementedError, match="a later slice of the port.*A8"):
         hv.consistency_runtime(mesh=None)
+    with pytest.raises(NotImplementedError, match="a later slice of the port.*fleet/failover"):
+        fleet.FailoverController
     svc = HypervisorService(hypervisor=hv)
     assert asyncio.run(svc.debug_autopilot()) == {"enabled": False}
-    for endpoint in (svc.debug_fleet, svc.fleet_workers):
-        with pytest.raises(ApiError, match="a later slice of the port.*A7") as err:
-            asyncio.run(endpoint())
-        assert err.value.status == 501
+    assert asyncio.run(svc.debug_fleet()) == {"enabled": False}
+    with pytest.raises(ApiError, match="no fleet attached") as err:
+        asyncio.run(svc.fleet_workers())
+    assert err.value.status == 503
 
 
 def test_default_hypervisor_runs_on_cuda_and_never_falls_back():
