@@ -7,8 +7,9 @@ slash cascade, the lock and write waves, the native host runtime, the
 checkpoints and crash recovery), observability (the metrics drain, the
 health and hindsight planes, the integrity plane and the supervisor),
 serving, tenancy (T tenants' waves in one launch of each kernel's tenant
-form), the autopilot, the adversarial scenario set and the fleet's
-workers on one NVIDIA GPU.
+form), the autopilot, the adversarial scenario set, the fleet's workers,
+the reference's headline `governance_pipeline`, and the fleet's failover
+and rebalancing on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA GPU
     python3 chip_smoke.py --blocks   # build, then only profile and time B4, B5, B7, B8
@@ -323,6 +324,26 @@ Phases, one JSON line each:
    worker's kernel launches (SIGUSR1), the lease log's digest equal to
    its replay and to a fresh run of the same seeded schedule, a SIGKILL
    drill to DEAD with its fleet incident, and every process exited.
+20. pipeline: `ops.pipeline.governance_pipeline`, the reference's
+   headline unit, at its row's shape (S = 10,000 lanes, T = 3, sigma 0.8,
+   all trustworthy, floor 0.60) and on a mixed input of the same width
+   (untrustworthy, below-floor and inactive lanes, a contribution): one
+   launch each of B2 and B3 a call and nothing else, every field equal to
+   the CPU port's (tolerance 0), every lane's root equal to hashlib's;
+   p50/p95 over 50 calls on the host clock, the device time by CUDA
+   events, and torch.profiler's device ops and idle share;
+21. failover: (a) the reference's `failover` row (seed 20, quick) on
+   the card, its digest and counts equal to `BENCH_r20.json` and
+   `BENCH_r21.json`'s; (b) its `fleet_soak` row (seed 21, quick: 135
+   rounds, rebalances, two kills) equal to `BENCH_r21.json`'s; (c) the
+   same protocol on arenas of the default tables: each absorbed tenant
+   equal to the donor at the kill, the zombie refused with zero bytes,
+   the survivors serving with no novel signature, one planned migration
+   replaying nothing; (d) durable worker processes: a SIGTERM drain
+   whose adopter replays nothing, a SIGKILLed worker failed over into a
+   survivor on the card, `/fleet/{ownership,failover,rebalance}` and
+   `POST /fleet/rebalance` served, a stale restart refused at adopt.
+   Each part's launches in its own window (workers' by SIGUSR1).
 
 Then the kernels summary (each tenant form with its times at T = 8 and
 at T = 100), the nvidia-smi line, and a last line
@@ -4780,6 +4801,649 @@ def check_fleet(rec: dict, on_card: bool) -> dict:
     }
 
 
+# ── phase pipeline: the reference's headline unit ────────────────────
+
+#: `full_governance_pipeline` (`benchmarks/bench_suite.py:378-391`): S =
+#: 10,000 lanes, T = 3 deltas, sigma 0.8, all trustworthy, floor 0.60, all
+#: active; a second input of the same width mixes untrustworthy,
+#: below-floor and inactive lanes and carries `contribution` and `omega`.
+PIPE_S, PIPE_T = 10_000, 3
+PIPE_SEED = 20
+PIPE_ITERS = 50
+PIPE_PROFILED = 3
+#: One window of the pipeline launches B2 once and B3 once, nothing else.
+PIPE_KERNELS = {"chain_digests": 1, "tree_roots": 1}
+
+
+def pipeline_inputs(kind: str) -> dict:
+    """Seeded numpy inputs of `governance_pipeline`: "bench" (the
+    reference's row) or "mixed"."""
+    rng = np.random.RandomState(PIPE_SEED + (kind == "mixed"))
+    bodies = rng.randint(0, 2**32, (PIPE_T, PIPE_S, 16), dtype=np.uint64).astype(np.uint32)
+    if kind == "bench":
+        return {"sigma_raw": np.full(PIPE_S, 0.8, np.float32),
+                "trustworthy": np.ones(PIPE_S, bool),
+                "min_sigma_eff": np.full(PIPE_S, 0.6, np.float32),
+                "delta_bodies": bodies, "active": np.ones(PIPE_S, bool)}
+    return {"sigma_raw": rng.uniform(0, 1, PIPE_S).astype(np.float32),
+            "trustworthy": rng.uniform(size=PIPE_S) > 0.2,
+            "min_sigma_eff": rng.choice(np.float32([0.0, 0.6, 0.75]), PIPE_S),
+            "delta_bodies": bodies, "active": rng.uniform(size=PIPE_S) > 0.1,
+            "contribution": rng.uniform(0, 0.6, PIPE_S).astype(np.float32),
+            "omega": np.float32(0.35)}
+
+
+def pipeline_args(inputs: dict, device) -> dict:
+    import torch
+
+    from hypervisor_tpu_torch import u32
+
+    out = {}
+    for k, v in inputs.items():
+        if k == "omega":
+            out[k] = float(v)
+        elif k == "delta_bodies":
+            out[k] = u32.from_numpy_u32(v, device)
+        else:
+            out[k] = torch.from_numpy(v).to(device)
+    return out
+
+
+def hashlib_roots(bodies: np.ndarray) -> np.ndarray:
+    """u32[S, 8]: each lane's chain of its T bodies by hashlib, then its
+    Merkle root over the T digests (hex-pair combine, odd tail
+    duplicated, one leaf is its own root)."""
+    t, s, _ = bodies.shape
+    be = bodies.astype(">u4")
+    out = np.zeros((s, 8), np.uint32)
+    for lane in range(s):
+        parent = b"\x00" * 32
+        level = []
+        for turn in range(t):
+            parent = hashlib.sha256(be[turn, lane].tobytes() + parent).digest()
+            level.append(parent.hex())
+        while len(level) > 1:
+            if len(level) % 2:
+                level.append(level[-1])
+            level = [hashlib.sha256((level[i] + level[i + 1]).encode()).hexdigest()
+                     for i in range(0, len(level), 2)]
+        out[lane] = np.frombuffer(bytes.fromhex(level[0]), ">u4")
+    return out
+
+
+def run_pipeline_phase(device, time_device) -> dict:
+    """`ops.pipeline.governance_pipeline` on the card at the reference's
+    headline shape and on the mixed input: each call's launch window, every
+    field against the CPU port's at tolerance 0, every lane's root against
+    hashlib; then (bench input) 50 host-clock calls, the device time by
+    CUDA events, and a profiled window of three calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.ops import pipeline
+
+    rec: dict = {"cases": {}}
+    for kind in ("bench", "mixed"):
+        inputs = pipeline_inputs(kind)
+        args = pipeline_args(inputs, device)
+        pipeline.governance_pipeline(**args)  # first call: allocator and module loads
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        card = pipeline.governance_pipeline(**args)
+        torch.cuda.synchronize()
+        window = {k: n for k, n in kernels.launch_counts().items() if n}
+        require(window == PIPE_KERNELS,
+                f"pipeline ({kind}): the window must launch B2 and B3 once each: {window}")
+        cpu = pipeline.governance_pipeline(**pipeline_args(inputs, "cpu"))
+        for field in card._fields:
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and a.numpy().tobytes() == b.numpy().tobytes(),
+                    f"pipeline ({kind}): the card's {field} differs from the CPU's")
+        roots = card.merkle_root.cpu().numpy().view(np.uint32)
+        require(np.array_equal(roots, hashlib_roots(inputs["delta_bodies"])),
+                f"pipeline ({kind}): a lane's root differs from hashlib's")
+        status = card.status.cpu().numpy()
+        rec["cases"][kind] = {
+            "window": window, "consensus": card.consensus.cpu().tolist(),
+            "status_counts": {int(c): int((status == c).sum()) for c in np.unique(status)},
+            "cpu_run": "identical", "roots": "equal to hashlib on every lane"}
+        if kind == "bench":
+            require(rec["cases"][kind]["status_counts"] == {0: PIPE_S},
+                    f"pipeline (bench): every lane must complete: {rec['cases'][kind]}")
+
+    args = pipeline_args(pipeline_inputs("bench"), device)
+    samples = []
+    for i in range(WARMUP + PIPE_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        pipeline.governance_pipeline(**args)
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            samples.append((time.perf_counter_ns() - t0) / 1e6)
+    rec["host_ms"] = samples
+    rec["p50_ms"] = float(np.percentile(samples, 50))
+    rec["p95_ms"] = float(np.percentile(samples, 95))
+    rec["us_per_session_p50"] = rec["p50_ms"] * 1e3 / PIPE_S
+    rec["device_ms"] = time_device(lambda: pipeline.governance_pipeline(**args), reps=20,
+                                   sleep_cycles=20_000_000)
+    pipeline.governance_pipeline(**args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter_ns()
+        for _ in range(PIPE_PROFILED):
+            pipeline.governance_pipeline(**args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter_ns() - t0) / 1e6
+    ops = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(us for us, _, _ in ops) / 1e3
+    rec["profile"] = {
+        "calls": PIPE_PROFILED, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
+        "n_device_ops": sum(n for _, _, n in ops),
+        "ours": {k: sum(n for _, name, n in ops if sub in name)
+                 for k, sub in OUR_KERNELS.items() if k in PIPE_KERNELS},
+        "top": [{"name": k[:80], "device_us": us, "count": n} for us, k, n in ops[:12]]}
+    return rec
+
+
+# ── phase failover: the fleet's second half ──────────────────────────
+
+#: The reference's rows (`BENCH_r20.json`, `BENCH_r21.json`): the keys the
+#: port's drills must reproduce, and the digests they must give.
+FAILOVER_ROW_KEYS = ("seed", "quick", "workers", "killed", "detection_windows",
+                     "budget_windows", "replayed_ops", "tenants_reassigned", "survivors",
+                     "zombie_fenced", "double_applied_ops", "post_splice_rounds",
+                     "recompiles_after_splice", "replays", "digest_match", "ownership_digest")
+SOAK_ROW_KEYS = ("seed", "quick", "workers", "tenants", "rounds", "sessions", "kills",
+                 "failovers", "rebalance_runs", "migrations", "migration_replayed_ops",
+                 "failover_replayed_ops", "zombies_fenced", "double_applied_ops",
+                 "ownership_violations", "recompiles_after_splice", "replays", "digest_match",
+                 "ownership_digest")
+FAILOVER_DIGEST = "3cef592df82ea124c3a41d7aed44a64db98be774e08606dfe4e8f7e647fce196"
+SOAK_DIGEST = "11196ab50fa4d7623ca531a7bf1708ec3f9472d3b57d43bab93689fb32de7749"
+#: Part (c): three workers of the default tables (nothing cut); w0 owns
+#: two tenants, w1 and w2 one each with two spare slots; waves before the
+#: checkpoint, waves of WAL suffix, survivor rounds after the splice.
+FO_FULL = dict(seed=SEED + 17, before=2, suffix=3, serve=4)
+FO_FULL_WORKERS = (("w0", (0, 1), 2), ("w1", (2,), 3), ("w2", (3,), 3))
+#: The tenant forms and B3: what a batched tenant wave launches.
+TENANT_WAVE_KERNELS = ("contribution_toward_tenants", "admission_block_tenants",
+                       "fsm_saga_block_tenants", "chain_digests_ring_tenants", "tree_roots")
+#: What replaying a journaled wave launches: the solo wave's kernels.
+REPLAY_KERNELS = ("contribution_toward", "admission_block", "fsm_saga_block",
+                  "chain_digests_ring", "tree_roots")
+#: Part (d): a durable worker drained by SIGTERM, one SIGKILLed and failed
+#: over into in-process survivors on the card, and their restart at a
+#: stale epoch.
+FO_PROC_LEASE = dict(heartbeat_interval_s=1.0, suspect_windows=1.0, dead_windows=2.0,
+                     recover_beats=2)
+
+
+def fo_fingerprint(st) -> dict:
+    """Everything a recovered tenant must carry: every checkpointed column
+    (`state_arrays`), the host metadata a checkpoint writes (chain heads,
+    frontiers, interns, members, audit rows, cursors, free lists) but its
+    WAL watermark, and the DeltaLog cursor mirror. The metrics table is
+    not checkpointed (a recovered tenant's starts fresh)."""
+    from hypervisor_tpu_torch.runtime.checkpoint import host_metadata, state_arrays
+
+    meta = host_metadata(st)
+    meta.pop("wal_seq")
+    return {"arrays": state_arrays(st), "host": json.loads(json.dumps(meta, sort_keys=True)),
+            "delta_cursor": int(st._delta_cursor)}
+
+
+def same_fingerprint(a: dict, b: dict) -> str | None:
+    """The first part where two fingerprints differ, or None."""
+    if sorted(a["arrays"]) != sorted(b["arrays"]):
+        return "the column set"
+    for k, v in a["arrays"].items():
+        w = b["arrays"][k]
+        if v.dtype != w.dtype or v.shape != w.shape or v.tobytes() != w.tobytes():
+            return f"column {k}"
+    for k in sorted(set(a["host"]) | set(b["host"])):
+        if a["host"].get(k) != b["host"].get(k):
+            return f"host {k}"
+    return None if a["delta_cursor"] == b["delta_cursor"] else "delta cursor"
+
+
+def fo_full_wave(mw, rng, w: int, now: float) -> None:
+    """One bucket-32 batched wave of 3 deltas over every tenant `mw` owns,
+    with vouched joiners (phase tenancy's full-width workload)."""
+    from hypervisor_tpu_torch.models import SessionConfig
+
+    scfg = SessionConfig(min_sigma_eff=0.0, max_participants=4)
+    loads = {slot: ten_workload(rng, t, w, ten_k(t, w)) for t, slot in sorted(mw.slot_of.items())}
+    for slot, load in loads.items():
+        load["ids"] = [f"{mw.worker_id}:{x}" for x in load["ids"]]
+    slots = mw.arena.create_sessions_batch({s: v["ids"] for s, v in loads.items()}, scfg,
+                                           pad_to=TEN_BUCKET)
+    for s, v in loads.items():
+        vouch_wave(mw.arena.tenants[s], slots[s], len(v["ids"]))
+    mw.arena.governance_wave_batch(
+        {s: {"session_slots": slots[s], "dids": [f"{mw.worker_id}:{d}" for d in v["dids"]],
+             "agent_sessions": slots[s].copy(), "sigma_raw": v["sigma"],
+             "delta_bodies": v["bodies"]} for s, v in loads.items()}, TEN_BUCKET, now=now)
+
+
+def failover_full_width(device, workdir: str) -> dict:
+    """Part (c): the failover protocol once on arenas of the default
+    tables. Each absorbed tenant must equal w0's tenant at the kill, the
+    zombie's append must refuse with its log unchanged, the survivors
+    must serve with no novel signature, and one planned migration must
+    replay nothing and keep its tenant."""
+    from pathlib import Path
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.config import DEFAULT_CONFIG
+    from hypervisor_tpu_torch.fleet import DEAD, FleetRegistry, LeaseConfig
+    from hypervisor_tpu_torch.fleet.failover import (
+        FailoverController,
+        ManagedWorker,
+        OwnershipMap,
+        WorkerDurability,
+    )
+    from hypervisor_tpu_torch.fleet.rebalance import RebalanceController
+    from hypervisor_tpu_torch.observability import health
+    from hypervisor_tpu_torch.tenancy import TenantArena
+    from hypervisor_tpu_torch.testing.fleet_drills import zombie_resume
+
+    root = Path(workdir) / "full"
+    rng = np.random.RandomState(FO_FULL["seed"])
+    workers = {}
+    for wid, tenants, n_slots in FO_FULL_WORKERS:
+        arena = TenantArena(n_slots, DEFAULT_CONFIG, device=device)
+        dur = WorkerDurability(root, wid, epoch=0, tenants=tenants).adopt()
+        for slot, t in enumerate(tenants):
+            arena.tenants[slot].journal = dur.wal(t)
+        workers[wid] = ManagedWorker(wid, arena, dur, {t: s for s, t in enumerate(tenants)},
+                                     list(range(len(tenants), n_slots)))
+    om = OwnershipMap(seed=FO_FULL["seed"])
+    ctl = FailoverController(om, config=DEFAULT_CONFIG)
+    reg = FleetRegistry(LeaseConfig(**FO_PROC_LEASE), seed=FO_FULL["seed"])
+    for wid in sorted(workers):
+        ctl.register(workers[wid], now=0.0)
+        reg.register(wid, 0.0)
+    rec: dict = {"widths": {k: getattr(DEFAULT_CONFIG.capacity, k) for k in (
+        "max_agents", "max_sessions", "max_vouch_edges", "max_sagas", "delta_log_capacity")}}
+    kernels.reset_launch_counts()
+    wave = 0
+    now = 1.0
+    for phase in ("before", "suffix"):
+        for _ in range(FO_FULL[phase]):
+            for wid in sorted(workers):
+                fo_full_wave(workers[wid], rng, wave, now)
+                reg.heartbeat(wid, now)
+            reg.evaluate(now)
+            wave += 1
+            now += 1.0
+        if phase == "before":
+            ckpt_mb = {}
+            for wid, mw in sorted(workers.items()):
+                mw.arena.sync()
+                for t, slot in sorted(mw.slot_of.items()):
+                    path = mw.durability.checkpoint(mw.arena.tenants[slot], t, step=1)
+                    ckpt_mb[t] = sum(p.stat().st_size for p in Path(path).rglob("*")
+                                     if p.is_file()) / 2**20
+            rec["checkpoint_mb"] = ckpt_mb
+    rec["waves_window"] = kernels.launch_counts()
+    w0 = workers["w0"]
+    w0.arena.sync()
+    donors = {t: fo_fingerprint(w0.arena.tenants[slot]) for t, slot in sorted(w0.slot_of.items())}
+    for slot in w0.slot_of.values():
+        w0.arena.tenants[slot].journal.flush()
+    # w0 falls silent; the survivors beat on until the lease plane says DEAD.
+    while reg.state_of("w0") != DEAD:
+        for wid in ("w1", "w2"):
+            reg.heartbeat(wid, now)
+        reg.evaluate(now)
+        now += 1.0
+        require(now < 100, "failover (c): the lease plane never convicted w0")
+
+    # The reassignment, each tenant's absorb timed with recover's stages.
+    per_tenant: dict = {}
+    real_absorb = ctl._absorb
+
+    def timed_absorb(tenant, source, target):
+        with timed_recovery_stages(torch_sync(device)) as stages:
+            t0 = time.perf_counter_ns()
+            slot, report = real_absorb(tenant, source, target)
+            torch_sync(device)()
+            total = (time.perf_counter_ns() - t0) / 1e6
+        per_tenant[int(tenant)] = {
+            "absorb_ms": total, "restore_ms": stages.get("restore_state", 0.0),
+            "verify_ms": stages.get("verify_audit_heads", 0.0),
+            "scan_ms": stages.get("scan", 0.0), "replay_ms": stages.get("replay", 0.0),
+            "records_replayed": report["wal_records_replayed"], "survivor": target.worker_id}
+        return slot, report
+
+    ctl._absorb = timed_absorb
+    kernels.reset_launch_counts()
+    rc0 = health.compile_summary()["recompiles"]
+    t0 = time.perf_counter_ns()
+    report = ctl.failover("w0", now=now)
+    rec["failover_ms"] = (time.perf_counter_ns() - t0) / 1e6
+    rec["absorb_window"] = kernels.launch_counts()
+    rec["absorb_novel_signatures"] = health.compile_summary()["recompiles"] - rc0
+    ctl._absorb = real_absorb
+    rec["per_tenant"] = per_tenant
+    rec["survivors"] = report["survivors"]
+    rec["replayed_ops"] = report["replayed_ops"]
+    for t, donor in donors.items():
+        mw = workers[report["tenants"][t]["survivor"]]
+        mw.arena.sync()
+        diff = same_fingerprint(fo_fingerprint(mw.arena.tenants[mw.slot_of[t]]), donor)
+        require(diff is None, f"failover (c): absorbed tenant {t} differs from the donor "
+                              f"at the kill in {diff}")
+    fenced, doubled, added = zombie_resume(w0.durability, 0)
+    require(fenced == 1 and doubled == 0 and added == 0,
+            f"failover (c): the zombie's append was not refused with zero bytes "
+            f"({fenced}, {doubled}, {added})")
+    rec["zombie"] = {"fenced": bool(fenced), "double_applied_ops": doubled, "bytes": added}
+
+    # The survivors serve on, spliced tenants included: no novel signature.
+    kernels.reset_launch_counts()
+    rc0 = health.compile_summary()["recompiles"]
+    serve_ms = []
+    for _ in range(FO_FULL["serve"]):
+        for wid in ("w1", "w2"):
+            t0 = time.perf_counter_ns()
+            fo_full_wave(workers[wid], rng, wave, now)
+            torch_sync(device)()
+            serve_ms.append((time.perf_counter_ns() - t0) / 1e6)
+        wave += 1
+        now += 1.0
+    rec["serve_window"] = kernels.launch_counts()
+    rec["serve_novel_signatures"] = health.compile_summary()["recompiles"] - rc0
+    rec["serve_wave_ms"] = serve_ms
+    require(rec["serve_novel_signatures"] == 0,
+            f"failover (c): the survivors met {rec['serve_novel_signatures']} novel "
+            f"signatures after the splice")
+
+    # One planned migration of a survivor's own tenant: zero replay, the
+    # tenant unchanged.
+    reb = RebalanceController(om, ctl)
+    w1, w2 = workers["w1"], workers["w2"]
+    w1.arena.sync()
+    before = fo_fingerprint(w1.arena.tenants[w1.slot_of[2]])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter_ns()
+    mig = reb.migrate(2, "w2", now=now)
+    rec["migrate_ms"] = (time.perf_counter_ns() - t0) / 1e6
+    rec["migrate_window"] = kernels.launch_counts()
+    w2.arena.sync()
+    diff = same_fingerprint(fo_fingerprint(w2.arena.tenants[w2.slot_of[2]]), before)
+    require(mig["status"] == "committed" and mig["replayed_ops"] == 0 and diff is None,
+            f"failover (c): the planned migration: {mig['status']}, replayed "
+            f"{mig.get('replayed_ops')}, differs in {diff}")
+    rec["migration"] = {"status": mig["status"], "replayed_ops": mig["replayed_ops"],
+                        "steps": mig["steps"], "epoch": mig["epoch"]}
+    rec["ownership_digest"] = om.transition_digest()
+    rec["owners"] = om.summary()["owners"]
+    for mw in workers.values():
+        mw.durability.close()
+    return rec
+
+
+def torch_sync(device):
+    """A callable that waits for `device`'s queued work (a no-op on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
+
+
+def failover_processes(device, workdir: str) -> dict:
+    """Part (d): durable worker processes. d0 (2 tenants) is drained by
+    SIGTERM: its DRAINED marker's `wal_seq` is each tenant's recovered
+    watermark and an in-process adopter replays nothing. d1 (2 tenants,
+    provisioned with an empty checkpoint per tenant before it starts) is
+    SIGKILLed; the lease plane walks it to DEAD; a `FailoverController`
+    recovers its tenants into an in-process survivor on `device`; a
+    service whose observatory carries the controllers answers
+    `/fleet/{ownership,failover,rebalance}` and `POST /fleet/rebalance`
+    (a dry run, then an execution onto a second survivor); a restart of
+    d1 at its stale epoch refuses at `adopt`. Every process exits."""
+    from pathlib import Path
+
+    from hypervisor_tpu_torch import Hypervisor, kernels
+    from hypervisor_tpu_torch.api import HypervisorHTTPServer, HypervisorService
+    from hypervisor_tpu_torch.fleet import (
+        DEAD,
+        FailoverController,
+        FleetObservatory,
+        FleetRegistry,
+        FleetSupervisor,
+        LeaseConfig,
+        ManagedWorker,
+        OwnershipMap,
+        RebalanceController,
+        WorkerDurability,
+        WorkerSpec,
+    )
+    from hypervisor_tpu_torch.fleet.worker import _small_capacity_config
+    from hypervisor_tpu_torch.resilience.recovery import recover_tenant
+    from hypervisor_tpu_torch.resilience.wal import scan
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tenancy import TenantArena
+
+    dev = "cuda" if str(device).startswith("cuda") else "cpu"
+    root = Path(workdir) / "procs"
+    cfg = _small_capacity_config()
+    # d1's tenants are provisioned durable from the start: an empty
+    # checkpoint each (the worker's fresh arena), so its WAL is the suffix.
+    prov = WorkerDurability(root, "d1", epoch=0, tenants=(2, 3)).adopt()
+    for t in (2, 3):
+        prov.checkpoint(HypervisorState(cfg, device=dev), t, step=0)
+    prov.close()
+    specs = [WorkerSpec(worker_id="d0", tenants=(0, 1), durability_root=str(root), device=dev),
+             WorkerSpec(worker_id="d1", tenants=(2, 3), durability_root=str(root), device=dev)]
+    sup = FleetSupervisor(specs, ready_timeout_s=300, log_dir=str(root / "logs"))
+    rec: dict = {"routes": {}}
+    server = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        rec["start_s"] = time.perf_counter() - t0
+        rec["worker_launches"] = {w: {k: n for k, n in sup.launch_counts(w).items() if n}
+                                  for w in ("d0", "d1")}
+        # d0: the graceful drain.
+        t0 = time.perf_counter()
+        marker = sup.drain("d0")
+        rec["drain_s"] = time.perf_counter() - t0
+        require(marker is not None and set(marker["tenants"]) == {"0", "1"},
+                f"failover (d): d0's DRAINED marker: {marker}")
+        kernels.reset_launch_counts()
+        adopted = {}
+        for t in (0, 1):
+            _, report = recover_tenant(root / "d0" / "epoch_0", t, config=cfg, device=device)
+            adopted[t] = {"wal_seq": marker["tenants"][str(t)]["wal_seq"],
+                          "watermark": report["wal_watermark_seq"],
+                          "replayed": report["wal_records_replayed"]}
+            require(report["wal_records_replayed"] == 0
+                    and report["wal_watermark_seq"] == adopted[t]["wal_seq"] > 0,
+                    f"failover (d): d0's tenant {t} adopter: {adopted[t]}")
+        rec["drain_adopters"] = adopted
+        rec["adopt_window"] = kernels.launch_counts()
+
+        # d1: SIGKILL, conviction, failover into survivors on the card.
+        lease = LeaseConfig(**FO_PROC_LEASE)
+        reg = FleetRegistry(lease, seed=FLEET_SEED)
+        reg.register("d1", 0.0)
+        reg.register("s0", 0.0)
+        for k in (1.0, 2.0):
+            reg.heartbeat("d1", k)
+            reg.heartbeat("s0", k)
+            reg.evaluate(k)
+        committed = {t: len(scan(root / "d1" / "epoch_0" / f"tenant_{t}" / "wal.log").committed)
+                     for t in (2, 3)}
+        sup.kill("d1")
+        rec["killed_alive"] = sup.alive("d1")
+        now = 3.0
+        while reg.state_of("d1") != DEAD:
+            reg.heartbeat("s0", now)
+            reg.evaluate(now)
+            now += 1.0
+            require(now < 20, "failover (d): the lease plane never convicted d1")
+        om = OwnershipMap(seed=FLEET_SEED)
+        dead = ManagedWorker("d1", None, WorkerDurability(root, "d1", epoch=0, tenants=(2, 3)),
+                             {2: 0, 3: 1}, [])
+        survivors = {}
+        # s1 joins after the failover, so it adopts at the fleet's new epoch.
+        for wid, n_slots, epoch in (("s0", 2, 0), ("s1", 2, 1)):
+            dur = WorkerDurability(root, wid, epoch=epoch, tenants=()).adopt()
+            survivors[wid] = ManagedWorker(wid, TenantArena(n_slots, cfg, device=device), dur,
+                                           {}, list(range(n_slots)))
+        obs = FleetObservatory({}, registry=reg)
+        ctl = FailoverController(om, config=cfg, observatory=obs)
+        reb = RebalanceController(om, ctl)
+        obs.ownership, obs.failover, obs.rebalance = om, ctl, reb
+        ctl.register(dead, now=0.0)
+        # s1 joins later: the failover lands on s0 alone, and the plan
+        # then levels s0 against s1.
+        ctl.register(survivors["s0"], now=0.0)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fo_report = ctl.failover("d1", now=now)
+        rec["failover_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["failover_window"] = kernels.launch_counts()
+        require(fo_report["replayed_ops"] == committed[2] + committed[3] > 0,
+                f"failover (d): replayed {fo_report['replayed_ops']} of {committed} records")
+        rec["failover"] = {"replayed_ops": fo_report["replayed_ops"], "committed": committed,
+                           "survivors": fo_report["survivors"], "epoch": fo_report["epoch"]}
+        ctl.register(survivors["s1"], now=now)
+        digest = om.transition_digest()
+        svc = HypervisorService(hypervisor=Hypervisor(device=device))
+        svc.fleet = obs
+        server = HypervisorHTTPServer(svc, port=0).start()
+        for label, method, path, body in (
+                ("ownership", "GET", "/fleet/ownership", None),
+                ("failover", "GET", "/fleet/failover", None),
+                ("rebalance", "GET", "/fleet/rebalance", None),
+                ("dry_run", "POST", "/fleet/rebalance", {"now": now}),
+                ("execute", "POST", "/fleet/rebalance", {"now": now + 1.0, "execute": True})):
+            if label == "execute":
+                kernels.reset_launch_counts()
+            status, doc, ms = fleet_http(server.port, method, path, body)
+            rec["routes"][label] = {"status": status, "ms": ms, "body": doc}
+        rec["execute_window"] = kernels.launch_counts()
+        routes = rec["routes"]
+        require(all(r["status"] == 200 for r in routes.values()),
+                f"failover (d): a route failed: {({k: r['status'] for k, r in routes.items()})}")
+        require(routes["ownership"]["body"]["transition_digest"] == digest
+                and routes["failover"]["body"]["reassignment_count"] == 1
+                and routes["dry_run"]["body"]["executed"] is False
+                and len(routes["dry_run"]["body"]["plan"]["proposals"]) == 1
+                and routes["execute"]["body"]["executed"] is True
+                and [r["status"] for r in routes["execute"]["body"]["results"]] == ["committed"]
+                and routes["execute"]["body"]["results"][0]["replayed_ops"] == 0,
+                f"failover (d): the fleet routes: {json.dumps(routes)[:600]}")
+        rec["owners"] = om.summary()["owners"]
+        # A restart of d1 at its stale epoch refuses at adopt.
+        stale = FleetSupervisor([specs[1]], ready_timeout_s=300, log_dir=str(root / "stale"))
+        t0 = time.perf_counter()
+        try:
+            stale.start()
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        rec["stale_restart_s"] = time.perf_counter() - t0
+        err = (root / "stale" / "d1.err").read_text()
+        require(refused is not None and "FencingError" in err and not stale.alive("d1"),
+                f"failover (d): the stale restart of d1 was not refused at adopt: {refused}")
+        rec["stale_restart"] = err.strip().splitlines()[-1][:200]
+        for mw in survivors.values():
+            mw.durability.close()
+    finally:
+        if server is not None:
+            server.stop()
+        sup.stop()
+    rec["alive_after_stop"] = {w: sup.alive(w) for w in ("d0", "d1")}
+    rec["exit_codes"] = {w: sup.workers[w]["proc"].returncode for w in ("d0", "d1")}
+    require(not any(rec["alive_after_stop"].values()),
+            f"failover (d): a worker still runs: {rec['alive_after_stop']}")
+    return rec
+
+
+def run_failover(device, workdir: str) -> dict:
+    """Phase failover, parts (a)-(d), each in its own launch window."""
+    from pathlib import Path
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.testing.fleet_drills import failover_drill, fleet_soak
+
+    repo = Path(__file__).resolve().parent
+    rows = {name: json.loads((repo / name).read_text()) for name in
+            ("BENCH_r20.json", "BENCH_r21.json")}
+    rec: dict = {"windows": {}}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    drill = failover_drill(20, quick=True, device=device)
+    rec["drill_s"] = time.perf_counter() - t0
+    rec["windows"]["drill"] = kernels.launch_counts()
+    for name, doc in rows.items():
+        want = doc["failover"]
+        diff = [k for k in FAILOVER_ROW_KEYS if drill[k] != want[k]]
+        require(not diff, f"failover (a): the drill differs from {name} in {diff}: "
+                          f"{ {k: (drill[k], want[k]) for k in diff} }")
+    require(drill["ownership_digest"] == FAILOVER_DIGEST and drill["zombie_bytes_written"] == 0,
+            f"failover (a): digest {drill['ownership_digest']}")
+    rec["drill"] = drill
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    soak = fleet_soak(21, quick=True, device=device)
+    rec["soak_s"] = time.perf_counter() - t0
+    rec["windows"]["soak"] = kernels.launch_counts()
+    want = rows["BENCH_r21.json"]["fleet_soak"]
+    diff = [k for k in SOAK_ROW_KEYS if soak[k] != want[k]]
+    require(not diff, f"failover (b): the soak differs from BENCH_r21.json in {diff}: "
+                      f"{ {k: (soak[k], want[k]) for k in diff} }")
+    require(soak["ownership_digest"] == SOAK_DIGEST and soak["zombie_bytes_written"] == 0,
+            f"failover (b): digest {soak['ownership_digest']}")
+    rec["soak"] = soak
+    t0 = time.perf_counter()
+    rec["full"] = failover_full_width(device, workdir)
+    rec["full_s"] = time.perf_counter() - t0
+    for part in ("waves", "absorb", "serve", "migrate"):
+        rec["windows"][f"full_{part}"] = rec["full"].pop(f"{part}_window")
+    t0 = time.perf_counter()
+    rec["procs"] = failover_processes(device, workdir)
+    rec["procs_s"] = time.perf_counter() - t0
+    for part in ("adopt", "failover", "execute"):
+        rec["windows"][f"procs_{part}"] = rec["procs"].pop(f"{part}_window")
+    return rec
+
+
+def check_failover(rec: dict, on_card: bool) -> dict:
+    """The launch requirements of phase failover (on the card: the CPU
+    launches nothing), and the window `main` merges into the kernel
+    summary."""
+    windows = {k: {n: c for n, c in w.items() if c} for k, w in rec["windows"].items()}
+    workers = rec["procs"]["worker_launches"]
+    if on_card:
+        for part in ("drill", "soak", "full_waves", "full_serve"):
+            require(all(windows[part].get(k) for k in TENANT_WAVE_KERNELS),
+                    f"failover: window {part} must launch the tenant forms and B3: "
+                    f"{windows[part]}")
+        # A replay runs the journaled waves through the solo kernels.
+        for part in ("drill", "soak", "full_absorb", "procs_failover"):
+            require(all(windows[part].get(k) for k in REPLAY_KERNELS),
+                    f"failover: window {part} must launch the replay's kernels: {windows[part]}")
+        for w, counts in workers.items():
+            require(all(counts.get(k) for k in TENANT_WAVE_KERNELS),
+                    f"failover: worker {w} must launch the tenant forms and B3: {counts}")
+    total: dict = {}
+    for counts in list(rec["windows"].values()) + list(workers.values()):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return {"windows": windows, "worker_launches": workers, "window": total}
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -6542,6 +7206,49 @@ def main(argv=None) -> int:
          clock="host perf_counter: start = both workers READY and answering /health; "
                "drain = one FleetObservatory.drain of both workers; route = one request over "
                "the stdlib transport")
+
+    def full_window(counts: dict) -> dict:
+        return {k: counts.get(k, 0) for k in kernels.launch_counts()}
+
+    # ── 20. pipeline: the reference's headline unit on the card ─────────
+    t0 = time.perf_counter()
+    pipe_rec = run_pipeline_phase(dev, time_device)
+    pipe_s = time.perf_counter() - t0
+    windows["pipeline"] = full_window(pipe_rec["cases"]["bench"]["window"])
+    emit("pipeline", seconds=pipe_s, sessions=PIPE_S, deltas=PIPE_T, cases=pipe_rec["cases"],
+         p50_ms=pipe_rec["p50_ms"], p95_ms=pipe_rec["p95_ms"],
+         us_per_session_p50=pipe_rec["us_per_session_p50"], device_ms=pipe_rec["device_ms"],
+         iters=PIPE_ITERS, profile=pipe_rec["profile"], nvidia_smi=smi,
+         clock="p50/p95: host perf_counter around one call ending in torch.cuda.synchronize(); "
+               "device_ms: CUDA events behind a queued busy-wait; idle share: torch.profiler "
+               "over three calls")
+
+    # ── 21. failover: the fleet's second half on the card ───────────────
+    fo_dir = tempfile.mkdtemp(prefix="hv_failover_")
+    try:
+        t0 = time.perf_counter()
+        fo = run_failover(dev, fo_dir)
+        fo_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(fo_dir, ignore_errors=True)
+    fo_summary = check_failover(fo, on_card=True)
+    windows["failover"] = full_window(fo_summary["window"])
+    drill, soak, full, procs = fo["drill"], fo["soak"], fo["full"], fo["procs"]
+    drill_walls, soak_walls = drill["post_splice_walls_ms"], soak["round_walls_ms"]
+    emit("failover", seconds=fo_s, part_seconds={k: fo[f"{k}_s"] for k in (
+             "drill", "soak", "full", "procs")},
+         drill={k: v for k, v in drill.items() if k != "post_splice_walls_ms"},
+         drill_post_splice_ms={"p50": float(np.percentile(drill_walls, 50)),
+                               "p99": float(np.percentile(drill_walls, 99))},
+         soak={k: v for k, v in soak.items() if k != "round_walls_ms"},
+         soak_round_ms={"p50": float(np.percentile(soak_walls, 50)),
+                        "p99": float(np.percentile(soak_walls, 99))},
+         full=full, procs={k: v for k, v in procs.items() if k != "routes"},
+         routes={k: {"status": r["status"], "ms": r["ms"]} for k, r in procs["routes"].items()},
+         windows=fo_summary["windows"], worker_launches=fo_summary["worker_launches"],
+         nvidia_smi=smi,
+         clock="host perf_counter; the drills' walls around calls whose lanes are read back to "
+               "the host; absorb split by recover's stages, each ended by a synchronize")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

@@ -1,5 +1,5 @@
 """Fleet observatory: merged cross-process drains, stitched traces,
-and a deterministic liveness plane ahead of the shard-out.
+a deterministic liveness plane, and durable reassignment.
 
 Every plane below the fleet — metrics, TraceLog, SLO burn, roofline,
 autopilot ledger — is host-singular. The fleet adds:
@@ -19,11 +19,19 @@ autopilot ledger — is host-singular. The fleet adds:
 * `trace` — cross-process trace stitching: per-worker Chrome/OTLP
   fragments for one `CausalTraceId` merged into one timeline with
   worker lanes.
-
-The reassignment half — `failover` (durable ownership namespaces, the
-journaled `OwnershipMap`, the `FailoverController`) and `rebalance`
-(planned zero-loss migration) — arrives with a later slice of the port;
-its names refuse here with a message that says so.
+* `failover` — the REASSIGN half: per-worker durable ownership
+  namespaces (`WorkerDurability`, fenced WAL + watermarked per-tenant
+  checkpoints under `<root>/<worker>/epoch_<E>/tenant_<t>`), the
+  journaled `OwnershipMap`, and the `FailoverController` that recovers
+  a convicted-dead worker's tenants from durable state onto a
+  survivor's torch device, splices them into its arena with no novel
+  signature, and fences the zombie at the bumped epoch.
+* `rebalance` — PLANNED zero-loss migration on the same splice path:
+  seven durable protocol steps (journaled intent, sealed + drained
+  source, final checkpoint at the WAL tip, per-tenant fence,
+  destination adoption, atomic commit), a deterministic deficit-aware
+  placement policy, and failover-wins race resolution — a crash at any
+  boundary degrades into the proven failover recovery.
 """
 
 from hypervisor_tpu_torch.fleet.drain import (
@@ -42,6 +50,21 @@ from hypervisor_tpu_torch.fleet.registry import (
     LeaseConfig,
     LeaseTransition,
 )
+from hypervisor_tpu_torch.fleet.failover import (
+    FailoverController,
+    FailoverError,
+    FencedWal,
+    FencingError,
+    ManagedWorker,
+    OwnershipMap,
+    OwnershipTransition,
+    WorkerDurability,
+)
+from hypervisor_tpu_torch.fleet.rebalance import (
+    PROTOCOL_STEPS,
+    MigrationError,
+    RebalanceController,
+)
 from hypervisor_tpu_torch.fleet.trace import stitch_chrome, stitch_otlp
 from hypervisor_tpu_torch.fleet.worker import FleetSupervisor, WorkerSpec
 
@@ -49,13 +72,24 @@ __all__ = [
     "ALIVE",
     "DEAD",
     "SUSPECTED",
+    "FailoverController",
+    "FailoverError",
+    "FencedWal",
+    "FencingError",
     "FleetObservatory",
     "FleetRegistry",
     "FleetSnapshot",
     "FleetSupervisor",
     "LeaseConfig",
     "LeaseTransition",
+    "ManagedWorker",
+    "MigrationError",
+    "OwnershipMap",
+    "OwnershipTransition",
+    "PROTOCOL_STEPS",
+    "RebalanceController",
     "WorkerClient",
+    "WorkerDurability",
     "WorkerSpec",
     "merge_expositions",
     "sample_series_count",
@@ -63,29 +97,3 @@ __all__ = [
     "stitch_otlp",
     "worker_label_coverage",
 ]
-
-#: The reference's names that come with `fleet/failover` and
-#: `fleet/rebalance`, a later slice of the port.
-_LATER = {
-    "FailoverController": "failover",
-    "FailoverError": "failover",
-    "FencedWal": "failover",
-    "FencingError": "failover",
-    "ManagedWorker": "failover",
-    "OwnershipMap": "failover",
-    "OwnershipTransition": "failover",
-    "WorkerDurability": "failover",
-    "PROTOCOL_STEPS": "rebalance",
-    "MigrationError": "rebalance",
-    "RebalanceController": "rebalance",
-}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        from hypervisor_tpu_torch.core import _later
-
-        raise _later(
-            f"hypervisor_tpu_torch.fleet.{name}", f"fleet/{_LATER[name]}, ROADMAP A"
-        )
-    raise AttributeError(name)

@@ -24,9 +24,11 @@ start CUDA never prints its READY line, and the supervisor's ready
 timeout fails loudly. On SIGUSR1 a worker prints one
 `HV_WORKER_LAUNCHES={json}` line, its process's kernel launch counts
 (`kernels.launch_counts()`); `FleetSupervisor.launch_counts` reads it, so
-a caller can show which kernels the workers ran. Durable ownership
-(`durability_root`) arrives with `fleet/failover`, a later slice of the
-port: a spec that sets it is refused before any process starts.
+a caller can show which kernels the workers ran. A spec with a
+`durability_root` adopts its `fleet.failover.WorkerDurability` namespace
+before serving anything, journals each tenant into its fenced WAL there,
+and drains gracefully on SIGTERM: the arena synced, each WAL flushed, a
+final watermarked checkpoint per tenant, then the DRAINED line.
 """
 
 from __future__ import annotations
@@ -64,9 +66,14 @@ class WorkerSpec:
     #: READY line — warmup compiles land pre-readiness, so post-ready
     #: recompile accounting is clean.
     warm_rounds: int = 2
-    #: Durable ownership root (the fleet.failover layout). Empty = no
-    #: durability: the detection-only drill. A non-empty root is refused
-    #: until the port brings `fleet/failover`.
+    #: Durable ownership root (fleet.failover layout). Empty = no
+    #: durability: the detection-only drill runs unchanged.
+    #: When set, the worker adopts
+    #: `<root>/<worker_id>/epoch_<epoch>/tenant_<t>/` at startup —
+    #: refusing loudly if the directory already carries a newer epoch —
+    #: journals every tenant's waves into its fenced WAL there, and on
+    #: SIGTERM drains gracefully (flush + final checkpoint + DRAINED
+    #: marker + exit 0).
     durability_root: str = ""
     #: Fencing epoch this incarnation writes at (fleet.failover's).
     epoch: int = 0
@@ -108,17 +115,6 @@ def _small_capacity_config():
     ))
 
 
-def _refuse_durability(spec: WorkerSpec) -> None:
-    """Durable ownership needs `fleet.failover.WorkerDurability`."""
-    if spec.durability_root:
-        from hypervisor_tpu_torch.core import _later
-
-        raise _later(
-            f"worker {spec.worker_id!r}: durable ownership (durability_root)",
-            "fleet/failover, ROADMAP A",
-        )
-
-
 def _make_service(device):
     """A `HypervisorService` on `device` whose `/metrics` appends the
     attached arena's tenant-labeled exposition (headers once, from the
@@ -157,8 +153,9 @@ def run_worker(spec: WorkerSpec) -> None:
     """
     from hypervisor_tpu_torch.api.server import HypervisorHTTPServer
 
-    _refuse_durability(spec)
     service = _make_service(spec.device)
+    durability = None
+    arena = None
     if spec.wants_arena:
         from hypervisor_tpu_torch.serving import ServingConfig
         from hypervisor_tpu_torch.tenancy import (
@@ -170,6 +167,17 @@ def run_worker(spec: WorkerSpec) -> None:
         arena = TenantArena(
             len(spec.tenants), _small_capacity_config(), device=spec.device
         )
+        if spec.durability_root:
+            from hypervisor_tpu_torch.fleet.failover import WorkerDurability
+
+            # Adopt BEFORE serving anything: a zombie restarting with a
+            # stale spec must die here, not at its first overwrite.
+            durability = WorkerDurability(
+                spec.durability_root, spec.worker_id,
+                epoch=spec.epoch, tenants=spec.tenants,
+            ).adopt()
+            for slot, tenant in enumerate(spec.tenants):
+                arena.tenants[slot].journal = durability.wal(tenant)
         front = TenantFrontDoor(arena, ServingConfig(buckets=(4, 8)))
         sched = TenantWaveScheduler(front)
         sched.warm(now=0.0)
@@ -208,11 +216,12 @@ def run_worker(spec: WorkerSpec) -> None:
     }
     print(READY_MARKER + json.dumps(ready, sort_keys=True), flush=True)
 
-    stop = {"flag": False}
+    stop = {"flag": False, "drain": False}
 
     def _term(signum, frame):  # pragma: no cover — signal path
-        # With no durability attached, SIGTERM and SIGINT are both a
-        # plain stop (the graceful drain comes with `fleet/failover`).
+        # SIGTERM is the GRACEFUL path: flush + final checkpoint +
+        # DRAINED marker + exit 0. SIGINT remains a plain stop.
+        stop["drain"] = stop["drain"] or signum == signal.SIGTERM
         stop["flag"] = True
 
     signal.signal(signal.SIGTERM, _term)
@@ -220,6 +229,26 @@ def run_worker(spec: WorkerSpec) -> None:
     while not stop["flag"]:
         time.sleep(0.05)
     server.stop()
+    if stop["drain"] and durability is not None:
+        # Graceful handoff: the arena synced before any host copy, every
+        # tenant's WAL flushed, a final watermarked checkpoint published
+        # at the WAL head, so the adopter's recovery replays ZERO records.
+        arena.sync()
+        drained = {}
+        for slot, tenant in enumerate(spec.tenants):
+            st = arena.tenants[slot]
+            if st.journal is not None:
+                st.journal.flush()
+            durability.checkpoint(st, tenant)
+            drained[str(tenant)] = {
+                "wal_seq": st.journal.last_seq if st.journal else 0,
+            }
+        durability.close()
+        print(DRAINED_MARKER + json.dumps({
+            "worker_id": spec.worker_id,
+            "epoch": spec.epoch,
+            "tenants": drained,
+        }, sort_keys=True), flush=True)
 
 
 class FleetSupervisor:
@@ -256,8 +285,6 @@ class FleetSupervisor:
     # ── lifecycle ────────────────────────────────────────────────────
 
     def start(self) -> "FleetSupervisor":
-        for spec in self.specs:
-            _refuse_durability(spec)
         for spec in self.specs:
             env = dict(os.environ)
             env.update(dict(spec.env))

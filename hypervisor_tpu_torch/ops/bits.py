@@ -28,7 +28,12 @@ def matrix_bits_valid(
     against `frm`); False for any out-of-range code."""
     lo, hi, n_rows, n_cols = packed
     f = frm.to(torch.int64)
-    t = torch.as_tensor(to, device=f.device).to(torch.int64)
+    # A code is filled on the device: a host scalar copied to the card
+    # would synchronise the stream.
+    if isinstance(to, (int, np.integer)):
+        t = torch.full((), int(to), dtype=torch.int64, device=f.device)
+    else:
+        t = torch.as_tensor(to, device=f.device).to(torch.int64)
     in_range = (f >= 0) & (f < n_rows) & (t >= 0) & (t < n_cols)
     idx = f.clamp(0, n_rows - 1) * n_cols + t.clamp(0, n_cols - 1)
     word = torch.where(idx < 32, lo, hi)

@@ -39,6 +39,13 @@ the tallies, the gauges and the sanitizer are torch ops over the
 `[T, ...]` tensors. Tenant t's slice of every table, ring and metrics
 row ends exactly as its own solo wave would leave it with
 `unique_sessions=False` and that range.
+
+`governance_pipeline` is the reference's headline unit
+(`hypervisor_tpu.ops.pipeline.governance_pipeline`): S independent
+session lanes run admission, the session FSM walk, the audit (the delta
+chain, B2 on CUDA, and per-lane Merkle roots, B3 on CUDA), one saga step,
+terminate and archive, over tensors and not the tables, then the four
+consensus sums. It runs on the device its inputs lie on.
 """
 
 from __future__ import annotations
@@ -63,11 +70,132 @@ from hypervisor_tpu_torch.observability import profiling, tracing
 from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import gateway as gateway_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
-from hypervisor_tpu_torch.ops import saga_ops, tally
+from hypervisor_tpu_torch.ops import merkle as merkle_ops
+from hypervisor_tpu_torch.ops import rings as ring_ops
+from hypervisor_tpu_torch.ops import saga_ops, session_fsm, tally
 from hypervisor_tpu_torch.tables import metrics as metrics_ops
 from hypervisor_tpu_torch.tables.logs import DeltaLog, TraceLog
 from hypervisor_tpu_torch.tables.metrics import MetricsTable
 from hypervisor_tpu_torch.tables.state import AgentTable, SessionTable, VouchTable
+
+
+# Per-lane status codes for the batched pipeline (host may re-raise).
+PIPE_OK = 0
+PIPE_SIGMA_BELOW_MIN = 1
+PIPE_INACTIVE = 2
+
+
+class PipelineResult(NamedTuple):
+    """One governance tick's outputs, all [S]-shaped (roots [S, 8])."""
+
+    ring: torch.Tensor             # i8[S]  ring assigned at join
+    sigma_eff: torch.Tensor        # f32[S]
+    session_state: torch.Tensor    # i8[S]  == ARCHIVED for successful lanes
+    saga_step_state: torch.Tensor  # i8[S]  == COMMITTED
+    merkle_root: torch.Tensor      # int32[S, 8] u32 bits
+    status: torch.Tensor           # i8[S]  PIPE_* codes
+    consensus: torch.Tensor        # f32[4] global aggregates (see below)
+
+
+# Session FSM codes (models.SessionState order).
+S_CREATED, S_HANDSHAKING, S_ACTIVE, S_TERMINATING, S_ARCHIVED = range(5)
+
+
+def governance_pipeline(
+    sigma_raw: torch.Tensor,       # f32[S] joining agent's raw sigma
+    trustworthy: torch.Tensor,     # bool[S] history-verification outcome
+    min_sigma_eff: torch.Tensor,   # f32[S] per-session admission floor
+    delta_bodies: torch.Tensor,    # int32[T, S, BODY_WORDS] u32 bits, binary delta records
+    active: torch.Tensor,          # bool[S] lane mask
+    trust: TrustConfig = DEFAULT_CONFIG.trust,
+    use_pallas: bool | None = None,
+    contribution: torch.Tensor | None = None,  # f32[S] bonded sigma per lane
+    omega: torch.Tensor | float = 0.5,
+) -> PipelineResult:
+    """Run the full governance pipeline for S session lanes on the
+    inputs' device.
+
+    With `contribution` (each lane's bonded sigma from its vouchers),
+    admission applies sigma_eff = min(sigma_raw + omega * contribution,
+    1.0), the multiply and the add rounded apart. `use_pallas` is the
+    reference's parameter and is not read: CUDA tensors always take the
+    kernels (B2 for the chain, B3 for the roots), CPU tensors their plain
+    versions.
+
+    The four consensus values are f32 sums over the S lanes in XLA:CPU's
+    reduction order (`ops.liability._row_sum_xla_order`), so they are the
+    reference's bit for bit on every device.
+    """
+    f32_scalar = admission_ops.f32_scalar
+    dev = sigma_raw.device
+    s = sigma_raw.shape[0]
+    t = delta_bodies.shape[0]
+
+    # Constants are filled on the device: a host tensor copied to the card
+    # would wait for the stream and serialise the host with the device.
+    def i8(code: int) -> torch.Tensor:
+        return torch.full((), code, dtype=torch.int8, device=dev)
+
+    # ── 1. admission: vouched sigma -> ring; untrustworthy sandboxed ──
+    if contribution is None:
+        sigma_eff = sigma_raw
+    else:
+        sigma_eff = torch.minimum(
+            sigma_raw + f32_scalar(omega, dev) * contribution, f32_scalar(1.0, dev)
+        )
+    no_consensus = torch.zeros((), dtype=torch.bool, device=dev)
+    ring = ring_ops.compute_rings(sigma_eff, no_consensus, trust)
+    ring = torch.where(trustworthy, ring, i8(3))
+    # Non-sandbox joins must clear the session sigma floor.
+    sigma_bad = (sigma_eff < min_sigma_eff) & (ring != 3)
+    status = torch.where(
+        ~active, i8(PIPE_INACTIVE),
+        torch.where(sigma_bad, i8(PIPE_SIGMA_BELOW_MIN), i8(PIPE_OK)),
+    )
+    ok = status == PIPE_OK
+
+    # ── 2. session FSM forward walk, legality-gated per step ─────────
+    state = torch.full((s,), S_CREATED, dtype=torch.int8, device=dev)
+    state, _ = session_fsm.apply_session_transitions(state, S_HANDSHAKING, ok)
+    state, _ = session_fsm.apply_session_transitions(state, S_ACTIVE, ok)
+
+    # ── 3. audit: chain-hash T deltas per lane (B2), then Merkle roots (B3)
+    digests = merkle_ops.chain_digests(delta_bodies.contiguous())  # int32[T, S, 8]
+    p = 1 << max(0, (t - 1).bit_length())
+    leaves = torch.zeros((s, p, 8), dtype=torch.int32, device=dev)
+    leaves[:, :t] = digests.transpose(0, 1)
+    roots = merkle_ops.merkle_root_lanes(leaves, t)                # int32[S, 8]
+
+    # ── 4. saga: one noop step through the retry ladder ──────────────
+    step_state = torch.full((s,), saga_ops.STEP_PENDING, dtype=torch.int8, device=dev)
+    step_state, _ = saga_ops.execute_attempt(
+        step_state, ok, torch.zeros((s,), dtype=torch.int8, device=dev)
+    )
+
+    # ── 5. terminate + archive (legality-gated) ──────────────────────
+    state, _ = session_fsm.apply_session_transitions(state, S_TERMINATING, ok)
+    state, _ = session_fsm.apply_session_transitions(state, S_ARCHIVED, ok)
+
+    # ── 6. consensus aggregates. Root word 0 is u32: widened, masked,
+    # then rounded to f32 (nearest even), as the reference converts it.
+    okf = ok.to(torch.float32)
+    word0 = (roots[:, 0].to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
+    consensus = liability_ops._row_sum_xla_order(torch.stack([
+        okf,                                # sessions completed
+        sigma_eff * okf,                    # total sigma admitted
+        ring.to(torch.float32) * okf,       # ring mass
+        word0 * okf,                        # root checksum word
+    ]))
+
+    return PipelineResult(
+        ring=ring,
+        sigma_eff=sigma_eff,
+        session_state=state,
+        saga_step_state=step_state,
+        merkle_root=roots,
+        status=status,
+        consensus=consensus,
+    )
 
 
 class WaveResult(NamedTuple):

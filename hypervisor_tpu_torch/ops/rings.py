@@ -30,8 +30,8 @@ def compute_rings(
     r2 = float(np.float32(trust.ring2_threshold))
     ring = torch.where(
         sigma_eff > r2,
-        torch.tensor(2, dtype=torch.int8, device=sigma_eff.device),
-        torch.tensor(3, dtype=torch.int8, device=sigma_eff.device),
+        torch.full((), 2, dtype=torch.int8, device=sigma_eff.device),
+        torch.full((), 3, dtype=torch.int8, device=sigma_eff.device),
     )
     return torch.where((sigma_eff > r1) & consensus, torch.ones_like(ring), ring)
 

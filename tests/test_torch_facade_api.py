@@ -993,20 +993,21 @@ def test_readme_lifecycle_root_commits_and_verifies():
 
 
 def test_unported_entries_name_a_later_slice():
-    """The multi-device runtime (ROADMAP A8) and the fleet's failover and
-    rebalance planes refuse, naming their slice. The serving front door,
-    the autopilot and the fleet's first half are ported:
-    `tests/test_torch_serving.py`, `tests/test_torch_autopilot.py` and
-    `tests/test_torch_fleet.py` hold them to the reference; with none
+    """The multi-device runtime (ROADMAP A8) refuses, naming its slice.
+    The serving front door, the autopilot and the whole fleet are ported:
+    `tests/test_torch_serving.py`, `tests/test_torch_autopilot.py`,
+    `tests/test_torch_fleet.py`, `tests/test_torch_failover.py` and
+    `tests/test_torch_rebalance.py` hold them to the reference; with none
     attached, the API's fleet routes answer the reference's 503."""
     from hypervisor_tpu_torch import fleet
     from hypervisor_tpu_torch.api import ApiError, HypervisorService
+    from hypervisor_tpu_torch.fleet import failover
 
     hv = PORT.Hypervisor(device="cpu")
     with pytest.raises(NotImplementedError, match="a later slice of the port.*A8"):
         hv.consistency_runtime(mesh=None)
-    with pytest.raises(NotImplementedError, match="a later slice of the port.*fleet/failover"):
-        fleet.FailoverController
+    assert fleet.FailoverController is failover.FailoverController
+    assert fleet.FailoverController.__module__ == "hypervisor_tpu_torch.fleet.failover"
     svc = HypervisorService(hypervisor=hv)
     assert asyncio.run(svc.debug_autopilot()) == {"enabled": False}
     assert asyncio.run(svc.debug_fleet()) == {"enabled": False}

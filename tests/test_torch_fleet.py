@@ -13,8 +13,10 @@ The ten fleet routes with no fleet attached answer as the reference's,
 status for status and body for body, through the service and through the
 stdlib transport; with an observatory attached but no failover or
 rebalance plane, `/fleet/{ownership,failover,rebalance}` answer the
-reference's 503s. The one-real-worker end-to-end test runs a worker
-subprocess with `WorkerSpec(device="cpu")`.
+reference's 503s (with the planes attached: `tests/test_torch_failover.py`
+and `tests/test_torch_rebalance.py`). The one-real-worker end-to-end test
+runs a worker subprocess with `WorkerSpec(device="cpu")`, as does the
+durable worker's adoption.
 """
 
 from __future__ import annotations
@@ -321,20 +323,49 @@ class TestWorkerSpec:
         assert spec.base_url == "http://127.0.0.1:81"
 
     def test_durable_ownership_is_refused_before_any_process_starts(self, tmp_path):
-        sup = FleetSupervisor([WorkerSpec(worker_id="w0", durability_root=str(tmp_path),
-                                          device="cpu")])
-        with pytest.raises(NotImplementedError, match="later slice of the port.*fleet/failover"):
-            sup.start()
-        assert sup.workers == {}
+        """The name this test had while the port refused `durability_root`.
+        A durable worker (a CPU subprocess) adopts its namespace before it
+        serves: its manifest names its tenants and each tenant journals
+        into its fenced WAL; a restart at a stale epoch (below the fence
+        floor a failover left) refuses at `adopt`, before its READY line,
+        and nothing is written into its old namespace."""
+        from hypervisor_tpu_torch.fleet.failover import WorkerDurability
+
+        spec = WorkerSpec(worker_id="w0", tenants=(0, 1), durability_root=str(tmp_path),
+                          device="cpu")
+        sup = FleetSupervisor([spec], log_dir=str(tmp_path / "logs"))
+        sup.start()
+        try:
+            epoch_dir = tmp_path / "w0" / "epoch_0"
+            manifest = json.loads((epoch_dir / "manifest.json").read_text())
+            assert manifest == {"epoch": 0, "tenants": [0, 1], "worker_id": "w0"}
+            sizes = {t: (epoch_dir / f"tenant_{t}" / "wal.log").stat().st_size for t in (0, 1)}
+            assert all(sizes.values())  # the warm rounds journaled
+        finally:
+            sup.stop()
+        WorkerDurability.write_fence(tmp_path, "w0", 1)
+        stale = FleetSupervisor([spec], ready_timeout_s=120, log_dir=str(tmp_path / "logs"))
+        with pytest.raises(RuntimeError, match="never printed its READY line"):
+            stale.start()
+        assert not stale.alive("w0")
+        assert "FencingError" in (tmp_path / "logs" / "w0.err").read_text()
+        assert {t: (epoch_dir / f"tenant_{t}" / "wal.log").stat().st_size
+                for t in (0, 1)} == sizes
 
     def test_later_names_refuse_naming_their_slice(self):
-        for name, mod in (("FailoverController", "failover"), ("WorkerDurability", "failover"),
-                          ("RebalanceController", "rebalance"), ("PROTOCOL_STEPS", "rebalance")):
+        """The name this test had while the failover and rebalance names
+        refused: each now resolves to the port's class, and the package
+        exports the reference's `__all__`."""
+        from hypervisor_tpu_torch.fleet import failover, rebalance
+
+        for name, mod in (("FailoverController", failover), ("WorkerDurability", failover),
+                          ("OwnershipMap", failover), ("FencedWal", failover),
+                          ("RebalanceController", rebalance), ("PROTOCOL_STEPS", rebalance),
+                          ("MigrationError", rebalance)):
             assert name in REF_FLEET.__all__
-            with pytest.raises(NotImplementedError, match=f"later slice.*fleet/{mod}"):
-                getattr(PORT_FLEET, name)
-        assert set(PORT_FLEET.__all__) < set(REF_FLEET.__all__)
-        assert set(REF_FLEET.__all__) - set(PORT_FLEET.__all__) == set(PORT_FLEET._LATER)
+            assert getattr(PORT_FLEET, name) is getattr(mod, name)
+        assert PORT_FLEET.__all__ == REF_FLEET.__all__
+        assert not hasattr(PORT_FLEET, "_LATER")
 
 
 # ── the ten fleet routes ─────────────────────────────────────────────

@@ -77,7 +77,7 @@ COPIES = (
     "utils/clock.py", "utils/status.py",
     "verification/__init__.py",
     "adversarial/__init__.py", "adversarial/scoring.py",
-    "fleet/registry.py", "fleet/trace.py",
+    "fleet/registry.py", "fleet/trace.py", "fleet/rebalance.py",
 )
 
 #: Modules of the facade's slice that differ from their counterpart, and why.
@@ -112,13 +112,11 @@ EXCEPTIONS = {
     "testing/scenarios.py": "`run_scenario`/`run_all` take `device=`; the docstring "
                             "names the port's card check, not the bench gates",
     "fleet/worker.py": "`WorkerSpec.device` (the card by default); the service and "
-                       "arena are built on it; no JAX platform or compile-cache "
-                       "environment; `durability_root` refused until fleet/failover "
-                       "is ported; `log_dir=` keeps each worker's stderr; SIGUSR1 "
-                       "prints the worker's kernel launch counts "
-                       "(`FleetSupervisor.launch_counts`)",
-    "fleet/__init__.py": "exports the ported modules' names; the failover and "
-                         "rebalance names refuse, naming the later slice",
+                       "arena are built on it, and a durable worker's arena too (its "
+                       "SIGTERM drain syncs the arena before the checkpoint's host "
+                       "copy); no JAX platform or compile-cache environment; "
+                       "`log_dir=` keeps each worker's stderr; SIGUSR1 prints the "
+                       "worker's kernel launch counts (`FleetSupervisor.launch_counts`)",
 }
 
 #: Copies with a few named edits: the reference's text with each `old`
@@ -132,6 +130,24 @@ EDITED_COPIES = {
                            ("# ── exposition merge (the PR 16 template, worker axis) ───────────────",
                             "# ── exposition merge (the tenant template, worker axis) ─────────────"),
                        ]),
+    "fleet/failover.py": ("`_absorb` recovers the tenant onto the target arena's own "
+                          "torch device; the docstrings leave out the reference's "
+                          "change-request number", [
+                              ("recover_tenant` — PR 4's restore sequence per tenant), "
+                              "splice it into",
+                              "recover_tenant` — the restore sequence per tenant), "
+                              "splice it into"),
+                              ("as tiebreak, per-tenant recovery is PR 4's deterministic "
+                               "restore",
+                               "as tiebreak, per-tenant recovery is the deterministic "
+                               "restore"),
+                              ("        # match the donor's checkpoint — restore validates).\n",
+                               "        # match the donor's checkpoint — restore validates). The state\n"
+                               "        # is recovered onto the target arena's own torch device.\n"),
+                              ("            source_epoch_dir, tenant, config=cfg\n        )",
+                               "            source_epoch_dir, tenant, config=cfg,\n"
+                               "            device=target.arena.device,\n        )"),
+                          ]),
 }
 
 #: Modules the port copies with a module docstring of its own, and why:
@@ -145,6 +161,9 @@ DOCSTRING_EDITS = {
                              "change-request numbers",
     "tenancy/__init__.py": "the docstring describes the port's tenant forms, "
                            "not the reference's TPU footprint",
+    "fleet/__init__.py": "the docstring names the torch device a worker is pinned "
+                         "to and leaves out the reference's round and change-request "
+                         "numbers",
 }
 
 #: Modules of the same packages ported by earlier slices (not copies).
@@ -186,6 +205,7 @@ def test_copied_modules_equal_the_reference():
     assert present == ({c for c in COPIES if c.split("/")[0] in packages}
                        | {e for e in EXCEPTIONS if e.split("/")[0] in packages}
                        | {e for e in EDITED_COPIES if e.split("/")[0] in packages}
+                       | {e for e in DOCSTRING_EDITS if e.split("/")[0] in packages}
                        | set(EARLIER))
 
 
