@@ -5444,6 +5444,440 @@ def check_failover(rec: dict, on_card: bool) -> dict:
     return {"windows": windows, "worker_launches": workers, "window": total}
 
 
+# ── phase mesh: the multi-device plane on a virtual mesh of the card ──
+
+#: The virtual meshes: 8 shards of one device, and a (2, 4) grid of them.
+MESH_SHARDS = 8
+MESH_GRID = (2, 4)
+#: The vouched joiners' edges sit on three edge shards (one edge each), so
+#: the contribution's psum adds partials from several shards.
+MESH_EDGE_SHARDS = (0, 3, 6)
+MESH_BOND = 0.10
+#: The 1-D wave's last `MESH_DOUBLED` lanes join the first sessions a
+#: second time (the ranked capacity path, with its all_gathers); the
+#: grid's wave is one join a session (the multislice contract).
+MESH_DOUBLED = 1_000
+MESH_TIMED, MESH_WARMUP, MESH_PROFILED = 20, 2, 3
+#: Consistency ticks: lanes over sessions of both modes.
+MESH_TICK_LANES, MESH_TICK_SESSIONS, MESH_TICKS = 10_240, 64, 2
+#: sharded_chain: 3 lanes of one long chain of 10,240 turns.
+MESH_CHAIN = dict(turns=10_240, lanes=3)
+#: Kernel launches one sharded wave makes: each shard's contribution, B2
+#: and B3.
+MESH_WAVE_KERNELS = ("contribution_toward", "chain_digests", "tree_roots")
+MESH_STATE_ATTRS = ("_slot_of_member", "_packed_bodies", "_pending_partials")
+
+
+def mesh_devices(device, grid=None):
+    """A virtual mesh of `device`: 8 shards, or the (2, 4) grid."""
+    import torch
+
+    from hypervisor_tpu_torch import parallel
+
+    if grid is None:
+        return parallel.make_mesh(devices=[torch.device(device)] * MESH_SHARDS)
+    return parallel.make_multislice_mesh(*grid, devices=[torch.device(device)] * MESH_SHARDS)
+
+
+def mesh_stage(device, on_mesh: bool, doubled: bool):
+    """A fresh state of `FACADE_CAPACITY` (no standing actors: the mesh
+    wave takes the top rows of each shard's region) with the wave's
+    10,000 sessions, every other one STRONG, and `N_VOUCHED` vouched
+    joiners, each with one edge (bond 0.10) on each of `MESH_EDGE_SHARDS`,
+    toward the row its lane takes on this path. Returns (state, args)."""
+    import torch
+
+    from hypervisor_tpu_torch.config import HypervisorConfig, TableCapacity
+    from hypervisor_tpu_torch.models import SessionConfig
+    from hypervisor_tpu_torch.state import HypervisorState
+    from hypervisor_tpu_torch.tables.state import SI32_MODE
+
+    state = HypervisorState(HypervisorConfig(capacity=TableCapacity(**FACADE_CAPACITY)),
+                            device=device)
+    dev = state.device
+    rng = np.random.RandomState(SEED + 18)
+    slots = state.create_sessions_batch(
+        [f"mesh:s{i}" for i in range(N_SESSIONS)], SessionConfig(min_sigma_eff=0.0))
+    state.sessions.i32[torch.from_numpy(slots[::2].astype(np.int64)).to(dev), SI32_MODE] = 0
+    agent_sessions = np.asarray(slots, np.int32).copy()
+    if doubled:
+        agent_sessions[-MESH_DOUBLED:] = slots[:MESH_DOUBLED]
+    rows = (state._mesh_wave_slots(N_SESSIONS, MESH_SHARDS) if on_mesh
+            else np.arange(N_SESSIONS, dtype=np.int32))[:N_VOUCHED]
+    e_cap = state.vouches.voucher.shape[0]
+    v = state.vouches
+    for s in MESH_EDGE_SHARDS:
+        at = slice(s * e_cap // MESH_SHARDS, s * e_cap // MESH_SHARDS + N_VOUCHED)
+        v.voucher[at] = torch.arange(100, 100 + N_VOUCHED, dtype=torch.int32, device=dev)
+        v.vouchee[at] = torch.from_numpy(rows).to(dev)
+        v.session[at] = torch.from_numpy(agent_sessions[:N_VOUCHED]).to(dev)
+        v.bond[at] = MESH_BOND
+        v.active[at] = True
+    sigma = np.full(N_SESSIONS, 0.8, np.float32)
+    sigma[:N_VOUCHED] = 0.50
+    bodies = rng.randint(0, 2**32, (N_DELTAS, N_SESSIONS, 16), dtype=np.uint64).astype(np.uint32)
+    dids = [f"did:mesh:{i}" for i in range(N_SESSIONS)]
+    return state, (slots, dids, agent_sessions, sigma, bodies)
+
+
+def mesh_record(state, res) -> dict:
+    """One mesh wave's outputs, every table, the host indices it books and
+    the metrics mirror (stage wall times and compile counters apart)."""
+    out = {f: getattr(res, f).cpu().numpy().copy() for f in (
+        "status", "ring", "sigma_eff", "saga_step_state", "chain", "merkle_root", "fsm_error",
+        "released")}
+    tables = all_tables(state)
+    snap = obs_masked(state.metrics_snapshot())
+    return {"wave": out, "tables": tables, "metrics": snap,
+            "members": sorted(state._members),
+            "audit_rows": {k: list(v) for k, v in state._audit_rows.items()},
+            "seeds": {k: np.asarray(v).tolist() for k, v in state._chain_seed.items()}}
+
+
+@contextlib.contextmanager
+def roofline_off():
+    """`HV_ROOFLINE=0` for runs compared against each other: the roofline
+    observatory models each program's first dispatch in the process, so
+    only a process's first run would carry its gauges."""
+    saved = os.environ.get("HV_ROOFLINE")
+    os.environ["HV_ROOFLINE"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("HV_ROOFLINE")
+        else:
+            os.environ["HV_ROOFLINE"] = saved
+
+
+def run_mesh_wave(device, grid=None) -> tuple:
+    """The 1-D or the grid's mesh wave at full width on `device` (ids and
+    time made the same for every run). Returns (record, state)."""
+    clock = [1_000.0]
+    with manual_ids_and_time(clock), roofline_off():
+        state, args = mesh_stage(device, True, grid is None)
+        res = state.run_governance_wave(*args, now=2.0, mesh=mesh_devices(device, grid))
+        return mesh_record(state, res), state
+
+
+def mesh_vs_single(mesh_rec: dict, single_rec: dict, tag: str) -> None:
+    """The mesh wave against the single-device wave on the fields the
+    reference's mesh tests hold equal (agent rows differ by design)."""
+    for f in ("status", "ring", "sigma_eff", "saga_step_state", "chain", "merkle_root",
+              "fsm_error", "released"):
+        a, b = mesh_rec["wave"][f], single_rec["wave"][f]
+        require(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                f"mesh ({tag}): {f} differs from the single-device wave's")
+    for col in ("sessions.i32", "sessions.f32", "vouches.active", "delta_log.body",
+                "delta_log.digest", "delta_log.session", "delta_log.turn", "delta_log.cursor"):
+        require(mesh_rec["tables"][col].tobytes() == single_rec["tables"][col].tobytes(),
+                f"mesh ({tag}): {col} differs from the single-device wave's")
+    for key in ("members", "audit_rows", "seeds"):
+        require(mesh_rec[key] == single_rec[key],
+                f"mesh ({tag}): the host's {key} differ from the single-device wave's")
+    from hypervisor_tpu_torch.observability import metrics as mp
+
+    for h in (mp.WAVE_TICKS, mp.ADMITTED, mp.REFUSED, mp.SESSIONS_ARCHIVED, mp.BONDS_RELEASED,
+              mp.SAGA_STEPS_COMMITTED, mp.SAGA_STEPS_FAILED):
+        require(mesh_rec["metrics"]["counters"][h.index]
+                == single_rec["metrics"]["counters"][h.index],
+                f"mesh ({tag}): counter {h.name} differs from the single-device wave's")
+
+
+def mesh_snapshot(state) -> tuple:
+    """The state's device tables and host bookkeeping, to replay one
+    staged wave again (a wave terminates its sessions)."""
+    import copy
+
+    from hypervisor_tpu_torch import state as state_mod
+    from hypervisor_tpu_torch.tables.struct import clone
+
+    names = ("agents", "sessions", "vouches", "delta_log")
+    attrs = state_mod._HOST_ADOPT_ATTRS + MESH_STATE_ATTRS
+    return ({k: clone(getattr(state, k)) for k in names},
+            {a: copy.deepcopy(getattr(state, a)) for a in attrs})
+
+
+def mesh_restore(state, snap) -> None:
+    import copy
+
+    from hypervisor_tpu_torch.tables.struct import copy_into
+
+    tables, host = snap
+    for k, t in tables.items():
+        copy_into(getattr(state, k), t)
+    for a, v in host.items():
+        setattr(state, a, copy.deepcopy(v))
+
+
+def time_mesh_waves(device) -> dict:
+    """The 1-D mesh wave and the single-device facade wave, the same
+    staging (one state each, replayed from a snapshot between waves):
+    host p50/p95 of `MESH_TIMED` calls each, in turns, each ending in a
+    synchronize; the collectives' share of each mesh wave (CUDA events
+    and host time around every psum / all_gather); the device's idle
+    share under torch.profiler over `MESH_PROFILED` mesh waves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypervisor_tpu_torch.parallel import collectives as coll
+
+    mesh = mesh_devices(device)
+    staged = {}
+    for name, on_mesh in (("mesh", True), ("single", False)):
+        state, args = mesh_stage(device, on_mesh, True)
+        staged[name] = (state, args, mesh_snapshot(state))
+
+    def call(name):
+        state, args, _ = staged[name]
+        state.run_governance_wave(*args, now=2.0, mesh=mesh if name == "mesh" else None)
+
+    spans: list = []
+    real = {fn: getattr(coll, fn) for fn in ("psum", "all_gather")}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter_ns()
+            start.record()
+            out = real[fn](*a, **kw)
+            end.record()
+            spans.append((start, end, (time.perf_counter_ns() - t0) / 1e6))
+            return out
+        return wrapper
+
+    host = {"mesh": [], "single": []}
+    coll_ms = {"device": [], "host": [], "calls": []}
+    for i in range(MESH_WARMUP + MESH_TIMED):
+        for name in ("mesh", "single"):
+            state, _, snap = staged[name]
+            mesh_restore(state, snap)
+            torch.cuda.synchronize()
+            if name == "mesh":
+                spans.clear()
+                for fn in real:
+                    setattr(coll, fn, timed(fn))
+            try:
+                t0 = time.perf_counter_ns()
+                call(name)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter_ns() - t0) / 1e6
+            finally:
+                for fn, f in real.items():
+                    setattr(coll, fn, f)
+            if i >= MESH_WARMUP:
+                host[name].append(ms)
+                if name == "mesh":
+                    coll_ms["device"].append(sum(s.elapsed_time(e) for s, e, _ in spans))
+                    coll_ms["host"].append(sum(h for _, _, h in spans))
+                    coll_ms["calls"].append(len(spans))
+    # Each profiled wave in its own window, the restore before it outside.
+    state, _, snap = staged["mesh"]
+    walls, ops = [], []
+    for _ in range(MESH_PROFILED):
+        mesh_restore(state, snap)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter_ns()
+            call("mesh")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter_ns() - t0) / 1e6)
+        ops += [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(us for us, _, _ in ops) / 1e3
+    wall_ms = sum(walls)
+    out = {name: {"p50_ms": float(np.percentile(v, 50)), "p95_ms": float(np.percentile(v, 95)),
+                  "host_ms": v} for name, v in host.items()}
+    out["collectives"] = {
+        "device_ms_p50": float(np.percentile(coll_ms["device"], 50)),
+        "host_ms_p50": float(np.percentile(coll_ms["host"], 50)),
+        "calls_per_wave": coll_ms["calls"][0]}
+    out["profile"] = {
+        "waves": MESH_PROFILED, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": (1 - busy_ms / wall_ms) if wall_ms else None,
+        "n_device_ops": sum(n for _, _, n in ops),
+        "ours": {k: sum(n for _, name, n in ops if sub in name)
+                 for k, sub in OUR_KERNELS.items() if k in MESH_WAVE_KERNELS}}
+    return out
+
+
+def run_mesh_phase(device) -> dict:
+    """Phase mesh: the multi-device plane on virtual meshes of `device`.
+
+    (b) `run_governance_wave(mesh=)` at full width on the 8-shard mesh and
+    on the (2, 4) grid: each equal to the same run on an 8-shard CPU mesh
+    (every table, the host indices, the metrics mirror), to the
+    single-device wave on the card where the reference's mesh tests hold
+    them equal, and every root to hashlib's; (c) `check_actions_wave(mesh=)`
+    at `N_ACTIONS` against the single-device gateway; (d) a
+    `ConsistencyRuntime` through mixed ticks and a reconcile against the
+    all-STRONG run; (e) `sharded_slash` at `NORTH_STAR` against the
+    single-device cascade (B8); (f) `sharded_chain` against B2's single
+    chain and hashlib. The kernel window is (b)-(f); the timing follows."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.ops import liability
+    from hypervisor_tpu_torch.ops import merkle as merkle_ops
+    from hypervisor_tpu_torch.parallel import collectives as coll
+    from hypervisor_tpu_torch.runtime.consistency import ConsistencyRuntime
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    rec: dict = {"windows": {}}
+
+    def window(tag, fn, expected):
+        sync()
+        kernels.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {k: n for k, n in kernels.launch_counts().items() if n}
+        if on_card:
+            require(got == expected, f"mesh ({tag}): launches {got}, expected {expected}")
+        rec["windows"][tag] = got
+        return out
+
+    # (b) the mesh waves, each against the CPU mesh and the single device.
+    per_wave = {k: MESH_SHARDS for k in MESH_WAVE_KERNELS}
+    for tag, grid in (("1d", None), ("grid", MESH_GRID)):
+        card_rec, _ = window(f"wave_{tag}", lambda grid=grid: run_mesh_wave(device, grid),
+                             per_wave)
+        cpu_rec, _ = run_mesh_wave("cpu", grid)
+        diff = first_difference(f"mesh_{tag}", card_rec, cpu_rec)
+        require(diff is None, f"mesh ({tag}): the card's run differs from the CPU mesh's at "
+                              f"{diff}")
+        clock = [1_000.0]
+        with manual_ids_and_time(clock), roofline_off():
+            state, args = mesh_stage(device, False, grid is None)
+            single = mesh_record(state, state.run_governance_wave(*args, now=2.0))
+        mesh_vs_single(card_rec, single, tag)
+        roots = card_rec["wave"]["merkle_root"].view(np.uint32)
+        require(np.array_equal(roots, hashlib_roots(args[4])),
+                f"mesh ({tag}): a session's root differs from hashlib's")
+        status = card_rec["wave"]["status"]
+        rec[f"wave_{tag}"] = {
+            "status_counts": {int(c): int((status == c).sum()) for c in np.unique(status)},
+            "released": int(card_rec["wave"]["released"]),
+            "cpu_mesh": "identical", "single_device": "equal", "roots": "equal to hashlib"}
+        require(rec[f"wave_{tag}"]["released"] == N_VOUCHED * len(MESH_EDGE_SHARDS),
+                f"mesh ({tag}): every vouched edge must be released")
+
+    # (c) the sharded gateway at N_ACTIONS.
+    def gateway(mesh):
+        clock = [1_000.0]
+        with manual_ids_and_time(clock):
+            state = facade_state(device)
+            acts = facade_actions(state, np.random.RandomState(SEED + 19))
+            n = N_ACTIONS
+            gw = state.check_actions_wave(acts["slots"], acts["required_rings"],
+                                          np.zeros(n, bool), np.zeros(n, bool),
+                                          np.zeros(n, bool), np.zeros(n, bool), now=3.0,
+                                          mesh=mesh)
+            return ({f: np.asarray(getattr(gw, f).cpu() if torch.is_tensor(getattr(gw, f))
+                                   else getattr(gw, f)) for f in GATEWAY_LANES},
+                    all_tables(state)["agents.i32"], all_tables(state)["agents.f32"])
+
+    gw_mesh = window("gateway", lambda: gateway(mesh_devices(device)), {})
+    gw_single = gateway(None)
+    for f in GATEWAY_LANES:
+        require(gw_mesh[0][f].tobytes() == gw_single[0][f].tobytes(),
+                f"mesh (gateway): {f} differs from the single-device gateway's")
+    require(gw_mesh[1].tobytes() == gw_single[1].tobytes()
+            and gw_mesh[2].tobytes() == gw_single[2].tobytes(),
+            "mesh (gateway): the agent table differs from the single-device gateway's")
+    rec["gateway"] = {"actions": N_ACTIONS, "allowed": int((gw_mesh[0]["verdict"] == 0).sum()),
+                      "single_device": "equal"}
+
+    # (d) the consistency runtime: mixed ticks and a reconcile = all STRONG.
+    def consistency(mixed: bool):
+        from hypervisor_tpu_torch.config import HypervisorConfig, TableCapacity
+        from hypervisor_tpu_torch.models import ConsistencyMode, SessionConfig
+        from hypervisor_tpu_torch.state import HypervisorState
+
+        state = HypervisorState(HypervisorConfig(capacity=TableCapacity(
+            max_agents=1024, max_sessions=1024)), device=device)
+        rng = np.random.RandomState(SEED + 20)
+        modes = rng.randint(0, 2, MESH_TICK_SESSIONS)
+        if not mixed:
+            modes[:] = 1
+        slots = [state.create_session(f"cr:s{i}", SessionConfig(
+            consistency_mode=ConsistencyMode.STRONG if m else ConsistencyMode.EVENTUAL,
+            min_sigma_eff=0.0, max_participants=1 << 20)) for i, m in enumerate(modes)]
+        rt = ConsistencyRuntime(state, mesh_devices(device))
+        for t in range(MESH_TICKS):
+            lanes = np.asarray(slots, np.int32)[rng.randint(0, MESH_TICK_SESSIONS,
+                                                            MESH_TICK_LANES)]
+            bodies = rng.randint(0, 2**32, (N_DELTAS, MESH_TICK_LANES, 16),
+                                 dtype=np.uint64).astype(np.uint32)
+            rt.tick(lanes, rng.uniform(0.3, 1.0, MESH_TICK_LANES).astype(np.float32),
+                    rng.uniform(size=MESH_TICK_LANES) > 0.1, bodies)
+        pending = rt.has_pending
+        counts, sigma = rt.reconcile()
+        return state.sessions.i32.cpu().numpy().copy(), pending, counts
+
+    per_tick = {"chain_digests": MESH_SHARDS * MESH_TICKS, "tree_roots": MESH_SHARDS * MESH_TICKS}
+    mixed_tab, mixed_pending, mixed_counts = window("consistency", lambda: consistency(True),
+                                                    per_tick)
+    strong_tab, strong_pending, _ = consistency(False)
+    require(mixed_pending and not strong_pending,
+            "mesh (consistency): only the mixed run defers EVENTUAL partials")
+    require(np.array_equal(mixed_tab[:, 2], strong_tab[:, 2]),
+            "mesh (consistency): mixed ticks and a reconcile differ from all-STRONG")
+    rec["consistency"] = {"lanes": MESH_TICK_LANES, "sessions": MESH_TICK_SESSIONS,
+                          "ticks": MESH_TICKS, "eventual_reconciled": int(mixed_counts.sum()),
+                          "all_strong": "equal"}
+
+    # (e) the sharded cascade at NORTH_STAR's shape against B8.
+    rng = np.random.RandomState(SEED + 21)
+    v, sigma, first = slash_graph(rng, NORTH_STAR["agents"], NORTH_STAR["edges"],
+                                  NORTH_STAR["seeds"], NORTH_STAR["sigma"], 1, device)
+    sharded = window("slash", lambda: coll.sharded_slash(mesh_devices(device))(
+        v, sigma, first, 0, NORTH_STAR["omega"], 1.0), {})
+    single = liability.slash_cascade(v, sigma, first, 0, NORTH_STAR["omega"], 1.0)
+    for f in ("sigma", "slashed", "clipped", "wave_of"):
+        require(torch.equal(getattr(sharded, f), getattr(single, f)),
+                f"mesh (slash): {f} differs from the single-device cascade's")
+    require(torch.equal(sharded.vouch.active, single.vouch.active),
+            "mesh (slash): the released bonds differ from the single-device cascade's")
+    rec["slash"] = {"slashed": int(sharded.slashed.sum()), "clipped": int(sharded.clipped.sum()),
+                    "single_device": "equal"}
+
+    # (f) the turn-sharded chain against B2's one chain and hashlib.
+    rng = np.random.RandomState(SEED + 22)
+    t, lanes = MESH_CHAIN["turns"], MESH_CHAIN["lanes"]
+    bodies = rng.randint(0, 2**32, (t, lanes, 16), dtype=np.uint64).astype(np.uint32)
+    seed = rng.randint(0, 2**32, (lanes, 8), dtype=np.uint64).astype(np.uint32)
+    from hypervisor_tpu_torch import u32
+
+    bt, st = u32.from_numpy_u32(bodies, device), u32.from_numpy_u32(seed, device)
+    chained = window("chain", lambda: coll.sharded_chain(mesh_devices(device))(bt, st),
+                     {"chain_digests": MESH_SHARDS})
+    one = merkle_ops.chain_digests(bt, st)
+    require(torch.equal(chained, one), "mesh (chain): the sharded chain differs from B2's")
+    heads = u32.to_numpy_u32(chained[-1])
+    for lane in range(lanes):
+        parent = seed[lane].astype(">u4").tobytes()
+        for turn in range(t):
+            parent = hashlib.sha256(bodies[turn, lane].astype(">u4").tobytes() + parent).digest()
+        require(heads[lane].astype(">u4").tobytes() == parent,
+                f"mesh (chain): lane {lane}'s head differs from hashlib's")
+    rec["chain"] = {**MESH_CHAIN, "single_chain": "equal", "heads": "equal to hashlib"}
+
+    total: dict = {}
+    for counts in rec["windows"].values():
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    rec["window"] = total
+    if on_card:
+        rec["timing"] = time_mesh_waves(device)
+    return rec
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -7249,6 +7683,20 @@ def main(argv=None) -> int:
          nvidia_smi=smi,
          clock="host perf_counter; the drills' walls around calls whose lanes are read back to "
                "the host; absorb split by recover's stages, each ended by a synchronize")
+
+    # ── 22. mesh: the multi-device plane on virtual meshes of the card ──
+    t0 = time.perf_counter()
+    mesh_rec = run_mesh_phase(dev)
+    mesh_s = time.perf_counter() - t0
+    windows["mesh"] = full_window(mesh_rec["window"])
+    emit("mesh", seconds=mesh_s, shards=MESH_SHARDS, grid=list(MESH_GRID), sessions=N_SESSIONS,
+         vouched=N_VOUCHED, edge_shards=list(MESH_EDGE_SHARDS), doubled=MESH_DOUBLED,
+         **{k: v for k, v in mesh_rec.items() if k != "window"}, window=mesh_rec["window"],
+         nvidia_smi=smi,
+         clock="p50/p95: host perf_counter around one run_governance_wave ending in "
+               "torch.cuda.synchronize(), mesh and single-device in turns, each replayed from "
+               "a snapshot; collectives: CUDA events and host time around every psum and "
+               "all_gather of a timed mesh wave; idle share: torch.profiler over three waves")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

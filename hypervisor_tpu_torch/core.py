@@ -31,9 +31,9 @@ roots from the live frontier on the host); a drift slash runs B8
 `_host`. `ManagedSession.write_wave` builds a `runtime.write_wave.
 WriteWave` on the state's device. `attach_front_door` attaches the
 serving front door and its wave scheduler (`serving`) to the state, on
-the state's device. Not ported yet, refused with a message naming a
-later slice of the port: `consistency_runtime` (the multi-device plane).
-With an event bus the
+the state's device. `consistency_runtime(mesh)` binds a
+`runtime.consistency.ConsistencyRuntime` over a `parallel.Mesh` to the
+state, cached per mesh. With an event bus the
 facade emits its own events and bridges the health plane's onto it
 (`_on_health_event`), and incident bundles carry the bus's slice
 (`_incident_events_block`).
@@ -75,12 +75,6 @@ __all__ = ["Hypervisor", "ManagedSession"]
 # Omega applied when a drift violation slashes an agent — ONE constant so
 # the host SlashingEngine and the device cascade can never diverge.
 DRIFT_SLASH_RISK_WEIGHT = 0.95
-
-
-def _later(feature: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} arrives with a later slice of the port ({slice_})"
-    )
 
 
 def _host(column) -> np.ndarray:
@@ -1731,8 +1725,27 @@ class Hypervisor:
 
     def consistency_runtime(self, mesh):
         """The mixed-mode distributed tick driver bound to this facade's
-        device state. Refused: the multi-device plane is not ported yet."""
-        raise _later("Hypervisor.consistency_runtime", "the multi-device plane, ROADMAP A8")
+        device state (`runtime.consistency.ConsistencyRuntime`).
+
+        The session `mode` column — set from `SessionConfig.
+        consistency_mode` at create and force-flipped to STRONG when
+        non-reversible actions register (`force_session_mode`) — decides
+        each lane's path: STRONG rides the in-tick psum barrier,
+        EVENTUAL accumulates partials until `reconcile()`. This makes
+        the reference's stored-but-never-executed ConsistencyMode
+        (`models.py:12-16`) an actual execution property.
+
+        Cached per mesh: pending EVENTUAL partials live on the runtime,
+        so repeated calls MUST return the same instance (a fresh one
+        would strand deltas already ticked).
+        """
+        from hypervisor_tpu_torch.runtime.consistency import ConsistencyRuntime
+
+        cached = self._consistency_runtimes.get(mesh)
+        if cached is None:
+            cached = ConsistencyRuntime(self.state, mesh)
+            self._consistency_runtimes[mesh] = cached
+        return cached
 
     def sync_events_to_device(self) -> int:
         """Mirror new bus events into the device EventLog ring buffer.

@@ -136,6 +136,7 @@ def check_actions(
     host_tripped: torch.Tensor,     # bool[B] the host plane's breaker verdicts
     now,
     valid: torch.Tensor | None = None,  # bool[B] lane mask (padding lanes False)
+    agent_base: int = 0,                # global row of agents[0] (a mesh shard)
     breach: BreachConfig = DEFAULT_CONFIG.breach,
     rate_limit: RateLimitConfig = DEFAULT_CONFIG.rate_limit,
     trust: TrustConfig = DEFAULT_CONFIG.trust,
@@ -155,19 +156,20 @@ def check_actions(
     passing actions in wave order while its refilled level covers them
     -> breach recording. Out-of-range slots are clamped onto the table
     (callers refuse them first: `HypervisorState._check_action_slots`).
-    The reference's `agent_base` (a table shard under shard_map) waits
-    for the port's multi-device slice."""
+    `agent_base` runs the same body on a table shard whose rows start at
+    that global row (`parallel.collectives.sharded_gateway`): slots and
+    grants are localized onto the shard."""
     b = slot.shape[0]
     n = agents.ring.shape[0]
     dev = slot.device
     now_f = f32_scalar(now, dev)
     if valid is None:
         valid = torch.ones((b,), dtype=torch.bool, device=dev)
-    slot = slot.to(torch.int64).clamp(0, n - 1)
+    slot = (slot.to(torch.int64) - int(agent_base)).clamp(0, n - 1)
     required_ring = required_ring.to(torch.int8)
 
     # Per-action gathers.
-    eff = security_ops.effective_rings(agents.ring, elevations, now_f)[slot]
+    eff = security_ops.effective_rings(agents.ring, elevations, now_f, agent_base)[slot]
     sigma = agents.sigma_eff[slot]
     flags_at = agents.flags[slot]
 

@@ -160,6 +160,7 @@ def slash_cascade(
     risk_weight,
     now,
     trust: TrustConfig = DEFAULT_CONFIG.trust,
+    allreduce=None,
     metrics: "MetricsTable | None" = None,
     trace=None,      # TraceLog riding the cascade
     trace_ctx=None,  # observability.tracing.TraceContext
@@ -174,21 +175,105 @@ def slash_cascade(
     table whose `active` column is new. The SLASHED and CLIPPED counters
     and the hv.slash_cascade stamps land in the metrics table and trace
     ring IN PLACE when they ride in.
+
+    `allreduce` runs the cascade over an edge list sharded across a mesh
+    (`parallel.collectives.sharded_slash`): `vouch` is then the sequence
+    of the shards' edge tables, each on its shard's device, and
+    `allreduce` maps the shards' i32[N] partials (each counted over its
+    own edges) to their global sum, so the per-voucher counts and the
+    has-own-vouchers seeding see the whole graph. This is the reference's
+    XLA form: the plain scatter form per shard with the allreduce between
+    the shards (B8's one cooperative launch cannot straddle shards). The
+    result's `vouch` is then the sequence of shard tables, each with its
+    new `active` column.
     """
     from hypervisor_tpu_torch.kernels import liability as liability_kernels
 
     n = sigma.shape[0]
-    # B8 books the SLASHED and CLIPPED tallies into the counters itself
-    # (in the kernel on CUDA, in its plain version on the CPU).
-    new_sigma, active, slashed, clipped, wave_of = liability_kernels.slash_cascade(
-        vouch, sigma, seeds, session_slot, risk_weight, now, trust,
-        counters=None if metrics is None else metrics.counters)
+    if allreduce is not None:
+        new_sigma, active, slashed, clipped, wave_of = _slash_cascade_sharded(
+            list(vouch), sigma, seeds, session_slot, risk_weight, now, trust, allreduce)
+        if metrics is not None:
+            from hypervisor_tpu_torch.tables.metrics import counters_add
+
+            counters_add(metrics.counters, liability_kernels.TALLY_ROWS,
+                         (slashed.sum(), clipped.sum()))
+        vouch = [replace(part, active=a) for part, a in zip(vouch, active)]
+    else:
+        # B8 books the SLASHED and CLIPPED tallies into the counters
+        # itself (in the kernel on CUDA, in its plain version on the CPU).
+        new_sigma, active, slashed, clipped, wave_of = liability_kernels.slash_cascade(
+            vouch, sigma, seeds, session_slot, risk_weight, now, trust,
+            counters=None if metrics is None else metrics.counters)
+        vouch = replace(vouch, active=active)
     if trace is not None:
         stamps = tracing.WaveStamps(trace_ctx, "slash_cascade")
         stamps.begin("slash_cascade", lane=n)
         stamps.end("slash_cascade", lane=n)
         trace = stamps.commit(trace)
     return SlashWaveResult(
-        sigma=new_sigma, vouch=replace(vouch, active=active), slashed=slashed,
+        sigma=new_sigma, vouch=vouch, slashed=slashed,
         clipped=clipped, wave_of=wave_of, metrics=metrics, trace=trace,
     )
+
+
+def _slash_cascade_sharded(parts, sigma, seeds, session_slot, risk_weight, now, trust,
+                           allreduce):
+    """The cascade over D edge shards (`slash_cascade(allreduce=)`): the
+    steps of `kernels.liability.slash_cascade_plain`, each depth's counts
+    made per shard over its edges and joined by `allreduce`. Sigma and
+    the agent masks are replicated: one copy, on sigma's device, moved to
+    a shard's device where it reads them. Returns (sigma, [active per
+    shard], slashed, clipped, wave_of)."""
+    from hypervisor_tpu_torch.kernels import liability as liability_kernels
+
+    dev = sigma.device
+    n = sigma.shape[0]
+    f32 = liability_kernels._f32
+    base = 1.0 - torch.full((), f32(risk_weight), dtype=torch.float32, device=dev)
+    floor = torch.full((), f32(trust.sigma_floor), dtype=torch.float32, device=dev)
+    wipe = liability_kernels.wipe_threshold(trust)
+    sigma = sigma.to(torch.float32).clone()
+    slashed = torch.zeros((n,), dtype=torch.bool, device=dev)
+    clipped_any = torch.zeros((n,), dtype=torch.bool, device=dev)
+    wave_of = torch.full((n,), -1, dtype=torch.int8, device=dev)
+    wave = seeds.to(device=dev, dtype=torch.bool).clone()
+    shards = [dict(
+        v=v, active=v.active.clone(), vee_ok=v.vouchee >= 0, vchr_ok=v.voucher >= 0,
+        vee=v.vouchee.clamp(min=0).to(torch.int64), vchr=v.voucher.clamp(min=0).to(torch.int64),
+        in_session=v.session == int(session_slot),
+        now=torch.full((), f32(now), dtype=torch.float32, device=v.voucher.device),
+    ) for v in parts]
+
+    def counts(edges, index: str) -> torch.Tensor:
+        """The allreduced i32[N] count of each shard's `edges(shard)` mask,
+        scattered at its `index` column."""
+        return allreduce([
+            torch.zeros((n,), dtype=torch.int32, device=sh["vee"].device).index_add_(
+                0, sh[index], edges(sh).to(torch.int32))
+            for sh in shards
+        ]).to(dev)
+
+    for depth in range(trust.max_cascade_depth + 1):
+        sigma = torch.where(wave, torch.zeros_like(sigma), sigma)
+        slashed = slashed | wave
+        wave_of = torch.where(wave & (wave_of < 0), torch.full_like(wave_of, depth), wave_of)
+        for sh in shards:
+            live = sh["active"] & (sh["now"] <= sh["v"].expiry)
+            sh["hit"] = (live & sh["in_session"] & sh["vee_ok"]
+                         & wave.to(sh["vee"].device)[sh["vee"]])
+        k = counts(lambda sh: sh["hit"] & sh["vchr_ok"], "vchr")
+        was_clipped = k > 0
+        clip_sigma = torch.maximum(sigma * liability_kernels.clip_factor(base, k), floor)
+        sigma = torch.where(was_clipped, clip_sigma, sigma)
+        clipped_any = clipped_any | was_clipped
+        for sh in shards:
+            sh["active"] = sh["active"] & ~sh["hit"]
+        if depth == trust.max_cascade_depth:
+            break
+        wiped = was_clipped & (sigma < wipe)
+        has_vouchers = counts(
+            lambda sh: (sh["active"] & (sh["now"] <= sh["v"].expiry) & sh["in_session"]
+                        & sh["vee_ok"]), "vee") > 0
+        wave = wiped & has_vouchers & ~slashed
+    return sigma, [sh["active"] for sh in shards], slashed, clipped_any, wave_of

@@ -183,14 +183,19 @@ def effective_rings(
     base_ring: torch.Tensor,  # i8[N] the agents' assigned rings
     elevations: ElevationTable,
     now,
+    agent_base: int = 0,
 ) -> torch.Tensor:
     """i8[N]: each agent's ring with its active, unexpired grants applied.
-    A grant only elevates (the lower ring of the two wins)."""
+    A grant only elevates (the lower ring of the two wins).
+
+    `agent_base` is the global row of `base_ring[0]` (a table shard of a
+    mesh): grants are localized onto the shard's rows, and grants landing
+    on other shards drop out."""
     dev = base_ring.device
     n = base_ring.shape[0]
     live = elevations.active & (f32_scalar(now, dev) <= elevations.expires_at)
-    agent = elevations.agent
-    on_table = (agent >= 0) & (agent < n)
+    agent = elevations.agent - int(agent_base)
+    on_table = (elevations.agent >= 0) & (agent >= 0) & (agent < n)
     granted = torch.where(live & on_table, elevations.granted_ring.to(torch.int32),
                           torch.full((), 3, dtype=torch.int32, device=dev))
     # Grants off the table land on a spare row n, which is dropped.

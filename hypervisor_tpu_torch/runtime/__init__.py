@@ -1,7 +1,8 @@
 """Host runtimes over the device tables (`hypervisor_tpu.runtime`): the
 native host runtime (the C++ audit hash unit and the lock-free join
 staging queue, `native`), the saga scheduler, the lock and write waves,
-and device-table checkpointing (`checkpoint`)."""
+device-table checkpointing (`checkpoint`) and the mixed-consistency tick
+driver (`consistency`)."""
 
 from hypervisor_tpu_torch.runtime import native
 from hypervisor_tpu_torch.runtime.native import (
@@ -14,6 +15,7 @@ from hypervisor_tpu_torch.runtime.native import (
 
 __all__ = [
     "HAVE_NATIVE",
+    "ConsistencyRuntime",
     "StagingQueue",
     "chain_digests_host",
     "merkle_root_hex_host",
@@ -34,4 +36,8 @@ def __getattr__(name: str):
         from hypervisor_tpu_torch.runtime import checkpoint
 
         return getattr(checkpoint, name)
+    if name == "ConsistencyRuntime":
+        from hypervisor_tpu_torch.runtime.consistency import ConsistencyRuntime
+
+        return ConsistencyRuntime
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,9 +19,12 @@ written by either package restores on the other. Restore rebuilds a
 `HypervisorState` on the caller's device whose next wave continues where
 the saved one stopped (same slots, same handles, same membership).
 
-The reference's orbax backend is a JAX library; its counterpart
-(`torch.distributed.checkpoint`, for cross-host coordination) comes with
-the multi-device slice (ROADMAP A8).
+The reference's second backend (a JAX checkpoint library with
+retention and async saves) has its counterpart in
+`torch.distributed.checkpoint` (DCP): `open_checkpoint_manager`,
+`save_state_dcp` and `restore_state_dcp` serialize the same
+(`state_arrays`, `host_metadata`) pair, one directory per step under a
+manager that keeps the newest `max_to_keep`, with no process group.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import json
 import logging
 import os
 import threading
+import warnings
 from pathlib import Path
 from typing import Optional
 
@@ -488,10 +492,125 @@ def wait_durable(target: Path, timeout: float = 30.0) -> bool:
     return False
 
 
+# ── the torch.distributed.checkpoint backend ─────────────────────────
+#
+# The npz path above is dependency-free; this backend is the ecosystem's:
+# DCP's sharded file layout and planner (on a multi-host deployment its
+# cross-rank coordination), behind a step manager with retention. Both
+# serialize the same (state_arrays, host_metadata) pair, so a state
+# restored from either is the same column for column.
+
+
+class CheckpointManager:
+    """Checkpoint steps under one directory (`step_<n>/`: DCP's files,
+    `host.json`, and `.done` once durable), the newest `max_to_keep` kept.
+    Saves are synchronous, so `wait_until_finished` has nothing to wait
+    for; it is the durability barrier's name all the same."""
+
+    def __init__(self, directory: str | Path, max_to_keep: int = 3) -> None:
+        self.directory = Path(directory).resolve()
+        self.max_to_keep = int(max_to_keep)
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def step_dir(self, step: int) -> Path:
+        return self.directory / f"step_{int(step)}"
+
+    def all_steps(self) -> list[int]:
+        """The durable steps, oldest first."""
+        return sorted(int(p.name[5:]) for p in self.directory.glob("step_*")
+                      if p.name[5:].isdigit() and (p / ".done").exists())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def wait_until_finished(self) -> None:
+        return None
+
+    def _retain(self) -> None:
+        import shutil
+
+        for step in self.all_steps()[:-self.max_to_keep or None]:
+            shutil.rmtree(self.step_dir(step), ignore_errors=True)
+
+
+def open_checkpoint_manager(directory: str | Path, max_to_keep: int = 3) -> CheckpointManager:
+    """A step manager over the hypervisor state layout, keeping the
+    `max_to_keep` most recent steps."""
+    return CheckpointManager(directory, max_to_keep)
+
+
+def save_state_dcp(state: HypervisorState, manager: CheckpointManager, step: int) -> Path:
+    """Checkpoint through `torch.distributed.checkpoint` (no process
+    group: `no_dist=True`); the same staged-join/delta contract and the
+    same consistent cut as `save_state`. Returns the step's directory."""
+    import shutil
+
+    import torch.distributed.checkpoint as dcp
+
+    if state._pending_rows or state._pending_deltas:
+        raise RuntimeError("cannot checkpoint with staged joins/deltas; flush first")
+    with state._enqueue_lock:
+        arrays = state_arrays(state)
+        meta = host_metadata(state)
+    target = manager.step_dir(step)
+    shutil.rmtree(target, ignore_errors=True)
+    target.mkdir(parents=True)
+    dcp.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()},
+             checkpoint_id=str(target), no_dist=True)
+    # DCP keeps a 0-d tensor as one element of shape (1,): the columns'
+    # own shapes ride the host metadata's file.
+    meta = {**meta, "column_shapes": {k: list(v.shape) for k, v in arrays.items()}}
+    with open(target / "host.json", "w") as f:
+        f.write(json.dumps(meta))
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(target)
+    (target / ".done").touch()
+    _fsync_dir(target)
+    manager._retain()
+    return target
+
+
+def restore_state_dcp(
+    manager: CheckpointManager,
+    step: Optional[int] = None,
+    config: HypervisorConfig = DEFAULT_CONFIG,
+    device: str | torch.device = "cuda",
+) -> HypervisorState:
+    """Rebuild a HypervisorState on `device` from a DCP step (the latest
+    by default), with `restore_state`'s capacity checks and column
+    policy. Raises without CUDA unless `device` says the CPU."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    device = resolve_device(device)
+    if step is None:
+        step = manager.latest_step()
+        if step is None:
+            raise FileNotFoundError("no checkpoint steps found")
+    target = manager.step_dir(step)
+    layout = dcp.FileSystemReader(str(target)).read_metadata().state_dict_metadata
+    tables = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+              for k, m in layout.items() if isinstance(m, TensorStorageMetadata)}
+    with warnings.catch_warnings():
+        # DCP notes that no process group is set up: by design here.
+        warnings.filterwarnings("ignore", "torch.distributed is disabled")
+        dcp.load(tables, checkpoint_id=str(target), no_dist=True)
+    meta = json.loads((target / "host.json").read_text())
+    shapes = meta.pop("column_shapes")
+    return _rebuild({k: t.numpy().reshape(shapes[k]) for k, t in tables.items()}, meta,
+                    config, device)
+
+
 __all__ = [
+    "CheckpointManager",
     "host_metadata",
+    "open_checkpoint_manager",
     "restore_state",
+    "restore_state_dcp",
     "save_state",
+    "save_state_dcp",
     "state_arrays",
     "wait_durable",
 ]

@@ -76,8 +76,17 @@ and the compile watch around the module-level dispatch entries;
 publishes the roofline observatory's gauges (`roofline_summary`). An
 attached serving front door (`serving`) adds its panels
 (`serving_summary`, `slo_summary`) and the exemplar lines of
-`metrics_prometheus`. The mesh path arrives with a later slice of the
-port.
+`metrics_prometheus`.
+
+The mesh path, as in the reference: `run_governance_wave(mesh=)` runs the
+same wave sharded over a `parallel.Mesh` (`parallel.collectives.
+sharded_governance_wave`: agent rows and vouch edges split over the
+shards, the SessionTable replicated, each session's consistency mode
+executed, the EVENTUAL commits folded right behind the wave or deferred
+to `reconcile_session_partials`), and `check_actions_wave(mesh=)` runs
+the gateway sharded (`sharded_gateway`). Mesh waves journal nothing and
+take no fused sanitizer; their tallies and trace rows are mirrored on
+the host plane.
 """
 
 from __future__ import annotations
@@ -300,6 +309,24 @@ def _contiguous_range_host(slots: np.ndarray) -> tuple[int, int] | None:
     return (lo, lo + slots.size)
 
 
+def _is_multislice(mesh) -> bool:
+    """True for a 2-D (dcn, agents) mesh (`make_multislice_mesh`)."""
+    from hypervisor_tpu_torch.parallel.mesh import AGENT_AXIS, DCN_AXIS
+
+    return tuple(getattr(mesh, "axis_names", ())) == (DCN_AXIS, AGENT_AXIS)
+
+
+def _merge_wave_session_states(owned, state, sessions_state, k_idx) -> np.ndarray:
+    """[k] post-wave session states for the mesh-path metrics tally:
+    EVENTUAL lanes' masked partial overwrites where owned, else the
+    replicated table's STRONG-folded column (host arrays)."""
+    owned, state = owned.cpu().numpy(), state.cpu().numpy()
+    owned_e = owned[:, k_idx].sum(axis=0) > 0
+    state_e = state[:, k_idx].sum(axis=0)
+    state_s = sessions_state.cpu().numpy()[k_idx].astype(np.int32)
+    return np.where(owned_e, state_e, state_s)
+
+
 class HypervisorState:
     """The batched governance state on one device: device tables plus the
     host boundary indices.
@@ -428,6 +455,11 @@ class HypervisorState:
         #: The WAL watermark a restored checkpoint carries: recovery
         #: replays the committed records past it.
         self._restored_wal_seq: Optional[int] = None
+        # Sharded programs keyed by mesh (the reference caches its
+        # compiled programs there), and the EVENTUAL wave partials a
+        # `defer_reconcile` mesh wave left for `reconcile_session_partials`.
+        self._sharded_waves: dict = {}
+        self._pending_partials: list = []
         # Fused-epilogue gauge freshness: True only between a facade
         # wave (its epilogue refreshed every occupancy gauge) and the
         # NEXT mutation; `metrics_snapshot` then skips its refresh.
@@ -758,6 +790,34 @@ class HypervisorState:
             recycled = [free.pop() for _ in range(need)]
         return np.array(fresh + recycled, np.int32)
 
+    def _mesh_wave_slots(self, b: int, n_shards: int) -> np.ndarray:
+        """Deterministic agent rows for a sharded wave: the TOP `b/D` rows
+        of each shard's region (the sharded wave's slot contract: element
+        i's row lives on shard i // (B/D)).
+
+        The bump allocator grows globally from row 0 (all of shard 0's
+        region first), so mesh-wave rows come from the other end of each
+        region and never enter the general free list: wave rows are dead
+        after the wave (their sessions terminate in it) and the SAME rows
+        recycle on the next mesh wave.
+        """
+        cap = self.agents.i32.shape[0]
+        if cap % n_shards:
+            raise ValueError(f"agent capacity {cap} not divisible by mesh size {n_shards}")
+        if b % n_shards:
+            raise ValueError(f"wave size {b} not divisible by mesh size {n_shards}")
+        rows_per_shard = cap // n_shards
+        per = b // n_shards
+        if self._next_agent_slot > rows_per_shard - per:
+            raise RuntimeError(
+                f"bump allocator at {self._next_agent_slot} overlaps the "
+                f"mesh-wave region (top {per} rows of each "
+                f"{rows_per_shard}-row shard); raise "
+                "config.capacity.max_agents"
+            )
+        i = np.arange(b)
+        return ((i // per) * rows_per_shard + (rows_per_shard - per) + (i % per)).astype(np.int32)
+
     def _park_sessions(self, n_parked: int, kind: str) -> np.ndarray:
         """Park `n_parked` wave-session lanes on unallocated rows past the
         bump cursor (no allocation: a parked row's memberless walk is a
@@ -828,6 +888,7 @@ class HypervisorState:
         mesh=None,
         actions: Optional[dict] = None,
         pad_to: Optional[tuple[int, int]] = None,
+        defer_reconcile: bool = False,
     ):
         """Run the lifecycle wave ON the state tables: claim agent rows,
         stage the lanes on the host, then ONE fused wave admits, walks,
@@ -858,9 +919,33 @@ class HypervisorState:
         The fault-injection gate runs before anything mutates; the wave
         journals as "governance_wave" with its resolved action columns
         and `pad_to`, so a replay re-dispatches the identical padded wave.
+
+        With `mesh` (a `parallel.Mesh`), the same wave runs sharded
+        (`parallel.collectives.sharded_governance_wave`): agent rows and
+        vouch edges split over the shards, the SessionTable replicated.
+        Waves are ragged: B and K round up to the mesh size inside (pad
+        join lanes refused as duplicates, pad session lanes parked), and
+        only the agent and vouch-edge capacities must divide the mesh
+        size. `actions` fuse into the sharded wave as its last phase. A
+        (dcn, agents) mesh runs the multislice variant, which needs a
+        contiguous session block and one seat-consuming join a session.
+        The mesh wave executes each session's consistency mode: STRONG
+        commits land in the wave; EVENTUAL ones return as partials, folded
+        right behind the wave, or with `defer_reconcile=True` kept on the
+        state until `reconcile_session_partials(mesh)`. Mesh waves do not
+        journal (the WAL replays on one device) and take no fused
+        sanitizer; their tallies and trace rows are mirrored on the host.
         """
+        if pad_to is not None and mesh is not None:
+            raise ValueError(
+                "pad_to is the single-device bucket contract; mesh "
+                "waves pad internally to the mesh size"
+            )
         if mesh is not None:
-            raise NotImplementedError("the mesh wave arrives with the port's multi-device slice")
+            self._predispatch("governance_wave", fused_sanitizer=False)
+            return self._mesh_governance_wave(
+                session_slots, dids, agent_sessions, sigma_raw, delta_bodies, now, omega,
+                trustworthy, mesh, actions, defer_reconcile)
         if pad_to is not None and (pad_to[0] < len(dids) or pad_to[1] < len(session_slots)):
             raise ValueError(f"pad_to {pad_to} below the wave shape ({len(dids)} lanes, "
                              f"{len(session_slots)} sessions)")
@@ -963,6 +1048,165 @@ class HypervisorState:
         if act is not None:
             return result, gw_result
         return result
+
+    def _mesh_governance_wave(
+        self, session_slots, dids, agent_sessions, sigma_raw, delta_bodies, now, omega,
+        trustworthy, mesh, actions, defer_reconcile,
+    ):
+        """`run_governance_wave(mesh=)`'s body: the ragged rounding, the
+        mesh slot layout, one sharded wave (cached per mesh and layout),
+        the EVENTUAL fold, the host-plane tallies and trace rows, then the
+        membership and audit bookkeeping (the DeltaLog append included)."""
+        from hypervisor_tpu_torch.parallel.collectives import sharded_governance_wave
+
+        b, k = len(dids), len(session_slots)
+        d = mesh.devices.size
+        e_cap = self.vouches.voucher.shape[0]
+        if e_cap % d:
+            raise ValueError(
+                f"vouch-edge capacity {e_cap} not divisible by mesh "
+                f"size {d}; adjust config.capacity.max_vouch_edges"
+            )
+        b_wave, k_wave = -(-b // d) * d, -(-k // d) * d
+        agent_slots = self._mesh_wave_slots(b_wave, d)
+        parked = self._park_sessions(k_wave - k, "ragged wave")
+        staged = self._stage_wave_lanes(
+            session_slots, dids, agent_sessions, sigma_raw, trustworthy, delta_bodies,
+            b_wave, k_wave, parked,
+        )
+        wave_sessions = staged["wave_sessions"]
+        range_host = staged["range_host"]
+        contiguous = range_host is not None
+        unique = staged["unique_sessions"]
+        with_gateway = actions is not None
+        multislice = _is_multislice(mesh)
+        if multislice and not (contiguous and unique):
+            raise ValueError(
+                "multislice wave requires a contiguous session "
+                "block and one seat-consuming join per session "
+                f"(got contiguous={contiguous}, unique={unique})"
+            )
+        key = (mesh, with_gateway, contiguous, unique)
+        wave_fn = self._sharded_waves.get(key)
+        if wave_fn is None:
+            # This state's configs, so both deployment modes admit alike;
+            # the bridge always executes the session mode column.
+            wave_fn = sharded_governance_wave(
+                mesh, trust=self.config.trust, rate=self.config.rate_limit,
+                with_gateway=with_gateway, breach=self.config.breach, mode_dispatch=True,
+                contiguous_waves=contiguous, unique_sessions=unique, multislice=multislice,
+            )
+            self._sharded_waves[key] = wave_fn
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        wave_args = (
+            self.agents, self.sessions, self.vouches, put(agent_slots), put(staged["did"]),
+            put(staged["agent_sessions"]), put(staged["sigma_raw"]), put(staged["trustworthy"]),
+            put(staged["duplicate"]), put(wave_sessions),
+            u32.from_numpy_u32(staged["bodies"], dev), now, omega,
+        ) + (tuple(range_host) if contiguous else ())
+        th = self.tracer.begin_wave("governance_wave_sharded", sessions=wave_sessions[:k],
+                                    lanes=b, device=False)
+        gw_result = None
+        if with_gateway:
+            act = self._normalize_actions(actions)
+            flat, valid, device_args = self._gateway_shard_args(act, d)
+            with self.metrics.stage("governance_wave_sharded"):
+                result, lanes, partials = wave_fn(*wave_args, self.elevations, *device_args)
+            gw_result = self._scatter_gateway_lanes(lanes, flat, valid, len(act["slots"]),
+                                                    result.agents)
+            metrics_plane.tally_gateway_host(self.metrics, gw_result.verdict, len(act["slots"]))
+        else:
+            with self.metrics.stage("governance_wave_sharded"):
+                result, partials = wave_fn(*wave_args)
+        if b_wave != b or k_wave != k:
+            # Drop the internal padding lanes: callers see their shape.
+            result = result._replace(
+                status=result.status[:b], ring=result.ring[:b], sigma_eff=result.sigma_eff[:b],
+                saga_step_state=result.saga_step_state[:b], merkle_root=result.merkle_root[:k],
+                chain=result.chain[:, :k], fsm_error=result.fsm_error[:k],
+            )
+        if defer_reconcile:
+            self._stash_session_partials(partials)
+        else:
+            # The EVENTUAL commits fold right behind the wave (the deferred
+            # path runs on every wave, not only on mixed-mode runs).
+            with self.metrics.stage("reconcile_wave_sessions"):
+                self._reconcile_fn(mesh)(self.sessions, partials.counts, partials.owned,
+                                         partials.state, partials.terminated)
+        ok = result.status.cpu().numpy() == ADMIT_OK
+        # The sharded wave carries no metrics table or trace ring: mirror
+        # the wave's series and stamps on the host plane, from outputs
+        # read back here (the shared rule sets of both deployment modes).
+        self.tracer.stamp_wave_host(th)
+        self.tracer.end_wave(th)
+        metrics_plane.tally_wave_host(
+            self.metrics, status=result.status, step_state=result.saga_step_state,
+            fsm_err=result.fsm_error,
+            sess_state=_merge_wave_session_states(partials.owned, partials.state,
+                                                  self.sessions.state, wave_sessions[:k]),
+            released=int(result.released), lane_width=b_wave,
+        )
+        # Mesh-wave rows recycle through their own top-of-shard layout.
+        self._publish_wave_members(staged["wave_keys"][ok].tolist(), [])
+        chain = u32.to_numpy_u32(result.chain)  # [T, K, 8]
+        t = chain.shape[0]
+        if t:
+            sess_rep = np.repeat(np.asarray(session_slots, np.int32), t)
+            digests_flat = np.ascontiguousarray(np.transpose(chain, (1, 0, 2)).reshape(k * t, 8))
+            turns_rep = np.tile(np.arange(t, dtype=np.int32), k)
+            bodies_flat = np.ascontiguousarray(np.transpose(
+                np.asarray(delta_bodies, np.uint32), (1, 0, 2)).reshape(k * t, -1))
+            base_row = self._delta_cursor
+            self.delta_log.append_batch(
+                u32.from_numpy_u32(bodies_flat, dev), u32.from_numpy_u32(digests_flat, dev),
+                put(sess_rep), put(turns_rep))
+            self._delta_cursor += k * t
+            self._book_wave_audit(session_slots, chain, base_row)
+        if with_gateway:
+            return result, gw_result
+        return result
+
+    def _reconcile_fn(self, mesh):
+        """The mesh's wave-partials fold (`reconcile_wave_sessions`, or
+        its multislice form), cached per mesh."""
+        fn = self._sharded_waves.get(("reconcile", mesh))
+        if fn is None:
+            from hypervisor_tpu_torch.parallel.collectives import (
+                multislice_reconcile_wave,
+                reconcile_wave_sessions,
+            )
+
+            fn = (multislice_reconcile_wave(mesh) if _is_multislice(mesh)
+                  else reconcile_wave_sessions(mesh))
+            self._sharded_waves[("reconcile", mesh)] = fn
+        return fn
+
+    def _stash_session_partials(self, partials) -> None:
+        """Queue one wave's EVENTUAL partials for the between-wave fold
+        (host copies: deferred partials may outlive many device steps)."""
+        self._pending_partials.append(type(partials)(*(p.cpu().clone() for p in partials)))
+
+    def reconcile_session_partials(self, mesh) -> int:
+        """Fold every pending wave's EVENTUAL session updates into the
+        replicated SessionTable (`collectives.reconcile_wave_sessions`):
+        the between-wave commit that makes a mixed-mode history equal the
+        all-STRONG one. Returns the number of waves folded (0: nothing
+        pending, nothing dispatched)."""
+        if not self._pending_partials:
+            return 0
+        n = len(self._pending_partials)
+        fn = self._reconcile_fn(mesh)
+        pending, self._pending_partials = self._pending_partials, []
+        with self.metrics.stage("reconcile_wave_sessions"):
+            # One fold per wave, in wave order: masked overwrites of two
+            # waves may target the same recycled session lane.
+            for p in pending:
+                fn(self.sessions, *(x.to(self.device) for x in p))
+        return n
 
     @staticmethod
     def _normalize_actions(actions: dict) -> dict:
@@ -2066,13 +2310,23 @@ class HypervisorState:
         lanes are padded to the next power of two with valid=False lanes,
         which touch nothing; out-of-range slots are refused first. The
         fault-injection gate runs before any mutation; the wave journals
-        as "gateway_wave"."""
+        as "gateway_wave".
+
+        With `mesh`, the wave runs sharded (`parallel.collectives.
+        sharded_gateway`, agent rows split over the shards, no journal).
+        The caller's wave is ragged by nature, so the state builds the
+        placement: actions group by owning shard (slot // rows_per_shard)
+        in wave order (all of one membership's actions share a shard, so
+        the sequential settle survives the shuffle), every group padded
+        to one power-of-two block with valid=False lanes, and the lanes
+        scattered back to request order."""
         self._predispatch("gateway_wave")
         self._check_action_slots(slots)
         if mesh is not None:
-            raise NotImplementedError(
-                "check_actions_wave(mesh=...): the sharded gateway arrives with the port's "
-                "multi-device slice (ROADMAP A8)")
+            return self._check_actions_wave_sharded(
+                slots, required_rings, is_read_only, has_consensus, has_sre_witness,
+                host_tripped, now, mesh,
+            )
         with self._journal(
             "gateway_wave", slots=np.asarray(slots, np.int32),
             required_rings=np.asarray(required_rings, np.int8),
@@ -2106,6 +2360,106 @@ class HypervisorState:
             )
         self.tracer.end_wave(th, result.trace)
         return self._gateway_result_from_lanes(result, result.agents, b)
+
+    def _scatter_gateway_lanes(self, lanes, flat, valid, b, agents) -> gateway_ops.GatewayResult:
+        """Map sharded gateway lanes back to request order (host arrays)."""
+
+        def scatter(col):
+            arr = col.cpu().numpy()
+            out = np.zeros((b,), arr.dtype)
+            out[flat[valid]] = arr[valid]
+            return out
+
+        return gateway_ops.GatewayResult(
+            agents=agents, verdict=scatter(lanes.verdict),
+            ring_status=scatter(lanes.ring_status), eff_ring=scatter(lanes.eff_ring),
+            sigma_eff=scatter(lanes.sigma_eff), severity=scatter(lanes.severity),
+            anomaly_rate=scatter(lanes.anomaly_rate), window_calls=scatter(lanes.window_calls),
+            tripped=scatter(lanes.tripped),
+        )
+
+    def _gateway_shard_args(self, act: dict, d: int) -> tuple[np.ndarray, np.ndarray, tuple]:
+        """The one host-to-device bridge of a sharded gateway wave: checks
+        the capacity contract, lays the actions out over the shards and
+        gathers every column into its padded mesh lane. Returns
+        (flat_index, valid, device_args), device_args the 6 padded columns
+        and the valid mask in `sharded_gateway` order. Shared by
+        `check_actions_wave(mesh=)` and `run_governance_wave(actions=,
+        mesh=)`. An empty wave is all padding, a no-op."""
+        self._check_action_slots(act["slots"])
+        cap = self.agents.i32.shape[0]
+        if cap % d:
+            raise ValueError(
+                f"agent capacity {cap} not divisible by mesh size {d}; "
+                "adjust config.capacity.max_agents"
+            )
+        flat, valid, safe = self._gateway_layout(act["slots"], d)
+        dev = self.device
+
+        def gather(key, dtype):
+            arr = np.asarray(act[key], dtype)
+            vals = arr[safe] if len(arr) else np.zeros(len(safe), dtype)
+            return torch.from_numpy(np.where(valid, vals, 0).astype(dtype)).to(dev)
+
+        device_args = (
+            gather("slots", np.int32), gather("required_rings", np.int8),
+            gather("is_read_only", bool), gather("has_consensus", bool),
+            gather("has_sre_witness", bool), gather("host_tripped", bool),
+            torch.from_numpy(valid).to(dev),
+        )
+        return flat, valid, device_args
+
+    def _gateway_layout(self, slots_arr: np.ndarray, d: int):
+        """Shard placement of a ragged action wave: grouped by owning shard
+        (slot // rows_per_shard), wave order inside each group, every group
+        padded to one power-of-two block. Returns (flat_index, valid,
+        safe_index): flat_index[j] is the request position riding mesh
+        lane j (-1: padding)."""
+        rows_per_shard = self.agents.i32.shape[0] // d
+        shard_of = np.asarray(slots_arr) // rows_per_shard
+        groups: list[list[int]] = [[] for _ in range(d)]
+        for i, s in enumerate(shard_of):
+            groups[int(s)].append(i)
+        longest = max((len(g) for g in groups), default=0)
+        block = max(1, 1 << max(0, (max(1, longest) - 1).bit_length()))
+        idx = np.full((d, block), -1, np.int64)
+        for s, g in enumerate(groups):
+            idx[s, :len(g)] = g
+        flat = idx.reshape(-1)
+        valid = flat >= 0
+        return flat, valid, np.where(valid, flat, 0)
+
+    def _check_actions_wave_sharded(
+        self, slots, required_rings, is_read_only, has_consensus, has_sre_witness,
+        host_tripped, now, mesh,
+    ) -> gateway_ops.GatewayResult:
+        """`check_actions_wave(mesh=)`: the host-side layout, then one
+        sharded gateway (cached per mesh); tallies and trace rows mirrored
+        on the host plane."""
+        slots_arr = np.asarray(slots, np.int32)
+        b = len(slots_arr)
+        flat, valid, device_args = self._gateway_shard_args(
+            {"slots": slots_arr, "required_rings": required_rings, "is_read_only": is_read_only,
+             "has_consensus": has_consensus, "has_sre_witness": has_sre_witness,
+             "host_tripped": host_tripped},
+            mesh.devices.size,
+        )
+        fn = self._sharded_waves.get(("gateway", mesh))
+        if fn is None:
+            from hypervisor_tpu_torch.parallel.collectives import sharded_gateway
+
+            fn = sharded_gateway(mesh, breach=self.config.breach, rate=self.config.rate_limit,
+                                 trust=self.config.trust)
+            self._sharded_waves[("gateway", mesh)] = fn
+        th = self.tracer.begin_wave("gateway_wave_sharded", lanes=b, device=False)
+        with self.metrics.stage("gateway_wave_sharded"):
+            agents_out, lanes = fn(self.agents, self.elevations, *device_args, now)
+        self.tracer.stamp_wave_host(th)
+        self.tracer.end_wave(th)
+        self.agents = agents_out
+        out = self._scatter_gateway_lanes(lanes, flat, valid, b, agents_out)
+        metrics_plane.tally_gateway_host(self.metrics, out.verdict, b)
+        return out
 
     # ── elevations ───────────────────────────────────────────────────
 

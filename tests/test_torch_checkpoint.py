@@ -285,3 +285,38 @@ def test_checkpoints_restore_across_the_packages(seed, tmp_path, monkeypatch):
         assert_same(fingerprint(saved), fingerprint(back))
     assert ckpt_mod.host_metadata(on_port) == jax_ckpt.host_metadata(on_ref)
     assert on_port._delta_cursor == int(on_port.delta_log.cursor) == port_st._delta_cursor > 0
+
+
+@pytest.mark.parametrize("seed", [3])
+def test_dcp_backend_restores_what_the_npz_path_restores(seed, tmp_path, monkeypatch):
+    """The sharded-state pair through `torch.distributed.checkpoint` with
+    no process group: three steps kept to the newest two, and the latest
+    restored equal to the npz restore of the same state, column for
+    column (u32 words included) and in its host metadata, and to the
+    saved state's fingerprint. The reference's pair is its orbax backend
+    (`hypervisor_tpu.runtime.checkpoint.save_state_orbax`), whose library
+    this machine lacks; both serialize the same (arrays, metadata) pair."""
+    import torch.distributed as dist
+
+    port_st, npz_target = _saved(PORT, tmp_path, monkeypatch, seed)
+    manager = ckpt_mod.open_checkpoint_manager(tmp_path / "dcp", max_to_keep=2)
+    for step in (5, 6, 7):
+        target = ckpt_mod.save_state_dcp(port_st, manager, step)
+    assert not (dist.is_available() and dist.is_initialized())
+    manager.wait_until_finished()
+    assert manager.all_steps() == [6, 7] and manager.latest_step() == 7
+    assert (target / ".done").exists() and not manager.step_dir(5).exists()
+    via_dcp = ckpt_mod.restore_state_dcp(manager, config=PORT.cfg(), device="cpu")
+    via_npz = restore_state(npz_target, PORT.cfg(), device="cpu")
+    a, b = ckpt_mod.state_arrays(via_dcp), ckpt_mod.state_arrays(via_npz)
+    assert list(a) == list(b)
+    for key in b:
+        assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape, key
+        assert a[key].tobytes() == b[key].tobytes(), key
+    assert a["delta_log.digest"].dtype == np.uint32
+    assert ckpt_mod.host_metadata(via_dcp) == ckpt_mod.host_metadata(via_npz)
+    assert_same(fingerprint(port_st), fingerprint(via_dcp))
+    assert not any("orbax" in name for name in ckpt_mod.__all__)
+    with pytest.raises(FileNotFoundError):
+        ckpt_mod.restore_state_dcp(ckpt_mod.open_checkpoint_manager(tmp_path / "empty"),
+                                   device="cpu")

@@ -450,16 +450,37 @@ def test_port_import_leaves_jax_out_of_sys_modules():
 
 
 def test_unported_facade_arguments_are_refused():
+    """The facade wave's argument checks. The mesh wave is ported: on an
+    8-shard CPU mesh it equals the reference's on its 8-device mesh, and
+    a `mesh` that is not a mesh is refused with the reference's own
+    error."""
+    from hypervisor_tpu import parallel as jax_parallel
+    from hypervisor_tpu_torch import parallel as port_parallel
+
+    jax_st = JaxState(jax_config.HypervisorConfig(capacity=jax_config.TableCapacity(**CAP)))
     st = PortState(port_config.HypervisorConfig(capacity=port_config.TableCapacity(**CAP)),
                    device="cpu")
-    slots = st.create_sessions_batch(["a"], port_models.SessionConfig())
-    args = (slots, ["d"], slots, np.ones(1, np.float32), np.zeros((T, 1, 16), np.uint32))
+    bodies = np.random.RandomState(5).randint(0, 2**32, (T, 1, 16), dtype=np.uint64)
+    outs = []
+    for state, models, mesh in ((jax_st, jax_models, jax_parallel.make_mesh(8, platform="cpu")),
+                                (st, port_models, port_parallel.make_mesh(8, platform="cpu"))):
+        slots = state.create_sessions_batch(["a"], models.SessionConfig())
+        args = (slots, ["d"], slots, np.ones(1, np.float32), bodies.astype(np.uint32))
+        res = state.run_governance_wave(*args, mesh=mesh)
+        outs.append([np.asarray(getattr(res, f)).tolist() for f in _WAVE_FIELDS + ("released",)]
+                    + [np.asarray(res.merkle_root).view(np.uint32).tolist(),
+                       np.asarray(state.sessions.i32).tolist()])
+        with pytest.raises(AttributeError) as err:
+            state.run_governance_wave(*args, mesh=object())
+        outs[-1].append(str(err.value))
+    assert outs[1] == outs[0]
+    assert outs[1][-1] == "'object' object has no attribute 'devices'"
     with pytest.raises(ValueError, match="action slots out of range"):
         st.run_governance_wave(*args, actions={"slots": [CAP["max_agents"]]})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        st.run_governance_wave(*args, mesh=object())
     with pytest.raises(ValueError, match="below the wave shape"):
         st.run_governance_wave(*args, pad_to=(0, 1))
+    with pytest.raises(ValueError, match="pad_to is the single-device bucket contract"):
+        st.run_governance_wave(*args, pad_to=(1, 1), mesh=port_parallel.make_mesh(8, platform="cpu"))
 
 
 # ── the facade with actions, and a sanitized wave on its tables ──────

@@ -993,7 +993,10 @@ def test_readme_lifecycle_root_commits_and_verifies():
 
 
 def test_unported_entries_name_a_later_slice():
-    """The multi-device runtime (ROADMAP A8) refuses, naming its slice.
+    """The name this test had while the multi-device runtime refused: the
+    consistency runtime is ported (`tests/test_torch_consistency.py`
+    holds it to the reference), cached per mesh, and a `mesh` that is not
+    a mesh is refused with the reference's own error.
     The serving front door, the autopilot and the whole fleet are ported:
     `tests/test_torch_serving.py`, `tests/test_torch_autopilot.py`,
     `tests/test_torch_fleet.py`, `tests/test_torch_failover.py` and
@@ -1003,9 +1006,19 @@ def test_unported_entries_name_a_later_slice():
     from hypervisor_tpu_torch.api import ApiError, HypervisorService
     from hypervisor_tpu_torch.fleet import failover
 
+    from hypervisor_tpu_torch.parallel import make_mesh
+    from hypervisor_tpu_torch.runtime.consistency import ConsistencyRuntime
+
     hv = PORT.Hypervisor(device="cpu")
-    with pytest.raises(NotImplementedError, match="a later slice of the port.*A8"):
-        hv.consistency_runtime(mesh=None)
+    errors = []
+    for facade in (REF.Hypervisor(), hv):
+        with pytest.raises(AttributeError) as err:
+            facade.consistency_runtime(mesh=None)
+        errors.append(str(err.value))
+    assert errors[1] == errors[0] == "'NoneType' object has no attribute 'devices'"
+    rt = hv.consistency_runtime(make_mesh(8, platform="cpu"))
+    assert isinstance(rt, ConsistencyRuntime) and rt.state is hv.state
+    assert hv.consistency_runtime(make_mesh(8, platform="cpu")) is rt
     assert fleet.FailoverController is failover.FailoverController
     assert fleet.FailoverController.__module__ == "hypervisor_tpu_torch.fleet.failover"
     svc = HypervisorService(hypervisor=hv)

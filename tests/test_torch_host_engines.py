@@ -78,14 +78,28 @@ COPIES = (
     "verification/__init__.py",
     "adversarial/__init__.py", "adversarial/scoring.py",
     "fleet/registry.py", "fleet/trace.py", "fleet/rebalance.py",
+    "parallel/__init__.py",
 )
 
 #: Modules of the facade's slice that differ from their counterpart, and why.
 EXCEPTIONS = {
     "core.py": "tables on a torch device (`device=`); device columns read back "
                "through `_host`; the write "
-               "wave on the state's device; the serving front door and the "
-               "consistency runtime refused for later slices",
+               "wave on the state's device; the serving front door attached on the "
+               "state's device",
+    "parallel/mesh.py": "a single-controller mesh over torch devices (a virtual mesh "
+                        "repeats a device); no fallback to the host: too few CUDA "
+                        "devices raise",
+    "parallel/sharding.py": "a sharded column is D row parts (views on the column's "
+                            "own device), placed by `split_rows`/`shard_table`",
+    "parallel/collectives.py": "each shard_map body is per-shard phases joined by "
+                               "explicit collectives (psum in rank order from zero, "
+                               "all_gather, ppermute); the sharded admission's "
+                               "sigma is one fused multiply-add; the cascade runs "
+                               "`slash_cascade(allreduce=)` over edge-shard tables",
+    "runtime/consistency.py": "lanes and partials cross to the state's torch device "
+                              "(`_put`, `.cpu()`); the tick and reconcile are "
+                              "closures, not jitted programs",
     "resilience/supervisor.py": "the restore rung recovers onto the state's own "
                                 "device; a periodic checkpoint never swallows a "
                                 "CUDA error",

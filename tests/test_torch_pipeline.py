@@ -4,7 +4,9 @@ Counterparts of the four single-device tests of
 `tests/parity/test_pipeline.py` (the happy path, an untrustworthy lane
 sandboxed, sigma below the session floor, the root against `hashlib`)
 on `hypervisor_tpu_torch.ops.pipeline.governance_pipeline`; its two mesh
-tests wait for the multi-device slice.
+tests (`TestMultiChip`) have their counterparts in
+`tests/test_torch_parallel.py`, over `parallel.strong_tick`,
+`eventual_tick` and `reconcile`.
 
 Then the port held against the reference's function called as its own
 tests call it (eagerly, the XLA path on the CPU) on seeded numpy inputs,

@@ -569,9 +569,32 @@ def test_check_actions_wave_matches_reference(monkeypatch):
 
 
 def test_check_actions_wave_refuses_mesh():
-    st = PortState(port_config.HypervisorConfig(capacity=port_config.TableCapacity(
-        max_agents=8, max_sessions=4)), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        st.check_actions_wave([0], [2], [False], [False], [False], [False], now=0.0,
-                              mesh=object())
-    assert not st.agents.bd_window.any()  # nothing ran
+    """The sharded gateway is ported: on a CPU mesh it equals the
+    reference's on its mesh; a `mesh` that is not a mesh is refused with
+    the reference's own error before anything runs."""
+    from hypervisor_tpu import parallel as jax_parallel
+    from hypervisor_tpu.state import HypervisorState as JaxState
+    from hypervisor_tpu_torch import parallel as port_parallel
+
+    outs = []
+    for cls, cfg_mod, par, kw in ((JaxState, jax_config_mod(), jax_parallel, {}),
+                                  (PortState, port_config, port_parallel, {"device": "cpu"})):
+        st = cls(cfg_mod.HypervisorConfig(capacity=cfg_mod.TableCapacity(
+            max_agents=8, max_sessions=4)), **kw)
+        with pytest.raises(AttributeError) as err:
+            st.check_actions_wave([0], [2], [False], [False], [False], [False], now=0.0,
+                                  mesh=object())
+        assert not np.asarray(st.agents.bd_window).any()  # nothing ran
+        gw = st.check_actions_wave([0, 5, 5], [2, 3, 3], [False, True, True], [False] * 3,
+                                   [False] * 3, [False] * 3, now=1.0,
+                                   mesh=par.make_mesh(4, platform="cpu"))
+        outs.append((str(err.value), np.asarray(gw.verdict).tolist(),
+                     np.asarray(gw.window_calls).tolist(), np.asarray(st.agents.i32).tolist()))
+    assert outs[1] == outs[0]
+    assert outs[1][0] == "'object' object has no attribute 'devices'"
+
+
+def jax_config_mod():
+    from hypervisor_tpu import config
+
+    return config
