@@ -345,6 +345,20 @@ Phases, one JSON line each:
    `POST /fleet/rebalance` served, a stale restart refused at adopt.
    Each part's launches in its own window (workers' by SIGUSR1).
 
+22. mesh: the multi-device plane on virtual meshes of the card (its
+   walkthroughs held to an 8-shard CPU mesh and the single-device wave);
+23. lint: hvlint over the port (`hypervisor_tpu_torch.analysis`): Tier A
+   over the tree, then Tier B's seven programs on the card under
+   `torch.cuda.set_sync_debug_mode("error")`, the version-counter check
+   over every in-place wrapper and the one-program check; any
+   unsuppressed finding fails; the counts, the programs and both walls;
+24. examples: `examples.demo`, `examples.multichip` (8 shards of the
+   card), `examples.hv_top` in-process once, one refresh of
+   `examples.metrics_watch` and one run of `examples.trace_watch` on the
+   card and on the CPU, each output equal line for line once timings,
+   clock stamps, device names and the timing and compile panels are
+   masked (`testing.compare.masked_output`); the card runs' launches.
+
 Then the kernels summary (each tenant form with its times at T = 8 and
 at T = 100), the nvidia-smi line, and a last line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
@@ -5878,6 +5892,167 @@ def run_mesh_phase(device) -> dict:
     return rec
 
 
+# ── phases lint and examples ─────────────────────────────────────────
+
+#: Kernels Tier B's programs launch on the card: the wave's five, the
+#: tenant wave's four forms, the saga round and the slash cascade.
+LINT_KERNELS = ("contribution_toward", "admission_block", "fsm_saga_block",
+                "chain_digests_ring", "tree_roots", "contribution_toward_tenants",
+                "admission_block_tenants", "fsm_saga_block_tenants",
+                "chain_digests_ring_tenants", "saga_tick_block", "slash_cascade")
+
+
+def run_lint_phase(device) -> dict:
+    """Phase lint: hvlint over the port. Tier A over the port tree, then
+    Tier B on `device` (on the card: every program under
+    `torch.cuda.set_sync_debug_mode("error")`, the version-counter check
+    over every in-place wrapper, the one-program check). Any unsuppressed
+    finding fails the phase. Tier B's kernel launches are its window."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.analysis import cli as hv_cli
+    from hypervisor_tpu_torch.analysis.dispatch_lint import PROGRAMS
+    from hypervisor_tpu_torch.analysis.rules_ast import PortProject, derive_inplace_wrappers
+
+    reports = {}
+    walls = {}
+    t0 = time.perf_counter()
+    reports["a"] = hv_cli.run(tier="a")
+    walls["tier_a_s"] = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reports["b"] = hv_cli.run(tier="b", device=str(device))
+    walls["tier_b_s"] = time.perf_counter() - t0
+    window = kernels.launch_counts()
+    for tier, rep in reports.items():
+        open_findings = [f for f in rep["findings"] if not f["suppressed"]]
+        require(not open_findings,
+                f"lint: tier {tier.upper()} has unsuppressed findings: {open_findings}")
+    b = reports["b"]
+    require(b["tier_b_programs"] == [name for name, _, _ in PROGRAMS],
+            f"lint: tier B ran {b['tier_b_programs']}")
+    require(b["tier_b_device"] == str(torch.device(device)),
+            f"lint: tier B ran on {b['tier_b_device']}, not {device}")
+    package = hv_cli.default_package_dir()
+    inplace = sorted(n for _, n, _ in derive_inplace_wrappers(PortProject.load(package)))
+    require(all(b["tier_b_inplace_writes"].get(n) for n in inplace),
+            f"lint: an in-place wrapper wrote nothing: {b['tier_b_inplace_writes']}")
+    if torch.device(device).type == "cuda":
+        require(all(window[k] for k in LINT_KERNELS),
+                f"lint: tier B's programs must launch {LINT_KERNELS}: {window}")
+    return {
+        "counts": {tier: rep["counts"] for tier, rep in reports.items()},
+        "suppressed": [f"{f['rule']} {f['file']} ({f['anchor']})"
+                       for rep in reports.values() for f in rep["findings"] if f["suppressed"]],
+        "files_analyzed": reports["a"]["files_analyzed"],
+        "programs": b["tier_b_programs"], "device": b["tier_b_device"],
+        "inplace_wrappers": {n: b["tier_b_inplace_writes"][n] for n in inplace},
+        "ms": {"tier_a": reports["a"]["tier_a_ms"], "tier_b": b["tier_b_ms"]},
+        **walls, "window": window,
+    }
+
+
+#: (name, module, argv): each example once, as a user runs it.
+EXAMPLE_RUNS = (
+    ("demo", "hypervisor_tpu_torch.examples.demo", []),
+    ("multichip", "hypervisor_tpu_torch.examples.multichip", []),
+    ("hv_top", "hypervisor_tpu_torch.examples.hv_top", ["--sessions", "64"]),
+    ("metrics_watch", "hypervisor_tpu_torch.examples.metrics_watch", ["--sessions", "64"]),
+    ("trace_watch", "hypervisor_tpu_torch.examples.trace_watch", ["--sessions", "16"]),
+)
+#: Panels masked in an example's card-against-CPU comparison: the timing
+#: panels and the compile panel, whose counts of novel signatures depend
+#: on what this process dispatched before (ROADMAP C.2).
+EXAMPLE_PANELS = ("stage latency", "watchdog", "slo ", "roofline", "compiles ")
+#: Kernels the examples launch on the card: the pipeline's B2 and B3, the
+#: device plane's wave, the saga rounds, the facade's slash cascade.
+EXAMPLE_KERNELS = ("chain_digests", "tree_roots", "contribution_toward", "admission_block",
+                   "fsm_saga_block", "chain_digests_ring", "saga_tick_block", "slash_cascade")
+
+
+def run_examples(device, workdir: str) -> dict:
+    """Every `EXAMPLE_RUNS` entry on `device`, each under one set of
+    manual ids and clock, its standard output captured; returns
+    {name: (text, wall_s)}."""
+    import importlib
+    import io
+
+    from hypervisor_tpu_torch.core import Hypervisor
+    from hypervisor_tpu_torch.testing.compare import recompile_events_off
+
+    out = {}
+    for name, module, argv in EXAMPLE_RUNS:
+        extra = ["--out", os.path.join(workdir, "trace.json")] if name == "trace_watch" else []
+        buf = io.StringIO()
+        # A recompile event on a facade's bus counts what this process
+        # dispatched before (ROADMAP C.2): kept off, as in every rerun.
+        with manual_ids_and_time([1_700_000_000.0]), recompile_events_off(Hypervisor):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = importlib.import_module(module).main([*argv, *extra, "--device", str(device)])
+            wall = time.perf_counter() - t0
+        require(rc in (0, None), f"examples: {name} exited {rc}")
+        out[name] = (buf.getvalue(), wall)
+    return out
+
+
+def run_examples_phase(device, workdir: str) -> dict:
+    """Phase examples: `demo`, `multichip` (its virtual mesh of 8 shards
+    of the card), `hv_top` in-process once, one refresh of
+    `metrics_watch` and one run of `trace_watch` on `device`, then the
+    same on the CPU; each example's output equal to its CPU run's line
+    for line (tolerance 0) once `testing.compare.masked_output` masks
+    timings, clock stamps, the device's names and the timing and compile
+    panels. The watchdog stays unarmed (its deadlines are each run's own
+    stage times). The card runs' kernel launches are the window."""
+    import torch
+
+    from hypervisor_tpu_torch import kernels
+    from hypervisor_tpu_torch.testing.compare import masked_output
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    names = (torch.cuda.get_device_name(dev), str(dev), "cuda") if on_card else ("cpu",)
+    saved = os.environ.get("HV_WATCHDOG_MIN_SAMPLES")
+    os.environ["HV_WATCHDOG_MIN_SAMPLES"] = str(1 << 62)
+    try:
+        kernels.reset_launch_counts()
+        runs = run_examples(dev, workdir)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        window = kernels.launch_counts()
+        cpu_runs = run_examples("cpu", workdir) if on_card else runs
+    finally:
+        if saved is None:
+            os.environ.pop("HV_WATCHDOG_MIN_SAMPLES", None)
+        else:
+            os.environ["HV_WATCHDOG_MIN_SAMPLES"] = saved
+    lines = {}
+    for name, (text, _) in runs.items():
+        got = masked_output(text, names, panels=EXAMPLE_PANELS)
+        want = masked_output(cpu_runs[name][0], ("cpu",), panels=EXAMPLE_PANELS)
+        at = next((i for i, (g, w) in enumerate(zip(got, want)) if g != w),
+                  min(len(got), len(want)))
+        require(got == want, f"examples: {name} on {dev} differs from its CPU run at line "
+                             f"{at}: {got[at:at + 1]} against {want[at:at + 1]}")
+        lines[name] = len(got)
+    demo = runs["demo"][0]
+    require("4096/4096 sessions completed the full pipeline" in demo
+            and demo.rstrip().endswith("All demos complete."), "examples: the demo did not finish")
+    require(runs["multichip"][0].rstrip().endswith("multichip walkthrough complete."),
+            "examples: the multichip walkthrough did not finish")
+    if on_card:
+        require(all(window[k] for k in EXAMPLE_KERNELS),
+                f"examples: the card runs must launch {EXAMPLE_KERNELS}: {window}")
+    return {
+        "walls_s": {name: wall for name, (_, wall) in runs.items()},
+        "cpu_walls_s": {name: wall for name, (_, wall) in cpu_runs.items()} if on_card else None,
+        "lines_compared": lines, "window": window,
+        "demo_pipeline_line": next(l for l in demo.splitlines() if "4096/4096" in l),
+    }
+
+
 def first_difference(label, got, want):
     """The first path where two records differ, or None."""
     if isinstance(want, dict):
@@ -7697,6 +7872,29 @@ def main(argv=None) -> int:
                "torch.cuda.synchronize(), mesh and single-device in turns, each replayed from "
                "a snapshot; collectives: CUDA events and host time around every psum and "
                "all_gather of a timed mesh wave; idle share: torch.profiler over three waves")
+
+    # ── 23. lint: hvlint's Tier A over the port, Tier B on the card ─────
+    t0 = time.perf_counter()
+    lint_rec = run_lint_phase(dev)
+    lint_s = time.perf_counter() - t0
+    windows["lint"] = full_window(lint_rec.pop("window"))
+    emit("lint", seconds=lint_s, **lint_rec, window=windows["lint"], nvidia_smi=smi,
+         clock="host perf_counter around each tier's whole run (Tier B: seven programs at "
+               "tiny shapes under the sync-debug mode, the dispatch recorder and the "
+               "version-counter check)")
+
+    # ── 24. examples: the demo, the mesh walkthrough and the watchers ───
+    ex_dir = tempfile.mkdtemp(prefix="hv_examples_")
+    try:
+        t0 = time.perf_counter()
+        ex_rec = run_examples_phase(dev, ex_dir)
+        ex_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ex_dir, ignore_errors=True)
+    windows["examples"] = full_window(ex_rec.pop("window"))
+    emit("examples", seconds=ex_s, **ex_rec, window=windows["examples"], nvidia_smi=smi,
+         clock="host perf_counter around each example's main(), on the card then on the CPU "
+               "(the card's first kernel builds happened in phase build)")
 
     # Each kernel at the wave's inputs; in-place kernels restore first.
     def restore_post(dst):

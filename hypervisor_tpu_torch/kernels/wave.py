@@ -124,6 +124,10 @@ def _bursts(bursts) -> list[float]:
 
 # ── the vouched contribution ─────────────────────────────────────────
 
+#: Plain version of the contribution: what CPU tensors run and the kernels
+#: are held against (`ops.liability.contribution_toward`).
+contribution_toward_plain = liability_ops.contribution_toward
+
 
 def contribution_toward(
     vouches: VouchTable,
@@ -133,9 +137,9 @@ def contribution_toward(
     """f32[N] bonded sigma toward each agent slot, scoped to the session
     it is joining, summed in edge order. CUDA tensors launch the kernels
     (`now` may be a device scalar, read on the device); CPU tensors take
-    the plain `ops.liability.contribution_toward`."""
+    `contribution_toward_plain`."""
     if not _route(vouches.bond):
-        return liability_ops.contribution_toward(vouches, target_session_of_slot, now)
+        return contribution_toward_plain(vouches, target_session_of_slot, now)
     dev = vouches.bond.device
     n, e = target_session_of_slot.shape[0], vouches.bond.shape[0]
     cols = [  # (tensor, name, dtype, length)
@@ -170,7 +174,7 @@ def contribution_toward_tenants_plain(vouches: VouchTable, target_session_of_slo
     """Plain version of the contribution's tenant form: the solo plain
     version on each tenant's view, stacked -> f32[T, N]."""
     return torch.stack([
-        liability_ops.contribution_toward(tenant_view(vouches, t), target_session_of_slot[t], now)
+        contribution_toward_plain(tenant_view(vouches, t), target_session_of_slot[t], now)
         for t in range(target_session_of_slot.shape[0])
     ])
 

@@ -133,7 +133,10 @@ class WaveStamps:
 
     def commit(self, log: TraceLog) -> TraceLog:
         """Write the rows IN PLACE (one host-to-device copy of the
-        columns, positions from the ring's device cursor); returns it."""
+        columns, positions from the ring's device cursor); returns it.
+        On the card the copy is from pinned memory and asynchronous: a
+        copy from pageable memory would wait for every launch the wave
+        queued before it."""
         ctx = self._ctx
         if not self._rows or not ctx.sampled:
             return log
@@ -143,7 +146,9 @@ class WaveStamps:
              stage, kind, lane, ctx.wave_seq)
             for stage, kind, lane in self._rows
         ], np.int64).T
-        t = torch.from_numpy(np.ascontiguousarray(cols)).to(log.words.device)
+        t = torch.from_numpy(np.ascontiguousarray(cols))
+        if log.words.device.type == "cuda":
+            t = t.pin_memory().to(log.words.device, non_blocking=True)
         log.stamp_batch(*t, sampled=ctx.sampled)
         return log
 

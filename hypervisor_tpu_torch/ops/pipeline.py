@@ -242,7 +242,7 @@ KERNEL_BLOCKS = WaveBlocks(
 )
 #: The plain PyTorch versions on any device (what the kernels are held against).
 PLAIN_BLOCKS = WaveBlocks(
-    liability_ops.contribution_toward, wave.admission_block_plain, wave.fsm_saga_block_plain,
+    wave.contribution_toward_plain, wave.admission_block_plain, wave.fsm_saga_block_plain,
     mtu.chain_digests_plain, mtu.chain_digests_ring_plain, mtu.tree_roots_plain,
 )
 

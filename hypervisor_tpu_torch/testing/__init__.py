@@ -14,7 +14,11 @@ from hypervisor_tpu_torch.testing.chaos import (
     WaveChaosInjector,
     WaveChaosPlan,
 )
-from hypervisor_tpu_torch.testing.compare import same_health_on_every_run, supervisor_accounting
+from hypervisor_tpu_torch.testing.compare import (
+    masked_output,
+    same_health_on_every_run,
+    supervisor_accounting,
+)
 from hypervisor_tpu_torch.testing import scenarios
 
 __all__ = [
@@ -27,6 +31,7 @@ __all__ = [
     "InjectedWaveFault",
     "WaveChaosInjector",
     "WaveChaosPlan",
+    "masked_output",
     "same_health_on_every_run",
     "scenarios",
     "supervisor_accounting",

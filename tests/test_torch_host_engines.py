@@ -79,6 +79,7 @@ COPIES = (
     "adversarial/__init__.py", "adversarial/scoring.py",
     "fleet/registry.py", "fleet/trace.py", "fleet/rebalance.py",
     "parallel/__init__.py",
+    "analysis/__main__.py", "analysis/findings.py", "analysis/walker.py",
 )
 
 #: Modules of the facade's slice that differ from their counterpart, and why.
@@ -125,6 +126,19 @@ EXCEPTIONS = {
                                      "rebinds it (no `.at[].set`)",
     "testing/scenarios.py": "`run_scenario`/`run_all` take `device=`; the docstring "
                             "names the port's card check, not the bench gates",
+    "analysis/__init__.py": "the docstring and exports name the port's tiers (`PortProject`, "
+                            "`derive_entry_points`; Tier B is `dispatch_lint`)",
+    "analysis/cli.py": "`--device` for Tier B (the card by default); the payload lists "
+                       "Tier B's device and each in-place wrapper's writes",
+    "analysis/rules_ast.py": "the rules in the port's idiom: HVA001 counts in-place table "
+                             "writes (column stores, `*_` methods, calls that write a "
+                             "parameter), HVA005 `_plain` twins of the wrappers that take "
+                             "the CUDA route, named by a `tests/test_torch_*.py`",
+    "examples/demo.py": "sections 6 and 7 run the port's pipeline and tables on `--device` "
+                        "(in-place vouch edges, no `jax.jit`); no accelerator watchdog",
+    "examples/multichip.py": "an explicit virtual mesh (8 shards of `--device`), "
+                             "torch tables written in place, a fresh table pair for each "
+                             "of the two fused waves",
     "fleet/worker.py": "`WorkerSpec.device` (the card by default); the service and "
                        "arena are built on it, and a durable worker's arena too (its "
                        "SIGTERM drain syncs the arena before the checkpoint's host "
@@ -162,6 +176,101 @@ EDITED_COPIES = {
                                "            source_epoch_dir, tenant, config=cfg,\n"
                                "            device=target.arena.device,\n        )"),
                           ]),
+    # The examples: the reference's `examples/` scripts, as modules of the port.
+    'examples/_watch_common.py': ('runs as a module of the package (no `sys.path` insert); `build_state` builds the state on a torch device', [
+        ('shape: put the repo root on `sys.path`, build a `HypervisorState`,',
+         'shape: build a `HypervisorState` on a torch device,'),
+        ('# Examples run as scripts from anywhere: the repo root (one level up)\n# must be importable before `hypervisor_tpu_torch`.\nsys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))\n\n\n',
+         '\n'),
+        ('def build_state(max_sessions: int):\n    """A HypervisorState whose session table fits the demo traffic."""',
+         'def build_state(max_sessions: int, device="cuda"):\n    """A HypervisorState on `device` whose session table fits the demo\n    traffic."""'),
+        ('    return HypervisorState(config)\n',
+         '    return HypervisorState(config, device=device)\n'),
+    ]),
+    'examples/metrics_watch.py': ("runs as a module of the package; `--device` names the state's torch device", [
+        ('refresh.\n\nUsage::\n\n    python examples/metrics_watch.py                 # one round, one frame\n    python examples/metrics_watch.py --watch         # refresh until ^C\n    python examples/metrics_watch.py --rounds 5 --sessions 256\n    python examples/metrics_watch.py --prometheus    # raw text exposition\n',
+         'refresh.\n\nUsage::\n\n    python -m hypervisor_tpu_torch.examples.metrics_watch             # one frame\n    python -m hypervisor_tpu_torch.examples.metrics_watch --watch     # until ^C\n    python -m hypervisor_tpu_torch.examples.metrics_watch --rounds 5 --sessions 256\n    python -m hypervisor_tpu_torch.examples.metrics_watch --prometheus\n    python -m hypervisor_tpu_torch.examples.metrics_watch --device cpu\n'),
+        ('log-bucket histograms — one `snapshot()` (a single device_get) per\nrefresh.',
+         'log-bucket histograms — one `snapshot()` (a single device read) per\nrefresh.'),
+        ('# Runnable via `python examples/metrics_watch.py` AND runpy (the smoke\n# tests): runpy does not put the script dir on sys.path.\nsys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))\n\nfrom _watch_common import build_state, drive_round, watch_loop  # noqa: E402\n',
+         'from hypervisor_tpu_torch.examples._watch_common import build_state, drive_round, watch_loop\n'),
+        ('    ap.add_argument("--interval", type=float, default=2.0)\n',
+         '    ap.add_argument("--interval", type=float, default=2.0)\n    ap.add_argument("--device", default="cuda",\n                    help="torch device of the state (cpu on a machine without a card)")\n'),
+        ('    state = build_state(args.sessions * max(args.rounds, 1) + 64)\n',
+         '    state = build_state(args.sessions * max(args.rounds, 1) + 64, device=args.device)\n'),
+    ]),
+    'examples/trace_watch.py': ("runs as a module of the package; `main` takes `argv`; `--device` names the state's torch device", [
+        ('Usage::\n\n    python examples/trace_watch.py                      # 1 round, tree + file\n    python examples/trace_watch.py --rounds 3 --sessions 64\n    python examples/trace_watch.py --out /tmp/hv_trace.json\n    python examples/trace_watch.py --otlp               # OTLP-lite JSON form\n    python examples/trace_watch.py --sample 0.25        # head-based sampling\n',
+         'Usage::\n\n    python -m hypervisor_tpu_torch.examples.trace_watch         # 1 round, tree + file\n    python -m hypervisor_tpu_torch.examples.trace_watch --rounds 3 --sessions 64\n    python -m hypervisor_tpu_torch.examples.trace_watch --out /tmp/hv_trace.json\n    python -m hypervisor_tpu_torch.examples.trace_watch --otlp  # OTLP-lite JSON form\n    python -m hypervisor_tpu_torch.examples.trace_watch --sample 0.25\n    python -m hypervisor_tpu_torch.examples.trace_watch --device cpu\n'),
+        ('# Runnable via `python examples/trace_watch.py` AND runpy (the smoke\n# tests): runpy does not put the script dir on sys.path.\nsys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))\n\nfrom _watch_common import build_state, drive_round  # noqa: E402\n',
+         'from hypervisor_tpu_torch.examples._watch_common import build_state, drive_round\n'),
+        ('def main() -> int:\n',
+         'def main(argv=None) -> int:\n'),
+        ('                    help="head-based per-session sample rate (0..1)")\n    args = ap.parse_args()\n',
+         '                    help="head-based per-session sample rate (0..1)")\n    ap.add_argument("--device", default="cuda",\n                    help="torch device of the state (cpu on a machine without a card)")\n    args = ap.parse_args(argv)\n'),
+        ('    state = build_state(args.sessions * max(args.rounds, 1) + 64)\n',
+         '    state = build_state(args.sessions * max(args.rounds, 1) + 64, device=args.device)\n'),
+    ]),
+    'examples/hv_top.py': ("runs as a module of the package; `--device` names the in-process state's torch device; the comments and one n/a line leave out the reference's change-request numbers", [
+        ('Two modes::\n\n    python examples/hv_top.py                       # in-process demo:\n',
+         'Two modes::\n\n    python -m hypervisor_tpu_torch.examples.hv_top  # in-process demo:\n'),
+        ('    python examples/hv_top.py --url http://host:8000 --watch\n',
+         '    python -m hypervisor_tpu_torch.examples.hv_top --url http://host:8000 --watch\n'),
+        ('# Runnable via `python examples/hv_top.py` AND runpy (the smoke\n# tests): runpy does not put the script dir on sys.path.\nsys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))\n\nfrom _watch_common import (  # noqa: E402\n',
+         'from hypervisor_tpu_torch.examples._watch_common import (\n'),
+        ('    ap.add_argument("--interval", type=float, default=2.0)\n',
+         '    ap.add_argument("--interval", type=float, default=2.0)\n    ap.add_argument("--device", default="cuda",\n                    help="torch device of the state (cpu on a machine without a card)")\n'),
+        ('    state = build_state(args.sessions * max(args.rounds, 1) + 64)\n',
+         '    state = build_state(args.sessions * max(args.rounds, 1) + 64, device=args.device)\n'),
+        ('    A refresh reads 7 endpoints; before round 18 each was its own\n    `urlopen` (TCP handshake per endpoint per frame). The poller holds\n    ONE `http.client.HTTPConnection` across requests AND frames —\n    true keep-alive against HTTP/1.1 servers (both transports since\n    r18), and a transparent auto-reconnect against HTTP/1.0 servers\n',
+         '    A refresh reads 7 endpoints; a `urlopen` each would pay a TCP\n    handshake per endpoint per frame. The poller holds ONE\n    `http.client.HTTPConnection` across requests AND frames — true\n    keep-alive against HTTP/1.1 servers (both transports), and a\n    transparent auto-reconnect against HTTP/1.0 servers\n'),
+        ('    roofline = poller.get_json("/debug/roofline")   # pre-r15: n/a\n    tenants = poller.get_json("/debug/tenants")     # pre-r16: n/a\n    autopilot = poller.get_json("/debug/autopilot")  # pre-r17: n/a\n    fleet = poller.get_json("/debug/fleet")         # pre-r18: n/a\n',
+         '    roofline = poller.get_json("/debug/roofline")   # an older server: n/a\n    tenants = poller.get_json("/debug/tenants")     # an older server: n/a\n    autopilot = poller.get_json("/debug/autopilot")  # an older server: n/a\n    fleet = poller.get_json("/debug/fleet")         # an older server: n/a\n'),
+        ('        # failover + rebalance planes (pre-r20/r21 servers — or an\n',
+         '        # failover + rebalance planes (older servers — or an\n'),
+        ('    incidents = poller.get_json("/debug/incidents")  # pre-r19: n/a\n',
+         '    incidents = poller.get_json("/debug/incidents")  # an older server: n/a\n'),
+        ('    # no worker fan-out, so the panel reads n/a (same as pre-r18 URLs).\n',
+         "    # no worker fan-out, so the panel reads n/a (as an older server's).\n"),
+        ('        lines.append("incidents  n/a (endpoint absent or pre-r19 server)")\n',
+         '        lines.append("incidents  n/a (endpoint absent or an older server)")\n'),
+    ]),
+    'examples/dashboard/app.py': ("runs as a module of the package; the docstring names the port's entry points; `simulate(device=)` builds the facade and the lock wave on a torch device and reads the occupancy columns back through `.cpu()`; `--device`; a comment leaves out the reference's change-request number", [
+        ('"""Hypervisor dashboard: live governance state across five panels.\n\nParity target: the reference ships a Streamlit+Plotly dashboard with five\ntabs — overview, rings, sagas, liability, events — fed either by a live\nhypervisor or a simulated session (`examples/dashboard/app.py:27-50,394-401`\nin /root/reference). This version renders the same five panels through\nwhichever frontend the environment has:\n\n  * streamlit  — `streamlit run examples/dashboard/app.py` (five tabs,\n    auto-refresh), when streamlit is installed.\n  * browser    — `python examples/dashboard/app.py --serve 8400` serves a\n    self-contained live HTML dashboard over stdlib http (`web.py`) — no\n    extra dependencies, the web-UI parity surface.\n  * terminal   — `python examples/dashboard/app.py` renders the panels with\n    rich (falls back to plain text without rich).\n  * png report — `python examples/dashboard/app.py --png out.png` writes a\n    matplotlib snapshot (2x2 charts + event feed).\n\nData comes from a LIVE `Hypervisor` driven by a built-in activity\nsimulator (sessions, joins, vouches, drift slashes, sagas, events) — the\nsame live-or-simulated split as the reference, except the "simulation"\nhere drives the real engines rather than faking chart data.\n"""\n',
+         '"""Hypervisor dashboard: live governance state across five panels.\n\nFive panels (overview, rings, sagas, liability, events) fed by a live\nhypervisor driven by a simulated session, rendered through whichever\nfrontend the environment has:\n\n  * streamlit  — `streamlit run hypervisor_tpu_torch/examples/dashboard/app.py`\n    (five tabs, auto-refresh), when streamlit is installed.\n  * browser    — `python -m hypervisor_tpu_torch.examples.dashboard.app\n    --serve 8400` serves a self-contained live HTML dashboard over stdlib\n    http (`web.py`) — no extra dependencies.\n  * terminal   — `python -m hypervisor_tpu_torch.examples.dashboard.app`\n    renders the panels with rich (falls back to plain text without rich).\n  * png report — `... app --png out.png` writes a matplotlib snapshot\n    (2x2 charts + event feed).\n\nData comes from a LIVE `Hypervisor` on `--device` (the card by default)\ndriven by a built-in activity simulator (sessions, joins, vouches, drift\nslashes, sagas, events): the simulation drives the real engines rather\nthan faking chart data.\n"""\n'),
+        ('\nsys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))\n',
+         ''),
+        ('async def simulate(n_sessions: int = 4, agents_per: int = 5, seed: int = 7) -> DashboardState:\n    """Run a governance scenario through the real engines and snapshot it."""',
+         'async def simulate(n_sessions: int = 4, agents_per: int = 5, seed: int = 7,\n                   device="cuda") -> DashboardState:\n    """Run a governance scenario through the real engines (the facade on\n    `device`) and snapshot it."""'),
+        ('    hv = Hypervisor(event_bus=bus)\n',
+         '    hv = Hypervisor(event_bus=bus, device=device)\n'),
+        ('    locks = LockWave()\n',
+         '    locks = LockWave(device=device)\n'),
+        ('        "agent rows": int((np.asarray(dev.agents.did) >= 0).sum()),\n        "session rows": dev._next_session_slot,\n        "vouch edges": int(np.asarray(dev.vouches.active).sum()),\n        "delta log records": int(np.asarray(dev.delta_log.cursor)),\n        "device events": int(np.asarray(dev.event_log.cursor)),\n        "elevations": int(np.asarray(dev.elevations.active).sum()),\n',
+         '        "agent rows": int((np.asarray(dev.agents.did.cpu()) >= 0).sum()),\n        "session rows": dev._next_session_slot,\n        "vouch edges": int(np.asarray(dev.vouches.active.cpu()).sum()),\n        "delta log records": int(np.asarray(dev.delta_log.cursor.cpu())),\n        "device events": int(np.asarray(dev.event_log.cursor.cpu())),\n        "elevations": int(np.asarray(dev.elevations.active.cpu()).sum()),\n'),
+        ('        help="serve the browser dashboard on this port (stdlib http)",\n    )\n    args, rest = ap.parse_known_args()\n',
+         '        help="serve the browser dashboard on this port (stdlib http)",\n    )\n    ap.add_argument("--device", default="cuda",\n                    help="torch device of the state (cpu on a machine without a card)")\n    args, rest = ap.parse_known_args()\n'),
+        ('        from web import main as web_main  # type: ignore[import-not-found]\n\n        # Forward unrecognized flags (e.g. web.py\'s --cpu) instead of\n        # dropping them. Note --cpu through THIS entry is best-effort:\n        # app.py already imported the engines (and therefore jax) at\n        # module scope, so force_cpu_platform runs its degraded\n        # already-imported path; `python examples/dashboard/web.py\n        # --cpu` pins the platform before any jax import.\n        sys.argv = [sys.argv[0], "--port", str(args.serve),\n                    "--sessions", str(args.sessions), *rest]\n',
+         '        from hypervisor_tpu_torch.examples.dashboard.web import main as web_main\n\n        # Forward unrecognized flags instead of dropping them.\n        sys.argv = [sys.argv[0], "--port", str(args.serve),\n                    "--sessions", str(args.sessions), "--device", args.device, *rest]\n'),
+        ('    st = asyncio.run(simulate(n_sessions=args.sessions))\n',
+         '    st = asyncio.run(simulate(n_sessions=args.sessions, device=args.device))\n'),
+        ("    # The ledger is the FACADE's own (round 3 wires it as the admission\n",
+         "    # The ledger is the FACADE's own (the facade wires it as the admission\n"),
+    ]),
+    'examples/dashboard/web.py': ("runs as a module of the package; the docstring names the port's entry points; the app is imported as the package's module; the server and `--device` build the world on a torch device (no `--cpu` platform pin)", [
+        ('"""Browser dashboard over the stdlib HTTP transport — no new deps.\n\nCloses the last surface gap with the reference\'s Streamlit+Plotly web\nUI (`/root/reference/examples/dashboard/app.py:27-50`): the same five\npanels (overview, rings, sagas, liability, events) plus the security\nand device-occupancy panels our terminal renderer already shows, served\nas ONE self-contained HTML page from `http.server`. Data comes from the\nsame `simulate()` world as every other renderer (`app.py` — the\nsimulator drives the REAL engines); the page polls `/data.json` and the\nserver re-runs the scenario with a rotating seed at most once per\n`refresh_s`, so the dashboard is live the same way a Streamlit rerun\nis.\n\nRun: `python examples/dashboard/web.py [--port 8400]`\nor   `python examples/dashboard/app.py --serve 8400`.\n"""\n',
+         '"""Browser dashboard over the stdlib HTTP transport — no new deps.\n\nThe same five panels (overview, rings, sagas, liability, events) plus the\nsecurity and device-occupancy panels the terminal renderer shows, served\nas ONE self-contained HTML page from `http.server`. Data comes from the\nsame `simulate()` world as every other renderer (`app.py` — the\nsimulator drives the REAL engines on `--device`); the page polls\n`/data.json` and the server re-runs the scenario with a rotating seed at\nmost once per `refresh_s`, so the dashboard is live the same way a\nStreamlit rerun is.\n\nRun: `python -m hypervisor_tpu_torch.examples.dashboard.web [--port 8400]`\nor   `python -m hypervisor_tpu_torch.examples.dashboard.app --serve 8400`.\n"""\n'),
+        ('\nsys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))\n',
+         ''),
+        ('def _load_app():\n    # Import the sibling module whether invoked as a script or a module.\n    import importlib.util\n\n    existing = sys.modules.get("dashboard_app")\n    if existing is not None:\n        return existing\n    spec = importlib.util.spec_from_file_location(\n        "dashboard_app", Path(__file__).resolve().parent / "app.py"\n    )\n    mod = importlib.util.module_from_spec(spec)\n    # Register BEFORE exec: dataclass field resolution (PEP 563 string\n    # annotations) looks the module up in sys.modules.\n    sys.modules["dashboard_app"] = mod\n    spec.loader.exec_module(mod)\n    return mod\n',
+         'def _load_app():\n    # The sibling module, as the package\'s own.\n    import importlib\n\n    return importlib.import_module("hypervisor_tpu_torch.examples.dashboard.app")\n'),
+        ('        n_sessions: int = 4,\n        refresh_s: float = 5.0,\n    ) -> None:\n        self._app = _load_app()\n',
+         '        n_sessions: int = 4,\n        refresh_s: float = 5.0,\n        device="cuda",\n    ) -> None:\n        self._app = _load_app()\n        self._device = device\n'),
+        ('                    n_sessions=self._n_sessions, seed=self._seed\n',
+         '                    n_sessions=self._n_sessions, seed=self._seed,\n                    device=self._device,\n'),
+        ('    ap.add_argument(\n        "--cpu", action="store_true",\n        help="pin JAX to the CPU backend before the engines load "\n        "(skips accelerator discovery — use when no TPU is attached)",\n    )\n    args = ap.parse_args()\n    if args.cpu:\n        from _jax_platform import force_cpu_platform\n\n        force_cpu_platform(1)\n    srv = DashboardServer(port=args.port, n_sessions=args.sessions).start()\n',
+         '    ap.add_argument("--device", default="cuda",\n                    help="torch device of the state (cpu on a machine without a card)")\n    args = ap.parse_args()\n    srv = DashboardServer(port=args.port, n_sessions=args.sessions,\n                          device=args.device).start()\n'),
+    ]),
 }
 
 #: Modules the port copies with a module docstring of its own, and why:
@@ -188,6 +297,12 @@ def _rewritten(path: Path) -> str:
     return re.sub(r"\bhypervisor_tpu\b", "hypervisor_tpu_torch", path.read_text())
 
 
+def _ref(rel: str) -> Path:
+    """The reference's counterpart of a port module: its examples live at
+    the repo root, the port's inside its package."""
+    return (REF_ROOT.parent if rel.startswith("examples/") else REF_ROOT) / rel
+
+
 def _split_docstring(text: str) -> tuple[str, str]:
     """(module docstring, the rest of the text, line for line)."""
     lines = text.splitlines(keepends=True)
@@ -197,17 +312,17 @@ def _split_docstring(text: str) -> tuple[str, str]:
 
 def test_copied_modules_equal_the_reference():
     for rel in COPIES:
-        assert (PORT_ROOT / rel).read_text() == _rewritten(REF_ROOT / rel), (
+        assert (PORT_ROOT / rel).read_text() == _rewritten(_ref(rel)), (
             f"{rel} drifted from its reference counterpart")
     for rel, reason in EXCEPTIONS.items():
-        assert reason and (PORT_ROOT / rel).read_text() != _rewritten(REF_ROOT / rel), rel
+        assert reason and (PORT_ROOT / rel).read_text() != _rewritten(_ref(rel)), rel
     for rel, reason in DOCSTRING_EDITS.items():
         port_doc, port_rest = _split_docstring((PORT_ROOT / rel).read_text())
         ref_doc, ref_rest = _split_docstring(_rewritten(REF_ROOT / rel))
         assert reason and port_doc != ref_doc, rel
         assert port_rest == ref_rest, f"{rel} drifted from its reference counterpart"
     for rel, (reason, edits) in EDITED_COPIES.items():
-        text = _rewritten(REF_ROOT / rel)
+        text = _rewritten(_ref(rel))
         for old, new in edits:
             assert reason and text.count(old) == 1, (rel, old)
             text = text.replace(old, new)
