@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from hypervisor_tpu_torch.observability import metrics as metrics_plane
+from hypervisor_tpu_torch.observability import profiling
 
 # ── compile telemetry ────────────────────────────────────────────────
 
@@ -236,13 +237,15 @@ class CompileWatch:
     # -- dispatch -------------------------------------------------------
 
     def __call__(self, *args, **kwargs):
-        """Novel abstract signatures are detected by key; a hit only
-        books the wall time of a kernel build it ran into."""
+        """Novel abstract signatures are detected by key (the key and its
+        lookup timed as the span `obs.compile_key`); a hit only books the
+        wall time of a kernel build it ran into."""
         from hypervisor_tpu_torch.kernels import _build
 
-        key = self._sig_key(args, kwargs)
-        with self._lock:
-            hit = key in self._keys
+        with profiling.stage_scope("obs.compile_key"):
+            key = self._sig_key(args, kwargs)
+            with self._lock:
+                hit = key in self._keys
         if hit:
             built = _build.load_wall_ms
             out = self._fn(*args, **kwargs)

@@ -21,9 +21,11 @@ This module is everything around it:
     math (`MetricsSnapshot.quantile`).
 
 A stage timer (`Metrics.stage`) measures the host's enqueue of a
-dispatch, as the reference's does: it never waits on the device. Its
-`hv.<stage>` name also labels a `torch.profiler` range, so a profile and
-the latency histograms correlate line for line.
+dispatch, as the reference's does: it never waits on the device. It is a
+span of the recorder (`profiling.stage_scope`) whose duration is also
+the histogram's sample; while a profiler records, its `hv.<stage>`
+range labels the profile, so a profile and the latency histograms
+correlate line for line.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+
+from hypervisor_tpu_torch.observability import profiling
 
 #: Shared histogram upper bounds, in microseconds: 2^0 .. 2^24 µs
 #: (1 µs .. ~16.8 s), +Inf implied as the final overflow bucket.
@@ -979,11 +983,12 @@ class Metrics:
             counts = self._h_hist[handle.index].copy()
         return int(counts.sum()), _bucket_quantile(counts, self._bounds, q)
 
-    def stage(self, name: str) -> "_StageTimer":
-        """Bracket one dispatched wave: a `torch.profiler` range named
-        `hv.<name>` + a latency sample of the host's enqueue (the
-        dispatch-to-return wall clock; it never waits on the device)."""
-        return _StageTimer(self, STAGE_LATENCY[name], name)
+    def stage(self, name: str) -> "_StageSample":
+        """Bracket one dispatched wave: a span `name`
+        (`profiling.stage_scope`) + a latency sample of the host's
+        enqueue (the dispatch-to-return wall clock; it never waits on the
+        device)."""
+        return _StageSample(self, STAGE_LATENCY[name], name)
 
     # ── drain ────────────────────────────────────────────────────────
 
@@ -1054,29 +1059,23 @@ class Metrics:
         return self.snapshot().to_prometheus()
 
 
-class _StageTimer:
-    """Context manager: a profiler range + a wall-clock histogram sample."""
+class _StageSample(profiling.stage_scope):
+    """`profiling.stage_scope` plus one wall-clock histogram sample of
+    the span's own duration on a clean exit."""
+
+    __slots__ = ("_metrics", "_handle")
 
     def __init__(self, metrics: Metrics, handle: MetricHandle, name: str):
+        super().__init__(name)
         self._metrics = metrics
         self._handle = handle
-        self._name = name
-        self._span = None
-        self._t0 = 0.0
-
-    def __enter__(self) -> "_StageTimer":
-        self._span = torch.profiler.record_function(f"hv.{self._name}")
-        self._span.__enter__()
-        self._t0 = time.perf_counter()
-        return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        dt_us = (time.perf_counter() - self._t0) * 1e6
-        self._span.__exit__(exc_type, exc, tb)
+        super().__exit__(exc_type, exc, tb)
         # A raising wave never completed: recording its partial elapsed
         # time would pollute the latency quantiles operators alert on.
         if exc_type is None:
-            self._metrics.observe_us(self._handle, dt_us)
+            self._metrics.observe_us(self._handle, self.ns / 1e3)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,8 +19,12 @@ Usage::
     profiling.stop()
 
 A trace lands in `log_dir` as `hv_trace.<n>.json` (Chrome trace format).
-Ranges cost a `record_function` enter and exit when no capture is
-active, so the runtime annotates unconditionally.
+
+The runtime's spans (`stage_scope`, the span recorder below) are always
+on: each keeps its times in a process-wide ring and in totals by path
+(`span_totals`, `span_trees`), and opens its `hv.<name>` range only
+while a profiler records. `device_span` times the fused wave on the card
+with CUDA events.
 
 Profilers do not nest: a capture refuses (or, for `capture`, becomes a
 no-op) while any `torch.profiler` session is on in this process, its own
@@ -30,13 +34,16 @@ or another's.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import os
 import subprocess
 import sys
 import threading
 import time
-from typing import Iterator, Optional
+import weakref
+from collections import deque
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -111,18 +118,6 @@ def capture(log_dir: str) -> Iterator[None]:
     finally:
         if acquired:
             stop()
-
-
-def span(name: str):
-    """A named range for one wave or op (`torch.profiler.record_function`):
-    shows as `name` in a captured trace, and on the card brackets the
-    kernels launched inside it."""
-    return torch.profiler.record_function(name)
-
-
-def step_span(name: str, step: int):
-    """A range grouping one full governance tick as a profiler step."""
-    return torch.profiler.record_function(f"{name}#{int(step)}")
 
 
 # ── on-demand capture windows (POST /debug/profile) ──────────────────
@@ -238,7 +233,7 @@ def capture_window(
                 result["raced"] = True
                 return
             try:
-                with span("hv.profile_window"):
+                with torch.profiler.record_function("hv.profile_window"):
                     time.sleep(duration_s)
             finally:
                 result["trace"] = stop()
@@ -274,45 +269,298 @@ def capture_window(
     }
 
 
-#: The stages currently open on each thread (innermost last): the
-#: roofline counter attributes each op it sees to the innermost one.
-_stages = threading.local()
+# ── the span recorder ────────────────────────────────────────────────
+# One primitive times every named region of the program: `stage_scope`.
+# A span keeps its name, its path (its open ancestors' names and its own,
+# joined by "/"), its parent, `time.perf_counter_ns()` at entry and exit,
+# and the `wave_seq` of the innermost flight-recorder bracket open on its
+# thread when it closes (`Tracer.begin_wave` opens one, `end_wave` closes
+# it). Closed spans go into a bounded process-wide ring, and running
+# totals by path (count, total ns, self ns: the duration less its direct
+# children's) last for the life of the process. A
+# `record_function("hv.<name>")` range opens only while a profiler
+# records, so that the spans sit on the device trace's clock then; with
+# no profiler on, a span costs two clock reads and a few dictionary
+# updates.
+
+#: Span records the ring keeps; the oldest go first.
+SPAN_RING = 16_384
+
+_tls = threading.local()   # .stack: open spans; .waves: weak refs to open brackets
+_span_lock = threading.Lock()
+#: (id, parent id, name, path, start ns, end ns, wave_seq) of each closed span.
+_ring: deque = deque(maxlen=SPAN_RING)
+_totals: dict[str, list[int]] = {}   # path -> [count, total ns, self ns]
+_counters: dict[str, int] = {}
+_span_ids = itertools.count(1)
+
+
+def _thread_state() -> list:
+    """This thread's open spans, made with its open brackets on first use."""
+    _tls.waves = []
+    stack = _tls.stack = []
+    return stack
+
+
+class stage_scope:
+    """Context manager: one span named `name` (the recorder above). Inside
+    a wave the names are the stages of the latency histograms
+    (`observability.metrics.STAGE_LATENCY`) and of the trace stamps, and
+    the innermost open span tells the roofline counter which phase the
+    enclosed ops and kernel launches belong to (`current_stage`). `ns`
+    holds the duration once the span has closed."""
+
+    __slots__ = ("name", "path", "parent", "id", "child_ns", "t0", "ns", "_rf")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> "stage_scope":
+        try:
+            stack = _tls.stack
+        except AttributeError:
+            stack = _thread_state()
+        parent = stack[-1] if stack else None
+        self.parent = parent
+        self.path = self.name if parent is None else f"{parent.path}/{self.name}"
+        self.id = next(_span_ids)
+        self.child_ns = 0
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(f"hv.{self.name}")
+            self._rf.__enter__()
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        t1 = time.perf_counter_ns()
+        _tls.stack.remove(self)
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+        t0, parent = self.t0, self.parent
+        ns = self.ns = t1 - t0
+        if parent is not None:
+            parent.child_ns += ns
+        wave_seq = None
+        waves = _tls.waves
+        if waves:
+            for ref in waves:
+                record = ref()
+                if record is not None:
+                    record.phases[self.name] = (t0, t1)
+                    wave_seq = record.wave_seq
+        _span_lock.acquire()
+        _ring.append((self.id, None if parent is None else parent.id, self.name, self.path,
+                      t0, t1, wave_seq))
+        tot = _totals.get(self.path)
+        if tot is None:
+            tot = _totals[self.path] = [0, 0, 0]
+        tot[0] += 1
+        tot[1] += ns
+        tot[2] += ns - self.child_ns
+        _span_lock.release()
+
+
+def scoped(name: str) -> Callable:
+    """Decorator: the function runs inside `stage_scope(name)`."""
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with stage_scope(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 def current_stage() -> Optional[str]:
-    """The innermost `stage_scope` open on this thread, or None."""
-    stack = getattr(_stages, "stack", None)
-    return stack[-1] if stack else None
+    """The name of the innermost span open on this thread, or None."""
+    stack = getattr(_tls, "stack", None)
+    return stack[-1].name if stack else None
 
 
-@contextlib.contextmanager
-def stage_scope(name: str) -> Iterator[None]:
-    """Names a region INSIDE a wave: a `torch.profiler.record_function`
-    range `hv.<name>` (the same vocabulary as the latency histograms,
-    `observability.metrics.STAGE_LATENCY`, and the trace stamps), which
-    also tells the roofline counter which phase the enclosed ops and
-    kernel launches belong to."""
-    stack = getattr(_stages, "stack", None)
-    if stack is None:
-        stack = _stages.stack = []
-    stack.append(name)
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the recorder's counter `name`."""
+    with _span_lock:
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def open_wave(record) -> None:
+    """Open a flight-recorder bracket on this thread. Until `close_wave`,
+    every span that closes on the thread carries `record.wave_seq` and
+    writes its (start ns, end ns) into `record.phases` under its name
+    (the last close of a name wins). Brackets nest (a tenant wave opens
+    one a tenant around one dispatch); one whose record is gone (its
+    wave raised before `end_wave`) drops out. The bracket's open and
+    close on the recorder's clock go into `record.bracket_ns`."""
     try:
-        with torch.profiler.record_function(f"hv.{name}"):
-            yield
-    finally:
-        stack.pop()
+        waves = _tls.waves
+    except AttributeError:
+        _thread_state()
+        waves = _tls.waves
+    waves[:] = [r for r in waves if r() is not None]
+    waves.append(weakref.ref(record))
+    record.bracket_ns[0] = time.perf_counter_ns()
 
+
+def close_wave(record) -> None:
+    """Close the bracket `open_wave(record)` opened on this thread."""
+    record.bracket_ns[1] = time.perf_counter_ns()
+    waves = getattr(_tls, "waves", None)
+    if waves:
+        waves[:] = [r for r in waves if r() is not None and r() is not record]
+
+
+# ── the wave's device span ───────────────────────────────────────────
+
+#: Event pairs waiting on the device at most; a wave past that goes untimed.
+DEVICE_PENDING = 64
+#: Resolved device spans kept a name, for `device_span_quantile`.
+DEVICE_RECENT = 256
+
+_dev_lock = threading.Lock()
+_dev_free: list = []          # (start, end) event pairs to reuse
+_dev_pending: deque = deque()  # (name, start, end), in the order recorded
+_dev_totals: dict[str, list[int]] = {}   # name -> [count, total ns]
+_dev_recent: dict[str, deque] = {}
+
+
+class device_span:
+    """Context manager: a CUDA event pair recorded on `device`'s current
+    stream at entry and at exit, taken from a reused pool and never
+    waited on here; `resolve_device_spans` reads it later. On a CPU
+    device it records nothing."""
+
+    __slots__ = ("name", "device", "stream", "pair")
+
+    def __init__(self, name: str, device: torch.device) -> None:
+        self.name, self.device, self.pair = name, device, None
+
+    def __enter__(self) -> "device_span":
+        if self.device.type != "cuda":
+            return self
+        resolve_device_spans()
+        with _dev_lock:
+            if len(_dev_pending) >= DEVICE_PENDING:
+                return self
+            pair = _dev_free.pop() if _dev_free else None
+        if pair is None:
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        self.stream = torch.cuda.current_stream(self.device)
+        pair[0].record(self.stream)
+        self.pair = pair
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.pair is None:
+            return
+        self.pair[1].record(self.stream)
+        with _dev_lock:
+            _dev_pending.append((self.name, *self.pair))
+        self.pair = None
+
+
+def resolve_device_spans() -> int:
+    """Read every recorded event pair the device has passed, oldest
+    first, into the device totals (`query`, then `elapsed_time`: no
+    wait); returns how many. Runs at each `device_span` entry and at the
+    metrics drain."""
+    n = 0
+    with _dev_lock:
+        while _dev_pending:
+            name, start, end = _dev_pending[0]
+            if not end.query():
+                break
+            _dev_pending.popleft()
+            ns = int(start.elapsed_time(end) * 1e6)
+            tot = _dev_totals.setdefault(name, [0, 0])
+            tot[0] += 1
+            tot[1] += ns
+            _dev_recent.setdefault(name, deque(maxlen=DEVICE_RECENT)).append(ns)
+            _dev_free.append((start, end))
+            n += 1
+    return n
+
+
+def device_span_quantile(name: str, q: float) -> tuple[int, float]:
+    """(samples, quantile µs) over the last `DEVICE_RECENT` resolved
+    device spans of `name`; (0, 0.0) when there are none."""
+    with _dev_lock:
+        xs = sorted(_dev_recent.get(name, ()))
+    if not xs:
+        return 0, 0.0
+    return len(xs), xs[min(int(q * len(xs)), len(xs) - 1)] / 1e3
+
+
+# ── reading the recorder ─────────────────────────────────────────────
+
+
+def span_totals() -> dict:
+    """The recorder's running totals, after resolving what the device has
+    passed: `spans` {path: (count, total ns, self ns)}, `device` {name:
+    (count, total ns)} and `counters` {name: n}. A window's figures are
+    the difference of two reads."""
+    resolve_device_spans()
+    with _span_lock:
+        spans = {path: tuple(v) for path, v in _totals.items()}
+        counters = dict(_counters)
+    with _dev_lock:
+        device = {name: tuple(v) for name, v in _dev_totals.items()}
+    return {"spans": spans, "device": device, "counters": counters}
+
+
+def span_trees() -> list:
+    """The ring's records as `tracing.Span` trees (µs of
+    `time.perf_counter`), for `tracing.to_chrome_trace` and
+    `tracing.to_otlp`. A span whose parent has left the ring is a root."""
+    from hypervisor_tpu_torch.observability.tracing import Span
+
+    with _span_lock:
+        records = sorted(_ring, key=lambda r: r[4])
+    nodes = {}
+    roots = []
+    for sid, parent, name, _path, t0, t1, wave_seq in records:
+        nodes[sid] = node = Span(
+            name=f"hv.{name}", stage=name, trace_id="", span_word=sid & 0xFFFFFFFF,
+            parent_span_word=None if parent is None else parent & 0xFFFFFFFF,
+            start_us=t0 / 1e3, end_us=t1 / 1e3, wave_seq=-1 if wave_seq is None else wave_seq)
+    for sid, parent, *_ in records:
+        up = nodes.get(parent)
+        (roots if up is None else up.children).append(nodes[sid])
+    return roots
+
+
+def reset_spans() -> None:
+    """Test hook: drop every record, total, counter and device span."""
+    with _span_lock:
+        _ring.clear()
+        _totals.clear()
+        _counters.clear()
+    with _dev_lock:
+        _dev_pending.clear()
+        _dev_totals.clear()
+        _dev_recent.clear()
 
 __all__ = [
     "EXIT_TPU_UNAVAILABLE",
     "capture",
     "capture_window",
+    "close_wave",
+    "count",
     "current_stage",
+    "device_span",
+    "device_span_quantile",
     "is_active",
+    "open_wave",
     "probe_device_plane",
-    "span",
-    "start",
+    "resolve_device_spans",
+    "scoped",
+    "span_totals",
+    "span_trees",
     "stage_scope",
-    "step_span",
+    "start",
     "stop",
 ]

@@ -18,8 +18,8 @@ series and knobs:
     launches through ctypes), adds its `kernels.work.kernel_work` model
     at the launch's shapes (`kernels.work.note_launch`). Each op and
     launch is attributed to the innermost `profiling.stage_scope` open
-    (the wave's `hv.<stage>` ranges), projected onto `HV_PHASES` through
-    `attribution.WAVE_PHASE_OF` ("glue" outside every scope). Later
+    (the wave's `hv.<stage>` spans), projected onto `HV_PHASES` through
+    `attribution.WAVE_PHASE_OF` ("glue" outside every phase scope). Later
     dispatches of the same signature pay nothing: a warmed scheduler
     (`serving.WaveScheduler.warm`) has counted every (program, bucket).
   * **the registry** — `note_compile` queues the count; `resolve_pending`
@@ -27,8 +27,15 @@ series and knobs:
     path, as the reference resolves its captures.
   * **the join** — `publish()` runs at the metrics drain with no device
     work: modeled bytes and operations are host values, and the measured
-    walls are the host-plane stage histograms the Tracer already brackets
-    (`STAGE_OF_PROGRAM`). Published series: `hv_roofline_{modeled_bytes,
+    wall of the fused wave is the p50 of its device spans (CUDA events
+    around its enqueue, `profiling.device_span`, resolved without a
+    wait); every other program's, and the wave's on the CPU, is the p50
+    of its host-plane stage histogram (`STAGE_OF_PROGRAM`). A device
+    span is the stream's time from the first event to the second, idle
+    time included, not the kernels' busy time: where the host paces the
+    wave (the launches come slower than the card runs them) it is about
+    the enqueue's wall, so the join's fractions read low there. Published
+    series: `hv_roofline_{modeled_bytes,
     modeled_flops,achieved_bw_frac,mfu}{program=...}`, the per-phase twins
     and `hv_roofline_floor_distance`. `modeled_flops` is every modeled
     operation, floating and integer; `mfu` is the operations' share: the
@@ -54,8 +61,8 @@ Knobs (env, read per call):
                            counts of the SAME (program, signature) that
                            emits a `roofline.bytes_shift` event
                            (default 0.1)
-  `HV_ROOFLINE_MIN_SAMPLES`  stage histogram samples before a measured
-                             join publishes (default 2)
+  `HV_ROOFLINE_MIN_SAMPLES`  device spans or stage histogram samples
+                             before a measured join publishes (default 2)
 """
 
 from __future__ import annotations
@@ -238,10 +245,14 @@ class ProgramCount:
 
     @staticmethod
     def _phase() -> str:
+        """The innermost open span's phase: a wave phase scope maps through
+        `WAVE_PHASE_OF` or is the epilogue; any other span (the wave's
+        own bracket, the recorder's `obs.*` spans) or none is glue."""
         stage = profiling.current_stage()
-        if stage is None:
-            return "glue"
-        return WAVE_PHASE_OF.get(stage, "epilogue")
+        phase = WAVE_PHASE_OF.get(stage)
+        if phase is not None:
+            return phase
+        return "epilogue" if stage == "epilogue" else "glue"
 
     def add_kernel(self, name: str, nbytes: int, int_ops: int) -> None:
         """One hand-written kernel's launch (`kernels.work.note_launch`)."""
@@ -613,13 +624,23 @@ def _wave_entry() -> Optional[ProgramCost]:
 
 
 def _measured_wall_us(metrics, stage: str) -> Optional[float]:
+    """A stage's measured wall, µs: the p50 of its resolved device spans
+    (`profiling.device_span`: CUDA events around the fused wave's
+    enqueue, the stream's time between them, idle included; in a
+    host-paced wave about the enqueue's wall), where there are enough;
+    else the p50 of its host-plane latency histogram, the enqueue's
+    wall, which never waits on the device (the CPU's join, as the
+    reference's)."""
     from hypervisor_tpu_torch.observability import metrics as mp
 
+    min_samples = int(_env_float("HV_ROOFLINE_MIN_SAMPLES", 2))
+    n, p50 = profiling.device_span_quantile(stage, 0.5)
+    if n >= min_samples and p50 > 0:
+        return float(p50)
     handle = mp.STAGE_LATENCY.get(stage)
     if handle is None:
         return None
     n, p50 = metrics.host_quantile(handle, 0.5)
-    min_samples = int(_env_float("HV_ROOFLINE_MIN_SAMPLES", 2))
     if n < min_samples or p50 <= 0:
         return None
     return float(p50)
@@ -664,11 +685,12 @@ def _backend_of(metrics) -> str:
 
 
 def publish(metrics, *, resolve_limit: Optional[int] = 8) -> None:
-    """Join the registry's models with the measured host-plane walls and
-    publish the `hv_roofline_*` gauges — called from
-    `HypervisorState.metrics_snapshot` beside the compile-counter
+    """Join the registry's models with the measured walls
+    (`_measured_wall_us`) and publish the `hv_roofline_*` gauges — called
+    from `HypervisorState.metrics_snapshot` beside the compile-counter
     republish. HOST-ONLY: resolves a bounded batch of pending counts,
-    reads host histograms, sets host-owned gauges."""
+    reads host histograms and resolved device spans, sets host-owned
+    gauges."""
     if not enabled():
         return
     from hypervisor_tpu_torch.observability import metrics as mp

@@ -15,8 +15,11 @@ Three pieces:
     `WAVE_CHILD_STAGES` rule set the in-wave stamps follow).
   * **Reconstruction + export** — `drain()` copies the ring to the host
     once, merges both planes, joins rows to the wave index, and rebuilds
-    parent/child spans (a stack walk over the seq order; stamp times
-    interpolate inside the host-measured bracket). Exporters render
+    parent/child spans (a stack walk over the seq order). The root's
+    times are the host bracket's; each child's are the measured interval
+    of the program's span of that name in the same wave
+    (`profiling.stage_scope`, recorded into `WaveRecord.phases` while
+    the bracket is open). Exporters render
     Chrome `trace_event` JSON (loadable in Perfetto) and an OTLP-lite
     JSON form; `attach_bus_events` joins host event-bus rows onto spans
     via the shared device-key words. Every closed bracket is offered to
@@ -37,6 +40,7 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from hypervisor_tpu_torch.observability import profiling
 from hypervisor_tpu_torch.observability.causal_trace import CausalTraceId, fnv1a32
 from hypervisor_tpu_torch.tables.logs import TraceLog
 
@@ -78,6 +82,13 @@ WAVE_CHILD_STAGES: dict[str, tuple[str, ...]] = {
         "terminate_wave",
     ),
 }
+
+#: In-wave stamps that may have no host phase of their own, and the phase
+#: that holds their time: the fused wave's B5 runs the saga step and the
+#: terminate walk in `session_fsm`'s launch. With no span of their own
+#: they are zero-width marks at that phase's end, so a wave's children
+#: stay disjoint and its time is counted once.
+SHARED_PHASE: dict[str, str] = {"saga_round": "session_fsm", "terminate_wave": "session_fsm"}
 
 _SPAN_PRIME = 0x01000193  # FNV-32 prime
 _MASK32 = 0xFFFFFFFF
@@ -131,12 +142,13 @@ class WaveStamps:
     def end(self, stage_name: str, lane: int = -1) -> None:
         self._rows.append((STAGE_ID[stage_name], KIND_END, int(lane)))
 
+    @profiling.scoped("obs.stamps")
     def commit(self, log: TraceLog) -> TraceLog:
         """Write the rows IN PLACE (one host-to-device copy of the
         columns, positions from the ring's device cursor); returns it.
         On the card the copy is from pinned memory and asynchronous: a
         copy from pageable memory would wait for every launch the wave
-        queued before it."""
+        queued before it. Timed as the span `obs.stamps`."""
         ctx = self._ctx
         if not self._rows or not ctx.sampled:
             return log
@@ -169,6 +181,14 @@ class WaveRecord:
     sampled: bool = True
     lanes: int = 0
     mode: str = "device"  # "device" (in-wave stamps) | "host" (mirrored)
+    #: stage -> (start ns, end ns) on the span recorder's clock
+    #: (`time.perf_counter_ns`): the spans that closed while this wave's
+    #: bracket was open (`profiling.open_wave`).
+    phases: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    #: The bracket's open and close on the recorder's clock, which place
+    #: `phases` on this tracer's clock.
+    bracket_ns: list = dataclasses.field(default_factory=lambda: [0, 0], repr=False,
+                                         compare=False)
 
 
 @dataclasses.dataclass
@@ -265,6 +285,7 @@ class Tracer:
 
     # ── wave bracket ─────────────────────────────────────────────────
 
+    @profiling.scoped("obs.bracket")
     def begin_wave(
         self,
         stage: str,
@@ -274,7 +295,10 @@ class Tracer:
     ) -> Optional[WaveHandle]:
         """Open one dispatched wave; None when the plane is disabled. The
         sample bit resolves here, per session slot key. `device=False`
-        marks a dispatch that stamps on the host (`stamp_wave_host`)."""
+        marks a dispatch that stamps on the host (`stamp_wave_host`).
+        The bracket opens on this thread (`profiling.open_wave`), so the
+        spans that close inside it time the wave's stages. This and
+        `end_wave` are timed as the span `obs.bracket`."""
         if not self.enabled:
             return None
         sessions = np.asarray(
@@ -301,15 +325,19 @@ class Tracer:
         if device:
             t_word, s_word = trace.device_key()
             ctx = TraceContext(trace=t_word, span=s_word, wave_seq=wave_seq, sampled=sampled)
+        profiling.open_wave(record)
         return WaveHandle(record=record, ctx=ctx)
 
+    @profiling.scoped("obs.bracket")
     def end_wave(self, handle: Optional[WaveHandle], table: Optional[TraceLog] = None) -> None:
-        """Close the bracket. `table` is the ring the wave stamped (in
+        """Close the bracket, here and on this thread
+        (`profiling.close_wave`). `table` is the ring the wave stamped (in
         place), which advances the cursor mirror when the wave was
         sampled. Records are kept in a bounded index, oldest evicted."""
         if handle is None:
             return
         handle.record.t1_us = self._now_us()
+        profiling.close_wave(handle.record)
         with self._lock:
             if table is not None:
                 self.table = table
@@ -385,27 +413,48 @@ class Tracer:
         return spans
 
     def _reconstruct(self, record: WaveRecord, rows: list[tuple]) -> Optional[Span]:
+        """One wave's span tree. The structure is the stamps'; the root
+        spans the host bracket, and each child the measured interval of
+        its stage's span in the wave (`record.phases`). The recorder's
+        clock goes onto this tracer's through the bracket, read on both:
+        the same clock in a deployment, so the map is the identity; a
+        tracer whose clock is replaced (a deterministic test's) gets each
+        child at its measured share of the bracket. A child with no span of its own in the wave is
+        a zero-width mark: at the end of the phase that holds its time
+        (`SHARED_PHASE`: in the fused wave, `saga_round` and
+        `terminate_wave` run in `session_fsm`'s B5 launch), else at its
+        parent's start. No time is made up, and none is counted twice:
+        the children are disjoint, as `attribution.wave_phase_shares`
+        sums them."""
         rows = sorted(rows, key=lambda r: r[1])
-        n = len(rows)
-        if n == 0:
+        if not rows:
             return None
         t0, t1 = record.t0_us, max(record.t1_us, record.t0_us)
-        width = (t1 - t0) / (n + 1)
+        ns0, ns1 = record.bracket_ns
+        scale = (t1 - t0) / ((ns1 - ns0) / 1e3) if ns1 > ns0 else 1.0
 
-        def vtime(i: int) -> float:
-            return t0 + (i + 1) * width
+        def on_clock(ns: int) -> float:
+            return t0 + (ns - ns0) / 1e3 * scale
+
+        def measured(stage_name: str, parent: Span) -> tuple[float, float]:
+            ns = record.phases.get(stage_name)
+            if ns is not None:
+                return on_clock(ns[0]), on_clock(ns[1])
+            holder = record.phases.get(SHARED_PHASE.get(stage_name))
+            mark = parent.start_us if holder is None else on_clock(holder[1])
+            return mark, mark
 
         root: Optional[Span] = None
         stack: list[Span] = []
-        for i, (_w, _seq, _trace_w, span_w, stage, kind, _lane) in enumerate(rows):
+        for _w, _seq, _trace_w, span_w, stage, kind, _lane in rows:
             stage_name = TRACE_STAGES[stage] if 0 <= stage < len(TRACE_STAGES) else f"stage_{stage}"
             if kind == KIND_BEGIN:
+                start, end = measured(stage_name, stack[-1]) if stack else (t0, t1)
                 span = Span(
                     name=f"hv.{stage_name}", stage=stage_name, trace_id=record.trace.trace_id,
                     span_word=span_w,
                     parent_span_word=stack[-1].span_word if stack else None,
-                    start_us=t0 if not stack else vtime(i), end_us=t1,
-                    wave_seq=record.wave_seq,
+                    start_us=start, end_us=end, wave_seq=record.wave_seq,
                 )
                 if stack:
                     stack[-1].children.append(span)
@@ -416,12 +465,8 @@ class Tracer:
                 # Close the innermost open span with this word (stamps
                 # are well-nested by construction; tolerate strays).
                 while stack:
-                    top = stack.pop()
-                    top.end_us = t1 if not stack else vtime(i)
-                    if top.span_word == span_w:
+                    if stack.pop().span_word == span_w:
                         break
-        while stack:
-            stack.pop().end_us = t1
         if root is not None:
             root.start_us, root.end_us = t0, t1
         return root

@@ -101,6 +101,7 @@ class PipelineResult(NamedTuple):
 S_CREATED, S_HANDSHAKING, S_ACTIVE, S_TERMINATING, S_ARCHIVED = range(5)
 
 
+@profiling.scoped("governance_pipeline")
 def governance_pipeline(
     sigma_raw: torch.Tensor,       # f32[S] joining agent's raw sigma
     trustworthy: torch.Tensor,     # bool[S] history-verification outcome
@@ -125,6 +126,10 @@ def governance_pipeline(
     The four consensus values are f32 sums over the S lanes in XLA:CPU's
     reduction order (`ops.liability._row_sum_xla_order`), so they are the
     reference's bit for bit on every device.
+
+    The call is the span `governance_pipeline`, each numbered phase a
+    child span of it (`admission`, `session_walk`, `audit`, `saga`,
+    `terminate`, `consensus`).
     """
     f32_scalar = admission_ops.f32_scalar
     dev = sigma_raw.device
@@ -137,55 +142,61 @@ def governance_pipeline(
         return torch.full((), code, dtype=torch.int8, device=dev)
 
     # ── 1. admission: vouched sigma -> ring; untrustworthy sandboxed ──
-    if contribution is None:
-        sigma_eff = sigma_raw
-    else:
-        sigma_eff = torch.minimum(
-            sigma_raw + f32_scalar(omega, dev) * contribution, f32_scalar(1.0, dev)
+    with profiling.stage_scope("admission"):
+        if contribution is None:
+            sigma_eff = sigma_raw
+        else:
+            sigma_eff = torch.minimum(
+                sigma_raw + f32_scalar(omega, dev) * contribution, f32_scalar(1.0, dev)
+            )
+        no_consensus = torch.zeros((), dtype=torch.bool, device=dev)
+        ring = ring_ops.compute_rings(sigma_eff, no_consensus, trust)
+        ring = torch.where(trustworthy, ring, i8(3))
+        # Non-sandbox joins must clear the session sigma floor.
+        sigma_bad = (sigma_eff < min_sigma_eff) & (ring != 3)
+        status = torch.where(
+            ~active, i8(PIPE_INACTIVE),
+            torch.where(sigma_bad, i8(PIPE_SIGMA_BELOW_MIN), i8(PIPE_OK)),
         )
-    no_consensus = torch.zeros((), dtype=torch.bool, device=dev)
-    ring = ring_ops.compute_rings(sigma_eff, no_consensus, trust)
-    ring = torch.where(trustworthy, ring, i8(3))
-    # Non-sandbox joins must clear the session sigma floor.
-    sigma_bad = (sigma_eff < min_sigma_eff) & (ring != 3)
-    status = torch.where(
-        ~active, i8(PIPE_INACTIVE),
-        torch.where(sigma_bad, i8(PIPE_SIGMA_BELOW_MIN), i8(PIPE_OK)),
-    )
-    ok = status == PIPE_OK
+        ok = status == PIPE_OK
 
     # ── 2. session FSM forward walk, legality-gated per step ─────────
-    state = torch.full((s,), S_CREATED, dtype=torch.int8, device=dev)
-    state, _ = session_fsm.apply_session_transitions(state, S_HANDSHAKING, ok)
-    state, _ = session_fsm.apply_session_transitions(state, S_ACTIVE, ok)
+    with profiling.stage_scope("session_walk"):
+        state = torch.full((s,), S_CREATED, dtype=torch.int8, device=dev)
+        state, _ = session_fsm.apply_session_transitions(state, S_HANDSHAKING, ok)
+        state, _ = session_fsm.apply_session_transitions(state, S_ACTIVE, ok)
 
     # ── 3. audit: chain-hash T deltas per lane (B2), then Merkle roots (B3)
-    digests = merkle_ops.chain_digests(delta_bodies.contiguous())  # int32[T, S, 8]
-    p = 1 << max(0, (t - 1).bit_length())
-    leaves = torch.zeros((s, p, 8), dtype=torch.int32, device=dev)
-    leaves[:, :t] = digests.transpose(0, 1)
-    roots = merkle_ops.merkle_root_lanes(leaves, t)                # int32[S, 8]
+    with profiling.stage_scope("audit"):
+        digests = merkle_ops.chain_digests(delta_bodies.contiguous())  # int32[T, S, 8]
+        p = 1 << max(0, (t - 1).bit_length())
+        leaves = torch.zeros((s, p, 8), dtype=torch.int32, device=dev)
+        leaves[:, :t] = digests.transpose(0, 1)
+        roots = merkle_ops.merkle_root_lanes(leaves, t)                # int32[S, 8]
 
     # ── 4. saga: one noop step through the retry ladder ──────────────
-    step_state = torch.full((s,), saga_ops.STEP_PENDING, dtype=torch.int8, device=dev)
-    step_state, _ = saga_ops.execute_attempt(
-        step_state, ok, torch.zeros((s,), dtype=torch.int8, device=dev)
-    )
+    with profiling.stage_scope("saga"):
+        step_state = torch.full((s,), saga_ops.STEP_PENDING, dtype=torch.int8, device=dev)
+        step_state, _ = saga_ops.execute_attempt(
+            step_state, ok, torch.zeros((s,), dtype=torch.int8, device=dev)
+        )
 
     # ── 5. terminate + archive (legality-gated) ──────────────────────
-    state, _ = session_fsm.apply_session_transitions(state, S_TERMINATING, ok)
-    state, _ = session_fsm.apply_session_transitions(state, S_ARCHIVED, ok)
+    with profiling.stage_scope("terminate"):
+        state, _ = session_fsm.apply_session_transitions(state, S_TERMINATING, ok)
+        state, _ = session_fsm.apply_session_transitions(state, S_ARCHIVED, ok)
 
     # ── 6. consensus aggregates. Root word 0 is u32: widened, masked,
     # then rounded to f32 (nearest even), as the reference converts it.
-    okf = ok.to(torch.float32)
-    word0 = (roots[:, 0].to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
-    consensus = liability_ops._row_sum_xla_order(torch.stack([
-        okf,                                # sessions completed
-        sigma_eff * okf,                    # total sigma admitted
-        ring.to(torch.float32) * okf,       # ring mass
-        word0 * okf,                        # root checksum word
-    ]))
+    with profiling.stage_scope("consensus"):
+        okf = ok.to(torch.float32)
+        word0 = (roots[:, 0].to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
+        consensus = liability_ops._row_sum_xla_order(torch.stack([
+            okf,                                # sessions completed
+            sigma_eff * okf,                    # total sigma admitted
+            ring.to(torch.float32) * okf,       # ring mass
+            word0 * okf,                        # root checksum word
+        ]))
 
     return PipelineResult(
         ring=ring,
@@ -397,8 +408,9 @@ def run_wave(
     b = slot.shape[0]
     now_f = admission_ops.f32_scalar(now, dev)
 
-    # Each phase runs in a `stage_scope`: a profiler range `hv.<stage>`,
-    # which also attributes its ops to the phase in a roofline count.
+    # Each phase runs in a `stage_scope`: a timed span (a profiler range
+    # `hv.<stage>` while one records), which also attributes its ops to
+    # the phase in a roofline count.
     # 1. vouched contributions, scoped to the session each slot joins now.
     with profiling.stage_scope("admission_wave"):
         slot_idx = slot.to(torch.int64)

@@ -50,6 +50,7 @@ import torch
 
 from hypervisor_tpu_torch.config import DEFAULT_CONFIG, TrustConfig
 from hypervisor_tpu_torch.models import SessionState
+from hypervisor_tpu_torch.observability import profiling
 from hypervisor_tpu_torch.ops import admission as admission_ops
 from hypervisor_tpu_torch.ops import liability as liability_ops
 from hypervisor_tpu_torch.ops import rings as ring_ops
@@ -791,121 +792,134 @@ def sharded_governance_wave(
         ws = split_rows(wave_sessions, mesh)
         bodies = split_rows(delta_bodies, mesh, dim=1)
 
+        # Each phase runs over every shard inside one span
+        # (`profiling.stage_scope`): the flight recorder's child times.
         # ── 1-2. cross-shard vouched admission ────────────────────
-        fold_extra = None
-        if not contiguous_waves:
-            fold_extra = []
-            for d in range(n_shards):
-                m = torch.zeros((s_cap,), dtype=torch.int32, device=devs[d])
-                m[ws[d].clamp(min=0).to(torch.int64)] = 1
-                fold_extra.append(m)
-        admitted = _wave_admission(
-            mesh, a_parts, sessions, v_parts, *lanes, now, omega, trust, rate,
-            mode_dispatch=mode_dispatch, unique_sessions=unique_sessions, row_axes=row_axes,
-            force_eventual=multislice, fold_extra=fold_extra,
-        )
-        status, ring, sigma_eff = admitted[:3]
-        rest_out = admitted[3:]
-        if mode_dispatch:
-            view_counts, ev_counts_local = rest_out[:2]
-            rest_out = rest_out[2:]
-        else:
-            view_counts = sessions.n_participants
-        in_wave = (rest_out[0] > 0) if fold_extra is not None else None
-        ok = [s == admission_ops.ADMIT_OK for s in status]
+        with profiling.stage_scope("admission_wave"):
+            fold_extra = None
+            if not contiguous_waves:
+                fold_extra = []
+                for d in range(n_shards):
+                    m = torch.zeros((s_cap,), dtype=torch.int32, device=devs[d])
+                    m[ws[d].clamp(min=0).to(torch.int64)] = 1
+                    fold_extra.append(m)
+            admitted = _wave_admission(
+                mesh, a_parts, sessions, v_parts, *lanes, now, omega, trust, rate,
+                mode_dispatch=mode_dispatch, unique_sessions=unique_sessions,
+                row_axes=row_axes, force_eventual=multislice, fold_extra=fold_extra,
+            )
+            status, ring, sigma_eff = admitted[:3]
+            rest_out = admitted[3:]
+            if mode_dispatch:
+                view_counts, ev_counts_local = rest_out[:2]
+                rest_out = rest_out[2:]
+            else:
+                view_counts = sessions.n_participants
+            in_wave = (rest_out[0] > 0) if fold_extra is not None else None
+            ok = [s == admission_ops.ADMIT_OK for s in status]
 
         t = delta_bodies.shape[0]
         p = 1 << max(0, (t - 1).bit_length())
         state_col = sessions.state
         term_col = sessions.terminated_at
         mode_col = sessions.mode
-        per = []
-        for d in range(n_shards):
-            dev = devs[d]
-            wsi = ws[d].to(torch.int64)
-            # ── 3. FSM walk on this shard's wave lanes ────────────
-            has_members = view_counts.to(dev)[wsi] > 0
-            wave_state, err_a = session_fsm.apply_session_transitions(
-                state_col.to(dev)[wsi].to(torch.int8), SessionState.ACTIVE.code, has_members)
-            # ── 4. audit: chain (B2) + Merkle roots (B3) ──────────
-            chain = merkle_ops.chain_digests(bodies[d])
-            leaves = torch.zeros((wsi.shape[0], p, 8), dtype=torch.int32, device=dev)
-            leaves[:, :t] = chain.transpose(0, 1)
-            roots = merkle_ops.merkle_root_lanes(leaves, t)
-            # ── 5. one saga step per joining agent ────────────────
-            b_local = ok[d].shape[0]
-            step_state, _ = saga_ops.execute_attempt(
-                torch.full((b_local,), saga_ops.STEP_PENDING, dtype=torch.int8, device=dev),
-                ok[d], torch.zeros((b_local,), dtype=torch.int8, device=dev))
-            # ── 6. terminate: global wave, local block release ────
-            if contiguous_waves:
-                released_local = terminate_ops.release_session_scope(
-                    a_parts[d], v_parts[d], None, wave_range=(wave_lo, wave_hi))
-            else:
-                released_local = terminate_ops.release_session_scope(
-                    a_parts[d], v_parts[d], in_wave.to(dev))
-            wave_state, err_t = session_fsm.apply_session_transitions(
-                wave_state, SessionState.TERMINATING.code, has_members)
-            wave_state, err_z = session_fsm.apply_session_transitions(
-                wave_state, SessionState.ARCHIVED.code, has_members)
+        per = [dict(wsi=ws[d].to(torch.int64)) for d in range(n_shards)]
+        # ── 3. FSM walk on each shard's wave lanes ────────────────
+        with profiling.stage_scope("session_fsm"):
+            for d, sh in enumerate(per):
+                dev, wsi = devs[d], sh["wsi"]
+                sh["has_members"] = view_counts.to(dev)[wsi] > 0
+                sh["wave_state"], sh["err_a"] = session_fsm.apply_session_transitions(
+                    state_col.to(dev)[wsi].to(torch.int8), SessionState.ACTIVE.code,
+                    sh["has_members"])
+        # ── 4. audit: chain (B2) + Merkle roots (B3) ──────────────
+        with profiling.stage_scope("delta_chain"):
+            for d, sh in enumerate(per):
+                chain = merkle_ops.chain_digests(bodies[d])
+                leaves = torch.zeros((sh["wsi"].shape[0], p, 8), dtype=torch.int32,
+                                     device=devs[d])
+                leaves[:, :t] = chain.transpose(0, 1)
+                sh["chain"], sh["roots"] = chain, merkle_ops.merkle_root_lanes(leaves, t)
+        # ── 5. one saga step per joining agent ────────────────────
+        with profiling.stage_scope("saga_round"):
+            for d, sh in enumerate(per):
+                b_local = ok[d].shape[0]
+                sh["step_state"], _ = saga_ops.execute_attempt(
+                    torch.full((b_local,), saga_ops.STEP_PENDING, dtype=torch.int8,
+                               device=devs[d]),
+                    ok[d], torch.zeros((b_local,), dtype=torch.int8, device=devs[d]))
+        # ── 6. terminate: global wave, local block release, then the
+        # replica's fold ───────────────────────────────────────────
+        with profiling.stage_scope("terminate_wave"):
+            for d, sh in enumerate(per):
+                dev, wsi, has_members = devs[d], sh["wsi"], sh["has_members"]
+                if contiguous_waves:
+                    sh["released"] = terminate_ops.release_session_scope(
+                        a_parts[d], v_parts[d], None, wave_range=(wave_lo, wave_hi))
+                else:
+                    sh["released"] = terminate_ops.release_session_scope(
+                        a_parts[d], v_parts[d], in_wave.to(dev))
+                wave_state, err_t = session_fsm.apply_session_transitions(
+                    sh["wave_state"], SessionState.TERMINATING.code, has_members)
+                wave_state, err_z = session_fsm.apply_session_transitions(
+                    wave_state, SessionState.ARCHIVED.code, has_members)
+                if multislice:
+                    strong_lane = torch.zeros(wsi.shape, dtype=torch.bool, device=dev)
+                elif mode_dispatch:
+                    strong_lane = mode_col.to(dev)[wsi.clamp(min=0)] == 0
+                else:
+                    strong_lane = torch.ones(wsi.shape, dtype=torch.bool, device=dev)
+                sh.update(wsi=wsi.clamp(min=0), wave_state=wave_state,
+                          fsm_error=sh["err_a"] | err_t | err_z, strong=strong_lane,
+                          lane_term=torch.where(has_members, f32_scalar(now, dev),
+                                                term_col.to(dev)[wsi]))
+
+            def lane_fold(sh, mask):
+                """Masked scatters of this shard's lanes: (owned, state,
+                terminated_at) over the session rows."""
+                dev = mask.device
+
+                def scatter(dtype, val):
+                    return torch.zeros((s_cap,), dtype=dtype, device=dev).index_add_(
+                        0, sh["wsi"], torch.where(mask, val, torch.zeros((), dtype=dtype,
+                                                                         device=dev)))
+
+                return (scatter(torch.int32, torch.ones((), dtype=torch.int32, device=dev)),
+                        scatter(torch.int32, sh["wave_state"].to(torch.int32)),
+                        scatter(torch.float32, sh["lane_term"]))
+
             if multislice:
-                strong_lane = torch.zeros(wsi.shape, dtype=torch.bool, device=dev)
-            elif mode_dispatch:
-                strong_lane = mode_col.to(dev)[wsi.clamp(min=0)] == 0
+                # Every commit defers to the DCN reconcile, so the released
+                # total rides its own cross-shard reduction.
+                released = psum([sh["released"] for sh in per], mesh, row_axes)[0].to(home)
             else:
-                strong_lane = torch.ones(wsi.shape, dtype=torch.bool, device=dev)
-            lane_term = torch.where(has_members, f32_scalar(now, dev), term_col.to(dev)[wsi])
-            per.append(dict(wsi=wsi.clamp(min=0), wave_state=wave_state, chain=chain,
-                            roots=roots, step_state=step_state, released=released_local,
-                            fsm_error=err_a | err_t | err_z, strong=strong_lane,
-                            lane_term=lane_term))
-
-        def lane_fold(sh, mask):
-            """Masked scatters of this shard's lanes: (owned, state,
-            terminated_at) over the session rows."""
-            dev = mask.device
-
-            def scatter(dtype, val):
-                return torch.zeros((s_cap,), dtype=dtype, device=dev).index_add_(
-                    0, sh["wsi"], torch.where(mask, val, torch.zeros((), dtype=dtype,
-                                                                     device=dev)))
-
-            return (scatter(torch.int32, torch.ones((), dtype=torch.int32, device=dev)),
-                    scatter(torch.int32, sh["wave_state"].to(torch.int32)),
-                    scatter(torch.float32, sh["lane_term"]))
-
-        if multislice:
-            # Every commit defers to the DCN reconcile, so the released
-            # total rides its own cross-shard reduction.
-            released = psum([sh["released"] for sh in per], mesh, row_axes)[0].to(home)
-        else:
-            # ONE psum carries the whole post-terminate fold: the three
-            # FSM replica rows and the released-bond total, stacked as
-            # f32 [4, S] (small integers, exact; term values are
-            # single-owner sums, exact under zero padding).
-            payload = []
-            for sh in per:
-                owned_s, state_s, term_s = lane_fold(sh, sh["strong"])
-                rel = torch.zeros((s_cap,), dtype=torch.float32, device=owned_s.device)
-                rel[0] = sh["released"].to(torch.float32)
-                payload.append(torch.stack([owned_s.to(torch.float32),
-                                            state_s.to(torch.float32), term_s, rel]))
-            folded = psum(payload, mesh, AGENT_AXIS)[0].to(sessions.i32.device)
-            owned = folded[0] > 0
-            sessions.i32[:, SI32_STATE] = torch.where(
-                owned, folded[1].to(torch.int32), sessions.state.to(torch.int32)
-            ).to(torch.int8).to(torch.int32)
-            sessions.f32[:, SF32_TERMINATED_AT] = torch.where(
-                owned, folded[2], sessions.terminated_at)
-            released = folded[3, 0].to(torch.int32).to(home)
-        if mode_dispatch:
-            ev = [lane_fold(sh, ~sh["strong"]) for sh in per]
-            partials = EventualPartials(
-                counts=gather_rows([c[None] for c in ev_counts_local], home),
-                owned=gather_rows([e[0][None] for e in ev], home),
-                state=gather_rows([e[1][None] for e in ev], home),
-                terminated=gather_rows([e[2][None] for e in ev], home),
-            )
+                # ONE psum carries the whole post-terminate fold: the three
+                # FSM replica rows and the released-bond total, stacked as
+                # f32 [4, S] (small integers, exact; term values are
+                # single-owner sums, exact under zero padding).
+                payload = []
+                for sh in per:
+                    owned_s, state_s, term_s = lane_fold(sh, sh["strong"])
+                    rel = torch.zeros((s_cap,), dtype=torch.float32, device=owned_s.device)
+                    rel[0] = sh["released"].to(torch.float32)
+                    payload.append(torch.stack([owned_s.to(torch.float32),
+                                                state_s.to(torch.float32), term_s, rel]))
+                folded = psum(payload, mesh, AGENT_AXIS)[0].to(sessions.i32.device)
+                owned = folded[0] > 0
+                sessions.i32[:, SI32_STATE] = torch.where(
+                    owned, folded[1].to(torch.int32), sessions.state.to(torch.int32)
+                ).to(torch.int8).to(torch.int32)
+                sessions.f32[:, SF32_TERMINATED_AT] = torch.where(
+                    owned, folded[2], sessions.terminated_at)
+                released = folded[3, 0].to(torch.int32).to(home)
+            if mode_dispatch:
+                ev = [lane_fold(sh, ~sh["strong"]) for sh in per]
+                partials = EventualPartials(
+                    counts=gather_rows([c[None] for c in ev_counts_local], home),
+                    owned=gather_rows([e[0][None] for e in ev], home),
+                    state=gather_rows([e[1][None] for e in ev], home),
+                    terminated=gather_rows([e[2][None] for e in ev], home),
+                )
 
         if with_gateway:
             # ── 7. action gateway over standing memberships, on the

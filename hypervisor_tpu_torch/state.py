@@ -109,6 +109,7 @@ from hypervisor_tpu_torch.observability import health as health_plane
 from hypervisor_tpu_torch.observability import history as history_plane
 from hypervisor_tpu_torch.observability import incidents as incidents_plane
 from hypervisor_tpu_torch.observability import metrics as metrics_plane
+from hypervisor_tpu_torch.observability import profiling
 from hypervisor_tpu_torch.observability import roofline as roofline_plane
 from hypervisor_tpu_torch.observability import tracing
 from hypervisor_tpu_torch.observability.tracing import Tracer
@@ -650,6 +651,7 @@ class HypervisorState:
             self._next_session_slot += k
         return np.arange(base, base + k, dtype=np.int32)
 
+    @profiling.scoped("sessions_create")
     def create_sessions_batch(
         self, session_ids: Sequence[str], config: SessionConfig
     ) -> np.ndarray:
@@ -834,6 +836,7 @@ class HypervisorState:
         return np.arange(self._next_session_slot, self._next_session_slot + n_parked,
                          dtype=np.int32)
 
+    @profiling.scoped("staging")
     def _stage_wave_lanes(
         self, session_slots, dids: Sequence[str], agent_sessions, sigma_raw, trustworthy,
         delta_bodies, b_wave: int, k_wave: int, parked_sessions: np.ndarray,
@@ -1001,22 +1004,25 @@ class HypervisorState:
         plane = self.integrity
         sanitize = plane is not None and plane.take_fused_due()
         audit_base_row = self._delta_cursor
-        with self.metrics.stage("governance_wave"):
+        with self.metrics.stage("governance_wave"), profiling.device_span("governance_wave", dev):
+            # The staged columns' copies to the card, in the wave's bracket.
+            with profiling.stage_scope("upload"):
+                lanes = (put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
+                         put(staged["sigma_raw"]), put(staged["trustworthy"]),
+                         put(staged["duplicate"]), put(wave_sessions),
+                         u32.from_numpy_u32(staged["bodies"], dev))
+                lanes_valid = put(np.arange(b_wave) < b) if pad_to is not None else None
+                gateway_cols = (None if gateway_args is None
+                                else tuple(put(c) for c in gateway_args))
             result = _WAVE(
-                self.agents, self.sessions, self.vouches,
-                put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
-                put(staged["sigma_raw"]), put(staged["trustworthy"]), put(staged["duplicate"]),
-                put(wave_sessions), u32.from_numpy_u32(staged["bodies"], dev), now, omega,
+                self.agents, self.sessions, self.vouches, *lanes, now, omega,
                 trust=self.config.trust, ring_bursts=self.config.rate_limit.ring_bursts,
                 wave_range=staged["range_host"], unique_sessions=staged["unique_sessions"],
                 metrics=self.metrics.table, trace=self.tracer.table,
                 trace_ctx=th.ctx if th is not None else None,
                 delta_log=self.delta_log, delta_cursor=audit_base_row,
-                lanes_valid=put(np.arange(b_wave) < b) if pad_to is not None else None,
-                n_sessions_valid=k if pad_to is not None else None,
-                elevations=self.elevations,
-                gateway_args=(None if gateway_args is None
-                              else tuple(put(c) for c in gateway_args)),
+                lanes_valid=lanes_valid, n_sessions_valid=k if pad_to is not None else None,
+                elevations=self.elevations, gateway_args=gateway_cols,
                 breach=self.config.breach, rate_limit=self.config.rate_limit,
                 epilogue_tables=(self.sagas, self.event_log), sanitize=sanitize,
                 config=self.config,
@@ -1281,6 +1287,7 @@ class HypervisorState:
             self._members.update(admitted_keys)
             self._free_agent_slots.extend(recycle_rows)
 
+    @profiling.scoped("audit_booking")
     def _book_wave_audit(self, session_slots, chain: np.ndarray, base_row: int) -> None:
         """Book one wave's audit chain (a host copy, u32[T, K, 8]) into the
         audit index: ring-row claims, per-session rows, turn counters,
@@ -1623,11 +1630,16 @@ class HypervisorState:
         audit index of the sessions that owned them. Recycling a LIVE
         (not yet archived) session's rows is refused: its Merkle tree
         would silently lose leaves. Session states are read from the
-        device only when a wrap recycles rows."""
+        device only when a wrap recycles rows: the span `wrap_readback`
+        and the recorder's counters `wrap_readback.reads` and
+        `wrap_readback.bytes`."""
         prior = self._row_session[rows]
         recycled = np.unique(prior[prior >= 0])
         if len(recycled):
-            sess_state = self.sessions.i32[:, SI32_STATE].cpu().numpy()
+            with profiling.stage_scope("wrap_readback"):
+                sess_state = self.sessions.i32[:, SI32_STATE].cpu().numpy()
+            profiling.count("wrap_readback.reads")
+            profiling.count("wrap_readback.bytes", sess_state.nbytes)
             archived = SessionState.ARCHIVED.code
             live = [int(s) for s in recycled
                     if self._audit_rows.get(int(s)) and sess_state[int(s)] != archived]
@@ -1817,6 +1829,7 @@ class HypervisorState:
 
     # ── vouch edges ──────────────────────────────────────────────────
 
+    @profiling.scoped("vouch_add")
     def add_vouch(
         self,
         voucher_slot: int,
@@ -1859,6 +1872,7 @@ class HypervisorState:
             self.vouches.active[edge_row] = False
             self._free_edge_slots.append(edge_row)
 
+    @profiling.scoped("edge_free")
     def free_edge_rows(self, edge_rows) -> None:
         """Recycle rows a device wave already deactivated (host-only
         bookkeeping, no device write; journaled so a replay recycles the
@@ -2598,10 +2612,12 @@ class HypervisorState:
             inj.on_drain("metrics_drain")
         health_plane.publish_compile_counters(self.metrics)
         # The roofline observatory: resolve a bounded batch of pending
-        # counts and join the models with the host-plane stage walls into
-        # the hv_roofline_* gauges (host only). Shift events (a recount
+        # counts and the fused waves' device spans the card has passed,
+        # and join the models with the measured walls into the
+        # hv_roofline_* gauges (host only). Shift events (a recount
         # whose modeled bytes moved past the tolerance) fan through the
         # health plane onto the bus.
+        profiling.resolve_device_spans()
         roofline_plane.publish(self.metrics)
         self._roofline_event_seq, shifts = roofline_plane.registry().events_since(
             self._roofline_event_seq)

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 import hypervisor_tpu_torch as PORT
-from tests.test_torch_serving import Pkg
+from tests.test_torch_serving import Pkg, cut_phase_shares
 from tests.test_torch_tenancy import both, same
 
 ATTACHED = dict(max_agents=512, max_sessions=2048, max_vouch_edges=1024, max_sagas=256,
@@ -374,7 +374,9 @@ def test_shifting_mix_soak_with_the_autopilot_matches_reference():
     """`run_soak(autopilot=True)` over the head of the reference's quick
     shifting trace (the calm phase and the burst's first 0.1 s): the
     report and its `autopilot` block equal the reference's, the pre-warm
-    counts and the raw compile counts aside (C.2)."""
+    counts and the raw compile counts aside (C.2), and the wave-phase
+    shares held to their phases (`cut_phase_shares`: the port's are
+    measured)."""
 
     def drive(P):
         soak = P.mod("autopilot.soak")
@@ -387,6 +389,8 @@ def test_shifting_mix_soak_with_the_autopilot_matches_reference():
         for key in ("warm_s", "wall_s", "compiles_after_warmup_raw",
                     "recompiles_after_warmup_raw"):
             report.pop(key, None)
+        attribution = report["latency_attribution"]
+        attribution["phase_shares"] = cut_phase_shares(attribution["phase_shares"])
         pilot = report["autopilot"]
         pilot["prewarm"] = {"events": pilot["prewarm"]["events"]}
         for d in pilot["last"]:

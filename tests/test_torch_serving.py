@@ -15,7 +15,10 @@ scheduler's and the tracer's clocks of both packages at one
 deterministic counter (each read advances it by 1 ms), besides the ids
 and `time.time` (`test_torch_facade_api.install_determinism`). Under
 that clock the whole soak report is held equal except `warm_s` and
-`wall_s`, the soak's own wall times. Both packages run unarmed
+`wall_s`, the soak's own wall times, and the wave-phase shares: the
+port's come from the phases' measured spans, the reference's from trace
+stamps spaced evenly inside the bracket, so they are held to their
+phases and to partitioning 1 (`cut_phase_shares`). Both packages run unarmed
 (`HV_WAVE_PALLAS=0`) with the roofline observatory off (`HV_ROOFLINE=0`),
 as every facade parity run does.
 """
@@ -588,9 +591,22 @@ def test_trace_file_round_trip_reads_the_other_package(tmp_path):
     assert back.read_bytes() == path.read_bytes()
 
 
+def cut_phase_shares(shares):
+    """Wave-phase shares (`attribution.wave_phase_shares`) cut to their
+    phases, once they are seen to partition 1: the port times each phase
+    (`profiling.stage_scope`), the reference spaces its stamps evenly in
+    the bracket, so the values differ by design."""
+    if shares is None:
+        return None
+    assert sum(shares.values()) == pytest.approx(1.0, abs=1e-9), shares
+    return sorted(shares)
+
+
 def soak_report(P, spec_kw: dict, default_tables: bool, **kw) -> dict:
     report = P.serving.run_soak(
         P.serving.WorkloadSpec(**spec_kw), state=P.state(default_tables=default_tables), **kw)
+    attribution = report["latency_attribution"]
+    attribution["phase_shares"] = cut_phase_shares(attribution["phase_shares"])
     return {k: v for k, v in report.items() if k not in WALL_KEYS}
 
 
