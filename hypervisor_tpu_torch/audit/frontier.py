@@ -1,5 +1,5 @@
 """Incremental Merkle frontier: O(log n) session roots for the audit plane
-(a copy of `hypervisor_tpu.audit.frontier`).
+(`hypervisor_tpu.audit.frontier`, with a batched builder).
 
 Keep at most one *perfect-subtree* root per height (an O(log n) node
 stack riding the session like its DeltaLog rows do), so appending a leaf
@@ -15,6 +15,12 @@ frontier root equals `ops.merkle.merkle_root_host` and
 `ops.merkle.merkle_root_lanes` over the same leaves. `hash_count` tallies
 every combine. Host-side by design: the fold is log2(n) sequential tiny
 hashes, far below a device launch's latency.
+
+Every writer goes through `MerkleFrontier.extend_lanes`, which takes a
+whole wave of lanes at once: one hex conversion for all their leaves, the
+lanes with no leaf yet built level by level across lanes, the rest through
+`append_hex`'s carry. It adds to the recorder's counters
+`frontier.lanes_fresh`, `frontier.lanes_carried` and `frontier.combines`.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ import hashlib
 
 import numpy as np
 
+from hypervisor_tpu_torch.observability import profiling
 
-def _words_to_hex(words) -> str:
-    return "".join(f"{int(w) & 0xFFFFFFFF:08x}" for w in words)
+#: Hex characters of one leaf or node digest.
+_HEX = 64
 
 
 def _hex_to_words(hex_digest: str) -> np.ndarray:
@@ -70,12 +77,95 @@ class MerkleFrontier:
 
     def append(self, digest_words) -> None:
         """Append one leaf given as u32[8] digest words."""
-        self.append_hex(_words_to_hex(np.asarray(digest_words, np.uint32)))
+        self.extend(np.asarray(digest_words, np.uint32).reshape(1, 8))
 
     def extend(self, digests) -> None:
-        """Append a [N, 8] batch of leaf digests in order."""
-        for row in np.asarray(digests, np.uint32):
-            self.append_hex(_words_to_hex(row))
+        """Append a [N, 8] batch of leaf digests in order: the one-lane
+        case of `extend_lanes`."""
+        digests = np.asarray(digests, np.uint32).reshape(-1, 8)
+        MerkleFrontier.extend_lanes([self], digests, [len(digests)])
+
+    @staticmethod
+    def extend_lanes(frontiers, leaves, counts) -> None:
+        """Append a wave of lanes: lane i appends the next `counts[i]`
+        rows of `leaves` (u32[N, 8], lanes in order) to `frontiers[i]`.
+
+        One hex conversion serves every lane. A fresh lane (its frontier
+        holds no leaf, and no earlier lane of this call wrote it) gets the
+        perfect subtrees of its count's binary decomposition, built one
+        level at a time across all fresh lanes: sibling nodes sit side by
+        side in a level's hex string, so a parent hashes one slice. Its
+        `hash_count` grows by t - popcount(t), the combines t appends
+        make. Every other lane appends through `append_hex`, in lane
+        order, so a frontier named twice takes its leaves in order.
+        """
+        counts = np.asarray(counts, np.int64).reshape(-1)
+        if len(counts) != len(frontiers):
+            raise ValueError(f"{len(frontiers)} frontiers for {len(counts)} lane counts")
+        leaves = np.asarray(leaves, np.uint32).reshape(-1, 8)
+        if int(counts.sum()) != len(leaves):
+            raise ValueError(f"lane counts sum to {int(counts.sum())}, not {len(leaves)} leaves")
+        if not len(leaves):
+            return
+        text = leaves.astype(">u4").tobytes().hex()
+        starts = np.zeros(len(counts), np.int64)
+        np.cumsum(counts[:-1], out=starts[1:])
+        lane_counts = counts.tolist()
+        fresh, carried, seen = [], [], set()
+        for i, fr in enumerate(frontiers):
+            if lane_counts[i]:
+                (carried if fr.count or id(fr) in seen else fresh).append(i)
+                seen.add(id(fr))
+        combines = 0
+        if fresh:
+            combines += MerkleFrontier._build_fresh(
+                [frontiers[i] for i in fresh], text, starts[fresh], counts[fresh])
+        for i in carried:
+            fr, lo = frontiers[i], int(starts[i]) * _HEX
+            before = fr.hash_count
+            for at in range(lo, lo + lane_counts[i] * _HEX, _HEX):
+                fr.append_hex(text[at:at + _HEX])
+            combines += fr.hash_count - before
+        profiling.count("frontier.lanes_fresh", len(fresh))
+        profiling.count("frontier.lanes_carried", len(carried))
+        profiling.count("frontier.combines", combines)
+
+    @staticmethod
+    def _build_fresh(frontiers, text: str, starts: np.ndarray, counts: np.ndarray) -> int:
+        """Set each empty frontier to its lane's perfect subtrees, level by
+        level across lanes; returns the combines made. Level h holds a
+        lane's t >> h nodes in a row from `first`; where bit h of t is set
+        the last of them is the lane's subtree of height h."""
+        level, hexes, first = text.encode("ascii"), None, starts
+        stacks: list[list] = [[] for _ in frontiers]
+        combines, h = 0, 0
+        while True:
+            n = counts >> h
+            picks = np.flatnonzero(n & 1)
+            if len(picks):
+                last = (first[picks] + n[picks] - 1).tolist()
+                nodes = ([text[i * _HEX:(i + 1) * _HEX] for i in last] if hexes is None
+                         else [hexes[i] for i in last])
+                for lane, node in zip(picks.tolist(), nodes):
+                    stacks[lane].append((h, node))
+            pairs = n >> 1
+            total = int(pairs.sum())
+            if not total:
+                break
+            lane_start = np.zeros(len(pairs), np.int64)
+            np.cumsum(pairs[:-1], out=lane_start[1:])
+            left = (np.repeat(first - 2 * lane_start, pairs) + 2 * np.arange(total)) * _HEX
+            hexes = [hashlib.sha256(level[at:at + 2 * _HEX]).hexdigest() for at in left.tolist()]
+            level = "".join(hexes).encode("ascii")
+            combines += total
+            first = lane_start
+            h += 1
+        for fr, stack, t in zip(frontiers, stacks, counts.tolist()):
+            stack.reverse()
+            fr._nodes = stack
+            fr.count = t
+            fr.hash_count += t - bin(t).count("1")
+        return combines
 
     # -- querying -------------------------------------------------------
 

@@ -1291,8 +1291,9 @@ class HypervisorState:
     def _book_wave_audit(self, session_slots, chain: np.ndarray, base_row: int) -> None:
         """Book one wave's audit chain (a host copy, u32[T, K, 8]) into the
         audit index: ring-row claims, per-session rows, turn counters,
-        chain seeds and the Merkle frontiers. The ring append itself
-        already happened in the wave."""
+        chain seeds and the Merkle frontiers, all of the wave's in one
+        `MerkleFrontier.extend_lanes`. The ring append itself already
+        happened in the wave."""
         t, k = chain.shape[:2]
         if not t:
             return
@@ -1301,12 +1302,14 @@ class HypervisorState:
         capacity = self.config.capacity.delta_log_capacity
         rows = (base_row + np.arange(k * t)) % capacity
         self._claim_rows(rows, sess_rep)
+        frontiers = []
         for i, s in enumerate(np.asarray(session_slots)):
             s = int(s)
             self._audit_rows.setdefault(s, []).extend(rows[i * t:(i + 1) * t].tolist())
             self._turns[s] = self._turns.get(s, 0) + t
             self._chain_seed[s] = chain[t - 1, i]
-            self._frontier.setdefault(s, MerkleFrontier()).extend(digests_flat[i * t:(i + 1) * t])
+            frontiers.append(self._frontier.setdefault(s, MerkleFrontier()))
+        MerkleFrontier.extend_lanes(frontiers, digests_flat, np.full(k, t))
 
     # ── join waves ───────────────────────────────────────────────────
 
@@ -1608,15 +1611,15 @@ class HypervisorState:
         rows = ((base_row + np.arange(b)) % capacity).astype(np.int64)
         self._claim_rows(rows, sess_arr[flat])
         offset = 0
+        frontiers = []
         for lane in range(lanes):
             sess = int(sess_of_lane[lane])
             n_rows = int(n_per_lane[lane])
             self._audit_rows.setdefault(sess, []).extend(rows[offset:offset + n_rows].tolist())
-            self._frontier.setdefault(sess, MerkleFrontier()).extend(
-                flat_digests[offset:offset + n_rows]
-            )
+            frontiers.append(self._frontier.setdefault(sess, MerkleFrontier()))
             offset += n_rows
             self._chain_seed[sess] = digests[n_rows - 1, lane]
+        MerkleFrontier.extend_lanes(frontiers, flat_digests, n_per_lane)
 
         self.delta_log.append_batch(
             u32.from_numpy_u32(packed_flat, dev), u32.from_numpy_u32(flat_digests, dev),

@@ -3,9 +3,9 @@
 B1's plain version against the reference's numpy twin of the Pallas
 hash and `hashlib`; chain verification (whole chains and single links),
 Merkle roots above the tree kernel's 4096 leaves, the host entries, the
-delta packing, the incremental `MerkleFrontier` and the trace span-word
-derivation, each against its JAX-package counterpart on the same seeded
-inputs. Tolerance 0 everywhere.
+delta packing, the incremental `MerkleFrontier` (its batched builder
+too) and the trace span-word derivation, each against its JAX-package
+counterpart on the same seeded inputs. Tolerance 0 everywhere.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from hypervisor_tpu.ops import sha256 as jax_sha256
 from hypervisor_tpu_torch import u32
 from hypervisor_tpu_torch.audit.frontier import MerkleFrontier
 from hypervisor_tpu_torch.kernels import sha256 as sha_kernels
-from hypervisor_tpu_torch.observability import tracing
+from hypervisor_tpu_torch.observability import profiling, tracing
 from hypervisor_tpu_torch.ops import merkle
 from hypervisor_tpu_torch.ops import sha256 as sha_ops
 
@@ -184,6 +184,91 @@ def test_merkle_frontier_matches_reference(seed):
     assert port.copy().to_meta() == port.to_meta()
     assert MerkleFrontier.from_leaf_digests(leaves).to_meta() == \
         JaxFrontier.from_leaf_digests(leaves).to_meta()
+
+
+#: Fresh lane lengths: every shape of the binary decomposition up to 33.
+FRESH_COUNTS = (1, 2, 3, 4, 5, 7, 8, 16, 33)
+FRONTIER_COUNTERS = ("frontier.lanes_fresh", "frontier.lanes_carried", "frontier.combines")
+
+
+def _frontier_waves(case, rng):
+    """Seeded waves of (slot, leaf count) lanes, and the prior leaf count
+    of each slot that starts with some."""
+    if case == "fresh":
+        counts = list(FRESH_COUNTS) * 2
+        rng.shuffle(counts)
+        return {}, [list(enumerate(counts)), [(100 + i, c) for i, c in enumerate(FRESH_COUNTS)]]
+    if case == "prior":
+        priors = {s: int(rng.randint(1, 71)) for s in range(12)}
+        return priors, [[(s, int(rng.choice(FRESH_COUNTS))) for s in range(12)]
+                        for _ in range(3)]
+    if case == "repeated":
+        # Slot 0 fresh then twice more, slot 5 (with priors) twice, slot 9
+        # fresh in the first wave and repeated in the second.
+        return {5: 6, 6: 1}, [[(0, 3), (5, 2), (9, 4), (0, 1), (6, 7), (5, 5), (0, 2)],
+                              [(9, 1), (7, 3), (9, 2), (7, 1)]]
+    if case == "empty":
+        # Empty lanes between, an empty first sight of fresh slot 2, and a
+        # wave of empty lanes alone.
+        return {4: 9}, [[(0, 0), (1, 3), (2, 0), (3, 5), (2, 4), (4, 0), (4, 2), (5, 0)],
+                        [(6, 0), (7, 0)], [(1, 0), (8, 1), (2, 0)]]
+    lanes = []
+    for _ in range(4):
+        n = int(rng.randint(1, 40))
+        lanes.append([(int(s), int(c)) for s, c in
+                      zip(rng.randint(0, 20, n), rng.randint(0, 12, n))])
+    return {s: int(rng.randint(1, 71)) for s in range(0, 20, 3)}, lanes
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", ["fresh", "prior", "repeated", "empty", "mixed"])
+def test_batched_frontier_builder_matches_per_leaf_path_and_reference(case, seed):
+    """`MerkleFrontier.extend_lanes` on seeded ragged waves against the
+    per-leaf `append_hex` path and the reference's `extend`, lane by lane
+    in order: after every wave each slot's node stack, count, hash count
+    and root; and the recorder's counters count exactly the fresh lanes,
+    the carried lanes and the combines of the wave."""
+    rng = np.random.RandomState(seed)
+    priors, waves = _frontier_waves(case, rng)
+    port, leafwise, ref = {}, {}, {}
+    for s, n in priors.items():
+        leaves = _u32(rng, n, 8)
+        port[s], leafwise[s], ref[s] = MerkleFrontier(), MerkleFrontier(), JaxFrontier()
+        for h in sha_ops.digests_to_hex(leaves):
+            port[s].append_hex(h)
+            leafwise[s].append_hex(h)
+        ref[s].extend(leaves)
+    for wave in waves:
+        counts = np.array([c for _, c in wave], np.int64)
+        leaves = _u32(rng, int(counts.sum()), 8)
+        hexes = sha_ops.digests_to_hex(leaves)
+        fresh = carried = combines = 0
+        written: set = set()
+        offset = 0
+        for s, c in wave:
+            fr = leafwise.setdefault(s, MerkleFrontier())
+            if c:
+                if fr.count or s in written:
+                    carried += 1
+                else:
+                    fresh += 1
+                written.add(s)
+            before = fr.hash_count
+            for h in hexes[offset:offset + c]:
+                fr.append_hex(h)
+            combines += fr.hash_count - before
+            ref.setdefault(s, JaxFrontier()).extend(leaves[offset:offset + c])
+            offset += c
+        was = profiling.span_totals()["counters"]
+        MerkleFrontier.extend_lanes([port.setdefault(s, MerkleFrontier()) for s, _ in wave],
+                                    leaves, counts)
+        now = profiling.span_totals()["counters"]
+        assert [now.get(k, 0) - was.get(k, 0) for k in FRONTIER_COUNTERS] == \
+            [fresh, carried, combines]
+        assert sorted(port) == sorted(leafwise) == sorted(ref)
+        for s in ref:
+            assert port[s].to_meta() == leafwise[s].to_meta() == ref[s].to_meta(), s
+            assert port[s].root_hex() == leafwise[s].root_hex() == ref[s].root_hex(), s
 
 
 def test_child_span_word_wraps_like_the_reference():

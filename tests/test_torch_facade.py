@@ -19,11 +19,18 @@ One seeded sequence runs on the JAX package's `HypervisorState` (unarmed:
     reclaim and the dangling-edge scrub;
   * the refusal to wrap the ring into a live session.
 
+A second sequence books leaves onto sessions that already hold some: a
+wave on six sessions, a second wave on the same six (each frontier
+carried), a wave on six others that wraps the DeltaLog over the first
+six's oldest rows (their frontiers evicted), a wave on the first six
+again (five frontiers built anew from the wave's leaves, one carried) and
+their termination (roots recomputed from the recorded leaves).
+
 Held equal bit for bit after every step: every `WaveResult` field; the
 agents, sessions and vouches tables; the DeltaLog; the whole metrics
 table (counters, the gauges the wave's epilogue refreshes, histograms
 and their sums); the TraceLog words; the host
-audit index, frontier roots, ring-row ownership, free lists and
+audit index, frontier stacks and roots, ring-row ownership, free lists and
 membership keys; the scrubber reports, the verify verdicts and the
 roots. Trace ids are made deterministic by patching `secrets.token_hex`.
 """
@@ -167,7 +174,8 @@ def _host_state(st) -> dict:
         "audit_rows": {s: list(r) for s, r in st._audit_rows.items()},
         "turns": dict(st._turns),
         "chain_seed": {s: np.asarray(v, np.uint32).tolist() for s, v in st._chain_seed.items()},
-        "frontier": {s: (f.count, f.hash_count, f.root_hex()) for s, f in st._frontier.items()},
+        "frontier": {s: (f.count, f.hash_count, f.to_meta()["nodes"], f.root_hex())
+                     for s, f in st._frontier.items()},
         "row_session": st._row_session.tolist(),
         "free_agent_slots": list(st._free_agent_slots),
         "free_edge_slots": list(st._free_edge_slots),
@@ -265,8 +273,10 @@ def _run(side) -> list[tuple[str, object]]:
     return log
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _on_both(run, ref_side, port_side) -> tuple:
+    """`run` on a new reference side, then on a new port side, each with
+    trace ids counted from 0 and both packages' kernels unarmed; returns
+    both logs and the port side."""
     counter = itertools.count()
 
     def token_hex(nbytes=None):
@@ -278,10 +288,16 @@ def runs():
         mp.delenv("HV_TRACE", raising=False)
         mp.delenv("HV_TRACE_SAMPLE", raising=False)
         mp.setattr(secrets, "token_hex", token_hex)
-        ref = _run(_Ref())
+        ref = run(ref_side())
         counter = itertools.count()
-        port_side = _Port()
-        port = _run(port_side)
+        port_obj = port_side()
+        port = run(port_obj)
+    return ref, port, port_obj
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ref, port, port_side = _on_both(_run, _Ref, _Port)
     return dict(ref), dict(port), port_side
 
 
@@ -321,20 +337,43 @@ def _run_scattered(side) -> list[tuple[str, object]]:
 
 @pytest.fixture(scope="module")
 def scattered_runs():
-    counter = itertools.count()
+    ref, port, _ = _on_both(_run_scattered, _Ref, _Port)
+    return dict(ref), dict(port)
 
-    def token_hex(nbytes=None):
-        return f"{next(counter):0{2 * nbytes}x}"
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("HV_WAVE_PALLAS", "0")
-        mp.setenv("HV_SHA256_PALLAS", "0")
-        mp.delenv("HV_TRACE", raising=False)
-        mp.delenv("HV_TRACE_SAMPLE", raising=False)
-        mp.setattr(secrets, "token_hex", token_hex)
-        ref = _run_scattered(_Ref())
-        counter = itertools.count()
-        port = _run_scattered(_Port())
+def _run_rebooked(side) -> list[tuple[str, object]]:
+    """Waves that book leaves onto sessions that already hold some (the
+    module docstring's second sequence)."""
+    log: list[tuple[str, object]] = []
+    st = side.st
+    rng = np.random.RandomState(22)
+    cfg = side.session_config(min_sigma_eff=0.55, max_participants=1)
+    first = st.create_sessions_batch([f"rb:s{i}" for i in range(K)], cfg)
+
+    def wave(label, slots, t, now):
+        b = len(slots)
+        bodies = rng.randint(0, 2**32, (t, b, 16), dtype=np.uint64).astype(np.uint32)
+        sigma = rng.uniform(0.3, 1.0, b).astype(np.float32)
+        res = st.run_governance_wave(slots, [f"did:{label}:{i}" for i in range(b)], slots,
+                                     sigma, bodies, now=now, omega=0.5)
+        log.append((label, side.wave_result(res)))
+        log.append((label + ":tables", side.snapshot()))
+        log.append((label + ":host", _host_state(st)))
+
+    wave("first", first, T, 10.0)
+    wave("again", first, 2, 11.0)
+    others = st.create_sessions_batch([f"rb:n{i}" for i in range(K)], cfg)
+    wave("wrap", others, T, 12.0)
+    wave("rebuilt", first, 1, 13.0)
+    log.append(("terminate", st.terminate_sessions(list(first), now=14.0).tolist()))
+    log.append(("terminate:tables", side.snapshot()))
+    log.append(("terminate:host", _host_state(st)))
+    return log
+
+
+@pytest.fixture(scope="module")
+def rebooked_runs():
+    ref, port, _ = _on_both(_run_rebooked, _Ref, _Port)
     return dict(ref), dict(port)
 
 
@@ -381,6 +420,26 @@ def test_flush_deltas_matches_reference(runs, step):
     ref, port, _ = runs
     for suffix in ("", ":tables", ":host"):
         _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+
+
+@pytest.mark.parametrize("step", ["first", "again", "wrap", "rebuilt", "terminate"])
+def test_rebooked_sessions_match_reference(rebooked_runs, step):
+    """Frontiers carried across waves, evicted by a wrap and built anew:
+    every step held to the reference's."""
+    ref, port = rebooked_runs
+    for suffix in ("", ":tables", ":host"):
+        _assert_same(step + suffix, port[step + suffix], ref[step + suffix])
+    host = port[step + ":host"]
+    counts = {s: host["frontier"][s][0] if s in host["frontier"] else None for s in range(K)}
+    rows = {s: len(host["audit_rows"][s]) for s in range(K)}
+    if step == "again":
+        assert counts == rows == dict.fromkeys(range(K), T + 2)      # every lane carried
+    if step == "wrap":
+        assert all(counts[s] is None for s in range(K) if rows[s] < T + 2)
+    if step == "rebuilt":
+        evicted = [s for s in range(K) if port["wrap:host"]["frontier"].get(s) is None]
+        assert evicted and all(counts[s] == 1 < rows[s] for s in evicted)
+        assert any(counts[s] == T + 3 for s in range(K))           # a frontier carried
 
 
 def test_verify_session_chain_matches_reference(runs):
@@ -721,20 +780,7 @@ def _run_actions(side) -> dict:
 
 @pytest.fixture(scope="module")
 def action_runs():
-    counter = itertools.count()
-
-    def token_hex(nbytes=None):
-        return f"{next(counter):0{2 * nbytes}x}"
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("HV_WAVE_PALLAS", "0")
-        mp.setenv("HV_SHA256_PALLAS", "0")
-        mp.delenv("HV_TRACE", raising=False)
-        mp.delenv("HV_TRACE_SAMPLE", raising=False)
-        mp.setattr(secrets, "token_hex", token_hex)
-        ref = _run_actions(_ActRef())
-        counter = itertools.count()
-        port = _run_actions(_ActPort())
+    ref, port, _ = _on_both(_run_actions, _ActRef, _ActPort)
     return ref, port
 
 
