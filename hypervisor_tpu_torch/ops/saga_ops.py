@@ -127,19 +127,18 @@ def pack_outcomes(
     exec_success, undo_success, exec_attempted=None, undo_attempted=None
 ) -> np.ndarray:
     """uint8[G] outcome bytes (`OUT_*` bits) from four bool[G] masks; an
-    attempted mask left None means every saga was dispatched."""
+    attempted mask left None means every saga was dispatched. Packed in
+    uint8 throughout: a table of 2^22 sagas takes one 4 MB byte array a
+    mask, where wider integers would allocate and fault in 32 MB a term."""
     es = np.asarray(exec_success, bool)
     g = es.shape[0]
 
-    def mask(m):
-        return np.ones(g, bool) if m is None else np.asarray(m, bool)
+    def bits(m, bit):
+        m = np.ones(g, bool) if m is None else np.asarray(m, bool)
+        return m.view(np.uint8) * np.uint8(bit)
 
-    return (
-        es * OUT_EXEC_SUCCESS
-        + np.asarray(undo_success, bool) * OUT_UNDO_SUCCESS
-        + mask(exec_attempted) * OUT_EXEC_ATTEMPTED
-        + mask(undo_attempted) * OUT_UNDO_ATTEMPTED
-    ).astype(np.uint8)
+    return (bits(es, OUT_EXEC_SUCCESS) | bits(undo_success, OUT_UNDO_SUCCESS)
+            | bits(exec_attempted, OUT_EXEC_ATTEMPTED) | bits(undo_attempted, OUT_UNDO_ATTEMPTED))
 
 
 def saga_table_tick(
@@ -197,14 +196,18 @@ def _saga_tick_tail(step_state, retries_left, saga_state, cursor, g, metrics, tr
     return step_state, retries_left, saga_state, cursor, metrics, trace
 
 
-def saga_table_done(saga_state: torch.Tensor, session: torch.Tensor) -> torch.Tensor:
-    """bool[G]: sagas in a terminal state (free rows count as done)."""
-    terminal = (
+def saga_terminal(saga_state: torch.Tensor) -> torch.Tensor:
+    """bool[G]: sagas in a terminal state, which no round leaves."""
+    return (
         (saga_state == SAGA_COMPLETED)
         | (saga_state == SAGA_FAILED)
         | (saga_state == SAGA_ESCALATED)
     )
-    return terminal | (session < 0)
+
+
+def saga_table_done(saga_state: torch.Tensor, session: torch.Tensor) -> torch.Tensor:
+    """bool[G]: sagas in a terminal state (free rows count as done)."""
+    return saga_terminal(saga_state) | (session < 0)
 
 
 def fanout_policy_check(

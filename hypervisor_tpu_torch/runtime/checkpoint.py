@@ -424,6 +424,7 @@ def _rebuild(data, meta: dict, config: HypervisorConfig, device) -> HypervisorSt
     state._next_agent_slot = int(meta["next_agent_slot"])
     state._next_session_slot = int(meta["next_session_slot"])
     state._next_saga_slot = int(meta.get("next_saga_slot", 0))
+    state._saga_lo = 0
     state._next_edge_slot = int(meta.get("next_edge_slot", 0))
     state._next_elev_slot = int(meta.get("next_elev_slot", 0))
     state._members = {

@@ -9,13 +9,22 @@ scheduler awaits ALL of their executors concurrently under their
 per-step timeouts, `fanout_settle` books the branches as whole groups,
 and one `saga_round` (kernel B7 on CUDA) books every other outcome at
 once. Retries back off linearly.
+
+A call of `run_until_settled` is the span `saga_scheduler`, each round
+its child `round` and the round's awaited executors `round/executors`;
+each round adds its tallies to the recorder's counters `saga.rounds`,
+`saga.attempts` (forward attempts), `saga.retries` (forward attempts
+after a step's first), `saga.timeouts`, `saga.undo_attempts` and
+`saga.gate_refusals` (`observability.profiling`).
 """
 
 from __future__ import annotations
 
 import asyncio
+from collections import Counter
 from typing import Any, Awaitable, Callable, Optional
 
+from hypervisor_tpu_torch.observability import profiling
 from hypervisor_tpu_torch.ops import saga_ops
 from hypervisor_tpu_torch.state import HypervisorState
 
@@ -34,6 +43,7 @@ class SagaScheduler:
         self._agent_of: dict[tuple[int, int], int] = {}
         self.results: dict[tuple[int, int], Any] = {}
         self.errors: dict[tuple[int, int], str] = {}
+        self._tally: Counter = Counter()  # this round's, for the recorder's counters
 
     def register(
         self,
@@ -161,15 +171,22 @@ class SagaScheduler:
         groups in one `fanout_settle`; the rest book in one `saga_round`.
         """
         state = self._state
-        for rounds in range(max_rounds):
-            if state.sagas_settled():
-                return rounds
-            execute, compensate = state.saga_work()
-            branches = state.fanout_dispatch()
-            timeouts = state.sagas.timeout.cpu().numpy()
-            # One isolation snapshot per round: no per-step device read.
-            gate = state.isolation_gate() if self._agent_of else None
+        with profiling.stage_scope("saga_scheduler"):
+            for rounds in range(max_rounds):
+                if state.sagas_settled():
+                    return rounds
+                with profiling.stage_scope("round"):
+                    await self._round(state)
+        raise RuntimeError(f"sagas not settled after {max_rounds} rounds")
 
+    async def _round(self, state: HypervisorState) -> None:
+        execute, compensate = state.saga_work()
+        branches = state.fanout_dispatch()
+        timeouts = state.saga_timeouts()
+        # One isolation snapshot per round: no per-step device read.
+        gate = state.isolation_gate() if self._agent_of else None
+
+        with profiling.stage_scope("executors"):
             exec_res, branch_res, undo_res = await asyncio.gather(
                 asyncio.gather(*(
                     self._attempt(self._execute.get((slot, idx)), slot, idx, timeouts, gate=gate)
@@ -184,22 +201,26 @@ class SagaScheduler:
                     for slot, idx in compensate
                 )),
             )
-            exec_out = {slot: ok for (slot, _), ok in zip(execute, exec_res)}
-            undo_out = {slot: ok for (slot, _), ok in zip(compensate, undo_res)}
-            state.fanout_settle({pair: ok for pair, ok in zip(branches, branch_res)})
-            state.saga_round(exec_out, undo_out)
-        raise RuntimeError(f"sagas not settled after {max_rounds} rounds")
+        exec_out = {slot: ok for (slot, _), ok in zip(execute, exec_res)}
+        undo_out = {slot: ok for (slot, _), ok in zip(compensate, undo_res)}
+        state.fanout_settle({pair: ok for pair, ok in zip(branches, branch_res)})
+        state.saga_round(exec_out, undo_out)
+        self._tally["saga.rounds"] += 1
+        for name, n in self._tally.items():
+            profiling.count(name, n)
+        self._tally.clear()
 
     async def _attempt(
         self,
         executor: Optional[Executor],
         slot: int,
         idx: int,
-        timeouts,
+        timeouts: tuple,
         undo: bool = False,
         gate=None,
     ) -> bool:
-        """Run one executor under its timeout; outcomes are data."""
+        """Run one executor under its timeout (`timeouts`: the round's
+        `HypervisorState.saga_timeouts()`); outcomes are data."""
         key = (slot, idx)
         if executor is None:
             # A compensation target with no undo API fails; a forward step
@@ -213,15 +234,24 @@ class SagaScheduler:
             refusal = gate(self._agent_of[key])
             if refusal is not None:
                 self.errors[key] = refusal
+                self._tally["saga.gate_refusals"] += 1
                 return False
         attempt = self._attempts.get(key, 0)
-        if attempt and not undo:
-            await asyncio.sleep(self._backoff * attempt)  # linear backoff
+        if undo:
+            self._tally["saga.undo_attempts"] += 1
+        else:
+            self._tally["saga.attempts"] += 1
+            if attempt:
+                self._tally["saga.retries"] += 1
+                await asyncio.sleep(self._backoff * attempt)  # linear backoff
         self._attempts[key] = attempt + 1
         try:
-            timeout = float(timeouts[slot, idx])
+            lo, rows = timeouts
+            timeout = float(rows[slot - lo, idx])
             result = await asyncio.wait_for(executor(), timeout=timeout)
         except Exception as exc:  # noqa: BLE001 — outcomes are data
+            if isinstance(exc, TimeoutError):
+                self._tally["saga.timeouts"] += 1
             self.errors[key] = str(exc)
             return False
         if not undo:

@@ -180,6 +180,19 @@ def _comp_backlog_warn() -> int:
         return 16
 
 
+def _saga_steps_payload(steps: Sequence[dict]) -> list[dict]:
+    """One saga's steps as its journal record holds them."""
+    return [{"retries": int(st.get("retries", 0)),
+             "has_undo": bool(st.get("has_undo", False)),
+             "timeout": float(st.get("timeout", 300.0))} for st in steps]
+
+
+def _dsl_steps(definition) -> list[dict]:
+    """A parsed `saga.dsl.SagaDefinition`'s steps as `create_saga` takes them."""
+    return [{"retries": step.retries, "has_undo": step.undo_api is not None,
+             "timeout": float(step.timeout)} for step in definition.steps]
+
+
 # Every module-level dispatch entry is wrapped in compile telemetry
 # (`observability.health.instrument`), under the reference's program
 # names: the watch keys each call's abstract signature, times the novel
@@ -388,6 +401,8 @@ class HypervisorState:
         self._next_session_slot = 0
         self._next_agent_slot = 0
         self._next_saga_slot = 0
+        # No saga row under it holds an unsettled saga (`sagas_settled`).
+        self._saga_lo = 0
         self._next_edge_slot = 0
         self._next_elev_slot = 0
         # Fan-out groups per saga slot: [(policy_code, [branch idxs])],
@@ -494,6 +509,7 @@ class HypervisorState:
             )
         for name in _HOST_ADOPT_ATTRS:
             setattr(self, name, getattr(other, name))
+        self._saga_lo = 0
         # Derived caches anchored to the old tables are stale now.
         self._packed_bodies = {}
 
@@ -537,6 +553,7 @@ class HypervisorState:
         inj = self.fault_injector
         if inj is not None and getattr(inj, "has_pending_corruptions", False):
             inj.apply_due_corruptions(self)
+            self._saga_lo = 0
         plane = self.integrity
         if plane is not None:
             plane.on_dispatch(stage, fused=fused_sanitizer)
@@ -1950,43 +1967,97 @@ class HypervisorState:
     # ── sagas ────────────────────────────────────────────────────────
 
     def create_saga(self, saga_id: str, session_slot: int, steps: Sequence[dict]) -> int:
-        """Allocate a saga row; steps = [{has_undo, retries, timeout}, ...]."""
+        """Allocate a saga row; steps = [{has_undo, retries, timeout}, ...].
+        `create_sagas`' one-saga case."""
+        return int(self.create_sagas([saga_id], [session_slot], [steps])[0])
+
+    @profiling.scoped("saga_create")
+    def create_sagas(
+        self, saga_ids: Sequence[str], session_slots: Sequence[int],
+        steps: Sequence[Sequence[dict]],
+    ) -> np.ndarray:
+        """Allocate a block of consecutive saga rows, saga i on session
+        `session_slots[i]` with the steps `steps[i]` ([{has_undo, retries,
+        timeout}, ...]); returns their slots (arange(base, base + K)).
+        Each column is written with one host-built copy (sagas that share
+        one step list object share its row). It raises before it writes
+        anything, and its rows, interned ids and slots equal K
+        `create_saga` calls in order. With a journal attached, each saga
+        is written with its own `create_saga` record, so the log holds
+        what K `create_saga` calls write."""
+        steps = list(steps)
+        block = self._saga_block(saga_ids, session_slots, steps)
+        k, base = len(steps), self._next_saga_slot
+        parts = [slice(0, k)] if self.journal is None else [slice(i, i + 1) for i in range(k)]
+        for part in parts:
+            i = part.start
+            with self._journal("create_saga", build=lambda: {
+                "saga_id": saga_ids[i], "session_slot": int(session_slots[i]),
+                "steps": _saga_steps_payload(steps[i]),
+            }):
+                self._write_sagas(tuple(col[part] for col in block))
+        return np.arange(base, base + k)
+
+    def _saga_block(self, saga_ids, session_slots, steps) -> tuple:
+        """Validate a block of new sagas and build its host columns:
+        (saga_ids, session i32[K], retries i8[K, M], has_undo bool[K, M],
+        timeout f32[K, M], n_steps i32[K])."""
+        k = len(saga_ids)
+        if len(session_slots) != k or len(steps) != k:
+            raise ValueError(f"{k} saga ids, {len(session_slots)} session slots and "
+                             f"{len(steps)} step lists")
         max_steps = self.sagas.step_state.shape[1]
-        if not steps:
-            raise ValueError("saga needs at least one step")
-        if len(steps) > max_steps:
-            raise ValueError(f"saga has {len(steps)} steps; table holds {max_steps}")
-        if self._next_saga_slot >= self.sagas.saga_state.shape[0]:
-            raise RuntimeError(
-                f"saga table full ({self.sagas.saga_state.shape[0]}); "
-                "raise config.capacity.max_sagas"
-            )
-        with self._journal(
-            "create_saga", saga_id=saga_id, session_slot=int(session_slot),
-            steps=[{"retries": int(st.get("retries", 0)),
-                    "has_undo": bool(st.get("has_undo", False)),
-                    "timeout": float(st.get("timeout", 300.0))} for st in steps],
-        ):
-            slot = self._next_saga_slot
-            self._next_saga_slot += 1
+        rows: list[tuple] = []   # (retries, has_undo, timeout, n_steps) of each step list
+        seen: dict[int, int] = {}
+        which = np.empty(k, np.int64)
+        for i, sts in enumerate(steps):
+            j = seen.get(id(sts))
+            if j is None:
+                if not sts:
+                    raise ValueError("saga needs at least one step")
+                if len(sts) > max_steps:
+                    raise ValueError(f"saga has {len(sts)} steps; table holds {max_steps}")
+                retries = np.zeros(max_steps, np.int8)
+                has_undo = np.zeros(max_steps, bool)
+                timeout = np.full(max_steps, 300.0, np.float32)
+                for c, st in enumerate(sts):
+                    retries[c] = st.get("retries", 0)
+                    has_undo[c] = st.get("has_undo", False)
+                    timeout[c] = st.get("timeout", 300.0)
+                j = seen[id(sts)] = len(rows)
+                rows.append((retries, has_undo, timeout, len(sts)))
+            which[i] = j
+        cap = self.sagas.saga_state.shape[0]
+        if self._next_saga_slot + k > cap:
+            raise RuntimeError(f"saga table full ({cap}); raise config.capacity.max_sagas")
+        session = np.fromiter((int(s) for s in session_slots), np.int32, k)
+        cols = [np.array([r[c] for r in rows], dtype).reshape(-1, max_steps)[which]
+                for c, dtype in enumerate((np.int8, bool, np.float32))]
+        n_steps = np.array([r[3] for r in rows], np.int32)[which]
+        return (saga_ids, session, *cols, n_steps)
+
+    def _write_sagas(self, block: tuple) -> None:
+        """Write a validated block (`_saga_block`) into the next rows."""
+        saga_ids, session, retries, has_undo, timeout, n_steps = block
+        k = len(saga_ids)
+        base = self._next_saga_slot
+        self._next_saga_slot += k
+        for saga_id in saga_ids:
             self.saga_ids.intern(saga_id)
-            retries = np.zeros(max_steps, np.int8)
-            has_undo = np.zeros(max_steps, bool)
-            timeout = np.full(max_steps, 300.0, np.float32)
-            for i, st in enumerate(steps):
-                retries[i] = st.get("retries", 0)
-                has_undo[i] = st.get("has_undo", False)
-                timeout[i] = st.get("timeout", 300.0)
-            g, dev = self.sagas, self.device
-            g.step_state[slot] = saga_ops.STEP_PENDING
-            g.retries_left[slot] = torch.from_numpy(retries).to(dev)
-            g.has_undo[slot] = torch.from_numpy(has_undo).to(dev)
-            g.timeout[slot] = torch.from_numpy(timeout).to(dev)
-            g.saga_state[slot] = saga_ops.SAGA_RUNNING
-            g.session[slot] = int(session_slot)
-            g.n_steps[slot] = len(steps)
-            g.cursor[slot] = 0
-        return slot
+        profiling.count("saga.created", k)
+        g, rows = self.sagas, slice(base, base + k)
+
+        def put(a):
+            return torch.from_numpy(a).to(self.device)
+
+        g.step_state[rows] = saga_ops.STEP_PENDING
+        g.retries_left[rows] = put(retries)
+        g.has_undo[rows] = put(has_undo)
+        g.timeout[rows] = put(timeout)
+        g.saga_state[rows] = saga_ops.SAGA_RUNNING
+        g.session[rows] = put(session)
+        g.n_steps[rows] = put(n_steps)
+        g.cursor[rows] = 0
 
     def create_saga_from_dsl(self, definition, session_slot: int) -> int:
         """Materialize a parsed `saga.dsl.SagaDefinition` as a SagaTable
@@ -1995,15 +2066,21 @@ class HypervisorState:
         indices and policy, so the scheduler dispatches a whole group at
         once and settles it with one `ops.saga_ops.fanout_round` (branches
         do not retry)."""
-        slot = self.create_saga(
-            definition.saga_id,
-            session_slot,
-            [
-                {"retries": step.retries, "has_undo": step.undo_api is not None,
-                 "timeout": float(step.timeout)}
-                for step in definition.steps
-            ],
-        )
+        slot = self.create_saga(definition.saga_id, session_slot, _dsl_steps(definition))
+        self._register_fanout_groups(slot, definition)
+        return slot
+
+    def create_sagas_from_dsl(self, definitions: Sequence, session_slots: Sequence[int]
+                              ) -> np.ndarray:
+        """`create_saga_from_dsl` for a block of definitions: one
+        `create_sagas` block, then each saga's fan-out groups."""
+        slots = self.create_sagas([d.saga_id for d in definitions], session_slots,
+                                  [_dsl_steps(d) for d in definitions])
+        for slot, definition in zip(slots, definitions):
+            self._register_fanout_groups(int(slot), definition)
+        return slots
+
+    def _register_fanout_groups(self, slot: int, definition) -> None:
         idx_of = {step.id: i for i, step in enumerate(definition.steps)}
         groups = [
             (fo.policy.code, sorted(idx_of[sid] for sid in fo.branch_step_ids))
@@ -2026,27 +2103,40 @@ class HypervisorState:
             with self._journal("register_fanout_groups", slot=int(slot),
                                groups=[[policy, list(idxs)] for policy, idxs in ordered]):
                 self._fanout_groups[slot] = ordered
-        return slot
 
     # ── fan-out groups (device-scheduled) ────────────────────────────
 
+    def _saga_live_rows(self) -> tuple[int, int]:
+        """(lo, hi): the saga rows that can still hold an unsettled saga.
+        No row under `_saga_lo` does (`sagas_settled` moves it up; a
+        restore, an adopted state or an injected corruption puts it back
+        to 0), and no row at or past `_next_saga_slot` holds a saga. Each
+        read of the round's columns copies these rows alone; the rows it
+        covers add to the `saga.readback_rows` counter."""
+        lo, hi = self._saga_lo, self._next_saga_slot
+        profiling.count("saga.readback_rows", hi - lo)
+        return lo, hi
+
     def _active_group(
-        self, slot: int, cursor_host: np.ndarray, state_host: np.ndarray
+        self, slot: int, lo: int, cursor_host: np.ndarray, state_host: np.ndarray
     ) -> Optional[tuple[int, list[int]]]:
         """The fan-out group whose first branch is this saga's cursor, if
         the saga is RUNNING, from host copies of the cursor and state
-        columns (one read per round)."""
+        columns' rows [lo, lo + len) (one read per round). A slot under
+        `lo` holds a settled saga."""
         groups = self._fanout_groups.get(slot)
         if not groups:
             return None
-        if int(state_host[slot]) != saga_ops.SAGA_RUNNING:
+        r = slot - lo
+        if not 0 <= r < len(state_host) or int(state_host[r]) != saga_ops.SAGA_RUNNING:
             return None
-        cursor = int(cursor_host[slot])
+        cursor = int(cursor_host[r])
         for policy, idxs in groups:
             if idxs[0] == cursor:
                 return policy, idxs
         return None
 
+    @profiling.scoped("fanout_dispatch")
     def fanout_dispatch(self) -> list[tuple[int, int]]:
         """(saga_slot, step_idx) pairs for every group front: the whole
         group's PENDING branches dispatch concurrently.
@@ -2059,17 +2149,20 @@ class HypervisorState:
             return []
         if not self._fanout_groups:
             return []
-        step_state = self.sagas.step_state.cpu().numpy()
-        cursor_host = self.sagas.cursor.cpu().numpy()
-        state_host = self.sagas.saga_state.cpu().numpy()
+        lo, hi = self._saga_live_rows()
+        step_state = self.sagas.step_state[lo:hi].cpu().numpy()
+        cursor_host = self.sagas.cursor[lo:hi].cpu().numpy()
+        state_host = self.sagas.saga_state[lo:hi].cpu().numpy()
         out = []
         for slot in self._fanout_groups:
-            front = self._active_group(slot, cursor_host, state_host)
+            front = self._active_group(slot, lo, cursor_host, state_host)
             if front is None:
                 continue
-            out.extend((slot, i) for i in front[1] if step_state[slot, i] == saga_ops.STEP_PENDING)
+            out.extend((slot, i) for i in front[1]
+                       if step_state[slot - lo, i] == saga_ops.STEP_PENDING)
         return out
 
+    @profiling.scoped("fanout_settle")
     def fanout_settle(self, outcomes: dict[tuple[int, int], bool]) -> None:
         """Book a round of fan-out branch outcomes in one device round
         (`ops.saga_ops.fanout_round`), the saga table updated in place."""
@@ -2080,35 +2173,45 @@ class HypervisorState:
             self._fanout_settle_impl(outcomes)
 
     def _fanout_settle_impl(self, outcomes: dict[tuple[int, int], bool]) -> None:
+        # The round's masks cover the whole table, built on the device from
+        # the settling groups alone: no table-sized array on the host.
         g_cap, m = self.sagas.step_state.shape
-        group = np.zeros((g_cap, m), bool)
-        active = np.zeros(g_cap, bool)
-        success = np.zeros((g_cap, m), bool)
-        policy = np.zeros(g_cap, np.int8)
-        cursor_host = self.sagas.cursor.cpu().numpy()
-        state_host = self.sagas.saga_state.cpu().numpy()
+        lo, hi = self._saga_live_rows()
+        cursor_host = self.sagas.cursor[lo:hi].cpu().numpy()
+        state_host = self.sagas.saga_state[lo:hi].cpu().numpy()
+        slots, policies, rows, cols = [], [], [], []
         for slot in {s for s, _ in outcomes}:
-            front = self._active_group(slot, cursor_host, state_host)
+            front = self._active_group(slot, lo, cursor_host, state_host)
             if front is None:
                 continue
             pol, idxs = front
-            active[slot] = True
-            policy[slot] = pol
-            group[slot, idxs] = True
-        for (slot, idx), ok in outcomes.items():
-            success[slot, idx] = ok
+            slots.append(slot)
+            policies.append(pol)
+            rows.extend([slot] * len(idxs))
+            cols.extend(idxs)
+        won = [key for key, ok in outcomes.items() if ok]
+        dev = self.device
 
-        def put(a):
-            return torch.from_numpy(a).to(self.device)
+        def at(values, dtype=torch.int64):
+            return torch.tensor(values, dtype=dtype, device=dev)
+
+        group = torch.zeros((g_cap, m), dtype=torch.bool, device=dev)
+        group[at(rows), at(cols)] = True
+        active = torch.zeros(g_cap, dtype=torch.bool, device=dev)
+        active[at(slots)] = True
+        policy = torch.zeros(g_cap, dtype=torch.int8, device=dev)
+        policy[at(slots)] = at(policies, torch.int8)
+        success = torch.zeros((g_cap, m), dtype=torch.bool, device=dev)
+        success[at([s for s, _ in won]), at([i for _, i in won])] = True
 
         g = self.sagas
         step_state, saga_state, cursor = _FANOUT_ROUND(
-            g.step_state, g.saga_state, g.cursor, put(group), put(active), put(success),
-            put(policy))
+            g.step_state, g.saga_state, g.cursor, group, active, success, policy)
         g.step_state.copy_(step_state)
         g.saga_state.copy_(saga_state)
         g.cursor.copy_(cursor)
 
+    @profiling.scoped("saga_work")
     def saga_work(
         self, comp_budget: Optional[int] = None
     ) -> tuple[list[tuple[int, int]], list[tuple[int, int]]]:
@@ -2122,25 +2225,25 @@ class HypervisorState:
         saga's reverse step order kept. A backlog at or above
         `HV_COMP_BACKLOG_WARN` (16) emits the `comp_backlog` health event.
         """
-        g = self._next_saga_slot
-        if g == 0:
+        if self._next_saga_slot == 0:
             return [], []
-        saga_state = self.sagas.saga_state.cpu().numpy()[:g]
-        step_state = self.sagas.step_state.cpu().numpy()[:g]
-        cursor = self.sagas.cursor.cpu().numpy()[:g]
-        n_steps = self.sagas.n_steps.cpu().numpy()[:g]
+        lo, hi = self._saga_live_rows()
+        saga_state = self.sagas.saga_state[lo:hi].cpu().numpy()
+        step_state = self.sagas.step_state[lo:hi].cpu().numpy()
+        cursor = self.sagas.cursor[lo:hi].cpu().numpy()
+        n_steps = self.sagas.n_steps[lo:hi].cpu().numpy()
 
         execute = [
-            (int(s), int(cursor[s]))
-            for s in np.nonzero((saga_state == saga_ops.SAGA_RUNNING) & (cursor < n_steps))[0]
-            if step_state[s, cursor[s]] == saga_ops.STEP_PENDING
-            and self._active_group(int(s), cursor, saga_state) is None
+            (lo + int(r), int(cursor[r]))
+            for r in np.nonzero((saga_state == saga_ops.SAGA_RUNNING) & (cursor < n_steps))[0]
+            if step_state[r, cursor[r]] == saga_ops.STEP_PENDING
+            and self._active_group(lo + int(r), lo, cursor, saga_state) is None
         ]
         compensate = []
-        for s in np.nonzero(saga_state == saga_ops.SAGA_COMPENSATING)[0]:
-            committed = np.nonzero(step_state[s] == saga_ops.STEP_COMMITTED)[0]
+        for r in np.nonzero(saga_state == saga_ops.SAGA_COMPENSATING)[0]:
+            committed = np.nonzero(step_state[r] == saga_ops.STEP_COMMITTED)[0]
             if len(committed):
-                compensate.append((int(s), int(committed[-1])))
+                compensate.append((lo + int(r), int(committed[-1])))
         backlog = len(compensate)
         if backlog >= _comp_backlog_warn():
             # The storm signal: a subscribed supervisor flips degraded
@@ -2150,6 +2253,12 @@ class HypervisorState:
         if comp_budget is not None and backlog > comp_budget:
             compensate = compensate[: max(int(comp_budget), 0)]
         return execute, compensate
+
+    def saga_timeouts(self) -> tuple[int, np.ndarray]:
+        """(lo, f32[hi - lo, M]): the step timeouts of the saga rows that
+        can still hold an unsettled saga; row r is saga slot lo + r."""
+        lo, hi = self._saga_live_rows()
+        return lo, self.sagas.timeout[lo:hi].cpu().numpy()
 
     def saga_round(
         self,
@@ -2198,10 +2307,21 @@ class HypervisorState:
         self.tracer.end_wave(th, t_table)
 
     def sagas_settled(self) -> bool:
-        g = self._next_saga_slot
-        if g == 0:
+        """Whether every saga row is done (terminal, or a free row). Moves
+        the live rows' lower bound up to the first saga not in a terminal
+        state: a terminal saga never leaves it."""
+        if self._next_saga_slot == 0:
             return True
-        return bool(saga_ops.saga_table_done(self.sagas.saga_state[:g], self.sagas.session[:g]).all())
+        lo, hi = self._saga_live_rows()
+        if lo == hi:
+            return True
+        state = self.sagas.saga_state[lo:hi]
+        live = ~saga_ops.saga_terminal(state)
+        done = saga_ops.saga_table_done(state, self.sagas.session[lo:hi])
+        all_done, any_live, first = torch.stack(
+            [done.all().long(), live.any().long(), live.to(torch.int8).argmax()]).tolist()
+        self._saga_lo = lo + first if any_live else hi
+        return bool(all_done)
 
     # ── isolation gates ──────────────────────────────────────────────
 
