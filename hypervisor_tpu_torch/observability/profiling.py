@@ -293,6 +293,8 @@ _ring: deque = deque(maxlen=SPAN_RING)
 _totals: dict[str, list[int]] = {}   # path -> [count, total ns, self ns]
 _counters: dict[str, int] = {}
 _span_ids = itertools.count(1)
+#: The recorder's clock (ns): every span and flight-recorder bracket reads it.
+now_ns = time.perf_counter_ns
 
 
 def _thread_state() -> list:
@@ -330,11 +332,11 @@ class stage_scope:
             self._rf = torch.profiler.record_function(f"hv.{self.name}")
             self._rf.__enter__()
         stack.append(self)
-        self.t0 = time.perf_counter_ns()
+        self.t0 = now_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        t1 = time.perf_counter_ns()
+        t1 = now_ns()
         _tls.stack.remove(self)
         if self._rf is not None:
             self._rf.__exit__(exc_type, exc, tb)
@@ -403,12 +405,12 @@ def open_wave(record) -> None:
         waves = _tls.waves
     waves[:] = [r for r in waves if r() is not None]
     waves.append(weakref.ref(record))
-    record.bracket_ns[0] = time.perf_counter_ns()
+    record.bracket_ns[0] = now_ns()
 
 
 def close_wave(record) -> None:
     """Close the bracket `open_wave(record)` opened on this thread."""
-    record.bracket_ns[1] = time.perf_counter_ns()
+    record.bracket_ns[1] = now_ns()
     waves = getattr(_tls, "waves", None)
     if waves:
         waves[:] = [r for r in waves if r() is not None and r() is not record]
@@ -554,6 +556,7 @@ __all__ = [
     "device_span",
     "device_span_quantile",
     "is_active",
+    "now_ns",
     "open_wave",
     "probe_device_plane",
     "resolve_device_spans",

@@ -185,8 +185,8 @@ class WaveRecord:
     #: (`time.perf_counter_ns`): the spans that closed while this wave's
     #: bracket was open (`profiling.open_wave`).
     phases: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
-    #: The bracket's open and close on the recorder's clock, which place
-    #: `phases` on this tracer's clock.
+    #: The bracket's open and close on the recorder's clock: the one
+    #: reading of each edge, which `t0_us`/`t1_us` are taken from.
     bracket_ns: list = dataclasses.field(default_factory=lambda: [0, 0], repr=False,
                                          compare=False)
 
@@ -264,8 +264,9 @@ class Tracer:
         self._max_waves = int(max_waves)
         # Host-plane stamp rows: (wave_seq, seq, trace, span, stage, kind, lane).
         self._host_rows: list[tuple[int, int, int, int, int, int, int]] = []
-        # µs clock: monotonic for brackets, unix anchor for OTLP export.
-        self._perf0 = time.perf_counter()
+        # The µs clock is the span recorder's, from this origin; the unix
+        # anchor places it for the OTLP export.
+        self._ns0 = profiling.now_ns()
         self._unix0 = time.time()
         self.table: Optional[TraceLog] = (
             TraceLog.create(self.capacity, device) if self.enabled else None
@@ -276,8 +277,9 @@ class Tracer:
         #: closed bracket is offered to it, outside the tracer's lock.
         self.health = None
 
-    def _now_us(self) -> float:
-        return (time.perf_counter() - self._perf0) * 1e6
+    def _us(self, ns: int) -> float:
+        """A recorder-clock reading (ns) as µs on this tracer's clock."""
+        return (ns - self._ns0) / 1e3
 
     def unix_us(self, us: float) -> float:
         """Tracer-clock µs -> unix µs (the OTLP export anchor)."""
@@ -318,7 +320,7 @@ class Tracer:
             self._next_wave += 1
         record = WaveRecord(
             wave_seq=wave_seq, trace=trace, stage=stage, sessions=sessions,
-            t0_us=self._now_us(), sampled=sampled, lanes=int(lanes),
+            t0_us=0.0, sampled=sampled, lanes=int(lanes),
             mode="device" if device else "host",
         )
         ctx = None
@@ -326,6 +328,7 @@ class Tracer:
             t_word, s_word = trace.device_key()
             ctx = TraceContext(trace=t_word, span=s_word, wave_seq=wave_seq, sampled=sampled)
         profiling.open_wave(record)
+        record.t0_us = self._us(record.bracket_ns[0])
         return WaveHandle(record=record, ctx=ctx)
 
     @profiling.scoped("obs.bracket")
@@ -336,8 +339,8 @@ class Tracer:
         sampled. Records are kept in a bounded index, oldest evicted."""
         if handle is None:
             return
-        handle.record.t1_us = self._now_us()
         profiling.close_wave(handle.record)
+        handle.record.t1_us = self._us(handle.record.bracket_ns[1])
         with self._lock:
             if table is not None:
                 self.table = table
@@ -350,6 +353,12 @@ class Tracer:
         health = self.health
         if health is not None:
             health.observe_wave(handle.record)
+
+    def dispatch(self, stage: str, metrics, *, sessions: Iterable[int] = (), lanes: int = 0,
+                 device: bool = True) -> "Dispatch":
+        """One dispatch's wave bracket around its stage's span and latency
+        sample (`metrics.stage`); `device=False`: stamps on the host."""
+        return Dispatch(self, stage, metrics, sessions, lanes, device)
 
     def stamp_wave_host(self, handle: Optional[WaveHandle]) -> None:
         """Mirror one dispatch's stamp rows on the host plane, from the
@@ -415,11 +424,8 @@ class Tracer:
     def _reconstruct(self, record: WaveRecord, rows: list[tuple]) -> Optional[Span]:
         """One wave's span tree. The structure is the stamps'; the root
         spans the host bracket, and each child the measured interval of
-        its stage's span in the wave (`record.phases`). The recorder's
-        clock goes onto this tracer's through the bracket, read on both:
-        the same clock in a deployment, so the map is the identity; a
-        tracer whose clock is replaced (a deterministic test's) gets each
-        child at its measured share of the bracket. A child with no span of its own in the wave is
+        its stage's span in the wave (`record.phases`), both read on the
+        span recorder's clock. A child with no span of its own in the wave is
         a zero-width mark: at the end of the phase that holds its time
         (`SHARED_PHASE`: in the fused wave, `saga_round` and
         `terminate_wave` run in `session_fsm`'s B5 launch), else at its
@@ -429,19 +435,14 @@ class Tracer:
         rows = sorted(rows, key=lambda r: r[1])
         if not rows:
             return None
-        t0, t1 = record.t0_us, max(record.t1_us, record.t0_us)
-        ns0, ns1 = record.bracket_ns
-        scale = (t1 - t0) / ((ns1 - ns0) / 1e3) if ns1 > ns0 else 1.0
-
-        def on_clock(ns: int) -> float:
-            return t0 + (ns - ns0) / 1e3 * scale
+        t0, t1 = record.t0_us, record.t1_us
 
         def measured(stage_name: str, parent: Span) -> tuple[float, float]:
             ns = record.phases.get(stage_name)
             if ns is not None:
-                return on_clock(ns[0]), on_clock(ns[1])
+                return self._us(ns[0]), self._us(ns[1])
             holder = record.phases.get(SHARED_PHASE.get(stage_name))
-            mark = parent.start_us if holder is None else on_clock(holder[1])
+            mark = parent.start_us if holder is None else self._us(holder[1])
             return mark, mark
 
         root: Optional[Span] = None
@@ -512,6 +513,38 @@ class Tracer:
                 for r in records
             ],
         }
+
+
+class Dispatch:
+    """`Tracer.dispatch`'s bracket. `ctx` is the wave's `TraceContext`
+    (None with the plane off or host stamps), `trace` the keywords a
+    stamping op takes. A raising dispatch takes no latency sample and
+    leaves its bracket unindexed."""
+
+    __slots__ = ("_tracer", "_stage", "_sessions", "_lanes", "_device", "_handle", "ctx",
+                 "trace")
+
+    def __init__(self, tracer: Tracer, stage: str, metrics, sessions, lanes: int,
+                 device: bool) -> None:
+        self._tracer, self._stage = tracer, metrics.stage(stage)
+        self._sessions, self._lanes, self._device = sessions, lanes, device
+
+    def __enter__(self) -> "Dispatch":
+        tracer = self._tracer
+        handle = self._handle = tracer.begin_wave(
+            self._stage.name, sessions=self._sessions, lanes=self._lanes, device=self._device)
+        ctx = self.ctx = None if handle is None else handle.ctx
+        self.trace = {"trace": None if ctx is None else tracer.table, "trace_ctx": ctx}
+        self._stage.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._stage.__exit__(exc_type, exc, tb)
+        if exc_type is not None:
+            return
+        if not self._device:
+            self._tracer.stamp_wave_host(self._handle)
+        self._tracer.end_wave(self._handle, self.trace["trace"])
 
 
 # ── joins ────────────────────────────────────────────────────────────

@@ -224,27 +224,15 @@ _UPDATE_GAUGES = health_plane.instrument("update_gauges", metrics_plane.update_g
 
 # The tenant arena's batched entries (`tenancy.arena.TenantArena`): T
 # tenants' stacked tables in one dispatch each. The fused tenant wave is
-# watched under the reference's two names: the port updates in place and
-# donates nothing, so both run the same wave, and `HV_DONATE_TABLES=0`
-# only picks the other name (bit-identical by construction).
-_TENANT_WAVE_STATICS = ("trust", "sanitize", "config")
-_TENANT_WAVE = health_plane.instrument(
-    "tenant_governance_wave", pipeline.tenant_governance_wave,
-    static_argnames=_TENANT_WAVE_STATICS)
+# watched under the name of the reference's default, donated entry; the
+# port updates in place and donates nothing.
 _TENANT_WAVE_DONATED = health_plane.instrument(
     "tenant_governance_wave_donated", pipeline.tenant_governance_wave,
-    static_argnames=_TENANT_WAVE_STATICS)
+    static_argnames=("trust", "sanitize", "config"))
 _TENANT_SESSIONS_CREATE = health_plane.instrument(
     "tenant_sessions_create", pipeline.tenant_sessions_create)
 _TENANT_UPDATE_GAUGES = health_plane.instrument(
     "tenant_update_gauges", metrics_plane.update_gauges)
-
-
-def _donate_tables() -> bool:
-    """The reference's donation switch (`HV_DONATE_TABLES`, default on),
-    read per call. The port donates nothing; the switch only names the
-    watched tenant-wave entry, as the reference's does."""
-    return os.environ.get("HV_DONATE_TABLES", "1") != "0"
 
 
 #: Host bookkeeping `adopt_host_from` moves between states: the in-memory
@@ -1009,7 +997,6 @@ class HypervisorState:
             b_wave, k_wave, parked,
         )
         wave_sessions = staged["wave_sessions"]
-        th = self.tracer.begin_wave("governance_wave", sessions=wave_sessions[:k], lanes=b)
         dev = self.device
 
         def put(a):
@@ -1021,7 +1008,8 @@ class HypervisorState:
         plane = self.integrity
         sanitize = plane is not None and plane.take_fused_due()
         audit_base_row = self._delta_cursor
-        with self.metrics.stage("governance_wave"), profiling.device_span("governance_wave", dev):
+        with self.tracer.dispatch("governance_wave", self.metrics, sessions=wave_sessions[:k],
+                                  lanes=b) as d, profiling.device_span("governance_wave", dev):
             # The staged columns' copies to the card, in the wave's bracket.
             with profiling.stage_scope("upload"):
                 lanes = (put(agent_slots), put(staged["did"]), put(staged["agent_sessions"]),
@@ -1035,8 +1023,7 @@ class HypervisorState:
                 self.agents, self.sessions, self.vouches, *lanes, now, omega,
                 trust=self.config.trust, ring_bursts=self.config.rate_limit.ring_bursts,
                 wave_range=staged["range_host"], unique_sessions=staged["unique_sessions"],
-                metrics=self.metrics.table, trace=self.tracer.table,
-                trace_ctx=th.ctx if th is not None else None,
+                metrics=self.metrics.table, **d.trace,
                 delta_log=self.delta_log, delta_cursor=audit_base_row,
                 lanes_valid=lanes_valid, n_sessions_valid=k if pad_to is not None else None,
                 elevations=self.elevations, gateway_args=gateway_cols,
@@ -1049,7 +1036,6 @@ class HypervisorState:
         t = staged["bodies"].shape[0]
         if t:
             self._delta_cursor += k * t
-        self.tracer.end_wave(th, result.trace)
         gw_result = None
         if act is not None:
             gw_result = self._gateway_result_from_lanes(result.gateway, result.agents,
@@ -1131,20 +1117,31 @@ class HypervisorState:
             put(staged["duplicate"]), put(wave_sessions),
             u32.from_numpy_u32(staged["bodies"], dev), now, omega,
         ) + (tuple(range_host) if contiguous else ())
-        th = self.tracer.begin_wave("governance_wave_sharded", sessions=wave_sessions[:k],
-                                    lanes=b, device=False)
         gw_result = None
         if with_gateway:
             act = self._normalize_actions(actions)
             flat, valid, device_args = self._gateway_shard_args(act, d)
-            with self.metrics.stage("governance_wave_sharded"):
+        # The sharded wave carries no metrics table or trace ring: its stamps
+        # and series are mirrored on the host plane, from outputs read back
+        # (the shared rule sets of both deployment modes).
+        with self.tracer.dispatch("governance_wave_sharded", self.metrics,
+                                  sessions=wave_sessions[:k], lanes=b, device=False):
+            if with_gateway:
                 result, lanes, partials = wave_fn(*wave_args, self.elevations, *device_args)
+            else:
+                result, partials = wave_fn(*wave_args)
+            if defer_reconcile:
+                self._stash_session_partials(partials)
+            else:
+                # The EVENTUAL commits fold right behind the wave (the deferred
+                # path runs on every wave, not only on mixed-mode runs).
+                with self.metrics.stage("reconcile_wave_sessions"):
+                    self._reconcile_fn(mesh)(self.sessions, partials.counts, partials.owned,
+                                             partials.state, partials.terminated)
+        if with_gateway:
             gw_result = self._scatter_gateway_lanes(lanes, flat, valid, len(act["slots"]),
                                                     result.agents)
             metrics_plane.tally_gateway_host(self.metrics, gw_result.verdict, len(act["slots"]))
-        else:
-            with self.metrics.stage("governance_wave_sharded"):
-                result, partials = wave_fn(*wave_args)
         if b_wave != b or k_wave != k:
             # Drop the internal padding lanes: callers see their shape.
             result = result._replace(
@@ -1152,20 +1149,7 @@ class HypervisorState:
                 saga_step_state=result.saga_step_state[:b], merkle_root=result.merkle_root[:k],
                 chain=result.chain[:, :k], fsm_error=result.fsm_error[:k],
             )
-        if defer_reconcile:
-            self._stash_session_partials(partials)
-        else:
-            # The EVENTUAL commits fold right behind the wave (the deferred
-            # path runs on every wave, not only on mixed-mode runs).
-            with self.metrics.stage("reconcile_wave_sessions"):
-                self._reconcile_fn(mesh)(self.sessions, partials.counts, partials.owned,
-                                         partials.state, partials.terminated)
         ok = result.status.cpu().numpy() == ADMIT_OK
-        # The sharded wave carries no metrics table or trace ring: mirror
-        # the wave's series and stamps on the host plane, from outputs
-        # read back here (the shared rule sets of both deployment modes).
-        self.tracer.stamp_wave_host(th)
-        self.tracer.end_wave(th)
         metrics_plane.tally_wave_host(
             self.metrics, status=result.status, step_state=result.saga_step_state,
             fsm_err=result.fsm_error,
@@ -1434,11 +1418,10 @@ class HypervisorState:
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-            th = self.tracer.begin_wave(
-                "admission_wave", sessions=np.unique(session_slots[:n]), lanes=n)
             # The reference's admission wave ranks with the default trust
             # thresholds, whatever the state's config says.
-            with self.metrics.stage("admission_wave"):
+            with self.tracer.dispatch("admission_wave", self.metrics,
+                                      sessions=np.unique(session_slots[:n]), lanes=n) as d:
                 status, _, _ = _ADMIT(
                     self.agents, self.sessions, put(agent_slots), put(dids),
                     put(session_slots), put(sigma), None, 0.0, put(trustworthy.astype(bool)),
@@ -1447,12 +1430,11 @@ class HypervisorState:
                 b = len(agent_slots)
                 tally_admission(self.metrics.table, status == ADMIT_OK, b,
                                 None if valid is None else put(valid))
-                if th is not None:
-                    stamps = tracing.WaveStamps(th.ctx, "admission_wave")
+                if d.ctx is not None:
+                    stamps = tracing.WaveStamps(d.ctx, "admission_wave")
                     stamps.begin("admission_wave", lane=b)
                     stamps.end("admission_wave", lane=b)
                     stamps.commit(self.tracer.table)
-            self.tracer.end_wave(th, self.tracer.table)
             status = status.cpu().numpy()[:n]
             results: dict[int, int] = {}
             for (slot, did, sess, dup), st in zip(rows, status.tolist()):
@@ -1604,15 +1586,12 @@ class HypervisorState:
         bodies = np.zeros((t_max, lanes, merkle_ops.BODY_WORDS), np.uint32)
         bodies[t_pos, lane_idx] = packed
 
-        th = self.tracer.begin_wave("delta_chain", sessions=np.unique(sess_arr), lanes=b,
-                                    device=False)
         dev = self.device
-        with self.metrics.stage("delta_chain"):
+        with self.tracer.dispatch("delta_chain", self.metrics, sessions=np.unique(sess_arr),
+                                  lanes=b, device=False):
             digests = u32.to_numpy_u32(merkle_ops.chain_digests(
                 u32.from_numpy_u32(bodies, dev), u32.from_numpy_u32(seeds, dev)
             ))
-        self.tracer.stamp_wave_host(th)
-        self.tracer.end_wave(th)
 
         # Explicit leaf digests override the chain digest.
         for i, (_s, _a, _c, _t, digest) in enumerate(staged):
@@ -1810,16 +1789,14 @@ class HypervisorState:
                 roots_host[i] = recomputed[j]
 
         slot_arr = np.array(slots, np.int32)
-        th = self.tracer.begin_wave("terminate_wave", sessions=slots, lanes=k, device=False)
-        with self.metrics.stage("terminate_wave"):
+        with self.tracer.dispatch("terminate_wave", self.metrics, sessions=slots, lanes=k,
+                                  device=False):
             _TERMINATE(
                 self.agents, self.sessions, self.vouches,
                 torch.from_numpy(slot_arr).to(self.device),
                 u32.from_numpy_u32(roots_host, self.device),
                 now, wave_range=_contiguous_range_host(slot_arr),
             )
-        self.tracer.stamp_wave_host(th)
-        self.tracer.end_wave(th)
 
         if len(reclaim):
             with self._enqueue_lock:
@@ -1929,15 +1906,12 @@ class HypervisorState:
         n = self.agents.ring.shape[0]
         seeds = np.zeros(n, bool)
         seeds[vouchee_slot] = True
-        th = self.tracer.begin_wave("slash_cascade", sessions=(session_slot,), lanes=n)
-        with self.metrics.stage("slash_cascade"):
+        with self.tracer.dispatch("slash_cascade", self.metrics, sessions=(session_slot,),
+                                  lanes=n) as d:
             result = _SLASH(
                 self.vouches, self.agents.sigma_eff, torch.from_numpy(seeds).to(self.device),
-                session_slot, risk_weight, now,
-                metrics=self.metrics.table, trace=self.tracer.table,
-                trace_ctx=th.ctx if th is not None else None,
+                session_slot, risk_weight, now, metrics=self.metrics.table, **d.trace,
             )
-        self.tracer.end_wave(th, result.trace)
         touched = result.slashed | result.clipped
         self.agents.f32[:, AF32_SIGMA_EFF] = result.sigma
         self.agents.ring.copy_(torch.where(touched, compute_rings(result.sigma, False),
@@ -2295,16 +2269,13 @@ class HypervisorState:
             undo_success[slot] = ok
             undo_attempted[slot] = True
         outcomes = saga_ops.pack_outcomes(exec_success, undo_success, exec_attempted, undo_attempted)
-        th = self.tracer.begin_wave("saga_round", lanes=g_cap)
         g = self.sagas
-        with self.metrics.stage("saga_round"):
-            *_, t_table = _SAGA_TICK(
+        with self.tracer.dispatch("saga_round", self.metrics, lanes=g_cap) as d:
+            _SAGA_TICK(
                 g.step_state, g.retries_left, g.has_undo, g.saga_state, g.n_steps, g.cursor,
-                torch.from_numpy(outcomes).to(self.device),
-                metrics=self.metrics.table, trace=self.tracer.table,
-                trace_ctx=th.ctx if th is not None else None,
+                torch.from_numpy(outcomes).to(self.device), metrics=self.metrics.table,
+                **d.trace,
             )
-        self.tracer.end_wave(th, t_table)
 
     def sagas_settled(self) -> bool:
         """Whether every saga row is done (terminal, or a free row). Moves
@@ -2487,15 +2458,12 @@ class HypervisorState:
         lanes = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(self.device)
                       for c in self._pad_gateway_lanes(act))
         b = len(act["slots"])
-        th = self.tracer.begin_wave("gateway_wave", lanes=b)
-        with self.metrics.stage("gateway_wave"):
+        with self.tracer.dispatch("gateway_wave", self.metrics, lanes=b) as d:
             result = _GATEWAY(
                 self.agents, self.elevations, *lanes[:6], now, valid=lanes[6],
                 breach=self.config.breach, rate_limit=self.config.rate_limit,
-                trust=self.config.trust, metrics=self.metrics.table, trace=self.tracer.table,
-                trace_ctx=th.ctx if th is not None else None,
+                trust=self.config.trust, metrics=self.metrics.table, **d.trace,
             )
-        self.tracer.end_wave(th, result.trace)
         return self._gateway_result_from_lanes(result, result.agents, b)
 
     def _scatter_gateway_lanes(self, lanes, flat, valid, b, agents) -> gateway_ops.GatewayResult:
@@ -2588,11 +2556,8 @@ class HypervisorState:
             fn = sharded_gateway(mesh, breach=self.config.breach, rate=self.config.rate_limit,
                                  trust=self.config.trust)
             self._sharded_waves[("gateway", mesh)] = fn
-        th = self.tracer.begin_wave("gateway_wave_sharded", lanes=b, device=False)
-        with self.metrics.stage("gateway_wave_sharded"):
+        with self.tracer.dispatch("gateway_wave_sharded", self.metrics, lanes=b, device=False):
             agents_out, lanes = fn(self.agents, self.elevations, *device_args, now)
-        self.tracer.stamp_wave_host(th)
-        self.tracer.end_wave(th)
         self.agents = agents_out
         out = self._scatter_gateway_lanes(lanes, flat, valid, b, agents_out)
         metrics_plane.tally_gateway_host(self.metrics, out.verdict, b)

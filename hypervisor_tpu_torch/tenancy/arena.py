@@ -56,9 +56,7 @@ from hypervisor_tpu_torch.state import (
     HypervisorState,
     _TENANT_SESSIONS_CREATE,
     _TENANT_UPDATE_GAUGES,
-    _TENANT_WAVE,
     _TENANT_WAVE_DONATED,
-    _donate_tables,
 )
 from hypervisor_tpu_torch.tables import struct
 from hypervisor_tpu_torch.tables.logs import BODY_WORDS
@@ -628,10 +626,9 @@ class TenantArena:
             for t in range(self.num_tenants):
                 lanes_valid[t, : shapes[t][0]] = True
 
-            wave = _TENANT_WAVE_DONATED if _donate_tables() else _TENANT_WAVE
             with journals:
                 with self.metrics.stage("tenant_governance_wave"):
-                    result = wave(
+                    result = _TENANT_WAVE_DONATED(
                         self._stacked["agents"],
                         self._stacked["sessions"],
                         self._stacked["vouches"],

@@ -611,7 +611,7 @@ class TestRepoAtHead:
         from hypervisor_tpu_torch.observability.health import CompileWatch
 
         entries = derive_entry_points(Project.load(PACKAGE).module("state.py"))
-        assert len(entries) == 19
+        assert len(entries) == 18
         watched = {v.name for v in vars(port_state).values() if isinstance(v, CompileWatch)}
         assert set(entries) == watched
         assert {"governance_wave", "gateway_check_actions", "update_gauges",

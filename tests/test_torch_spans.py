@@ -166,6 +166,123 @@ def test_a_wave_adds_no_stage_sample_from_its_phase_scopes():
         assert got[path][0] >= 1, path
 
 
+# ── the dispatch bracket at every site ───────────────────────────────
+
+
+def _members(st, tag: str, n: int = 4):
+    """A session with `n` admitted members: (session slot, agent rows)."""
+    s = st.create_session(f"site:{tag}", SessionConfig(min_sigma_eff=0.0), now=1.0)
+    dids = [f"did:site:{tag}:{i}" for i in range(n)]
+    for did in dids:
+        st.enqueue_join(s, did, 0.8)
+    st.flush_joins(now=1.0)
+    return s, [st.agent_row(did)["slot"] for did in dids]
+
+
+def _wave_call(st, tag: str, mesh=None):
+    slots = st.create_sessions_batch([f"site:{tag}:{i}" for i in range(8)],
+                                     SessionConfig(min_sigma_eff=0.0))
+    kw = {"pad_to": (16, 16)} if mesh is None else {"mesh": mesh}
+    return lambda: st.run_governance_wave(
+        slots, [f"did:site:{tag}:w{i}" for i in range(8)], slots.copy(),
+        np.full(8, 0.8, np.float32), np.zeros((2, 8, 16), np.uint32), 2.0, **kw)
+
+
+def _joins_call(st, tag: str):
+    s = st.create_session(f"site:{tag}", SessionConfig(min_sigma_eff=0.0), now=1.0)
+    for i in range(3):
+        st.enqueue_join(s, f"did:site:{tag}:{i}", 0.8)
+    return lambda: st.flush_joins(now=2.0)
+
+
+def _deltas_call(st, tag: str):
+    s, rows = _members(st, tag)
+    for k, row in enumerate(rows[:3]):
+        st.stage_delta(s, row, ts=2.0 + k, change_words=np.arange(3 + k, dtype=np.uint32))
+    return st.flush_deltas
+
+
+def _terminate_call(st, tag: str):
+    s, _ = _members(st, tag)
+    return lambda: st.terminate_sessions([s], now=3.0)
+
+
+def _slash_call(st, tag: str):
+    s, rows = _members(st, tag)
+    st.add_vouch(rows[0], rows[1], s, bond=0.125)
+    return lambda: st.apply_slash(s, rows[1], 0.5, now=3.0)
+
+
+def _saga_call(st, tag: str):
+    s, _ = _members(st, tag)
+    g = st.create_saga(f"saga:{tag}", s, [{"retries": 1, "has_undo": True}, {}])
+    return lambda: st.saga_round({g: True})
+
+
+def _gateway_call(st, tag: str, mesh=None):
+    _, rows = _members(st, tag)
+    return lambda: st.check_actions_wave(rows, [2, 1, 0, 2], [False, True, False, False],
+                                         [False] * 4, [False] * 4, [False] * 4, now=3.0,
+                                         mesh=mesh)
+
+
+def _mesh():
+    import hypervisor_tpu_torch.parallel as par
+
+    return par.make_mesh(4, platform="cpu")
+
+
+#: stage -> (prepare(state, tag) -> the one dispatching call, its stamps' plane)
+SITES = {
+    "governance_wave": (_wave_call, "device"),
+    "governance_wave_sharded": (lambda st, tag: _wave_call(st, tag, mesh=_mesh()), "host"),
+    "admission_wave": (_joins_call, "device"),
+    "delta_chain": (_deltas_call, "host"),
+    "terminate_wave": (_terminate_call, "host"),
+    "slash_cascade": (_slash_call, "device"),
+    "saga_round": (_saga_call, "device"),
+    "gateway_wave": (_gateway_call, "device"),
+    "gateway_wave_sharded": (lambda st, tag: _gateway_call(st, tag, mesh=_mesh()), "host"),
+}
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["traced", "HV_TRACE=0"])
+@pytest.mark.parametrize("stage", list(SITES))
+def test_every_dispatch_site_records_one_bracket(monkeypatch, stage, traced):
+    """Each of the state's dispatches goes through one `Tracer.dispatch`:
+    one wave record of its stage, holding the stage's own span, one
+    latency sample, its stamps (in the ring, or mirrored on the host) and
+    `last_closed`. With the plane off the sample is still taken."""
+    if not traced:
+        monkeypatch.setenv("HV_TRACE", "0")
+    st = small_state()
+    prepare, plane = SITES[stage]
+    call = prepare(st, stage)
+    tr = st.tracer
+    handle = port_mp.STAGE_LATENCY[stage]
+    samples = st.metrics.snapshot().hist_count(handle)
+    seqs, cursor, host_rows = set(tr._waves), tr.cursor, len(tr._host_rows)
+    ring = None if tr.table is None else int(tr.table.cursor)
+    call()
+    assert st.metrics.snapshot().hist_count(handle) - samples == 1
+    if not traced:
+        assert tr.table is None and not tr._waves and tr.last_closed is None
+        return
+    new = [r for seq, r in tr._waves.items() if seq not in seqs and r.stage == stage]
+    assert len(new) == 1, [r.stage for r in new]
+    (record,) = new
+    assert record.mode == plane and stage in record.phases
+    assert tr.last_closed is record
+    assert record.t0_us < record.t1_us
+    stamps = tracing.stamp_count(stage)
+    if plane == "device":
+        assert (tr.cursor - cursor, int(tr.table.cursor) - ring) == (stamps, stamps)
+        assert len(tr._host_rows) == host_rows
+    else:
+        assert (tr.cursor, int(tr.table.cursor)) == (cursor, ring)
+        assert len(tr._host_rows) - host_rows == stamps
+
+
 # ── the flight recorder's measured times ─────────────────────────────
 
 
@@ -248,9 +365,11 @@ def test_phase_shares_count_each_measured_phase_once(monkeypatch):
 
 
 def test_a_replaced_tracer_clock_keeps_each_phase_at_its_measured_share(monkeypatch):
-    """A tracer on a clock of its own (a deterministic test's, which
-    steps 1 ms a read) still places each child at its span's measured
-    share of the bracket: both are read on the recorder's clock."""
+    """A tracer module on a clock of its own (a deterministic test's,
+    which steps 1 ms a read) still places each child at its span's
+    measured share of the bracket: the bracket's edges and the children
+    are read once each, on the recorder's clock, so the record's times
+    are those readings."""
     from hypervisor_tpu_torch.observability import attribution
     from tests.test_torch_serving import FakeClock
 
@@ -261,6 +380,9 @@ def test_a_replaced_tracer_clock_keeps_each_phase_at_its_measured_share(monkeypa
     record = st.tracer.last_closed
     assert record.stage == "governance_wave" and root.wave_seq == record.wave_seq
     ns0, ns1 = record.bracket_ns
+    # One clock: the record's bracket is the recorder's two readings.
+    assert record.t1_us - record.t0_us == pytest.approx((ns1 - ns0) / 1e3, abs=1e-3)
+    assert (root.start_us, root.end_us) == (record.t0_us, record.t1_us)
     for child in root.children:
         if child.end_us > child.start_us:
             a, b = record.phases[child.stage]

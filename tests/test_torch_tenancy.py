@@ -7,7 +7,7 @@ the reference's arena (unarmed, `HV_WAVE_PALLAS=0`) and on the port's,
 and every tenant's tables, DeltaLog, metrics table, chain heads, roots
 and host indices are held equal (tolerance 0), and equal to the port's
 own solo waves (`run_governance_wave(..., pad_to=(bucket, bucket))`).
-Also: the donation opt-out, idle tenants, the lend/commit protocol with
+Also: idle tenants, the lend/commit protocol with
 its observable counts (`sync()`'s return, the `_dirty` sets), a tenant's
 WAL replayed through the solo handlers, `recover_tenant` + `splice_tenant`,
 the one-read drain fanned into per-tenant snapshots and a `tenant=`
@@ -148,8 +148,7 @@ def both(drive):
     with pytest.MonkeyPatch.context() as env:
         env.setenv("HV_WAVE_PALLAS", "0")
         env.setenv("HV_ROOFLINE", "0")
-        for name in ("HV_TRACE", "HV_TRACE_SAMPLE", "HV_INTEGRITY_EVERY", "HV_SCRUB_EVERY",
-                     "HV_DONATE_TABLES"):
+        for name in ("HV_TRACE", "HV_TRACE_SAMPLE", "HV_INTEGRITY_EVERY", "HV_SCRUB_EVERY"):
             env.delenv(name, raising=False)
         for pkg in (REF, PORT):
             with pytest.MonkeyPatch.context() as mp:
@@ -189,31 +188,6 @@ def test_batched_wave_matches_reference_arena_and_solo_waves(vouched):
         for r in range(3):
             assert_same(f"tenant {t} round {r} roots", rec["rounds"][r][t]["merkle_root"],
                         roots[r])
-
-
-def test_donation_optout_is_bit_identical_and_keeps_the_watched_names(monkeypatch):
-    """The port donates nothing: `HV_DONATE_TABLES=0` runs the same wave
-    through the reference's other watched name, bit for bit."""
-    arena_mod = PORT.tenancy.arena
-    P = Pkg(PORT)
-    monkeypatch.setenv("HV_ROOFLINE", "0")
-    monkeypatch.delenv("HV_DONATE_TABLES", raising=False)
-    runs = {}
-    watches = {attr: getattr(arena_mod, attr) for attr in ("_TENANT_WAVE", "_TENANT_WAVE_DONATED")}
-    for optout in (False, True):
-        if optout:
-            monkeypatch.setenv("HV_DONATE_TABLES", "0")
-        names = []
-        for attr, watch in watches.items():
-            monkeypatch.setattr(arena_mod, attr,
-                                lambda *a, w=watch, **k: (names.append(w.name), w(*a, **k))[1])
-        arena = arena_of(P)
-        for r in range(2):
-            drive_round(P, arena, r)
-        runs[optout] = ([(tables(P, st), host(st)) for st in arena.tenants], names)
-    assert_same("opt-out", runs[True][0], runs[False][0])
-    assert runs[False][1] == ["tenant_governance_wave_donated"] * 2
-    assert runs[True][1] == ["tenant_governance_wave"] * 2
 
 
 def test_idle_tenants_ride_as_padding_untouched():
