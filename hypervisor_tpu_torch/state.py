@@ -1628,20 +1628,21 @@ class HypervisorState:
         """Transfer DeltaLog row ownership; evict recycled rows from the
         audit index of the sessions that owned them. Recycling a LIVE
         (not yet archived) session's rows is refused: its Merkle tree
-        would silently lose leaves. Session states are read from the
-        device only when a wrap recycles rows: the span `wrap_readback`
-        and the recorder's counters `wrap_readback.reads` and
-        `wrap_readback.bytes`."""
+        would silently lose leaves. Only when a wrap recycles rows are the
+        recycled sessions' states gathered on the device and read back,
+        one int32 each: the span `wrap_readback` and the recorder's
+        counters `wrap_readback.reads` and `wrap_readback.bytes`."""
         prior = self._row_session[rows]
         recycled = np.unique(prior[prior >= 0])
         if len(recycled):
             with profiling.stage_scope("wrap_readback"):
-                sess_state = self.sessions.i32[:, SI32_STATE].cpu().numpy()
+                idx = torch.from_numpy(recycled.astype(np.int64)).to(self.device)
+                sess_state = self.sessions.i32[idx, SI32_STATE].cpu().numpy()
             profiling.count("wrap_readback.reads")
             profiling.count("wrap_readback.bytes", sess_state.nbytes)
             archived = SessionState.ARCHIVED.code
-            live = [int(s) for s in recycled
-                    if self._audit_rows.get(int(s)) and sess_state[int(s)] != archived]
+            live = [int(s) for s, state in zip(recycled, sess_state)
+                    if self._audit_rows.get(int(s)) and state != archived]
             if live:
                 raise RuntimeError(
                     f"delta log wrapped into live session slot(s) {live}; their audit "

@@ -450,14 +450,19 @@ def test_brackets_tag_their_spans_and_close():
 
 
 def test_the_wrap_read_back_is_timed_and_counted():
+    """Each read fetches one int32 state per recycled session, not the
+    whole session-state column."""
     st = small_state(delta_log_capacity=64)
     for rnd in range(6):  # 16 records a wave: the fifth wave wraps the ring
         facade_wave(st, rnd)
     snap = profiling.span_totals()
     reads = snap["counters"].get("wrap_readback.reads", 0)
     assert reads >= 1
+    # Waves 4 and 5 each recycle the rows of one earlier wave's 8 sessions.
+    assert reads == 2
     column = st.sessions.i32[:, 0]
-    assert snap["counters"]["wrap_readback.bytes"] == reads * column.numel() * column.element_size()
+    assert snap["counters"]["wrap_readback.bytes"] == 4 * (8 + 8)
+    assert snap["counters"]["wrap_readback.bytes"] < reads * column.numel() * column.element_size()
     assert snap["spans"]["audit_booking/wrap_readback"][0] == reads
 
 
