@@ -49,6 +49,7 @@ from hypervisor_tpu_torch.config import DEFAULT_CONFIG, HypervisorConfig
 from hypervisor_tpu_torch.models import SessionConfig, SessionState
 from hypervisor_tpu_torch.observability import health as health_plane
 from hypervisor_tpu_torch.observability import metrics as metrics_plane
+from hypervisor_tpu_torch.observability import profiling
 from hypervisor_tpu_torch.observability import roofline as roofline_plane
 from hypervisor_tpu_torch.observability import tracing as trace_plane
 from hypervisor_tpu_torch.ops import admission
@@ -350,9 +351,11 @@ class TenantArena:
         dispatch, so slow-path host ops (vouching, saga creation,
         integrity repairs, per-tenant solo waves) and the batched hot path
         see one coherent state. A lent slice already lives in the stack;
-        a rebound table is copied back and lent again."""
-        wrote = 0
-        with self._lock:
+        a rebound table is copied back and lent again. Runs in the span
+        `tenant_sync`; counts the recorder's `tenant.commits` (the return)
+        and `tenant.copied_back` (the rebound tables copied back)."""
+        wrote = copied = 0
+        with self._lock, profiling.stage_scope("tenant_sync"):
             dirty = self._dirty
             for name in COMPONENTS:
                 pending = dirty[name]
@@ -367,10 +370,13 @@ class TenantArena:
                     if local is None or not _aliases(local, stacked, t):
                         if local is not None:
                             struct.copy_into(struct.tenant_view(stacked, t), local)
+                            copied += 1
                         local = st._tenant_local[name] = _lend(stacked, t)
                     st._tenant_versions[name] = _versions(local)
                     wrote += 1
                 pending.clear()
+        profiling.count("tenant.commits", wrote)
+        profiling.count("tenant.copied_back", copied)
         return wrote
 
     def _invalidate(self, names: Sequence[str]) -> None:
@@ -544,71 +550,72 @@ class TenantArena:
             handles: dict[int, object] = {}
             slots_by_t: dict[int, np.ndarray] = {}
             journals = ExitStack()
-            for t in range(self.num_tenants):
-                st = self.tenants[t]
-                spec = lanes_per_tenant.get(t)
-                if spec is None:
-                    session_slots = np.zeros((0,), np.int32)
-                    dids: list = []
-                    agent_sessions = np.zeros((0,), np.int32)
-                    sigma_raw = np.zeros((0,), np.float32)
-                    bodies = np.zeros((turns, 0, BODY_WORDS), np.uint32)
-                    trustworthy = None
-                else:
-                    session_slots = np.asarray(spec["session_slots"], np.int32)
-                    dids = list(spec["dids"])
-                    agent_sessions = np.asarray(spec["agent_sessions"], np.int32)
-                    sigma_raw = np.asarray(spec["sigma_raw"], np.float32)
-                    bodies = np.asarray(spec["delta_bodies"], np.uint32)
-                    trustworthy = spec.get("trustworthy")
-                    if len(dids) > bucket or len(session_slots) > bucket:
-                        raise ValueError(
-                            f"tenant {t} wave ({len(dids)} lanes, "
-                            f"{len(session_slots)} sessions) exceeds "
-                            f"bucket {bucket}"
-                        )
-                    if st.journal is not None:
-                        journals.enter_context(
-                            st._journal(
-                                "governance_wave",
-                                session_slots=session_slots,
-                                dids=dids,
-                                agent_sessions=agent_sessions,
-                                sigma_raw=sigma_raw,
-                                delta_bodies=bodies,
-                                now=float(now),
-                                omega=float(omega),
-                                trustworthy=(
-                                    None
-                                    if trustworthy is None
-                                    else np.asarray(trustworthy, bool)
-                                ),
-                                use_pallas=False,
-                                actions=None,
-                                pad_to=[bucket, bucket],
+            with profiling.stage_scope("tenant_staging"):
+                for t in range(self.num_tenants):
+                    st = self.tenants[t]
+                    spec = lanes_per_tenant.get(t)
+                    if spec is None:
+                        session_slots = np.zeros((0,), np.int32)
+                        dids: list = []
+                        agent_sessions = np.zeros((0,), np.int32)
+                        sigma_raw = np.zeros((0,), np.float32)
+                        bodies = np.zeros((turns, 0, BODY_WORDS), np.uint32)
+                        trustworthy = None
+                    else:
+                        session_slots = np.asarray(spec["session_slots"], np.int32)
+                        dids = list(spec["dids"])
+                        agent_sessions = np.asarray(spec["agent_sessions"], np.int32)
+                        sigma_raw = np.asarray(spec["sigma_raw"], np.float32)
+                        bodies = np.asarray(spec["delta_bodies"], np.uint32)
+                        trustworthy = spec.get("trustworthy")
+                        if len(dids) > bucket or len(session_slots) > bucket:
+                            raise ValueError(
+                                f"tenant {t} wave ({len(dids)} lanes, "
+                                f"{len(session_slots)} sessions) exceeds "
+                                f"bucket {bucket}"
                             )
-                        )
-                slots_by_t[t] = session_slots
-                shapes[t] = (len(dids), len(session_slots))
-                agent_slots = st._claim_wave_rows(bucket)
-                parked = st._park_sessions(bucket - len(session_slots), "tenant bucket")
-                sw = st._stage_wave_lanes(
-                    session_slots, dids, agent_sessions, sigma_raw,
-                    trustworthy, bodies, bucket, bucket, parked,
-                )
-                sw["agent_slots"] = agent_slots
-                if sw["range_host"] is None:
-                    raise RuntimeError(
-                        "tenant wave sessions must be contiguous (fresh "
-                        "arena-created blocks always are)"
+                        if st.journal is not None:
+                            journals.enter_context(
+                                st._journal(
+                                    "governance_wave",
+                                    session_slots=session_slots,
+                                    dids=dids,
+                                    agent_sessions=agent_sessions,
+                                    sigma_raw=sigma_raw,
+                                    delta_bodies=bodies,
+                                    now=float(now),
+                                    omega=float(omega),
+                                    trustworthy=(
+                                        None
+                                        if trustworthy is None
+                                        else np.asarray(trustworthy, bool)
+                                    ),
+                                    use_pallas=False,
+                                    actions=None,
+                                    pad_to=[bucket, bucket],
+                                )
+                            )
+                    slots_by_t[t] = session_slots
+                    shapes[t] = (len(dids), len(session_slots))
+                    agent_slots = st._claim_wave_rows(bucket)
+                    parked = st._park_sessions(bucket - len(session_slots), "tenant bucket")
+                    sw = st._stage_wave_lanes(
+                        session_slots, dids, agent_sessions, sigma_raw,
+                        trustworthy, bodies, bucket, bucket, parked,
                     )
-                staged[t] = sw
-                handles[t] = st.tracer.begin_wave(
-                    "governance_wave",
-                    sessions=sw["wave_sessions"][: len(session_slots)],
-                    lanes=len(dids),
-                    device=False,
-                )
+                    sw["agent_slots"] = agent_slots
+                    if sw["range_host"] is None:
+                        raise RuntimeError(
+                            "tenant wave sessions must be contiguous (fresh "
+                            "arena-created blocks always are)"
+                        )
+                    staged[t] = sw
+                    handles[t] = st.tracer.begin_wave(
+                        "governance_wave",
+                        sessions=sw["wave_sessions"][: len(session_slots)],
+                        lanes=len(dids),
+                        device=False,
+                    )
             # Pre-wave cursors for the audit bookkeeping: the host mirrors.
             base_rows = [st._delta_cursor for st in self.tenants]
             dev = self.device
@@ -666,47 +673,50 @@ class TenantArena:
             for t, st in enumerate(self.tenants):
                 st._delta_cursor += shapes[t][1] * turns
             self.waves += 1
+            profiling.count("tenant.lanes", sum(b for b, _ in shapes.values()))
+            profiling.count("tenant.padded_lanes", self.num_tenants * bucket)
 
             # Host fan-out: ONE read per result field, numpy slices per
             # tenant for the bookkeeping and the callers' tickets.
-            status = result.status.cpu().numpy()                # [T, bucket]
-            chain = u32.to_numpy_u32(result.chain)              # [T, turns, bucket, 8]
-            roots = u32.to_numpy_u32(result.merkle_root)        # [T, bucket, 8]
-            fsm_err = result.fsm_error.cpu().numpy()
-            out: dict[int, TenantWaveOut] = {}
-            sanitizer_by_t = {}
-            if sanitize and armed:
-                san = result.sanitizer
-                for st in armed:
-                    t = st._tenant_idx
-                    sanitizer_by_t[t] = type(san)(
-                        *(x[t] if isinstance(x, torch.Tensor) else x for x in san)
+            with profiling.stage_scope("tenant_fanout"):
+                status = result.status.cpu().numpy()                # [T, bucket]
+                chain = u32.to_numpy_u32(result.chain)              # [T, turns, bucket, 8]
+                roots = u32.to_numpy_u32(result.merkle_root)        # [T, bucket, 8]
+                fsm_err = result.fsm_error.cpu().numpy()
+                out: dict[int, TenantWaveOut] = {}
+                sanitizer_by_t = {}
+                if sanitize and armed:
+                    san = result.sanitizer
+                    for st in armed:
+                        t = st._tenant_idx
+                        sanitizer_by_t[t] = type(san)(
+                            *(x[t] if isinstance(x, torch.Tensor) else x for x in san)
+                        )
+                for t in range(self.num_tenants):
+                    st = self.tenants[t]
+                    sw = staged[t]
+                    b, k = shapes[t]
+                    ok = status[t, :b] == admission.ADMIT_OK
+                    st._publish_wave_members(
+                        sw["wave_keys"][ok].tolist(),
+                        recycle_rows=sw["agent_slots"].tolist(),
                     )
-            for t in range(self.num_tenants):
-                st = self.tenants[t]
-                sw = staged[t]
-                b, k = shapes[t]
-                ok = status[t, :b] == admission.ADMIT_OK
-                st._publish_wave_members(
-                    sw["wave_keys"][ok].tolist(),
-                    recycle_rows=sw["agent_slots"].tolist(),
-                )
-                if k:
-                    st._book_wave_audit(slots_by_t[t], chain[t][:, :k], int(base_rows[t]))
-                st._gauges_fresh = True
-                th = handles[t]
-                if th is not None:
-                    st.tracer.stamp_wave_host(th)
-                    st.tracer.end_wave(th)
-                if t in sanitizer_by_t and st.integrity is not None:
-                    st.integrity.absorb_fused(sanitizer_by_t[t])
-                if t in lanes_per_tenant:
-                    out[t] = TenantWaveOut(
-                        tenant=t,
-                        status=status[t, :b],
-                        merkle_root=roots[t, :k],
-                        fsm_error=fsm_err[t, :k],
-                    )
+                    if k:
+                        st._book_wave_audit(slots_by_t[t], chain[t][:, :k], int(base_rows[t]))
+                    st._gauges_fresh = True
+                    th = handles[t]
+                    if th is not None:
+                        st.tracer.stamp_wave_host(th)
+                        st.tracer.end_wave(th)
+                    if t in sanitizer_by_t and st.integrity is not None:
+                        st.integrity.absorb_fused(sanitizer_by_t[t])
+                    if t in lanes_per_tenant:
+                        out[t] = TenantWaveOut(
+                            tenant=t,
+                            status=status[t, :b],
+                            merkle_root=roots[t, :k],
+                            fsm_error=fsm_err[t, :k],
+                        )
             self.last_wave = {
                 "tenants_served": len(lanes_per_tenant),
                 "bucket": bucket,
